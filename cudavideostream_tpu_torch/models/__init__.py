@@ -1,0 +1,5 @@
+"""Pipeline models: configured end-to-end frame processors."""
+
+from cudavideostream_tpu_torch.models.pipeline import DeltaStreamPipeline
+
+__all__ = ["DeltaStreamPipeline"]
