@@ -8,18 +8,26 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (any failure raises and the script exits non-zero):
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, triton;
-2. build: every hand-written kernel of the serving path, from ``csrc/``;
+2. build: every hand-written kernel of the serving paths, from ``csrc/``,
+   one ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version at 1080p on the card,
-   byte for byte, over densities, thresholds, negative feedback and the
-   overlay region, plus one full pipeline step against the NumPy spec;
+   byte for byte: K1 flat and K1 tiled (``subtile_rows`` 1, 8 and 0) over
+   densities, thresholds, negative feedback and the overlay region; K2 on
+   every tiled output and on raw pairs; plus one flat and one tiled
+   pipeline step against the NumPy spec;
 4. serving: the port's server in a thread and the port's client over
-   127.0.0.1, 1080p synthetic frames with a changing overlay text; the
-   client's reconstruction must equal the server's state every frame,
-   and each kernel's launch count must show the path went through it;
+   127.0.0.1, 1080p synthetic frames with a changing overlay text, on four
+   paths — flat (wire v1), ``--tiled --fetch flat``, ``--tiled --fetch
+   tiles``, and ``--tiled --pipelined --wire v3``; the client's
+   reconstruction must equal the server's state every frame, and each
+   kernel's launch count, set to 0 just before a path and read just
+   after, must show the path went through it;
 5. times from CUDA events (medians over 100 iterations, device-resident
-   frames at ~6% density): each kernel, its plain version,
-   ``pipeline.step`` and the ``pos``-prefix landing; the source's host
-   time per frame is printed apart.
+   frames at ~6% density, inputs cold in L2): each kernel, its plain
+   version and its bound, ``pipeline.step`` flat and tiled, the landings
+   (``pos`` prefix; tiles and flat flavors), ``TiledPayload.to_flat`` and
+   the v3 encode on the host, and the synchronous against the pipelined
+   executor per frame; the source's host time per frame is printed apart.
 
 It prints progress lines, then the card's ``nvidia-smi`` line, then one
 JSON line of kernel records, and last
@@ -29,6 +37,8 @@ It exits non-zero, and prints no result, without a CUDA device.
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import hashlib
 import json
 import statistics
@@ -86,22 +96,29 @@ def phase_environment():
 
 
 def phase_build():
+    from cudavideostream_tpu_torch.kernels import build
     from cudavideostream_tpu_torch.ops import logcompact
 
     t0 = time.perf_counter()
-    logcompact._kernel_lib()  # nvcc at first use
-    log(f"[build] csrc/logcompact.cu built and bound in "
+    names = ("logcompact", "pair_compact")
+    # one nvcc per source, all at once
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(build.build, names))
+    logcompact._kernel_lib()
+    logcompact._pair_lib()
+    log(f"[build] csrc/{'.cu, csrc/'.join(names)}.cu built and bound in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def _equal_or_raise(name, got, want):
-    """Byte-exact comparison of (pos, xs, vals, new_prev); returns the
-    largest absolute difference (0 when exact)."""
+def _equal_or_raise(name, got, want,
+                    labels=("pos", "xs", "vals", "new_prev")):
+    """Byte-exact comparison of tensors, dtype and shape included;
+    returns the largest absolute difference (0 when exact)."""
     err = 0
-    for label, a, b in zip(("pos", "xs", "vals", "new_prev"), got, want):
-        if a.shape != b.shape:
-            raise AssertionError(f"{name}: {label} shape {tuple(a.shape)} "
-                                 f"!= {tuple(b.shape)}")
+    for label, a, b in zip(labels, got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{name}: {label} {a.dtype}{tuple(a.shape)} "
+                                 f"!= {b.dtype}{tuple(b.shape)}")
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
         e = int(d.max()) if d.numel() else 0
         if e:
@@ -182,10 +199,118 @@ def phase_kernel_vs_plain(cfg):
     return max_err, cases
 
 
+def phase_tiled_vs_plain(cfg):
+    """K1 tiled against its plain version at 1080p for subtile_rows 1, 8
+    and 0, K2 on every tiled output and on raw pairs, and one tiled
+    pipeline step against the NumPy spec."""
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.runtime import wire
+    from cudavideostream_tpu_torch.utils import fonts
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 2)
+    region = torch.from_numpy(rng.integers(
+        0, 255, 288_000, endpoint=True, dtype=np.uint8)).to(dev)
+    cases = {"k1": 0, "k2": 0}
+
+    def check_merge(name, counts, xs_t, vals_t):
+        got = logcompact.merge_tiles(counts, xs_t, vals_t)
+        torch.cuda.synchronize()
+        want = logcompact.pair_compact_reference(xs_t.reshape(-1),
+                                                 vals_t.reshape(-1))[1:]
+        _equal_or_raise(name, got, want, ("xs", "vals"))
+        cases["k2"] += 1
+
+    def run_both(name, prev, cur, thr, negfeed, reg, sub):
+        p_k, p_p = prev.clone(), prev.clone()
+        k = logcompact.fused_diff_compact_tiled(cur, p_k, thr, negfeed, reg,
+                                                sub)
+        torch.cuda.synchronize()
+        p = logcompact.fused_diff_compact_tiled_reference(cur, p_p, thr,
+                                                          negfeed, reg, sub)
+        _equal_or_raise(name, k, p,
+                        ("pos", "counts", "xs_t", "vals_t", "new_prev"))
+        cases["k1"] += 1
+        check_merge(name + " merge_tiles", *k[1:4])
+        return int(k[0]), tuple(k[2].shape), k[1].dtype
+
+    for density in (0.0, 0.06, 1.0):
+        prev_np, cur_np = frame_pair(rng, n, density)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        for sub in (1, 8, 0):
+            poss = []
+            for thr in (0, 20, 255):
+                for negfeed in (True, False):
+                    for reg in (None, region):
+                        name = (f"tiled sub={sub} d={density} thr={thr} "
+                                f"negfeed={negfeed} overlay={reg is not None}")
+                        pos, shape, cdt = run_both(name, prev, cur, thr,
+                                                   negfeed, reg, sub)
+                        poss.append(pos)
+            log(f"[check] K1 tiled subtile={sub} d={density}: 12 cases "
+                f"(thresholds 0/20/255 x negfeed x overlay) exact, units "
+                f"{shape[0]} x {shape[1]} B, counts {cdt}, pos "
+                f"{min(poss)}..{max(poss)}; K2 merge_tiles of each exact")
+    for m in (1000, 12_345):
+        prev_np, cur_np = frame_pair(rng, m, 0.06)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        for sub in (1, 8, 0):
+            run_both(f"tiled n={m} sub={sub}", prev, cur, 20, True,
+                     region[:700], sub)
+        log(f"[check] K1 tiled n={m} overlay=700 B, subtile 1/8/0: exact; "
+            f"K2 merge_tiles exact")
+    # raw pairs: a third of the xs are 0 (a valid index), vals zero in
+    # between; the last length takes two tiles per block
+    for m in (48_608 * 128, 777, 4096 * 1024 + 5):
+        xs = torch.from_numpy(rng.integers(0, 3, m).astype(np.int32)).to(dev)
+        vals = torch.from_numpy(np.where(
+            rng.random(m) < 0.3, rng.integers(1, 255, m, endpoint=True), 0
+        ).astype(np.uint8)).to(dev)
+        got = logcompact.pair_compact(xs, vals)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"pair_compact n={m}", got,
+                        logcompact.pair_compact_reference(xs, vals),
+                        ("pos", "xs", "vals"))
+        pos = int(got[0])
+        if not bool((got[1][:pos] == 0).any()):
+            raise AssertionError("no kept pair with index 0 in the check")
+        cases["k2"] += 1
+        log(f"[check] K2 pair_compact on {m} raw pairs (pos={pos}, xs == 0 "
+            f"kept): exact")
+
+    tcfg = dataclasses.replace(cfg, tiled_payload=True)
+    pipe = DeltaStreamPipeline(tcfg)
+    text = "FPS: 30 BW: 1234 kbps"
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    out = pipe.step(pipe.init_state(prev_np), cur_np, text=text)
+    e_prev, e_pos, e_xs, e_vals, _ = reference_cpu.step_oracle(
+        prev_np, cur_np, tcfg, atlas=pipe.atlas_np,
+        char_ids=fonts.encode_text(text))
+    tp = wire.TiledPayload(int(out[1]), out[2].cpu().numpy(),
+                           out[3].cpu().numpy(), out[4].cpu().numpy())
+    xs, vals = tp.to_flat()
+    if not (tp.pos == e_pos and np.array_equal(xs, e_xs)
+            and np.array_equal(vals, e_vals)
+            and np.array_equal(out[0].cpu().numpy(), e_prev)):
+        raise AssertionError("tiled pipeline.step on the card differs from "
+                             "step_oracle")
+    cases["k1"] += 1
+    log(f"[check] tiled pipeline.step at 1080p == step_oracle after to_flat "
+        f"(pos={tp.pos})")
+    return cases
+
+
 class _RecordingExecutor:
     """The server's executor, plus a digest of the device state and the
     overlay text after every frame (the server calls start, process,
-    metrics)."""
+    flush, resync and metrics). A pipelined executor's payloads lag a
+    frame, but the client decodes them in order, so its k-th state is
+    still the k-th digest here."""
 
     def __init__(self, inner):
         self.inner = inner
@@ -203,8 +328,15 @@ class _RecordingExecutor:
         out = self.inner.process(frame, text=text)
         self.process_s.append(time.perf_counter() - t0)
         self.texts.append(text)
-        self.digests.append(hashlib.sha256(self.inner.resync()).hexdigest())
+        state = self.inner._state.cpu().numpy()
+        self.digests.append(hashlib.sha256(state).hexdigest())
         return out
+
+    def flush(self):
+        return self.inner.flush()
+
+    def resync(self):
+        return self.inner.resync()
 
 
 class _UntilTextsChanged:
@@ -233,17 +365,28 @@ class _UntilTextsChanged:
         return frame
 
 
-def phase_serving(cfg):
-    import dataclasses
-
+def _launch_counters():
     from cudavideostream_tpu_torch.ops import logcompact
+
+    return {"fused_diff_compact": logcompact.fused_diff_compact,
+            "fused_diff_compact_tiled": logcompact.fused_diff_compact_tiled,
+            "pair_compact": logcompact.pair_compact}
+
+
+def phase_serving(cfg, label, pipelined=False):
+    """Serve 1080p frames over TCP on one path; returns the frames served,
+    every kernel's launches in that run and the landing flavors."""
     from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
-    from cudavideostream_tpu_torch.runtime.executor import StreamExecutor
+    from cudavideostream_tpu_torch.runtime.executor import (
+        PipelinedExecutor,
+        StreamExecutor,
+    )
     from cudavideostream_tpu_torch.runtime.server import DeltaStreamServer
     from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
 
     cfg = dataclasses.replace(cfg, port=0)
-    rec = _RecordingExecutor(StreamExecutor(cfg))
+    inner = (PipelinedExecutor if pipelined else StreamExecutor)(cfg)
+    rec = _RecordingExecutor(inner)
     source = _UntilTextsChanged(SyntheticSource(cfg, seed=SEED), rec)
     server = DeltaStreamServer(cfg, source, executor=rec, verbose=False)
     server.listen()
@@ -255,7 +398,9 @@ def phase_serving(cfg):
         except BaseException as e:
             errors.append(e)
 
-    logcompact.fused_diff_compact.launches = 0
+    counters = _launch_counters()
+    for fn in counters.values():  # counts of this path's run only
+        fn.launches = 0
     t0 = time.perf_counter()
     th = threading.Thread(target=serve, name="smoke-server", daemon=True)
     th.start()
@@ -274,39 +419,51 @@ def phase_serving(cfg):
     th.join(timeout=120)
     wall = time.perf_counter() - t0
     server.close()
-    launches = logcompact.fused_diff_compact.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
     if th.is_alive():
-        raise RuntimeError("server thread did not finish")
+        raise RuntimeError(f"{label}: server thread did not finish")
     if errors:
         raise errors[0]
     frames = len(rec.texts)
-    if frames < 20 or len(set(rec.texts)) < 3:
-        raise AssertionError(f"served {frames} frames with "
+    if frames < source.min_frames or len(set(rec.texts)) < 3:
+        raise AssertionError(f"{label}: served {frames} frames with "
                              f"{len(set(rec.texts))} overlay texts")
+    if cli.wire_format != cfg.wire_format:
+        raise AssertionError(f"{label}: client decoded wire "
+                             f"{cli.wire_format}, server sent "
+                             f"{cfg.wire_format}")
     if digests != rec.digests:
         bad = next(i for i, (a, b) in enumerate(zip(digests, rec.digests))
                    if a != b) if len(digests) == len(rec.digests) else None
-        raise AssertionError(f"client reconstruction != server state "
-                             f"(client {len(digests)} frames, server "
+        raise AssertionError(f"{label}: client reconstruction != server "
+                             f"state (client {len(digests)} frames, server "
                              f"{frames}, first mismatch {bad})")
-    if launches != frames:
-        raise AssertionError(f"fused_diff_compact launched {launches} "
-                             f"times for {frames} frames")
-    log(f"[serve] {frames} frames at 1080p over TCP, byte-exact every frame; "
-        f"overlay texts {sorted(set(rec.texts))}; mean pos "
+    log(f"[serve] {label}: {frames} frames at 1080p over TCP, byte-exact "
+        f"every frame; overlay texts {len(set(rec.texts))}; mean pos "
         f"{statistics.mean(positions):.0f}; {frames / wall:.2f} fps wall "
         f"(includes the numpy source and the per-frame state digests)")
     per_frame = wall / frames
     src_ms = statistics.median(source.next_s) * 1e3
     proc_ms = statistics.median(rec.process_s) * 1e3
-    log(f"[serve] per frame, medians on the host clock: source "
-        f"{src_ms:.2f} ms, executor.process (upload, step, pos read, "
-        f"prefix copy) {proc_ms:.2f} ms; the rest of the {per_frame * 1e3:.2f}"
-        f" ms mean wall per frame is wire packing, the socket, the client's "
-        f"scatter and both digests, all in this one process")
-    log(f"[serve] kernel launches on the main path: fused_diff_compact="
-        f"{launches}")
-    return {"fused_diff_compact": launches}
+    log(f"[serve] {label}: per frame, medians on the host clock: source "
+        f"{src_ms:.2f} ms, executor.process {proc_ms:.2f} ms; the rest of "
+        f"the {per_frame * 1e3:.2f} ms mean wall per frame is wire packing, "
+        f"the socket, the client's scatter and both digests, all in this "
+        f"one process")
+    log(f"[serve] {label}: kernel launches: "
+        + ", ".join(f"{k}={v}" for k, v in launches.items())
+        + (f"; landings {inner.fetch_counts}" if inner.fetch_counts else ""))
+    return {"frames": frames, "launches": launches,
+            "fetch_counts": dict(inner.fetch_counts)}
+
+
+def _expect_launches(run, label, want):
+    """Fail unless each kernel launched as often as ``want`` says."""
+    for name, n in want.items():
+        if run["launches"][name] != n:
+            raise AssertionError(
+                f"{label}: {name} launched {run['launches'][name]} times, "
+                f"expected {n} for {run['frames']} frames")
 
 
 def _event_median_ms(fn, iters, backlog=True):
@@ -327,11 +484,33 @@ def _event_median_ms(fn, iters, backlog=True):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def _profile_ms(fn, names, label):
+    """Device time per launch of each named kernel over 20 calls of
+    ``fn(i)``, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(20):
+            fn(i)
+        torch.cuda.synchronize()
+    passes = {name: e.device_time_total / e.count / 1e3
+              for e in prof.key_averages() for name in names
+              if f"::{name}(" in e.key}
+    for name, ms in passes.items():
+        log(f"[trace] {label} {name}: {ms:.4f} ms per launch (profiler)")
+    if len(passes) != len(names):
+        log(f"[trace] {label}: the profiler saw no device time for "
+            f"{sorted(set(names) - set(passes))}: not measured")
+
+
 def phase_times(cfg):
     from cudavideostream_tpu_torch.models import DeltaStreamPipeline
     from cudavideostream_tpu_torch.ops import logcompact
     from cudavideostream_tpu_torch.ops import overlay as overlay_ops
-    from cudavideostream_tpu_torch.runtime.executor import StreamExecutor
+    from cudavideostream_tpu_torch.runtime.executor import (
+        StreamExecutor,
+        _Staged,
+    )
     from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
 
     dev = torch.device("cuda")
@@ -371,34 +550,21 @@ def phase_times(cfg):
         backlog=False)
     refill()
     # the kernel's own passes, from a profiler trace of 20 launches
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(20):
-            logcompact.fused_diff_compact(curs[i % CUR_COPIES], prevs[i], 20,
-                                          True, region)
-        torch.cuda.synchronize()
-    passes = {name: e.device_time_total / e.count / 1e3
-              for e in prof.key_averages()
-              for name in ("count_kernel", "compact_kernel")
-              if f"::{name}(" in e.key}
-    for name, ms in passes.items():
-        log(f"[trace] K1 pass {name}: {ms:.4f} ms per launch (profiler)")
-    if len(passes) != 2:
-        log("[trace] the profiler saw no device time for the two passes: "
-            "not measured")
+    _profile_ms(lambda i: logcompact.fused_diff_compact(
+        curs[i % CUR_COPIES], prevs[i], 20, True, region),
+        ("count_kernel", "compact_kernel"), "K1 flat")
     refill()
     step_ms = _event_median_ms(
         lambda i: pipe.step(prevs[i], curs[i % CUR_COPIES], text=text),
         ITERS)
 
     ex = StreamExecutor(cfg, pipeline=pipe)
-    out = pipe.step(prev0.clone(), cur, text=text)
+    staged = _Staged(pipe.step(prev0.clone(), cur, text=text)[1:], 1)
     host_land = []
 
     def land(_):
         t = time.perf_counter()
-        ex._land(t, out[1:])
+        ex._land(t, staged)
         host_land.append(time.perf_counter() - t)
 
     land_ms = _event_median_ms(land, ITERS, backlog=False)
@@ -431,6 +597,232 @@ def phase_times(cfg):
             "step_ms": step_ms, "land_ms": land_ms}
 
 
+def _busy_and_overlap(prof):
+    """From a profiler trace: the device's busy time (the union of its
+    kernel and copy intervals over all streams) and the time at least two
+    streams were busy at once, in ms; None when the trace holds no device
+    activity."""
+    per_stream = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_stream.setdefault(e.device_resource_id, []).append(
+                (e.time_range.start, e.time_range.end))
+    if not per_stream:
+        return None
+    edges = []
+    for ivals in per_stream.values():
+        ivals.sort()
+        cur = list(ivals[0])
+        for a, b in ivals[1:] + [(float("inf"), float("inf"))]:
+            if a > cur[1]:  # one stream's busy intervals, merged
+                edges += [(cur[0], 1), (cur[1], -1)]
+                cur = [a, b]
+            else:
+                cur[1] = max(cur[1], b)
+    edges.sort()
+    busy = both = 0.0
+    depth, last = 0, edges[0][0]
+    for t, d in edges:
+        if depth >= 1:
+            busy += t - last
+        if depth >= 2:
+            both += t - last
+        depth, last = depth + d, t
+    return busy / 1e3, both / 1e3
+
+
+def phase_tiled_times(cfg):
+    """K1 tiled and K2 against their plain versions and bounds, the tiled
+    step, both landing flavors, the host's to_flat and v3 encode, and the
+    synchronous against the pipelined executor."""
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.ops import overlay as overlay_ops
+    from cudavideostream_tpu_torch.runtime import wire
+    from cudavideostream_tpu_torch.runtime.executor import (
+        PipelinedExecutor,
+        StreamExecutor,
+        _Staged,
+    )
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    tcfg = dataclasses.replace(cfg, tiled_payload=True)
+    rng = np.random.default_rng(SEED + 3)
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    cur = torch.from_numpy(cur_np).to(dev)
+    prev0 = torch.from_numpy(prev_np).to(dev)
+    prevs = [prev0.clone() for _ in range(ITERS)]
+    curs = [cur.clone() for _ in range(CUR_COPIES)]
+
+    def refill():
+        for p in prevs:
+            p.copy_(prev0)
+
+    pipe = DeltaStreamPipeline(tcfg)
+    text = "FPS: 30 BW: 1234 kbps"
+    pipe.step(prev0.clone(), cur, text=text)  # warm-up
+    cell_h = pipe.atlas.shape[1]
+    region = overlay_ops.overlay_blit(
+        cur[: cell_h * cfg.width * 3], pipe.atlas, pipe._char_ids(text),
+        len(text), cell_h, cfg.width)
+    out = logcompact.fused_diff_compact_tiled(cur, prev0.clone(), 20, True,
+                                              region, 1)
+    pos = int(out[0])
+    n_pad, unit_bytes = logcompact.tiled_geometry(n, 1)
+    n_units = n_pad // unit_bytes
+
+    k1 = {}
+    for sub in (1, 8, 0):
+        refill()
+        k1[sub] = _event_median_ms(
+            lambda i: logcompact.fused_diff_compact_tiled(
+                curs[i % CUR_COPIES], prevs[i], 20, True, region, sub), ITERS)
+    refill()
+    k1_plain = _event_median_ms(
+        lambda i: logcompact.fused_diff_compact_tiled_reference(
+            curs[i % CUR_COPIES], prevs[i], 20, True, region, 1), ITERS,
+        backlog=False)
+    refill()
+    _profile_ms(lambda i: logcompact.fused_diff_compact_tiled(
+        curs[i % CUR_COPIES], prevs[i], 20, True, region, 1),
+        ("tiled_unit_kernel", "sum_kernel"), "K1 tiled subtile=1")
+    # K2 on K1's blocks; 4 copies (31 MB each) rotate, so each launch
+    # reads blocks last touched ~90 MB of traffic back: cold in the L2
+    blocks = [(out[1], out[2].clone(), out[3].clone()) for _ in range(4)]
+    k2 = _event_median_ms(lambda i: logcompact.merge_tiles(*blocks[i % 4]),
+                          ITERS)
+    k2_plain = _event_median_ms(
+        lambda i: logcompact.pair_compact_reference(
+            blocks[i % 4][1].reshape(-1), blocks[i % 4][2].reshape(-1)),
+        ITERS, backlog=False)
+    _profile_ms(lambda i: logcompact.merge_tiles(*blocks[i % 4]),
+                ("count_kernel", "compact_kernel"), "K2")
+    refill()
+    step_ms = _event_median_ms(
+        lambda i: pipe.step(prevs[i], curs[i % CUR_COPIES], text=text),
+        ITERS)
+
+    # the landing flavors on one step's outputs
+    staged = _Staged(pipe.step(prev0.clone(), cur, text=text)[1:], 2)
+    land = {}
+    for mode in ("tiles", "flat"):
+        ex = StreamExecutor(dataclasses.replace(tcfg, fetch_mode=mode),
+                            pipeline=pipe)
+        host = []
+
+        def land_once(_):
+            t = time.perf_counter()
+            land[mode + "_res"] = ex._land(t, staged)
+            host.append(time.perf_counter() - t)
+
+        land[mode] = (_event_median_ms(land_once, ITERS, backlog=False),
+                      statistics.median(host) * 1e3)
+    tp = land["tiles_res"][1]
+    to_flat_s, v3_s = [], []
+    enc = wire.V3Encoder(prev_np)
+    for _ in range(20):
+        t = time.perf_counter()
+        tp.to_flat()
+        to_flat_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        enc.encode(tp.pos, tp, None)
+        v3_s.append(time.perf_counter() - t)
+
+    # synchronous against pipelined, device-resident frames, per frame on
+    # the host clock; in turns (sync, pipelined, pipelined, sync)
+    src = SyntheticSource(cfg, seed=SEED)
+    base = src.base_frame()
+    frames = [torch.from_numpy(next(src)).to(dev) for _ in range(30)]
+    per_frame = {}
+    for mode in ("tiles", "flat"):
+        for cls in (StreamExecutor, PipelinedExecutor, PipelinedExecutor,
+                    StreamExecutor):
+            ex = cls(dataclasses.replace(tcfg, fetch_mode=mode),
+                     pipeline=pipe)
+            ex.start(base)
+            ex.process(frames[0], text=text)  # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for f in frames[1:]:
+                ex.process(f, text=text)
+            ex.flush()
+            torch.cuda.synchronize()
+            per_frame.setdefault((mode, cls.__name__), []).append(
+                (time.perf_counter() - t) / (len(frames) - 1) * 1e3)
+
+    # a profiler trace of the same loops: the device's busy share of the
+    # wall time, and how long the landing stream ran beside the step's
+    from torch.profiler import ProfilerActivity, profile
+
+    traced = {}
+    for mode in ("tiles", "flat"):
+        for cls in (StreamExecutor, PipelinedExecutor):
+            ex = cls(dataclasses.replace(tcfg, fetch_mode=mode),
+                     pipeline=pipe)
+            ex.start(base)
+            ex.process(frames[0], text=text)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for f in frames[1:11]:
+                    ex.process(f, text=text)
+                ex.flush()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            traced[(mode, cls.__name__)] = (wall, _busy_and_overlap(prof))
+
+    # bounds: each input read once, each output written once
+    k1_bytes = 2 * n + n + 4 * n_pad + n_pad + n_units * 1 + 4
+    # K2 reads vals whole and xs only where a pair is valid (4 pos), and
+    # writes both outputs whole: the floor this kernel is held to
+    k2_bytes = n_pad + 4 * pos + 5 * n_pad + 4
+    k2_full = 5 * n_pad + 5 * n_pad + 4  # every xs read
+    k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
+    k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[time] tiled, 1080p, pos={pos} ({pos / n:.2%}), overlay region "
+        f"{region.numel()} B, {n_units} units of {unit_bytes} B, medians of "
+        f"{ITERS} (CUDA events)")
+    log(f"[time] fused_diff_compact_tiled kernel: subtile=1 {k1[1]:.4f} ms "
+        f"(bound {k1_bound:.4f} ms = {k1_bytes} B at 3.35 TB/s; "
+        f"{k1_bound / k1[1]:.1%} of it), subtile=8 {k1[8]:.4f} ms, "
+        f"subtile=0 {k1[0]:.4f} ms")
+    log(f"[time] its plain PyTorch version (subtile=1): {k1_plain:.4f} ms")
+    log(f"[time] pair_compact kernel (merge_tiles of those blocks): "
+        f"{k2:.4f} ms (bound {k2_bound:.4f} ms = {k2_bytes} B, xs read "
+        f"at valid pairs only; {k2_bound / k2:.1%} of it; with every xs "
+        f"read {k2_full / HBM_BYTES_PER_S * 1e3:.4f} ms = {k2_full} B)")
+    log(f"[time] its plain PyTorch version: {k2_plain:.4f} ms "
+        f"(synchronizes in masked_select)")
+    log(f"[time] tiled pipeline.step (overlay blend + kernel): "
+        f"{step_ms:.4f} ms")
+    for mode in ("tiles", "flat"):
+        log(f"[time] {mode} landing: {land[mode][0]:.4f} ms device span, "
+            f"{land[mode][1]:.4f} ms host")
+    log(f"[time] TiledPayload.to_flat on the host: "
+        f"{statistics.median(to_flat_s) * 1e3:.4f} ms; V3Encoder.encode "
+        f"(to_flat + shadow apply + mode pick + packing): "
+        f"{statistics.median(v3_s) * 1e3:.4f} ms")
+    for (mode, name), v in per_frame.items():
+        log(f"[time] {name} --fetch {mode}, device-resident frames: "
+            f"{' / '.join(f'{x:.4f}' for x in v)} ms per frame (host clock, "
+            f"runs in turn)")
+    for (mode, name), (wall, got) in traced.items():
+        if got is None:
+            log(f"[trace] {name} --fetch {mode}: the profiler saw no device "
+                f"activity: busy share and overlap not measured")
+            continue
+        busy, both = got
+        log(f"[trace] {name} --fetch {mode}, 10 device-resident frames: "
+            f"{wall / 10:.4f} ms per frame under the profiler, device busy "
+            f"{busy / 10:.4f} ms per frame (idle {1 - busy / wall:.1%}), "
+            f"two streams busy at once {both / 10:.4f} ms per frame")
+    return {"k1_ms": k1[1], "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bound,
+            "k2_ms": k2, "k2_plain_ms": k2_plain, "k2_bound_ms": k2_bound}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -439,25 +831,72 @@ def main() -> int:
     from cudavideostream_tpu_torch.config import StreamConfig
 
     cfg = StreamConfig()  # the default: 1080p BGR24, threshold 20, negfeed
+    tcfg = dataclasses.replace(cfg, tiled_payload=True)
     smi = phase_environment()
     phase_build()
     max_err, cases = phase_kernel_vs_plain(cfg)
-    launches = phase_serving(cfg)
+    tiled_cases = phase_tiled_vs_plain(cfg)
+    runs = {
+        "flat": phase_serving(cfg, "flat, wire v1"),
+        "tiled_flat": phase_serving(
+            dataclasses.replace(tcfg, fetch_mode="flat"),
+            "--tiled --fetch flat"),
+        "tiled_tiles": phase_serving(
+            dataclasses.replace(tcfg, fetch_mode="tiles"),
+            "--tiled --fetch tiles"),
+        "tiled_pipelined_v3": phase_serving(
+            dataclasses.replace(tcfg, wire_format="v3"),
+            "--tiled --pipelined --wire v3", pipelined=True),
+    }
+    _expect_launches(runs["flat"], "flat", {
+        "fused_diff_compact": runs["flat"]["frames"],
+        "fused_diff_compact_tiled": 0, "pair_compact": 0})
+    for key in ("tiled_flat", "tiled_tiles", "tiled_pipelined_v3"):
+        run = runs[key]
+        _expect_launches(run, key, {
+            "fused_diff_compact": 0,
+            "fused_diff_compact_tiled": run["frames"],
+            # one merge per flat landing, none for a tiles landing
+            "pair_compact": run["fetch_counts"]["flat"]})
+    if runs["tiled_flat"]["fetch_counts"]["flat"] != runs["tiled_flat"][
+            "frames"] or runs["tiled_tiles"]["fetch_counts"]["flat"]:
+        raise AssertionError("the landing flavors did not follow --fetch")
     times = phase_times(cfg)
-    kernels = [{
-        "name": "fused_diff_compact",
-        "route": "cuda",
-        "source": "cudavideostream_tpu_torch/csrc/logcompact.cu",
-        "replaces": "cudavideostream_tpu/ops/logcompact.py:297",
-        "launches": launches["fused_diff_compact"],
-        "max_abs_err": max_err,
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "check": f"byte-exact in {cases} cases",
-    }]
+    ttimes = phase_tiled_times(cfg)
+
+    def launches(name):
+        by_path = {k: r["launches"][name] for k, r in runs.items()}
+        return sum(by_path.values()), by_path
+
+    records = [
+        ("fused_diff_compact", "logcompact.cu", 297, max_err,
+         times["ms"], times["plain_ms"], times["bound_ms"],
+         f"byte-exact in {cases} cases"),
+        ("fused_diff_compact_tiled", "logcompact.cu", 297, 0,
+         ttimes["k1_ms"], ttimes["k1_plain_ms"], ttimes["k1_bound_ms"],
+         f"byte-exact in {tiled_cases['k1']} cases"),
+        ("pair_compact", "pair_compact.cu", 1120, 0,
+         ttimes["k2_ms"], ttimes["k2_plain_ms"], ttimes["k2_bound_ms"],
+         f"byte-exact in {tiled_cases['k2']} cases"),
+    ]
+    kernels = []
+    for name, src, line, err, ms, plain, bound, check in records:
+        total, by_path = launches(name)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"cudavideostream_tpu_torch/csrc/{src}",
+            "replaces": f"cudavideostream_tpu/ops/logcompact.py:{line}",
+            "launches": total,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": None,
+            "check": check,
+            "launches_by_path": by_path,
+        })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

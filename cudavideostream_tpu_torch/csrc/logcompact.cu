@@ -1,23 +1,28 @@
 // K1 on Hopper: fused threshold diff + negative feedback + stable
-// (ascending) stream compaction, flat emission.
+// (ascending) stream compaction, in two emissions: flat, and tiled
+// (per-unit blocks).
 //
 // Replaces the TPU kernel cudavideostream_tpu/ops/logcompact.py:_kernel_v2
-// (dispatched by _run_kernel, called from fused_diff_compact) together with
-// the XLA tile merge _merge_tiles_impl that follows it on the flat path.
+// (dispatched by _run_kernel, called from fused_diff_compact): with
+// emit="flat" together with the XLA tile merge _merge_tiles_impl that
+// follows it, and with emit="tiled" (sub_rows, logcompact.py:329-345 and
+// :891-970).
 //
-// What it computes, for every byte i of an n-byte frame, with
+// What both compute, for every byte i of an n-byte frame, with
 // c = i < region_len ? region[i] : cur[i] and p = prev[i]:
 //   * byte i ships iff |c - p| > thr, computed in int (never in uint8);
-//   * xs[k] / vals[k] hold the k-th shipped index / (c - p) & 255, in
-//     ascending index order; pos (the count) goes to *pos_out;
-//   * xs and vals are zero from pos to cap (the length of both buffers);
-//     a frame that ships more than cap bytes writes only the first cap
-//     entries, and the caller sees pos > cap;
+//   * the value shipped is (c - p) & 255, with the index i;
 //   * new_prev = shipped ? c : p under negative feedback, else c. It is
 //     written into prev IN PLACE (the counterpart of the JAX buffer
 //     donation); each byte of prev is read and written by the same thread
-//     of the second kernel only, after the first kernel's last read.
+//     of the last kernel only, after every earlier read of it.
 //
+// FLAT emission (cvs_fused_diff_compact):
+//   * xs[k] / vals[k] hold the k-th shipped index / value, ascending;
+//     pos (the count) goes to *pos_out;
+//   * xs and vals are zero from pos to cap (the length of both buffers);
+//     a frame that ships more than cap bytes writes only the first cap
+//     entries, and the caller sees pos > cap.
 // Design. The TPU kernel's tile geometry, MXU prefix sums and shift passes
 // exist for Mosaic; flat output is a global stable compaction and does not
 // depend on them. Here:
@@ -31,15 +36,48 @@
 //      writes them out coalesced at offset + rank. It writes new_prev and
 //      zero-fills its share of the slots [pos, cap).
 // No atomics: the order is ascending by construction.
-//
 // Bound. On an H100 the function is bound by device-memory bytes: it
 // reads prev and cur (2n; the region stands in for the first region_len
 // bytes of cur, which are never loaded) and writes new_prev (n), xs
-// (4 * cap) and vals
-// (cap), all full length because of the zero fill: about 8n at
-// cap = n, 49.8 MB at 1080p (n = 6,220,800), or about 15 us at 3.35 TB/s.
-// The second pass rereads cur and prev (another 2n, mostly from the
-// 50 MB L2 at this size), which this simple two-pass design accepts.
+// (4 * cap) and vals (cap), all full length because of the zero fill:
+// about 8n at cap = n, 49.8 MB at 1080p (n = 6,220,800), or about 15 us
+// at 3.35 TB/s. The second pass rereads cur and prev (another 2n, mostly
+// from the 50 MB L2 at this size), which this simple two-pass design
+// accepts.
+//
+// TILED emission (cvs_fused_diff_compact_tiled): the frame, padded to
+// n_pad bytes (padding reads as cur == prev and never ships), is cut into
+// n_pad / unit_bytes units, at the JAX package's geometry (the caller
+// passes unit_bytes: 128 at the product default sub_rows = 1). Unit u
+// holds its shipped entries, ascending, at xs_t[u * unit_bytes + rank]
+// (global indices) and vals_t[...], zeros in the rest of its block, and
+// its count in counts[u], narrowed to counts_bytes = 1, 2 or 4 bytes.
+// pos = the sum of all counts. The order inside a unit is the byte order,
+// so no pass ever looks across units, and no atomics are used.
+// Design, units that divide the 4096-byte tile (unit_bytes <= 4096, a
+// power of two: every sub_rows <= 32):
+//   1. tiled_unit_kernel: one block per tile, one pass. Each thread
+//      masks its 16 bytes; a block scan (warp shuffle scan, then the 8
+//      warp totals) gives every thread its exclusive prefix, and its rank
+//      in its unit is that prefix minus the prefix at the unit's first
+//      thread (8 threads per unit at 128-byte units). Entries are staged
+//      in shared memory at unit_start + rank over zeros, and the tile's
+//      4096 slots of xs_t and vals_t are written out whole with 16-byte
+//      stores: the zero tail costs no extra pass. The unit's first thread
+//      writes its count; the block's total goes to scratch[block];
+//   2. sum_kernel: one block sums the per-tile totals into pos.
+// Units larger than a tile (sub_rows = 0: 63,488-byte units at 1080p)
+// take the flat design scoped to the unit: tiled_chunk_count_kernel
+// counts each 4096-byte chunk of each unit; tiled_chunk_compact_kernel
+// sums the counts of the chunks before it in its unit (its offset) and
+// of the whole unit (the count), ranks, stages and writes its entries at
+// offset + rank, and zero-fills its own chunk's slots past the unit's
+// count; sum_kernel makes pos from the chunk counts.
+// Bound. Reads cur and prev (2n) and writes new_prev (n), xs_t (4 n_pad),
+// vals_t (n_pad), counts (one to four bytes per unit) and pos: at 1080p
+// and sub_rows = 1, 49,820,132 B, or 14.87 us at 3.35 TB/s. The
+// one-pass design reads each byte once; the chunked design for whole-tile
+// units rereads cur and prev, as the flat kernel does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,6 +146,63 @@ __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(kFull, v, d);
   return v;
+}
+
+// Exclusive prefix of v over the block's threads; the block's total goes
+// to total. Writes s_warp (kWarps ints) and ends with its barrier after
+// the write: the caller must pass another barrier before s_warp is
+// written again.
+__device__ __forceinline__ int block_excl_scan(int v, int* s_warp,
+                                               int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int wpre = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    int x = s_warp[w];
+    if (w < warp) wpre += x;
+    total += x;
+  }
+  return wpre + incl - v;
+}
+
+// new_prev for the 16 bytes at i0, in place: the calling thread read
+// these bytes of prev, and no other thread of its kernel reads them.
+__device__ __forceinline__ void store_new_prev(uint8_t* prev, long long i0,
+                                               long long n, unsigned m,
+                                               const Vec16& c,
+                                               const Vec16& p, int negfeed) {
+  if (i0 >= n) return;
+  Vec16 np;
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    np.b[k] = (!negfeed || ((m >> k) & 1u)) ? c.b[k] : p.b[k];
+  if (i0 + 16 <= n) {
+    *reinterpret_cast<uint4*>(prev + i0) = np.v;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      if (i0 + k < n) prev[i0 + k] = np.b[k];
+  }
+}
+
+// The count c of unit u, into counts narrowed to counts_bytes bytes.
+__device__ __forceinline__ void store_count(void* counts, int counts_bytes,
+                                            long long u, int c) {
+  if (counts_bytes == 1)
+    static_cast<uint8_t*>(counts)[u] = (uint8_t)c;
+  else if (counts_bytes == 2)
+    static_cast<int16_t*>(counts)[u] = (int16_t)c;
+  else
+    static_cast<int*>(counts)[u] = c;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -181,22 +276,8 @@ compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
     const int cnt = __popc(m);
 
     // rank within the tile: warp inclusive scan, then the warp totals
-    int incl = cnt;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      int y = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += y;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    int wpre = 0, tile_total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      int v = s_warp[w];
-      if (w < warp) wpre += v;
-      tile_total += v;
-    }
-    int r = wpre + incl - cnt;
+    int tile_total;
+    int r = block_excl_scan(cnt, s_warp, tile_total);
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       if ((m >> k) & 1u) {
@@ -206,21 +287,7 @@ compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
       }
     }
 
-    // new_prev, in place: these 16 bytes of prev were read above by this
-    // thread and are read by no other thread of this kernel
-    if (i0 < n) {
-      Vec16 np;
-#pragma unroll
-      for (int k = 0; k < 16; ++k)
-        np.b[k] = (!negfeed || ((m >> k) & 1u)) ? c.b[k] : p.b[k];
-      if (i0 + 16 <= n) {
-        *reinterpret_cast<uint4*>(prev + i0) = np.v;
-      } else {
-#pragma unroll
-        for (int k = 0; k < 16; ++k)
-          if (i0 + k < n) prev[i0 + k] = np.b[k];
-      }
-    }
+    store_new_prev(prev, i0, n, m, c, p, negfeed);
     __syncthreads();
 
     // coalesced write-out of the tile's entries at off + rank
@@ -244,6 +311,200 @@ compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   for (long long o = z0 + threadIdx.x; o < z1; o += kThreads) {
     xs[o] = 0;
     vals[o] = 0;
+  }
+}
+
+// ---- tiled emission ----------------------------------------------------
+
+// One block per 4096-byte tile; units of unit_bytes divide the tile.
+__global__ void __launch_bounds__(kThreads)
+tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
+                  const uint8_t* __restrict__ region, long long region_len,
+                  long long n, long long n_pad, int thr, int negfeed,
+                  int unit_bytes, int counts_bytes,
+                  int* __restrict__ tile_tot, void* __restrict__ counts,
+                  int* __restrict__ xs_t, uint8_t* __restrict__ vals_t) {
+  __shared__ __align__(16) int s_xs[kTileBytes];
+  __shared__ __align__(16) uint8_t s_vals[kTileBytes];
+  __shared__ int s_excl[kThreads];
+  __shared__ int s_warp[kWarps];
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x * kTileBytes;
+  const long long i0 = base + t * kBytesPerThread;
+
+  // zero the staging slots: int4 q * 256 + t, so a warp's stores are
+  // consecutive 16-byte words
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    reinterpret_cast<int4*>(s_xs)[q * kThreads + t] = make_int4(0, 0, 0, 0);
+  reinterpret_cast<uint4*>(s_vals)[t] = make_uint4(0, 0, 0, 0);
+
+  Vec16 c, p;
+  const unsigned m = group_mask(cur, prev, region, region_len, n, thr, i0,
+                                c, p);
+  const int cnt = __popc(m);
+  int total;
+  // (its barrier also orders the zeroing before the staging below)
+  const int excl = block_excl_scan(cnt, s_warp, total);
+  s_excl[t] = excl;
+  __syncthreads();
+
+  // rank in the unit: the block prefix minus the prefix at the unit's
+  // first thread; the unit's slots start at that thread's first byte
+  const int tpu = unit_bytes / kBytesPerThread;
+  const int first = t - t % tpu;
+  const int slot0 = first * kBytesPerThread;
+  int r = slot0 + excl - s_excl[first];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    if ((m >> k) & 1u) {
+      s_xs[r] = (int)(i0 + k);
+      s_vals[r] = (uint8_t)(c.b[k] - p.b[k]);  // (c - p) mod 256
+      ++r;
+    }
+  }
+  store_new_prev(prev, i0, n, m, c, p, negfeed);
+  if (t == first && base + slot0 < n_pad) {
+    const int next = first + tpu;
+    const int cu = (next < kThreads ? s_excl[next] : total) - s_excl[first];
+    store_count(counts, counts_bytes, (base + slot0) / unit_bytes, cu);
+  }
+  if (t == 0) tile_tot[blockIdx.x] = total;
+  __syncthreads();
+
+  // the tile's 4096 slots, entries and zero tails alike, in 16-byte words
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int w = q * kThreads + t;
+    if (base + 4 * w < n_pad)
+      reinterpret_cast<int4*>(xs_t + base)[w] =
+          reinterpret_cast<const int4*>(s_xs)[w];
+  }
+  if (i0 < n_pad)
+    *reinterpret_cast<uint4*>(vals_t + i0) =
+        reinterpret_cast<const uint4*>(s_vals)[t];
+}
+
+// Units larger than a tile: block b is chunk b % chunks_per_unit of unit
+// b / chunks_per_unit, the unit's bytes [chunk * 4096, chunk * 4096 +
+// 4096) cut at unit_bytes.
+__global__ void __launch_bounds__(kThreads)
+tiled_chunk_count_kernel(const uint8_t* __restrict__ cur,
+                         const uint8_t* __restrict__ prev,
+                         const uint8_t* __restrict__ region,
+                         long long region_len, long long n, int thr,
+                         int unit_bytes, int chunks_per_unit,
+                         int* __restrict__ chunk_counts) {
+  __shared__ int s_warp[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long u = blockIdx.x / chunks_per_unit;
+  const int off = (blockIdx.x % chunks_per_unit) * kTileBytes +
+                  threadIdx.x * kBytesPerThread;
+  int cnt = 0;
+  if (off < unit_bytes) {
+    Vec16 c, p;
+    cnt = __popc(group_mask(cur, prev, region, region_len, n, thr,
+                            u * unit_bytes + off, c, p));
+  }
+  cnt = warp_sum(cnt);
+  if (lane == 0) s_warp[warp] = cnt;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int tot = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) tot += s_warp[w];
+    chunk_counts[blockIdx.x] = tot;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
+                           const uint8_t* __restrict__ region,
+                           long long region_len, long long n, int thr,
+                           int negfeed, int unit_bytes, int chunks_per_unit,
+                           int counts_bytes,
+                           const int* __restrict__ chunk_counts,
+                           void* __restrict__ counts,
+                           int* __restrict__ xs_t,
+                           uint8_t* __restrict__ vals_t) {
+  __shared__ int s_xs[kTileBytes];
+  __shared__ uint8_t s_vals[kTileBytes];
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_red[2][kWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long u = blockIdx.x / chunks_per_unit;
+  const int chunk = blockIdx.x % chunks_per_unit;
+  const long long ubase = u * unit_bytes;
+
+  // this chunk's offset in its unit, and the unit's count
+  int before = 0, unit_total = 0;
+  for (int j = t; j < chunks_per_unit; j += kThreads) {
+    const int v = chunk_counts[u * chunks_per_unit + j];
+    unit_total += v;
+    if (j < chunk) before += v;
+  }
+  before = warp_sum(before);
+  unit_total = warp_sum(unit_total);
+  if (lane == 0) {
+    s_red[0][warp] = before;
+    s_red[1][warp] = unit_total;
+  }
+  __syncthreads();
+  before = 0;
+  unit_total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += s_red[0][w];
+    unit_total += s_red[1][w];
+  }
+  if (chunk == 0 && t == 0) store_count(counts, counts_bytes, u, unit_total);
+
+  const int off = chunk * kTileBytes + t * kBytesPerThread;
+  const long long i0 = ubase + off;
+  Vec16 c, p;
+  unsigned m = 0;
+  if (off < unit_bytes)
+    m = group_mask(cur, prev, region, region_len, n, thr, i0, c, p);
+  const int cnt = __popc(m);
+  int chunk_total;
+  int r = block_excl_scan(cnt, s_warp, chunk_total);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    if ((m >> k) & 1u) {
+      s_xs[r] = (int)(i0 + k);
+      s_vals[r] = (uint8_t)(c.b[k] - p.b[k]);
+      ++r;
+    }
+  }
+  if (off < unit_bytes) store_new_prev(prev, i0, n, m, c, p, negfeed);
+  __syncthreads();
+  for (int q = t; q < chunk_total; q += kThreads) {
+    xs_t[ubase + before + q] = s_xs[q];
+    vals_t[ubase + before + q] = s_vals[q];
+  }
+  // zero fill: this block owns its chunk's slots of the unit's block
+  const int c0 = chunk * kTileBytes;
+  const int z0 = unit_total > c0 ? unit_total : c0;
+  const int z1 = unit_bytes < c0 + kTileBytes ? unit_bytes : c0 + kTileBytes;
+  for (int o = z0 + t; o < z1; o += kThreads) {
+    xs_t[ubase + o] = 0;
+    vals_t[ubase + o] = 0;
+  }
+}
+
+// pos = the sum of m ints (one block of 1024 threads)
+__global__ void __launch_bounds__(1024)
+sum_kernel(const int* __restrict__ v, int m, int* __restrict__ out) {
+  __shared__ long long s[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long a = 0;
+  for (int j = threadIdx.x; j < m; j += 1024) a += v[j];
+  a = warp_sum(a);
+  if (lane == 0) s[warp] = a;
+  __syncthreads();
+  if (warp == 0) {
+    a = warp_sum(s[lane]);
+    if (lane == 0) *out = (int)a;
   }
 }
 
@@ -272,6 +533,56 @@ int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
   compact_kernel<<<grid, kThreads, 0, stream>>>(
       cur, prev, region, region_len, n, thr, negfeed, tiles_per_block,
       counts, grid, xs, vals, cap, pos_out);
+  return (int)cudaGetLastError();
+}
+
+// Scratch ints that a tiled launch needs (its grid): one per 4096-byte
+// tile when unit_bytes divides the tile, else one per chunk of a unit.
+int cvs_tiled_grid(long long n_pad, int unit_bytes) {
+  if (kTileBytes % unit_bytes == 0)
+    return (int)((n_pad + kTileBytes - 1) / kTileBytes);
+  const int chunks_per_unit = (unit_bytes + kTileBytes - 1) / kTileBytes;
+  return (int)(n_pad / unit_bytes * chunks_per_unit);
+}
+
+// Launch K1 with tiled emission on `stream`. n_pad is a multiple of
+// unit_bytes, which is a multiple of 16; `scratch` holds
+// cvs_tiled_grid(n_pad, unit_bytes) ints; counts has n_pad / unit_bytes
+// entries of counts_bytes bytes; xs_t and vals_t have n_pad entries.
+// Returns the cudaError_t of the launches (0 on success).
+int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
+                                 uint8_t* prev, const uint8_t* region,
+                                 long long region_len, long long n,
+                                 long long n_pad, int thr, int negfeed,
+                                 int unit_bytes, int counts_bytes,
+                                 int* scratch, void* counts, int* xs_t,
+                                 uint8_t* vals_t, int* pos_out,
+                                 cudaStream_t stream) {
+  if (unit_bytes <= 0 || unit_bytes % kBytesPerThread || n_pad % unit_bytes
+      || n_pad < n || (counts_bytes != 1 && counts_bytes != 2
+                       && counts_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = cvs_tiled_grid(n_pad, unit_bytes);
+  if (kTileBytes % unit_bytes == 0) {
+    tiled_unit_kernel<<<grid, kThreads, 0, stream>>>(
+        cur, prev, region, region_len, n, n_pad, thr, negfeed, unit_bytes,
+        counts_bytes, scratch, counts, xs_t, vals_t);
+  } else {
+    const int chunks_per_unit = (unit_bytes + kTileBytes - 1) / kTileBytes;
+    tiled_chunk_count_kernel<<<grid, kThreads, 0, stream>>>(
+        cur, prev, region, region_len, n, thr, unit_bytes, chunks_per_unit,
+        scratch);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    tiled_chunk_compact_kernel<<<grid, kThreads, 0, stream>>>(
+        cur, prev, region, region_len, n, thr, negfeed, unit_bytes,
+        chunks_per_unit, counts_bytes, scratch, counts, xs_t, vals_t);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  sum_kernel<<<1, 1024, 0, stream>>>(scratch, grid, pos_out);
   return (int)cudaGetLastError();
 }
 

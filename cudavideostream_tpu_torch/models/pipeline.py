@@ -12,9 +12,10 @@ the state buffer in place — the counterpart of the JAX pipeline's donated
 ``prev`` and of the reference's ``swap(d_current, d_previous)``
 (``kernels.cu:451``).
 
-This slice ports the default serving configuration: PALLAS compaction
-with flat emission, no noise filter, no visualizer, scalar threshold, wire
-v1. Other configurations raise ``NotImplementedError`` naming the
+The port runs PALLAS compaction with flat emission (the default) or
+tiled emission (``tiled_payload``, per-unit blocks at ``subtile_rows``),
+no noise filter, no visualizer, a scalar threshold, and wire v1, v2 or
+v3. Other configurations raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports them.
 """
 
@@ -60,10 +61,11 @@ def check_slice(config: StreamConfig, threshold_map=None) -> None:
         (config.noise_filter, "the noise filter", "M11"),
         (config.compaction is not CompactionBackend.PALLAS,
          f"compaction={config.compaction.value}", "M12"),
-        (config.tiled_payload, "tiled payloads", "M7"),
         (threshold_map is not None, "per-byte threshold maps", "M17"),
-        (config.wire_format == "v2", "wire v2", "M18"),
-        (config.wire_format == "v3", "wire v3", "M7"),
+        (config.emit_bitmask, "the change-bitmask emission", "M8"),
+        (config.mask_payload, "mask payloads", "M8"),
+        (config.maskonly_payload, "the bitmask-only emission", "M8"),
+        (config.fetch_mode == "mask", "the mask landing", "M8"),
         (config.wire_format == "v4", "wire v4", "M8"),
     ]
     for refused, what, item in refusals:
@@ -156,9 +158,13 @@ class DeltaStreamPipeline:
         Returns ``(new_prev, pos, xs, vals, aux)``: ``new_prev`` is
         ``prev`` updated in place; ``pos`` a 0-d int32 device tensor;
         ``xs`` int32 and ``vals`` uint8 of ``capacity`` entries, zero past
-        ``pos``; ``aux`` None (no visualizer in this slice). The step does
-        not wait for the device: callers read ``pos`` once and copy the
-        ``pos``-long prefixes (see ``runtime.executor``).
+        ``pos``; ``aux`` None (no visualizer is ported). With
+        ``tiled_payload`` it returns ``(new_prev, pos, counts, xs_t,
+        vals_t, aux)`` instead, the per-unit blocks of
+        :func:`~cudavideostream_tpu_torch.ops.logcompact.fused_diff_compact_tiled`
+        (always worst-case capacity), as the JAX pipeline does. The step
+        does not wait for the device: callers read the sizes and copy
+        what they need (see ``runtime.executor``).
         """
         cfg = self.config
         cur = self._frame(frame)
@@ -173,6 +179,16 @@ class DeltaStreamPipeline:
                 cur[:strip_bytes], self.atlas, self._char_ids(text), n_chars,
                 cell_h, cfg.width,
             )
+        if cfg.tiled_payload:
+            # pair_lanes is a TPU lane layout with identical outputs
+            pos, counts, xs_t, vals_t, new_prev = (
+                logcompact.fused_diff_compact_tiled(
+                    cur, prev, threshold=cfg.threshold,
+                    negative_feedback=cfg.negative_feedback,
+                    overlay_region=region, sub_rows=cfg.subtile_rows,
+                )
+            )
+            return new_prev, pos, counts, xs_t, vals_t, None
         pos, xs, vals, new_prev = logcompact.fused_diff_compact(
             cur, prev, threshold=cfg.threshold,
             negative_feedback=cfg.negative_feedback, overlay_region=region,

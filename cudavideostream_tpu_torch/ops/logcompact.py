@@ -1,11 +1,23 @@
-"""Fused diff + negative feedback + stream compaction (K1), flat emission.
+"""Fused diff + negative feedback + stream compaction (K1), and the pair
+compaction that merges its per-unit blocks (K2).
 
-The counterpart of the JAX package's ``ops/logcompact.fused_diff_compact``
-with ``emit="flat"`` (``_kernel_v2`` plus the tile merge). On a CUDA
-tensor :func:`fused_diff_compact` launches the hand-written Hopper kernel
-``csrc/logcompact.cu``; on a CPU tensor it runs the plain PyTorch version
-:func:`fused_diff_compact_reference`. There is no other route: a CUDA
-tensor either reaches the kernel or the call raises.
+The counterpart of the JAX package's ``ops/logcompact.py``:
+
+* :func:`fused_diff_compact` — ``fused_diff_compact(emit="flat")``
+  (``_kernel_v2`` plus the tile merge);
+* :func:`fused_diff_compact_tiled` — ``fused_diff_compact(emit="tiled")``,
+  the per-unit blocks of ``_kernel_v2`` with ``sub_rows``, at the JAX
+  package's own unit geometry (:func:`tiled_geometry`) and narrowed
+  counts, so the wire bytes and every output shape are the same;
+* :func:`pair_compact` — ``_kernel_pair``: a stable compaction of
+  ``(xs, vals)`` pairs by ``vals != 0``, emitted flat;
+* :func:`merge_tiles` — ``merge_tiles``, through :func:`pair_compact`.
+
+On a CUDA tensor each wrapper launches its hand-written Hopper kernel
+(``csrc/logcompact.cu``, ``csrc/pair_compact.cu``) and adds one to its
+``launches`` count; on a CPU tensor it runs its plain PyTorch version
+(``*_reference``). There is no other route: a CUDA tensor either reaches
+the kernel or the call raises.
 
 Contract (``logcompact.py:829-831`` of the JAX package): for every byte
 ``i`` with ``c = overlay_region[i] if i < len(overlay_region) else
@@ -33,28 +45,67 @@ from cudavideostream_tpu_torch.ops import diff as diff_ops
 TILE_BYTES = 4096  # one tile of the kernel: 256 threads x 16 bytes
 MAX_GRID = 1024    # blocks per launch; larger frames take more tiles per block
 
-_lib: Optional[ctypes.CDLL] = None
+# The JAX package's tile geometry (``logcompact.py:73-128``), copied: the
+# tiled emission's unit count and unit size follow from it, and they
+# must be the JAX package's for the tiled outputs to be the same arrays.
+LANES = 128
+GEOMETRY_MAX_GRID = 2000
+
+_libs: dict = {}
+
+
+def _bind_common(lib: ctypes.CDLL, name: str) -> None:
+    lib.cvs_error_string.argtypes = [ctypes.c_int]
+    lib.cvs_error_string.restype = ctypes.c_char_p
+    lib.cvs_tile_bytes.argtypes = []
+    lib.cvs_tile_bytes.restype = ctypes.c_int
+    if lib.cvs_tile_bytes() != TILE_BYTES:
+        raise RuntimeError(f"csrc/{name}.cu tile size disagrees with "
+                           "ops/logcompact.py TILE_BYTES")
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/logcompact.cu``."""
-    global _lib
-    if _lib is None:
+    """Build (at first use) and bind ``csrc/logcompact.cu`` (K1)."""
+    lib = _libs.get("logcompact")
+    if lib is None:
         lib = build.load("logcompact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.cvs_fused_diff_compact.argtypes = [
             i, p, p, p, ll, ll, i, i, i, i, p, p, p, ll, p, p,
         ]
         lib.cvs_fused_diff_compact.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        lib.cvs_tile_bytes.argtypes = []
-        lib.cvs_tile_bytes.restype = i
-        if lib.cvs_tile_bytes() != TILE_BYTES:
-            raise RuntimeError("csrc/logcompact.cu tile size disagrees with "
-                               "ops/logcompact.py TILE_BYTES")
-        _lib = lib
-    return _lib
+        lib.cvs_tiled_grid.argtypes = [ll, i]
+        lib.cvs_tiled_grid.restype = i
+        lib.cvs_fused_diff_compact_tiled.argtypes = [
+            i, p, p, p, ll, ll, ll, i, i, i, i, p, p, p, p, p, p,
+        ]
+        lib.cvs_fused_diff_compact_tiled.restype = i
+        _bind_common(lib, "logcompact")
+        _libs["logcompact"] = lib
+    return lib
+
+
+def _pair_lib() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/pair_compact.cu`` (K2)."""
+    lib = _libs.get("pair_compact")
+    if lib is None:
+        lib = build.load("pair_compact")
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.cvs_pair_compact.argtypes = [i, p, p, ll, i, i, p, p, p, p, p]
+        lib.cvs_pair_compact.restype = i
+        _bind_common(lib, "pair_compact")
+        _libs["pair_compact"] = lib
+    return lib
+
+
+def _raise_on(rc: int, lib: ctypes.CDLL, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def tile_plan(n: int) -> Tuple[int, int]:
@@ -63,6 +114,66 @@ def tile_plan(n: int) -> Tuple[int, int]:
     per_block = max(1, -(-n_tiles // MAX_GRID))
     return per_block, -(-n_tiles // per_block)
 
+
+# -- the JAX package's tile geometry -------------------------------------
+
+def _pick_tile_rows(rows: int, target: int = 512) -> int:
+    """Largest divisor of ``rows`` <= target that is a multiple of 8."""
+    best = None
+    for d in range(8, target + 1, 8):
+        if rows % d == 0:
+            best = d
+    return best if best is not None else rows
+
+
+def _pad_rows(rows: int) -> int:
+    """Smallest padded row count >= ``rows`` that is a multiple of 8 and
+    admits a tile divisor of at least min(rows, 400) rows."""
+    pr = (rows + 7) // 8 * 8
+    while _pick_tile_rows(pr) < min(pr, 400):
+        pr += 8
+    return pr
+
+
+def _tile_geometry(rows: int) -> Tuple[int, int]:
+    """``(padded_rows, tile_rows)``: the 400-512-row tiles, grown past
+    ``GEOMETRY_MAX_GRID`` tiles for frames beyond ~131 MB."""
+    pr = _pad_rows(rows)
+    t = _pick_tile_rows(pr)
+    if pr // t > GEOMETRY_MAX_GRID:
+        t = (-(-rows // GEOMETRY_MAX_GRID) + 7) // 8 * 8
+        pr = -(-rows // t) * t
+    return pr, t
+
+
+def tiled_geometry(n: int, sub_rows: int) -> Tuple[int, int]:
+    """``(n_pad, unit_bytes)`` of the tiled emission of an ``n``-byte frame.
+
+    Units are ``sub_rows`` rows of 128 bytes, or whole tiles when
+    ``sub_rows`` is 0, does not divide the tile, or the tile is taller
+    than 512 rows (the JAX package falls back silently in those cases,
+    ``logcompact.py:894-903``, and so does this). The frame pads to
+    ``n_pad`` bytes with ``cur == prev`` bytes, which never ship."""
+    rows, tile_rows = _tile_geometry(-(-n // LANES))
+    if sub_rows and (tile_rows % sub_rows or tile_rows > 512):
+        sub_rows = 0
+    n_pad = rows * LANES
+    if n_pad >= 1 << 31:
+        raise ValueError("frame byte indices exceed int32")
+    return n_pad, (sub_rows or tile_rows) * LANES
+
+
+def counts_dtype(unit_bytes: int) -> torch.dtype:
+    """The narrowest dtype that holds a full unit's count
+    (``_narrow_counts``, ``logcompact.py:1218-1230``)."""
+    if unit_bytes < 256:
+        return torch.uint8
+    if unit_bytes < 32768:
+        return torch.int16
+    return torch.int32
+
+
+# -- K1 -------------------------------------------------------------------
 
 def _check_args(current, previous, threshold, overlay_region):
     for name, t in (("current", current), ("previous", previous)):
@@ -86,6 +197,28 @@ def _check_args(current, previous, threshold, overlay_region):
             raise ValueError("overlay_region must be on the frame's device")
         if overlay_region.numel() > n:
             raise ValueError("overlay_region is longer than the frame")
+
+
+def _check_kernel_args(name, current, previous, overlay_region):
+    """The device checks of a K1 launch; returns the region's length."""
+    dev = current.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    if current.data_ptr() == previous.data_ptr():
+        raise ValueError("current and previous must not share storage")
+    region_len = 0 if overlay_region is None else overlay_region.numel()
+    for t in (current, previous) + ((overlay_region,) if region_len else ()):
+        if t.data_ptr() % 16:
+            raise ValueError("the kernel reads 16-byte vectors: frame "
+                             "buffers must be 16-byte aligned")
+    return region_len
+
+
+def _region_frame(current, overlay_region):
+    """``current`` with the overlay region substituted for its prefix."""
+    if overlay_region is None or overlay_region.numel() == 0:
+        return current
+    return torch.cat([overlay_region, current[overlay_region.numel():]])
 
 
 def fused_diff_compact(
@@ -118,16 +251,9 @@ def fused_diff_compact(
             current, previous, threshold, negative_feedback, overlay_region,
             capacity,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"fused_diff_compact runs on cuda or cpu, not {dev}")
-    if current.data_ptr() == previous.data_ptr():
-        raise ValueError("current and previous must not share storage")
-    region_len = 0 if overlay_region is None else overlay_region.numel()
+    region_len = _check_kernel_args("fused_diff_compact", current, previous,
+                                    overlay_region)
     region_ptr = overlay_region.data_ptr() if region_len else None
-    for t in (current, previous) + ((overlay_region,) if region_len else ()):
-        if t.data_ptr() % 16:
-            raise ValueError("the kernel reads 16-byte vectors: frame "
-                             "buffers must be 16-byte aligned")
     lib = _kernel_lib()
     n = current.numel()
     cap = n if capacity is None else min(int(capacity), n)
@@ -138,17 +264,13 @@ def fused_diff_compact(
     pos = torch.empty((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.cvs_fused_diff_compact(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _device_index(dev),
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len, n,
         int(threshold), int(bool(negative_feedback)), per_block, grid,
         counts.data_ptr(), xs.data_ptr(), vals.data_ptr(), cap,
         pos.data_ptr(), stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            "fused_diff_compact kernel launch failed: "
-            f"{lib.cvs_error_string(rc).decode()} ({rc})"
-        )
+    _raise_on(rc, lib, "fused_diff_compact")
     fused_diff_compact.launches += 1
     return pos, xs, vals, previous
 
@@ -168,10 +290,7 @@ def fused_diff_compact_reference(
     outputs from ``diff_mask``, ``nonzero`` and ``masked_select``, with
     ``new_prev`` written into ``previous`` in place. ``nonzero`` makes it
     synchronize with the device on CUDA tensors."""
-    cur = current
-    if overlay_region is not None and overlay_region.numel() > 0:
-        r = overlay_region.numel()
-        cur = torch.cat([overlay_region, current[r:]])
+    cur = _region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
         cur, previous, threshold, negative_feedback
     )
@@ -187,3 +306,190 @@ def fused_diff_compact_reference(
     previous.copy_(new_prev)  # in place, as the kernel does
     pos = torch.tensor(idx.numel(), dtype=torch.int32, device=current.device)
     return pos, xs, vals, previous
+
+
+def fused_diff_compact_tiled(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    overlay_region: Optional[torch.Tensor] = None,
+    sub_rows: int = 0,
+):
+    """Tiled-emit diff+compact; returns ``(pos, counts, xs_t, vals_t,
+    new_prev)`` as JAX ``fused_diff_compact(emit="tiled")`` does.
+
+    The frame is cut into ``n_units`` units of ``unit_bytes``
+    (:func:`tiled_geometry`). Unit ``u`` holds its ``counts[u]`` shipped
+    entries, ascending, at ``xs_t[u, :counts[u]]`` (GLOBAL byte indices,
+    int32) and ``vals_t[u, :counts[u]]`` (uint8 deltas), and zeros after
+    them. ``counts`` has the narrowest dtype that holds ``unit_bytes``
+    (:func:`counts_dtype`); ``pos`` is their int32 total, a 0-d tensor;
+    ``new_prev`` is ``previous``, updated in place. Concatenating the
+    units' prefixes gives the flat emission's ``(xs, vals)``.
+
+    CUDA tensors launch the kernel (and count one in
+    ``fused_diff_compact_tiled.launches``); CPU tensors run
+    :func:`fused_diff_compact_tiled_reference`.
+    """
+    _check_args(current, previous, threshold, overlay_region)
+    dev = current.device
+    if dev.type == "cpu":
+        return fused_diff_compact_tiled_reference(
+            current, previous, threshold, negative_feedback, overlay_region,
+            sub_rows,
+        )
+    region_len = _check_kernel_args("fused_diff_compact_tiled", current,
+                                    previous, overlay_region)
+    region_ptr = overlay_region.data_ptr() if region_len else None
+    lib = _kernel_lib()
+    n = current.numel()
+    n_pad, unit_bytes = tiled_geometry(n, sub_rows)
+    n_units = n_pad // unit_bytes
+    cdt = counts_dtype(unit_bytes)
+    xs_t = torch.empty((n_units, unit_bytes), dtype=torch.int32, device=dev)
+    vals_t = torch.empty((n_units, unit_bytes), dtype=torch.uint8, device=dev)
+    counts = torch.empty(n_units, dtype=cdt, device=dev)
+    scratch = torch.empty(lib.cvs_tiled_grid(n_pad, unit_bytes),
+                          dtype=torch.int32, device=dev)
+    pos = torch.empty((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.cvs_fused_diff_compact_tiled(
+        _device_index(dev),
+        current.data_ptr(), previous.data_ptr(), region_ptr, region_len, n,
+        n_pad, int(threshold), int(bool(negative_feedback)), unit_bytes,
+        counts.element_size(), scratch.data_ptr(), counts.data_ptr(),
+        xs_t.data_ptr(), vals_t.data_ptr(), pos.data_ptr(), stream,
+    )
+    _raise_on(rc, lib, "fused_diff_compact_tiled")
+    fused_diff_compact_tiled.launches += 1
+    return pos, counts, xs_t, vals_t, previous
+
+
+fused_diff_compact_tiled.launches = 0
+
+
+def fused_diff_compact_tiled_reference(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    overlay_region: Optional[torch.Tensor] = None,
+    sub_rows: int = 0,
+):
+    """The plain PyTorch version of :func:`fused_diff_compact_tiled`: the
+    mask from ``diff_mask``, each entry's rank in its unit from a
+    per-unit ``cumsum``, and one scatter into zeroed blocks."""
+    dev = current.device
+    n = current.numel()
+    n_pad, unit_bytes = tiled_geometry(n, sub_rows)
+    n_units = n_pad // unit_bytes
+    cur = _region_frame(current, overlay_region)
+    mask, dvals, new_prev = diff_ops.diff_mask(
+        cur, previous, threshold, negative_feedback
+    )
+    m = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    m[:n] = mask
+    m2 = m.view(n_units, unit_bytes)
+    counts = m2.sum(dim=1, dtype=torch.int32)
+    rank = torch.cumsum(m2, dim=1, dtype=torch.int32) - 1
+    slot = (torch.arange(n_units, dtype=torch.int64, device=dev)[:, None]
+            * unit_bytes + rank)[m2]
+    xs_t = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    vals_t = torch.zeros(n_pad, dtype=torch.uint8, device=dev)
+    xs_t[slot] = torch.nonzero(m).flatten().to(torch.int32)
+    vals_t[slot] = dvals[mask]
+    previous.copy_(new_prev)  # in place, as the kernel does
+    pos = counts.sum(dtype=torch.int32)
+    return (pos, counts.to(counts_dtype(unit_bytes)),
+            xs_t.view(n_units, unit_bytes), vals_t.view(n_units, unit_bytes),
+            previous)
+
+
+# -- K2 -------------------------------------------------------------------
+
+def pair_compact(xs_flat: torch.Tensor, vals_flat: torch.Tensor):
+    """Stable compaction of ``(xs, vals)`` pairs by ``vals != 0``; returns
+    ``(pos, xs, vals)``, ``pos`` a 0-d int32 tensor and ``xs`` int32 /
+    ``vals`` uint8 of the input length, the kept pairs first in input
+    order and zeros after them.
+
+    The port of ``_kernel_pair`` (through ``_pair_compact``), emitted flat:
+    its outputs equal the concatenated prefixes of the JAX function's
+    per-tile blocks. An ``xs`` value of 0 is an ordinary index: validity
+    follows ``vals`` alone.
+
+    CUDA tensors launch the kernel (and count one in
+    ``pair_compact.launches``); CPU tensors run
+    :func:`pair_compact_reference`.
+    """
+    if (xs_flat.dtype != torch.int32 or vals_flat.dtype != torch.uint8
+            or xs_flat.dim() != 1 or vals_flat.dim() != 1
+            or not xs_flat.is_contiguous() or not vals_flat.is_contiguous()):
+        raise ValueError("pair_compact takes contiguous 1-D int32 xs and "
+                         "uint8 vals")
+    n = xs_flat.numel()
+    if vals_flat.numel() != n or n == 0:
+        raise ValueError("xs and vals must have one nonzero length")
+    if n >= 1 << 31:
+        raise ValueError("pair indices exceed int32")
+    dev = xs_flat.device
+    if vals_flat.device != dev:
+        raise ValueError("xs and vals must be on one device")
+    if dev.type == "cpu":
+        return pair_compact_reference(xs_flat, vals_flat)
+    if dev.type != "cuda":
+        raise ValueError(f"pair_compact runs on cuda or cpu, not {dev}")
+    if xs_flat.data_ptr() % 16 or vals_flat.data_ptr() % 16:
+        raise ValueError("the kernel reads 16-byte vectors: xs and vals "
+                         "must be 16-byte aligned")
+    lib = _pair_lib()
+    per_block, grid = tile_plan(n)
+    xs = torch.empty(n, dtype=torch.int32, device=dev)
+    vals = torch.empty(n, dtype=torch.uint8, device=dev)
+    counts = torch.empty(grid, dtype=torch.int32, device=dev)
+    pos = torch.empty((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.cvs_pair_compact(
+        _device_index(dev), xs_flat.data_ptr(), vals_flat.data_ptr(), n,
+        per_block, grid, counts.data_ptr(), xs.data_ptr(), vals.data_ptr(),
+        pos.data_ptr(), stream,
+    )
+    _raise_on(rc, lib, "pair_compact")
+    pair_compact.launches += 1
+    return pos, xs, vals
+
+
+pair_compact.launches = 0
+
+
+def pair_compact_reference(xs_flat: torch.Tensor, vals_flat: torch.Tensor):
+    """The plain PyTorch version of :func:`pair_compact` (``nonzero`` and
+    ``masked_select``; it synchronizes with the device on CUDA tensors)."""
+    keep = vals_flat != 0
+    kx = torch.masked_select(xs_flat, keep)
+    xs = torch.zeros_like(xs_flat)
+    vals = torch.zeros_like(vals_flat)
+    xs[:kx.numel()] = kx
+    vals[:kx.numel()] = torch.masked_select(vals_flat, keep)
+    return (torch.tensor(kx.numel(), dtype=torch.int32, device=xs.device),
+            xs, vals)
+
+
+def merge_tiles(counts: torch.Tensor, xs_t: torch.Tensor,
+                vals_t: torch.Tensor):
+    """Concatenate the units' compacted prefixes into flat ``(xs, vals)``
+    of ``n_units * unit_bytes`` entries, zero past ``pos`` — JAX
+    ``merge_tiles`` on its ``[:pos]`` prefix, with a zero tail.
+
+    The blocks are zero past each unit's count, so the merge is a pair
+    compaction of the flattened blocks (:func:`pair_compact`, one K2
+    launch at any unit count: the JAX package's serial branch for at most
+    256 units, ``MERGE_SERIAL_MAX_UNITS``, needs no separate port).
+    ``counts`` is checked for shape only."""
+    if xs_t.dim() != 2 or xs_t.shape != vals_t.shape:
+        raise ValueError("xs_t and vals_t must be (n_units, unit_bytes)")
+    if counts.shape != xs_t.shape[:1]:
+        raise ValueError("counts must have one entry per unit")
+    _, xs, vals = pair_compact(xs_t.reshape(-1), vals_t.reshape(-1))
+    return xs, vals

@@ -1,14 +1,16 @@
 """The streaming TCP server — the port's main entry point (counterpart of
-the JAX package's ``runtime/server.py``, wire v1).
+the JAX package's ``runtime/server.py``).
 
 Wire-compatible rebuild of the reference server loop (``server.cpp:38-175``
 + ``th_show_hdl``, ``threads.cpp:181-237``): listen on one socket, accept
-one client, ship the raw base frame, then per frame ship
-``[u32 pos][i32 xs[pos]][u8 vals[pos]]`` — the reference OpenCV client
-decodes this stream unmodified. The 1 Hz status line is printed and
+one client, ship the raw base frame, then one payload per frame — under
+the default wire v1 ``[u32 pos][i32 xs[pos]][u8 vals[pos]]``, which the
+reference OpenCV client decodes unmodified; under the opt-in v2/v3 the
+magic first (``runtime.wire``). The 1 Hz status line is printed and
 rendered into the stream via the glyph overlay (``server.cpp:164-168``).
 
 Run:  ``python -m cudavideostream_tpu_torch.runtime.server --source synthetic``
+      ``python -m cudavideostream_tpu_torch.runtime.server --tiled --pipelined --wire v3``
 """
 
 from __future__ import annotations
@@ -18,9 +20,12 @@ import socket
 import sys
 import time
 
-from cudavideostream_tpu_torch.config import StreamConfig
+from cudavideostream_tpu_torch.config import PayloadOverflowError, StreamConfig
 from cudavideostream_tpu_torch.runtime import wire
-from cudavideostream_tpu_torch.runtime.executor import StreamExecutor
+from cudavideostream_tpu_torch.runtime.executor import (
+    PipelinedExecutor,
+    StreamExecutor,
+)
 from cudavideostream_tpu_torch.runtime.sources import FrameSource, make_source
 
 
@@ -28,10 +33,10 @@ class DeltaStreamServer:
     def __init__(self, config: StreamConfig, source: FrameSource,
                  executor: StreamExecutor | None = None, verbose: bool = True,
                  overlay_status: bool = True, device=None):
-        if config.wire_format != "v1":
+        if config.wire_format == "v4":
             raise NotImplementedError(
-                f"wire {config.wire_format} is not ported to "
-                "cudavideostream_tpu_torch yet: see ROADMAP.md M7, M8, M18"
+                "wire v4 is not ported to cudavideostream_tpu_torch yet: "
+                "see ROADMAP.md M8"
             )
         self.cfg = config
         self.source = source
@@ -80,6 +85,12 @@ class DeltaStreamServer:
     def _stream_to(self, conn: socket.socket, max_frames: int | None) -> int:
         conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         base = self.executor.start(self.source.base_frame())
+        v3enc = None
+        if self.cfg.wire_format == "v2":
+            conn.sendall(wire.MAGIC_V2)
+        elif self.cfg.wire_format == "v3":
+            conn.sendall(wire.MAGIC_V3)
+            v3enc = wire.V3Encoder(base)
         conn.sendall(base.tobytes())
         text = ""
         n = 0
@@ -90,10 +101,13 @@ class DeltaStreamServer:
             except StopIteration:
                 break
             read_s = time.perf_counter() - t0
-            # v1 cannot express a resync: a PayloadOverflowError propagates
-            # rather than desync the client (config.PayloadOverflowError)
-            pos, xs, vals, _aux = self.executor.process(frame, text=text)
-            conn.sendall(wire.pack_payload(pos, xs, vals))
+            try:
+                result = self.executor.process(frame, text=text)
+            except PayloadOverflowError as e:
+                self._resync(conn, v3enc, e)
+                result = None
+            if result is not None:  # a pipelined executor lags a frame
+                self._send(conn, result, v3enc)
             n += 1
             line = self.executor.metrics.status_line(read_s)
             if line:
@@ -101,9 +115,51 @@ class DeltaStreamServer:
                     text = self.executor.metrics.overlay_text()
                 if self.verbose:
                     print("\r" + line, end="", flush=True)
+        # the pipelined tail can overflow too (the last frame may be the
+        # scene cut): the same recovery as in the loop
+        try:
+            tail = self.executor.flush()
+        except PayloadOverflowError as e:
+            self._resync(conn, v3enc, e)
+            tail = None
+        if tail is not None:
+            self._send(conn, tail, v3enc)
         if self.verbose:
             print()
         return n
+
+    def _resync(self, conn: socket.socket, v3enc,
+                err: PayloadOverflowError) -> None:
+        """After a payload-capacity overflow: under v3 one raw frame
+        replaces the client's state (the executor drops any pending
+        pipelined payload, whose deltas it subsumes); v1 and v2 cannot
+        express a resync, so the error propagates rather than desync the
+        client (config.PayloadOverflowError)."""
+        if v3enc is None:
+            raise err
+        buf = v3enc.resync(self.executor.resync())
+        conn.sendall(buf)
+        self.executor.metrics.wire_bytes += len(buf)
+
+    def _send(self, conn: socket.socket, result, v3enc) -> None:
+        pos, xs, vals, _aux = result
+        if v3enc is not None:
+            buf = v3enc.encode(pos, xs, vals)
+        else:
+            if isinstance(xs, wire.TiledPayload):
+                xs, vals = xs.to_flat()
+            pack = (wire.pack_payload_v2 if self.cfg.wire_format == "v2"
+                    else wire.pack_payload)
+            buf = pack(pos, xs, vals)
+        conn.sendall(buf)
+        # the metrics count v1 framing; correct them to the bytes sent
+        self.executor.metrics.wire_bytes += len(buf) - (4 + 5 * pos)
+
+
+def _refuse(what: str) -> None:
+    raise NotImplementedError(f"{what} is not ported to "
+                              "cudavideostream_tpu_torch yet: see "
+                              "ROADMAP.md M8")
 
 
 def main(argv=None) -> int:
@@ -117,14 +173,58 @@ def main(argv=None) -> int:
     p.add_argument("--frames", type=int, default=None,
                    help="stop after N frames (default: run forever)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--wire", default="v1", choices=["v1", "v2", "v3", "v4"],
+                   help="v1 = reference-compatible wire (default); v2 = "
+                        "delta16 index gaps; v3 = adaptive delta16/bitmask/"
+                        "raw, which also resyncs a client after a capacity "
+                        "overflow (the client must use --wire v2/v3/auto); "
+                        "v4 is not ported yet")
+    p.add_argument("--tiled", action="store_true",
+                   help="per-unit payload blocks straight from the kernel "
+                        "(wire bytes identical)")
+    p.add_argument("--fetch", default="auto",
+                   choices=["auto", "tiles", "flat", "mask"],
+                   help="tiled-payload landing: tiles = copy the non-empty "
+                        "unit span; flat = device merge (K2) + pos-prefix "
+                        "copy; auto = per frame, from measured copy rate "
+                        "and merge time; mask is not ported yet")
+    p.add_argument("--subtile", type=int, default=None,
+                   help="tiled compaction unit in 128-byte rows (0 = whole "
+                        "tiles; default 1)")
+    p.add_argument("--pipelined", action="store_true",
+                   help="one-frame-deep software pipeline: land frame N-1 "
+                        "while frame N computes")
+    p.add_argument("--bitmask", action="store_true",
+                   help="not ported yet (ROADMAP.md M8)")
+    p.add_argument("--maskonly", action="store_true",
+                   help="not ported yet (ROADMAP.md M8)")
+    p.add_argument("--land-batch", type=int, default=0, metavar="K",
+                   help="not ported yet (ROADMAP.md M8)")
     p.add_argument("--capacity", type=int, default=None,
                    help="payload capacity bound in bytes (default: worst "
                         "case = frame bytes, never overflows); a frame that "
-                        "changes more bytes is fatal under wire v1")
+                        "changes more bytes is fatal under wire v1/v2 and "
+                        "resynced with one raw frame under v3 (flat "
+                        "payloads only)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions)")
     args = p.parse_args(argv)
+    if args.wire == "v4":
+        _refuse("wire v4")
+    if args.fetch == "mask":
+        _refuse("--fetch mask")
+    if args.bitmask:
+        _refuse("--bitmask")
+    if args.maskonly:
+        _refuse("--maskonly")
+    if args.land_batch:
+        _refuse("--land-batch")
+    if args.fetch != "auto" and not args.tiled:
+        p.error("--fetch tiles/flat applies to --tiled payloads")
+    if args.capacity is not None and args.tiled:
+        p.error("--capacity applies to flat payloads only (tiled payloads "
+                "are always worst-case capacity)")
     cfg = StreamConfig(
         height=args.height,
         width=args.width,
@@ -132,9 +232,16 @@ def main(argv=None) -> int:
         host=args.host,
         port=args.port,
         payload_capacity=args.capacity,
+        tiled_payload=args.tiled,
+        fetch_mode=args.fetch,
+        wire_format=args.wire,
+        **({"subtile_rows": args.subtile}
+           if args.subtile is not None else {}),
     )
     source = make_source(args.source, cfg, seed=args.seed)
-    server = DeltaStreamServer(cfg, source, device=args.device)
+    cls = PipelinedExecutor if args.pipelined else StreamExecutor
+    server = DeltaStreamServer(cfg, source,
+                               executor=cls(cfg, device=args.device))
     try:
         served = server.serve(max_frames=args.frames)
     finally:

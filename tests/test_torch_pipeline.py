@@ -1,4 +1,4 @@
-"""The port's ``DeltaStreamPipeline`` (flat slice) against the JAX
+"""The port's ``DeltaStreamPipeline`` (flat emission) against the JAX
 package's pipeline and the NumPy spec, byte for byte (zero tolerance),
 plus the slice's refusals and the no-silent-CPU rule."""
 
@@ -145,16 +145,30 @@ def test_1080p_step_matches_step_oracle():
     {"noise_filter": True},
     {"compaction": CompactionBackend.SORT},
     {"compaction": CompactionBackend.HOST},
-    {"tiled_payload": True},
-    {"wire_format": "v2"},
-    {"wire_format": "v3"},
+    {"tiled_payload": True, "emit_bitmask": True},
+    {"tiled_payload": True, "emit_bitmask": True, "mask_payload": True},
+    {"tiled_payload": True, "emit_bitmask": True, "fetch_mode": "mask"},
+    {"tiled_payload": True, "emit_bitmask": True, "fetch_mode": "mask",
+     "maskonly_payload": True},
     {"wire_format": "v4"},
-], ids=["visualizer", "noise_filter", "sort", "host", "tiled", "v2", "v3",
-        "v4"])
+], ids=["visualizer", "noise_filter", "sort", "host", "bitmask",
+        "mask_payload", "mask_fetch", "maskonly", "v4"])
 def test_out_of_slice_configs_raise(small_config, change):
     cfg = dataclasses.replace(_port_config(small_config), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md M"):
         DeltaStreamPipeline(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"tiled_payload": True},
+    {"tiled_payload": True, "fetch_mode": "flat", "subtile_rows": 8},
+    {"wire_format": "v2"},
+    {"wire_format": "v3"},
+], ids=["tiled", "tiled_flat", "v2", "v3"])
+def test_tiled_slice_configs_build(small_config, change):
+    """The tiled payload and wires v2/v3 are ported: their configs build."""
+    cfg = dataclasses.replace(_port_config(small_config), **change)
+    assert DeltaStreamPipeline(cfg, device="cpu").config is cfg
 
 
 def test_threshold_map_raises(small_config):

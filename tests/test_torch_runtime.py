@@ -12,7 +12,9 @@ import threading
 import numpy as np
 import pytest
 
+from conftest import ScriptedSource
 from cudavideostream_tpu.runtime import sources as jax_sources
+from cudavideostream_tpu.runtime.executor import TiledLander as JaxLander
 from cudavideostream_tpu.runtime import wire as jax_wire
 from cudavideostream_tpu.runtime.client import DeltaStreamClient as JaxClient
 from cudavideostream_tpu_torch.config import PayloadOverflowError, StreamConfig
@@ -21,7 +23,11 @@ from cudavideostream_tpu_torch.runtime import client as client_mod
 from cudavideostream_tpu_torch.runtime import server as server_mod
 from cudavideostream_tpu_torch.runtime import wire
 from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
-from cudavideostream_tpu_torch.runtime.executor import StreamExecutor
+from cudavideostream_tpu_torch.runtime.executor import (
+    PipelinedExecutor,
+    StreamExecutor,
+    TiledLander,
+)
 from cudavideostream_tpu_torch.runtime.server import DeltaStreamServer
 from cudavideostream_tpu_torch.runtime.sources import (
     SyntheticSource,
@@ -155,10 +161,13 @@ def test_executor_requires_start(cfg):
 
 
 def test_server_refuses_other_wires(cfg):
-    for w in ("v2", "v3", "v4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            DeltaStreamServer(dataclasses.replace(cfg, wire_format=w),
-                              SyntheticSource(cfg), device="cpu")
+    """Wire v4 is not ported (ROADMAP M8); v1-v3 are."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md M8"):
+        DeltaStreamServer(dataclasses.replace(cfg, wire_format="v4"),
+                          SyntheticSource(cfg), device="cpu")
+    for w in ("v1", "v2", "v3"):
+        DeltaStreamServer(dataclasses.replace(cfg, wire_format=w),
+                          SyntheticSource(cfg), device="cpu")
 
 
 def test_synthetic_source_matches_jax(cfg):
@@ -232,6 +241,12 @@ def test_port_imports_nothing_of_jax():
     compared exactly)."""
     files = _port_python_files()
     assert len(files) > 10 and files[-1].exists()
+    rel = {str(f.relative_to(REPO)) for f in files}
+    # the modules of the tiled slice are in the scan
+    for mod in ("ops/logcompact.py", "runtime/wire.py", "runtime/executor.py",
+                "runtime/server.py", "runtime/client.py",
+                "models/pipeline.py", "kernels/build.py"):
+        assert f"cudavideostream_tpu_torch/{mod}" in rel, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -243,3 +258,307 @@ def test_port_imports_nothing_of_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+
+# -- the tiled slice: tiled payloads, wire v2/v3, the pipelined executor --
+
+def _client(kind, port, cfg):
+    if kind == "port":
+        return DeltaStreamClient("127.0.0.1", port, cfg.height, cfg.width)
+    return JaxClient("127.0.0.1", port, cfg.height, cfg.width,
+                     wire_format="auto")
+
+
+def _drain(cli):
+    """Every (pos, state copy) the client decodes until the server closes."""
+    got = []
+    try:
+        while True:
+            pos, recon = cli.read_frame()
+            got.append((pos, recon.copy()))
+    except ConnectionError:
+        pass
+    finally:
+        cli.close()
+    return got
+
+
+@pytest.mark.parametrize("client_kind", ["port", "jax"])
+@pytest.mark.parametrize("wire_format", ["v1", "v2"])
+@pytest.mark.parametrize("fetch", ["tiles", "flat", "auto"])
+def test_tiled_loopback_byte_exact(cfg, fetch, wire_format, client_kind):
+    """The tiled payload over a real socket, in each landing flavor, to
+    both clients (wire auto): the reconstruction equals an oracle replay
+    every frame."""
+    cfg = dataclasses.replace(cfg, tiled_payload=True, fetch_mode=fetch,
+                              wire_format=wire_format)
+    n_frames = 5
+    server = DeltaStreamServer(cfg, SyntheticSource(cfg, seed=3),
+                               verbose=False, overlay_status=False,
+                               device="cpu")
+    t, errors = _serve_in_thread(server, n_frames)
+    cli = _client(client_kind, server.port, cfg)
+    cli.connect()
+    states = _oracle_states(cfg, 3, n_frames)
+    np.testing.assert_array_equal(cli.frame, states[0])
+    got = _drain(cli)
+    t.join(timeout=30)
+    server.close()
+    assert not t.is_alive() and not errors
+    assert len(got) == n_frames and got[0][0] > 0
+    for (_, recon), want in zip(got, states[1:]):
+        np.testing.assert_array_equal(recon, want)
+    counts = server.executor.fetch_counts
+    assert sum(counts.values()) == n_frames
+    if fetch != "auto":
+        assert counts[fetch] == n_frames
+    else:  # the warm-up takes each flavor twice
+        assert counts["tiles"] >= 2 and counts["flat"] >= 2
+
+
+@pytest.mark.parametrize("client_kind", ["port", "jax"])
+@pytest.mark.parametrize("tiled", [True, False], ids=["tiled", "flat"])
+def test_pipelined_v3_loopback_byte_exact(cfg, tiled, client_kind):
+    """The pipelined executor lags a frame and flushes the last one; under
+    wire v3 every frame still decodes to the oracle state, in order."""
+    cfg = dataclasses.replace(cfg, tiled_payload=tiled, wire_format="v3")
+    n_frames = 6
+    server = DeltaStreamServer(cfg, SyntheticSource(cfg, seed=4),
+                               executor=PipelinedExecutor(cfg, device="cpu"),
+                               verbose=False, overlay_status=False)
+    t, errors = _serve_in_thread(server, n_frames)
+    cli = _client(client_kind, server.port, cfg)
+    cli.connect()
+    assert cli.wire_format == "v3"
+    states = _oracle_states(cfg, 4, n_frames)
+    got = _drain(cli)
+    t.join(timeout=30)
+    server.close()
+    assert not t.is_alive() and not errors
+    assert len(got) == n_frames
+    for (_, recon), want in zip(got, states[1:]):
+        np.testing.assert_array_equal(recon, want)
+
+
+CAPACITY = 1500
+
+
+def _overflow_script(cfg, n_tail):
+    """[small, OVERFLOW (~40% density: bitmask-natural, so a raw frame on
+    the wire proves the recovery fired), small...] — the JAX package's
+    TestOverflowResync script."""
+    base = np.zeros(cfg.frame_bytes, np.uint8)
+    f1 = base.copy()
+    f1[:500] = 100
+    f2 = f1.copy()
+    f2[2000:5700] += 200  # 3700 changed bytes > CAPACITY
+    frames = [f1, f2]
+    prev_tail = f2
+    for k in range(n_tail):
+        ft = prev_tail.copy()
+        ft[100 + 400 * k: 400 + 400 * k] += 50
+        frames.append(ft)
+        prev_tail = ft
+    return base, frames
+
+
+@pytest.mark.parametrize("client_kind", ["port", "jax"])
+@pytest.mark.parametrize("kind", ["sync", "pipelined"])
+def test_v3_raw_resync_keeps_client_exact(cfg, kind, client_kind):
+    """A capacity overflow under wire v3 ships one raw frame; the client
+    stays on the oracle states, in order, and ends on the last one."""
+    cfg = dataclasses.replace(cfg, wire_format="v3",
+                              payload_capacity=CAPACITY)
+    base, frames = _overflow_script(cfg, 2 if kind == "pipelined" else 1)
+    cls = PipelinedExecutor if kind == "pipelined" else StreamExecutor
+    server = DeltaStreamServer(cfg, ScriptedSource(base, frames),
+                               executor=cls(cfg, device="cpu"),
+                               verbose=False, overlay_status=False)
+    t, errors = _serve_in_thread(server, len(frames))
+    cli = _client(client_kind, server.port, cfg)
+    cli.connect()
+    np.testing.assert_array_equal(cli.frame, base)
+    prev, expected = base.copy(), []
+    for f in frames:
+        prev = ref.step_oracle(prev, f, cfg)[0]
+        expected.append(prev.copy())
+    got = _drain(cli)
+    t.join(timeout=30)
+    server.close()
+    assert not t.is_alive() and not errors
+    positions = [p for p, _ in got]
+    assert positions.count(cfg.frame_bytes) == 1, positions
+    assert 0 < positions[-1] < cfg.frame_bytes, positions
+    exp_i = 0
+    for _, recon in got:
+        while exp_i < len(expected) and not np.array_equal(
+                recon, expected[exp_i]):
+            exp_i += 1
+        assert exp_i < len(expected), "client state matches no oracle state"
+    np.testing.assert_array_equal(got[-1][1], expected[-1])
+
+
+@pytest.mark.parametrize("wire_format", ["v1", "v2"])
+def test_v1_v2_overflow_is_fatal(cfg, wire_format):
+    cfg = dataclasses.replace(cfg, wire_format=wire_format,
+                              payload_capacity=CAPACITY)
+    base, frames = _overflow_script(cfg, 1)
+    server = DeltaStreamServer(cfg, ScriptedSource(base, frames),
+                               verbose=False, overlay_status=False,
+                               device="cpu")
+    t, errors = _serve_in_thread(server, len(frames))
+    cli = _client("port", server.port, cfg)
+    cli.connect()
+    got = _drain(cli)
+    t.join(timeout=30)
+    server.close()
+    assert len(got) == 1  # the first frame; the second overflows
+    assert len(errors) == 1 and isinstance(errors[0], PayloadOverflowError)
+
+
+def test_server_main_tiled_pipelined_v3(capsys):
+    """The command-line entry points on the tiled, pipelined v3 path."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    args = ["--height", "48", "--width", "64", "--frames", "4",
+            "--port", str(port), "--device", "cpu", "--tiled", "--pipelined",
+            "--wire", "v3", "--fetch", "flat", "--subtile", "8"]
+    errors = []
+
+    def run():
+        try:
+            server_mod.main(args)
+        except BaseException as e:
+            errors.append(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    for _ in range(200):  # until the server listens
+        try:
+            rc = client_mod.main(["--port", str(port), "--height", "48",
+                                  "--width", "64", "--frames", "4"])
+            break
+        except ConnectionRefusedError:
+            threading.Event().wait(0.05)
+    t.join(timeout=30)
+    assert rc == 0 and not errors and not t.is_alive()
+    assert "decoded 4 frames" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,error", [
+    (["--wire", "v4"], NotImplementedError),
+    (["--tiled", "--fetch", "mask"], NotImplementedError),
+    (["--tiled", "--bitmask"], NotImplementedError),
+    (["--tiled", "--maskonly"], NotImplementedError),
+    (["--tiled", "--land-batch", "2"], NotImplementedError),
+    (["--fetch", "flat"], SystemExit),
+    (["--tiled", "--capacity", "100"], SystemExit),
+], ids=["v4", "fetch_mask", "bitmask", "maskonly", "land_batch",
+        "fetch_without_tiled", "capacity_with_tiled"])
+def test_server_main_refuses(flags, error):
+    with pytest.raises(error) as e:
+        server_mod.main(["--device", "cpu", "--frames", "1"] + flags)
+    if error is NotImplementedError:
+        assert "ROADMAP.md M8" in str(e.value)
+
+
+def test_client_refuses_v4(monkeypatch):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md M8"):
+        DeltaStreamClient(wire_format="v4")
+    a, b = socket.socketpair()
+    with a, b:
+        monkeypatch.setattr(client_mod.socket, "create_connection",
+                            lambda addr: b)
+        a.sendall(wire.MAGIC_V4)
+        cli = DeltaStreamClient(height=4, width=4)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md M8"):
+            cli.connect()
+
+
+def test_client_pins_the_wire_magic(monkeypatch):
+    """A client pinned to v2/v3 refuses a stream without that magic, and
+    one pinned to v1 reads a v1 stream."""
+    base = np.arange(48, dtype=np.uint8)
+    for pinned, sent, ok in (("v3", wire.MAGIC_V2, False),
+                             ("v2", wire.MAGIC_V2, True),
+                             ("v1", b"", True)):
+        a, b = socket.socketpair()
+        with a, b:
+            monkeypatch.setattr(client_mod.socket, "create_connection",
+                                lambda addr, b=b: b)
+            a.sendall(sent + base.tobytes())
+            cli = DeltaStreamClient(height=4, width=4, wire_format=pinned)
+            if ok:
+                cli.connect()
+                np.testing.assert_array_equal(cli.frame, base)
+            else:
+                with pytest.raises(ValueError, match="magic"):
+                    cli.connect()
+
+
+@pytest.mark.parametrize("unit_bytes", [128, 256, 1024, 63_488, 65_536,
+                                        131_072])
+def test_lander_narrowing_matches_jax(rng, unit_bytes):
+    """The unit-local dtype and the host rebuild of global indices are the
+    JAX lander's."""
+    ours = TiledLander.compact_dtype(unit_bytes)
+    assert ours == JaxLander._compact_dtype(unit_bytes)
+    if ours is None:
+        return
+    rows, t_lo = 6, 3
+    counts = rng.integers(0, min(unit_bytes, 200), rows, endpoint=True)
+    local = np.zeros((rows, unit_bytes), ours)
+    for r, c in enumerate(counts):
+        local[r, :c] = np.sort(rng.choice(unit_bytes, c, replace=False))
+    got = TiledLander.rebuild_xs(local, counts, t_lo, unit_bytes)
+    want = JaxLander._rebuild_xs(local, counts, t_lo, t_lo, t_lo + rows,
+                                 unit_bytes)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_lander_auto_follows_the_byte_model():
+    """auto takes each flavor twice (tiles first), then the flavor that
+    moves fewer bytes per the measured rate and merge time."""
+    lander = TiledLander("auto")
+    picks = []
+    for _ in range(4):
+        flat = lander.use_flat(10, 0, 1000, 128)
+        lander.fetch_counts["flat" if flat else "tiles"] += 1
+        picks.append(flat)
+    assert picks == [False, False, True, True]
+    lander.copy_bytes_per_s = 1e10
+    lander.merge_s = 1e-4
+    # a dense span: 2 B x 128 x 48,608 slots vs 5 B x 3.1M entries
+    assert not lander.use_flat(3_100_000, 0, 48_608, 128)
+    # a sparse, wide span: 12.4 MB of blocks vs 5 KB of entries + merge
+    assert lander.use_flat(1_000, 0, 48_608, 128)
+    assert TiledLander("flat").use_flat(0, 0, 0, 128)
+    assert not TiledLander("tiles").use_flat(10**6, 0, 48_608, 128)
+    with pytest.raises(ValueError):
+        TiledLander("mask")
+
+
+def test_pipelined_executor_lags_one_frame(cfg):
+    """process returns the previous frame's payload (None for the first),
+    flush the last; resync drops the pending payload."""
+    tcfg = dataclasses.replace(cfg, tiled_payload=True, fetch_mode="tiles")
+    src = SyntheticSource(tcfg, seed=2)
+    base = src.base_frame()
+    frames = [next(src) for _ in range(3)]
+    sync, pipe = (StreamExecutor(tcfg, device="cpu"),
+                  PipelinedExecutor(tcfg, device="cpu"))
+    sync.start(base)
+    pipe.start(base)
+    want = [sync.process(f) for f in frames]
+    got = [pipe.process(f) for f in frames] + [pipe.flush()]
+    assert got[0] is None and pipe.flush() is None
+    for (pa, xa, _, _), (pb, xb, _, _) in zip(got[1:], want):
+        assert pa == pb
+        for a, b in zip(xa.to_flat(), xb.to_flat()):
+            np.testing.assert_array_equal(a, b)
+    pipe.process(frames[0])
+    np.testing.assert_array_equal(pipe.resync(), pipe._state.numpy())
+    assert pipe.flush() is None
