@@ -11,23 +11,30 @@ Phases (any failure raises and the script exits non-zero):
 2. build: every hand-written kernel of the serving paths, from ``csrc/``,
    one ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version at 1080p on the card,
-   byte for byte: K1 flat and K1 tiled (``subtile_rows`` 1, 8 and 0) over
-   densities, thresholds, negative feedback and the overlay region; K2 on
-   every tiled output and on raw pairs; plus one flat and one tiled
-   pipeline step against the NumPy spec;
+   byte for byte: K1 flat, K1 tiled and K1's bitmask-only emission
+   (``subtile_rows`` 1, 8 and 0) and K1 tiled with packed bits
+   (``subtile_rows`` 1) over densities, thresholds, negative feedback and
+   the overlay region; K2 on every tiled output and on raw pairs; K3 on
+   every bitmask-only output and on raw streams; plus one pipeline step of
+   each configuration (flat, tiled, tiled with bits, bitmask-only)
+   against the NumPy spec;
 4. serving: the port's server in a thread and the port's client over
-   127.0.0.1, 1080p synthetic frames with a changing overlay text, on four
-   paths — flat (wire v1), ``--tiled --fetch flat``, ``--tiled --fetch
-   tiles``, and ``--tiled --pipelined --wire v3``; the client's
-   reconstruction must equal the server's state every frame, and each
-   kernel's launch count, set to 0 just before a path and read just
+   127.0.0.1, 1080p synthetic frames with a changing overlay text, on
+   seven paths — flat (wire v1), ``--tiled --fetch flat``, ``--tiled
+   --fetch tiles``, ``--tiled --pipelined --wire v3``, ``--tiled
+   --bitmask --fetch mask --wire v4``, ``--tiled --fetch mask --maskonly
+   --wire v4 --land-batch 8`` and ``--tiled --bitmask --fetch auto``; the
+   client's reconstruction must equal the server's state every frame, and
+   each kernel's launch count, set to 0 just before a path and read just
    after, must show the path went through it;
 5. times from CUDA events (medians over 100 iterations, device-resident
    frames at ~6% density, inputs cold in L2): each kernel, its plain
-   version and its bound, ``pipeline.step`` flat and tiled, the landings
-   (``pos`` prefix; tiles and flat flavors), ``TiledPayload.to_flat`` and
-   the v3 encode on the host, and the synchronous against the pipelined
-   executor per frame; the source's host time per frame is printed apart.
+   version and its bound (and, for K3, ``torch.masked_select`` as its
+   library yardstick), ``pipeline.step`` flat and tiled, the landings
+   (``pos`` prefix; tiles, flat and mask flavors, the mask landing's host
+   rebuild apart), ``TiledPayload.to_flat`` and the v3 and v4 encodes on
+   the host, and the synchronous against the pipelined executor per frame;
+   the source's host time per frame is printed apart.
 
 It prints progress lines, then the card's ``nvidia-smi`` line, then one
 JSON line of kernel records, and last
@@ -305,6 +312,148 @@ def phase_tiled_vs_plain(cfg):
     return cases
 
 
+def phase_mask_vs_plain(cfg):
+    """K1's bitmask-only emission against its plain version at 1080p for
+    subtile_rows 1, 8 and 0, K1 tiled with packed bits at subtile_rows 1,
+    K3 on every bitmask-only output and on raw streams, and one step of
+    each mask configuration against the NumPy spec."""
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.runtime import wire
+    from cudavideostream_tpu_torch.runtime.executor import TiledLander
+    from cudavideostream_tpu_torch.utils import fonts
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 4)
+    region = torch.from_numpy(rng.integers(
+        0, 255, 288_000, endpoint=True, dtype=np.uint8)).to(dev)
+    cases = {"k1_mask": 0, "k1_bits": 0, "k3": 0}
+
+    def check_vals(name, vals_flat):
+        got = logcompact.vals_compact(vals_flat)
+        torch.cuda.synchronize()
+        _equal_or_raise(name, got,
+                        logcompact.vals_compact_reference(vals_flat),
+                        ("pos", "vals"))
+        cases["k3"] += 1
+        return int(got[0])
+
+    def run_mask(name, prev, cur, thr, negfeed, reg, sub):
+        p_k, p_p = prev.clone(), prev.clone()
+        k = logcompact.fused_diff_compact_mask(cur, p_k, thr, negfeed, reg,
+                                               sub)
+        torch.cuda.synchronize()
+        p = logcompact.fused_diff_compact_mask_reference(cur, p_p, thr,
+                                                         negfeed, reg, sub)
+        _equal_or_raise(name, k, p,
+                        ("pos", "counts", "vals_t", "bits", "new_prev"))
+        cases["k1_mask"] += 1
+        merged = logcompact.merge_vals(k[1], k[2])
+        torch.cuda.synchronize()
+        _equal_or_raise(name + " merge_vals", (merged,),
+                        (logcompact.vals_compact_reference(
+                            k[2].reshape(-1))[1],), ("vals",))
+        cases["k3"] += 1
+        return int(k[0]), tuple(k[2].shape), k[1].dtype
+
+    def run_bits(name, prev, cur, thr, negfeed, reg, sub):
+        p_k, p_p = prev.clone(), prev.clone()
+        k = logcompact.fused_diff_compact_tiled(cur, p_k, thr, negfeed, reg,
+                                                sub, emit_bits=True)
+        torch.cuda.synchronize()
+        p = logcompact.fused_diff_compact_tiled_reference(
+            cur, p_p, thr, negfeed, reg, sub, emit_bits=True)
+        _equal_or_raise(name, k, p, ("pos", "counts", "xs_t", "vals_t",
+                                     "bits", "new_prev"))
+        cases["k1_bits"] += 1
+        return int(k[0])
+
+    grid = [(thr, negfeed, reg) for thr in (0, 20, 255)
+            for negfeed in (True, False) for reg in (None, region)]
+    for density in (0.0, 0.06, 1.0):
+        prev_np, cur_np = frame_pair(rng, n, density)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        for sub in (1, 8, 0):
+            poss = []
+            for thr, negfeed, reg in grid:
+                name = (f"mask sub={sub} d={density} thr={thr} "
+                        f"negfeed={negfeed} overlay={reg is not None}")
+                pos, shape, cdt = run_mask(name, prev, cur, thr, negfeed,
+                                           reg, sub)
+                poss.append(pos)
+            log(f"[check] K1 mask subtile={sub} d={density}: 12 cases "
+                f"(thresholds 0/20/255 x negfeed x overlay) exact (pos, "
+                f"counts, vals_t, bits, new_prev), units {shape[0]} x "
+                f"{shape[1]} B, counts {cdt}, pos {min(poss)}..{max(poss)}; "
+                f"K3 merge_vals of each exact")
+        poss = [run_bits(f"tiled+bits d={density} thr={thr} negfeed="
+                         f"{negfeed} overlay={reg is not None}", prev, cur,
+                         thr, negfeed, reg, 1) for thr, negfeed, reg in grid]
+        log(f"[check] K1 tiled+bits subtile=1 d={density}: 12 cases exact "
+            f"(pos, counts, xs_t, vals_t, bits, new_prev), pos "
+            f"{min(poss)}..{max(poss)}")
+    for m in (1000, 12_345):
+        prev_np, cur_np = frame_pair(rng, m, 0.06)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        for sub in (1, 8, 0):
+            run_mask(f"mask n={m} sub={sub}", prev, cur, 20, True,
+                     region[:700], sub)
+            run_bits(f"tiled+bits n={m} sub={sub}", prev, cur, 20, True,
+                     region[:700], sub)
+        log(f"[check] K1 mask and K1 tiled+bits n={m} overlay=700 B, "
+            f"subtile 1/8/0: exact; K3 merge_vals exact")
+    # raw streams: the mask geometry's length, a short one, one that
+    # takes two tiles per block, and an all-zero stream
+    for m, density in ((6_225_920, 0.3), (777, 0.3), (4096 * 1024 + 5, 0.3),
+                       (6_225_920, 0.0)):
+        vals = torch.from_numpy(np.where(
+            rng.random(m) < density, rng.integers(1, 255, m, endpoint=True),
+            0).astype(np.uint8)).to(dev)
+        pos = check_vals(f"vals_compact n={m} d={density}", vals)
+        log(f"[check] K3 vals_compact on a raw stream of {m} B "
+            f"(pos={pos}): exact")
+
+    text = "FPS: 30 BW: 1234 kbps"
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    for label, kw in (
+            ("bitmask-only", dict(fetch_mode="mask", maskonly_payload=True)),
+            ("tiled+bits", {})):
+        mcfg = dataclasses.replace(cfg, tiled_payload=True,
+                                   emit_bitmask=True, **kw)
+        pipe = DeltaStreamPipeline(mcfg)
+        out = pipe.step(pipe.init_state(prev_np), cur_np, text=text)
+        pos, counts, bits = int(out[1]), out[2], out[-2]
+        vals_t = out[3] if mcfg.maskonly_payload else out[4]
+        e_prev, e_pos, e_xs, e_vals, _ = reference_cpu.step_oracle(
+            prev_np, cur_np, mcfg, atlas=pipe.atlas_np,
+            char_ids=fonts.encode_text(text))
+        vals = logcompact.merge_vals(counts, vals_t)
+        xs, v = wire.MaskPayload(pos, 0, bits.cpu().numpy(),
+                                 vals.cpu().numpy()).to_flat()
+        rebuilt = TiledLander.rebuild_mask_xs(bits.cpu().numpy(), pos, 0,
+                                              vals_t.shape[1])
+        ok = (pos == e_pos and np.array_equal(xs, e_xs)
+              and np.array_equal(rebuilt, e_xs) and np.array_equal(v, e_vals)
+              and np.array_equal(out[0].cpu().numpy(), e_prev))
+        if not mcfg.maskonly_payload:
+            txs, tvals = wire.TiledPayload(
+                pos, counts.cpu().numpy(), out[3].cpu().numpy(),
+                vals_t.cpu().numpy()).to_flat()
+            ok = ok and np.array_equal(txs, e_xs) and np.array_equal(
+                tvals, e_vals)
+        if not ok:
+            raise AssertionError(f"{label} pipeline.step on the card differs "
+                                 "from step_oracle")
+        cases["k1_mask" if mcfg.maskonly_payload else "k1_bits"] += 1
+        log(f"[check] {label} pipeline.step at 1080p == step_oracle after "
+            f"MaskPayload.to_flat and the bits rebuild (pos={pos})")
+    return cases
+
+
 class _RecordingExecutor:
     """The server's executor, plus a digest of the device state and the
     overlay text after every frame (the server calls start, process,
@@ -370,14 +519,18 @@ def _launch_counters():
 
     return {"fused_diff_compact": logcompact.fused_diff_compact,
             "fused_diff_compact_tiled": logcompact.fused_diff_compact_tiled,
-            "pair_compact": logcompact.pair_compact}
+            "fused_diff_compact_mask": logcompact.fused_diff_compact_mask,
+            "pair_compact": logcompact.pair_compact,
+            "vals_compact": logcompact.vals_compact}
 
 
-def phase_serving(cfg, label, pipelined=False):
+def phase_serving(cfg, label, pipelined=False, land_batch=0):
     """Serve 1080p frames over TCP on one path; returns the frames served,
-    every kernel's launches in that run and the landing flavors."""
+    the frames that changed some byte, every kernel's launches in that
+    run and the landing flavors."""
     from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
     from cudavideostream_tpu_torch.runtime.executor import (
+        BatchedLandExecutor,
         PipelinedExecutor,
         StreamExecutor,
     )
@@ -385,7 +538,10 @@ def phase_serving(cfg, label, pipelined=False):
     from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
 
     cfg = dataclasses.replace(cfg, port=0)
-    inner = (PipelinedExecutor if pipelined else StreamExecutor)(cfg)
+    if land_batch:
+        inner = BatchedLandExecutor(cfg, depth=land_batch)
+    else:
+        inner = (PipelinedExecutor if pipelined else StreamExecutor)(cfg)
     rec = _RecordingExecutor(inner)
     source = _UntilTextsChanged(SyntheticSource(cfg, seed=SEED), rec)
     server = DeltaStreamServer(cfg, source, executor=rec, verbose=False)
@@ -454,6 +610,7 @@ def phase_serving(cfg, label, pipelined=False):
         + ", ".join(f"{k}={v}" for k, v in launches.items())
         + (f"; landings {inner.fetch_counts}" if inner.fetch_counts else ""))
     return {"frames": frames, "launches": launches,
+            "nonempty": sum(p > 0 for p in positions),
             "fetch_counts": dict(inner.fetch_counts)}
 
 
@@ -485,8 +642,9 @@ def _event_median_ms(fn, iters, backlog=True):
 
 
 def _profile_ms(fn, names, label):
-    """Device time per launch of each named kernel over 20 calls of
-    ``fn(i)``, from a torch.profiler trace."""
+    """Device time per launch of each named kernel (a template's
+    instantiations included) over 20 calls of ``fn(i)``, from a
+    torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -495,7 +653,7 @@ def _profile_ms(fn, names, label):
         torch.cuda.synchronize()
     passes = {name: e.device_time_total / e.count / 1e3
               for e in prof.key_averages() for name in names
-              if f"::{name}(" in e.key}
+              if f"::{name}(" in e.key or f"::{name}<" in e.key}
     for name, ms in passes.items():
         log(f"[trace] {label} {name}: {ms:.4f} ms per launch (profiler)")
     if len(passes) != len(names):
@@ -823,6 +981,175 @@ def phase_tiled_times(cfg):
             "k2_ms": k2, "k2_plain_ms": k2_plain, "k2_bound_ms": k2_bound}
 
 
+def phase_mask_times(cfg):
+    """K1's bitmask-only emission and K3 against their plain versions and
+    bounds (and K3 against ``torch.masked_select``), K1 tiled with bits
+    against K1 tiled, the mask landing with its host rebuild apart, and
+    the v4 encode of a MaskPayload on the host."""
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.ops import overlay as overlay_ops
+    from cudavideostream_tpu_torch.runtime import wire
+    from cudavideostream_tpu_torch.runtime.executor import (
+        StreamExecutor,
+        TiledLander,
+        _Staged,
+    )
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    mcfg = dataclasses.replace(cfg, tiled_payload=True, emit_bitmask=True,
+                               fetch_mode="mask", maskonly_payload=True)
+    rng = np.random.default_rng(SEED + 5)
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    cur = torch.from_numpy(cur_np).to(dev)
+    prev0 = torch.from_numpy(prev_np).to(dev)
+    prevs = [prev0.clone() for _ in range(ITERS)]
+    curs = [cur.clone() for _ in range(CUR_COPIES)]
+
+    def refill():
+        for p in prevs:
+            p.copy_(prev0)
+
+    pipe = DeltaStreamPipeline(mcfg)
+    text = "FPS: 30 BW: 1234 kbps"
+    pipe.step(prev0.clone(), cur, text=text)  # warm-up
+    cell_h = pipe.atlas.shape[1]
+    region = overlay_ops.overlay_blit(
+        cur[: cell_h * cfg.width * 3], pipe.atlas, pipe._char_ids(text),
+        len(text), cell_h, cfg.width)
+    out = logcompact.fused_diff_compact_mask(cur, prev0.clone(), 20, True,
+                                             region, 1)
+    pos = int(out[0])
+    n_pad, unit_bytes = logcompact.tiled_geometry_mask(n, 1)
+    n_units = n_pad // unit_bytes
+
+    refill()
+    k1 = _event_median_ms(
+        lambda i: logcompact.fused_diff_compact_mask(
+            curs[i % CUR_COPIES], prevs[i], 20, True, region, 1), ITERS)
+    refill()
+    k1_plain = _event_median_ms(
+        lambda i: logcompact.fused_diff_compact_mask_reference(
+            curs[i % CUR_COPIES], prevs[i], 20, True, region, 1), ITERS,
+        backlog=False)
+    refill()
+    _profile_ms(lambda i: logcompact.fused_diff_compact_mask(
+        curs[i % CUR_COPIES], prevs[i], 20, True, region, 1),
+        ("tiled_unit_kernel", "sum_kernel"), "K1 mask subtile=1")
+    # K1 tiled without and with bits, in turns (plain, bits, bits, plain)
+    tiled_ms = {False: [], True: []}
+    for bits in (False, True, True, False):
+        refill()
+        tiled_ms[bits].append(_event_median_ms(
+            lambda i: logcompact.fused_diff_compact_tiled(
+                curs[i % CUR_COPIES], prevs[i], 20, True, region, 1,
+                emit_bits=bits), ITERS))
+
+    # K3 on the emission's vals blocks; 16 copies (6.2 MB each) rotate, so
+    # each launch reads blocks last touched ~90 MB of traffic back
+    blocks = [(out[1], out[2].clone()) for _ in range(16)]
+    k3 = _event_median_ms(lambda i: logcompact.merge_vals(*blocks[i % 16]),
+                          ITERS)
+    k3_plain = _event_median_ms(
+        lambda i: logcompact.vals_compact_reference(
+            blocks[i % 16][1].reshape(-1)), ITERS, backlog=False)
+    flat_vals = [b[1].reshape(-1) for b in blocks]
+    k3_lib = _event_median_ms(
+        lambda i: torch.masked_select(flat_vals[i % 16],
+                                      flat_vals[i % 16] != 0),
+        ITERS, backlog=False)
+    _profile_ms(lambda i: logcompact.merge_vals(*blocks[i % 16]),
+                ("count_kernel", "vals_compact_kernel"), "K3")
+
+    # the mask landing on one step's outputs, as a MaskPayload (wire v4)
+    # and as arrays rebuilt from the bits; the rebuild and the v4 encode
+    # on the host apart
+    staged = _Staged(pipe.step(prev0.clone(), cur, text=text)[1:], 2)
+    land = {}
+    for v4 in (True, False):
+        ex = StreamExecutor(dataclasses.replace(mcfg, mask_payload=v4),
+                            pipeline=pipe)
+        host = []
+
+        def land_once(_):
+            t = time.perf_counter()
+            land[(v4, "res")] = ex._land(t, staged)
+            host.append(time.perf_counter() - t)
+
+        land[v4] = (_event_median_ms(land_once, ITERS, backlog=False),
+                    statistics.median(host) * 1e3)
+    mp = land[(True, "res")][1]
+    rebuild_s, v4_s = [], []
+    for _ in range(20):
+        t = time.perf_counter()
+        TiledLander.rebuild_mask_xs(mp.bits, mp.pos,
+                                    mp.start_byte // unit_bytes, unit_bytes)
+        rebuild_s.append(time.perf_counter() - t)
+        enc = wire.V4Encoder(prev_np)
+        t = time.perf_counter()
+        buf = enc.encode(mp.pos, mp, None)
+        v4_s.append(time.perf_counter() - t)
+
+    # the v4 encode of served frames: the synthetic source through the
+    # bitmask-only step and the mask landing, as --maskonly --wire v4
+    # serves it; which mode wins decides whether the bits are forwarded
+    src = SyntheticSource(cfg, seed=SEED)
+    base = src.base_frame()
+    ex = StreamExecutor(dataclasses.replace(mcfg, mask_payload=True),
+                        pipeline=pipe)
+    ex.start(base)
+    served_enc = wire.V4Encoder(base)
+    served_s, modes = [], {}
+    for _ in range(20):
+        pos_k, mp_k, _, _ = ex.process(next(src), text=text)
+        t = time.perf_counter()
+        served_enc.encode(pos_k, mp_k, None)
+        served_s.append(time.perf_counter() - t)
+        modes[served_enc.last_mode] = modes.get(served_enc.last_mode, 0) + 1
+
+    # bounds: each input read once (prev n, and n of cur of which the
+    # overlay region replaces the first r bytes), each output written once
+    k1_bytes = 2 * n + n + n_pad + n_pad // 8 + n_units * 1 + 4
+    k3_bytes = n_pad + n_pad + 4
+    t_pad, t_unit = logcompact.tiled_geometry(n, 1)
+    tiled_bytes = 2 * n + n + 5 * t_pad + t_pad // t_unit + 4
+    k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
+    k3_bound = k3_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[time] bitmask-only, 1080p, pos={pos} ({pos / n:.2%}), overlay "
+        f"region {region.numel()} B, {n_units} units of {unit_bytes} B, "
+        f"medians of {ITERS} (CUDA events)")
+    log(f"[time] fused_diff_compact_mask kernel: {k1:.4f} ms (bound "
+        f"{k1_bound:.4f} ms = {k1_bytes} B at 3.35 TB/s; "
+        f"{k1_bound / k1:.1%} of it); its plain PyTorch version "
+        f"{k1_plain:.4f} ms")
+    log(f"[time] fused_diff_compact_tiled subtile=1 without / with bits, in "
+        f"turns: {' / '.join(f'{x:.4f}' for x in tiled_ms[False])} ms / "
+        f"{' / '.join(f'{x:.4f}' for x in tiled_ms[True])} ms (bound without "
+        f"{tiled_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, with "
+        f"{(tiled_bytes + t_pad // 8) / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    log(f"[time] vals_compact kernel (merge_vals of those blocks): {k3:.4f} "
+        f"ms (bound {k3_bound:.4f} ms = {k3_bytes} B; {k3_bound / k3:.1%} "
+        f"of it); its plain PyTorch version {k3_plain:.4f} ms; "
+        f"torch.masked_select(v, v != 0) {k3_lib:.4f} ms (the kept bytes "
+        f"only, no zero tail, and it synchronizes to size its output)")
+    for v4 in (True, False):
+        log(f"[time] mask landing ({'MaskPayload' if v4 else 'arrays rebuilt from the bits'}): "
+            f"{land[v4][0]:.4f} ms device span, {land[v4][1]:.4f} ms host")
+    log(f"[time] host rebuild of the indices from the bits window: "
+        f"{statistics.median(rebuild_s) * 1e3:.4f} ms; V4Encoder.encode of "
+        f"the MaskPayload (mode {buf[0]}, {len(buf)} B): "
+        f"{statistics.median(v4_s) * 1e3:.4f} ms")
+    log(f"[time] V4Encoder.encode of 20 served synthetic frames after the "
+        f"mask landing: {statistics.median(served_s) * 1e3:.4f} ms median "
+        f"on the host; modes {dict(sorted(modes.items()))} (0 delta16, 1 "
+        f"bitmask, 2 raw, 3 winmask: only 3 forwards the bits)")
+    return {"k1_ms": k1, "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bound,
+            "k3_ms": k3, "k3_plain_ms": k3_plain, "k3_bound_ms": k3_bound,
+            "k3_library_ms": k3_lib}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -836,6 +1163,9 @@ def main() -> int:
     phase_build()
     max_err, cases = phase_kernel_vs_plain(cfg)
     tiled_cases = phase_tiled_vs_plain(cfg)
+    mask_cases = phase_mask_vs_plain(cfg)
+    mcfg = dataclasses.replace(tcfg, emit_bitmask=True, fetch_mode="mask",
+                               mask_payload=True, wire_format="v4")
     runs = {
         "flat": phase_serving(cfg, "flat, wire v1"),
         "tiled_flat": phase_serving(
@@ -847,22 +1177,49 @@ def main() -> int:
         "tiled_pipelined_v3": phase_serving(
             dataclasses.replace(tcfg, wire_format="v3"),
             "--tiled --pipelined --wire v3", pipelined=True),
+        "bitmask_mask_v4": phase_serving(
+            mcfg, "--tiled --bitmask --fetch mask --wire v4"),
+        "maskonly_v4_batch8": phase_serving(
+            dataclasses.replace(mcfg, maskonly_payload=True),
+            "--tiled --fetch mask --maskonly --wire v4 --land-batch 8",
+            land_batch=8),
+        "bitmask_auto_v1": phase_serving(
+            dataclasses.replace(tcfg, emit_bitmask=True),
+            "--tiled --bitmask --fetch auto --wire v1"),
     }
+    none = dict.fromkeys(_launch_counters(), 0)
     _expect_launches(runs["flat"], "flat", {
-        "fused_diff_compact": runs["flat"]["frames"],
-        "fused_diff_compact_tiled": 0, "pair_compact": 0})
-    for key in ("tiled_flat", "tiled_tiles", "tiled_pipelined_v3"):
+        **none, "fused_diff_compact": runs["flat"]["frames"]})
+    for key in ("tiled_flat", "tiled_tiles", "tiled_pipelined_v3",
+                "bitmask_mask_v4", "bitmask_auto_v1"):
         run = runs[key]
+        fc = run["fetch_counts"]
+        # one K2 merge per non-empty flat landing, and per non-empty mask
+        # landing where index blocks exist; none for a tiles landing
+        # (under auto an empty frame lands as tiles)
+        merges = {"tiled_flat": run["nonempty"], "tiled_tiles": 0,
+                  "bitmask_mask_v4": run["nonempty"]}.get(
+                      key, fc["flat"] + fc["mask"])
         _expect_launches(run, key, {
-            "fused_diff_compact": 0,
-            "fused_diff_compact_tiled": run["frames"],
-            # one merge per flat landing, none for a tiles landing
-            "pair_compact": run["fetch_counts"]["flat"]})
-    if runs["tiled_flat"]["fetch_counts"]["flat"] != runs["tiled_flat"][
-            "frames"] or runs["tiled_tiles"]["fetch_counts"]["flat"]:
-        raise AssertionError("the landing flavors did not follow --fetch")
+            **none, "fused_diff_compact_tiled": run["frames"],
+            "pair_compact": merges})
+    run = runs["maskonly_v4_batch8"]
+    _expect_launches(run, "maskonly_v4_batch8", {
+        **none, "fused_diff_compact_mask": run["frames"],
+        "vals_compact": run["nonempty"]})
+    for key, mode in (("tiled_flat", "flat"), ("tiled_tiles", "tiles"),
+                      ("bitmask_mask_v4", "mask"),
+                      ("maskonly_v4_batch8", "mask")):
+        if runs[key]["fetch_counts"][mode] != runs[key]["frames"]:
+            raise AssertionError(f"{key}: the landing flavors did not follow "
+                                 f"--fetch {mode}")
+    log(f"[serve] --tiled --bitmask --fetch auto: landings "
+        f"{runs['bitmask_auto_v1']['fetch_counts']}, K2 launches "
+        f"{runs['bitmask_auto_v1']['launches']['pair_compact']} = its flat "
+        f"and mask landings")
     times = phase_times(cfg)
     ttimes = phase_tiled_times(cfg)
+    mtimes = phase_mask_times(cfg)
 
     def launches(name):
         by_path = {k: r["launches"][name] for k, r in runs.items()}
@@ -870,17 +1227,24 @@ def main() -> int:
 
     records = [
         ("fused_diff_compact", "logcompact.cu", 297, max_err,
-         times["ms"], times["plain_ms"], times["bound_ms"],
+         times["ms"], times["plain_ms"], times["bound_ms"], None,
          f"byte-exact in {cases} cases"),
         ("fused_diff_compact_tiled", "logcompact.cu", 297, 0,
-         ttimes["k1_ms"], ttimes["k1_plain_ms"], ttimes["k1_bound_ms"],
-         f"byte-exact in {tiled_cases['k1']} cases"),
+         ttimes["k1_ms"], ttimes["k1_plain_ms"], ttimes["k1_bound_ms"], None,
+         f"byte-exact in {tiled_cases['k1']} cases, and with bits in "
+         f"{mask_cases['k1_bits']}"),
+        ("fused_diff_compact_mask", "logcompact.cu", 297, 0,
+         mtimes["k1_ms"], mtimes["k1_plain_ms"], mtimes["k1_bound_ms"], None,
+         f"byte-exact in {mask_cases['k1_mask']} cases"),
         ("pair_compact", "pair_compact.cu", 1120, 0,
-         ttimes["k2_ms"], ttimes["k2_plain_ms"], ttimes["k2_bound_ms"],
+         ttimes["k2_ms"], ttimes["k2_plain_ms"], ttimes["k2_bound_ms"], None,
          f"byte-exact in {tiled_cases['k2']} cases"),
+        ("vals_compact", "pair_compact.cu", 1298, 0,
+         mtimes["k3_ms"], mtimes["k3_plain_ms"], mtimes["k3_bound_ms"],
+         mtimes["k3_library_ms"], f"byte-exact in {mask_cases['k3']} cases"),
     ]
     kernels = []
-    for name, src, line, err, ms, plain, bound, check in records:
+    for name, src, line, err, ms, plain, bound, lib_ms, check in records:
         total, by_path = launches(name)
         kernels.append({
             "name": name,
@@ -893,7 +1257,7 @@ def main() -> int:
             "plain_ms": plain,
             "bound_ms": bound,
             "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": lib_ms,
             "check": check,
             "launches_by_path": by_path,
         })

@@ -1,12 +1,16 @@
 // K1 on Hopper: fused threshold diff + negative feedback + stable
-// (ascending) stream compaction, in two emissions: flat, and tiled
-// (per-unit blocks).
+// (ascending) stream compaction, in three emissions: flat, tiled
+// (per-unit blocks), and tiled without index blocks (bitmask-only).
 //
 // Replaces the TPU kernel cudavideostream_tpu/ops/logcompact.py:_kernel_v2
 // (dispatched by _run_kernel, called from fused_diff_compact): with
 // emit="flat" together with the XLA tile merge _merge_tiles_impl that
-// follows it, and with emit="tiled" (sub_rows, logcompact.py:329-345 and
-// :891-970).
+// follows it, with emit="tiled" (sub_rows, logcompact.py:329-345 and
+// :891-970), and with emit="mask" (emit_xs=False, emit_bits=True,
+// logcompact.py:302-303, :508-513 and :839-849, at the mask geometry
+// _tile_geometry_mask). The tiled emission can also write the packed bits
+// beside the index blocks: the JAX pipeline packs those in an XLA pass
+// after the kernel (pipeline.py:208-227, the --bitmask emission).
 //
 // What both compute, for every byte i of an n-byte frame, with
 // c = i < region_len ? region[i] : cur[i] and p = prev[i]:
@@ -78,6 +82,20 @@
 // and sub_rows = 1, 49,820,132 B, or 14.87 us at 3.35 TB/s. The
 // one-pass design reads each byte once; the chunked design for whole-tile
 // units rereads cur and prev, as the flat kernel does.
+//
+// PACKED BITS (both tiled entry points, `bits` not null): bit k of
+// bits[j] is the ship mask of byte 8j + k, LSB-first over the n_pad bytes
+// (the ops/diff.py pack_bitmask layout); padding bytes are 0. The TPU
+// packs them with two MXU matmuls per tile (_pack_bits_block); here each
+// thread already holds its 16-byte group's ship mask m (bit k = byte
+// i0 + k), which IS that layout: one little-endian uint16 store at
+// bits + i0 / 8, coalesced across the warp.
+// BITMASK-ONLY (emit_xs = 0): the index blocks and their 16 KB of shared
+// staging go away (a template parameter removes them). At 1080p
+// (n_pad = 6,225,920 at the mask geometry, sub_rows = 1) it reads 2n and
+// writes new_prev (n), vals_t (n_pad), bits (n_pad / 8), counts (n_pad /
+// 128) and pos: 25,715,204 B, or 7.68 us at 3.35 TB/s, half the tiled
+// emission's bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -205,6 +223,13 @@ __device__ __forceinline__ void store_count(void* counts, int counts_bytes,
     static_cast<int*>(counts)[u] = c;
 }
 
+// The group's ship mask m as bits [i0, i0 + 16) of the LSB-first bitmask
+// (the caller keeps i0 < n_pad; bits is 2-byte aligned).
+__device__ __forceinline__ void store_bits(uint8_t* bits, long long i0,
+                                           unsigned m) {
+  *reinterpret_cast<uint16_t*>(bits + i0 / 8) = (uint16_t)m;
+}
+
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ prev,
              const uint8_t* __restrict__ region, long long region_len,
@@ -317,14 +342,18 @@ compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 // ---- tiled emission ----------------------------------------------------
 
 // One block per 4096-byte tile; units of unit_bytes divide the tile.
+// kXs: write the index blocks xs_t (false: the bitmask-only emission).
+// bits: the packed ship mask, or null.
+template <bool kXs>
 __global__ void __launch_bounds__(kThreads)
 tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                   const uint8_t* __restrict__ region, long long region_len,
                   long long n, long long n_pad, int thr, int negfeed,
                   int unit_bytes, int counts_bytes,
                   int* __restrict__ tile_tot, void* __restrict__ counts,
-                  int* __restrict__ xs_t, uint8_t* __restrict__ vals_t) {
-  __shared__ __align__(16) int s_xs[kTileBytes];
+                  int* __restrict__ xs_t, uint8_t* __restrict__ vals_t,
+                  uint8_t* __restrict__ bits) {
+  __shared__ __align__(16) int s_xs[kXs ? kTileBytes : 4];
   __shared__ __align__(16) uint8_t s_vals[kTileBytes];
   __shared__ int s_excl[kThreads];
   __shared__ int s_warp[kWarps];
@@ -334,9 +363,11 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 
   // zero the staging slots: int4 q * 256 + t, so a warp's stores are
   // consecutive 16-byte words
+  if (kXs) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    reinterpret_cast<int4*>(s_xs)[q * kThreads + t] = make_int4(0, 0, 0, 0);
+    for (int q = 0; q < 4; ++q)
+      reinterpret_cast<int4*>(s_xs)[q * kThreads + t] = make_int4(0, 0, 0, 0);
+  }
   reinterpret_cast<uint4*>(s_vals)[t] = make_uint4(0, 0, 0, 0);
 
   Vec16 c, p;
@@ -358,12 +389,13 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     if ((m >> k) & 1u) {
-      s_xs[r] = (int)(i0 + k);
+      if (kXs) s_xs[r] = (int)(i0 + k);
       s_vals[r] = (uint8_t)(c.b[k] - p.b[k]);  // (c - p) mod 256
       ++r;
     }
   }
   store_new_prev(prev, i0, n, m, c, p, negfeed);
+  if (bits != nullptr && i0 < n_pad) store_bits(bits, i0, m);
   if (t == first && base + slot0 < n_pad) {
     const int next = first + tpu;
     const int cu = (next < kThreads ? s_excl[next] : total) - s_excl[first];
@@ -373,12 +405,14 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   __syncthreads();
 
   // the tile's 4096 slots, entries and zero tails alike, in 16-byte words
+  if (kXs) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int w = q * kThreads + t;
-    if (base + 4 * w < n_pad)
-      reinterpret_cast<int4*>(xs_t + base)[w] =
-          reinterpret_cast<const int4*>(s_xs)[w];
+    for (int q = 0; q < 4; ++q) {
+      const int w = q * kThreads + t;
+      if (base + 4 * w < n_pad)
+        reinterpret_cast<int4*>(xs_t + base)[w] =
+            reinterpret_cast<const int4*>(s_xs)[w];
+    }
   }
   if (i0 < n_pad)
     *reinterpret_cast<uint4*>(vals_t + i0) =
@@ -417,6 +451,7 @@ tiled_chunk_count_kernel(const uint8_t* __restrict__ cur,
   }
 }
 
+template <bool kXs>
 __global__ void __launch_bounds__(kThreads)
 tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                            const uint8_t* __restrict__ region,
@@ -426,8 +461,9 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                            const int* __restrict__ chunk_counts,
                            void* __restrict__ counts,
                            int* __restrict__ xs_t,
-                           uint8_t* __restrict__ vals_t) {
-  __shared__ int s_xs[kTileBytes];
+                           uint8_t* __restrict__ vals_t,
+                           uint8_t* __restrict__ bits) {
+  __shared__ int s_xs[kXs ? kTileBytes : 1];
   __shared__ uint8_t s_vals[kTileBytes];
   __shared__ int s_warp[kWarps];
   __shared__ int s_red[2][kWarps];
@@ -471,15 +507,18 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     if ((m >> k) & 1u) {
-      s_xs[r] = (int)(i0 + k);
+      if (kXs) s_xs[r] = (int)(i0 + k);
       s_vals[r] = (uint8_t)(c.b[k] - p.b[k]);
       ++r;
     }
   }
-  if (off < unit_bytes) store_new_prev(prev, i0, n, m, c, p, negfeed);
+  if (off < unit_bytes) {
+    store_new_prev(prev, i0, n, m, c, p, negfeed);
+    if (bits != nullptr) store_bits(bits, i0, m);
+  }
   __syncthreads();
   for (int q = t; q < chunk_total; q += kThreads) {
-    xs_t[ubase + before + q] = s_xs[q];
+    if (kXs) xs_t[ubase + before + q] = s_xs[q];
     vals_t[ubase + before + q] = s_vals[q];
   }
   // zero fill: this block owns its chunk's slots of the unit's block
@@ -487,7 +526,7 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   const int z0 = unit_total > c0 ? unit_total : c0;
   const int z1 = unit_bytes < c0 + kTileBytes ? unit_bytes : c0 + kTileBytes;
   for (int o = z0 + t; o < z1; o += kThreads) {
-    xs_t[ubase + o] = 0;
+    if (kXs) xs_t[ubase + o] = 0;
     vals_t[ubase + o] = 0;
   }
 }
@@ -548,27 +587,35 @@ int cvs_tiled_grid(long long n_pad, int unit_bytes) {
 // Launch K1 with tiled emission on `stream`. n_pad is a multiple of
 // unit_bytes, which is a multiple of 16; `scratch` holds
 // cvs_tiled_grid(n_pad, unit_bytes) ints; counts has n_pad / unit_bytes
-// entries of counts_bytes bytes; xs_t and vals_t have n_pad entries.
-// Returns the cudaError_t of the launches (0 on success).
+// entries of counts_bytes bytes; vals_t has n_pad entries, and so has
+// xs_t when emit_xs is nonzero (it may be null otherwise); bits, when not
+// null, has n_pad / 8 bytes and is 2-byte aligned. Returns the
+// cudaError_t of the launches (0 on success).
 int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
                                  uint8_t* prev, const uint8_t* region,
                                  long long region_len, long long n,
                                  long long n_pad, int thr, int negfeed,
                                  int unit_bytes, int counts_bytes,
-                                 int* scratch, void* counts, int* xs_t,
-                                 uint8_t* vals_t, int* pos_out,
-                                 cudaStream_t stream) {
+                                 int* scratch, void* counts, int emit_xs,
+                                 int* xs_t, uint8_t* vals_t, uint8_t* bits,
+                                 int* pos_out, cudaStream_t stream) {
   if (unit_bytes <= 0 || unit_bytes % kBytesPerThread || n_pad % unit_bytes
       || n_pad < n || (counts_bytes != 1 && counts_bytes != 2
-                       && counts_bytes != 4))
+                       && counts_bytes != 4)
+      || (emit_xs && xs_t == nullptr) || ((uintptr_t)bits & 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int grid = cvs_tiled_grid(n_pad, unit_bytes);
   if (kTileBytes % unit_bytes == 0) {
-    tiled_unit_kernel<<<grid, kThreads, 0, stream>>>(
-        cur, prev, region, region_len, n, n_pad, thr, negfeed, unit_bytes,
-        counts_bytes, scratch, counts, xs_t, vals_t);
+    if (emit_xs)
+      tiled_unit_kernel<true><<<grid, kThreads, 0, stream>>>(
+          cur, prev, region, region_len, n, n_pad, thr, negfeed, unit_bytes,
+          counts_bytes, scratch, counts, xs_t, vals_t, bits);
+    else
+      tiled_unit_kernel<false><<<grid, kThreads, 0, stream>>>(
+          cur, prev, region, region_len, n, n_pad, thr, negfeed, unit_bytes,
+          counts_bytes, scratch, counts, nullptr, vals_t, bits);
   } else {
     const int chunks_per_unit = (unit_bytes + kTileBytes - 1) / kTileBytes;
     tiled_chunk_count_kernel<<<grid, kThreads, 0, stream>>>(
@@ -576,9 +623,15 @@ int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
         scratch);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    tiled_chunk_compact_kernel<<<grid, kThreads, 0, stream>>>(
-        cur, prev, region, region_len, n, thr, negfeed, unit_bytes,
-        chunks_per_unit, counts_bytes, scratch, counts, xs_t, vals_t);
+    if (emit_xs)
+      tiled_chunk_compact_kernel<true><<<grid, kThreads, 0, stream>>>(
+          cur, prev, region, region_len, n, thr, negfeed, unit_bytes,
+          chunks_per_unit, counts_bytes, scratch, counts, xs_t, vals_t, bits);
+    else
+      tiled_chunk_compact_kernel<false><<<grid, kThreads, 0, stream>>>(
+          cur, prev, region, region_len, n, thr, negfeed, unit_bytes,
+          chunks_per_unit, counts_bytes, scratch, counts, nullptr, vals_t,
+          bits);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

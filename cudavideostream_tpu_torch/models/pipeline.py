@@ -12,11 +12,13 @@ the state buffer in place — the counterpart of the JAX pipeline's donated
 ``prev`` and of the reference's ``swap(d_current, d_previous)``
 (``kernels.cu:451``).
 
-The port runs PALLAS compaction with flat emission (the default) or
-tiled emission (``tiled_payload``, per-unit blocks at ``subtile_rows``),
-no noise filter, no visualizer, a scalar threshold, and wire v1, v2 or
-v3. Other configurations raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+The port runs PALLAS compaction with flat emission (the default), tiled
+emission (``tiled_payload``, per-unit blocks at ``subtile_rows``), tiled
+emission with the packed change bits (``emit_bitmask``) or the
+bitmask-only emission (``maskonly_payload``: vals blocks and bits, no
+index blocks); no noise filter, no visualizer, a scalar threshold, and
+wire v1 to v4. Other configurations raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -62,11 +64,6 @@ def check_slice(config: StreamConfig, threshold_map=None) -> None:
         (config.compaction is not CompactionBackend.PALLAS,
          f"compaction={config.compaction.value}", "M12"),
         (threshold_map is not None, "per-byte threshold maps", "M17"),
-        (config.emit_bitmask, "the change-bitmask emission", "M8"),
-        (config.mask_payload, "mask payloads", "M8"),
-        (config.maskonly_payload, "the bitmask-only emission", "M8"),
-        (config.fetch_mode == "mask", "the mask landing", "M8"),
-        (config.wire_format == "v4", "wire v4", "M8"),
     ]
     for refused, what, item in refusals:
         if refused:
@@ -158,13 +155,21 @@ class DeltaStreamPipeline:
         Returns ``(new_prev, pos, xs, vals, aux)``: ``new_prev`` is
         ``prev`` updated in place; ``pos`` a 0-d int32 device tensor;
         ``xs`` int32 and ``vals`` uint8 of ``capacity`` entries, zero past
-        ``pos``; ``aux`` None (no visualizer is ported). With
-        ``tiled_payload`` it returns ``(new_prev, pos, counts, xs_t,
-        vals_t, aux)`` instead, the per-unit blocks of
-        :func:`~cudavideostream_tpu_torch.ops.logcompact.fused_diff_compact_tiled`
-        (always worst-case capacity), as the JAX pipeline does. The step
-        does not wait for the device: callers read the sizes and copy
-        what they need (see ``runtime.executor``).
+        ``pos``; ``aux`` None (no visualizer is ported). As the JAX
+        pipeline does (always worst-case capacity), it returns instead:
+
+        * with ``tiled_payload``: ``(new_prev, pos, counts, xs_t, vals_t,
+          aux)``, the per-unit blocks of
+          :func:`~cudavideostream_tpu_torch.ops.logcompact.fused_diff_compact_tiled`;
+        * with ``emit_bitmask`` too: ``(new_prev, pos, counts, xs_t,
+          vals_t, bits, aux)``, the packed change bits written by the same
+          launch;
+        * with ``maskonly_payload``: ``(new_prev, pos, counts, vals_t,
+          bits, aux)``, the bitmask-only emission
+          (:func:`~cudavideostream_tpu_torch.ops.logcompact.fused_diff_compact_mask`).
+
+        The step does not wait for the device: callers read the sizes and
+        copy what they need (see ``runtime.executor``).
         """
         cfg = self.config
         cur = self._frame(frame)
@@ -179,16 +184,25 @@ class DeltaStreamPipeline:
                 cur[:strip_bytes], self.atlas, self._char_ids(text), n_chars,
                 cell_h, cfg.width,
             )
-        if cfg.tiled_payload:
-            # pair_lanes is a TPU lane layout with identical outputs
-            pos, counts, xs_t, vals_t, new_prev = (
-                logcompact.fused_diff_compact_tiled(
+        # pair_lanes is a TPU lane layout with identical outputs
+        if cfg.maskonly_payload:
+            pos, counts, vals_t, bits, new_prev = (
+                logcompact.fused_diff_compact_mask(
                     cur, prev, threshold=cfg.threshold,
                     negative_feedback=cfg.negative_feedback,
                     overlay_region=region, sub_rows=cfg.subtile_rows,
                 )
             )
-            return new_prev, pos, counts, xs_t, vals_t, None
+            return new_prev, pos, counts, vals_t, bits, None
+        if cfg.tiled_payload:
+            # (pos, counts, xs_t, vals_t[, bits], new_prev)
+            *payload, new_prev = logcompact.fused_diff_compact_tiled(
+                cur, prev, threshold=cfg.threshold,
+                negative_feedback=cfg.negative_feedback,
+                overlay_region=region, sub_rows=cfg.subtile_rows,
+                emit_bits=cfg.emit_bitmask,
+            )
+            return (new_prev, *payload, None)
         pos, xs, vals, new_prev = logcompact.fused_diff_compact(
             cur, prev, threshold=cfg.threshold,
             negative_feedback=cfg.negative_feedback, overlay_region=region,

@@ -1,8 +1,10 @@
 """The elementwise delta operator: thresholded per-byte diff with
-negative feedback (the counterpart of the JAX package's ``ops/diff.py``).
+negative feedback, and the LSB-first change bitmask (the counterpart of
+the JAX package's ``ops/diff.py``).
 
-It is the elementwise half of the plain version of the fused kernel
-(:func:`cudavideostream_tpu_torch.ops.logcompact.fused_diff_compact_reference`).
+They are the elementwise half of the plain versions of the fused kernel
+(:func:`cudavideostream_tpu_torch.ops.logcompact.fused_diff_compact_reference`
+and its tiled and bitmask-only siblings).
 
 Byte-exact contract (vs :func:`reference_cpu.diff_encode`):
 
@@ -40,3 +42,19 @@ def diff_mask(
     else:
         new_prev = current.clone()
     return mask, vals, new_prev
+
+
+_BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def pack_bitmask(mask: torch.Tensor) -> torch.Tensor:
+    """Pack a bool mask into LSB-first bitmask bytes: bit ``i % 8`` of
+    byte ``i // 8`` is ``mask[i]``; a length that is not a multiple of 8
+    pads with zero bits. The contract of the JAX ``pack_bitmask``
+    (``ops/diff.py:74-104``), without its MXU layout."""
+    m = mask.reshape(-1).to(torch.uint8)
+    pad = (-m.numel()) % 8
+    if pad:
+        m = torch.cat([m, m.new_zeros(pad)])
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=m.device)
+    return (m.view(-1, 8).to(torch.int32) * w).sum(dim=1).to(torch.uint8)

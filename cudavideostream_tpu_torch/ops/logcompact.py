@@ -1,5 +1,5 @@
-"""Fused diff + negative feedback + stream compaction (K1), and the pair
-compaction that merges its per-unit blocks (K2).
+"""Fused diff + negative feedback + stream compaction (K1), and the
+compactions that merge its per-unit blocks: pairs (K2) and vals alone (K3).
 
 The counterpart of the JAX package's ``ops/logcompact.py``:
 
@@ -8,10 +8,18 @@ The counterpart of the JAX package's ``ops/logcompact.py``:
 * :func:`fused_diff_compact_tiled` — ``fused_diff_compact(emit="tiled")``,
   the per-unit blocks of ``_kernel_v2`` with ``sub_rows``, at the JAX
   package's own unit geometry (:func:`tiled_geometry`) and narrowed
-  counts, so the wire bytes and every output shape are the same;
+  counts, so the wire bytes and every output shape are the same; with
+  ``emit_bits`` it also writes the packed change bits of the
+  ``--bitmask`` emission;
+* :func:`fused_diff_compact_mask` — ``fused_diff_compact(emit="mask")``,
+  the bitmask-only emission: per-unit vals blocks and the packed bits at
+  the mask geometry (:func:`tiled_geometry_mask`), no index blocks;
 * :func:`pair_compact` — ``_kernel_pair``: a stable compaction of
   ``(xs, vals)`` pairs by ``vals != 0``, emitted flat;
-* :func:`merge_tiles` — ``merge_tiles``, through :func:`pair_compact`.
+* :func:`merge_tiles` — ``merge_tiles``, through :func:`pair_compact`;
+* :func:`vals_compact` — ``_kernel_vals``: the same compaction of a
+  ``vals`` stream alone, emitted flat;
+* :func:`merge_vals` — ``merge_vals``, through :func:`vals_compact`.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/logcompact.cu``, ``csrc/pair_compact.cu``) and adds one to its
@@ -77,7 +85,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.cvs_tiled_grid.argtypes = [ll, i]
         lib.cvs_tiled_grid.restype = i
         lib.cvs_fused_diff_compact_tiled.argtypes = [
-            i, p, p, p, ll, ll, ll, i, i, i, i, p, p, p, p, p, p,
+            i, p, p, p, ll, ll, ll, i, i, i, i, p, p, i, p, p, p, p, p,
         ]
         lib.cvs_fused_diff_compact_tiled.restype = i
         _bind_common(lib, "logcompact")
@@ -86,13 +94,15 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def _pair_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/pair_compact.cu`` (K2)."""
+    """Build (at first use) and bind ``csrc/pair_compact.cu`` (K2, K3)."""
     lib = _libs.get("pair_compact")
     if lib is None:
         lib = build.load("pair_compact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.cvs_pair_compact.argtypes = [i, p, p, ll, i, i, p, p, p, p, p]
         lib.cvs_pair_compact.restype = i
+        lib.cvs_vals_compact.argtypes = [i, p, ll, i, i, p, p, p, p]
+        lib.cvs_vals_compact.restype = i
         _bind_common(lib, "pair_compact")
         _libs["pair_compact"] = lib
     return lib
@@ -146,21 +156,56 @@ def _tile_geometry(rows: int) -> Tuple[int, int]:
     return pr, t
 
 
-def tiled_geometry(n: int, sub_rows: int) -> Tuple[int, int]:
-    """``(n_pad, unit_bytes)`` of the tiled emission of an ``n``-byte frame.
+def _tile_geometry_mask(rows: int) -> Tuple[int, int]:
+    """``(padded_rows, tile_rows)`` of the bitmask-only emission: tiles
+    of a multiple of 64 rows (a TPU block-shape rule, kept so that the
+    outputs have the JAX package's shapes; ``logcompact.py:131-155``)."""
+    pr = -(-rows // 64) * 64
+    if pr <= 512:
+        return pr, pr
+    while True:
+        best = None
+        for d in range(64, 513, 64):
+            if pr % d == 0:
+                best = d
+        if best is not None and best >= 384:
+            break
+        pr += 64
+    if pr // best > GEOMETRY_MAX_GRID:
+        t = (-(-rows // GEOMETRY_MAX_GRID) + 63) // 64 * 64
+        pr = -(-rows // t) * t
+        return pr, t
+    return pr, best
 
-    Units are ``sub_rows`` rows of 128 bytes, or whole tiles when
-    ``sub_rows`` is 0, does not divide the tile, or the tile is taller
-    than 512 rows (the JAX package falls back silently in those cases,
-    ``logcompact.py:894-903``, and so does this). The frame pads to
-    ``n_pad`` bytes with ``cur == prev`` bytes, which never ship."""
-    rows, tile_rows = _tile_geometry(-(-n // LANES))
+
+def _unit_geometry(rows: int, tile_rows: int,
+                   sub_rows: int) -> Tuple[int, int]:
+    """``(n_pad, unit_bytes)`` of ``rows`` padded rows cut into units of
+    ``sub_rows`` rows, or whole tiles when ``sub_rows`` is 0, does not
+    divide the tile, or the tile is taller than 512 rows (the JAX
+    package falls back silently in those cases, ``logcompact.py:894-903``,
+    and so does this)."""
     if sub_rows and (tile_rows % sub_rows or tile_rows > 512):
         sub_rows = 0
     n_pad = rows * LANES
     if n_pad >= 1 << 31:
         raise ValueError("frame byte indices exceed int32")
     return n_pad, (sub_rows or tile_rows) * LANES
+
+
+def tiled_geometry(n: int, sub_rows: int) -> Tuple[int, int]:
+    """``(n_pad, unit_bytes)`` of the tiled emission of an ``n``-byte
+    frame: units of ``sub_rows`` rows of 128 bytes (see
+    :func:`_unit_geometry`). The frame pads to ``n_pad`` bytes with
+    ``cur == prev`` bytes, which never ship."""
+    return _unit_geometry(*_tile_geometry(-(-n // LANES)), sub_rows)
+
+
+def tiled_geometry_mask(n: int, sub_rows: int) -> Tuple[int, int]:
+    """``(n_pad, unit_bytes)`` of the bitmask-only emission: as
+    :func:`tiled_geometry` on the mask tiles (``_tile_geometry_mask``);
+    at 1080p 48,640 rows of 512-row tiles, ``n_pad`` = 6,225,920."""
+    return _unit_geometry(*_tile_geometry_mask(-(-n // LANES)), sub_rows)
 
 
 def counts_dtype(unit_bytes: int) -> torch.dtype:
@@ -308,81 +353,46 @@ def fused_diff_compact_reference(
     return pos, xs, vals, previous
 
 
-def fused_diff_compact_tiled(
-    current: torch.Tensor,
-    previous: torch.Tensor,
-    threshold: int = 20,
-    negative_feedback: bool = True,
-    overlay_region: Optional[torch.Tensor] = None,
-    sub_rows: int = 0,
-):
-    """Tiled-emit diff+compact; returns ``(pos, counts, xs_t, vals_t,
-    new_prev)`` as JAX ``fused_diff_compact(emit="tiled")`` does.
-
-    The frame is cut into ``n_units`` units of ``unit_bytes``
-    (:func:`tiled_geometry`). Unit ``u`` holds its ``counts[u]`` shipped
-    entries, ascending, at ``xs_t[u, :counts[u]]`` (GLOBAL byte indices,
-    int32) and ``vals_t[u, :counts[u]]`` (uint8 deltas), and zeros after
-    them. ``counts`` has the narrowest dtype that holds ``unit_bytes``
-    (:func:`counts_dtype`); ``pos`` is their int32 total, a 0-d tensor;
-    ``new_prev`` is ``previous``, updated in place. Concatenating the
-    units' prefixes gives the flat emission's ``(xs, vals)``.
-
-    CUDA tensors launch the kernel (and count one in
-    ``fused_diff_compact_tiled.launches``); CPU tensors run
-    :func:`fused_diff_compact_tiled_reference`.
-    """
-    _check_args(current, previous, threshold, overlay_region)
-    dev = current.device
-    if dev.type == "cpu":
-        return fused_diff_compact_tiled_reference(
-            current, previous, threshold, negative_feedback, overlay_region,
-            sub_rows,
-        )
-    region_len = _check_kernel_args("fused_diff_compact_tiled", current,
-                                    previous, overlay_region)
+def _launch_tiled(name, current, previous, threshold, negative_feedback,
+                  overlay_region, n_pad, unit_bytes, emit_xs, emit_bits):
+    """One launch of the tiled K1 entry point; returns ``(pos, counts,
+    xs_t or None, vals_t, bits or None)``."""
+    region_len = _check_kernel_args(name, current, previous, overlay_region)
     region_ptr = overlay_region.data_ptr() if region_len else None
     lib = _kernel_lib()
-    n = current.numel()
-    n_pad, unit_bytes = tiled_geometry(n, sub_rows)
+    dev = current.device
     n_units = n_pad // unit_bytes
-    cdt = counts_dtype(unit_bytes)
-    xs_t = torch.empty((n_units, unit_bytes), dtype=torch.int32, device=dev)
+    xs_t = (torch.empty((n_units, unit_bytes), dtype=torch.int32, device=dev)
+            if emit_xs else None)
     vals_t = torch.empty((n_units, unit_bytes), dtype=torch.uint8, device=dev)
-    counts = torch.empty(n_units, dtype=cdt, device=dev)
+    bits = (torch.empty(n_pad // 8, dtype=torch.uint8, device=dev)
+            if emit_bits else None)
+    counts = torch.empty(n_units, dtype=counts_dtype(unit_bytes), device=dev)
     scratch = torch.empty(lib.cvs_tiled_grid(n_pad, unit_bytes),
                           dtype=torch.int32, device=dev)
     pos = torch.empty((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.cvs_fused_diff_compact_tiled(
         _device_index(dev),
-        current.data_ptr(), previous.data_ptr(), region_ptr, region_len, n,
-        n_pad, int(threshold), int(bool(negative_feedback)), unit_bytes,
-        counts.element_size(), scratch.data_ptr(), counts.data_ptr(),
-        xs_t.data_ptr(), vals_t.data_ptr(), pos.data_ptr(), stream,
+        current.data_ptr(), previous.data_ptr(), region_ptr, region_len,
+        current.numel(), n_pad, int(threshold), int(bool(negative_feedback)),
+        unit_bytes, counts.element_size(), scratch.data_ptr(),
+        counts.data_ptr(), int(emit_xs),
+        None if xs_t is None else xs_t.data_ptr(), vals_t.data_ptr(),
+        None if bits is None else bits.data_ptr(), pos.data_ptr(), stream,
     )
-    _raise_on(rc, lib, "fused_diff_compact_tiled")
-    fused_diff_compact_tiled.launches += 1
-    return pos, counts, xs_t, vals_t, previous
+    _raise_on(rc, lib, name)
+    return pos, counts, xs_t, vals_t, bits
 
 
-fused_diff_compact_tiled.launches = 0
-
-
-def fused_diff_compact_tiled_reference(
-    current: torch.Tensor,
-    previous: torch.Tensor,
-    threshold: int = 20,
-    negative_feedback: bool = True,
-    overlay_region: Optional[torch.Tensor] = None,
-    sub_rows: int = 0,
-):
-    """The plain PyTorch version of :func:`fused_diff_compact_tiled`: the
-    mask from ``diff_mask``, each entry's rank in its unit from a
-    per-unit ``cumsum``, and one scatter into zeroed blocks."""
+def _tiled_plain(current, previous, threshold, negative_feedback,
+                 overlay_region, n_pad, unit_bytes, emit_xs, emit_bits):
+    """The plain PyTorch version of :func:`_launch_tiled`: the mask from
+    ``diff_mask``, each entry's rank in its unit from a per-unit
+    ``cumsum``, one scatter into zeroed blocks, and ``pack_bitmask``;
+    ``new_prev`` is written into ``previous`` in place."""
     dev = current.device
     n = current.numel()
-    n_pad, unit_bytes = tiled_geometry(n, sub_rows)
     n_units = n_pad // unit_bytes
     cur = _region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
@@ -395,15 +405,150 @@ def fused_diff_compact_tiled_reference(
     rank = torch.cumsum(m2, dim=1, dtype=torch.int32) - 1
     slot = (torch.arange(n_units, dtype=torch.int64, device=dev)[:, None]
             * unit_bytes + rank)[m2]
-    xs_t = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    xs_t = None
+    if emit_xs:
+        xs_t = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+        xs_t[slot] = torch.nonzero(m).flatten().to(torch.int32)
+        xs_t = xs_t.view(n_units, unit_bytes)
     vals_t = torch.zeros(n_pad, dtype=torch.uint8, device=dev)
-    xs_t[slot] = torch.nonzero(m).flatten().to(torch.int32)
     vals_t[slot] = dvals[mask]
+    bits = diff_ops.pack_bitmask(m) if emit_bits else None
     previous.copy_(new_prev)  # in place, as the kernel does
     pos = counts.sum(dtype=torch.int32)
-    return (pos, counts.to(counts_dtype(unit_bytes)),
-            xs_t.view(n_units, unit_bytes), vals_t.view(n_units, unit_bytes),
-            previous)
+    return (pos, counts.to(counts_dtype(unit_bytes)), xs_t,
+            vals_t.view(n_units, unit_bytes), bits)
+
+
+def fused_diff_compact_tiled(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    overlay_region: Optional[torch.Tensor] = None,
+    sub_rows: int = 0,
+    emit_bits: bool = False,
+):
+    """Tiled-emit diff+compact; returns ``(pos, counts, xs_t, vals_t,
+    new_prev)`` as JAX ``fused_diff_compact(emit="tiled")`` does, and
+    ``(pos, counts, xs_t, vals_t, bits, new_prev)`` with ``emit_bits``.
+
+    The frame is cut into ``n_units`` units of ``unit_bytes``
+    (:func:`tiled_geometry`). Unit ``u`` holds its ``counts[u]`` shipped
+    entries, ascending, at ``xs_t[u, :counts[u]]`` (GLOBAL byte indices,
+    int32) and ``vals_t[u, :counts[u]]`` (uint8 deltas), and zeros after
+    them. ``counts`` has the narrowest dtype that holds ``unit_bytes``
+    (:func:`counts_dtype`); ``pos`` is their int32 total, a 0-d tensor;
+    ``new_prev`` is ``previous``, updated in place. Concatenating the
+    units' prefixes gives the flat emission's ``(xs, vals)``.
+
+    ``emit_bits``: also return the LSB-first bitmask of the shipped bytes
+    over the ``n_pad`` bytes (``n_pad / 8`` uint8, padding bits 0), which
+    the JAX pipeline packs after its kernel for ``emit_bitmask``
+    (``pipeline.py:208-227``). Here the same launch writes it, from the
+    mask it already holds: ``prev`` is updated in place, so the JAX
+    pipeline's ``new_prev != prev`` no longer exists after the launch.
+
+    CUDA tensors launch the kernel (and count one in
+    ``fused_diff_compact_tiled.launches``); CPU tensors run
+    :func:`fused_diff_compact_tiled_reference`.
+    """
+    _check_args(current, previous, threshold, overlay_region)
+    if current.device.type == "cpu":
+        return fused_diff_compact_tiled_reference(
+            current, previous, threshold, negative_feedback, overlay_region,
+            sub_rows, emit_bits,
+        )
+    n_pad, unit_bytes = tiled_geometry(current.numel(), sub_rows)
+    out = _launch_tiled("fused_diff_compact_tiled", current, previous,
+                        threshold, negative_feedback, overlay_region, n_pad,
+                        unit_bytes, True, emit_bits)
+    fused_diff_compact_tiled.launches += 1
+    return _tiled_result(out, previous, emit_bits)
+
+
+fused_diff_compact_tiled.launches = 0
+
+
+def _tiled_result(out, previous, emit_bits):
+    pos, counts, xs_t, vals_t, bits = out
+    if emit_bits:
+        return pos, counts, xs_t, vals_t, bits, previous
+    return pos, counts, xs_t, vals_t, previous
+
+
+def fused_diff_compact_tiled_reference(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    overlay_region: Optional[torch.Tensor] = None,
+    sub_rows: int = 0,
+    emit_bits: bool = False,
+):
+    """The plain PyTorch version of :func:`fused_diff_compact_tiled`: the
+    mask from ``diff_mask``, each entry's rank in its unit from a
+    per-unit ``cumsum``, one scatter into zeroed blocks."""
+    n_pad, unit_bytes = tiled_geometry(current.numel(), sub_rows)
+    out = _tiled_plain(current, previous, threshold, negative_feedback,
+                       overlay_region, n_pad, unit_bytes, True, emit_bits)
+    return _tiled_result(out, previous, emit_bits)
+
+
+def fused_diff_compact_mask(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    overlay_region: Optional[torch.Tensor] = None,
+    sub_rows: int = 0,
+):
+    """Bitmask-only diff+compact; returns ``(pos, counts, vals_t, bits,
+    new_prev)`` as JAX ``fused_diff_compact(emit="mask")`` does.
+
+    The units are those of :func:`tiled_geometry_mask` (at 1080p 48,640
+    units of 128 B at ``sub_rows=1``). ``vals_t`` ``(n_units,
+    unit_bytes)`` holds each unit's shipped deltas, ascending, and zeros
+    past ``counts[u]``; ``counts`` is narrowed (:func:`counts_dtype`);
+    ``bits`` is the flat LSB-first ``n_pad / 8`` bitmask of the shipped
+    bytes (the ``pack_bitmask`` layout; ascending bit order is the
+    payload's index order). No index blocks exist. ``new_prev`` is
+    ``previous``, updated in place.
+
+    CUDA tensors launch the kernel (and count one in
+    ``fused_diff_compact_mask.launches``); CPU tensors run
+    :func:`fused_diff_compact_mask_reference`.
+    """
+    _check_args(current, previous, threshold, overlay_region)
+    if current.device.type == "cpu":
+        return fused_diff_compact_mask_reference(
+            current, previous, threshold, negative_feedback, overlay_region,
+            sub_rows,
+        )
+    n_pad, unit_bytes = tiled_geometry_mask(current.numel(), sub_rows)
+    pos, counts, _, vals_t, bits = _launch_tiled(
+        "fused_diff_compact_mask", current, previous, threshold,
+        negative_feedback, overlay_region, n_pad, unit_bytes, False, True)
+    fused_diff_compact_mask.launches += 1
+    return pos, counts, vals_t, bits, previous
+
+
+fused_diff_compact_mask.launches = 0
+
+
+def fused_diff_compact_mask_reference(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    overlay_region: Optional[torch.Tensor] = None,
+    sub_rows: int = 0,
+):
+    """The plain PyTorch version of :func:`fused_diff_compact_mask`."""
+    n_pad, unit_bytes = tiled_geometry_mask(current.numel(), sub_rows)
+    pos, counts, _, vals_t, bits = _tiled_plain(
+        current, previous, threshold, negative_feedback, overlay_region,
+        n_pad, unit_bytes, False, True)
+    return pos, counts, vals_t, bits, previous
 
 
 # -- K2 -------------------------------------------------------------------
@@ -493,3 +638,82 @@ def merge_tiles(counts: torch.Tensor, xs_t: torch.Tensor,
         raise ValueError("counts must have one entry per unit")
     _, xs, vals = pair_compact(xs_t.reshape(-1), vals_t.reshape(-1))
     return xs, vals
+
+
+# -- K3 -------------------------------------------------------------------
+
+def vals_compact(vals_flat: torch.Tensor):
+    """Stable compaction of a uint8 stream by ``vals != 0``; returns
+    ``(pos, vals)``, ``pos`` a 0-d int32 tensor and ``vals`` uint8 of the
+    input length, the nonzero bytes first in input order and zeros after
+    them.
+
+    The port of ``_kernel_vals`` (through ``_vals_compact``), emitted
+    flat: its output equals the concatenated prefixes of the JAX
+    function's per-tile blocks.
+
+    CUDA tensors launch the kernel (and count one in
+    ``vals_compact.launches``); CPU tensors run
+    :func:`vals_compact_reference`.
+    """
+    if (vals_flat.dtype != torch.uint8 or vals_flat.dim() != 1
+            or not vals_flat.is_contiguous()):
+        raise ValueError("vals_compact takes a contiguous 1-D uint8 tensor")
+    n = vals_flat.numel()
+    if n == 0:
+        raise ValueError("vals_compact takes a nonzero length")
+    if n >= 1 << 31:
+        raise ValueError("stream indices exceed int32")
+    dev = vals_flat.device
+    if dev.type == "cpu":
+        return vals_compact_reference(vals_flat)
+    if dev.type != "cuda":
+        raise ValueError(f"vals_compact runs on cuda or cpu, not {dev}")
+    if vals_flat.data_ptr() % 16:
+        raise ValueError("the kernel reads 16-byte vectors: vals must be "
+                         "16-byte aligned")
+    lib = _pair_lib()
+    per_block, grid = tile_plan(n)
+    vals = torch.empty(n, dtype=torch.uint8, device=dev)
+    counts = torch.empty(grid, dtype=torch.int32, device=dev)
+    pos = torch.empty((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.cvs_vals_compact(
+        _device_index(dev), vals_flat.data_ptr(), n, per_block, grid,
+        counts.data_ptr(), vals.data_ptr(), pos.data_ptr(), stream,
+    )
+    _raise_on(rc, lib, "vals_compact")
+    vals_compact.launches += 1
+    return pos, vals
+
+
+vals_compact.launches = 0
+
+
+def vals_compact_reference(vals_flat: torch.Tensor):
+    """The plain PyTorch version of :func:`vals_compact`
+    (``masked_select`` into zeros; it synchronizes with the device on
+    CUDA tensors)."""
+    kept = torch.masked_select(vals_flat, vals_flat != 0)
+    vals = torch.zeros_like(vals_flat)
+    vals[:kept.numel()] = kept
+    return (torch.tensor(kept.numel(), dtype=torch.int32,
+                         device=vals.device), vals)
+
+
+def merge_vals(counts: torch.Tensor, vals_t: torch.Tensor) -> torch.Tensor:
+    """Concatenate the units' vals prefixes into one flat uint8 stream of
+    ``n_units * unit_bytes`` entries, zero past ``pos`` — JAX
+    ``merge_vals`` on its ``[:pos]`` prefix, with a zero tail.
+
+    The merge of the bitmask-only emission, whose indices the landing
+    rebuilds from the bits: no index stream is read or written. The blocks
+    are zero past each unit's count, so the merge is a compaction of the
+    flattened blocks by ``vals != 0`` (:func:`vals_compact`, one K3 launch
+    at any unit count: both JAX branches, serial and two-stage). ``counts``
+    is checked for shape only."""
+    if vals_t.dim() != 2:
+        raise ValueError("vals_t must be (n_units, unit_bytes)")
+    if counts.shape != vals_t.shape[:1]:
+        raise ValueError("counts must have one entry per unit")
+    return vals_compact(vals_t.reshape(-1))[1]

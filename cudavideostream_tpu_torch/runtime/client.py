@@ -1,10 +1,10 @@
 """The decoding client — peer of the reference ``client/opencv.cpp``
-(port of the JAX package's ``runtime/client.py``, wire v1, v2 and v3).
+(port of the JAX package's ``runtime/client.py``, wire v1 to v4).
 
-Connects, reads the raw base frame (after the v2/v3 magic, which
+Connects, reads the raw base frame (after the v2/v3/v4 magic, which
 ``--wire auto`` sniffs), then loops reading one payload per frame and
 applying the uint8 wrap-add scatter (``client/opencv.cpp:64-66``); a v3
-raw frame replaces the state instead. No GUI dependency: ``--check``
+or v4 raw frame replaces the state instead. No GUI dependency: ``--check``
 prints a digest per second.
 
 Run:  ``python -m cudavideostream_tpu_torch.runtime.client --check --frames 100``
@@ -25,19 +25,11 @@ from cudavideostream_tpu_torch.runtime import wire
 _MAGICS = {wire.MAGIC_V2: "v2", wire.MAGIC_V3: "v3", wire.MAGIC_V4: "v4"}
 
 
-def _refuse_v4() -> None:
-    raise NotImplementedError("wire v4 is not ported to "
-                              "cudavideostream_tpu_torch yet: see "
-                              "ROADMAP.md M8")
-
-
 class DeltaStreamClient:
     def __init__(self, host: str = "127.0.0.1", port: int = 2734,
                  height: int = 1080, width: int = 1920,
                  wire_format: str = "auto"):
-        if wire_format == "v4":
-            _refuse_v4()
-        if wire_format not in ("auto", "v1", "v2", "v3"):
+        if wire_format not in ("auto", "v1", "v2", "v3", "v4"):
             raise ValueError(f"unknown wire_format {wire_format!r}")
         self.host, self.port = host, port
         self.n_bytes = height * width * 3
@@ -52,8 +44,9 @@ class DeltaStreamClient:
     def connect(self) -> None:
         self.sock = socket.create_connection((self.host, self.port))
         head = b""
-        if self.wire_format in ("v2", "v3"):
-            magic = wire.MAGIC_V2 if self.wire_format == "v2" else wire.MAGIC_V3
+        if self.wire_format in ("v2", "v3", "v4"):
+            magic = {"v2": wire.MAGIC_V2, "v3": wire.MAGIC_V3,
+                     "v4": wire.MAGIC_V4}[self.wire_format]
             if self._read(len(magic)) != magic:
                 raise ValueError(
                     f"server did not send the {self.wire_format} wire magic")
@@ -62,8 +55,6 @@ class DeltaStreamClient:
             # here are then its first bytes
             head = self._read(len(wire.MAGIC_V2))
             self.wire_format = _MAGICS.get(head, "v1")
-            if self.wire_format == "v4":
-                _refuse_v4()
             if self.wire_format != "v1":
                 head = b""
         rest = self._read(self.n_bytes - len(head))
@@ -71,7 +62,9 @@ class DeltaStreamClient:
 
     def read_frame(self) -> tuple[int, np.ndarray]:
         """Read and apply one delta; returns (pos, reconstructed frame)."""
-        if self.wire_format == "v3":
+        if self.wire_format in ("v3", "v4"):
+            # v4 is v3 plus mode 3, whose window bits read_frame_v3
+            # rebuilds into indices
             pos, xs, vals, raw = wire.read_frame_v3(self._read, self.n_bytes)
             if raw is not None:
                 self.frame = raw
@@ -105,8 +98,8 @@ def main(argv=None) -> int:
                    help="print a digest per second")
     p.add_argument("--wire", default="auto",
                    choices=["auto", "v1", "v2", "v3", "v4"],
-                   help="auto sniffs the v2/v3 magic (default); v1 = "
-                        "reference wire; v4 is not ported yet")
+                   help="auto sniffs the v2/v3/v4 magic (default); v1 = "
+                        "reference wire")
     args = p.parse_args(argv)
 
     cli = DeltaStreamClient(args.host, args.port, args.height, args.width,

@@ -1,6 +1,6 @@
 """Streaming executor: drives the pipeline and lands payloads on the host
-(port of the JAX package's ``StreamExecutor``, ``TiledLander`` and
-``PipelinedExecutor``).
+(port of the JAX package's ``StreamExecutor``, ``TiledLander``,
+``PipelinedExecutor`` and ``BatchedLandExecutor``).
 
 The reference's variable-length device-to-host copy is two
 ``cudaMemcpyAsync`` calls sized by ``pos`` after a sync
@@ -16,10 +16,11 @@ frame N, and a blocking ``.cpu()`` on the step's stream would queue
 behind frame N's kernels. The event of frame N-1 was recorded before
 frame N's kernels, and the landing stream runs beside them.
 
-The JAX executor's tiered static slices, fetch rungs, speculative windows
-and link cache exist for XLA's static shapes and a ~30 ms host-to-TPU
-round trip; eager PyTorch slices at any length, and the card's copies take
-microseconds (``ROADMAP.md`` says where each of those mechanisms goes).
+The JAX executor's tiered static slices, fetch rungs, speculative windows,
+host-authored overlay landings and link cache exist for XLA's static
+shapes and a ~30 ms host-to-TPU round trip; eager PyTorch slices at any
+length, and the card's copies take microseconds (``ROADMAP.md`` says where
+each of those mechanisms goes).
 """
 
 from __future__ import annotations
@@ -34,6 +35,17 @@ from cudavideostream_tpu_torch.config import PayloadOverflowError, StreamConfig
 from cudavideostream_tpu_torch.models.pipeline import DeltaStreamPipeline
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.runtime import wire
+
+# per-byte-value popcount / set-bit-position tables for the bitmask
+# rebuild (LSB-first: bit k of byte j is frame byte 8*j + k)
+_POPCOUNT = np.unpackbits(
+    np.arange(256, dtype=np.uint8)[:, None], axis=1, bitorder="little"
+).sum(axis=1).astype(np.intp)
+_BITPOS = np.zeros((256, 8), np.uint8)
+for _v in range(256):
+    _idx = np.flatnonzero(np.unpackbits(np.uint8([_v]), bitorder="little"))
+    _BITPOS[_v, : _idx.size] = _idx
+del _v, _idx
 
 
 class _Staged:
@@ -80,7 +92,7 @@ class _Copier:
 
 
 class TiledLander:
-    """Landing of per-unit payload blocks, in one of three flavors:
+    """Landing of per-unit payload blocks, in one of four flavors:
 
     * ``tiles``: find the non-empty unit span ``[t_lo, t_hi)`` from the
       host counts, narrow that block range's ``xs`` to unit-local
@@ -89,28 +101,44 @@ class TiledLander:
     * ``flat``: merge the blocks on the device (``logcompact.merge_tiles``,
       one K2 launch) and copy the ``pos``-long prefixes: flat ``(xs,
       vals)``;
+    * ``mask`` (payloads with packed bits): merge the vals on the device
+      (``merge_vals``, one K3 launch, for the bitmask-only emission; the
+      vals half of ``merge_tiles`` when index blocks exist) and copy the
+      ``pos``-long vals prefix and the span's bits. The result is a
+      :class:`~.wire.MaskPayload` under ``return_mask`` (wire v4 forwards
+      the bits), else flat ``(xs, vals)`` rebuilt from the bits on the
+      host (:meth:`rebuild_mask_xs`). The only flavor that can land a
+      bitmask-only payload;
     * ``auto``: per frame, the flavor the JAX byte model
-      (``TiledLander.use_flat``) predicts to be faster, with two numbers
+      (``TiledLander._pick_kind``) predicts to be fastest, with numbers
       measured here in place of the tunnel's link statistics: the rate
       of a whole ``tiles`` landing (copy and host rebuild) in bytes of
-      span, and what a ``flat`` landing takes beyond its bytes at that
-      rate (the merge). The first four landings take each flavor twice;
-      the first of each pays first-use allocations and is not measured.
+      span, and what each other flavor's landing takes beyond its bytes
+      at that rate (its merge and host work). A flavor is measured after
+      its second non-empty landing (the first pays first-use allocations
+      and is not timed); until every offered flavor is measured, ``auto``
+      takes the first unmeasured one, ``tiles`` first.
 
-    The wire bytes are the same whichever flavor lands; ``fetch_counts``
-    records the choices.
+    A frame that changed nothing (no non-empty unit) lands as an empty
+    result of the fixed flavor, or of ``tiles`` under ``auto``, with no
+    device work, and teaches ``auto`` nothing. The wire bytes are the
+    same whichever flavor lands; ``fetch_counts`` records the choices.
     """
 
-    #: weight of the newest measurement in the rate and merge-time EMAs
+    #: weight of the newest measurement in the rate and extra-time EMAs
     ALPHA = 0.3
 
-    def __init__(self, mode: str = "auto"):
-        if mode not in ("auto", "tiles", "flat"):
+    def __init__(self, mode: str = "auto", return_mask: bool = False):
+        if mode not in ("auto", "tiles", "flat", "mask"):
             raise ValueError(f"unknown landing flavor {mode!r}")
         self.mode = mode
-        self.fetch_counts = {"tiles": 0, "flat": 0}
+        self.return_mask = return_mask
+        self.fetch_counts = {"tiles": 0, "flat": 0, "mask": 0}
+        # non-empty landings per flavor (the first of each is not timed)
+        self._landed = {"tiles": 0, "flat": 0, "mask": 0}
         self.copy_bytes_per_s: Optional[float] = None
-        self.merge_s: Optional[float] = None
+        # per flavor: what a landing takes beyond its bytes at that rate
+        self.extra_s = {"flat": None, "mask": None}
 
     @staticmethod
     def compact_dtype(unit_bytes: int):
@@ -122,73 +150,131 @@ class TiledLander:
             return np.uint16
         return None
 
-    def use_flat(self, pos: int, t_lo: int, t_hi: int,
-                 unit_bytes: int) -> bool:
-        """The per-frame choice: ``tiles`` copies ``(1 + xs_bytes)`` bytes
-        per slot of the span, ``flat`` pays the merge and 5 bytes per
-        entry."""
+    def _measured(self, kind: str) -> bool:
+        if kind == "tiles":
+            return self.copy_bytes_per_s is not None
+        return self.extra_s[kind] is not None
+
+    def pick(self, pos: int, t_lo: int, t_hi: int, unit_bytes: int,
+             has_bits: bool) -> str:
+        """The per-frame flavor. Under ``auto``: the bytes each flavor
+        copies — ``tiles`` ``(1 + xs_bytes)`` per slot of the span,
+        ``flat`` 5 per entry, ``mask`` the span's bits (one per 8 slots)
+        and one per entry — at the measured rate, plus each flavor's
+        measured extra time; ties go to ``tiles``, then ``flat``."""
         if self.mode != "auto":
-            return self.mode == "flat"
-        if self.fetch_counts["tiles"] < 2:
-            return False
-        if self.fetch_counts["flat"] < 2:
-            return True
+            return self.mode
+        if t_hi == 0:
+            return "tiles"
+        offered = ("tiles", "flat", "mask") if has_bits else ("tiles", "flat")
+        for kind in offered:
+            if not self._measured(kind):
+                return kind
         narrow = self.compact_dtype(unit_bytes)
         xs_bytes = 4 if narrow is None else np.dtype(narrow).itemsize
-        t_tiles = (1 + xs_bytes) * (t_hi - t_lo) * unit_bytes
-        t_flat = 5 * pos
-        return (self.merge_s + t_flat / self.copy_bytes_per_s
-                < t_tiles / self.copy_bytes_per_s)
+        span = (t_hi - t_lo) * unit_bytes
+        rate = self.copy_bytes_per_s
+        cost = {"tiles": (1 + xs_bytes) * span / rate,
+                "flat": self.extra_s["flat"] + 5 * pos / rate}
+        if has_bits:
+            cost["mask"] = self.extra_s["mask"] + (span // 8 + pos) / rate
+        return min(cost, key=cost.get)
 
     def _ema(self, old: Optional[float], new: float) -> float:
         return new if old is None else old + self.ALPHA * (new - old)
 
-    def land(self, pos: int, counts: np.ndarray, staged: _Staged,
+    def land(self, pos: int, counts: np.ndarray, blocks, staged: _Staged,
              copier: _Copier):
-        """Land one frame; returns a TiledPayload or flat ``(xs, vals)``."""
-        _, counts_d, xs_t_d, vals_t_d = staged.outs[:4]
-        unit_bytes = xs_t_d.shape[1]
+        """Land one frame; ``blocks`` are its device ``(counts, xs_t or
+        None, vals_t, bits or None)``. Returns a TiledPayload, a
+        MaskPayload or flat ``(xs, vals)``."""
+        counts_d, xs_t_d, vals_t_d, bits_d = blocks
+        if xs_t_d is None and self.mode != "mask":
+            raise ValueError("bitmask-only payloads land through fetch "
+                             "mode 'mask' (no index blocks exist)")
+        if self.mode == "mask" and bits_d is None:
+            raise ValueError("fetch mode 'mask' needs the pipeline's packed "
+                             "bits (config.emit_bitmask)")
+        unit_bytes = vals_t_d.shape[1]
         nz = np.flatnonzero(counts)
         t_lo, t_hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
-        flat = self.use_flat(pos, t_lo, t_hi, unit_bytes)
-        self.fetch_counts["flat" if flat else "tiles"] += 1
+        kind = self.pick(pos, t_lo, t_hi, unit_bytes, bits_d is not None)
+        self.fetch_counts[kind] += 1
+        if t_hi == 0:
+            return self._empty(kind, counts, unit_bytes)
         t0 = time.perf_counter()
-        if flat:
+        if kind == "flat":
             def merged():
                 xs, vals = logcompact.merge_tiles(counts_d, xs_t_d, vals_t_d)
                 return xs[:pos], vals[:pos]
 
             res = tuple(copier.run(staged, merged))
-            if self.fetch_counts["flat"] > 1 and self.copy_bytes_per_s:
-                # what the landing took beyond its bytes at that rate
-                rest = (time.perf_counter() - t0
-                        - 5 * pos / self.copy_bytes_per_s)
-                self.merge_s = self._ema(self.merge_s, max(rest, 0.0))
-        else:
-            narrow = self.compact_dtype(unit_bytes)
-
+            nbytes = 5 * pos
+        elif kind == "mask":
             def window():
-                xw = xs_t_d[t_lo:t_hi]
-                if narrow is not None:
-                    # unit-local index; the int16 bits are read back as
-                    # uint16 on the host
-                    xw = torch.remainder(xw, unit_bytes).to(
-                        torch.uint8 if narrow is np.uint8 else torch.int16)
-                return xw, vals_t_d[t_lo:t_hi]
+                vals = (logcompact.merge_vals(counts_d, vals_t_d)
+                        if xs_t_d is None else
+                        logcompact.merge_tiles(counts_d, xs_t_d, vals_t_d)[1])
+                return (bits_d[t_lo * unit_bytes // 8: t_hi * unit_bytes // 8],
+                        vals[:pos])
 
-            xw, vw = copier.run(staged, window)
-            if narrow is np.uint16:
-                xw = xw.view(np.uint16)
-            res = wire.TiledPayload(
-                pos, counts[t_lo:t_hi],
-                self.rebuild_xs(xw, counts[t_lo:t_hi], t_lo, unit_bytes), vw,
-            )
-            if self.fetch_counts["tiles"] > 1 and vw.size:
-                rate = ((xw.nbytes + vw.nbytes)
-                        / max(time.perf_counter() - t0, 1e-9))
-                self.copy_bytes_per_s = self._ema(self.copy_bytes_per_s,
-                                                  rate)
+            bw, vw = copier.run(staged, window)
+            if self.return_mask:
+                res = wire.MaskPayload(pos, t_lo * unit_bytes, bw, vw)
+            else:
+                res = (self.rebuild_mask_xs(bw, pos, t_lo, unit_bytes), vw)
+            nbytes = bw.nbytes + vw.nbytes
+        else:
+            res, nbytes = self._land_tiles(pos, counts, xs_t_d, vals_t_d,
+                                           t_lo, t_hi, staged, copier)
+        self._learn(kind, nbytes, time.perf_counter() - t0)
         return res
+
+    def _land_tiles(self, pos, counts, xs_t_d, vals_t_d, t_lo, t_hi, staged,
+                    copier):
+        unit_bytes = xs_t_d.shape[1]
+        narrow = self.compact_dtype(unit_bytes)
+
+        def window():
+            xw = xs_t_d[t_lo:t_hi]
+            if narrow is not None:
+                # unit-local index; the int16 bits are read back as
+                # uint16 on the host
+                xw = torch.remainder(xw, unit_bytes).to(
+                    torch.uint8 if narrow is np.uint8 else torch.int16)
+            return xw, vals_t_d[t_lo:t_hi]
+
+        xw, vw = copier.run(staged, window)
+        if narrow is np.uint16:
+            xw = xw.view(np.uint16)
+        res = wire.TiledPayload(
+            pos, counts[t_lo:t_hi],
+            self.rebuild_xs(xw, counts[t_lo:t_hi], t_lo, unit_bytes), vw,
+        )
+        return res, xw.nbytes + vw.nbytes
+
+    def _learn(self, kind: str, nbytes: int, seconds: float) -> None:
+        """Fold one timed non-empty landing into the measurements."""
+        self._landed[kind] += 1
+        if self._landed[kind] < 2:
+            return  # the first landing of a flavor pays first-use costs
+        if kind == "tiles":
+            self.copy_bytes_per_s = self._ema(self.copy_bytes_per_s,
+                                              nbytes / max(seconds, 1e-9))
+        elif self.copy_bytes_per_s is not None:
+            rest = seconds - nbytes / self.copy_bytes_per_s
+            self.extra_s[kind] = self._ema(self.extra_s[kind], max(rest, 0.0))
+
+    def _empty(self, kind: str, counts: np.ndarray, unit_bytes: int):
+        """The landing of a frame that changed nothing, in ``kind``."""
+        if kind == "tiles":
+            return wire.TiledPayload(0, counts[:0],
+                                     np.empty((0, unit_bytes), np.int32),
+                                     np.empty((0, unit_bytes), np.uint8))
+        if kind == "mask" and self.return_mask:
+            return wire.MaskPayload(0, 0, np.empty(0, np.uint8),
+                                    np.empty(0, np.uint8))
+        return np.empty(0, np.int32), np.empty(0, np.uint8)
 
     @staticmethod
     def rebuild_xs(xw: np.ndarray, counts_span: np.ndarray, t_lo: int,
@@ -207,6 +293,30 @@ class TiledLander:
         out.reshape(-1)[slots] = xw.reshape(-1)[slots] + base
         return out
 
+    @staticmethod
+    def rebuild_mask_xs(bits_w: np.ndarray, pos: int, start_unit: int,
+                        unit_bytes: int) -> np.ndarray:
+        """Global ascending int32 indices from a packed bits window that
+        starts at unit ``start_unit`` and covers every non-empty unit (the
+        JAX ``_rebuild_mask_xs``): the window's nonzero bytes, each
+        expanded to its set-bit positions from a (256, 8) table.
+        LSB-first order is ascending byte order. Raises when the bits
+        count other than ``pos`` entries; never truncates."""
+        b = np.asarray(bits_w)
+        nzb = np.flatnonzero(b)
+        vals = b[nzb]
+        cnts = _POPCOUNT[vals]
+        total = int(cnts.sum())
+        if total != pos:
+            raise RuntimeError(
+                f"bitmask window rebuilt {total} indices, device counted "
+                f"pos={pos} (the window missed changed units)")
+        base = np.repeat(nzb * 8, cnts)
+        sel = _BITPOS[vals]
+        keep = np.arange(8, dtype=np.uint8) < cnts[:, None]
+        xs = (base + sel[keep]).astype(np.int32)
+        return xs + np.int32(start_unit * unit_bytes)
+
 
 class StreamExecutor:
     """Owns pipeline + device state; yields host payloads per frame."""
@@ -217,7 +327,8 @@ class StreamExecutor:
         self.pipe = pipeline or DeltaStreamPipeline(config, device=device)
         self._state = None
         self._copier = _Copier(self.pipe.device)
-        self.lander = (TiledLander(config.fetch_mode)
+        self.lander = (TiledLander(config.fetch_mode,
+                                   return_mask=config.mask_payload)
                        if config.tiled_payload else None)
         self.metrics = ExecMetrics()
 
@@ -237,8 +348,10 @@ class StreamExecutor:
 
         With ``tiled_payload`` configured, a ``tiles`` landing returns a
         :class:`~cudavideostream_tpu_torch.runtime.wire.TiledPayload` as
-        ``xs`` and None as ``vals`` (``.to_flat()`` gives the arrays); a
-        ``flat`` landing returns the arrays.
+        ``xs`` and None as ``vals`` (``.to_flat()`` gives the arrays), and
+        so does a ``mask`` landing under ``mask_payload``, with a
+        :class:`~cudavideostream_tpu_torch.runtime.wire.MaskPayload`; the
+        other landings return the arrays.
 
         Raises :class:`PayloadOverflowError` when the frame changed more
         bytes than the configured capacity; the device state has then
@@ -259,9 +372,18 @@ class StreamExecutor:
         sizes = staged.wait()
         pos = int(sizes[0])  # the frame's one wait on the device
         if self.lander is not None:
-            res = self.lander.land(pos, sizes[1], staged, self._copier)
+            outs = staged.outs
+            if self.cfg.maskonly_payload:
+                # (pos, counts, vals_t, bits, aux): no index blocks
+                blocks = (outs[1], None, outs[2], outs[3])
+            else:
+                # (pos, counts, xs_t, vals_t[, bits], aux)
+                blocks = (*outs[1:4],
+                          outs[4] if self.cfg.emit_bitmask else None)
+            res = self.lander.land(pos, sizes[1], blocks, staged,
+                                   self._copier)
             self.metrics.record(time.perf_counter() - t0, pos)
-            if isinstance(res, wire.TiledPayload):
+            if isinstance(res, (wire.TiledPayload, wire.MaskPayload)):
                 return pos, res, None, None
             return (pos, *res, None)
         if pos > self.cfg.capacity:
@@ -314,6 +436,50 @@ class PipelinedExecutor(StreamExecutor):
         # the pending payload's deltas are against a state the raw frame
         # replaces: a client that applied them afterwards would corrupt
         self._pending = None
+        return super().resync()
+
+
+class BatchedLandExecutor(StreamExecutor):
+    """Depth-K landing batch: dispatch K frames' steps, then land the K
+    payloads in order. The JAX executor batches to share one host-to-TPU
+    round trip between K frames; here the card runs K steps ahead of the
+    host's landings, at K frames of output latency. :meth:`process`
+    returns None until the batch fills, then a list of per-frame results
+    (oldest first); :meth:`flush` returns the sub-depth tail as a list
+    (None when nothing is queued)."""
+
+    def __init__(self, config: StreamConfig,
+                 pipeline: Optional[DeltaStreamPipeline] = None,
+                 device=None, depth: int = 4):
+        super().__init__(config, pipeline=pipeline, device=device)
+        if not config.tiled_payload:
+            raise ValueError("BatchedLandExecutor requires tiled_payload=True "
+                             "(the landing speaks the per-unit block layout)")
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        self.depth = depth
+        self._queue: list = []  # (t0, _Staged) of the frames not yet landed
+
+    def process(self, frame, text: str = ""):
+        if self._state is None:
+            raise RuntimeError("call start(base_frame) first")
+        self._queue.append(self._dispatch(frame, text))
+        if len(self._queue) < self.depth:
+            return None
+        return self._land_queue()
+
+    def _land_queue(self):
+        q, self._queue = self._queue, []
+        return [self._land(*item) for item in q]
+
+    def flush(self):
+        """Land whatever is queued (the sub-depth tail); a list."""
+        return self._land_queue() if self._queue else None
+
+    def resync(self) -> np.ndarray:
+        # the queued payloads' deltas are against states the raw frame
+        # replaces
+        self._queue = []
         return super().resync()
 
 

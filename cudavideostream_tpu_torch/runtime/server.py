@@ -5,12 +5,13 @@ Wire-compatible rebuild of the reference server loop (``server.cpp:38-175``
 + ``th_show_hdl``, ``threads.cpp:181-237``): listen on one socket, accept
 one client, ship the raw base frame, then one payload per frame — under
 the default wire v1 ``[u32 pos][i32 xs[pos]][u8 vals[pos]]``, which the
-reference OpenCV client decodes unmodified; under the opt-in v2/v3 the
-magic first (``runtime.wire``). The 1 Hz status line is printed and
+reference OpenCV client decodes unmodified; under the opt-in v2/v3/v4
+the magic first (``runtime.wire``). The 1 Hz status line is printed and
 rendered into the stream via the glyph overlay (``server.cpp:164-168``).
 
 Run:  ``python -m cudavideostream_tpu_torch.runtime.server --source synthetic``
       ``python -m cudavideostream_tpu_torch.runtime.server --tiled --pipelined --wire v3``
+      ``python -m cudavideostream_tpu_torch.runtime.server --tiled --fetch mask --maskonly --wire v4 --land-batch 8``
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import time
 from cudavideostream_tpu_torch.config import PayloadOverflowError, StreamConfig
 from cudavideostream_tpu_torch.runtime import wire
 from cudavideostream_tpu_torch.runtime.executor import (
+    BatchedLandExecutor,
     PipelinedExecutor,
     StreamExecutor,
 )
@@ -33,11 +35,6 @@ class DeltaStreamServer:
     def __init__(self, config: StreamConfig, source: FrameSource,
                  executor: StreamExecutor | None = None, verbose: bool = True,
                  overlay_status: bool = True, device=None):
-        if config.wire_format == "v4":
-            raise NotImplementedError(
-                "wire v4 is not ported to cudavideostream_tpu_torch yet: "
-                "see ROADMAP.md M8"
-            )
         self.cfg = config
         self.source = source
         self.executor = executor or StreamExecutor(config, device=device)
@@ -91,6 +88,9 @@ class DeltaStreamServer:
         elif self.cfg.wire_format == "v3":
             conn.sendall(wire.MAGIC_V3)
             v3enc = wire.V3Encoder(base)
+        elif self.cfg.wire_format == "v4":
+            conn.sendall(wire.MAGIC_V4)
+            v3enc = wire.V4Encoder(base)
         conn.sendall(base.tobytes())
         text = ""
         n = 0
@@ -106,8 +106,9 @@ class DeltaStreamServer:
             except PayloadOverflowError as e:
                 self._resync(conn, v3enc, e)
                 result = None
-            if result is not None:  # a pipelined executor lags a frame
-                self._send(conn, result, v3enc)
+            # a pipelined executor lags a frame; a batched one returns
+            # None until its batch fills, then a list (oldest first)
+            self._send_all(conn, result, v3enc)
             n += 1
             line = self.executor.metrics.status_line(read_s)
             if line:
@@ -122,8 +123,7 @@ class DeltaStreamServer:
         except PayloadOverflowError as e:
             self._resync(conn, v3enc, e)
             tail = None
-        if tail is not None:
-            self._send(conn, tail, v3enc)
+        self._send_all(conn, tail, v3enc)
         if self.verbose:
             print()
         return n
@@ -141,12 +141,19 @@ class DeltaStreamServer:
         conn.sendall(buf)
         self.executor.metrics.wire_bytes += len(buf)
 
+    def _send_all(self, conn: socket.socket, result, v3enc) -> None:
+        """Send a result: None (nothing landed), one frame's, or a list."""
+        for res in result if isinstance(result, list) else [result]:
+            if res is not None:
+                self._send(conn, res, v3enc)
+
     def _send(self, conn: socket.socket, result, v3enc) -> None:
         pos, xs, vals, _aux = result
         if v3enc is not None:
+            # v3 rebuilds a MaskPayload's indices; v4 forwards its bits
             buf = v3enc.encode(pos, xs, vals)
         else:
-            if isinstance(xs, wire.TiledPayload):
+            if isinstance(xs, (wire.TiledPayload, wire.MaskPayload)):
                 xs, vals = xs.to_flat()
             pack = (wire.pack_payload_v2 if self.cfg.wire_format == "v2"
                     else wire.pack_payload)
@@ -154,12 +161,6 @@ class DeltaStreamServer:
         conn.sendall(buf)
         # the metrics count v1 framing; correct them to the bytes sent
         self.executor.metrics.wire_bytes += len(buf) - (4 + 5 * pos)
-
-
-def _refuse(what: str) -> None:
-    raise NotImplementedError(f"{what} is not ported to "
-                              "cudavideostream_tpu_torch yet: see "
-                              "ROADMAP.md M8")
 
 
 def main(argv=None) -> int:
@@ -177,8 +178,9 @@ def main(argv=None) -> int:
                    help="v1 = reference-compatible wire (default); v2 = "
                         "delta16 index gaps; v3 = adaptive delta16/bitmask/"
                         "raw, which also resyncs a client after a capacity "
-                        "overflow (the client must use --wire v2/v3/auto); "
-                        "v4 is not ported yet")
+                        "overflow; v4 = v3 plus the window bitmask, which "
+                        "forwards a mask landing's bits (the client must "
+                        "use --wire v2/v3/v4/auto)")
     p.add_argument("--tiled", action="store_true",
                    help="per-unit payload blocks straight from the kernel "
                         "(wire bytes identical)")
@@ -186,8 +188,10 @@ def main(argv=None) -> int:
                    choices=["auto", "tiles", "flat", "mask"],
                    help="tiled-payload landing: tiles = copy the non-empty "
                         "unit span; flat = device merge (K2) + pos-prefix "
-                        "copy; auto = per frame, from measured copy rate "
-                        "and merge time; mask is not ported yet")
+                        "copy; mask = device vals merge + pos-prefix and "
+                        "the span's packed bits (implies --bitmask); auto = "
+                        "per frame, from the measured copy rate and each "
+                        "flavor's extra time")
     p.add_argument("--subtile", type=int, default=None,
                    help="tiled compaction unit in 128-byte rows (0 = whole "
                         "tiles; default 1)")
@@ -195,11 +199,15 @@ def main(argv=None) -> int:
                    help="one-frame-deep software pipeline: land frame N-1 "
                         "while frame N computes")
     p.add_argument("--bitmask", action="store_true",
-                   help="not ported yet (ROADMAP.md M8)")
+                   help="the kernel also writes the packed change bits, "
+                        "which offers the mask landing (requires --tiled)")
     p.add_argument("--maskonly", action="store_true",
-                   help="not ported yet (ROADMAP.md M8)")
+                   help="bitmask-only emission: vals blocks and bits, no "
+                        "index blocks (requires --fetch mask)")
     p.add_argument("--land-batch", type=int, default=0, metavar="K",
-                   help="not ported yet (ROADMAP.md M8)")
+                   help="dispatch K frames, then land them in order "
+                        "(requires --tiled; exclusive with --pipelined); "
+                        "0 = off")
     p.add_argument("--capacity", type=int, default=None,
                    help="payload capacity bound in bytes (default: worst "
                         "case = frame bytes, never overflows); a frame that "
@@ -210,21 +218,22 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions)")
     args = p.parse_args(argv)
-    if args.wire == "v4":
-        _refuse("wire v4")
-    if args.fetch == "mask":
-        _refuse("--fetch mask")
-    if args.bitmask:
-        _refuse("--bitmask")
-    if args.maskonly:
-        _refuse("--maskonly")
-    if args.land_batch:
-        _refuse("--land-batch")
     if args.fetch != "auto" and not args.tiled:
-        p.error("--fetch tiles/flat applies to --tiled payloads")
+        p.error("--fetch tiles/flat/mask applies to --tiled payloads")
+    if args.bitmask and not args.tiled:
+        p.error("--bitmask applies to --tiled payloads")
+    if args.maskonly and args.fetch != "mask":
+        p.error("--maskonly requires --fetch mask (no index blocks exist "
+                "for the tiles/flat landings)")
     if args.capacity is not None and args.tiled:
         p.error("--capacity applies to flat payloads only (tiled payloads "
                 "are always worst-case capacity)")
+    if args.land_batch:
+        if not args.tiled:
+            p.error("--land-batch requires --tiled payloads")
+        if args.pipelined:
+            p.error("--land-batch is exclusive with --pipelined")
+    mask_flavor = args.bitmask or args.fetch == "mask"
     cfg = StreamConfig(
         height=args.height,
         width=args.width,
@@ -234,14 +243,23 @@ def main(argv=None) -> int:
         payload_capacity=args.capacity,
         tiled_payload=args.tiled,
         fetch_mode=args.fetch,
+        emit_bitmask=mask_flavor,
+        # v4 forwards a mask landing's bits window as it is
+        mask_payload=args.wire == "v4" and mask_flavor,
+        maskonly_payload=args.maskonly,
         wire_format=args.wire,
         **({"subtile_rows": args.subtile}
            if args.subtile is not None else {}),
     )
     source = make_source(args.source, cfg, seed=args.seed)
-    cls = PipelinedExecutor if args.pipelined else StreamExecutor
-    server = DeltaStreamServer(cfg, source,
-                               executor=cls(cfg, device=args.device))
+    if args.land_batch:
+        executor = BatchedLandExecutor(cfg, device=args.device,
+                                       depth=args.land_batch)
+    elif args.pipelined:
+        executor = PipelinedExecutor(cfg, device=args.device)
+    else:
+        executor = StreamExecutor(cfg, device=args.device)
+    server = DeltaStreamServer(cfg, source, executor=executor)
     try:
         served = server.serve(max_frames=args.frames)
     finally:

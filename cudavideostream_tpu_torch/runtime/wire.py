@@ -1,9 +1,8 @@
-"""The TCP wire formats v1, v2 and v3 — the byte-exact compatibility
-contract.
+"""The TCP wire formats v1 to v4 — the byte-exact compatibility contract.
 
-A copy of the v1-v3 subset of the JAX package's ``runtime/wire.py`` (its
-numpy paths: the JAX package's native encoder is a byte-identical fast
-path, ``ROADMAP.md`` M18). Little-endian, no framing, no checksum.
+A copy of the JAX package's ``runtime/wire.py`` (its numpy paths: the JAX
+package's native encoder is a byte-identical fast path, ``ROADMAP.md``
+M18). Little-endian, no framing, no checksum.
 
 **v1 (default)**, exactly what the reference server writes
 (``server/src/threads.cpp:224-231``) and the reference client reads
@@ -26,8 +25,16 @@ frame one mode byte and the cheapest body of three, by exact size (ties
 go to the first listed): mode 0 the v2 body; mode 1 ``[u32 pos]
 [u8 bitmask[ceil(n/8)]][u8 vals[pos]]`` (LSB-first change bits); mode 2
 the raw reconstructed frame, which is also how a server resyncs a client
-after a payload-capacity overflow. v4 (mode 3, the window bitmask) is not
-ported yet (``ROADMAP.md`` M8).
+after a payload-capacity overflow.
+
+**v4 "window bitmask"**: on connect :data:`MAGIC_V4`, then the base
+frame; per frame the cheapest of the three v3 bodies and mode 3
+``[u32 pos][u32 byte_start][u32 win_bytes][u8 bits[win_bytes/8]]
+[u8 vals[pos]]``: the LSB-first change bits of frame bytes
+``[byte_start, byte_start + win_bytes)`` only (both multiples of 8),
+ties going delta16 > winmask > bitmask > raw. A :class:`MaskPayload`
+(the mask landing's bits window and merged vals) is forwarded in mode 3
+without building an index stream (:class:`V4Encoder`).
 """
 
 from __future__ import annotations
@@ -41,18 +48,31 @@ import numpy as np
 
 _U32 = struct.Struct("<I")
 _2U32 = struct.Struct("<II")
+_3U32 = struct.Struct("<III")
 
-# stream prefixes of the opt-in formats (16 bytes each); v4's is known so
-# that a client can name what it cannot decode
+# stream prefixes of the opt-in formats (16 bytes each)
 MAGIC_V2 = b"CVSTPU-WIRE-V2\x00\x01"
 MAGIC_V3 = b"CVSTPU-WIRE-V3\x00\x01"
 MAGIC_V4 = b"CVSTPU-WIRE-V4\x00\x01"
 _GAP_ESC = 0xFFFF
 
-# v3 per-frame mode prefix (one byte)
+# v3 per-frame mode prefix (one byte); WINMASK appears in v4 streams only
 MODE_DELTA16 = 0
 MODE_BITMASK = 1
 MODE_RAW = 2
+MODE_WINMASK = 3
+
+# per-byte-value tables of the LSB-first bit layout: set-bit count, lowest
+# and highest set bit (entry 0 unused: callers index nonzero bytes only)
+_POPCNT8 = np.unpackbits(
+    np.arange(256, dtype=np.uint8)[:, None], axis=1
+).sum(axis=1).astype(np.int64)
+_LOWBIT8 = np.array(
+    [(v & -v).bit_length() - 1 if v else 0 for v in range(256)], np.int64
+)
+_HIGHBIT8 = np.array(
+    [v.bit_length() - 1 if v else 0 for v in range(256)], np.int64
+)
 
 
 def pack_payload(pos: int, xs: np.ndarray, vals: np.ndarray) -> bytes:
@@ -275,6 +295,10 @@ class V3Encoder:
 
     def encode(self, pos: int, xs, vals) -> bytes:
         """One frame -> ``[u8 mode][body]`` bytes, cheapest mode."""
+        if isinstance(xs, MaskPayload):
+            # v3 has no winmask mode: rebuild the index stream once
+            pos = xs.pos
+            xs, vals = xs.to_flat()
         if isinstance(xs, TiledPayload):
             xs, vals = xs.to_flat()
         xs = np.asarray(xs, dtype=np.int64)[:pos]
@@ -294,18 +318,155 @@ class V3Encoder:
         return bytes([MODE_RAW]) + self.frame.tobytes()
 
 
-def _unknown_mode(mode: int) -> ValueError:
-    if mode == 3:
-        return ValueError("v3 mode 3 (the v4 window bitmask) is not ported "
-                          "to cudavideostream_tpu_torch yet: see ROADMAP.md "
-                          "M8")
-    return ValueError(f"unknown v3 mode {mode}")
+# -- v4 (window bitmask) --------------------------------------------------
+
+def winmask_window(xs: np.ndarray) -> Tuple[int, int]:
+    """The minimal 8-aligned ``(byte_start, win_bytes)`` window covering
+    ascending indices ``xs`` (``(0, 0)`` when empty)."""
+    if len(xs) == 0:
+        return 0, 0
+    start = (int(xs[0]) // 8) * 8
+    end = (int(xs[-1]) // 8 + 1) * 8
+    return start, end - start
+
+
+def winmask_size(pos: int, win_bytes: int) -> int:
+    """Exact mode-3 wire bytes: mode + 3 x u32 header + bits + vals."""
+    return 13 + win_bytes // 8 + pos
+
+
+def encode_frame_v4_numpy(pos: int, xs: np.ndarray, vals: np.ndarray,
+                          frame_after: np.ndarray) -> bytes:
+    """One v4 frame, the cheapest of the v3 modes and mode 3 by exact
+    size, ties in the order delta16, winmask, bitmask, raw — the
+    byte-layout spec. :meth:`V4Encoder.encode` of a :class:`MaskPayload`
+    gives the same bytes."""
+    n = frame_after.size
+    xs = np.asarray(xs, dtype=np.int64)[:pos]
+    vals = np.asarray(vals, dtype=np.uint8)[:pos]
+    n_exc = int(np.count_nonzero(np.diff(xs, prepend=-1) >= _GAP_ESC))
+    start, wb = winmask_window(xs)
+    size_d, size_b, size_r = v3_sizes(pos, n_exc, n)
+    size_w = winmask_size(pos, wb)
+    if size_d <= size_w and size_d <= size_b and size_d <= size_r:
+        return bytes([MODE_DELTA16]) + pack_payload_v2(pos, xs, vals)
+    if size_w <= size_b and size_w <= size_r:
+        window = np.zeros(wb, dtype=np.uint8)
+        window[xs - start] = 1
+        bits = np.packbits(window, bitorder="little")
+        return (bytes([MODE_WINMASK]) + _3U32.pack(pos, start, wb)
+                + bits.tobytes() + vals.tobytes())
+    if size_b <= size_r:
+        mask = pack_bitmask_from_xs(xs, n)
+        return (bytes([MODE_BITMASK]) + _U32.pack(pos) + mask.tobytes()
+                + vals.tobytes())
+    return bytes([MODE_RAW]) + np.ascontiguousarray(
+        frame_after, dtype=np.uint8
+    ).tobytes()
+
+
+@dataclasses.dataclass
+class MaskPayload:
+    """One frame delta as the device's packed change-bits window and the
+    merged ascending values: the mask landing's result under
+    ``config.mask_payload``.
+
+    ``bits`` is LSB-first: bit ``k`` of ``bits[j]`` covers frame byte
+    ``start_byte + 8*j + k``; ``start_byte`` is a multiple of 8. The
+    window may carry zero bytes at either end (encoders trim them).
+    ``vals`` holds at least ``pos`` entries; ``vals[:pos]`` are the
+    payload.
+    """
+
+    pos: int
+    start_byte: int
+    bits: np.ndarray  # (win_bytes/8,) uint8
+    vals: np.ndarray  # (>= pos,) uint8
+
+    def to_flat(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Flat ``(xs, vals)`` host arrays (for the v1/v2/v3 senders)."""
+        xs = decode_bitmask(
+            np.asarray(self.bits, np.uint8), 8 * len(self.bits)
+        ) + np.int32(self.start_byte)
+        if xs.size != self.pos:
+            raise ValueError(
+                f"mask payload popcount {xs.size} != pos {self.pos}"
+            )
+        return xs, np.asarray(self.vals, np.uint8)[: self.pos]
+
+
+class V4Encoder(V3Encoder):
+    """Per-connection adaptive encoder for the v4 wire: v3's shadow and
+    modes plus mode 3. A :class:`MaskPayload` whose winmask encoding wins
+    is trimmed and forwarded as it is — no index stream is built, and the
+    shadow applies through the bits."""
+
+    def encode(self, pos: int, xs, vals) -> bytes:
+        if isinstance(xs, MaskPayload):
+            return self._encode_mask(xs)
+        if isinstance(xs, TiledPayload):
+            xs, vals = xs.to_flat()
+        xs = np.asarray(xs, dtype=np.int64)[:pos]
+        vals = np.asarray(vals, dtype=np.uint8)[:pos]
+        if pos:
+            self.frame[xs] = self.frame[xs] + vals  # uint8 wrap-add
+        buf = encode_frame_v4_numpy(pos, xs, vals, self.frame)
+        self.last_mode = buf[0]
+        return buf
+
+    def _encode_mask(self, mp: MaskPayload) -> bytes:
+        bits = np.asarray(mp.bits, np.uint8)
+        nzb = np.flatnonzero(bits)
+        if nzb.size == 0:
+            if mp.pos:
+                raise RuntimeError(
+                    f"mask payload window is empty but pos={mp.pos} "
+                    "(the landing window missed changed units)"
+                )
+            self.last_mode = MODE_DELTA16
+            return bytes([MODE_DELTA16]) + pack_payload_v2(
+                0, np.empty(0, np.int64), np.empty(0, np.uint8))
+        pos = mp.pos
+        nzv = bits[nzb]
+        total = int(_POPCNT8[nzv].sum())
+        if total != pos:
+            raise RuntimeError(
+                f"mask payload popcount {total} != device pos {pos} "
+                "(invariant violation, never truncate)"
+            )
+        vals = np.asarray(mp.vals, np.uint8)[:pos]
+        b0, b1 = int(nzb[0]), int(nzb[-1]) + 1
+        start = mp.start_byte + 8 * b0
+        wb = 8 * (b1 - b0)
+        # the exact delta16 size without building xs: an escaped gap can
+        # only span a run of zero bytes (within a byte a gap is <= 7), so
+        # each nonzero byte's lowest and highest set bit give every
+        # candidate gap
+        glo = mp.start_byte + 8 * nzb + _LOWBIT8[nzv]
+        ghi = mp.start_byte + 8 * nzb + _HIGHBIT8[nzv]
+        n_exc = int(glo[0] + 1 >= _GAP_ESC) + int(
+            np.count_nonzero(glo[1:] - ghi[:-1] >= _GAP_ESC))
+        size_d, size_b, size_r = v3_sizes(pos, n_exc, self.frame.size)
+        size_w = winmask_size(pos, wb)
+        if size_w < size_d and size_w <= size_b and size_w <= size_r:
+            bw = bits[b0:b1]
+            seg = self.frame[start: start + wb]
+            m = np.unpackbits(bw, bitorder="little")[: seg.size].view(bool)
+            seg[m] = seg[m] + vals  # uint8 wrap-add, ascending order
+            self.last_mode = MODE_WINMASK
+            return (bytes([MODE_WINMASK]) + _3U32.pack(pos, start, wb)
+                    + bw.tobytes() + vals.tobytes())
+        # a v3 mode is at least as small (or delta16 ties): rebuild the
+        # indices once; same sizes and tie order, so the spec's bytes
+        xs, vals = mp.to_flat()
+        return self.encode(pos, xs, vals)
 
 
 def unpack_frame_v3(buf: bytes, offset: int, n_bytes: int):
-    """Parse one v3 frame from a buffer. Returns ``(pos, xs, vals, raw,
-    consumed)``: ``raw`` is the full replacement frame of mode 2 (``xs``
-    and ``vals`` None), else None."""
+    """Parse one v3 or v4 frame from a buffer. Returns ``(pos, xs, vals,
+    raw, consumed)``: ``raw`` is the full replacement frame of mode 2
+    (``xs`` and ``vals`` None), else None. Mode 3's window bits are
+    rebuilt into global ``xs``."""
     if len(buf) - offset < 1:
         raise ValueError("short buffer: v3 mode byte")
     mode = buf[offset]
@@ -334,12 +495,28 @@ def unpack_frame_v3(buf: bytes, offset: int, n_bytes: int):
             raise ValueError("short buffer: v3 raw body")
         raw = np.frombuffer(buf, dtype=np.uint8, count=n_bytes, offset=o).copy()
         return n_bytes, None, None, raw, 1 + n_bytes
-    raise _unknown_mode(mode)
+    if mode == MODE_WINMASK:
+        if len(buf) - o < 12:
+            raise ValueError("short buffer: v4 winmask header")
+        pos, start, wb = _3U32.unpack_from(buf, o)
+        mb = wb // 8
+        need = 12 + mb + pos
+        if len(buf) - o < need:
+            raise ValueError("short buffer: v4 winmask body")
+        bits = np.frombuffer(buf, dtype=np.uint8, count=mb, offset=o + 12)
+        vals = np.frombuffer(
+            buf, dtype=np.uint8, count=pos, offset=o + 12 + mb
+        ).copy()
+        xs = decode_bitmask(bits, wb) + np.int32(start)
+        if xs.size != pos:
+            raise ValueError(f"v4 winmask popcount {xs.size} != pos {pos}")
+        return pos, xs, vals, None, 1 + need
+    raise ValueError(f"unknown v3 mode {mode}")
 
 
 def read_frame_v3(src, n_bytes: int):
-    """Blocking read of one v3 frame: ``(pos, xs, vals, raw)`` (socket or
-    ``read(n)``)."""
+    """Blocking read of one v3 or v4 frame: ``(pos, xs, vals, raw)``
+    (socket or ``read(n)``)."""
     rd = _reader(src)
     mode = rd(1)[0]
     if mode == MODE_DELTA16:
@@ -356,4 +533,12 @@ def read_frame_v3(src, n_bytes: int):
     if mode == MODE_RAW:
         raw = np.frombuffer(rd(n_bytes), dtype=np.uint8).copy()
         return n_bytes, None, None, raw
-    raise _unknown_mode(mode)
+    if mode == MODE_WINMASK:
+        pos, start, wb = _3U32.unpack(rd(12))
+        bits = np.frombuffer(rd(wb // 8), dtype=np.uint8)
+        vals = np.frombuffer(rd(pos), dtype=np.uint8).copy()
+        xs = decode_bitmask(bits, wb) + np.int32(start)
+        if xs.size != pos:
+            raise ValueError(f"v4 winmask popcount {xs.size} != pos {pos}")
+        return pos, xs, vals, None
+    raise ValueError(f"unknown v3 mode {mode}")

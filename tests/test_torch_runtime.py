@@ -24,6 +24,7 @@ from cudavideostream_tpu_torch.runtime import server as server_mod
 from cudavideostream_tpu_torch.runtime import wire
 from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
 from cudavideostream_tpu_torch.runtime.executor import (
+    BatchedLandExecutor,
     PipelinedExecutor,
     StreamExecutor,
     TiledLander,
@@ -161,13 +162,13 @@ def test_executor_requires_start(cfg):
 
 
 def test_server_refuses_other_wires(cfg):
-    """Wire v4 is not ported (ROADMAP M8); v1-v3 are."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M8"):
-        DeltaStreamServer(dataclasses.replace(cfg, wire_format="v4"),
-                          SyntheticSource(cfg), device="cpu")
-    for w in ("v1", "v2", "v3"):
+    """Wires v1 to v4 are ported (v4 since ROADMAP M8); any other name is
+    refused by the config."""
+    for w in ("v1", "v2", "v3", "v4"):
         DeltaStreamServer(dataclasses.replace(cfg, wire_format=w),
                           SyntheticSource(cfg), device="cpu")
+    with pytest.raises(ValueError, match="wire_format"):
+        dataclasses.replace(cfg, wire_format="v5")
 
 
 def test_synthetic_source_matches_jax(cfg):
@@ -448,33 +449,69 @@ def test_server_main_tiled_pipelined_v3(capsys):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--wire", "v4"], NotImplementedError),
-    (["--tiled", "--fetch", "mask"], NotImplementedError),
-    (["--tiled", "--bitmask"], NotImplementedError),
-    (["--tiled", "--maskonly"], NotImplementedError),
-    (["--tiled", "--land-batch", "2"], NotImplementedError),
+    (["--wire", "v4"], None),
+    (["--tiled", "--fetch", "mask"], None),
+    (["--tiled", "--bitmask"], None),
+    (["--tiled", "--fetch", "mask", "--maskonly"], None),
+    (["--tiled", "--land-batch", "2"], None),
     (["--fetch", "flat"], SystemExit),
     (["--tiled", "--capacity", "100"], SystemExit),
+    (["--tiled", "--maskonly"], SystemExit),
+    (["--bitmask"], SystemExit),
+    (["--land-batch", "2"], SystemExit),
+    (["--tiled", "--land-batch", "2", "--pipelined"], SystemExit),
 ], ids=["v4", "fetch_mask", "bitmask", "maskonly", "land_batch",
-        "fetch_without_tiled", "capacity_with_tiled"])
-def test_server_main_refuses(flags, error):
-    with pytest.raises(error) as e:
-        server_mod.main(["--device", "cpu", "--frames", "1"] + flags)
-    if error is NotImplementedError:
-        assert "ROADMAP.md M8" in str(e.value)
+        "fetch_without_tiled", "capacity_with_tiled",
+        "maskonly_without_fetch_mask", "bitmask_without_tiled",
+        "land_batch_without_tiled", "land_batch_with_pipelined"])
+def test_server_main_refuses(flags, error, monkeypatch):
+    """The command line refuses flag combinations the JAX server refuses;
+    the mask slice's flags (refused until ROADMAP M8) map to the config
+    and executor as the JAX server maps them."""
+    served = []
+    monkeypatch.setattr(server_mod.DeltaStreamServer, "serve",
+                        lambda self, max_frames=None: served.append(self)
+                        or 0)
+    if error is not None:
+        with pytest.raises(error):
+            server_mod.main(["--device", "cpu", "--frames", "1"] + flags)
+        assert not served
+        return
+    assert server_mod.main(["--device", "cpu", "--frames", "1", "--height",
+                            "48", "--width", "64"] + flags) == 0
+    (srv,) = served
+    c = srv.cfg
+    mask_flavor = "--bitmask" in flags or "mask" in flags
+    assert c.emit_bitmask == mask_flavor
+    assert c.mask_payload == (mask_flavor and c.wire_format == "v4")
+    assert c.maskonly_payload == ("--maskonly" in flags)
+    want = BatchedLandExecutor if "--land-batch" in flags else StreamExecutor
+    assert type(srv.executor) is want
+    if want is BatchedLandExecutor:
+        assert srv.executor.depth == 2
 
 
 def test_client_refuses_v4(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M8"):
-        DeltaStreamClient(wire_format="v4")
-    a, b = socket.socketpair()
-    with a, b:
-        monkeypatch.setattr(client_mod.socket, "create_connection",
-                            lambda addr: b)
-        a.sendall(wire.MAGIC_V4)
-        cli = DeltaStreamClient(height=4, width=4)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md M8"):
-            cli.connect()
+    """Wire v4 was refused until ROADMAP M8: a client pinned to v4 reads
+    the v4 magic, one on auto sniffs it, and a v4 client refuses a v3
+    stream."""
+    base = np.arange(48, dtype=np.uint8)
+    for pinned, sent, ok in (("v4", wire.MAGIC_V4, True),
+                             ("auto", wire.MAGIC_V4, True),
+                             ("v4", wire.MAGIC_V3, False)):
+        a, b = socket.socketpair()
+        with a, b:
+            monkeypatch.setattr(client_mod.socket, "create_connection",
+                                lambda addr, b=b: b)
+            a.sendall(sent + base.tobytes())
+            cli = DeltaStreamClient(height=4, width=4, wire_format=pinned)
+            if ok:
+                cli.connect()
+                assert cli.wire_format == "v4"
+                np.testing.assert_array_equal(cli.frame, base)
+            else:
+                with pytest.raises(ValueError, match="magic"):
+                    cli.connect()
 
 
 def test_client_pins_the_wire_magic(monkeypatch):
@@ -520,25 +557,66 @@ def test_lander_narrowing_matches_jax(rng, unit_bytes):
 
 
 def test_lander_auto_follows_the_byte_model():
-    """auto takes each flavor twice (tiles first), then the flavor that
-    moves fewer bytes per the measured rate and merge time."""
+    """auto takes each offered flavor until it is measured (tiles first,
+    mask only where bits exist), then the flavor that moves fewer bytes
+    per the measured rate and extra times; empty frames land as tiles."""
     lander = TiledLander("auto")
-    picks = []
-    for _ in range(4):
-        flat = lander.use_flat(10, 0, 1000, 128)
-        lander.fetch_counts["flat" if flat else "tiles"] += 1
-        picks.append(flat)
-    assert picks == [False, False, True, True]
+    assert [lander.pick(10, 0, 1000, 128, True),
+            lander.pick(0, 0, 0, 128, True)] == ["tiles", "tiles"]
     lander.copy_bytes_per_s = 1e10
-    lander.merge_s = 1e-4
-    # a dense span: 2 B x 128 x 48,608 slots vs 5 B x 3.1M entries
-    assert not lander.use_flat(3_100_000, 0, 48_608, 128)
-    # a sparse, wide span: 12.4 MB of blocks vs 5 KB of entries + merge
-    assert lander.use_flat(1_000, 0, 48_608, 128)
-    assert TiledLander("flat").use_flat(0, 0, 0, 128)
-    assert not TiledLander("tiles").use_flat(10**6, 0, 48_608, 128)
+    assert lander.pick(10, 0, 1000, 128, False) == "flat"
+    lander.extra_s["flat"] = 1e-4
+    assert lander.pick(10, 0, 1000, 128, True) == "mask"
+    lander.extra_s["mask"] = 1e-4
+    # a dense span: 2 B x 128 x 48,608 slots vs 5 B x 3.1M entries vs
+    # 777 KB of bits + 3.1 MB of vals: the mask moves fewest bytes
+    assert lander.pick(3_100_000, 0, 48_608, 128, True) == "mask"
+    assert lander.pick(3_100_000, 0, 48_608, 128, False) == "tiles"
+    # a sparse, wide span: 5 KB of entries + the merge
+    assert lander.pick(1_000, 0, 48_608, 128, True) == "flat"
+    assert lander.pick(0, 0, 0, 128, True) == "tiles"
+    for mode in ("flat", "tiles", "mask"):
+        assert TiledLander(mode).pick(10**6, 0, 48_608, 128, True) == mode
     with pytest.raises(ValueError):
-        TiledLander("mask")
+        TiledLander("shards")
+
+
+def test_auto_landing_survives_a_static_start():
+    """A stream that starts on a static scene: frames 1-2 equal the base,
+    frames 3-8 each change 500 bytes. The auto landing used to measure
+    the copy rate only on a non-empty tiles landing and then divide by
+    it unmeasured (TypeError on frame 5); each frame now lands, and
+    equals what the JAX executor lands."""
+    from cudavideostream_tpu.config import StreamConfig as JaxConfig
+    from cudavideostream_tpu.runtime.executor import (
+        StreamExecutor as JaxExecutor,
+    )
+
+    cfg = StreamConfig(height=120, width=160, tiled_payload=True)
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 255, cfg.frame_bytes, endpoint=True,
+                        dtype=np.uint8)
+    frames, f = [base.copy(), base.copy()], base.copy()
+    for _ in range(6):
+        f = f.copy()
+        idx = rng.choice(cfg.frame_bytes, 500, replace=False)
+        f[idx] ^= 0x80  # a jump of 128: every flipped byte ships
+        frames.append(f)
+    ours = StreamExecutor(cfg, device="cpu")
+    theirs = JaxExecutor(JaxConfig(height=120, width=160,
+                                   tiled_payload=True))
+    ours.start(base)
+    theirs.start(base)
+    for k, frame in enumerate(frames):
+        a, b = ours.process(frame), theirs.process(frame)
+        assert a[0] == b[0] == (0 if k < 2 else a[0]) and (k < 2 or a[0])
+        fa = a[1].to_flat() if a[2] is None else a[1:3]
+        fb = b[1].to_flat()
+        for x, y in zip(fa, fb):
+            np.testing.assert_array_equal(x, y)
+    assert theirs.fetch_counts["tiles"] == len(frames)
+    # empty frames land as tiles and teach nothing; then each flavor twice
+    assert ours.fetch_counts["tiles"] >= 4 and ours.fetch_counts["flat"] >= 2
 
 
 def test_pipelined_executor_lags_one_frame(cfg):

@@ -149,11 +149,23 @@ def test_v3_encoder_matches_jax_over_a_stream(rng):
 
 
 def test_v3_mode_3_names_the_roadmap_item():
-    buf = bytes([3]) + bytes(16)
-    with pytest.raises(ValueError, match="ROADMAP.md M8"):
-        wire.unpack_frame_v3(buf, 0, N)
-    with pytest.raises(ValueError, match="ROADMAP.md M8"):
-        wire.read_frame_v3(_reader(buf), N)
+    """Mode 3 (v4's window bitmask) was refused until the mask slice
+    (ROADMAP M8); it now decodes in both readers, as the JAX package's
+    does, and an unknown mode still raises."""
+    xs = np.array([16, 17, 23, 40], np.int32)
+    vals = np.array([1, 2, 3, 4], np.uint8)
+    buf = bytes([3]) + jax_wire._3U32.pack(4, 16, 32) + np.packbits(
+        np.isin(np.arange(16, 48), xs).astype(np.uint8),
+        bitorder="little").tobytes() + vals.tobytes()
+    for got in (wire.unpack_frame_v3(buf, 0, N)[:4],
+                wire.read_frame_v3(_reader(buf), N),
+                jax_wire.unpack_frame_v3(buf, 0, N)[:4]):
+        assert got[0] == 4 and got[3] is None
+        np.testing.assert_array_equal(got[1], xs)
+        np.testing.assert_array_equal(got[2], vals)
+    assert wire.unpack_frame_v3(buf + b"tail", 0, N)[4] == len(buf)
+    with pytest.raises(ValueError, match="short buffer"):
+        wire.unpack_frame_v3(buf[:-1], 0, N)
     with pytest.raises(ValueError, match="unknown v3 mode 9"):
         wire.unpack_frame_v3(bytes([9]), 0, N)
 
