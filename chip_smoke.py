@@ -15,26 +15,36 @@ Phases (any failure raises and the script exits non-zero):
    (``subtile_rows`` 1, 8 and 0) and K1 tiled with packed bits
    (``subtile_rows`` 1) over densities, thresholds, negative feedback and
    the overlay region; K2 on every tiled output and on raw pairs; K3 on
-   every bitmask-only output and on raw streams; plus one pipeline step of
-   each configuration (flat, tiled, tiled with bits, bitmask-only)
-   against the NumPy spec;
+   every bitmask-only output and on raw streams; K4 on the gray values of
+   a random frame, of the synthetic scene, of one value everywhere and of
+   0/255 only, and on ragged lengths; plus one pipeline step of each
+   configuration (flat, tiled, tiled with bits, bitmask-only), of each of
+   the 8 named variants, and of binarize and red-overlap on each tiled
+   emission, against the NumPy spec, the aux frame included;
 4. serving: the port's server in a thread and the port's client over
-   127.0.0.1, 1080p synthetic frames with a changing overlay text, on
-   seven paths — flat (wire v1), ``--tiled --fetch flat``, ``--tiled
-   --fetch tiles``, ``--tiled --pipelined --wire v3``, ``--tiled
-   --bitmask --fetch mask --wire v4``, ``--tiled --fetch mask --maskonly
-   --wire v4 --land-batch 8`` and ``--tiled --bitmask --fetch auto``; the
-   client's reconstruction must equal the server's state every frame, and
-   each kernel's launch count, set to 0 just before a path and read just
+   127.0.0.1, 1080p synthetic frames with a changing overlay text, on ten
+   paths — flat (wire v1), ``--tiled --fetch flat``, ``--tiled --fetch
+   tiles``, ``--tiled --pipelined --wire v3``, ``--tiled --bitmask
+   --fetch mask --wire v4``, ``--tiled --fetch mask --maskonly --wire v4
+   --land-batch 8``, ``--tiled --bitmask --fetch auto``, ``--visualizer
+   5``, ``--noise-filter --visualizer 1 --tiled --fetch flat`` and
+   ``--tiled --fetch mask --maskonly --wire v4 --land-batch 8
+   --visualizer 3``; the client's reconstruction must equal the server's
+   state every frame, every landed frame of a visualizer path must bring
+   its aux frame, the first 5 equal to the NumPy spec's, and each
+   kernel's launch count, set to 0 just before a path and read just
    after, must show the path went through it;
-5. times from CUDA events (medians over 100 iterations, device-resident
-   frames at ~6% density, inputs cold in L2): each kernel, its plain
+5. times from CUDA events (medians over 100 iterations, 30 for functions
+   of tens of small launches; device-resident frames at ~6% density,
+   inputs cold in L2): each kernel, its plain
    version and its bound (and, for K3, ``torch.masked_select`` as its
    library yardstick), ``pipeline.step`` flat and tiled, the landings
    (``pos`` prefix; tiles, flat and mask flavors, the mask landing's host
    rebuild apart), ``TiledPayload.to_flat`` and the v3 and v4 encodes on
    the host, and the synchronous against the pipelined executor per frame;
-   the source's host time per frame is printed apart.
+   the source's host time per frame is printed apart; K4 against its
+   plain version, ``torch.bincount`` and its bound, the filters and the
+   noise filter, the ``--visualizer 5`` step and the aux landing.
 
 It prints progress lines, then the card's ``nvidia-smi`` line, then one
 JSON line of kernel records, and last
@@ -104,15 +114,17 @@ def phase_environment():
 
 def phase_build():
     from cudavideostream_tpu_torch.kernels import build
+    from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
 
     t0 = time.perf_counter()
-    names = ("logcompact", "pair_compact")
+    names = ("logcompact", "pair_compact", "histogram")
     # one nvcc per source, all at once
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.build, names))
     logcompact._kernel_lib()
     logcompact._pair_lib()
+    hist._hist_lib()
     log(f"[build] csrc/{'.cu, csrc/'.join(names)}.cu built and bound in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -454,16 +466,140 @@ def phase_mask_vs_plain(cfg):
     return cases
 
 
+def _payload_host(cfg, out):
+    """Host ``(pos, xs, vals)`` of one step's outputs in any emission: the
+    tiled ones through ``TiledPayload.to_flat``, the bitmask-only one
+    through K3 and the host rebuild from the bits (which must also agree
+    with the index blocks where both exist)."""
+    from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.runtime import wire
+    from cudavideostream_tpu_torch.runtime.executor import TiledLander
+
+    pos = int(out[1])
+    if cfg.maskonly_payload:
+        counts, vals_t, bits = out[2:5]
+        vals = logcompact.merge_vals(counts, vals_t)[:pos].cpu().numpy()
+        xs = TiledLander.rebuild_mask_xs(bits.cpu().numpy(), pos, 0,
+                                         vals_t.shape[1])
+        return pos, xs, vals
+    if cfg.tiled_payload:
+        xs, vals = wire.TiledPayload(pos, out[2].cpu().numpy(),
+                                     out[3].cpu().numpy(),
+                                     out[4].cpu().numpy()).to_flat()
+        if cfg.emit_bitmask and not np.array_equal(
+                TiledLander.rebuild_mask_xs(out[5].cpu().numpy(), pos, 0,
+                                            out[4].shape[1]), xs):
+            raise AssertionError("the packed bits disagree with the index "
+                                 "blocks")
+        return pos, xs, vals
+    xs, vals = out[2].cpu().numpy(), out[3].cpu().numpy()
+    if xs[pos:].any() or vals[pos:].any():
+        raise AssertionError("the flat payload is not zero past pos")
+    return pos, xs[:pos], vals[:pos]
+
+
+def _check_step(label, cfg, prev_np, cur_np, text):
+    """One 1080p ``pipeline.step`` on the card against ``step_oracle``:
+    the payload, the new state and the aux frame, byte for byte."""
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.utils import fonts
+
+    pipe = DeltaStreamPipeline(cfg)
+    out = pipe.step(pipe.init_state(prev_np), cur_np, text=text)
+    aux = None if out[-1] is None else out[-1].cpu().numpy()
+    pos, xs, vals = _payload_host(cfg, out)
+    e_prev, e_pos, e_xs, e_vals, e_aux = reference_cpu.step_oracle(
+        prev_np, cur_np, cfg, atlas=pipe.atlas_np,
+        char_ids=fonts.encode_text(text))
+    ok = (pos == e_pos and np.array_equal(xs, e_xs)
+          and np.array_equal(vals, e_vals)
+          and np.array_equal(out[0].cpu().numpy(), e_prev)
+          and (aux is None if e_aux is None
+               else aux is not None and np.array_equal(aux, e_aux)))
+    if not ok:
+        raise AssertionError(f"{label}: pipeline.step on the card differs "
+                             "from step_oracle")
+    log(f"[check] {label}: pipeline.step at 1080p == step_oracle (pos={pos}"
+        f", aux {'none' if aux is None else 'equal'})")
+
+
+def phase_filters_vs_plain(cfg):
+    """K4 against its plain version at 1080p and on ragged lengths, and
+    one 1080p step of each of the 8 named variants and of binarize and
+    red-overlap on each tiled emission against the NumPy spec."""
+    from cudavideostream_tpu_torch.config import Visualizer
+    from cudavideostream_tpu_torch.models import variants
+    from cudavideostream_tpu_torch.ops import filters
+    from cudavideostream_tpu_torch.ops import hist
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    npx = n // 3
+    rng = np.random.default_rng(SEED + 6)
+    cases = {"k4": 0, "steps": 0}
+
+    def check_hist(label, g):
+        got = hist.histogram(g)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"K4 {label}", (got,),
+                        (hist.histogram_reference(g),), ("counts",))
+        if int(got.sum()) != g.numel():
+            raise AssertionError(f"K4 {label}: counts do not sum to n")
+        cases["k4"] += 1
+        log(f"[check] K4 histogram of {label} ({g.numel()} values, "
+            f"{int((got > 0).sum())} bins used): exact")
+
+    src = SyntheticSource(cfg, seed=SEED)
+    src.base_frame()
+    for label, frame in (
+            ("a random 1080p frame's gray values",
+             rng.integers(0, 256, n, dtype=np.uint8)),
+            ("the synthetic scene's gray values", next(src))):
+        check_hist(label, filters.gray_pixels(torch.from_numpy(frame).to(dev)))
+    check_hist("one value (137) at every pixel",
+               torch.full((npx,), 137, dtype=torch.uint8, device=dev))
+    check_hist("0/255 only", torch.from_numpy(np.where(
+        rng.random(npx) < 0.5, 0, 255).astype(np.uint8)).to(dev))
+    for m in (1_000_003, 12_345, 1):
+        check_hist(f"a ragged length {m}", torch.from_numpy(
+            rng.integers(0, 256, m, dtype=np.uint8)).to(dev))
+
+    text = "FPS: 30 BW: 1234 kbps"
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    for name in variants.available():
+        _check_step(f"variant {name}", variants.get_config(name), prev_np,
+                    cur_np, text)
+        cases["steps"] += 1
+    for vis in (Visualizer.BINARIZE, Visualizer.RED_OVERLAP):
+        for label, kw in (
+                ("tiled", dict(tiled_payload=True)),
+                ("tiled+bits", dict(tiled_payload=True, emit_bitmask=True)),
+                ("bitmask-only", dict(tiled_payload=True, emit_bitmask=True,
+                                      fetch_mode="mask",
+                                      maskonly_payload=True))):
+            _check_step(f"{label} with --visualizer {vis.value}",
+                        dataclasses.replace(cfg, visualizer=vis, **kw),
+                        prev_np, cur_np, text)
+            cases["steps"] += 1
+    return cases
+
+
 class _RecordingExecutor:
     """The server's executor, plus a digest of the device state and the
     overlay text after every frame (the server calls start, process,
-    flush, resync and metrics). A pipelined executor's payloads lag a
-    frame, but the client decodes them in order, so its k-th state is
-    still the k-th digest here."""
+    flush, resync and metrics), and each landed frame's aux frame: the
+    first ``n_aux`` kept with the inputs that made them. A pipelined
+    executor's payloads lag a frame, but the client decodes them in order,
+    so its k-th state is still the k-th digest here."""
 
-    def __init__(self, inner):
+    def __init__(self, inner, n_aux=5):
         self.inner = inner
         self.texts, self.digests, self.process_s = [], [], []
+        self.n_aux = n_aux
+        self.inputs, self.auxes = [], []  # (state before, frame, text)
+        self.landed = self.aux_landed = 0
 
     @property
     def metrics(self):
@@ -473,16 +609,32 @@ class _RecordingExecutor:
         return self.inner.start(base)
 
     def process(self, frame, text=""):
+        if len(self.inputs) < self.n_aux:
+            state = self.inner._state.to("cpu", copy=True).numpy()
+            self.inputs.append((state, np.array(frame, copy=True), text))
         t0 = time.perf_counter()
         out = self.inner.process(frame, text=text)
         self.process_s.append(time.perf_counter() - t0)
         self.texts.append(text)
         state = self.inner._state.cpu().numpy()
         self.digests.append(hashlib.sha256(state).hexdigest())
+        self._keep(out)
         return out
 
+    def _keep(self, out):
+        for res in out if isinstance(out, list) else [out]:
+            if res is None:
+                continue
+            self.landed += 1
+            if res[3] is not None:
+                self.aux_landed += 1
+                if len(self.auxes) < self.n_aux:
+                    self.auxes.append(res[3])
+
     def flush(self):
-        return self.inner.flush()
+        out = self.inner.flush()
+        self._keep(out)
+        return out
 
     def resync(self):
         return self.inner.resync()
@@ -515,19 +667,24 @@ class _UntilTextsChanged:
 
 
 def _launch_counters():
+    from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
 
     return {"fused_diff_compact": logcompact.fused_diff_compact,
             "fused_diff_compact_tiled": logcompact.fused_diff_compact_tiled,
             "fused_diff_compact_mask": logcompact.fused_diff_compact_mask,
             "pair_compact": logcompact.pair_compact,
-            "vals_compact": logcompact.vals_compact}
+            "vals_compact": logcompact.vals_compact,
+            "histogram": hist.histogram}
 
 
 def phase_serving(cfg, label, pipelined=False, land_batch=0):
     """Serve 1080p frames over TCP on one path; returns the frames served,
     the frames that changed some byte, every kernel's launches in that
-    run and the landing flavors."""
+    run and the landing flavors. On a visualizer path every landed frame
+    must bring its aux frame, the first 5 equal to the NumPy spec's."""
+    from cudavideostream_tpu_torch.config import Visualizer
+    from cudavideostream_tpu_torch.ops import reference_cpu
     from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
     from cudavideostream_tpu_torch.runtime.executor import (
         BatchedLandExecutor,
@@ -536,6 +693,7 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0):
     )
     from cudavideostream_tpu_torch.runtime.server import DeltaStreamServer
     from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+    from cudavideostream_tpu_torch.utils import fonts
 
     cfg = dataclasses.replace(cfg, port=0)
     if land_batch:
@@ -594,6 +752,29 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0):
         raise AssertionError(f"{label}: client reconstruction != server "
                              f"state (client {len(digests)} frames, server "
                              f"{frames}, first mismatch {bad})")
+    if rec.landed != frames:
+        raise AssertionError(f"{label}: {rec.landed} results landed for "
+                             f"{frames} frames")
+    if cfg.visualizer == Visualizer.NONE:
+        if rec.aux_landed:
+            raise AssertionError(f"{label}: an aux frame without a "
+                                 "visualizer")
+    else:
+        if rec.aux_landed != frames:
+            raise AssertionError(f"{label}: {rec.aux_landed} aux frames "
+                                 f"landed for {frames} frames")
+        atlas = inner.pipe.atlas_np
+        for k, ((prev_np, frame_np, text), aux) in enumerate(
+                zip(rec.inputs, rec.auxes)):
+            want = reference_cpu.step_oracle(
+                prev_np, frame_np, cfg, atlas=atlas,
+                char_ids=fonts.encode_text(text))[4]
+            if not (aux.dtype == np.uint8 and np.array_equal(aux, want)):
+                raise AssertionError(f"{label}: landed aux frame {k} "
+                                     "differs from step_oracle's")
+        log(f"[serve] {label}: an aux frame landed with each of the "
+            f"{frames} frames; the first {len(rec.auxes)} equal "
+            f"step_oracle's, byte for byte")
     log(f"[serve] {label}: {frames} frames at 1080p over TCP, byte-exact "
         f"every frame; overlay texts {len(set(rec.texts))}; mean pos "
         f"{statistics.mean(positions):.0f}; {frames / wall:.2f} fps wall "
@@ -627,7 +808,9 @@ def _event_median_ms(fn, iters, backlog=True):
     """Median device time of ``fn(i)`` over ``iters`` calls, from one
     CUDA event pair per call. With ``backlog`` the queue is held behind a
     sleep kernel first, so each pair times the device work alone and not
-    the host's launch overhead."""
+    the host's launch overhead, as long as the sleep outlasts the host's
+    enqueueing of all ``iters`` calls and the launch queue holds them: a
+    function of tens of small launches is timed over fewer calls."""
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     torch.cuda.synchronize()
@@ -1150,12 +1333,122 @@ def phase_mask_times(cfg):
             "k3_library_ms": k3_lib}
 
 
+def phase_filter_times(cfg):
+    """K4 against its plain version, ``torch.bincount`` and its bound; the
+    filters and the noise filter at 1080p; the ``--visualizer 5`` step
+    against the plain step; the aux landing."""
+    from cudavideostream_tpu_torch.config import Visualizer
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import convolve
+    from cudavideostream_tpu_torch.ops import diff as diff_ops
+    from cudavideostream_tpu_torch.ops import filters
+    from cudavideostream_tpu_torch.ops import hist
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.runtime.executor import (
+        StreamExecutor,
+        _Staged,
+    )
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 7)
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    cur = torch.from_numpy(cur_np).to(dev)
+    prev0 = torch.from_numpy(prev_np).to(dev)
+    prevs = [prev0.clone() for _ in range(ITERS)]
+    curs = [cur.clone() for _ in range(CUR_COPIES)]
+
+    # K4 on the synthetic scene's gray values, which the step has just
+    # written (hot in L2, as the binarize chain leaves them), and on the
+    # one-value frame (every add on one bin)
+    src = SyntheticSource(cfg, seed=SEED)
+    src.base_frame()
+    g = filters.gray_pixels(torch.from_numpy(next(src)).to(dev))
+    one = torch.full_like(g, 137)
+    hist.histogram(g)  # warm-up
+    k4 = _event_median_ms(lambda i: hist.histogram(g), ITERS)
+    k4_one = _event_median_ms(lambda i: hist.histogram(one), ITERS)
+    k4_plain = _event_median_ms(lambda i: hist.histogram_reference(g),
+                                ITERS, backlog=False)
+    k4_lib = _event_median_ms(lambda i: torch.bincount(g, minlength=256),
+                              ITERS, backlog=False)
+    _profile_ms(lambda i: hist.histogram(g), ("hist_kernel",), "K4")
+    # bound: each gray byte read once, the 256 int32 bins written once
+    k4_bytes = g.numel() + 4 * 256
+    k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
+
+    mask = diff_ops.diff_mask(cur, prev0, cfg.threshold)[0]
+    wq3 = reference_cpu.quantize_kernel_q16(reference_cpu.gaussian_kernel(3))
+    # these enqueue up to ~50 small launches a call: 30 calls fit the
+    # launch queue behind the sleep (100 did not)
+    few = 30
+    ops = {
+        "grayscale_weighted":
+            lambda i: filters.grayscale_weighted(curs[i % CUR_COPIES]),
+        "heatmap": lambda i: filters.heatmap(curs[i % CUR_COPIES], prev0),
+        "red_overlap": lambda i: filters.red_overlap(prev0, mask),
+        "binarize_pipeline":
+            lambda i: filters.binarize_pipeline(curs[i % CUR_COPIES]),
+        "convolve_q16 K=3": lambda i: convolve.convolve_q16(
+            curs[i % CUR_COPIES], wq3, cfg.height, cfg.width),
+    }
+    ops_ms = {name: (_event_median_ms(fn, few),
+                     _event_median_ms(fn, few, backlog=False))
+              for name, fn in ops.items()}
+
+    text = "FPS: 30 BW: 1234 kbps"
+    step_ms = {}
+    for vis in (Visualizer.NONE, Visualizer.BINARIZE, Visualizer.BINARIZE,
+                Visualizer.NONE):
+        pipe = DeltaStreamPipeline(dataclasses.replace(cfg, visualizer=vis))
+        pipe.step(prev0.clone(), cur, text=text)  # warm-up
+        for p in prevs:
+            p.copy_(prev0)
+        step_ms.setdefault(vis, []).append(_event_median_ms(
+            lambda i: pipe.step(prevs[i], curs[i % CUR_COPIES], text=text),
+            few))
+    # the aux landing: the executor's copier on one --visualizer 5 step's
+    # outputs, a fresh staging per call
+    vcfg = dataclasses.replace(cfg, visualizer=Visualizer.BINARIZE)
+    ex = StreamExecutor(vcfg)
+    outs = ex.pipe.step(prev0.clone(), cur, text=text)[1:]
+    host = []
+
+    def land_aux(_):
+        staged = _Staged(outs, 1)
+        t = time.perf_counter()
+        ex._copier.land_aux(staged)
+        host.append(time.perf_counter() - t)
+
+    aux_ms = _event_median_ms(land_aux, ITERS, backlog=False)
+    aux_host_ms = statistics.median(host) * 1e3
+
+    log(f"[time] K4 histogram of the synthetic scene's {g.numel()} gray "
+        f"values: {k4:.4f} ms (bound {k4_bound:.6f} ms = {k4_bytes} B at "
+        f"3.35 TB/s; {k4_bound / k4:.1%} of it); one value everywhere "
+        f"{k4_one:.4f} ms; its plain PyTorch version {k4_plain:.4f} ms; "
+        f"torch.bincount(g, minlength=256) {k4_lib:.4f} ms (it reads the "
+        f"maximum back to size its output)")
+    for name, (ms, wall) in ops_ms.items():
+        log(f"[time] {name} at 1080p: {ms:.4f} ms device, {wall:.4f} ms "
+            f"with the host's launches (queue not held), medians of {few}")
+    log(f"[time] pipeline.step without / with --visualizer 5, in turns, "
+        f"medians of {few}: "
+        f"{' / '.join(f'{x:.4f}' for x in step_ms[Visualizer.NONE])} ms / "
+        f"{' / '.join(f'{x:.4f}' for x in step_ms[Visualizer.BINARIZE])} ms")
+    log(f"[time] aux landing ({n} B device to host, pinned): {aux_ms:.4f} ms "
+        f"event span, {aux_host_ms:.4f} ms host")
+    return {"k4_ms": k4, "k4_plain_ms": k4_plain, "k4_bound_ms": k4_bound,
+            "k4_library_ms": k4_lib}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    from cudavideostream_tpu_torch.config import StreamConfig
+    from cudavideostream_tpu_torch.config import StreamConfig, Visualizer
 
     cfg = StreamConfig()  # the default: 1080p BGR24, threshold 20, negfeed
     tcfg = dataclasses.replace(cfg, tiled_payload=True)
@@ -1164,6 +1457,7 @@ def main() -> int:
     max_err, cases = phase_kernel_vs_plain(cfg)
     tiled_cases = phase_tiled_vs_plain(cfg)
     mask_cases = phase_mask_vs_plain(cfg)
+    filter_cases = phase_filters_vs_plain(cfg)
     mcfg = dataclasses.replace(tcfg, emit_bitmask=True, fetch_mode="mask",
                                mask_payload=True, wire_format="v4")
     runs = {
@@ -1186,30 +1480,51 @@ def main() -> int:
         "bitmask_auto_v1": phase_serving(
             dataclasses.replace(tcfg, emit_bitmask=True),
             "--tiled --bitmask --fetch auto --wire v1"),
+        "binarize_v1": phase_serving(
+            dataclasses.replace(cfg, visualizer=Visualizer.BINARIZE),
+            "--visualizer 5, wire v1"),
+        "denoised_heatmap_tiled_flat": phase_serving(
+            dataclasses.replace(tcfg, fetch_mode="flat", noise_filter=True,
+                                visualizer=Visualizer.HEATMAP),
+            "--noise-filter --visualizer 1 --tiled --fetch flat"),
+        "red_overlap_maskonly_batch8": phase_serving(
+            dataclasses.replace(mcfg, maskonly_payload=True,
+                                visualizer=Visualizer.RED_OVERLAP),
+            "--tiled --fetch mask --maskonly --wire v4 --land-batch 8 "
+            "--visualizer 3", land_batch=8),
     }
     none = dict.fromkeys(_launch_counters(), 0)
     _expect_launches(runs["flat"], "flat", {
         **none, "fused_diff_compact": runs["flat"]["frames"]})
+    run = runs["binarize_v1"]
+    _expect_launches(run, "binarize_v1", {
+        **none, "fused_diff_compact": run["frames"],
+        "histogram": run["frames"]})
     for key in ("tiled_flat", "tiled_tiles", "tiled_pipelined_v3",
-                "bitmask_mask_v4", "bitmask_auto_v1"):
+                "bitmask_mask_v4", "bitmask_auto_v1",
+                "denoised_heatmap_tiled_flat"):
         run = runs[key]
         fc = run["fetch_counts"]
         # one K2 merge per non-empty flat landing, and per non-empty mask
         # landing where index blocks exist; none for a tiles landing
         # (under auto an empty frame lands as tiles)
         merges = {"tiled_flat": run["nonempty"], "tiled_tiles": 0,
-                  "bitmask_mask_v4": run["nonempty"]}.get(
+                  "bitmask_mask_v4": run["nonempty"],
+                  "denoised_heatmap_tiled_flat": run["nonempty"]}.get(
                       key, fc["flat"] + fc["mask"])
         _expect_launches(run, key, {
             **none, "fused_diff_compact_tiled": run["frames"],
             "pair_compact": merges})
-    run = runs["maskonly_v4_batch8"]
-    _expect_launches(run, "maskonly_v4_batch8", {
-        **none, "fused_diff_compact_mask": run["frames"],
-        "vals_compact": run["nonempty"]})
+    for key in ("maskonly_v4_batch8", "red_overlap_maskonly_batch8"):
+        run = runs[key]
+        _expect_launches(run, key, {
+            **none, "fused_diff_compact_mask": run["frames"],
+            "vals_compact": run["nonempty"]})
     for key, mode in (("tiled_flat", "flat"), ("tiled_tiles", "tiles"),
                       ("bitmask_mask_v4", "mask"),
-                      ("maskonly_v4_batch8", "mask")):
+                      ("maskonly_v4_batch8", "mask"),
+                      ("denoised_heatmap_tiled_flat", "flat"),
+                      ("red_overlap_maskonly_batch8", "mask")):
         if runs[key]["fetch_counts"][mode] != runs[key]["frames"]:
             raise AssertionError(f"{key}: the landing flavors did not follow "
                                  f"--fetch {mode}")
@@ -1220,37 +1535,45 @@ def main() -> int:
     times = phase_times(cfg)
     ttimes = phase_tiled_times(cfg)
     mtimes = phase_mask_times(cfg)
+    ftimes = phase_filter_times(cfg)
 
     def launches(name):
         by_path = {k: r["launches"][name] for k, r in runs.items()}
         return sum(by_path.values()), by_path
 
+    lc = "cudavideostream_tpu/ops/logcompact.py"
     records = [
-        ("fused_diff_compact", "logcompact.cu", 297, max_err,
+        ("fused_diff_compact", "logcompact.cu", f"{lc}:297", max_err,
          times["ms"], times["plain_ms"], times["bound_ms"], None,
          f"byte-exact in {cases} cases"),
-        ("fused_diff_compact_tiled", "logcompact.cu", 297, 0,
+        ("fused_diff_compact_tiled", "logcompact.cu", f"{lc}:297", 0,
          ttimes["k1_ms"], ttimes["k1_plain_ms"], ttimes["k1_bound_ms"], None,
          f"byte-exact in {tiled_cases['k1']} cases, and with bits in "
          f"{mask_cases['k1_bits']}"),
-        ("fused_diff_compact_mask", "logcompact.cu", 297, 0,
+        ("fused_diff_compact_mask", "logcompact.cu", f"{lc}:297", 0,
          mtimes["k1_ms"], mtimes["k1_plain_ms"], mtimes["k1_bound_ms"], None,
          f"byte-exact in {mask_cases['k1_mask']} cases"),
-        ("pair_compact", "pair_compact.cu", 1120, 0,
+        ("pair_compact", "pair_compact.cu", f"{lc}:1120", 0,
          ttimes["k2_ms"], ttimes["k2_plain_ms"], ttimes["k2_bound_ms"], None,
          f"byte-exact in {tiled_cases['k2']} cases"),
-        ("vals_compact", "pair_compact.cu", 1298, 0,
+        ("vals_compact", "pair_compact.cu", f"{lc}:1298", 0,
          mtimes["k3_ms"], mtimes["k3_plain_ms"], mtimes["k3_bound_ms"],
          mtimes["k3_library_ms"], f"byte-exact in {mask_cases['k3']} cases"),
+        ("histogram", "histogram.cu",
+         "cudavideostream_tpu/ops/hist_pallas.py:54", 0,
+         ftimes["k4_ms"], ftimes["k4_plain_ms"], ftimes["k4_bound_ms"],
+         ftimes["k4_library_ms"],
+         f"byte-exact in {filter_cases['k4']} cases; the 8 variants and 6 "
+         f"tiled visualizer steps equal step_oracle"),
     ]
     kernels = []
-    for name, src, line, err, ms, plain, bound, lib_ms, check in records:
+    for name, src, replaces, err, ms, plain, bound, lib_ms, check in records:
         total, by_path = launches(name)
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"cudavideostream_tpu_torch/csrc/{src}",
-            "replaces": f"cudavideostream_tpu/ops/logcompact.py:{line}",
+            "replaces": replaces,
             "launches": total,
             "max_abs_err": err,
             "ms": ms,

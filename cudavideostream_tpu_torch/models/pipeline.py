@@ -2,23 +2,32 @@
 of the JAX package's ``models/pipeline.py``).
 
 The reference's per-frame GPU schedule (``exec_core``,
-``server/src/kernels.cu:430-525``) draws the text overlay and then runs
-the thresholded diff with negative feedback and the compaction. Here one
-step is: the overlay strip is blended over the frame's first ``cell_h``
-image rows (a few hundred KB), and the blended prefix is handed to the
-fused diff+compact kernel as its region input, so the overlay costs no
-pass over the whole frame. The kernel writes the new previous frame into
-the state buffer in place — the counterpart of the JAX pipeline's donated
-``prev`` and of the reference's ``swap(d_current, d_previous)``
-(``kernels.cu:451``).
+``server/src/kernels.cu:430-525``) runs the noise filter, draws the text
+overlay, runs the visualizer and then the thresholded diff with negative
+feedback and the compaction. Here one step is, in that order:
+
+1. the noise filter (``noise_filter``): the Q16 convolution of the whole
+   frame into a new tensor, which the rest of the step reads;
+2. the overlay strip, blended over the frame's first ``cell_h`` image rows
+   (a few hundred KB); the blended prefix is handed to the fused
+   diff+compact kernel as its region input, so the overlay costs no pass
+   over the whole frame;
+3. the visualizer's aux frame, from the overlaid frame (assembled for it
+   alone) and the previous frame: heatmap, grayscale or binarize, or the
+   red modes from the changed-byte mask;
+4. the fused diff+compact kernel, which writes the new previous frame into
+   the state buffer in place — the counterpart of the JAX pipeline's
+   donated ``prev`` and of the reference's ``swap(d_current, d_previous)``
+   (``kernels.cu:451``). The aux frame is computed before it, on the same
+   stream, because every visualizer reads the previous frame as it was.
 
 The port runs PALLAS compaction with flat emission (the default), tiled
 emission (``tiled_payload``, per-unit blocks at ``subtile_rows``), tiled
 emission with the packed change bits (``emit_bitmask``) or the
 bitmask-only emission (``maskonly_payload``: vals blocks and bits, no
-index blocks); no noise filter, no visualizer, a scalar threshold, and
-wire v1 to v4. Other configurations raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that ports them.
+index blocks); every visualizer and the noise filter on each; a scalar
+threshold; and wire v1 to v4. Other configurations raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -33,8 +42,12 @@ from cudavideostream_tpu_torch.config import (
     StreamConfig,
     Visualizer,
 )
+from cudavideostream_tpu_torch.ops import convolve as conv_ops
+from cudavideostream_tpu_torch.ops import diff as diff_ops
+from cudavideostream_tpu_torch.ops import filters as filter_ops
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.ops import overlay as overlay_ops
+from cudavideostream_tpu_torch.ops import reference_cpu
 from cudavideostream_tpu_torch.utils import fonts
 
 MAX_OVERLAY_CHARS = 28
@@ -58,9 +71,6 @@ def resolve_device(device=None) -> torch.device:
 def check_slice(config: StreamConfig, threshold_map=None) -> None:
     """Refuse configurations this port does not run yet."""
     refusals = [
-        (config.visualizer != Visualizer.NONE,
-         "visualizers (the filter bank)", "M10"),
-        (config.noise_filter, "the noise filter", "M11"),
         (config.compaction is not CompactionBackend.PALLAS,
          f"compaction={config.compaction.value}", "M12"),
         (threshold_map is not None, "per-byte threshold maps", "M17"),
@@ -87,6 +97,19 @@ def from_jax_state(prev_np: np.ndarray, atlas_np: Optional[np.ndarray] = None,
     return prev, atlas
 
 
+def from_jax_pipeline(config: StreamConfig, prev_np: np.ndarray,
+                      atlas_np: Optional[np.ndarray] = None,
+                      conv_weights_q16: Optional[np.ndarray] = None,
+                      device=None):
+    """Take over a stream mid-way from the JAX pipeline: its state (as in
+    :func:`from_jax_state`) and its exact Q16 noise-filter taps
+    (``jpipe.conv_weights_q16``). Returns ``(pipeline, prev)``."""
+    prev, atlas = from_jax_state(prev_np, atlas_np, device=device)
+    pipe = DeltaStreamPipeline(config, device=device, atlas=atlas,
+                               conv_weights_q16=conv_weights_q16)
+    return pipe, prev
+
+
 class DeltaStreamPipeline:
     """Configured pipeline over device-resident state.
 
@@ -98,10 +121,25 @@ class DeltaStreamPipeline:
     """
 
     def __init__(self, config: StreamConfig, device=None,
-                 atlas: Optional[torch.Tensor] = None, threshold_map=None):
+                 atlas: Optional[torch.Tensor] = None, threshold_map=None,
+                 conv_weights: Optional[np.ndarray] = None,
+                 conv_weights_q16: Optional[np.ndarray] = None):
+        """``conv_weights``: the noise filter's float KxK taps (default
+        ``gaussian_kernel(conv_k)``), quantized to Q16 as the JAX pipeline
+        does; ``conv_weights_q16`` gives the Q16 taps themselves and wins
+        (a handover from the JAX pipeline, :func:`from_jax_pipeline`)."""
         check_slice(config, threshold_map)
         self.config = config
         self.device = resolve_device(device)
+        if conv_weights_q16 is None:
+            if conv_weights is None:
+                conv_weights = reference_cpu.gaussian_kernel(config.conv_k)
+            conv_weights_q16 = reference_cpu.quantize_kernel_q16(
+                np.asarray(conv_weights, dtype=np.float64))
+        wq = np.array(conv_weights_q16, dtype=np.int64)
+        if wq.ndim != 2 or wq.shape[0] != wq.shape[1]:
+            raise ValueError("conv weights must be a square KxK array")
+        self.conv_weights_q16 = wq
         self.atlas_np = fonts.make_atlas(config.overlay_scale,
                                          config.overlay_font)
         if atlas is None:
@@ -149,14 +187,41 @@ class DeltaStreamPipeline:
             self._ids = (text, ids)
         return self._ids[1]
 
+    def _aux(self, cur: torch.Tensor, region: Optional[torch.Tensor],
+             prev: torch.Tensor) -> Optional[torch.Tensor]:
+        """The visualizer's aux frame, a new tensor (it never aliases the
+        state), from the overlaid frame and ``prev`` as it is before the
+        step: the kernel that follows overwrites ``prev``."""
+        cfg = self.config
+        vis = cfg.visualizer
+        if vis == Visualizer.NONE:
+            return None
+        # the overlaid frame, for the visualizer alone: the kernel keeps
+        # reading the strip from the region
+        cur = logcompact.region_frame(cur, region)
+        if vis == Visualizer.HEATMAP:
+            return filter_ops.heatmap(cur, prev)
+        if vis == Visualizer.GRAYSCALE:
+            return filter_ops.grayscale_weighted(cur)
+        if vis == Visualizer.BINARIZE:
+            return filter_ops.binarize_pipeline(cur)
+        # the red modes: |df| > threshold on the overlaid frame, which is
+        # the JAX pipeline's new_prev != prev wherever it takes that
+        mask = diff_ops.diff_mask(cur, prev, cfg.threshold)[0]
+        if vis == Visualizer.RED_BLACK:
+            return filter_ops.red_black(mask)
+        return filter_ops.red_overlap(prev, mask)
+
     def step(self, prev: torch.Tensor, frame, text: str = ""):
-        """Run one frame. ``frame`` may be a numpy array or a tensor.
+        """Run one frame. ``frame`` may be a numpy array or a tensor; it
+        is never written.
 
         Returns ``(new_prev, pos, xs, vals, aux)``: ``new_prev`` is
         ``prev`` updated in place; ``pos`` a 0-d int32 device tensor;
         ``xs`` int32 and ``vals`` uint8 of ``capacity`` entries, zero past
-        ``pos``; ``aux`` None (no visualizer is ported). As the JAX
-        pipeline does (always worst-case capacity), it returns instead:
+        ``pos``; ``aux`` the visualizer's flat uint8 frame on the device,
+        or None without a visualizer. As the JAX pipeline does (always
+        worst-case capacity), it returns instead:
 
         * with ``tiled_payload``: ``(new_prev, pos, counts, xs_t, vals_t,
           aux)``, the per-unit blocks of
@@ -173,6 +238,9 @@ class DeltaStreamPipeline:
         """
         cfg = self.config
         cur = self._frame(frame)
+        if cfg.noise_filter:
+            cur = conv_ops.convolve_q16(cur, self.conv_weights_q16,
+                                        cfg.height, cfg.width)
         n_chars = min(len(text), MAX_OVERLAY_CHARS)
         cell_h = self.atlas.shape[1]
         region = None
@@ -184,6 +252,7 @@ class DeltaStreamPipeline:
                 cur[:strip_bytes], self.atlas, self._char_ids(text), n_chars,
                 cell_h, cfg.width,
             )
+        aux = self._aux(cur, region, prev)
         # pair_lanes is a TPU lane layout with identical outputs
         if cfg.maskonly_payload:
             pos, counts, vals_t, bits, new_prev = (
@@ -193,7 +262,7 @@ class DeltaStreamPipeline:
                     overlay_region=region, sub_rows=cfg.subtile_rows,
                 )
             )
-            return new_prev, pos, counts, vals_t, bits, None
+            return new_prev, pos, counts, vals_t, bits, aux
         if cfg.tiled_payload:
             # (pos, counts, xs_t, vals_t[, bits], new_prev)
             *payload, new_prev = logcompact.fused_diff_compact_tiled(
@@ -202,10 +271,10 @@ class DeltaStreamPipeline:
                 overlay_region=region, sub_rows=cfg.subtile_rows,
                 emit_bits=cfg.emit_bitmask,
             )
-            return (new_prev, *payload, None)
+            return (new_prev, *payload, aux)
         pos, xs, vals, new_prev = logcompact.fused_diff_compact(
             cur, prev, threshold=cfg.threshold,
             negative_feedback=cfg.negative_feedback, overlay_region=region,
             capacity=cfg.capacity,
         )
-        return new_prev, pos, xs, vals, None
+        return new_prev, pos, xs, vals, aux

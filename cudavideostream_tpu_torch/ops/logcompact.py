@@ -259,7 +259,7 @@ def _check_kernel_args(name, current, previous, overlay_region):
     return region_len
 
 
-def _region_frame(current, overlay_region):
+def region_frame(current, overlay_region):
     """``current`` with the overlay region substituted for its prefix."""
     if overlay_region is None or overlay_region.numel() == 0:
         return current
@@ -335,7 +335,7 @@ def fused_diff_compact_reference(
     outputs from ``diff_mask``, ``nonzero`` and ``masked_select``, with
     ``new_prev`` written into ``previous`` in place. ``nonzero`` makes it
     synchronize with the device on CUDA tensors."""
-    cur = _region_frame(current, overlay_region)
+    cur = region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
         cur, previous, threshold, negative_feedback
     )
@@ -394,7 +394,7 @@ def _tiled_plain(current, previous, threshold, negative_feedback,
     dev = current.device
     n = current.numel()
     n_units = n_pad // unit_bytes
-    cur = _region_frame(current, overlay_region)
+    cur = region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
         cur, previous, threshold, negative_feedback
     )

@@ -87,6 +87,14 @@ class DeltaStreamClient:
             self.sock = None
 
 
+def write_ppm(path: str, frame: np.ndarray, height: int, width: int) -> None:
+    """Dependency-free viewable dump: binary PPM (P6), BGR -> RGB."""
+    img = frame.reshape(height, width, 3)[:, :, ::-1]
+    with open(path, "wb") as f:
+        f.write(f"P6\n{width} {height}\n255\n".encode())
+        f.write(np.ascontiguousarray(img).tobytes())
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="CUDA delta-stream client")
     p.add_argument("--host", default="127.0.0.1")

@@ -49,11 +49,14 @@ del _v, _idx
 
 
 class _Staged:
-    """One dispatched frame: its step outputs past ``new_prev``, and host
-    copies of its sizes queued behind the step and marked by an event."""
+    """One dispatched frame: its step outputs past ``new_prev`` (the
+    visualizer's aux frame last, or None), and host copies of its sizes
+    queued behind the step and marked by an event."""
 
     def __init__(self, outs, n_sizes: int):
         self.outs = outs
+        self.aux = outs[-1]
+        self.aux_host = None  # the landed aux, once a copy has run
         sizes = outs[:n_sizes]
         if sizes[0].is_cuda:
             # non-blocking device-to-host copies land in pinned memory
@@ -71,7 +74,9 @@ class _Staged:
 
 class _Copier:
     """Device work of a landing, on the landing stream behind a frame's
-    event, and its device-to-host copies (host arrays on return)."""
+    event, and its device-to-host copies (host arrays on return). The
+    frame's aux frame rides along with the first copy of the frame, so
+    landing it adds no wait on the device."""
 
     def __init__(self, device: torch.device):
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
@@ -79,16 +84,31 @@ class _Copier:
 
     def run(self, staged: _Staged, fn):
         """``fn()`` returns the device tensors to copy; returns them as
-        host arrays once the copies are done."""
+        host arrays once the copies are done, and sets
+        ``staged.aux_host``."""
+        aux = [] if staged.aux is None or staged.aux_host is not None else [
+            staged.aux]
         if self.stream is None:
-            return [t.numpy() for t in fn()]
-        with torch.cuda.stream(self.stream):
-            self.stream.wait_event(staged.event)
-            host = [t.to("cpu", non_blocking=True) for t in fn()]
-            done = torch.cuda.Event()
-            done.record()
-        done.synchronize()
-        return [t.numpy() for t in host]
+            host = [t.numpy() for t in [*fn(), *aux]]
+        else:
+            with torch.cuda.stream(self.stream):
+                self.stream.wait_event(staged.event)
+                host = [t.to("cpu", non_blocking=True)
+                        for t in [*fn(), *aux]]
+                done = torch.cuda.Event()
+                done.record()
+            done.synchronize()
+            host = [t.numpy() for t in host]
+        if aux:
+            staged.aux_host = host.pop()
+        return host
+
+    def land_aux(self, staged: _Staged):
+        """The frame's aux frame as a host array (None without one),
+        copied now unless a landing copy already brought it."""
+        if staged.aux is not None and staged.aux_host is None:
+            self.run(staged, lambda: [])
+        return staged.aux_host
 
 
 class TiledLander:
@@ -344,7 +364,9 @@ class StreamExecutor:
         return base
 
     def process(self, frame, text: str = ""):
-        """Run one frame; returns host-side ``(pos, xs, vals, aux)``.
+        """Run one frame; returns host-side ``(pos, xs, vals, aux)``,
+        ``aux`` the visualizer's frame as a uint8 array (None without a
+        visualizer).
 
         With ``tiled_payload`` configured, a ``tiles`` landing returns a
         :class:`~cudavideostream_tpu_torch.runtime.wire.TiledPayload` as
@@ -382,13 +404,15 @@ class StreamExecutor:
                           outs[4] if self.cfg.emit_bitmask else None)
             res = self.lander.land(pos, sizes[1], blocks, staged,
                                    self._copier)
+            aux = self._copier.land_aux(staged)
             self.metrics.record(time.perf_counter() - t0, pos)
             if isinstance(res, (wire.TiledPayload, wire.MaskPayload)):
-                return pos, res, None, None
-            return (pos, *res, None)
+                return pos, res, None, aux
+            return (pos, *res, aux)
         if pos > self.cfg.capacity:
             # truncating would silently desync a v1 client: the dropped
-            # deltas are already folded into the device state
+            # deltas are already folded into the device state (and the
+            # frame's aux frame is dropped with them)
             raise PayloadOverflowError(
                 f"frame changed {pos} bytes > payload_capacity "
                 f"{self.cfg.capacity}"
@@ -396,7 +420,7 @@ class StreamExecutor:
         xs_d, vals_d = staged.outs[1:3]
         xs, vals = self._copier.run(staged, lambda: (xs_d[:pos], vals_d[:pos]))
         self.metrics.record(time.perf_counter() - t0, pos)
-        return pos, xs, vals, None
+        return pos, xs, vals, staged.aux_host
 
     def resync(self) -> np.ndarray:
         """The post-step previous-frame bytes (the client's state), for a

@@ -9,7 +9,13 @@ reference OpenCV client decodes unmodified; under the opt-in v2/v3/v4
 the magic first (``runtime.wire``). The 1 Hz status line is printed and
 rendered into the stream via the glyph overlay (``server.cpp:164-168``).
 
+With a visualizer (``--visualizer 1-5``) each landed frame also brings
+its aux frame to the host; ``--aux-dir`` dumps every ``aux_every``-th one
+(30 by default) as a PPM file, the headless counterpart of the
+reference's ``SERVER_IMSHOW``. The wire bytes do not change.
+
 Run:  ``python -m cudavideostream_tpu_torch.runtime.server --source synthetic``
+      ``python -m cudavideostream_tpu_torch.runtime.server --visualizer 5 --aux-dir aux/``
       ``python -m cudavideostream_tpu_torch.runtime.server --tiled --pipelined --wire v3``
       ``python -m cudavideostream_tpu_torch.runtime.server --tiled --fetch mask --maskonly --wire v4 --land-batch 8``
 """
@@ -17,12 +23,18 @@ Run:  ``python -m cudavideostream_tpu_torch.runtime.server --source synthetic``
 from __future__ import annotations
 
 import argparse
+import os
 import socket
 import sys
 import time
 
-from cudavideostream_tpu_torch.config import PayloadOverflowError, StreamConfig
+from cudavideostream_tpu_torch.config import (
+    PayloadOverflowError,
+    StreamConfig,
+    Visualizer,
+)
 from cudavideostream_tpu_torch.runtime import wire
+from cudavideostream_tpu_torch.runtime.client import write_ppm
 from cudavideostream_tpu_torch.runtime.executor import (
     BatchedLandExecutor,
     PipelinedExecutor,
@@ -34,7 +46,8 @@ from cudavideostream_tpu_torch.runtime.sources import FrameSource, make_source
 class DeltaStreamServer:
     def __init__(self, config: StreamConfig, source: FrameSource,
                  executor: StreamExecutor | None = None, verbose: bool = True,
-                 overlay_status: bool = True, device=None):
+                 overlay_status: bool = True, device=None,
+                 aux_dir: str | None = None, aux_every: int = 30):
         self.cfg = config
         self.source = source
         self.executor = executor or StreamExecutor(config, device=device)
@@ -42,6 +55,10 @@ class DeltaStreamServer:
         # render the 1 Hz status into the video (server.cpp:166-168);
         # off => deterministic streams for tests
         self.overlay_status = overlay_status
+        # dump every aux_every-th landed frame's aux frame here as a PPM
+        self.aux_dir = aux_dir
+        self.aux_every = aux_every
+        self._n_out = 0  # landed frames (lags frames served under batching)
         self._sock: socket.socket | None = None
 
     def listen(self) -> socket.socket:
@@ -94,6 +111,7 @@ class DeltaStreamServer:
         conn.sendall(base.tobytes())
         text = ""
         n = 0
+        self._n_out = 0
         while max_frames is None or n < max_frames:
             t0 = time.perf_counter()
             try:
@@ -148,7 +166,7 @@ class DeltaStreamServer:
                 self._send(conn, res, v3enc)
 
     def _send(self, conn: socket.socket, result, v3enc) -> None:
-        pos, xs, vals, _aux = result
+        pos, xs, vals, aux = result
         if v3enc is not None:
             # v3 rebuilds a MaskPayload's indices; v4 forwards its bits
             buf = v3enc.encode(pos, xs, vals)
@@ -161,6 +179,10 @@ class DeltaStreamServer:
         conn.sendall(buf)
         # the metrics count v1 framing; correct them to the bytes sent
         self.executor.metrics.wire_bytes += len(buf) - (4 + 5 * pos)
+        k, self._n_out = self._n_out, self._n_out + 1
+        if self.aux_dir and aux is not None and k % self.aux_every == 0:
+            write_ppm(os.path.join(self.aux_dir, f"aux_{k:06d}.ppm"), aux,
+                      self.cfg.height, self.cfg.width)
 
 
 def main(argv=None) -> int:
@@ -171,6 +193,20 @@ def main(argv=None) -> int:
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--width", type=int, default=1920)
     p.add_argument("--threshold", type=int, default=20)
+    p.add_argument("--visualizer", type=int, default=0,
+                   choices=[v.value for v in Visualizer],
+                   help="0 none, 1 heatmap, 2 red-black, 3 red-overlap, "
+                        "4 grayscale, 5 binarize")
+    p.add_argument("--noise-filter", action="store_true",
+                   help="Gaussian denoise (Q16 KxK convolution) of every "
+                        "frame before the diff")
+    p.add_argument("--conv-k", type=int, default=3,
+                   help="noise-filter kernel size K (1-15)")
+    p.add_argument("--aux-dir", default=None,
+                   help="dump every 30th visualizer aux frame as a PPM here")
+    p.add_argument("--aux-port", type=int, default=None, metavar="PORT",
+                   help="serve the live aux frame on a side socket (not "
+                        "ported yet: ROADMAP.md M18)")
     p.add_argument("--frames", type=int, default=None,
                    help="stop after N frames (default: run forever)")
     p.add_argument("--seed", type=int, default=0)
@@ -218,6 +254,10 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions)")
     args = p.parse_args(argv)
+    if args.aux_port is not None:
+        raise NotImplementedError(
+            "--aux-port is not ported to cudavideostream_tpu_torch yet: see "
+            "ROADMAP.md M18")
     if args.fetch != "auto" and not args.tiled:
         p.error("--fetch tiles/flat/mask applies to --tiled payloads")
     if args.bitmask and not args.tiled:
@@ -238,6 +278,9 @@ def main(argv=None) -> int:
         height=args.height,
         width=args.width,
         threshold=args.threshold,
+        visualizer=Visualizer(args.visualizer),
+        noise_filter=args.noise_filter,
+        conv_k=args.conv_k,
         host=args.host,
         port=args.port,
         payload_capacity=args.capacity,
@@ -259,7 +302,10 @@ def main(argv=None) -> int:
         executor = PipelinedExecutor(cfg, device=args.device)
     else:
         executor = StreamExecutor(cfg, device=args.device)
-    server = DeltaStreamServer(cfg, source, executor=executor)
+    if args.aux_dir:
+        os.makedirs(args.aux_dir, exist_ok=True)
+    server = DeltaStreamServer(cfg, source, executor=executor,
+                               aux_dir=args.aux_dir)
     try:
         served = server.serve(max_frames=args.frames)
     finally:

@@ -243,10 +243,11 @@ def test_port_imports_nothing_of_jax():
     files = _port_python_files()
     assert len(files) > 10 and files[-1].exists()
     rel = {str(f.relative_to(REPO)) for f in files}
-    # the modules of the tiled slice are in the scan
+    # the modules of the tiled and visualizer slices are in the scan
     for mod in ("ops/logcompact.py", "runtime/wire.py", "runtime/executor.py",
                 "runtime/server.py", "runtime/client.py",
-                "models/pipeline.py", "kernels/build.py"):
+                "models/pipeline.py", "kernels/build.py", "ops/filters.py",
+                "ops/hist.py", "ops/convolve.py", "models/variants.py"):
         assert f"cudavideostream_tpu_torch/{mod}" in rel, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
