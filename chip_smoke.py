@@ -7,33 +7,49 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. environment: the card's name and power limit, torch, CUDA, nvcc, triton;
-2. build: every hand-written kernel of the serving paths, from ``csrc/``,
-   one ``nvcc`` per source, all started together;
+1. environment: the card's name, power limit and SM clock, torch, CUDA,
+   nvcc, triton;
+2. build: every hand-written kernel, from ``csrc/`` (six sources), one
+   ``nvcc`` per source, all started together; K7's SASS must keep its
+   256 compares per value (``cuobjdump -sass``, ISETP counted);
 3. each kernel against its plain PyTorch version at 1080p on the card,
    byte for byte: K1 flat, K1 tiled and K1's bitmask-only emission
    (``subtile_rows`` 1, 8 and 0) and K1 tiled with packed bits
    (``subtile_rows`` 1) over densities, thresholds, negative feedback and
-   the overlay region; K2 on every tiled output and on raw pairs; K3 on
-   every bitmask-only output and on raw streams; K4 on the gray values of
-   a random frame, of the synthetic scene, of one value everywhere and of
-   0/255 only, and on ragged lengths; plus one pipeline step of each
-   configuration (flat, tiled, tiled with bits, bitmask-only), of each of
-   the 8 named variants, and of binarize and red-overlap on each tiled
-   emission, against the NumPy spec, the aux frame included;
+   the overlay region, and again on every emission with a per-byte
+   threshold map (and a map of 0s and 255s, and ragged lengths); K2 on
+   every tiled output and on raw pairs; K3 on every bitmask-only output
+   and on raw streams; K4 on the gray values of a random frame, of the
+   synthetic scene, of one value everywhere and of 0/255 only, and on
+   ragged lengths; K5 (segment) and K6 (register) against their plain
+   versions, K5 == K6 == K1 tiled at ``subtile_rows=0`` bit for bit and
+   all three schemes flat equal to K1's plain version, K5 with the region
+   and a map, ragged lengths; K7 on the scene's gray grid, out-of-range
+   values and ragged row counts; plus one pipeline step of each
+   configuration (flat, tiled, tiled with bits, bitmask-only, each also
+   with a per-pixel "door" map), of each of the 8 named variants, and of
+   binarize and red-overlap on each tiled emission, against the NumPy
+   spec, the aux frame included;
 4. serving: the port's server in a thread and the port's client over
-   127.0.0.1, 1080p synthetic frames with a changing overlay text, on ten
-   paths — flat (wire v1), ``--tiled --fetch flat``, ``--tiled --fetch
-   tiles``, ``--tiled --pipelined --wire v3``, ``--tiled --bitmask
-   --fetch mask --wire v4``, ``--tiled --fetch mask --maskonly --wire v4
-   --land-batch 8``, ``--tiled --bitmask --fetch auto``, ``--visualizer
-   5``, ``--noise-filter --visualizer 1 --tiled --fetch flat`` and
-   ``--tiled --fetch mask --maskonly --wire v4 --land-batch 8
-   --visualizer 3``; the client's reconstruction must equal the server's
-   state every frame, every landed frame of a visualizer path must bring
-   its aux frame, the first 5 equal to the NumPy spec's, and each
-   kernel's launch count, set to 0 just before a path and read just
-   after, must show the path went through it;
+   127.0.0.1, 1080p synthetic frames with a changing overlay text, on
+   twelve paths — flat (wire v1), ``--tiled --fetch flat``, ``--tiled
+   --fetch tiles``, ``--tiled --pipelined --wire v3``, ``--tiled
+   --bitmask --fetch mask --wire v4``, ``--tiled --fetch mask --maskonly
+   --wire v4 --land-batch 8``, ``--tiled --bitmask --fetch auto``,
+   ``--visualizer 5``, ``--noise-filter --visualizer 1 --tiled --fetch
+   flat``, ``--tiled --fetch mask --maskonly --wire v4 --land-batch 8
+   --visualizer 3``, and the last two built by the server's own command
+   line with ``--threshold-map`` (a per-pixel door map saved as ``.npy``):
+   flat wire v1, and ``--tiled --fetch mask --maskonly --wire v4
+   --land-batch 8 --visualizer 3``; the client's reconstruction must equal
+   the server's state every frame, every landed frame of a visualizer path
+   must bring its aux frame, the first 5 equal to the NumPy spec's, on a
+   map path the server's map must be the saved one and the first 5 states
+   the NumPy spec's with it, and each kernel's launch count, set to 0 just before a path and read just
+   after, must show the path went through it. Then the path of K5, K6 and
+   K7, the JAX package's scheme cross-check and probe, through the public
+   entry points on one synthetic 1080p frame, its launches counted the
+   same way;
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2): each kernel, its plain
@@ -44,7 +60,10 @@ Phases (any failure raises and the script exits non-zero):
    the host, and the synchronous against the pipelined executor per frame;
    the source's host time per frame is printed apart; K4 against its
    plain version, ``torch.bincount`` and its bound, the filters and the
-   noise filter, the ``--visualizer 5`` step and the aux landing.
+   noise filter, the ``--visualizer 5`` step and the aux landing; K1
+   without and with a map on each emission, in turns; K5, K6 and K7
+   against their plain versions and bounds (K7's in operations, at the
+   card's SM clock and an SM's issue ceiling of 128 lanes per clock).
 
 It prints progress lines, then the card's ``nvidia-smi`` line, then one
 JSON line of kernel records, and last
@@ -58,9 +77,11 @@ import concurrent.futures
 import dataclasses
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -68,6 +89,10 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+# integer instructions an SM can issue per clock: 4 schedulers, one warp
+# instruction (32 lanes) each. K7 runs faster than the 64 INT32 lanes per
+# SM of the data sheet allow on its 45 SMs, so this is its peak rate.
+K7_LANES_PER_SM = 4 * 32
 ITERS = 100
 CUR_COPIES = 8
 SEED = 2734
@@ -95,6 +120,12 @@ def phase_environment():
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     log(f"[env] nvidia-smi: {smi}")
+    clock_mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0])
+    log(f"[env] nvidia-smi clocks.max.sm: {clock_mhz} MHz")
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
@@ -109,24 +140,43 @@ def phase_environment():
         log(f"[env] triton {triton.__version__} imports")
     except ImportError as e:  # reported only: no kernel here uses triton
         log(f"[env] triton does not import: {e}")
-    return smi
+    return smi, clock_mhz
 
 
 def phase_build():
+    """Build and bind the six sources; returns the number of ISETP
+    (integer compare) instructions in K7's SASS, which must keep its 256
+    compares per value (fails below 256: the compiler folded them)."""
     from cudavideostream_tpu_torch.kernels import build
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.ops import register_compact
 
     t0 = time.perf_counter()
-    names = ("logcompact", "pair_compact", "histogram")
+    names = ("logcompact", "pair_compact", "histogram", "segment_compact",
+             "register_compact", "probe")
     # one nvcc per source, all at once
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.build, names))
     logcompact._kernel_lib()
     logcompact._pair_lib()
+    logcompact._segment_lib()
+    register_compact._register_lib()
     hist._hist_lib()
+    hist._probe()
     log(f"[build] csrc/{'.cu, csrc/'.join(names)}.cu built and bound in "
         f"{time.perf_counter() - t0:.2f} s")
+    cuobjdump = build.find_nvcc()[: -len("nvcc")] + "cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(build.build("probe"))],
+                          check=True, capture_output=True,
+                          text=True).stdout.splitlines()
+    isetp = sum("ISETP" in line for line in sass)
+    log(f"[build] csrc/probe.cu SASS (cuobjdump -sass): {isetp} ISETP "
+        f"compares, {sum('IADD' in line for line in sass)} IADD, in "
+        f"{len(sass)} lines")
+    if isetp < 256:
+        raise AssertionError("K7's SASS lost its 256 compares per value")
+    return isetp
 
 
 def _equal_or_raise(name, got, want,
@@ -498,20 +548,20 @@ def _payload_host(cfg, out):
     return pos, xs[:pos], vals[:pos]
 
 
-def _check_step(label, cfg, prev_np, cur_np, text):
+def _check_step(label, cfg, prev_np, cur_np, text, threshold_map=None):
     """One 1080p ``pipeline.step`` on the card against ``step_oracle``:
     the payload, the new state and the aux frame, byte for byte."""
     from cudavideostream_tpu_torch.models import DeltaStreamPipeline
     from cudavideostream_tpu_torch.ops import reference_cpu
     from cudavideostream_tpu_torch.utils import fonts
 
-    pipe = DeltaStreamPipeline(cfg)
+    pipe = DeltaStreamPipeline(cfg, threshold_map=threshold_map)
     out = pipe.step(pipe.init_state(prev_np), cur_np, text=text)
     aux = None if out[-1] is None else out[-1].cpu().numpy()
     pos, xs, vals = _payload_host(cfg, out)
     e_prev, e_pos, e_xs, e_vals, e_aux = reference_cpu.step_oracle(
         prev_np, cur_np, cfg, atlas=pipe.atlas_np,
-        char_ids=fonts.encode_text(text))
+        char_ids=fonts.encode_text(text), threshold_map=threshold_map)
     ok = (pos == e_pos and np.array_equal(xs, e_xs)
           and np.array_equal(vals, e_vals)
           and np.array_equal(out[0].cpu().numpy(), e_prev)
@@ -584,6 +634,282 @@ def phase_filters_vs_plain(cfg):
                         prev_np, cur_np, text)
             cases["steps"] += 1
     return cases
+
+
+def door_map(cfg, rng):
+    """A per-pixel ``(H, W)`` threshold map of the kind ``--threshold-map``
+    is for: 60 over the noisy scene, 4 in a "door" rectangle, and a few
+    pixels at 0 (every change ships) and at 255 (nothing ships)."""
+    h, w = cfg.height, cfg.width
+    tm = np.full((h, w), 60, np.uint8)
+    tm[h // 4: 3 * h // 4, w // 2: w // 2 + w // 6] = 4
+    for v in (0, 255):
+        tm[rng.integers(0, h, 200), rng.integers(0, w, 200)] = v
+    return tm
+
+
+def byte_map(rng, n):
+    """A per-byte map: 0..60 (the frames' noise is up to 15, their jumps
+    30..200), with 1% of the bytes at 0 and 1% at 255."""
+    tm = rng.integers(0, 60, n, endpoint=True, dtype=np.uint8)
+    tm[rng.random(n) < 0.01] = 0
+    tm[rng.random(n) < 0.01] = 255
+    return tm
+
+
+def phase_map_vs_plain(cfg):
+    """K1 with a per-byte threshold map on every emission against its
+    plain version at 1080p and on ragged lengths (with and without the
+    overlay region and negative feedback; a map of 0s and 255s only), and
+    one 1080p step of each emission with a map against
+    ``step_oracle(threshold_map=)``."""
+    from cudavideostream_tpu_torch.config import Visualizer
+    from cudavideostream_tpu_torch.ops import logcompact
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 8)
+    region = torch.from_numpy(rng.integers(
+        0, 255, 288_000, endpoint=True, dtype=np.uint8)).to(dev)
+    flat = ("pos", "xs", "vals", "new_prev")
+    tiled = ("pos", "counts", "xs_t", "vals_t", "new_prev")
+    lc = logcompact
+    emissions = {
+        "flat": (lc.fused_diff_compact, lc.fused_diff_compact_reference,
+                 {}, flat),
+        **{f"tiled subtile={s}": (
+            lc.fused_diff_compact_tiled, lc.fused_diff_compact_tiled_reference,
+            dict(sub_rows=s), tiled) for s in (1, 8, 0)},
+        "tiled+bits subtile=1": (
+            lc.fused_diff_compact_tiled, lc.fused_diff_compact_tiled_reference,
+            dict(sub_rows=1, emit_bits=True),
+            ("pos", "counts", "xs_t", "vals_t", "bits", "new_prev")),
+        **{f"mask subtile={s}": (
+            lc.fused_diff_compact_mask, lc.fused_diff_compact_mask_reference,
+            dict(sub_rows=s),
+            ("pos", "counts", "vals_t", "bits", "new_prev"))
+           for s in (1, 8, 0)},
+    }
+    cases = 0
+
+    def run(name, emission, prev, cur, tm, negfeed, reg):
+        nonlocal cases
+        fn, ref, kw, labels = emissions[emission]
+        p_k, p_p = prev.clone(), prev.clone()
+        k = fn(cur, p_k, 20, negfeed, reg, threshold_map=tm, **kw)
+        torch.cuda.synchronize()
+        p = ref(cur, p_p, 20, negfeed, reg, threshold_map=tm, **kw)
+        _equal_or_raise(f"{emission} {name}", k, p, labels)
+        cases += 1
+        return int(k[0])
+
+    for density in (0.06, 1.0):
+        prev_np, cur_np = frame_pair(rng, n, density)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        tm = torch.from_numpy(byte_map(rng, n)).to(dev)
+        for emission in emissions:
+            poss = [run(f"map d={density} negfeed={negfeed} overlay="
+                        f"{reg is not None}", emission, prev, cur, tm,
+                        negfeed, reg)
+                    for negfeed in (True, False) for reg in (None, region)]
+            log(f"[check] K1 {emission} with a per-byte map, d={density}: "
+                f"4 cases (negfeed x overlay) exact, pos "
+                f"{min(poss)}..{max(poss)}")
+    tm = torch.from_numpy(np.where(rng.random(n) < 0.5, 0, 255).astype(
+        np.uint8)).to(dev)
+    for emission in emissions:
+        run("map of 0s and 255s", emission, prev, cur, tm, True, region)
+    log(f"[check] K1 with a map of 0s and 255s only, d=1.0, overlay: exact "
+        f"on all {len(emissions)} emissions")
+    for m in (1000, 12_345):
+        prev_np, cur_np = frame_pair(rng, m, 0.06)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        tm = torch.from_numpy(byte_map(rng, m)).to(dev)
+        for emission in emissions:
+            run(f"map n={m}", emission, prev, cur, tm, True, region[:700])
+        log(f"[check] K1 with a map, n={m}, overlay=700 B: exact on all "
+            f"{len(emissions)} emissions")
+
+    text = "FPS: 30 BW: 1234 kbps"
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    tm_np = np.repeat(door_map(cfg, rng).ravel(), 3)
+    for label, kw in (
+            ("flat", {}),
+            ("tiled subtile=1", dict(tiled_payload=True)),
+            ("tiled subtile=0", dict(tiled_payload=True, subtile_rows=0)),
+            ("tiled+bits", dict(tiled_payload=True, emit_bitmask=True)),
+            ("bitmask-only", dict(tiled_payload=True, emit_bitmask=True,
+                                  fetch_mode="mask", maskonly_payload=True)),
+            ("flat --visualizer 2", dict(visualizer=Visualizer.RED_BLACK)),
+            ("bitmask-only --visualizer 3",
+             dict(tiled_payload=True, emit_bitmask=True, fetch_mode="mask",
+                  maskonly_payload=True,
+                  visualizer=Visualizer.RED_OVERLAP))):
+        _check_step(f"{label} with the door map", dataclasses.replace(
+            cfg, **kw), prev_np, cur_np, text, threshold_map=tm_np)
+        cases += 1
+    return cases
+
+
+def phase_schemes_vs_plain(cfg):
+    """K5 and K6 against their plain versions at 1080p and on ragged
+    lengths; the three schemes through the flat and tiled entry points,
+    K5 == K6 == K1 tiled at ``subtile_rows=0`` bit for bit (three
+    independent kernels) and flat equal to K1's plain version; K5 with the
+    overlay region and a map; K7 on the synthetic scene's gray grid, on
+    out-of-range values and on ragged row counts."""
+    from cudavideostream_tpu_torch.ops import filters
+    from cudavideostream_tpu_torch.ops import hist
+    from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.ops import register_compact
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 9)
+    region = torch.from_numpy(rng.integers(
+        0, 255, 288_000, endpoint=True, dtype=np.uint8)).to(dev)
+    cases = {"k5": 0, "k6": 0, "k7": 0}
+    blocks = ("counts", "xs_t", "vals_t", "new_prev")
+    tiled = ("pos", "counts", "xs_t", "vals_t", "new_prev")
+    flat = ("pos", "xs", "vals", "new_prev")
+
+    def against_plain(prev, cur, thr, negfeed, reg=None, tm=None):
+        """Each scheme's blocks against its plain version, then the three
+        schemes through the tiled and flat entry points."""
+        a, b = prev.clone(), prev.clone()
+        k = logcompact.segment_compact(cur, a, thr, negfeed, reg, tm)
+        torch.cuda.synchronize()
+        _equal_or_raise("K5", k, logcompact.segment_compact_reference(
+            cur, b, thr, negfeed, reg, tm), blocks)
+        cases["k5"] += 1
+        schemes = ["element", "segment"]
+        if reg is None and tm is None:
+            a, b = prev.clone(), prev.clone()
+            k = register_compact.register_compact(cur, a, thr, negfeed)
+            torch.cuda.synchronize()
+            _equal_or_raise("K6", k, register_compact.
+                            register_compact_reference(cur, b, thr, negfeed),
+                            blocks)
+            cases["k6"] += 1
+            schemes.append("register")
+        outs = {s: logcompact.fused_diff_compact_tiled(
+            cur, prev.clone(), thr, negfeed, reg, sub_rows=0,
+            threshold_map=tm, scheme=s) for s in schemes}
+        for s in schemes[1:]:
+            _equal_or_raise(f"{s} == K1 tiled subtile=0", outs[s],
+                            outs["element"], tiled)
+        want = logcompact.fused_diff_compact_reference(
+            cur, prev.clone(), thr, negfeed, reg, threshold_map=tm)
+        for s in schemes:
+            _equal_or_raise(f"{s} flat == K1's plain version",
+                            logcompact.fused_diff_compact(
+                                cur, prev.clone(), thr, negfeed, reg,
+                                threshold_map=tm, scheme=s), want, flat)
+        return int(want[0]), tuple(outs["segment"][2].shape)
+
+    for density in (0.0, 0.06, 1.0):
+        prev_np, cur_np = frame_pair(rng, n, density)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        poss = []
+        for thr in (0, 20, 255):
+            for negfeed in (True, False):
+                pos, shape = against_plain(prev, cur, thr, negfeed)
+                poss.append(pos)
+        log(f"[check] K5 and K6 d={density}: 6 cases (thresholds 0/20/255 x "
+            f"negfeed) exact against their plain versions; K5 == K6 == K1 "
+            f"tiled subtile=0 bit for bit ({shape[0]} tiles of {shape[1]} "
+            f"B); all three flat == K1's plain version; pos "
+            f"{min(poss)}..{max(poss)}")
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    prev, cur = (torch.from_numpy(prev_np).to(dev),
+                 torch.from_numpy(cur_np).to(dev))
+    tm = torch.from_numpy(byte_map(rng, n)).to(dev)
+    for negfeed in (True, False):
+        for reg, t in ((region, None), (None, tm), (region, tm)):
+            against_plain(prev, cur, 20, negfeed, reg, t)
+    log("[check] K5 with the overlay region, a per-byte map and both, "
+        "negfeed on and off: exact against its plain version; == K1 tiled "
+        "subtile=0 and flat == K1's plain version")
+    for m in (129, 9000, 12_345):
+        prev_np, cur_np = frame_pair(rng, m, 0.06)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        against_plain(prev, cur, 20, True)
+        against_plain(prev, cur, 20, True, region[:min(m, 700)],
+                      torch.from_numpy(byte_map(rng, m)).to(dev))
+        log(f"[check] K5 and K6 n={m}: exact; K5 with overlay and map "
+            f"exact; the schemes equal K1")
+
+    def probe(label, g2, want=None):
+        got = hist.vpu_probe(g2)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"K7 {label}", (got,),
+                        (hist.vpu_probe_reference(g2),), ("checksums",))
+        if want is not None and not bool((got == want).all()):
+            raise AssertionError(f"K7 {label}: a checksum is not {want}")
+        cases["k7"] += 1
+        log(f"[check] K7 vpu_probe on {label} ({g2.shape[0]} x 128, "
+            f"{got.numel()} tiles of {hist.probe_tile(g2.shape[0])} rows): "
+            f"exact, checksums {int(got.min())}..{int(got.max())}")
+
+    src = SyntheticSource(cfg, seed=SEED)
+    src.base_frame()
+    g = filters.gray_pixels(torch.from_numpy(next(src)).to(dev))
+    tile = hist.probe_tile(g.numel() // 128)
+    probe("the synthetic scene's gray grid",
+          g.to(torch.int32).view(-1, 128), tile * 128)
+    probe("values in [-1000, 1000]", torch.from_numpy(rng.integers(
+        -1000, 1000, (16_200, 128), endpoint=True).astype(np.int32)).to(dev))
+    for rows in (1000, 1001):
+        probe(f"{rows} rows of values in [-300, 600]", torch.from_numpy(
+            rng.integers(-300, 600, (rows, 128)).astype(np.int32)).to(dev))
+    return cases
+
+
+def phase_crosscheck_path(cfg):
+    """The path K5, K6 and K7 serve in the JAX package: its scheme
+    cross-check (``tests/test_device_ops.py:284-360``,
+    ``benchmarks/kernels.py``) and its probe
+    (``benchmarks/binarize_pallas_ab``), through the public entry points at
+    1080p on the synthetic scene. The three schemes must give the same
+    bytes, flat and tiled, and the probe one checksum per tile equal to
+    its element count. Returns this run's launches, counted from 0."""
+    from cudavideostream_tpu_torch.ops import filters
+    from cudavideostream_tpu_torch.ops import hist
+    from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    dev = torch.device("cuda")
+    src = SyntheticSource(cfg, seed=SEED)
+    prev = torch.from_numpy(src.base_frame()).to(dev)
+    cur = torch.from_numpy(next(src)).to(dev)
+    g2 = filters.gray_pixels(cur).to(torch.int32).view(-1, 128)
+    counters = _zero_launches()
+    flat = {s: logcompact.fused_diff_compact(cur, prev.clone(), scheme=s)
+            for s in logcompact.SCHEMES}
+    tiled = {s: logcompact.fused_diff_compact_tiled(cur, prev.clone(),
+                                                    scheme=s)
+             for s in logcompact.SCHEMES}
+    sums = hist.vpu_probe(g2)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for s in ("segment", "register"):
+        _equal_or_raise(f"cross-check {s} flat", flat[s], flat["element"])
+        _equal_or_raise(f"cross-check {s} tiled", tiled[s], tiled["element"],
+                        ("pos", "counts", "xs_t", "vals_t", "new_prev"))
+    tile = hist.probe_tile(g2.shape[0])
+    if not bool((sums == tile * 128).all()):
+        raise AssertionError("K7: a checksum differs from its tile's count")
+    log(f"[serve] cross-check path: the element, segment and register "
+        f"schemes give the same bytes flat and tiled on a 1080p synthetic "
+        f"frame (pos={int(flat['element'][0])}); K7 {sums.numel()} "
+        f"checksums of {tile * 128}; kernel launches: "
+        + ", ".join(f"{k}={v}" for k, v in launches.items()))
+    return {"frames": 1, "launches": launches}
 
 
 class _RecordingExecutor:
@@ -669,20 +995,34 @@ class _UntilTextsChanged:
 def _launch_counters():
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.ops import register_compact
 
     return {"fused_diff_compact": logcompact.fused_diff_compact,
             "fused_diff_compact_tiled": logcompact.fused_diff_compact_tiled,
             "fused_diff_compact_mask": logcompact.fused_diff_compact_mask,
             "pair_compact": logcompact.pair_compact,
             "vals_compact": logcompact.vals_compact,
-            "histogram": hist.histogram}
+            "histogram": hist.histogram,
+            "segment_compact": logcompact.segment_compact,
+            "register_compact": register_compact.register_compact,
+            "vpu_probe": hist.vpu_probe}
 
 
-def phase_serving(cfg, label, pipelined=False, land_batch=0):
+def _zero_launches():
+    """Set every kernel's launch count to 0; returns the counters."""
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def phase_serving(cfg, label, pipelined=False, land_batch=0, inner=None):
     """Serve 1080p frames over TCP on one path; returns the frames served,
     the frames that changed some byte, every kernel's launches in that
     run and the landing flavors. On a visualizer path every landed frame
-    must bring its aux frame, the first 5 equal to the NumPy spec's."""
+    must bring its aux frame, the first 5 equal to the NumPy spec's (with
+    the pipeline's threshold map, if any). ``inner``: the executor, as the
+    server's command line built it; by default one is built here."""
     from cudavideostream_tpu_torch.config import Visualizer
     from cudavideostream_tpu_torch.ops import reference_cpu
     from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
@@ -696,9 +1036,9 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0):
     from cudavideostream_tpu_torch.utils import fonts
 
     cfg = dataclasses.replace(cfg, port=0)
-    if land_batch:
+    if inner is None and land_batch:
         inner = BatchedLandExecutor(cfg, depth=land_batch)
-    else:
+    elif inner is None:
         inner = (PipelinedExecutor if pipelined else StreamExecutor)(cfg)
     rec = _RecordingExecutor(inner)
     source = _UntilTextsChanged(SyntheticSource(cfg, seed=SEED), rec)
@@ -712,9 +1052,7 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0):
         except BaseException as e:
             errors.append(e)
 
-    counters = _launch_counters()
-    for fn in counters.values():  # counts of this path's run only
-        fn.launches = 0
+    counters = _zero_launches()  # counts of this path's run only
     t0 = time.perf_counter()
     th = threading.Thread(target=serve, name="smoke-server", daemon=True)
     th.start()
@@ -768,13 +1106,36 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0):
                 zip(rec.inputs, rec.auxes)):
             want = reference_cpu.step_oracle(
                 prev_np, frame_np, cfg, atlas=atlas,
-                char_ids=fonts.encode_text(text))[4]
+                char_ids=fonts.encode_text(text),
+                threshold_map=inner.pipe.threshold_map_np)[4]
             if not (aux.dtype == np.uint8 and np.array_equal(aux, want)):
                 raise AssertionError(f"{label}: landed aux frame {k} "
                                      "differs from step_oracle's")
         log(f"[serve] {label}: an aux frame landed with each of the "
             f"{frames} frames; the first {len(rec.auxes)} equal "
             f"step_oracle's, byte for byte")
+    tmap = inner.pipe.threshold_map_np
+    if tmap is not None:
+        # the served states follow the map: the first frames' states equal
+        # the NumPy spec's with it, and some differ from the scalar's
+        moved = 0
+        for k, (prev_np, frame_np, text) in enumerate(rec.inputs):
+            kw = dict(atlas=inner.pipe.atlas_np,
+                      char_ids=fonts.encode_text(text))
+            want = reference_cpu.step_oracle(prev_np, frame_np, cfg,
+                                             threshold_map=tmap, **kw)[0]
+            if hashlib.sha256(want).hexdigest() != rec.digests[k]:
+                raise AssertionError(f"{label}: served state {k} differs "
+                                     "from step_oracle's with the map")
+            scalar = reference_cpu.step_oracle(prev_np, frame_np, cfg,
+                                               **kw)[0]
+            moved += not np.array_equal(want, scalar)
+        if not moved:
+            raise AssertionError(f"{label}: the map changed none of the "
+                                 f"first {len(rec.inputs)} states")
+        log(f"[serve] {label}: the first {len(rec.inputs)} served states "
+            f"equal step_oracle(threshold_map=)'s, byte for byte; {moved} "
+            f"of them differ from the scalar threshold's")
     log(f"[serve] {label}: {frames} frames at 1080p over TCP, byte-exact "
         f"every frame; overlay texts {len(set(rec.texts))}; mean pos "
         f"{statistics.mean(positions):.0f}; {frames / wall:.2f} fps wall "
@@ -1443,6 +1804,154 @@ def phase_filter_times(cfg):
             "k4_library_ms": k4_lib}
 
 
+def phase_map_scheme_times(cfg, clock_mhz):
+    """K1 without and with a map on each emission, in turns (a map of 20s
+    everywhere, so both ship the same bytes and the difference is the
+    map's read); K5 without and with the map, K6 and K7 against their
+    plain versions and bounds."""
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import filters
+    from cudavideostream_tpu_torch.ops import hist
+    from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.ops import overlay as overlay_ops
+    from cudavideostream_tpu_torch.ops import register_compact
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 11)
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    cur = torch.from_numpy(cur_np).to(dev)
+    prev0 = torch.from_numpy(prev_np).to(dev)
+    prevs = [prev0.clone() for _ in range(ITERS)]
+    curs = [cur.clone() for _ in range(CUR_COPIES)]
+    tm = torch.full((n,), cfg.threshold, dtype=torch.uint8, device=dev)
+
+    def refill():
+        for p in prevs:
+            p.copy_(prev0)
+
+    pipe = DeltaStreamPipeline(cfg)
+    text = "FPS: 30 BW: 1234 kbps"
+    cell_h = pipe.atlas.shape[1]
+    region = overlay_ops.overlay_blit(
+        cur[: cell_h * cfg.width * 3], pipe.atlas, pipe._char_ids(text),
+        len(text), cell_h, cfg.width)
+    lc = logcompact
+    k1 = {"flat": lambda i, m: lc.fused_diff_compact(
+              curs[i % CUR_COPIES], prevs[i], 20, True, region,
+              threshold_map=m),
+          "tiled": lambda i, m: lc.fused_diff_compact_tiled(
+              curs[i % CUR_COPIES], prevs[i], 20, True, region, 1,
+              threshold_map=m),
+          "mask": lambda i, m: lc.fused_diff_compact_mask(
+              curs[i % CUR_COPIES], prevs[i], 20, True, region, 1,
+              threshold_map=m)}
+    k1_ms = {}
+    for name, fn in k1.items():
+        for m in (None, tm, tm, None):
+            refill()
+            k1_ms.setdefault((name, m is not None), []).append(
+                _event_median_ms(lambda i: fn(i, m), ITERS))
+    pos = int(lc.fused_diff_compact(cur, prev0.clone(), 20, True, region,
+                                    threshold_map=tm)[0])
+
+    k5_ms = {}
+    for m in (None, tm, tm, None):
+        refill()
+        k5_ms.setdefault(m is not None, []).append(_event_median_ms(
+            lambda i: lc.segment_compact(curs[i % CUR_COPIES], prevs[i], 20,
+                                         True, region, m), ITERS))
+    refill()
+    _profile_ms(lambda i: lc.segment_compact(curs[i % CUR_COPIES], prevs[i],
+                                             20, True, region),
+                ("segment_kernel",), "K5")
+    refill()
+    k5_plain = _event_median_ms(
+        lambda i: lc.segment_compact_reference(
+            curs[i % CUR_COPIES], prevs[i], 20, True, region), 10,
+        backlog=False)
+    refill()
+    k6 = _event_median_ms(lambda i: register_compact.register_compact(
+        curs[i % CUR_COPIES], prevs[i]), ITERS)
+    refill()
+    _profile_ms(lambda i: register_compact.register_compact(
+        curs[i % CUR_COPIES], prevs[i]), ("register_kernel",), "K6")
+    refill()
+    k6_plain = _event_median_ms(
+        lambda i: register_compact.register_compact_reference(
+            curs[i % CUR_COPIES], prevs[i]), 5, backlog=False)
+
+    src = SyntheticSource(cfg, seed=SEED)
+    src.base_frame()
+    g2 = filters.gray_pixels(torch.from_numpy(next(src)).to(dev)).to(
+        torch.int32).view(-1, 128)
+    hist.vpu_probe(g2)  # warm-up
+    k7 = _event_median_ms(lambda i: hist.vpu_probe(g2), ITERS)
+    _profile_ms(lambda i: hist.vpu_probe(g2), ("probe_kernel",), "K7")
+    k7_plain = _event_median_ms(lambda i: hist.vpu_probe_reference(g2), 10,
+                                backlog=False)
+
+    # bounds: each input read once, each output written once; a map adds
+    # its n bytes read
+    t_pad, t_unit = lc.tiled_geometry(n, 1)
+    m_pad, m_unit = lc.tiled_geometry_mask(n, 1)
+    w_pad, w_unit = lc.tiled_geometry(n, 0)
+    k1_bytes = {"flat": 8 * n + 4,
+                "tiled": 3 * n + 5 * t_pad + t_pad // t_unit + 4,
+                "mask": 3 * n + m_pad + m_pad // 8 + m_pad // m_unit + 4}
+    k5_bytes = 3 * n + 5 * w_pad + 4 * (w_pad // w_unit)
+    npx = g2.numel()
+    # a compare and an add per value and bin (one ISETP and one IADD each
+    # in the SASS), over the SM's issue ceiling: 4 schedulers x 32 lanes
+    # per clock, whichever pipe runs the instruction
+    k7_ops = 2 * hist.NBINS * npx
+    k7_ops_ms = k7_ops / (132 * K7_LANES_PER_SM * clock_mhz * 1e6) * 1e3
+    k7_bytes_ms = (4 * npx + 4 * (npx // 128 // hist.probe_tile(
+        npx // 128))) / HBM_BYTES_PER_S * 1e3
+
+    def ms(b):
+        return b / HBM_BYTES_PER_S * 1e3
+
+    log(f"[time] per-byte map, 1080p, pos={pos} ({pos / n:.2%}) with a map "
+        f"of {cfg.threshold}s (the scalar run's bytes), overlay region "
+        f"{region.numel()} B, medians of {ITERS} (CUDA events), in turns "
+        f"without / with the map")
+    for name in k1:
+        off_, on_ = k1_ms[(name, False)], k1_ms[(name, True)]
+        log(f"[time] K1 {name}{' subtile=1' if name != 'flat' else ''}: "
+            f"{' / '.join(f'{x:.4f}' for x in off_)} ms without, "
+            f"{' / '.join(f'{x:.4f}' for x in on_)} ms with the map (bound "
+            f"{ms(k1_bytes[name]):.5f} / {ms(k1_bytes[name] + n):.5f} ms = "
+            f"{k1_bytes[name]} / {k1_bytes[name] + n} B at 3.35 TB/s)")
+    log(f"[time] K5 segment_compact ({w_pad // w_unit} tiles of {w_unit} "
+        f"B): {' / '.join(f'{x:.4f}' for x in k5_ms[False])} ms, with the "
+        f"map {' / '.join(f'{x:.4f}' for x in k5_ms[True])} ms (bound "
+        f"{ms(k5_bytes):.5f} / {ms(k5_bytes + n):.5f} ms = {k5_bytes} / "
+        f"{k5_bytes + n} B; {ms(k5_bytes) / statistics.median(k5_ms[False]):.1%}"
+        f" of it); its plain PyTorch version {k5_plain:.4f} ms")
+    log(f"[time] K6 register_compact: {k6:.4f} ms (bound {ms(k5_bytes):.5f} "
+        f"ms = {k5_bytes} B; {ms(k5_bytes) / k6:.1%} of it); its plain "
+        f"PyTorch version {k6_plain:.4f} ms (a 496-row loop)")
+    log(f"[time] K7 vpu_probe on the scene's {npx} gray values "
+        f"({npx // 128} x 128 int32): {k7:.4f} ms (bound {k7_ops_ms:.5f} ms "
+        f"= {k7_ops} int32 operations over 132 SMs x {K7_LANES_PER_SM} "
+        f"lanes at "
+        f"{clock_mhz} MHz; its bytes {k7_bytes_ms:.5f} ms; "
+        f"{k7_ops_ms / k7:.1%} of it); its plain PyTorch version "
+        f"{k7_plain:.4f} ms")
+    med = {key: statistics.median(v) for key, v in k1_ms.items()}
+    return {"k1_map_ms": {name: med[(name, True)] for name in k1},
+            "k1_map_bound_ms": {name: ms(k1_bytes[name] + n) for name in k1},
+            "k5_ms": statistics.median(k5_ms[False]),
+            "k5_map_ms": statistics.median(k5_ms[True]),
+            "k5_plain_ms": k5_plain, "k5_bound_ms": ms(k5_bytes),
+            "k5_map_bound_ms": ms(k5_bytes + n),
+            "k6_ms": k6, "k6_plain_ms": k6_plain, "k6_bound_ms": ms(k5_bytes),
+            "k7_ms": k7, "k7_plain_ms": k7_plain,
+            "k7_bound_ms": max(k7_ops_ms, k7_bytes_ms)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1452,12 +1961,14 @@ def main() -> int:
 
     cfg = StreamConfig()  # the default: 1080p BGR24, threshold 20, negfeed
     tcfg = dataclasses.replace(cfg, tiled_payload=True)
-    smi = phase_environment()
-    phase_build()
+    smi, clock_mhz = phase_environment()
+    isetp = phase_build()
     max_err, cases = phase_kernel_vs_plain(cfg)
     tiled_cases = phase_tiled_vs_plain(cfg)
     mask_cases = phase_mask_vs_plain(cfg)
     filter_cases = phase_filters_vs_plain(cfg)
+    map_cases = phase_map_vs_plain(cfg)
+    scheme_cases = phase_schemes_vs_plain(cfg)
     mcfg = dataclasses.replace(tcfg, emit_bitmask=True, fetch_mode="mask",
                                mask_payload=True, wire_format="v4")
     runs = {
@@ -1493,7 +2004,36 @@ def main() -> int:
             "--tiled --fetch mask --maskonly --wire v4 --land-batch 8 "
             "--visualizer 3", land_batch=8),
     }
+    # the two --threshold-map paths, built by the server's own command
+    # line from a per-pixel map on disk
+    from cudavideostream_tpu_torch.runtime import server as server_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "door.npy")
+        door = door_map(cfg, np.random.default_rng(SEED + 10))
+        np.save(path, door)
+        for key, flags in (
+                ("map_flat_v1", []),
+                ("map_red_overlap_maskonly_batch8",
+                 ["--tiled", "--fetch", "mask", "--maskonly", "--wire", "v4",
+                  "--land-batch", "8", "--visualizer", "3"])):
+            argv = flags + ["--threshold-map", path]
+            mapcfg, inner, _ = server_mod.setup(["--port", "0"] + argv)
+            if not np.array_equal(inner.pipe.threshold_map_np,
+                                  np.repeat(door.ravel(), 3)):
+                raise AssertionError(f"{key}: the server's map is not the "
+                                     "saved per-pixel map, x3 per byte")
+            label = " ".join(["flat, wire v1"] if not flags else flags)
+            runs[key] = phase_serving(mapcfg, label + " --threshold-map",
+                                      inner=inner)
+    runs["crosscheck"] = phase_crosscheck_path(cfg)
     none = dict.fromkeys(_launch_counters(), 0)
+    _expect_launches(runs["map_flat_v1"], "map_flat_v1", {
+        **none, "fused_diff_compact": runs["map_flat_v1"]["frames"]})
+    _expect_launches(runs["crosscheck"], "crosscheck", {
+        **none, "fused_diff_compact": 1, "fused_diff_compact_tiled": 1,
+        "segment_compact": 2, "register_compact": 2, "pair_compact": 2,
+        "vpu_probe": 1})
     _expect_launches(runs["flat"], "flat", {
         **none, "fused_diff_compact": runs["flat"]["frames"]})
     run = runs["binarize_v1"]
@@ -1515,7 +2055,8 @@ def main() -> int:
         _expect_launches(run, key, {
             **none, "fused_diff_compact_tiled": run["frames"],
             "pair_compact": merges})
-    for key in ("maskonly_v4_batch8", "red_overlap_maskonly_batch8"):
+    for key in ("maskonly_v4_batch8", "red_overlap_maskonly_batch8",
+                "map_red_overlap_maskonly_batch8"):
         run = runs[key]
         _expect_launches(run, key, {
             **none, "fused_diff_compact_mask": run["frames"],
@@ -1524,7 +2065,8 @@ def main() -> int:
                       ("bitmask_mask_v4", "mask"),
                       ("maskonly_v4_batch8", "mask"),
                       ("denoised_heatmap_tiled_flat", "flat"),
-                      ("red_overlap_maskonly_batch8", "mask")):
+                      ("red_overlap_maskonly_batch8", "mask"),
+                      ("map_red_overlap_maskonly_batch8", "mask")):
         if runs[key]["fetch_counts"][mode] != runs[key]["frames"]:
             raise AssertionError(f"{key}: the landing flavors did not follow "
                                  f"--fetch {mode}")
@@ -1536,23 +2078,25 @@ def main() -> int:
     ttimes = phase_tiled_times(cfg)
     mtimes = phase_mask_times(cfg)
     ftimes = phase_filter_times(cfg)
+    xtimes = phase_map_scheme_times(cfg, clock_mhz)
 
     def launches(name):
         by_path = {k: r["launches"][name] for k, r in runs.items()}
         return sum(by_path.values()), by_path
 
     lc = "cudavideostream_tpu/ops/logcompact.py"
+    with_map = f"; with a per-byte map byte-exact in {map_cases} cases"
     records = [
         ("fused_diff_compact", "logcompact.cu", f"{lc}:297", max_err,
          times["ms"], times["plain_ms"], times["bound_ms"], None,
-         f"byte-exact in {cases} cases"),
+         f"byte-exact in {cases} cases" + with_map),
         ("fused_diff_compact_tiled", "logcompact.cu", f"{lc}:297", 0,
          ttimes["k1_ms"], ttimes["k1_plain_ms"], ttimes["k1_bound_ms"], None,
          f"byte-exact in {tiled_cases['k1']} cases, and with bits in "
-         f"{mask_cases['k1_bits']}"),
+         f"{mask_cases['k1_bits']}" + with_map),
         ("fused_diff_compact_mask", "logcompact.cu", f"{lc}:297", 0,
          mtimes["k1_ms"], mtimes["k1_plain_ms"], mtimes["k1_bound_ms"], None,
-         f"byte-exact in {mask_cases['k1_mask']} cases"),
+         f"byte-exact in {mask_cases['k1_mask']} cases" + with_map),
         ("pair_compact", "pair_compact.cu", f"{lc}:1120", 0,
          ttimes["k2_ms"], ttimes["k2_plain_ms"], ttimes["k2_bound_ms"], None,
          f"byte-exact in {tiled_cases['k2']} cases"),
@@ -1565,10 +2109,33 @@ def main() -> int:
          ftimes["k4_library_ms"],
          f"byte-exact in {filter_cases['k4']} cases; the 8 variants and 6 "
          f"tiled visualizer steps equal step_oracle"),
+        ("segment_compact", "segment_compact.cu", f"{lc}:537", 0,
+         xtimes["k5_ms"], xtimes["k5_plain_ms"], xtimes["k5_bound_ms"], None,
+         f"byte-exact in {scheme_cases['k5']} cases; == K1 tiled "
+         f"subtile=0; with the map {xtimes['k5_map_ms']:.4f} ms against "
+         f"{xtimes['k5_map_bound_ms']:.5f}"),
+        ("register_compact", "register_compact.cu",
+         "cudavideostream_tpu/ops/pallas_compact.py:68", 0,
+         xtimes["k6_ms"], xtimes["k6_plain_ms"], xtimes["k6_bound_ms"], None,
+         f"byte-exact in {scheme_cases['k6']} cases; == K1 tiled "
+         f"subtile=0"),
+        ("vpu_probe", "probe.cu",
+         "cudavideostream_tpu/ops/hist_pallas.py:98", 0,
+         xtimes["k7_ms"], xtimes["k7_plain_ms"], xtimes["k7_bound_ms"], None,
+         f"byte-exact in {scheme_cases['k7']} cases; {isetp} ISETP in its "
+         f"SASS; bound at {clock_mhz} MHz x {K7_LANES_PER_SM} lanes per "
+         f"SM"),
     ]
     kernels = []
     for name, src, replaces, err, ms, plain, bound, lib_ms, check in records:
         total, by_path = launches(name)
+        extra = {}
+        if name.startswith("fused_diff_compact"):
+            emission = {"fused_diff_compact": "flat",
+                        "fused_diff_compact_tiled": "tiled",
+                        "fused_diff_compact_mask": "mask"}[name]
+            extra = {"map_ms": xtimes["k1_map_ms"][emission],
+                     "map_bound_ms": xtimes["k1_map_bound_ms"][emission]}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1579,10 +2146,11 @@ def main() -> int:
             "ms": ms,
             "plain_ms": plain,
             "bound_ms": bound,
-            "bound_by": "bytes",
+            "bound_by": "operations" if name == "vpu_probe" else "bytes",
             "library_ms": lib_ms,
             "check": check,
             "launches_by_path": by_path,
+            **extra,
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

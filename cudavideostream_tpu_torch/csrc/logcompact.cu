@@ -96,6 +96,16 @@
 // writes new_prev (n), vals_t (n_pad), bits (n_pad / 8), counts (n_pad /
 // 128) and pos: 25,715,204 B, or 7.68 us at 3.35 TB/s, half the tiled
 // emission's bytes.
+//
+// THRESHOLD MAP (every entry point, thr_map not null; the TPU kernel's
+// thr_is_map, logcompact.py:368 and :927-935): byte i ships iff
+// |c - p| > thr_map[i], the map read at the byte's own index also where
+// the region stands in for cur. It is one more 16-byte vector load in
+// group_mask, the one place the ship test lives, so every emission takes
+// it; a null map keeps the scalar compare. Bytes past n read as
+// c == p == 0 and never ship, whatever the map would hold there. The
+// bound grows by n bytes read: K1 flat with a map moves 55,987,204 B at
+// 1080p, 16.71 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,11 +138,14 @@ __device__ __forceinline__ Vec16 load16(const uint8_t* __restrict__ src,
 
 // The 16-bit ship mask of the group of 16 bytes at i0 (bit k = byte
 // i0 + k), with the current bytes (region-substituted) in c and the
-// previous bytes in p. Bytes past n never ship.
+// previous bytes in p. Bytes past n never ship. The threshold is thr, or
+// with a per-byte map (thr_map not null) thr_map[i], read at the byte's
+// own index also where the region stands in for cur.
 __device__ __forceinline__ unsigned group_mask(
     const uint8_t* __restrict__ cur, const uint8_t* prev,
     const uint8_t* __restrict__ region, long long region_len, long long n,
-    int thr, long long i0, Vec16& c, Vec16& p) {
+    int thr, const uint8_t* __restrict__ thr_map, long long i0, Vec16& c,
+    Vec16& p) {
   if (i0 >= n) {
     c.v = make_uint4(0, 0, 0, 0);
     p.v = c.v;
@@ -150,11 +163,14 @@ __device__ __forceinline__ unsigned group_mask(
       c.b[k] = i < region_len ? region[i] : (i < n ? cur[i] : 0);
     }
   }
+  Vec16 t;
+  if (thr_map != nullptr) t = load16(thr_map, i0, n);
   unsigned m = 0;
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     int d = int(c.b[k]) - int(p.b[k]);
-    if ((d < 0 ? -d : d) > thr) m |= 1u << k;
+    if ((d < 0 ? -d : d) > (thr_map != nullptr ? int(t.b[k]) : thr))
+      m |= 1u << k;
   }
   return m;  // c == p == 0 past n, so those bytes never ship
 }
@@ -233,8 +249,8 @@ __device__ __forceinline__ void store_bits(uint8_t* bits, long long i0,
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ prev,
              const uint8_t* __restrict__ region, long long region_len,
-             long long n, int thr, int tiles_per_block,
-             int* __restrict__ counts) {
+             long long n, int thr, const uint8_t* __restrict__ thr_map,
+             int tiles_per_block, int* __restrict__ counts) {
   __shared__ int s_warp[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long base = (long long)blockIdx.x * tiles_per_block * kTileBytes;
@@ -242,7 +258,8 @@ count_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ prev,
   for (int t = 0; t < tiles_per_block; ++t) {
     long long i0 = base + (long long)t * kTileBytes + threadIdx.x * kBytesPerThread;
     Vec16 c, p;
-    cnt += __popc(group_mask(cur, prev, region, region_len, n, thr, i0, c, p));
+    cnt += __popc(group_mask(cur, prev, region, region_len, n, thr, thr_map,
+                             i0, c, p));
   }
   cnt = warp_sum(cnt);
   if (lane == 0) s_warp[warp] = cnt;
@@ -258,7 +275,8 @@ count_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ prev,
 __global__ void __launch_bounds__(kThreads)
 compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                const uint8_t* __restrict__ region, long long region_len,
-               long long n, int thr, int negfeed, int tiles_per_block,
+               long long n, int thr, const uint8_t* __restrict__ thr_map,
+               int negfeed, int tiles_per_block,
                const int* __restrict__ counts, int grid,
                int* __restrict__ xs, uint8_t* __restrict__ vals,
                long long cap, int* __restrict__ pos_out) {
@@ -297,7 +315,8 @@ compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   for (int t = 0; t < tiles_per_block; ++t) {
     const long long i0 = base + (long long)t * kTileBytes + threadIdx.x * kBytesPerThread;
     Vec16 c, p;
-    const unsigned m = group_mask(cur, prev, region, region_len, n, thr, i0, c, p);
+    const unsigned m = group_mask(cur, prev, region, region_len, n, thr,
+                                  thr_map, i0, c, p);
     const int cnt = __popc(m);
 
     // rank within the tile: warp inclusive scan, then the warp totals
@@ -348,7 +367,8 @@ template <bool kXs>
 __global__ void __launch_bounds__(kThreads)
 tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                   const uint8_t* __restrict__ region, long long region_len,
-                  long long n, long long n_pad, int thr, int negfeed,
+                  long long n, long long n_pad, int thr,
+                  const uint8_t* __restrict__ thr_map, int negfeed,
                   int unit_bytes, int counts_bytes,
                   int* __restrict__ tile_tot, void* __restrict__ counts,
                   int* __restrict__ xs_t, uint8_t* __restrict__ vals_t,
@@ -371,8 +391,8 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   reinterpret_cast<uint4*>(s_vals)[t] = make_uint4(0, 0, 0, 0);
 
   Vec16 c, p;
-  const unsigned m = group_mask(cur, prev, region, region_len, n, thr, i0,
-                                c, p);
+  const unsigned m = group_mask(cur, prev, region, region_len, n, thr,
+                                thr_map, i0, c, p);
   const int cnt = __popc(m);
   int total;
   // (its barrier also orders the zeroing before the staging below)
@@ -427,6 +447,7 @@ tiled_chunk_count_kernel(const uint8_t* __restrict__ cur,
                          const uint8_t* __restrict__ prev,
                          const uint8_t* __restrict__ region,
                          long long region_len, long long n, int thr,
+                         const uint8_t* __restrict__ thr_map,
                          int unit_bytes, int chunks_per_unit,
                          int* __restrict__ chunk_counts) {
   __shared__ int s_warp[kWarps];
@@ -437,7 +458,7 @@ tiled_chunk_count_kernel(const uint8_t* __restrict__ cur,
   int cnt = 0;
   if (off < unit_bytes) {
     Vec16 c, p;
-    cnt = __popc(group_mask(cur, prev, region, region_len, n, thr,
+    cnt = __popc(group_mask(cur, prev, region, region_len, n, thr, thr_map,
                             u * unit_bytes + off, c, p));
   }
   cnt = warp_sum(cnt);
@@ -456,6 +477,7 @@ __global__ void __launch_bounds__(kThreads)
 tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                            const uint8_t* __restrict__ region,
                            long long region_len, long long n, int thr,
+                           const uint8_t* __restrict__ thr_map,
                            int negfeed, int unit_bytes, int chunks_per_unit,
                            int counts_bytes,
                            const int* __restrict__ chunk_counts,
@@ -500,7 +522,7 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   Vec16 c, p;
   unsigned m = 0;
   if (off < unit_bytes)
-    m = group_mask(cur, prev, region, region_len, n, thr, i0, c, p);
+    m = group_mask(cur, prev, region, region_len, n, thr, thr_map, i0, c, p);
   const int cnt = __popc(m);
   int chunk_total;
   int r = block_excl_scan(cnt, s_warp, chunk_total);
@@ -553,11 +575,13 @@ extern "C" {
 
 // Launch K1 on `stream`. `counts` is scratch of `grid` ints; the caller
 // picks tiles_per_block and grid so that grid * tiles_per_block * 4096
-// >= n (which also covers every slot below cap <= n). Returns the
-// cudaError_t of the launches (0 on success).
+// >= n (which also covers every slot below cap <= n). thr_map, when not
+// null, is the per-byte threshold map (n bytes, 16-byte aligned) and
+// replaces thr. Returns the cudaError_t of the launches (0 on success).
 int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
                            const uint8_t* region, long long region_len,
-                           long long n, int thr, int negfeed,
+                           long long n, int thr, const uint8_t* thr_map,
+                           int negfeed,
                            int tiles_per_block, int grid, int* counts,
                            int* xs, uint8_t* vals, long long cap,
                            int* pos_out, cudaStream_t stream) {
@@ -566,12 +590,13 @@ int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   count_kernel<<<grid, kThreads, 0, stream>>>(
-      cur, prev, region, region_len, n, thr, tiles_per_block, counts);
+      cur, prev, region, region_len, n, thr, thr_map, tiles_per_block,
+      counts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   compact_kernel<<<grid, kThreads, 0, stream>>>(
-      cur, prev, region, region_len, n, thr, negfeed, tiles_per_block,
-      counts, grid, xs, vals, cap, pos_out);
+      cur, prev, region, region_len, n, thr, thr_map, negfeed,
+      tiles_per_block, counts, grid, xs, vals, cap, pos_out);
   return (int)cudaGetLastError();
 }
 
@@ -589,12 +614,14 @@ int cvs_tiled_grid(long long n_pad, int unit_bytes) {
 // cvs_tiled_grid(n_pad, unit_bytes) ints; counts has n_pad / unit_bytes
 // entries of counts_bytes bytes; vals_t has n_pad entries, and so has
 // xs_t when emit_xs is nonzero (it may be null otherwise); bits, when not
-// null, has n_pad / 8 bytes and is 2-byte aligned. Returns the
-// cudaError_t of the launches (0 on success).
+// null, has n_pad / 8 bytes and is 2-byte aligned; thr_map as for
+// cvs_fused_diff_compact. Returns the cudaError_t of the launches (0 on
+// success).
 int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
                                  uint8_t* prev, const uint8_t* region,
                                  long long region_len, long long n,
-                                 long long n_pad, int thr, int negfeed,
+                                 long long n_pad, int thr,
+                                 const uint8_t* thr_map, int negfeed,
                                  int unit_bytes, int counts_bytes,
                                  int* scratch, void* counts, int emit_xs,
                                  int* xs_t, uint8_t* vals_t, uint8_t* bits,
@@ -610,28 +637,29 @@ int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
   if (kTileBytes % unit_bytes == 0) {
     if (emit_xs)
       tiled_unit_kernel<true><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, n_pad, thr, negfeed, unit_bytes,
-          counts_bytes, scratch, counts, xs_t, vals_t, bits);
+          cur, prev, region, region_len, n, n_pad, thr, thr_map, negfeed,
+          unit_bytes, counts_bytes, scratch, counts, xs_t, vals_t, bits);
     else
       tiled_unit_kernel<false><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, n_pad, thr, negfeed, unit_bytes,
-          counts_bytes, scratch, counts, nullptr, vals_t, bits);
+          cur, prev, region, region_len, n, n_pad, thr, thr_map, negfeed,
+          unit_bytes, counts_bytes, scratch, counts, nullptr, vals_t, bits);
   } else {
     const int chunks_per_unit = (unit_bytes + kTileBytes - 1) / kTileBytes;
     tiled_chunk_count_kernel<<<grid, kThreads, 0, stream>>>(
-        cur, prev, region, region_len, n, thr, unit_bytes, chunks_per_unit,
-        scratch);
+        cur, prev, region, region_len, n, thr, thr_map, unit_bytes,
+        chunks_per_unit, scratch);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     if (emit_xs)
       tiled_chunk_compact_kernel<true><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, thr, negfeed, unit_bytes,
-          chunks_per_unit, counts_bytes, scratch, counts, xs_t, vals_t, bits);
+          cur, prev, region, region_len, n, thr, thr_map, negfeed,
+          unit_bytes, chunks_per_unit, counts_bytes, scratch, counts, xs_t,
+          vals_t, bits);
     else
       tiled_chunk_compact_kernel<false><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, thr, negfeed, unit_bytes,
-          chunks_per_unit, counts_bytes, scratch, counts, nullptr, vals_t,
-          bits);
+          cur, prev, region, region_len, n, thr, thr_map, negfeed,
+          unit_bytes, chunks_per_unit, counts_bytes, scratch, counts, nullptr,
+          vals_t, bits);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -25,9 +25,11 @@ The port runs PALLAS compaction with flat emission (the default), tiled
 emission (``tiled_payload``, per-unit blocks at ``subtile_rows``), tiled
 emission with the packed change bits (``emit_bitmask``) or the
 bitmask-only emission (``maskonly_payload``: vals blocks and bits, no
-index blocks); every visualizer and the noise filter on each; a scalar
-threshold; and wire v1 to v4. Other configurations raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+index blocks); every visualizer and the noise filter on each; the scalar
+threshold or a per-byte threshold map (``threshold_map``), which every
+emission's kernel reads and the red visualizers' mask too; and wire v1 to
+v4. Other configurations raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -68,19 +70,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def check_slice(config: StreamConfig, threshold_map=None) -> None:
+def check_slice(config: StreamConfig) -> None:
     """Refuse configurations this port does not run yet."""
-    refusals = [
-        (config.compaction is not CompactionBackend.PALLAS,
-         f"compaction={config.compaction.value}", "M12"),
-        (threshold_map is not None, "per-byte threshold maps", "M17"),
-    ]
-    for refused, what, item in refusals:
-        if refused:
-            raise NotImplementedError(
-                f"{what} is not ported to cudavideostream_tpu_torch yet: "
-                f"see ROADMAP.md {item}"
-            )
+    if config.compaction is not CompactionBackend.PALLAS:
+        raise NotImplementedError(
+            f"compaction={config.compaction.value} is not ported to "
+            "cudavideostream_tpu_torch yet: see ROADMAP.md M12"
+        )
 
 
 def from_jax_state(prev_np: np.ndarray, atlas_np: Optional[np.ndarray] = None,
@@ -100,12 +96,16 @@ def from_jax_state(prev_np: np.ndarray, atlas_np: Optional[np.ndarray] = None,
 def from_jax_pipeline(config: StreamConfig, prev_np: np.ndarray,
                       atlas_np: Optional[np.ndarray] = None,
                       conv_weights_q16: Optional[np.ndarray] = None,
-                      device=None):
+                      device=None,
+                      threshold_map: Optional[np.ndarray] = None):
     """Take over a stream mid-way from the JAX pipeline: its state (as in
-    :func:`from_jax_state`) and its exact Q16 noise-filter taps
-    (``jpipe.conv_weights_q16``). Returns ``(pipeline, prev)``."""
+    :func:`from_jax_state`), its exact Q16 noise-filter taps
+    (``jpipe.conv_weights_q16``) and its per-byte threshold map
+    (``jpipe.threshold_map_np``, None without one). Returns ``(pipeline,
+    prev)``."""
     prev, atlas = from_jax_state(prev_np, atlas_np, device=device)
     pipe = DeltaStreamPipeline(config, device=device, atlas=atlas,
+                               threshold_map=threshold_map,
                                conv_weights_q16=conv_weights_q16)
     return pipe, prev
 
@@ -127,10 +127,31 @@ class DeltaStreamPipeline:
         """``conv_weights``: the noise filter's float KxK taps (default
         ``gaussian_kernel(conv_k)``), quantized to Q16 as the JAX pipeline
         does; ``conv_weights_q16`` gives the Q16 taps themselves and wins
-        (a handover from the JAX pipeline, :func:`from_jax_pipeline`)."""
-        check_slice(config, threshold_map)
+        (a handover from the JAX pipeline, :func:`from_jax_pipeline`).
+
+        ``threshold_map``: an optional per-byte sensitivity map, any array
+        of the frame's length read as flat uint8 as the JAX pipeline reads
+        it (``pipeline.py:76-83``), or a uint8 tensor; another length
+        raises ``ValueError``. Byte ``i`` ships iff ``|df_i| >
+        threshold_map[i]``, which overrides ``config.threshold``. It is
+        kept on the device (``threshold_map``) and as numpy
+        (``threshold_map_np``, as in the JAX pipeline)."""
+        check_slice(config)
         self.config = config
         self.device = resolve_device(device)
+        self.threshold_map_np = None
+        self.threshold_map: Optional[torch.Tensor] = None
+        if threshold_map is not None:
+            if isinstance(threshold_map, torch.Tensor):
+                if threshold_map.dtype != torch.uint8:
+                    raise ValueError("threshold_map must be a uint8 tensor")
+                threshold_map = threshold_map.cpu().numpy()
+            tm = np.array(threshold_map, dtype=np.uint8).ravel()
+            if tm.size != config.frame_bytes:
+                raise ValueError(f"threshold_map has {tm.size} bytes, frame "
+                                 f"has {config.frame_bytes}")
+            self.threshold_map_np = tm
+            self.threshold_map = torch.from_numpy(tm.copy()).to(self.device)
         if conv_weights_q16 is None:
             if conv_weights is None:
                 conv_weights = reference_cpu.gaussian_kernel(config.conv_k)
@@ -205,9 +226,12 @@ class DeltaStreamPipeline:
             return filter_ops.grayscale_weighted(cur)
         if vis == Visualizer.BINARIZE:
             return filter_ops.binarize_pipeline(cur)
-        # the red modes: |df| > threshold on the overlaid frame, which is
-        # the JAX pipeline's new_prev != prev wherever it takes that
-        mask = diff_ops.diff_mask(cur, prev, cfg.threshold)[0]
+        # the red modes: |df| > threshold (or the map) on the overlaid
+        # frame, which is the JAX pipeline's new_prev != prev wherever it
+        # takes that
+        thr = (cfg.threshold if self.threshold_map is None
+               else self.threshold_map)
+        mask = diff_ops.diff_mask(cur, prev, thr)[0]
         if vis == Visualizer.RED_BLACK:
             return filter_ops.red_black(mask)
         return filter_ops.red_overlap(prev, mask)
@@ -260,6 +284,7 @@ class DeltaStreamPipeline:
                     cur, prev, threshold=cfg.threshold,
                     negative_feedback=cfg.negative_feedback,
                     overlay_region=region, sub_rows=cfg.subtile_rows,
+                    threshold_map=self.threshold_map,
                 )
             )
             return new_prev, pos, counts, vals_t, bits, aux
@@ -269,12 +294,12 @@ class DeltaStreamPipeline:
                 cur, prev, threshold=cfg.threshold,
                 negative_feedback=cfg.negative_feedback,
                 overlay_region=region, sub_rows=cfg.subtile_rows,
-                emit_bits=cfg.emit_bitmask,
+                emit_bits=cfg.emit_bitmask, threshold_map=self.threshold_map,
             )
             return (new_prev, *payload, aux)
         pos, xs, vals, new_prev = logcompact.fused_diff_compact(
             cur, prev, threshold=cfg.threshold,
             negative_feedback=cfg.negative_feedback, overlay_region=region,
-            capacity=cfg.capacity,
+            capacity=cfg.capacity, threshold_map=self.threshold_map,
         )
         return new_prev, pos, xs, vals, aux

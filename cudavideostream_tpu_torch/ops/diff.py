@@ -9,7 +9,8 @@ and its tiled and bitmask-only siblings).
 Byte-exact contract (vs :func:`reference_cpu.diff_encode`):
 
 * ``df = int(cur) - int(prev)`` (true signed difference, no uint8 wrap);
-* a byte ships iff ``|df| > threshold`` (strictly greater);
+* a byte ships iff ``|df| > threshold`` (strictly greater), the threshold
+  being one int or a per-byte ``uint8`` map read at the byte's own index;
 * shipped value is ``df mod 256`` (client wrap-add reproduces ``cur``);
 * non-shipped bytes of the new previous-frame buffer keep the *previous*
   value under negative feedback (``kernels.cu:318-323``).
@@ -17,7 +18,7 @@ Byte-exact contract (vs :func:`reference_cpu.diff_encode`):
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -25,16 +26,21 @@ import torch
 def diff_mask(
     current: torch.Tensor,
     previous: torch.Tensor,
-    threshold: int,
+    threshold: Union[int, torch.Tensor],
     negative_feedback: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Elementwise diff stage over flat ``uint8`` frames of equal length.
+
+    ``threshold``: an int, or a ``uint8`` tensor of the frames' length
+    (the per-byte map), compared with ``|df|`` in int16 like the int.
 
     Returns ``(mask, vals, new_previous)`` — ``mask`` bool, ``vals`` uint8
     wrap deltas (defined everywhere; only masked entries are meaningful),
     ``new_previous`` uint8 (a new tensor; the inputs are not modified).
     """
     df = current.to(torch.int16) - previous.to(torch.int16)
+    if isinstance(threshold, torch.Tensor):
+        threshold = threshold.to(torch.int16)  # never compared in uint8
     mask = df.abs() > threshold
     vals = (df & 255).to(torch.uint8)  # mod-256 wrap
     if negative_feedback:

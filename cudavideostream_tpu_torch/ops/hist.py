@@ -1,7 +1,8 @@
-"""The exact 256-bin histogram of gray values (K4): the counterpart of
-the JAX package's ``ops/hist_pallas.py`` ``pallas_histogram``, which
-``filters.value_histogram`` sends every (M, 128) gray grid to on
-hardware (the binarize visualizer's threshold).
+"""The exact 256-bin histogram of gray values (K4), and the compare
+probe (K7): the counterparts of the JAX package's ``ops/hist_pallas.py``
+``pallas_histogram``, which ``filters.value_histogram`` sends every
+(M, 128) gray grid to on hardware (the binarize visualizer's threshold),
+and ``vpu_probe``, the benchmark probe of ``benchmarks/binarize_pallas_ab``.
 
 * :func:`histogram` — on a CUDA tensor it launches the hand-written
   Hopper kernel (``csrc/histogram.cu``) and adds one to its ``launches``
@@ -11,9 +12,15 @@ hardware (the binarize visualizer's threshold).
 * :func:`histogram_reference` — the plain PyTorch version: the chunked
   compare-and-sum of the JAX package's ``_value_histogram_xla``.
 
-The kernel reads the gray values as ``uint8``, one per pixel, where the
-TPU kernel reads an int32 grid: the bytes read fall by 4 and the counts
-are the same.
+* :func:`vpu_probe` — 256 compares and adds per value of an ``(M, 128)``
+  int32 grid, one checksum per tile of the JAX tile geometry; on a CUDA
+  tensor the kernel of ``csrc/probe.cu``, on a CPU tensor
+  :func:`vpu_probe_reference`, as above.
+
+The histogram kernel reads the gray values as ``uint8``, one per pixel,
+where the TPU kernel reads an int32 grid: the bytes read fall by 4 and
+the counts are the same. The probe reads int32, as the TPU probe does:
+its values may lie outside [0, 255], and those add nothing.
 """
 
 from __future__ import annotations
@@ -101,3 +108,103 @@ def histogram_reference(g: torch.Tensor) -> torch.Tensor:
                             device=g.device)
         parts.append((v == bins).sum(dim=0, dtype=torch.int32))
     return torch.cat(parts)
+
+
+# -- K7 -------------------------------------------------------------------
+
+_probe_lib = None
+
+
+def _probe() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/probe.cu`` (K7)."""
+    global _probe_lib
+    if _probe_lib is None:
+        lib = build.load("probe")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.cvs_vpu_probe.argtypes = [i, p, i, i, p, p]
+        lib.cvs_vpu_probe.restype = i
+        lib.cvs_error_string.argtypes = [i]
+        lib.cvs_error_string.restype = ctypes.c_char_p
+        lib.cvs_probe_bins.argtypes = []
+        lib.cvs_probe_bins.restype = i
+        if lib.cvs_probe_bins() != NBINS:
+            raise RuntimeError("csrc/probe.cu bin count disagrees with "
+                               "ops/hist.py NBINS")
+        _probe_lib = lib
+    return _probe_lib
+
+
+def probe_tile(rows: int) -> int:
+    """Rows per tile of :func:`vpu_probe`: the largest multiple of 8 up to
+    512 that divides ``rows``, else 8 (``hist_pallas._tile``, copied). A
+    grid of ``rows // tile`` tiles runs, as in the JAX wrapper: rows past
+    the last whole tile are not read."""
+    best = 8
+    for d in range(8, 513, 8):
+        if rows % d == 0:
+            best = d
+    return best
+
+
+def _probe_grid(g2: torch.Tensor):
+    if (g2.dim() != 2 or g2.shape[1] != 128 or g2.dtype.is_floating_point
+            or g2.dtype.is_complex or g2.dtype == torch.bool):
+        raise ValueError("vpu_probe takes an (M, 128) integer grid")
+    tile = probe_tile(g2.shape[0])
+    grid = g2.shape[0] // tile
+    if grid == 0:
+        raise ValueError("vpu_probe takes at least 8 rows")
+    if grid * tile * 128 >= 1 << 31:
+        raise ValueError("vpu_probe indices exceed int32")
+    return tile, grid
+
+
+def vpu_probe(g2: torch.Tensor, unroll: bool = False) -> torch.Tensor:
+    """``(grid,)`` int32 checksums of an ``(M, 128)`` integer grid: for
+    each tile of :func:`probe_tile` rows, the sum over its values ``g``
+    and the 256 bins ``b`` of ``g == b`` (its count of values in [0, 255],
+    its element count for gray values). The JAX package's ``vpu_probe``,
+    whose 256 compare-and-adds per value are the work being measured; the
+    grid is cast to int32 as there. ``unroll`` picks the TPU kernel's
+    code shape and changes no value: it is accepted and ignored.
+
+    CUDA tensors launch the kernel (and count one in
+    ``vpu_probe.launches``); CPU tensors run :func:`vpu_probe_reference`.
+    """
+    del unroll
+    tile, grid = _probe_grid(g2)
+    g2 = g2.to(torch.int32).contiguous()
+    dev = g2.device
+    if dev.type == "cpu":
+        return vpu_probe_reference(g2)
+    if dev.type != "cuda":
+        raise ValueError(f"vpu_probe runs on cuda or cpu, not {dev}")
+    if g2.data_ptr() % 16:
+        raise ValueError("the kernel reads 16-byte vectors: g2 must be "
+                         "16-byte aligned")
+    lib = _probe()
+    out = torch.empty(grid, dtype=torch.int32, device=dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    rc = lib.cvs_vpu_probe(idx, g2.data_ptr(), tile * 128, grid,
+                           out.data_ptr(),
+                           torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vpu_probe kernel launch failed: "
+                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+    vpu_probe.launches += 1
+    return out
+
+
+vpu_probe.launches = 0
+
+
+def vpu_probe_reference(g2: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`vpu_probe`: the same 256
+    compares per value, one bin at a time, into an int32 accumulator per
+    value, then one sum per tile."""
+    tile, grid = _probe_grid(g2)
+    g = g2[: grid * tile].to(torch.int32).reshape(grid, tile * 128)
+    acc = torch.zeros_like(g)
+    for b in range(NBINS):
+        acc += g == b
+    return acc.sum(dim=1, dtype=torch.int32)

@@ -19,17 +19,26 @@ The counterpart of the JAX package's ``ops/logcompact.py``:
 * :func:`merge_tiles` — ``merge_tiles``, through :func:`pair_compact`;
 * :func:`vals_compact` — ``_kernel_vals``: the same compaction of a
   ``vals`` stream alone, emitted flat;
-* :func:`merge_vals` — ``merge_vals``, through :func:`vals_compact`.
+* :func:`merge_vals` — ``merge_vals``, through :func:`vals_compact`;
+* :func:`segment_compact` — ``_kernel`` (K5), the "segment" scheme: the
+  same bytes as K1 at whole-tile units, an independent derivation that
+  ``scheme="segment"`` selects in the flat and tiled entry points
+  (``scheme="register"`` selects K6, ``ops.register_compact``).
+
+Every K1 entry point and K5 take ``threshold_map``, a per-byte uint8 map
+that replaces the scalar threshold (the JAX ``thr_is_map``).
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/logcompact.cu``, ``csrc/pair_compact.cu``) and adds one to its
+(``csrc/logcompact.cu``, ``csrc/pair_compact.cu``,
+``csrc/segment_compact.cu``) and adds one to its
 ``launches`` count; on a CPU tensor it runs its plain PyTorch version
 (``*_reference``). There is no other route: a CUDA tensor either reaches
 the kernel or the call raises.
 
 Contract (``logcompact.py:829-831`` of the JAX package): for every byte
 ``i`` with ``c = overlay_region[i] if i < len(overlay_region) else
-current[i]``, byte ``i`` ships iff ``|c - previous[i]| > threshold``;
+current[i]``, byte ``i`` ships iff ``|c - previous[i]| > threshold``
+(``> threshold_map[i]`` with a map);
 ``xs`` holds the shipped indices ascending, ``vals`` the deltas
 ``(c - prev) & 255``, both zero past ``pos``; ``new_prev = shipped ? c :
 prev`` under negative feedback, else ``c``.
@@ -79,13 +88,13 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = build.load("logcompact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.cvs_fused_diff_compact.argtypes = [
-            i, p, p, p, ll, ll, i, i, i, i, p, p, p, ll, p, p,
+            i, p, p, p, ll, ll, i, p, i, i, i, p, p, p, ll, p, p,
         ]
         lib.cvs_fused_diff_compact.restype = i
         lib.cvs_tiled_grid.argtypes = [ll, i]
         lib.cvs_tiled_grid.restype = i
         lib.cvs_fused_diff_compact_tiled.argtypes = [
-            i, p, p, p, ll, ll, ll, i, i, i, i, p, p, i, p, p, p, p, p,
+            i, p, p, p, ll, ll, ll, i, p, i, i, i, p, p, i, p, p, p, p, p,
         ]
         lib.cvs_fused_diff_compact_tiled.restype = i
         _bind_common(lib, "logcompact")
@@ -220,7 +229,8 @@ def counts_dtype(unit_bytes: int) -> torch.dtype:
 
 # -- K1 -------------------------------------------------------------------
 
-def _check_args(current, previous, threshold, overlay_region):
+def _check_args(current, previous, threshold, overlay_region,
+                threshold_map=None):
     for name, t in (("current", current), ("previous", previous)):
         if t.dtype != torch.uint8 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D uint8 tensor")
@@ -242,21 +252,76 @@ def _check_args(current, previous, threshold, overlay_region):
             raise ValueError("overlay_region must be on the frame's device")
         if overlay_region.numel() > n:
             raise ValueError("overlay_region is longer than the frame")
+    if threshold_map is not None:
+        if (not isinstance(threshold_map, torch.Tensor)
+                or threshold_map.dtype != torch.uint8
+                or threshold_map.dim() != 1
+                or not threshold_map.is_contiguous()):
+            raise ValueError("threshold_map must be a contiguous 1-D uint8 "
+                             "tensor")
+        if threshold_map.numel() != n:
+            raise ValueError("threshold_map length must equal the frame's")
+        if threshold_map.device != current.device:
+            raise ValueError("threshold_map must be on the frame's device")
 
 
-def _check_kernel_args(name, current, previous, overlay_region):
-    """The device checks of a K1 launch; returns the region's length."""
+def _check_kernel_args(name, current, previous, overlay_region,
+                       threshold_map=None):
+    """The device checks of a launch that reads the frame (K1, K5);
+    returns the region's length."""
     dev = current.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
     if current.data_ptr() == previous.data_ptr():
         raise ValueError("current and previous must not share storage")
     region_len = 0 if overlay_region is None else overlay_region.numel()
-    for t in (current, previous) + ((overlay_region,) if region_len else ()):
+    for t in ((current, previous)
+              + ((overlay_region,) if region_len else ())
+              + ((threshold_map,) if threshold_map is not None else ())):
         if t.data_ptr() % 16:
             raise ValueError("the kernel reads 16-byte vectors: frame "
                              "buffers must be 16-byte aligned")
     return region_len
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _thr(threshold, threshold_map):
+    """The threshold a plain version compares with: the map or the int."""
+    return threshold if threshold_map is None else threshold_map
+
+
+SCHEMES = ("element", "segment", "register")
+
+
+def _check_scheme(scheme, overlay_region, threshold_map, emit_bits=False):
+    """The JAX package's refusals (``logcompact.py:660-675``)."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}: one of {SCHEMES}")
+    if scheme != "element" and emit_bits:
+        raise ValueError("emit_xs=False / emit_bits: element scheme only")
+    if scheme == "register" and (
+            threshold_map is not None
+            or (overlay_region is not None and overlay_region.numel())):
+        raise ValueError("overlay fusion / threshold maps / batching: "
+                         "element/segment schemes only")
+
+
+def _whole_tile_blocks(scheme, current, previous, threshold,
+                       negative_feedback, overlay_region, threshold_map):
+    """``(counts int32, xs_t, vals_t)`` of the segment (K5) or register
+    (K6) scheme, whose units are whole tiles; ``previous`` is updated in
+    place."""
+    if scheme == "segment":
+        return segment_compact(current, previous, threshold,
+                               negative_feedback, overlay_region,
+                               threshold_map)[:3]
+    from cudavideostream_tpu_torch.ops import register_compact as reg_ops
+
+    return reg_ops.register_compact(current, previous, threshold,
+                                    negative_feedback)[:3]
 
 
 def region_frame(current, overlay_region):
@@ -273,6 +338,8 @@ def fused_diff_compact(
     negative_feedback: bool = True,
     overlay_region: Optional[torch.Tensor] = None,
     capacity: Optional[int] = None,
+    threshold_map: Optional[torch.Tensor] = None,
+    scheme: str = "element",
 ):
     """Flat-emit diff+compact; returns ``(pos, xs, vals, new_prev)``.
 
@@ -285,23 +352,40 @@ def fused_diff_compact(
     blended; it replaces ``current`` on its bytes, so diff, negative
     feedback and payload all see the overlaid frame.
 
+    ``threshold_map``: a per-byte uint8 map of the frame's length; byte
+    ``i`` ships iff ``|df_i| > threshold_map[i]``. It overrides
+    ``threshold``.
+
+    ``scheme``: ``"element"`` (K1, the default), or one of the two
+    independently derived cross-checks at whole-tile units, ``"segment"``
+    (K5, :func:`segment_compact`; takes the region and the map) and
+    ``"register"`` (K6, ``ops.register_compact``; neither), whose blocks
+    :func:`merge_tiles` (K2) concatenates. All three give the same bytes.
+
     CUDA tensors launch the kernel (and count one in
     ``fused_diff_compact.launches``); CPU tensors run
     :func:`fused_diff_compact_reference`.
     """
-    _check_args(current, previous, threshold, overlay_region)
+    _check_args(current, previous, threshold, overlay_region, threshold_map)
+    _check_scheme(scheme, overlay_region, threshold_map)
+    n = current.numel()
+    cap = n if capacity is None else min(int(capacity), n)
+    if scheme != "element":
+        counts, xs_t, vals_t = _whole_tile_blocks(
+            scheme, current, previous, threshold, negative_feedback,
+            overlay_region, threshold_map)
+        xs, vals = merge_tiles(counts, xs_t, vals_t)
+        return counts.sum(dtype=torch.int32), xs[:cap], vals[:cap], previous
     dev = current.device
     if dev.type == "cpu":
         return fused_diff_compact_reference(
             current, previous, threshold, negative_feedback, overlay_region,
-            capacity,
+            capacity, threshold_map,
         )
     region_len = _check_kernel_args("fused_diff_compact", current, previous,
-                                    overlay_region)
+                                    overlay_region, threshold_map)
     region_ptr = overlay_region.data_ptr() if region_len else None
     lib = _kernel_lib()
-    n = current.numel()
-    cap = n if capacity is None else min(int(capacity), n)
     per_block, grid = tile_plan(n)
     xs = torch.empty(cap, dtype=torch.int32, device=dev)
     vals = torch.empty(cap, dtype=torch.uint8, device=dev)
@@ -311,7 +395,8 @@ def fused_diff_compact(
     rc = lib.cvs_fused_diff_compact(
         _device_index(dev),
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len, n,
-        int(threshold), int(bool(negative_feedback)), per_block, grid,
+        int(threshold), _ptr(threshold_map), int(bool(negative_feedback)),
+        per_block, grid,
         counts.data_ptr(), xs.data_ptr(), vals.data_ptr(), cap,
         pos.data_ptr(), stream,
     )
@@ -330,14 +415,16 @@ def fused_diff_compact_reference(
     negative_feedback: bool = True,
     overlay_region: Optional[torch.Tensor] = None,
     capacity: Optional[int] = None,
+    threshold_map: Optional[torch.Tensor] = None,
 ):
     """The plain PyTorch version of :func:`fused_diff_compact`: the same
     outputs from ``diff_mask``, ``nonzero`` and ``masked_select``, with
     ``new_prev`` written into ``previous`` in place. ``nonzero`` makes it
     synchronize with the device on CUDA tensors."""
+    _check_args(current, previous, threshold, overlay_region, threshold_map)
     cur = region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
-        cur, previous, threshold, negative_feedback
+        cur, previous, _thr(threshold, threshold_map), negative_feedback
     )
     idx = torch.nonzero(mask).flatten()  # ascending
     shipped = torch.masked_select(dvals, mask)
@@ -354,10 +441,12 @@ def fused_diff_compact_reference(
 
 
 def _launch_tiled(name, current, previous, threshold, negative_feedback,
-                  overlay_region, n_pad, unit_bytes, emit_xs, emit_bits):
+                  overlay_region, threshold_map, n_pad, unit_bytes, emit_xs,
+                  emit_bits):
     """One launch of the tiled K1 entry point; returns ``(pos, counts,
     xs_t or None, vals_t, bits or None)``."""
-    region_len = _check_kernel_args(name, current, previous, overlay_region)
+    region_len = _check_kernel_args(name, current, previous, overlay_region,
+                                    threshold_map)
     region_ptr = overlay_region.data_ptr() if region_len else None
     lib = _kernel_lib()
     dev = current.device
@@ -375,7 +464,8 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
     rc = lib.cvs_fused_diff_compact_tiled(
         _device_index(dev),
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len,
-        current.numel(), n_pad, int(threshold), int(bool(negative_feedback)),
+        current.numel(), n_pad, int(threshold), _ptr(threshold_map),
+        int(bool(negative_feedback)),
         unit_bytes, counts.element_size(), scratch.data_ptr(),
         counts.data_ptr(), int(emit_xs),
         None if xs_t is None else xs_t.data_ptr(), vals_t.data_ptr(),
@@ -386,7 +476,8 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
 
 
 def _tiled_plain(current, previous, threshold, negative_feedback,
-                 overlay_region, n_pad, unit_bytes, emit_xs, emit_bits):
+                 overlay_region, threshold_map, n_pad, unit_bytes, emit_xs,
+                 emit_bits):
     """The plain PyTorch version of :func:`_launch_tiled`: the mask from
     ``diff_mask``, each entry's rank in its unit from a per-unit
     ``cumsum``, one scatter into zeroed blocks, and ``pack_bitmask``;
@@ -396,7 +487,7 @@ def _tiled_plain(current, previous, threshold, negative_feedback,
     n_units = n_pad // unit_bytes
     cur = region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
-        cur, previous, threshold, negative_feedback
+        cur, previous, _thr(threshold, threshold_map), negative_feedback
     )
     m = torch.zeros(n_pad, dtype=torch.bool, device=dev)
     m[:n] = mask
@@ -427,6 +518,8 @@ def fused_diff_compact_tiled(
     overlay_region: Optional[torch.Tensor] = None,
     sub_rows: int = 0,
     emit_bits: bool = False,
+    threshold_map: Optional[torch.Tensor] = None,
+    scheme: str = "element",
 ):
     """Tiled-emit diff+compact; returns ``(pos, counts, xs_t, vals_t,
     new_prev)`` as JAX ``fused_diff_compact(emit="tiled")`` does, and
@@ -448,20 +541,33 @@ def fused_diff_compact_tiled(
     mask it already holds: ``prev`` is updated in place, so the JAX
     pipeline's ``new_prev != prev`` no longer exists after the launch.
 
+    ``threshold_map`` and ``scheme`` as for :func:`fused_diff_compact`. A
+    ``"segment"`` or ``"register"`` scheme compacts whole tiles whatever
+    ``sub_rows`` says (the JAX package zeroes it for them,
+    ``logcompact.py:894-903``): its outputs are those of ``sub_rows=0``.
+
     CUDA tensors launch the kernel (and count one in
     ``fused_diff_compact_tiled.launches``); CPU tensors run
     :func:`fused_diff_compact_tiled_reference`.
     """
-    _check_args(current, previous, threshold, overlay_region)
+    _check_args(current, previous, threshold, overlay_region, threshold_map)
+    _check_scheme(scheme, overlay_region, threshold_map, emit_bits)
+    if scheme != "element":
+        counts, xs_t, vals_t = _whole_tile_blocks(
+            scheme, current, previous, threshold, negative_feedback,
+            overlay_region, threshold_map)
+        return (counts.sum(dtype=torch.int32),
+                counts.to(counts_dtype(xs_t.shape[1])), xs_t, vals_t,
+                previous)
     if current.device.type == "cpu":
         return fused_diff_compact_tiled_reference(
             current, previous, threshold, negative_feedback, overlay_region,
-            sub_rows, emit_bits,
+            sub_rows, emit_bits, threshold_map,
         )
     n_pad, unit_bytes = tiled_geometry(current.numel(), sub_rows)
     out = _launch_tiled("fused_diff_compact_tiled", current, previous,
-                        threshold, negative_feedback, overlay_region, n_pad,
-                        unit_bytes, True, emit_bits)
+                        threshold, negative_feedback, overlay_region,
+                        threshold_map, n_pad, unit_bytes, True, emit_bits)
     fused_diff_compact_tiled.launches += 1
     return _tiled_result(out, previous, emit_bits)
 
@@ -484,13 +590,16 @@ def fused_diff_compact_tiled_reference(
     overlay_region: Optional[torch.Tensor] = None,
     sub_rows: int = 0,
     emit_bits: bool = False,
+    threshold_map: Optional[torch.Tensor] = None,
 ):
     """The plain PyTorch version of :func:`fused_diff_compact_tiled`: the
     mask from ``diff_mask``, each entry's rank in its unit from a
     per-unit ``cumsum``, one scatter into zeroed blocks."""
+    _check_args(current, previous, threshold, overlay_region, threshold_map)
     n_pad, unit_bytes = tiled_geometry(current.numel(), sub_rows)
     out = _tiled_plain(current, previous, threshold, negative_feedback,
-                       overlay_region, n_pad, unit_bytes, True, emit_bits)
+                       overlay_region, threshold_map, n_pad, unit_bytes,
+                       True, emit_bits)
     return _tiled_result(out, previous, emit_bits)
 
 
@@ -501,6 +610,8 @@ def fused_diff_compact_mask(
     negative_feedback: bool = True,
     overlay_region: Optional[torch.Tensor] = None,
     sub_rows: int = 0,
+    threshold_map: Optional[torch.Tensor] = None,
+    scheme: str = "element",
 ):
     """Bitmask-only diff+compact; returns ``(pos, counts, vals_t, bits,
     new_prev)`` as JAX ``fused_diff_compact(emit="mask")`` does.
@@ -512,22 +623,26 @@ def fused_diff_compact_mask(
     ``bits`` is the flat LSB-first ``n_pad / 8`` bitmask of the shipped
     bytes (the ``pack_bitmask`` layout; ascending bit order is the
     payload's index order). No index blocks exist. ``new_prev`` is
-    ``previous``, updated in place.
+    ``previous``, updated in place. ``threshold_map`` as for
+    :func:`fused_diff_compact`; the emission exists for the element
+    scheme only, and another ``scheme`` raises as in the JAX package.
 
     CUDA tensors launch the kernel (and count one in
     ``fused_diff_compact_mask.launches``); CPU tensors run
     :func:`fused_diff_compact_mask_reference`.
     """
-    _check_args(current, previous, threshold, overlay_region)
+    _check_args(current, previous, threshold, overlay_region, threshold_map)
+    _check_scheme(scheme, overlay_region, threshold_map, emit_bits=True)
     if current.device.type == "cpu":
         return fused_diff_compact_mask_reference(
             current, previous, threshold, negative_feedback, overlay_region,
-            sub_rows,
+            sub_rows, threshold_map,
         )
     n_pad, unit_bytes = tiled_geometry_mask(current.numel(), sub_rows)
     pos, counts, _, vals_t, bits = _launch_tiled(
         "fused_diff_compact_mask", current, previous, threshold,
-        negative_feedback, overlay_region, n_pad, unit_bytes, False, True)
+        negative_feedback, overlay_region, threshold_map, n_pad, unit_bytes,
+        False, True)
     fused_diff_compact_mask.launches += 1
     return pos, counts, vals_t, bits, previous
 
@@ -542,13 +657,134 @@ def fused_diff_compact_mask_reference(
     negative_feedback: bool = True,
     overlay_region: Optional[torch.Tensor] = None,
     sub_rows: int = 0,
+    threshold_map: Optional[torch.Tensor] = None,
 ):
     """The plain PyTorch version of :func:`fused_diff_compact_mask`."""
+    _check_args(current, previous, threshold, overlay_region, threshold_map)
     n_pad, unit_bytes = tiled_geometry_mask(current.numel(), sub_rows)
     pos, counts, _, vals_t, bits = _tiled_plain(
         current, previous, threshold, negative_feedback, overlay_region,
-        n_pad, unit_bytes, False, True)
+        threshold_map, n_pad, unit_bytes, False, True)
     return pos, counts, vals_t, bits, previous
+
+
+# -- K5 -------------------------------------------------------------------
+
+def _segment_lib() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/segment_compact.cu`` (K5)."""
+    lib = _libs.get("segment_compact")
+    if lib is None:
+        lib = build.load("segment_compact")
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.cvs_segment_compact.argtypes = [
+            i, p, p, p, ll, ll, i, p, i, i, i, p, p, p, p,
+        ]
+        lib.cvs_segment_compact.restype = i
+        lib.cvs_error_string.argtypes = [i]
+        lib.cvs_error_string.restype = ctypes.c_char_p
+        _libs["segment_compact"] = lib
+    return lib
+
+
+def segment_compact(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    overlay_region: Optional[torch.Tensor] = None,
+    threshold_map: Optional[torch.Tensor] = None,
+):
+    """The segment scheme (K5): the diff of K1 compacted at whole-tile
+    units by segment merging; returns ``(counts, xs_t, vals_t,
+    new_prev)``, ``counts`` one int32 per tile and the blocks ``(n_units,
+    unit_bytes)`` at :func:`tiled_geometry` with ``sub_rows=0`` (98 tiles
+    of 63,488 B at 1080p), zero past each count; ``new_prev`` is
+    ``previous``, updated in place.
+
+    The port of ``_kernel`` (``logcompact.py:537``), an independent
+    derivation that shares no code with K1. CUDA tensors launch
+    ``csrc/segment_compact.cu`` (and count one in
+    ``segment_compact.launches``); CPU tensors run
+    :func:`segment_compact_reference`.
+    """
+    _check_args(current, previous, threshold, overlay_region, threshold_map)
+    dev = current.device
+    if dev.type == "cpu":
+        return segment_compact_reference(current, previous, threshold,
+                                         negative_feedback, overlay_region,
+                                         threshold_map)
+    region_len = _check_kernel_args("segment_compact", current, previous,
+                                    overlay_region, threshold_map)
+    lib = _segment_lib()
+    n_pad, unit_bytes = tiled_geometry(current.numel(), 0)
+    n_units = n_pad // unit_bytes
+    counts = torch.empty(n_units, dtype=torch.int32, device=dev)
+    xs_t = torch.empty((n_units, unit_bytes), dtype=torch.int32, device=dev)
+    vals_t = torch.empty((n_units, unit_bytes), dtype=torch.uint8,
+                         device=dev)
+    rc = lib.cvs_segment_compact(
+        _device_index(dev), current.data_ptr(), previous.data_ptr(),
+        overlay_region.data_ptr() if region_len else None, region_len,
+        current.numel(), int(threshold), _ptr(threshold_map),
+        int(bool(negative_feedback)), unit_bytes, n_units, counts.data_ptr(),
+        xs_t.data_ptr(), vals_t.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, lib, "segment_compact")
+    segment_compact.launches += 1
+    return counts, xs_t, vals_t, previous
+
+
+segment_compact.launches = 0
+
+
+def segment_compact_reference(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    overlay_region: Optional[torch.Tensor] = None,
+    threshold_map: Optional[torch.Tensor] = None,
+):
+    """The plain PyTorch version of :func:`segment_compact`, by the TPU
+    kernel's own scheme: every byte starts as a segment of width 1; at
+    each level ``W = 1, 2, 4, ...`` two sibling segments merge, the right
+    one's compacted prefix sliding left by ``W - c_L`` over the left one's
+    holes (a gather), vectorized over the tiles. Each entry is packed as
+    ``index * 256 + delta``, never 0 (a shipped delta is not 0), so the
+    empty slots are the zeros."""
+    _check_args(current, previous, threshold, overlay_region, threshold_map)
+    dev = current.device
+    n = current.numel()
+    n_pad, unit_bytes = tiled_geometry(n, 0)
+    n_units = n_pad // unit_bytes
+    cur = region_frame(current, overlay_region)
+    mask, dvals, new_prev = diff_ops.diff_mask(
+        cur, previous, _thr(threshold, threshold_map), negative_feedback)
+    width = 1 << (unit_bytes - 1).bit_length()  # tiles padded to 2^k slots
+    packed = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+    packed[:n] = torch.where(
+        mask, torch.arange(n, dtype=torch.int64, device=dev) * 256
+        + dvals.to(torch.int64), 0)
+    x = torch.zeros((n_units, width), dtype=torch.int64, device=dev)
+    x[:, :unit_bytes] = packed.view(n_units, unit_bytes)
+    c = (x != 0).to(torch.int64)  # each segment's count
+    w = 1
+    while w < width:
+        seg = x.view(n_units, width // (2 * w), 2, w)
+        cs = c.view(n_units, width // (2 * w), 2)
+        c_l = cs[:, :, :1]
+        src = torch.arange(2 * w, device=dev) - c_l  # slot p takes right[p - c_L]
+        ok = (src >= 0) & (src < w)
+        merged = torch.gather(seg[:, :, 1], 2, src.clamp(0, w - 1)) * ok
+        merged[:, :, :w] += seg[:, :, 0]  # the left is zero past c_L
+        x = merged.reshape(n_units, width)
+        c = cs.sum(dim=2)
+        w *= 2
+    x = x[:, :unit_bytes]
+    previous.copy_(new_prev)  # in place, as the kernel does
+    return (c.view(n_units).to(torch.int32), (x >> 8).to(torch.int32),
+            (x & 255).to(torch.uint8), previous)
 
 
 # -- K2 -------------------------------------------------------------------

@@ -4,8 +4,8 @@ A copy of the subset of the JAX package's ``ops/reference_cpu.py`` that
 the port's serving paths run: ``diff_encode``, ``client_apply``, the
 filter bank (grayscale, the binarize stack, the heatmap LUT, the red
 visualizers), the Q16 convolution of the noise filter, ``overlay_blit``
-and ``step_oracle`` (without the per-byte threshold map, ROADMAP M17). It
-is the byte-exact spec the port's device path is held to, and it lets
+and ``step_oracle`` (with the per-byte threshold map). It is the
+byte-exact spec the port's device path is held to, and it lets
 ``chip_smoke.py`` check the card's output at 1080p without the JAX
 package. ``median_filter`` waits for its device twin (ROADMAP M11).
 
@@ -46,6 +46,9 @@ def diff_encode(
     negative_feedback: bool = True,
 ) -> Tuple[int, np.ndarray, np.ndarray, np.ndarray]:
     """Threshold delta encoding of ``current`` against ``previous``.
+
+    ``threshold`` is an int or a per-byte array of the frame's length
+    (compared with ``|df|`` in int32, whatever its dtype).
 
     Returns ``(pos, xs, vals, new_previous)``:
 
@@ -307,10 +310,12 @@ def step_oracle(
     atlas: np.ndarray | None = None,
     char_ids: List[int] | None = None,
     conv_weights: np.ndarray | None = None,
+    threshold_map: np.ndarray | None = None,
 ):
     """Golden full pipeline step. Returns
     ``(new_prev, pos, xs, vals, aux or None)`` in exec_core order:
-    conv -> overlay -> visualizer -> diff -> red modes."""
+    conv -> overlay -> visualizer -> diff -> red modes. ``threshold_map``
+    (per-byte uint8) overrides ``config.threshold`` when given."""
     from cudavideostream_tpu_torch.config import Visualizer
 
     h, w = config.height, config.width
@@ -330,8 +335,9 @@ def step_oracle(
     elif config.visualizer == Visualizer.BINARIZE:
         aux = binarize_pipeline(cur)
 
+    thr = config.threshold if threshold_map is None else threshold_map
     pos, xs, vals, new_prev = diff_encode(
-        cur, prev_recon, config.threshold, config.negative_feedback
+        cur, prev_recon, thr, config.negative_feedback
     )
 
     if config.visualizer == Visualizer.RED_BLACK:

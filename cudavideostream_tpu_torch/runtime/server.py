@@ -14,10 +14,16 @@ its aux frame to the host; ``--aux-dir`` dumps every ``aux_every``-th one
 (30 by default) as a PPM file, the headless counterpart of the
 reference's ``SERVER_IMSHOW``. The wire bytes do not change.
 
+``--threshold-map FILE.npy`` replaces the scalar threshold with a per-byte
+map (an ``(H, W)`` map is per pixel and repeats over the 3 channels):
+a hair-trigger region inside an insensitive noisy scene. The wire bytes
+and the client do not change.
+
 Run:  ``python -m cudavideostream_tpu_torch.runtime.server --source synthetic``
       ``python -m cudavideostream_tpu_torch.runtime.server --visualizer 5 --aux-dir aux/``
       ``python -m cudavideostream_tpu_torch.runtime.server --tiled --pipelined --wire v3``
       ``python -m cudavideostream_tpu_torch.runtime.server --tiled --fetch mask --maskonly --wire v4 --land-batch 8``
+      ``python -m cudavideostream_tpu_torch.runtime.server --threshold-map map.npy``
 """
 
 from __future__ import annotations
@@ -28,11 +34,14 @@ import socket
 import sys
 import time
 
+import numpy as np
+
 from cudavideostream_tpu_torch.config import (
     PayloadOverflowError,
     StreamConfig,
     Visualizer,
 )
+from cudavideostream_tpu_torch.models import DeltaStreamPipeline
 from cudavideostream_tpu_torch.runtime import wire
 from cudavideostream_tpu_torch.runtime.client import write_ppm
 from cudavideostream_tpu_torch.runtime.executor import (
@@ -185,7 +194,20 @@ class DeltaStreamServer:
                       self.cfg.height, self.cfg.width)
 
 
-def main(argv=None) -> int:
+def load_threshold_map(path: str) -> np.ndarray:
+    """The per-byte uint8 map of ``--threshold-map``: a 2-D ``(H, W)``
+    array is per pixel and repeats over the 3 channels, anything else is
+    per byte (the JAX server's ``server.py:452-456``)."""
+    tm = np.load(path)
+    if tm.ndim == 2:
+        tm = np.repeat(tm.ravel(), 3)
+    return np.asarray(tm, dtype=np.uint8).ravel()
+
+
+def setup(argv=None):
+    """Parse the command line; returns ``(config, executor, args)``, the
+    executor on its pipeline (with the ``--threshold-map`` map) as
+    :func:`main` serves it."""
     p = argparse.ArgumentParser(description="CUDA delta-stream server")
     p.add_argument("--source", default="synthetic", choices=["synthetic"])
     p.add_argument("--host", default="127.0.0.1")
@@ -207,6 +229,9 @@ def main(argv=None) -> int:
     p.add_argument("--aux-port", type=int, default=None, metavar="PORT",
                    help="serve the live aux frame on a side socket (not "
                         "ported yet: ROADMAP.md M18)")
+    p.add_argument("--threshold-map", default=None, metavar="FILE.npy",
+                   help="per-byte uint8 threshold map (an (H, W) map is per "
+                        "pixel) in place of --threshold")
     p.add_argument("--frames", type=int, default=None,
                    help="stop after N frames (default: run forever)")
     p.add_argument("--seed", type=int, default=0)
@@ -294,14 +319,23 @@ def main(argv=None) -> int:
         **({"subtile_rows": args.subtile}
            if args.subtile is not None else {}),
     )
-    source = make_source(args.source, cfg, seed=args.seed)
+    pipe = DeltaStreamPipeline(
+        cfg, device=args.device,
+        threshold_map=(None if args.threshold_map is None
+                       else load_threshold_map(args.threshold_map)))
     if args.land_batch:
-        executor = BatchedLandExecutor(cfg, device=args.device,
+        executor = BatchedLandExecutor(cfg, pipeline=pipe,
                                        depth=args.land_batch)
     elif args.pipelined:
-        executor = PipelinedExecutor(cfg, device=args.device)
+        executor = PipelinedExecutor(cfg, pipeline=pipe)
     else:
-        executor = StreamExecutor(cfg, device=args.device)
+        executor = StreamExecutor(cfg, pipeline=pipe)
+    return cfg, executor, args
+
+
+def main(argv=None) -> int:
+    cfg, executor, args = setup(argv)
+    source = make_source(args.source, cfg, seed=args.seed)
     if args.aux_dir:
         os.makedirs(args.aux_dir, exist_ok=True)
     server = DeltaStreamServer(cfg, source, executor=executor,

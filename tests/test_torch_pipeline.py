@@ -182,10 +182,20 @@ def test_tiled_slice_configs_build(small_config, change):
 
 
 def test_threshold_map_raises(small_config):
+    """The per-byte map is ported (ROADMAP M17): one of the frame's
+    length builds, another length raises as the JAX pipeline does, and
+    so does a tensor that is not uint8."""
     cfg = _port_config(small_config)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M17"):
+    tm = np.zeros(cfg.frame_bytes, np.uint8)
+    pipe = DeltaStreamPipeline(cfg, device="cpu", threshold_map=tm)
+    np.testing.assert_array_equal(pipe.threshold_map.numpy(), tm)
+    with pytest.raises(ValueError, match="threshold_map"):
+        DeltaStreamPipeline(cfg, device="cpu", threshold_map=tm[:-1])
+    with pytest.raises(ValueError, match="threshold_map"):
+        JaxPipeline(small_config, threshold_map=tm[:-1])
+    with pytest.raises(ValueError, match="uint8"):
         DeltaStreamPipeline(cfg, device="cpu",
-                            threshold_map=np.zeros(cfg.frame_bytes, np.uint8))
+                            threshold_map=torch.zeros(cfg.frame_bytes))
 
 
 def test_default_device_is_cuda_and_never_falls_back(small_config,

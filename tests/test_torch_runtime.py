@@ -604,8 +604,10 @@ def test_auto_landing_survives_a_static_start():
         f[idx] ^= 0x80  # a jump of 128: every flipped byte ships
         frames.append(f)
     ours = StreamExecutor(cfg, device="cpu")
+    # the JAX executor lands tiles every frame: its own auto choice follows
+    # host timings, and the reference payload must not depend on them
     theirs = JaxExecutor(JaxConfig(height=120, width=160,
-                                   tiled_payload=True))
+                                   tiled_payload=True, fetch_mode="tiles"))
     ours.start(base)
     theirs.start(base)
     for k, frame in enumerate(frames):
