@@ -25,7 +25,13 @@ Phases (any failure raises and the script exits non-zero):
    versions, K5 == K6 == K1 tiled at ``subtile_rows=0`` bit for bit and
    all three schemes flat equal to K1's plain version, K5 with the region
    and a map, ragged lengths; K7 on the scene's gray grid, out-of-range
-   values and ragged row counts; plus one pipeline step of each
+   values and ragged row counts; K1 batched (B = 1, 3, 4, 8 streams,
+   ``subtile_rows`` 1, 8, 0, three densities, no map or a shared door map,
+   per-stream overlay strips, and the JAX package's ragged geometries)
+   against its plain version and against solo K1 tiled launches on each
+   stream, K5 batched likewise and equal to K1 batched at
+   ``subtile_rows=0``, and ``BatchedDeltaPipeline.step`` at B = 4 against
+   each stream's NumPy spec; plus one pipeline step of each
    configuration (flat, tiled, tiled with bits, bitmask-only, each also
    with a per-pixel "door" map), of each of the 8 named variants, and of
    binarize and red-overlap on each tiled emission, against the NumPy
@@ -49,7 +55,13 @@ Phases (any failure raises and the script exits non-zero):
    after, must show the path went through it. Then the path of K5, K6 and
    K7, the JAX package's scheme cross-check and probe, through the public
    entry points on one synthetic 1080p frame, its launches counted the
-   same way;
+   same way, now with K1 and K5 batched on two streams; then the
+   multi-stream server (4 streams, a loopback client each) in three runs,
+   wire v1, ``--wire v3`` and ``--visualizer 5 --aux-dir``, every stream
+   byte-exact every frame with one K1 batched launch per batched frame;
+   the broadcast server (wire v3) with a client from the start and one
+   joining late, and the session a raw reader recorded replayed
+   byte-identical by ``ReplayServer``;
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2): each kernel, its plain
@@ -63,7 +75,10 @@ Phases (any failure raises and the script exits non-zero):
    noise filter, the ``--visualizer 5`` step and the aux landing; K1
    without and with a map on each emission, in turns; K5, K6 and K7
    against their plain versions and bounds (K7's in operations, at the
-   card's SM clock and an SM's issue ceiling of 128 lanes per clock).
+   card's SM clock and an SM's issue ceiling of 128 lanes per clock); K1
+   batched at B = 4 against four solo K1 tiled launches, in turns, and
+   against its bound, K5 batched against its bound, and the B = 4 batched
+   step.
 
 It prints progress lines, then the card's ``nvidia-smi`` line, then one
 JSON line of kernel records, and last
@@ -78,6 +93,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -106,11 +122,17 @@ def frame_pair(rng, n, change_frac):
     """(prev, cur): ~change_frac of bytes jump by 30..200, the rest drift
     by at most 15 (below the default threshold)."""
     prev = rng.integers(0, 255, size=n, endpoint=True, dtype=np.uint8)
+    return prev, drift(rng, prev, change_frac)
+
+
+def drift(rng, frame, change_frac):
+    """The next frame after ``frame``, as ``frame_pair`` makes ``cur``."""
+    n = frame.size
     noise = rng.integers(-15, 15, size=n, endpoint=True).astype(np.int32)
     big = rng.random(n) < change_frac
     jump = rng.integers(30, 200, size=n) * rng.choice([-1, 1], size=n)
-    cur = ((prev.astype(np.int32) + np.where(big, jump, noise)) % 256)
-    return prev, cur.astype(np.uint8)
+    cur = ((frame.astype(np.int32) + np.where(big, jump, noise)) % 256)
+    return cur.astype(np.uint8)
 
 
 def phase_environment():
@@ -870,6 +892,168 @@ def phase_schemes_vs_plain(cfg):
     return cases
 
 
+BATCHED = ("pos", "counts", "xs_t", "vals_t", "new_prev")
+
+
+def _streams(rng, b, n, density):
+    """Flat ``(prev, cur)`` of ``b`` independent ``n``-byte streams on the
+    card (``frame_pair`` each)."""
+    pairs = [frame_pair(rng, n, density) for _ in range(b)]
+    return tuple(torch.from_numpy(np.concatenate(x)).to("cuda")
+                 for x in zip(*pairs))
+
+
+def _check_batched(name, prev, cur, b, sub, tm=None, reg=None,
+                   scheme="element"):
+    """One batched call on the card against its plain version and against
+    ``b`` solo tiled calls of the same scheme on the streams' own
+    (16-byte aligned) copies, byte for byte: pos, counts, the blocks with
+    their zero fill, and new_prev. Returns the per-stream pos."""
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+
+    n = cur.numel() // b
+    strip = 0 if reg is None else reg.numel() // b
+    got = lc.fused_diff_compact_batched(cur, prev.clone(), b, 20, True,
+                                        scheme, tm, sub_rows=sub,
+                                        overlay_region=reg)
+    torch.cuda.synchronize()
+    _equal_or_raise(name, got, lc.fused_diff_compact_batched_reference(
+        cur, prev.clone(), b, 20, True, scheme, tm, sub_rows=sub,
+        overlay_region=reg), BATCHED)
+    for s in range(b):
+        solo = lc.fused_diff_compact_tiled(
+            cur[s * n:(s + 1) * n].clone(), prev[s * n:(s + 1) * n].clone(),
+            20, True,
+            None if reg is None else reg[s * strip:(s + 1) * strip].clone(),
+            sub, threshold_map=tm, scheme=scheme)
+        _equal_or_raise(f"{name} stream {s} vs solo", (
+            got[0][s], got[1][s], got[2][s], got[3][s],
+            got[4][s * n:(s + 1) * n]), solo, BATCHED)
+    return [int(p) for p in got[0]]
+
+
+def phase_batched_vs_plain(cfg):
+    """K1 and K5 in their batched mode at 1080p (B = 1, 3, 4, 8) and on the
+    JAX package's ragged geometries, against their plain versions and
+    against solo launches on each stream; K5 batched == K1 batched at
+    ``subtile_rows=0`` bit for bit; ``BatchedDeltaPipeline.step`` at 1080p,
+    B = 4, against each stream's ``step_oracle``, aux included."""
+    from cudavideostream_tpu_torch.config import Visualizer
+    from cudavideostream_tpu_torch.models import BatchedDeltaPipeline
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.runtime import wire
+    from cudavideostream_tpu_torch.utils import fonts
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 12)
+    door = torch.from_numpy(np.repeat(door_map(cfg, rng).ravel(), 3)).to(dev)
+    cases = {"k1": 0, "k5": 0, "steps": 0}
+    frames = {d: _streams(rng, 8, n, d) for d in (0.0, 0.06, 1.0)}
+    strips = torch.from_numpy(rng.integers(
+        0, 255, 8 * 288_000, endpoint=True, dtype=np.uint8)).to(dev)
+    for b in (1, 3, 4, 8):
+        for sub in (1, 8, 0):
+            poss = []
+            for d, (prev, cur) in frames.items():
+                for tm in (None, door):
+                    for reg in ((None, strips[:b * 288_000]) if d == 0.06
+                                else (None,)):
+                        poss += _check_batched(
+                            f"K1 batched B={b} sub={sub} d={d} "
+                            f"map={tm is not None} overlay={reg is not None}",
+                            prev[:b * n], cur[:b * n], b, sub, tm, reg)
+                        cases["k1"] += 1
+            log(f"[check] K1 batched B={b} subtile={sub}: 8 cases (density "
+                f"0/0.06/1 x map none/door, and per-stream overlay strips at "
+                f"0.06) exact against its plain version and against {b} solo "
+                f"K1 tiled launches; pos per stream {min(poss)}..{max(poss)}")
+    for b, m in ((2, 9233), (4, 9233), (2, 128 * 401), (4, 128 * 401),
+                 (2, 1000), (4, 1000)):
+        prev, cur = _streams(rng, b, m, 0.06)
+        tm = torch.from_numpy(byte_map(rng, m)).to(dev)
+        reg = torch.from_numpy(rng.integers(0, 255, b * 700, endpoint=True,
+                                            dtype=np.uint8)).to(dev)
+        for sub in (1, 8, 0):
+            for t, r in ((None, None), (tm, reg)):
+                _check_batched(f"K1 batched B={b} n={m} sub={sub}", prev, cur,
+                               b, sub, t, r)
+                cases["k1"] += 1
+        log(f"[check] K1 batched B={b} n={m} (a padded geometry"
+            f"{'; streams not 16-byte aligned' if m % 16 else ''}), subtile "
+            f"1/8/0, with and without a byte map and 700 B overlay strips: "
+            f"exact against its plain version and solo launches")
+
+    for b in (1, 3):
+        for d in (0.06, 1.0):
+            prev, cur = frames[d][0][:b * n], frames[d][1][:b * n]
+            for tm, reg in ((None, None), (door, strips[:b * 288_000])):
+                _check_batched(f"K5 batched B={b} d={d}", prev, cur, b, 0,
+                               tm, reg, scheme="segment")
+                _equal_or_raise(
+                    f"K5 batched B={b} d={d} == K1 batched subtile=0",
+                    lc.fused_diff_compact_batched(
+                        cur, prev.clone(), b, scheme="segment",
+                        threshold_map=tm, overlay_region=reg),
+                    lc.fused_diff_compact_batched(
+                        cur, prev.clone(), b, sub_rows=0, threshold_map=tm,
+                        overlay_region=reg), BATCHED)
+                cases["k5"] += 1
+        log(f"[check] K5 batched B={b}: 4 cases (density 0.06/1 x none / "
+            f"door map and overlay strips) exact against its plain version "
+            f"and {b} solo K5 launches; == K1 batched subtile=0 bit for bit")
+    prev, cur = _streams(rng, 2, 9233, 0.06)
+    _check_batched("K5 batched B=2 n=9233", prev, cur, 2, 0, scheme="segment")
+    cases["k5"] += 1
+    log("[check] K5 batched B=2 n=9233 (ragged): exact")
+
+    tcfg = dataclasses.replace(cfg, tiled_payload=True)
+    texts = ["CAM 0 FPS: 30", "CAM 1 FPS: 29", "", "CAM 3 BW: 1234 kbps"]
+    b = len(texts)
+    for label, vcfg in (
+            ("visualizer 0", tcfg),
+            ("visualizer 3", dataclasses.replace(
+                tcfg, visualizer=Visualizer.RED_OVERLAP)),
+            ("visualizer 5", dataclasses.replace(
+                tcfg, visualizer=Visualizer.BINARIZE)),
+            ("--noise-filter", dataclasses.replace(tcfg, noise_filter=True))):
+        pipe = BatchedDeltaPipeline(vcfg, b)
+        states = [frame_pair(rng, n, 0.06)[0] for _ in range(b)]
+        prev = pipe.init_state(np.stack(states))
+        cur_np = states
+        poss = []
+        for _ in range(3):
+            cur_np = [drift(rng, c, 0.06) for c in cur_np]
+            out = pipe.step(prev, np.stack(cur_np), texts)
+            prev = out[0]
+            got_prev = prev.cpu().numpy().reshape(b, n)
+            aux = None if out[-1] is None else out[-1].cpu().numpy()
+            for s in range(b):
+                e_prev, e_pos, e_xs, e_vals, e_aux = reference_cpu.step_oracle(
+                    states[s], cur_np[s], vcfg, atlas=pipe.atlas_np,
+                    char_ids=fonts.encode_text(texts[s]))
+                xs, vals = wire.TiledPayload(
+                    int(out[1][s]), out[2][s].cpu().numpy(),
+                    out[3][s].cpu().numpy(), out[4][s].cpu().numpy()).to_flat()
+                ok = (int(out[1][s]) == e_pos and np.array_equal(xs, e_xs)
+                      and np.array_equal(vals, e_vals)
+                      and np.array_equal(got_prev[s], e_prev)
+                      and (aux is None if e_aux is None else aux is not None
+                           and np.array_equal(aux[s * n:(s + 1) * n], e_aux)))
+                if not ok:
+                    raise AssertionError(f"batched step {label}: stream {s} "
+                                         "differs from step_oracle")
+                states[s] = e_prev
+                poss.append(e_pos)
+            cases["steps"] += 1
+        log(f"[check] batched step {label}: BatchedDeltaPipeline.step at "
+            f"1080p, B={b}, four overlay texts, 3 frames: every stream == its "
+            f"step_oracle (aux {'equal' if aux is not None else 'none'}); pos "
+            f"{min(poss)}..{max(poss)}")
+    return cases
+
+
 def phase_crosscheck_path(cfg):
     """The path K5, K6 and K7 serve in the JAX package: its scheme
     cross-check (``tests/test_device_ops.py:284-360``,
@@ -894,22 +1078,38 @@ def phase_crosscheck_path(cfg):
     tiled = {s: logcompact.fused_diff_compact_tiled(cur, prev.clone(),
                                                     scheme=s)
              for s in logcompact.SCHEMES}
+    # the batched mode on two streams: this frame, and the next one
+    # against it
+    cur_b = torch.cat([cur, torch.from_numpy(next(src)).to(dev)])
+    prev_b = torch.cat([prev, cur])
+    seg0 = logcompact.segment_compact.launches
+    batched = {s: logcompact.fused_diff_compact_batched(cur_b, prev_b.clone(),
+                                                        2, scheme=s)
+               for s in ("element", "segment")}
+    k5_batched = logcompact.segment_compact.launches - seg0
     sums = hist.vpu_probe(g2)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     for s in ("segment", "register"):
         _equal_or_raise(f"cross-check {s} flat", flat[s], flat["element"])
         _equal_or_raise(f"cross-check {s} tiled", tiled[s], tiled["element"],
-                        ("pos", "counts", "xs_t", "vals_t", "new_prev"))
+                        BATCHED)
+    _equal_or_raise("cross-check segment batched", batched["segment"],
+                    batched["element"], BATCHED)
+    _equal_or_raise("cross-check batched stream 0 == solo", [
+        t[0] for t in batched["element"][:4]] + [
+        batched["element"][4][:cur.numel()]], tiled["element"], BATCHED)
     tile = hist.probe_tile(g2.shape[0])
     if not bool((sums == tile * 128).all()):
         raise AssertionError("K7: a checksum differs from its tile's count")
     log(f"[serve] cross-check path: the element, segment and register "
         f"schemes give the same bytes flat and tiled on a 1080p synthetic "
-        f"frame (pos={int(flat['element'][0])}); K7 {sums.numel()} "
+        f"frame (pos={int(flat['element'][0])}), and element and segment "
+        f"batched on two streams; K7 {sums.numel()} "
         f"checksums of {tile * 128}; kernel launches: "
         + ", ".join(f"{k}={v}" for k, v in launches.items()))
-    return {"frames": 1, "launches": launches}
+    return {"frames": 1, "launches": launches,
+            "k5_batched_launches": k5_batched}
 
 
 class _RecordingExecutor:
@@ -1000,6 +1200,8 @@ def _launch_counters():
     return {"fused_diff_compact": logcompact.fused_diff_compact,
             "fused_diff_compact_tiled": logcompact.fused_diff_compact_tiled,
             "fused_diff_compact_mask": logcompact.fused_diff_compact_mask,
+            "fused_diff_compact_batched":
+                logcompact.fused_diff_compact_batched,
             "pair_compact": logcompact.pair_compact,
             "vals_compact": logcompact.vals_compact,
             "histogram": hist.histogram,
@@ -1154,6 +1356,286 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0, inner=None):
     return {"frames": frames, "launches": launches,
             "nonempty": sum(p > 0 for p in positions),
             "fetch_counts": dict(inner.fetch_counts)}
+
+
+class _RecordingBatchedPipe:
+    """The multi-stream server's pipeline, plus a digest of each stream's
+    state after every step, and the first step's inputs."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.digests, self.first = [], None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def step(self, prev, frames, texts):
+        if self.first is None:
+            self.first = (prev.cpu().numpy().reshape(self.n_streams, -1),
+                          np.array(frames), list(texts))
+        out = self.inner.step(prev, frames, texts)
+        state = out[0].cpu().numpy().reshape(self.n_streams, -1)
+        self.digests.append([hashlib.sha256(x).hexdigest() for x in state])
+        return out
+
+
+def _wait_until(cond, what, timeout=60.0):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise RuntimeError(f"timed out waiting for {what}")
+        threading.Event().wait(0.005)
+
+
+def _digest_reader(cli, digests, after=None, n_after=0):
+    """Decode frames until the server closes, one digest per frame; set
+    ``after`` once ``n_after`` frames are in."""
+    try:
+        while True:
+            digests.append(hashlib.sha256(cli.read_frame()[1]).hexdigest())
+            if after is not None and len(digests) == n_after:
+                after.set()
+    except ConnectionError:
+        pass
+    finally:
+        cli.close()
+
+
+def _ppm_bgr(path, height, width):
+    """The BGR bytes of a PPM that ``write_ppm`` wrote."""
+    with open(path, "rb") as f:
+        data = f.read()
+    rgb = np.frombuffer(data[-height * width * 3:], np.uint8)
+    return rgb.reshape(height, width, 3)[:, :, ::-1].ravel()
+
+
+def phase_multiserve(cfg, label, n_frames=16, aux=False):
+    """The multi-stream server at 1080p, 4 streams, each with a loopback
+    client admitted at the first frame: every stream's reconstruction must
+    equal its server state every frame, and the batched kernel must run
+    once per batched frame. With ``aux``, frame 0's aux frames, dumped to
+    ``--aux-dir`` as PPMs, must equal each stream's ``step_oracle``
+    aux."""
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
+    from cudavideostream_tpu_torch.runtime.multiserve import MultiStreamServer
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+    from cudavideostream_tpu_torch.utils import fonts
+
+    b_count = 4
+    cfg = dataclasses.replace(cfg, port=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        server = MultiStreamServer(
+            cfg, [SyntheticSource(cfg, seed=SEED + b) for b in range(b_count)],
+            verbose=False, aux_dir=tmp if aux else None)
+        rec = server.pipe = _RecordingBatchedPipe(server.pipe)
+        server.listen()
+        digests = [[] for _ in range(b_count)]
+        readers = []
+        for b, port in enumerate(server.ports):
+            cli = DeltaStreamClient("127.0.0.1", port, cfg.height, cfg.width)
+            readers.append(threading.Thread(
+                target=lambda c=cli, d=digests[b]: (c.connect(),
+                                                   _digest_reader(c, d)),
+                daemon=True))
+            readers[-1].start()
+        # every stream's client is queued before the first frame
+        _wait_until(lambda: all(q.qsize() for q in server._pending),
+                    f"{label}: the clients to connect")
+        errors = []
+
+        def serve():
+            try:
+                server.serve(max_frames=n_frames)
+            except BaseException as e:
+                errors.append(e)
+
+        counters = _zero_launches()  # counts of this path's run only
+        t0 = time.perf_counter()
+        th = threading.Thread(target=serve, name="smoke-multiserve",
+                              daemon=True)
+        th.start()
+        th.join(timeout=300)
+        for r in readers:
+            r.join(timeout=60)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if th.is_alive() or any(r.is_alive() for r in readers):
+            raise RuntimeError(f"{label}: the server or a client did not "
+                               "finish")
+        if errors:
+            raise errors[0]
+        for b in range(b_count):
+            if digests[b] != [d[b] for d in rec.digests]:
+                raise AssertionError(f"{label}: stream {b}'s client "
+                                     "reconstruction != its server state")
+        if aux:
+            states, frames, texts = rec.first
+            n = cfg.frame_bytes
+            for b in range(b_count):
+                want = reference_cpu.step_oracle(
+                    states[b], frames[b], cfg, atlas=rec.atlas_np,
+                    char_ids=fonts.encode_text(texts[b]))[4]
+                got = _ppm_bgr(os.path.join(tmp, f"aux_{b}_000000.ppm"),
+                               cfg.height, cfg.width)
+                if got.size != n or not np.array_equal(got, want):
+                    raise AssertionError(f"{label}: stream {b}'s dumped aux "
+                                         "frame differs from step_oracle's")
+            log(f"[serve] multiserve {label}: frame 0's aux frames, dumped as "
+                f"aux_<b>_000000.ppm, equal step_oracle's for all "
+                f"{b_count} streams")
+    frames = len(rec.digests)
+    if frames != n_frames:
+        raise AssertionError(f"{label}: served {frames} of {n_frames} frames")
+    for b in range(b_count):
+        log(f"[serve] multiserve {label} stream {b}: {frames} frames at 1080p "
+            f"over TCP, byte-exact every frame")
+    log(f"[serve] multiserve {label}: {b_count} x {frames} frames in "
+        f"{wall:.2f} s wall, {frames / wall:.2f} batched frames/s "
+        f"({b_count * frames / wall:.2f} stream frames/s; includes the numpy "
+        f"sources, the clients and the per-frame state digests in this one "
+        f"process); landings {server.fetch_counts}; kernel launches: "
+        + ", ".join(f"{k}={v}" for k, v in launches.items()))
+    return {"frames": frames, "launches": launches,
+            "fetch_counts": dict(server.fetch_counts), "fps": frames / wall}
+
+
+class _GatedSource:
+    """SyntheticSource for ``n_frames`` frames, waiting before frame
+    ``gate_at`` until ``gate`` is set."""
+
+    def __init__(self, inner, n_frames, gate_at, gate):
+        self.inner, self.n_frames = inner, n_frames
+        self.gate_at, self.gate = gate_at, gate
+        self.served = 0
+
+    def base_frame(self):
+        return self.inner.base_frame()
+
+    def __next__(self):
+        if self.served >= self.n_frames:
+            raise StopIteration
+        if self.served == self.gate_at and not self.gate.wait(60):
+            raise RuntimeError("the late client never arrived")
+        self.served += 1
+        return next(self.inner)
+
+
+def phase_broadcast_replay(cfg, n_frames=24):
+    """The broadcast server at 1080p, wire v3: a client and a raw recorder
+    from the first frame, a second client joining late; both clients must
+    equal the server's state every frame they see. Then the recorded
+    session is replayed (``ReplayServer``) to a raw reader, which must get
+    the recorded bytes, and to a client, which must decode every state."""
+    from cudavideostream_tpu_torch.runtime.broadcast import BroadcastServer
+    from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
+    from cudavideostream_tpu_torch.runtime.executor import StreamExecutor
+    from cudavideostream_tpu_torch.runtime.replay import ReplayServer
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    cfg = dataclasses.replace(cfg, port=0, wire_format="v3")
+    rec = _RecordingExecutor(StreamExecutor(cfg))
+    gate = threading.Event()
+    server = BroadcastServer(cfg, _GatedSource(
+        SyntheticSource(cfg, seed=SEED), n_frames, n_frames // 2, gate),
+        executor=rec, verbose=False)
+    server.listen()
+    early, late, raw = [], [], bytearray()
+    five = threading.Event()
+
+    def record():
+        with socket.create_connection(("127.0.0.1", server.port)) as sock:
+            sock.settimeout(120)
+            while True:
+                chunk = sock.recv(1 << 20)
+                if not chunk:
+                    return
+                raw.extend(chunk)
+
+    cli = DeltaStreamClient("127.0.0.1", server.port, cfg.height, cfg.width)
+    threads = [threading.Thread(target=record, daemon=True),
+               threading.Thread(target=lambda: (cli.connect(), _digest_reader(
+                   cli, early, five, 5)), daemon=True)]
+    for t in threads:
+        t.start()
+    _wait_until(lambda: server._pending.qsize() == 2,
+                "broadcast: the first clients to connect")
+    errors = []
+
+    def serve():
+        try:
+            server.serve(max_frames=n_frames)
+        except BaseException as e:
+            errors.append(e)
+
+    counters = _zero_launches()
+    th = threading.Thread(target=serve, name="smoke-broadcast", daemon=True)
+    th.start()
+    if not five.wait(120):
+        raise RuntimeError("broadcast: the first client got no 5 frames")
+    cli2 = DeltaStreamClient("127.0.0.1", server.port, cfg.height, cfg.width)
+    base2 = []
+
+    def late_reader():
+        cli2.connect()
+        base2.append(hashlib.sha256(cli2.frame).hexdigest())
+        _digest_reader(cli2, late)
+
+    threads.append(threading.Thread(target=late_reader, daemon=True))
+    threads[-1].start()
+    _wait_until(lambda: server._pending.qsize() == 1 or server.n_clients == 3,
+                "broadcast: the late client to connect")
+    gate.set()
+    th.join(timeout=300)
+    for t in threads:
+        t.join(timeout=60)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if th.is_alive() or any(t.is_alive() for t in threads):
+        raise RuntimeError("broadcast: the server or a client did not finish")
+    if errors:
+        raise errors[0]
+    want = rec.digests
+    if len(want) != n_frames or early != want:
+        raise AssertionError("broadcast: the first client's reconstruction "
+                             "!= the server state")
+    j = want.index(base2[0]) + 1 if base2 and base2[0] in want else None
+    if j is None or j < 5 or late != want[j:]:
+        raise AssertionError(f"broadcast: the late client (joined before "
+                             f"frame {j}) != the server state")
+    log(f"[serve] broadcast --wire v3: {n_frames} frames at 1080p; the first "
+        f"client byte-exact every frame, the late one joined before frame "
+        f"{j} with the current state and byte-exact every frame after; "
+        f"{len(raw)} B recorded by a raw reader; kernel launches: "
+        + ", ".join(f"{k}={v}" for k, v in launches.items()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.cvs")
+        with open(path, "wb") as f:
+            f.write(raw)
+        replay = ReplayServer(path, cfg.frame_bytes, port=0, verbose=False)
+        replay.listen()
+        got, decoded = bytearray(), []
+        th = threading.Thread(target=replay.serve, kwargs={"max_clients": 2},
+                              daemon=True)
+        th.start()
+        with socket.create_connection(("127.0.0.1", replay.port)) as sock:
+            sock.settimeout(120)
+            while chunk := sock.recv(1 << 20):
+                got.extend(chunk)
+        cli3 = DeltaStreamClient("127.0.0.1", replay.port, cfg.height,
+                                 cfg.width)
+        cli3.connect()
+        _digest_reader(cli3, decoded)
+        th.join(timeout=60)
+        n_marks = len(replay.marks)
+        replay.close()
+    if bytes(got) != bytes(raw) or decoded != want or n_marks != n_frames:
+        raise AssertionError("replay: the replayed session differs from the "
+                             "recorded one")
+    log(f"[serve] replay: the recorded broadcast session ({n_marks} v3 "
+        f"frames, {len(raw)} B) replayed byte-identical to a raw reader, and "
+        f"decoded by a client to the server's {n_frames} states")
+    return {"frames": n_frames, "launches": launches}
 
 
 def _expect_launches(run, label, want):
@@ -1952,6 +2434,100 @@ def phase_map_scheme_times(cfg, clock_mhz):
             "k7_bound_ms": max(k7_ops_ms, k7_bytes_ms)}
 
 
+def phase_batched_times(cfg):
+    """K1 batched at B = 4 (subtile_rows 1) against four solo K1 tiled
+    launches on the same streams, in turns, and against its bound; K5
+    batched at B = 4 against its bound; their plain versions; the B = 4
+    batched step's device time."""
+    from cudavideostream_tpu_torch.models import BatchedDeltaPipeline
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+
+    b_count, n = 4, cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 13)
+    prev0, cur = _streams(rng, b_count, n, 0.06)
+    strip = 288_000
+    reg = torch.from_numpy(rng.integers(0, 255, b_count * strip,
+                                        endpoint=True, dtype=np.uint8)).cuda()
+    # fresh state per call, inputs rotated: cold in the 50 MB L2
+    prevs = [prev0.clone() for _ in range(ITERS)]
+    curs = [cur.clone() for _ in range(CUR_COPIES)]
+
+    def refill():
+        for p in prevs:
+            p.copy_(prev0)
+
+    def batched(i, scheme="element"):
+        lc.fused_diff_compact_batched(curs[i % CUR_COPIES], prevs[i],
+                                      b_count, scheme=scheme, sub_rows=1,
+                                      overlay_region=reg)
+
+    def solo(i):
+        c, p = curs[i % CUR_COPIES], prevs[i]
+        for s in range(b_count):
+            lc.fused_diff_compact_tiled(c[s * n:(s + 1) * n],
+                                        p[s * n:(s + 1) * n], 20, True,
+                                        reg[s * strip:(s + 1) * strip], 1)
+
+    pos = lc.fused_diff_compact_batched(cur, prev0.clone(), b_count,
+                                        sub_rows=1, overlay_region=reg)[0]
+    turns = {}
+    for name, fn in (("batched", batched), ("solo", solo), ("solo", solo),
+                     ("batched", batched)):
+        refill()
+        turns.setdefault(name, []).append(_event_median_ms(fn, ITERS))
+    refill()
+    _profile_ms(batched, ("tiled_unit_kernel", "sum_kernel"),
+                "K1 batched B=4 subtile=1")
+    refill()
+    k1_plain = _event_median_ms(
+        lambda i: lc.fused_diff_compact_batched_reference(
+            curs[i % CUR_COPIES], prevs[i], b_count, sub_rows=1,
+            overlay_region=reg), 10, backlog=False)
+    refill()
+    k5 = _event_median_ms(lambda i: batched(i, "segment"), ITERS)
+    refill()
+    k5_plain = _event_median_ms(
+        lambda i: lc.fused_diff_compact_batched_reference(
+            curs[i % CUR_COPIES], prevs[i], b_count, scheme="segment",
+            overlay_region=reg), 3, backlog=False)
+
+    tcfg = dataclasses.replace(cfg, tiled_payload=True)
+    pipe = BatchedDeltaPipeline(tcfg, b_count)
+    texts = ["CAM 0 FPS: 30", "CAM 1 FPS: 29", "", "CAM 3 BW: 1234 kbps"]
+    pipe.step(prev0.clone(), cur, texts)  # warm-up
+    refill()
+    step_ms = _event_median_ms(
+        lambda i: pipe.step(prevs[i], curs[i % CUR_COPIES], texts), ITERS)
+
+    # bounds: each input read once, each output written once, per stream
+    t_pad, t_unit = lc.tiled_geometry(n, 1)
+    w_pad, w_unit = lc.tiled_geometry(n, 0)
+    k1_bytes = b_count * (3 * n + 5 * t_pad + t_pad // t_unit + 4)
+    k5_bytes = b_count * (3 * n + 5 * w_pad + 4 * (w_pad // w_unit))
+    k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
+    k5_bound = k5_bytes / HBM_BYTES_PER_S * 1e3
+    k1 = statistics.median(turns["batched"])
+    log(f"[time] batched, 1080p, B={b_count}, pos per stream "
+        f"{[int(p) for p in pos]} (~{int(pos.sum()) / (b_count * n):.2%}), "
+        f"per-stream overlay strips of {strip} B, medians of {ITERS} (CUDA "
+        f"events), in turns")
+    log(f"[time] K1 batched subtile=1: "
+        f"{' / '.join(f'{x:.4f}' for x in turns['batched'])} ms; four solo "
+        f"K1 tiled launches {' / '.join(f'{x:.4f}' for x in turns['solo'])} "
+        f"ms (bound {k1_bound:.4f} ms = {k1_bytes} B at 3.35 TB/s; batched "
+        f"{k1_bound / k1:.1%} of it); its plain PyTorch version "
+        f"{k1_plain:.4f} ms")
+    log(f"[time] K5 batched: {k5:.4f} ms (bound {k5_bound:.4f} ms = "
+        f"{k5_bytes} B; {k5_bound / k5:.1%} of it); its plain PyTorch "
+        f"version {k5_plain:.4f} ms")
+    log(f"[time] BatchedDeltaPipeline.step, B={b_count}, four overlay texts "
+        f"(blends, strips, one K1 batched launch): {step_ms:.4f} ms device")
+    return {"k1_ms": k1, "k1_solo4_ms": statistics.median(turns["solo"]),
+            "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bound, "k5_ms": k5,
+            "k5_plain_ms": k5_plain, "k5_bound_ms": k5_bound,
+            "step_ms": step_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1969,6 +2545,7 @@ def main() -> int:
     filter_cases = phase_filters_vs_plain(cfg)
     map_cases = phase_map_vs_plain(cfg)
     scheme_cases = phase_schemes_vs_plain(cfg)
+    batched_cases = phase_batched_vs_plain(cfg)
     mcfg = dataclasses.replace(tcfg, emit_bitmask=True, fetch_mode="mask",
                                mask_payload=True, wire_format="v4")
     runs = {
@@ -2027,13 +2604,34 @@ def main() -> int:
             runs[key] = phase_serving(mapcfg, label + " --threshold-map",
                                       inner=inner)
     runs["crosscheck"] = phase_crosscheck_path(cfg)
+    # the multi-stream server's default is the tiled payload (its batched
+    # fast path)
+    for key, label, kw in (
+            ("multiserve_v1", "--streams 4 (wire v1, --fetch auto)", {}),
+            ("multiserve_v3", "--streams 4 --wire v3", {"wire_format": "v3"}),
+            ("multiserve_binarize_aux",
+             "--streams 4 --visualizer 5 --aux-dir",
+             {"visualizer": Visualizer.BINARIZE})):
+        runs[key] = phase_multiserve(dataclasses.replace(tcfg, **kw), label,
+                                     aux="visualizer" in kw)
+    runs["broadcast"] = phase_broadcast_replay(cfg)
     none = dict.fromkeys(_launch_counters(), 0)
+    for key in ("multiserve_v1", "multiserve_v3", "multiserve_binarize_aux"):
+        run = runs[key]
+        # one batched launch per batched frame (not one per stream); one K2
+        # merge per flat landing (auto lands an empty stream as tiles)
+        _expect_launches(run, key, {
+            **none, "fused_diff_compact_batched": run["frames"],
+            "pair_compact": run["fetch_counts"]["flat"],
+            "histogram": 4 * run["frames"] if "binarize" in key else 0})
+    _expect_launches(runs["broadcast"], "broadcast", {
+        **none, "fused_diff_compact": runs["broadcast"]["frames"]})
     _expect_launches(runs["map_flat_v1"], "map_flat_v1", {
         **none, "fused_diff_compact": runs["map_flat_v1"]["frames"]})
     _expect_launches(runs["crosscheck"], "crosscheck", {
         **none, "fused_diff_compact": 1, "fused_diff_compact_tiled": 1,
-        "segment_compact": 2, "register_compact": 2, "pair_compact": 2,
-        "vpu_probe": 1})
+        "fused_diff_compact_batched": 1, "segment_compact": 3,
+        "register_compact": 2, "pair_compact": 2, "vpu_probe": 1})
     _expect_launches(runs["flat"], "flat", {
         **none, "fused_diff_compact": runs["flat"]["frames"]})
     run = runs["binarize_v1"]
@@ -2079,6 +2677,7 @@ def main() -> int:
     mtimes = phase_mask_times(cfg)
     ftimes = phase_filter_times(cfg)
     xtimes = phase_map_scheme_times(cfg, clock_mhz)
+    btimes = phase_batched_times(cfg)
 
     def launches(name):
         by_path = {k: r["launches"][name] for k, r in runs.items()}
@@ -2109,11 +2708,19 @@ def main() -> int:
          ftimes["k4_library_ms"],
          f"byte-exact in {filter_cases['k4']} cases; the 8 variants and 6 "
          f"tiled visualizer steps equal step_oracle"),
+        ("fused_diff_compact_batched", "logcompact.cu", f"{lc}:297", 0,
+         btimes["k1_ms"], btimes["k1_plain_ms"], btimes["k1_bound_ms"], None,
+         f"byte-exact in {batched_cases['k1']} cases against its plain "
+         f"version and solo launches; B=4 subtile=1; four solo K1 tiled "
+         f"launches {btimes['k1_solo4_ms']:.4f} ms; {batched_cases['steps']} "
+         f"batched steps equal step_oracle; the B=4 step "
+         f"{btimes['step_ms']:.4f} ms"),
         ("segment_compact", "segment_compact.cu", f"{lc}:537", 0,
          xtimes["k5_ms"], xtimes["k5_plain_ms"], xtimes["k5_bound_ms"], None,
          f"byte-exact in {scheme_cases['k5']} cases; == K1 tiled "
          f"subtile=0; with the map {xtimes['k5_map_ms']:.4f} ms against "
-         f"{xtimes['k5_map_bound_ms']:.5f}"),
+         f"{xtimes['k5_map_bound_ms']:.5f}; batched byte-exact in "
+         f"{batched_cases['k5']} cases, == K1 batched subtile=0"),
         ("register_compact", "register_compact.cu",
          "cudavideostream_tpu/ops/pallas_compact.py:68", 0,
          xtimes["k6_ms"], xtimes["k6_plain_ms"], xtimes["k6_bound_ms"], None,
@@ -2130,7 +2737,16 @@ def main() -> int:
     for name, src, replaces, err, ms, plain, bound, lib_ms, check in records:
         total, by_path = launches(name)
         extra = {}
-        if name.startswith("fused_diff_compact"):
+        if name == "segment_compact":
+            # K5's batched mode, B = 4, and its launches (the cross-check
+            # path's batched call)
+            extra = {"batched_ms": btimes["k5_ms"],
+                     "batched_plain_ms": btimes["k5_plain_ms"],
+                     "batched_bound_ms": btimes["k5_bound_ms"],
+                     "batched_launches":
+                         runs["crosscheck"]["k5_batched_launches"]}
+        elif name in ("fused_diff_compact", "fused_diff_compact_tiled",
+                      "fused_diff_compact_mask"):
             emission = {"fused_diff_compact": "flat",
                         "fused_diff_compact_tiled": "tiled",
                         "fused_diff_compact_mask": "mask"}[name]

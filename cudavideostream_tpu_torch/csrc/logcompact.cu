@@ -97,6 +97,28 @@
 // 128) and pos: 25,715,204 B, or 7.68 us at 3.35 TB/s, half the tiled
 // emission's bytes.
 //
+// BATCHED (both tiled entry points, n_streams > 1; the TPU kernel's
+// stream_tiles super-frame mode, logcompact.py:359-365 and :509, reached
+// through fused_diff_compact_batched, :996-1117): B independent frames of n
+// bytes each, stream b at cur + b * n and prev + b * n (stride n, no
+// padding between streams), one launch over B x the solo grid. Every block
+// works on one stream only, with the solo code at stream-local offsets:
+// its bytes past n read as 0 (never ship), so stream b + 1's first bytes
+// never reach stream b's padded tail. Stream b's units and blocks start at
+// unit b * n_pad / unit_bytes and byte b * n_pad of the outputs; emitted
+// indices are stream-local (the solo frame's global index: the TPU's
+// i_s * n_flat rebase); the map, when given, is shared and read at the
+// stream-local byte; the overlay region is per stream (B strips of
+// region_len bytes, strip b at region + b * region_len); pos_out holds one
+// int per stream (sum_kernel, one block per stream). Offsets are long long:
+// B * n_pad passes 2^31 at B ~ 346 at 1080p. At n % 16 != 0 a stream's bytes
+// are not 16-byte aligned; load16 and store_new_prev then take their byte
+// loops. The stream arithmetic and those address checks are compiled into
+// the batched instances only (template kBatched): the solo emissions keep
+// their own code, whose buffers are always aligned. The bound is B times
+// the solo tiled bound: 199,280,528 B at 1080p, B = 4, sub_rows = 1, or
+// 59.49 us at 3.35 TB/s.
+//
 // THRESHOLD MAP (every entry point, thr_map not null; the TPU kernel's
 // thr_is_map, logcompact.py:368 and :927-935): byte i ships iff
 // |c - p| > thr_map[i], the map read at the byte's own index also where
@@ -123,11 +145,18 @@ union Vec16 {
   uint8_t b[16];
 };
 
-// Bytes [i0, i0 + 16) of src; bytes at or past lim read as 0.
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// Bytes [i0, i0 + 16) of src; bytes at or past lim read as 0. kCheck: src
+// may be misaligned (a batched stream), so the vector load checks the
+// address first.
+template <bool kCheck>
 __device__ __forceinline__ Vec16 load16(const uint8_t* __restrict__ src,
                                         long long i0, long long lim) {
   Vec16 r;
-  if (i0 + 16 <= lim) {
+  if (i0 + 16 <= lim && (!kCheck || aligned16(src + i0))) {
     r.v = *reinterpret_cast<const uint4*>(src + i0);
   } else {
 #pragma unroll
@@ -140,7 +169,8 @@ __device__ __forceinline__ Vec16 load16(const uint8_t* __restrict__ src,
 // i0 + k), with the current bytes (region-substituted) in c and the
 // previous bytes in p. Bytes past n never ship. The threshold is thr, or
 // with a per-byte map (thr_map not null) thr_map[i], read at the byte's
-// own index also where the region stands in for cur.
+// own index also where the region stands in for cur. kCheck as for load16.
+template <bool kCheck>
 __device__ __forceinline__ unsigned group_mask(
     const uint8_t* __restrict__ cur, const uint8_t* prev,
     const uint8_t* __restrict__ region, long long region_len, long long n,
@@ -151,11 +181,11 @@ __device__ __forceinline__ unsigned group_mask(
     p.v = c.v;
     return 0;
   }
-  p = load16(prev, i0, n);
+  p = load16<kCheck>(prev, i0, n);
   if (i0 + 16 <= region_len) {
-    c = load16(region, i0, region_len);
+    c = load16<kCheck>(region, i0, region_len);
   } else if (i0 >= region_len) {
-    c = load16(cur, i0, n);
+    c = load16<kCheck>(cur, i0, n);
   } else {  // the group straddles the end of the overlay region
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
@@ -164,7 +194,7 @@ __device__ __forceinline__ unsigned group_mask(
     }
   }
   Vec16 t;
-  if (thr_map != nullptr) t = load16(thr_map, i0, n);
+  if (thr_map != nullptr) t = load16<false>(thr_map, i0, n);  // shared
   unsigned m = 0;
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
@@ -210,6 +240,8 @@ __device__ __forceinline__ int block_excl_scan(int v, int* s_warp,
 
 // new_prev for the 16 bytes at i0, in place: the calling thread read
 // these bytes of prev, and no other thread of its kernel reads them.
+// kCheck as for load16.
+template <bool kCheck>
 __device__ __forceinline__ void store_new_prev(uint8_t* prev, long long i0,
                                                long long n, unsigned m,
                                                const Vec16& c,
@@ -219,7 +251,7 @@ __device__ __forceinline__ void store_new_prev(uint8_t* prev, long long i0,
 #pragma unroll
   for (int k = 0; k < 16; ++k)
     np.b[k] = (!negfeed || ((m >> k) & 1u)) ? c.b[k] : p.b[k];
-  if (i0 + 16 <= n) {
+  if (i0 + 16 <= n && (!kCheck || aligned16(prev + i0))) {
     *reinterpret_cast<uint4*>(prev + i0) = np.v;
   } else {
 #pragma unroll
@@ -258,8 +290,8 @@ count_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ prev,
   for (int t = 0; t < tiles_per_block; ++t) {
     long long i0 = base + (long long)t * kTileBytes + threadIdx.x * kBytesPerThread;
     Vec16 c, p;
-    cnt += __popc(group_mask(cur, prev, region, region_len, n, thr, thr_map,
-                             i0, c, p));
+    cnt += __popc(group_mask<false>(cur, prev, region, region_len, n, thr,
+                                    thr_map, i0, c, p));
   }
   cnt = warp_sum(cnt);
   if (lane == 0) s_warp[warp] = cnt;
@@ -315,8 +347,8 @@ compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   for (int t = 0; t < tiles_per_block; ++t) {
     const long long i0 = base + (long long)t * kTileBytes + threadIdx.x * kBytesPerThread;
     Vec16 c, p;
-    const unsigned m = group_mask(cur, prev, region, region_len, n, thr,
-                                  thr_map, i0, c, p);
+    const unsigned m = group_mask<false>(cur, prev, region, region_len, n,
+                                         thr, thr_map, i0, c, p);
     const int cnt = __popc(m);
 
     // rank within the tile: warp inclusive scan, then the warp totals
@@ -331,7 +363,7 @@ compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
       }
     }
 
-    store_new_prev(prev, i0, n, m, c, p, negfeed);
+    store_new_prev<false>(prev, i0, n, m, c, p, negfeed);
     __syncthreads();
 
     // coalesced write-out of the tile's entries at off + rank
@@ -360,15 +392,16 @@ compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 
 // ---- tiled emission ----------------------------------------------------
 
-// One block per 4096-byte tile; units of unit_bytes divide the tile.
-// kXs: write the index blocks xs_t (false: the bitmask-only emission).
-// bits: the packed ship mask, or null.
-template <bool kXs>
+// One block per 4096-byte tile of one stream (tiles_per_stream blocks per
+// stream); units of unit_bytes divide the tile. kXs: write the index
+// blocks xs_t (false: the bitmask-only emission). kBatched: more than one
+// stream (see BATCHED). bits: the packed ship mask, or null.
+template <bool kXs, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                   const uint8_t* __restrict__ region, long long region_len,
-                  long long n, long long n_pad, int thr,
-                  const uint8_t* __restrict__ thr_map, int negfeed,
+                  long long n, long long n_pad, int tiles_per_stream,
+                  int thr, const uint8_t* __restrict__ thr_map, int negfeed,
                   int unit_bytes, int counts_bytes,
                   int* __restrict__ tile_tot, void* __restrict__ counts,
                   int* __restrict__ xs_t, uint8_t* __restrict__ vals_t,
@@ -378,7 +411,21 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   __shared__ int s_excl[kThreads];
   __shared__ int s_warp[kWarps];
   const int t = threadIdx.x;
-  const long long base = (long long)blockIdx.x * kTileBytes;
+  // this block's stream; its inputs and outputs from here on are the
+  // stream's own, at stream-local offsets
+  long long out0 = 0, tile = blockIdx.x;
+  if (kBatched) {
+    const long long stream = blockIdx.x / tiles_per_stream;
+    tile = blockIdx.x % tiles_per_stream;
+    cur += stream * n;
+    prev += stream * n;
+    if (region_len) region += stream * region_len;
+    out0 = stream * n_pad;
+    xs_t += out0;
+    vals_t += out0;
+    if (bits != nullptr) bits += out0 / 8;
+  }
+  const long long base = tile * kTileBytes;
   const long long i0 = base + t * kBytesPerThread;
 
   // zero the staging slots: int4 q * 256 + t, so a warp's stores are
@@ -391,8 +438,8 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   reinterpret_cast<uint4*>(s_vals)[t] = make_uint4(0, 0, 0, 0);
 
   Vec16 c, p;
-  const unsigned m = group_mask(cur, prev, region, region_len, n, thr,
-                                thr_map, i0, c, p);
+  const unsigned m = group_mask<kBatched>(cur, prev, region, region_len, n,
+                                          thr, thr_map, i0, c, p);
   const int cnt = __popc(m);
   int total;
   // (its barrier also orders the zeroing before the staging below)
@@ -414,12 +461,13 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
       ++r;
     }
   }
-  store_new_prev(prev, i0, n, m, c, p, negfeed);
+  store_new_prev<kBatched>(prev, i0, n, m, c, p, negfeed);
   if (bits != nullptr && i0 < n_pad) store_bits(bits, i0, m);
   if (t == first && base + slot0 < n_pad) {
     const int next = first + tpu;
     const int cu = (next < kThreads ? s_excl[next] : total) - s_excl[first];
-    store_count(counts, counts_bytes, (base + slot0) / unit_bytes, cu);
+    store_count(counts, counts_bytes, (out0 + base + slot0) / unit_bytes,
+                cu);
   }
   if (t == 0) tile_tot[blockIdx.x] = total;
   __syncthreads();
@@ -440,8 +488,11 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 }
 
 // Units larger than a tile: block b is chunk b % chunks_per_unit of unit
-// b / chunks_per_unit, the unit's bytes [chunk * 4096, chunk * 4096 +
-// 4096) cut at unit_bytes.
+// U = b / chunks_per_unit, the unit's bytes [chunk * 4096, chunk * 4096 +
+// 4096) cut at unit_bytes. U counts over every stream's units
+// (units_per_stream each): the outputs are indexed by U, the inputs by
+// the stream U / units_per_stream and its local unit.
+template <bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 tiled_chunk_count_kernel(const uint8_t* __restrict__ cur,
                          const uint8_t* __restrict__ prev,
@@ -449,17 +500,25 @@ tiled_chunk_count_kernel(const uint8_t* __restrict__ cur,
                          long long region_len, long long n, int thr,
                          const uint8_t* __restrict__ thr_map,
                          int unit_bytes, int chunks_per_unit,
+                         int units_per_stream,
                          int* __restrict__ chunk_counts) {
   __shared__ int s_warp[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long u = blockIdx.x / chunks_per_unit;
+  long long u = blockIdx.x / chunks_per_unit;
+  if (kBatched) {
+    const long long stream = u / units_per_stream;
+    u %= units_per_stream;
+    cur += stream * n;
+    prev += stream * n;
+    if (region_len) region += stream * region_len;
+  }
   const int off = (blockIdx.x % chunks_per_unit) * kTileBytes +
                   threadIdx.x * kBytesPerThread;
   int cnt = 0;
   if (off < unit_bytes) {
     Vec16 c, p;
-    cnt = __popc(group_mask(cur, prev, region, region_len, n, thr, thr_map,
-                            u * unit_bytes + off, c, p));
+    cnt = __popc(group_mask<kBatched>(cur, prev, region, region_len, n, thr,
+                                      thr_map, u * unit_bytes + off, c, p));
   }
   cnt = warp_sum(cnt);
   if (lane == 0) s_warp[warp] = cnt;
@@ -472,14 +531,14 @@ tiled_chunk_count_kernel(const uint8_t* __restrict__ cur,
   }
 }
 
-template <bool kXs>
+template <bool kXs, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                            const uint8_t* __restrict__ region,
                            long long region_len, long long n, int thr,
                            const uint8_t* __restrict__ thr_map,
                            int negfeed, int unit_bytes, int chunks_per_unit,
-                           int counts_bytes,
+                           int units_per_stream, int counts_bytes,
                            const int* __restrict__ chunk_counts,
                            void* __restrict__ counts,
                            int* __restrict__ xs_t,
@@ -490,14 +549,23 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   __shared__ int s_warp[kWarps];
   __shared__ int s_red[2][kWarps];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const long long u = blockIdx.x / chunks_per_unit;
+  const long long U = blockIdx.x / chunks_per_unit;  // over every stream
   const int chunk = blockIdx.x % chunks_per_unit;
-  const long long ubase = u * unit_bytes;
+  const long long ubase = U * unit_bytes;  // the unit's output slots
+  // the unit's first byte in its stream's frame
+  long long ulocal = ubase;
+  if (kBatched) {
+    const long long stream = U / units_per_stream;
+    cur += stream * n;
+    prev += stream * n;
+    if (region_len) region += stream * region_len;
+    ulocal = (U % units_per_stream) * unit_bytes;
+  }
 
   // this chunk's offset in its unit, and the unit's count
   int before = 0, unit_total = 0;
   for (int j = t; j < chunks_per_unit; j += kThreads) {
-    const int v = chunk_counts[u * chunks_per_unit + j];
+    const int v = chunk_counts[U * chunks_per_unit + j];
     unit_total += v;
     if (j < chunk) before += v;
   }
@@ -515,14 +583,15 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
     before += s_red[0][w];
     unit_total += s_red[1][w];
   }
-  if (chunk == 0 && t == 0) store_count(counts, counts_bytes, u, unit_total);
+  if (chunk == 0 && t == 0) store_count(counts, counts_bytes, U, unit_total);
 
   const int off = chunk * kTileBytes + t * kBytesPerThread;
-  const long long i0 = ubase + off;
+  const long long i0 = ulocal + off;  // stream-local: the emitted index
   Vec16 c, p;
   unsigned m = 0;
   if (off < unit_bytes)
-    m = group_mask(cur, prev, region, region_len, n, thr, thr_map, i0, c, p);
+    m = group_mask<kBatched>(cur, prev, region, region_len, n, thr, thr_map,
+                             i0, c, p);
   const int cnt = __popc(m);
   int chunk_total;
   int r = block_excl_scan(cnt, s_warp, chunk_total);
@@ -535,8 +604,8 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
     }
   }
   if (off < unit_bytes) {
-    store_new_prev(prev, i0, n, m, c, p, negfeed);
-    if (bits != nullptr) store_bits(bits, i0, m);
+    store_new_prev<kBatched>(prev, i0, n, m, c, p, negfeed);
+    if (bits != nullptr) store_bits(bits, ubase + off, m);
   }
   __syncthreads();
   for (int q = t; q < chunk_total; q += kThreads) {
@@ -553,11 +622,13 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   }
 }
 
-// pos = the sum of m ints (one block of 1024 threads)
+// out[b] = the sum of the m ints v[b * m, (b + 1) * m): one block of 1024
+// threads per stream b
 __global__ void __launch_bounds__(1024)
 sum_kernel(const int* __restrict__ v, int m, int* __restrict__ out) {
   __shared__ long long s[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v += (long long)blockIdx.x * m;
   long long a = 0;
   for (int j = threadIdx.x; j < m; j += 1024) a += v[j];
   a = warp_sum(a);
@@ -565,8 +636,52 @@ sum_kernel(const int* __restrict__ v, int m, int* __restrict__ out) {
   __syncthreads();
   if (warp == 0) {
     a = warp_sum(s[lane]);
-    if (lane == 0) *out = (int)a;
+    if (lane == 0) out[blockIdx.x] = (int)a;
   }
+}
+
+// The tiled kernels of one launch, the batched or the solo instances.
+template <bool kBatched>
+cudaError_t launch_tiled(int grid, int per_stream, const uint8_t* cur,
+                         uint8_t* prev, const uint8_t* region,
+                         long long region_len, long long n, long long n_pad,
+                         int thr, const uint8_t* thr_map, int negfeed,
+                         int unit_bytes, int counts_bytes, int* scratch,
+                         void* counts, int emit_xs, int* xs_t,
+                         uint8_t* vals_t, uint8_t* bits,
+                         cudaStream_t stream) {
+  if (kTileBytes % unit_bytes == 0) {
+    if (emit_xs)
+      tiled_unit_kernel<true, kBatched><<<grid, kThreads, 0, stream>>>(
+          cur, prev, region, region_len, n, n_pad, per_stream, thr, thr_map,
+          negfeed, unit_bytes, counts_bytes, scratch, counts, xs_t, vals_t,
+          bits);
+    else
+      tiled_unit_kernel<false, kBatched><<<grid, kThreads, 0, stream>>>(
+          cur, prev, region, region_len, n, n_pad, per_stream, thr, thr_map,
+          negfeed, unit_bytes, counts_bytes, scratch, counts, nullptr,
+          vals_t, bits);
+    return cudaGetLastError();
+  }
+  const int chunks_per_unit = (unit_bytes + kTileBytes - 1) / kTileBytes;
+  const int units_per_stream = (int)(n_pad / unit_bytes);
+  tiled_chunk_count_kernel<kBatched><<<grid, kThreads, 0, stream>>>(
+      cur, prev, region, region_len, n, thr, thr_map, unit_bytes,
+      chunks_per_unit, units_per_stream, scratch);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (emit_xs)
+    tiled_chunk_compact_kernel<true, kBatched><<<grid, kThreads, 0, stream>>>(
+        cur, prev, region, region_len, n, thr, thr_map, negfeed, unit_bytes,
+        chunks_per_unit, units_per_stream, counts_bytes, scratch, counts,
+        xs_t, vals_t, bits);
+  else
+    tiled_chunk_compact_kernel<false, kBatched><<<grid, kThreads, 0,
+                                                  stream>>>(
+        cur, prev, region, region_len, n, thr, thr_map, negfeed, unit_bytes,
+        chunks_per_unit, units_per_stream, counts_bytes, scratch, counts,
+        nullptr, vals_t, bits);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -600,8 +715,9 @@ int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
   return (int)cudaGetLastError();
 }
 
-// Scratch ints that a tiled launch needs (its grid): one per 4096-byte
-// tile when unit_bytes divides the tile, else one per chunk of a unit.
+// Scratch ints that a tiled launch needs per stream (its grid over one
+// stream): one per 4096-byte tile when unit_bytes divides the tile, else
+// one per chunk of a unit.
 int cvs_tiled_grid(long long n_pad, int unit_bytes) {
   if (kTileBytes % unit_bytes == 0)
     return (int)((n_pad + kTileBytes - 1) / kTileBytes);
@@ -609,61 +725,46 @@ int cvs_tiled_grid(long long n_pad, int unit_bytes) {
   return (int)(n_pad / unit_bytes * chunks_per_unit);
 }
 
-// Launch K1 with tiled emission on `stream`. n_pad is a multiple of
-// unit_bytes, which is a multiple of 16; `scratch` holds
-// cvs_tiled_grid(n_pad, unit_bytes) ints; counts has n_pad / unit_bytes
-// entries of counts_bytes bytes; vals_t has n_pad entries, and so has
-// xs_t when emit_xs is nonzero (it may be null otherwise); bits, when not
-// null, has n_pad / 8 bytes and is 2-byte aligned; thr_map as for
-// cvs_fused_diff_compact. Returns the cudaError_t of the launches (0 on
-// success).
+// Launch K1 with tiled emission on `stream`, over n_streams frames of n
+// bytes each (1 for the solo emission; see BATCHED above). n_pad is a
+// multiple of unit_bytes, which is a multiple of 16; `scratch` holds
+// n_streams * cvs_tiled_grid(n_pad, unit_bytes) ints; counts has n_streams
+// * n_pad / unit_bytes entries of counts_bytes bytes; vals_t has n_streams
+// * n_pad entries, and so has xs_t when emit_xs is nonzero (it may be null
+// otherwise); bits, when not null, has n_streams * n_pad / 8 bytes and is
+// 2-byte aligned; region holds n_streams strips of region_len bytes;
+// thr_map as for cvs_fused_diff_compact; pos_out has n_streams ints.
+// Returns the cudaError_t of the launches (0 on success).
 int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
                                  uint8_t* prev, const uint8_t* region,
                                  long long region_len, long long n,
-                                 long long n_pad, int thr,
+                                 long long n_pad, int n_streams, int thr,
                                  const uint8_t* thr_map, int negfeed,
                                  int unit_bytes, int counts_bytes,
                                  int* scratch, void* counts, int emit_xs,
                                  int* xs_t, uint8_t* vals_t, uint8_t* bits,
                                  int* pos_out, cudaStream_t stream) {
   if (unit_bytes <= 0 || unit_bytes % kBytesPerThread || n_pad % unit_bytes
-      || n_pad < n || (counts_bytes != 1 && counts_bytes != 2
-                       && counts_bytes != 4)
+      || n_pad < n || n_streams < 1 || region_len > n
+      || (counts_bytes != 1 && counts_bytes != 2 && counts_bytes != 4)
       || (emit_xs && xs_t == nullptr) || ((uintptr_t)bits & 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int grid = cvs_tiled_grid(n_pad, unit_bytes);
-  if (kTileBytes % unit_bytes == 0) {
-    if (emit_xs)
-      tiled_unit_kernel<true><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, n_pad, thr, thr_map, negfeed,
-          unit_bytes, counts_bytes, scratch, counts, xs_t, vals_t, bits);
-    else
-      tiled_unit_kernel<false><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, n_pad, thr, thr_map, negfeed,
-          unit_bytes, counts_bytes, scratch, counts, nullptr, vals_t, bits);
-  } else {
-    const int chunks_per_unit = (unit_bytes + kTileBytes - 1) / kTileBytes;
-    tiled_chunk_count_kernel<<<grid, kThreads, 0, stream>>>(
-        cur, prev, region, region_len, n, thr, thr_map, unit_bytes,
-        chunks_per_unit, scratch);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    if (emit_xs)
-      tiled_chunk_compact_kernel<true><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, thr, thr_map, negfeed,
-          unit_bytes, chunks_per_unit, counts_bytes, scratch, counts, xs_t,
-          vals_t, bits);
-    else
-      tiled_chunk_compact_kernel<false><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, thr, thr_map, negfeed,
-          unit_bytes, chunks_per_unit, counts_bytes, scratch, counts, nullptr,
-          vals_t, bits);
-  }
-  e = cudaGetLastError();
+  const int per_stream = cvs_tiled_grid(n_pad, unit_bytes);
+  const long long grid = (long long)n_streams * per_stream;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  e = n_streams > 1
+          ? launch_tiled<true>((int)grid, per_stream, cur, prev, region,
+                               region_len, n, n_pad, thr, thr_map, negfeed,
+                               unit_bytes, counts_bytes, scratch, counts,
+                               emit_xs, xs_t, vals_t, bits, stream)
+          : launch_tiled<false>((int)grid, per_stream, cur, prev, region,
+                                region_len, n, n_pad, thr, thr_map, negfeed,
+                                unit_bytes, counts_bytes, scratch, counts,
+                                emit_xs, xs_t, vals_t, bits, stream);
   if (e != cudaSuccess) return (int)e;
-  sum_kernel<<<1, 1024, 0, stream>>>(scratch, grid, pos_out);
+  sum_kernel<<<n_streams, 1024, 0, stream>>>(scratch, per_stream, pos_out);
   return (int)cudaGetLastError();
 }
 

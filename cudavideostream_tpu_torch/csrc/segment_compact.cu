@@ -39,6 +39,18 @@
 // A tile of more than 64 KB (frames past ~131 MB) is walked in 64 KB
 // chunks, each chunk's slots offset by the counts of the chunks before it.
 //
+// BATCHED (n_streams > 1; the TPU kernel's stream_tiles mode,
+// logcompact.py:539,545,629, reached through
+// fused_diff_compact_batched(scheme="segment")): B frames of n bytes at
+// stride n, units_per_stream tiles each, one launch of B x units_per_stream
+// blocks. Block b works on stream b / units_per_stream at its local tile,
+// reads the stream's bytes only (its bytes past n never ship), emits
+// stream-local indices (the TPU's i_s * n_flat rebase) into the output
+// tile b, and its count into counts[b]; the map is shared, the region is
+// per stream (strip s at region + s * region_len). At n % 16 != 0 the
+// streams' bytes are not 16-byte aligned, and the vector loads and stores
+// fall back to bytes. Its bound is B times the solo bound.
+//
 // Bound. Device-memory bytes: cur and prev read once (2n; the region
 // stands in for the first region_len bytes of cur), new_prev (n), xs_t
 // (4 n_pad) and vals_t (n_pad) written, counts (4 per tile): at 1080p
@@ -62,11 +74,15 @@ union Leaf {
   uint8_t b[16];
 };
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
 // Bytes [i0, i0 + 16) of src, zero at or past lim.
 __device__ __forceinline__ Leaf fetch_leaf(const uint8_t* __restrict__ src,
                                            long long i0, long long lim) {
   Leaf r;
-  if (i0 + kLeafBytes <= lim) {
+  if (i0 + kLeafBytes <= lim && aligned16(src + i0)) {
     r.v = __ldg(reinterpret_cast<const uint4*>(src + i0));
   } else {
 #pragma unroll
@@ -87,10 +103,12 @@ __device__ __forceinline__ unsigned leaf_mask(
   c.v = make_uint4(0, 0, 0, 0);
   p.v = c.v;
   if (i0 >= n) return 0;
-  if (i0 + kLeafBytes <= n) {
+  if (i0 + kLeafBytes <= n && aligned16(prev + i0)) {
     p.v = *reinterpret_cast<const uint4*>(prev + i0);
   } else {
-    for (int k = 0; i0 + k < n; ++k) p.b[k] = prev[i0 + k];
+#pragma unroll
+    for (int k = 0; k < kLeafBytes; ++k)
+      if (i0 + k < n) p.b[k] = prev[i0 + k];
   }
   c = fetch_leaf(cur, i0, n);
   if (i0 < region_len) {
@@ -114,14 +132,21 @@ __global__ void __launch_bounds__(kThreads)
 segment_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                const uint8_t* __restrict__ region, long long region_len,
                long long n, int thr, const uint8_t* __restrict__ thr_map,
-               int negfeed, int unit_bytes, int* __restrict__ counts,
-               int* __restrict__ xs_t, uint8_t* __restrict__ vals_t) {
+               int negfeed, int unit_bytes, int units_per_stream,
+               int* __restrict__ counts, int* __restrict__ xs_t,
+               uint8_t* __restrict__ vals_t) {
   // tree[k] = the count of segment k: the root at 1, node k's halves at
   // 2k and 2k + 1, leaf l at P + l
   __shared__ int tree[2 * kMaxLeaves];
-  const long long tile0 = (long long)blockIdx.x * unit_bytes;
-  int* xs = xs_t + tile0;
-  uint8_t* vals = vals_t + tile0;
+  // this block's stream, whose bytes it reads at stream-local offsets
+  const long long stream = blockIdx.x / units_per_stream;
+  cur += stream * n;
+  prev += stream * n;
+  if (region_len) region += stream * region_len;
+  const long long tile0 =  // the tile's first byte in its stream
+      (long long)(blockIdx.x % units_per_stream) * unit_bytes;
+  int* xs = xs_t + (long long)blockIdx.x * unit_bytes;
+  uint8_t* vals = vals_t + (long long)blockIdx.x * unit_bytes;
   int before = 0;  // entries of this tile's earlier chunks
   for (int c0 = 0; c0 < unit_bytes; c0 += kChunkBytes) {
     const int chunk = min(kChunkBytes, unit_bytes - c0);
@@ -175,10 +200,12 @@ segment_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 #pragma unroll
         for (int k = 0; k < kLeafBytes; ++k)
           np.b[k] = (!negfeed || ((m >> k) & 1u)) ? c.b[k] : p.b[k];
-        if (i0 + kLeafBytes <= n) {
+        if (i0 + kLeafBytes <= n && aligned16(prev + i0)) {
           *reinterpret_cast<uint4*>(prev + i0) = np.v;
         } else {
-          for (int k = 0; i0 + k < n; ++k) prev[i0 + k] = np.b[k];
+#pragma unroll
+          for (int k = 0; k < kLeafBytes; ++k)
+            if (i0 + k < n) prev[i0 + k] = np.b[k];
         }
       }
     }
@@ -199,26 +226,31 @@ segment_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 extern "C" {
 
 // Launch K5 on `stream`: one block per tile of unit_bytes (a multiple of
-// 128) over n_units tiles covering the n-byte frame. counts holds n_units
-// int32; xs_t and vals_t hold n_units * unit_bytes entries. region (its
-// first region_len bytes stand in for cur's) and thr_map (n bytes, which
-// replaces thr) may be null; every byte pointer is 16-byte aligned.
-// Returns the cudaError_t of the launch (0 on success).
+// 128), units_per_stream tiles covering each of the n_streams n-byte
+// frames (1 for the solo scheme; see BATCHED above). counts holds
+// n_streams * units_per_stream int32; xs_t and vals_t hold that many tiles
+// of unit_bytes entries. region (n_streams strips of region_len bytes,
+// each standing in for the first bytes of its stream's cur) and thr_map
+// (n bytes, shared, which replaces thr) may be null; every byte pointer is
+// 16-byte aligned. Returns the cudaError_t of the launch (0 on success).
 int cvs_segment_compact(int device, const uint8_t* cur, uint8_t* prev,
                         const uint8_t* region, long long region_len,
                         long long n, int thr, const uint8_t* thr_map,
-                        int negfeed, int unit_bytes, int n_units, int* counts,
-                        int* xs_t, uint8_t* vals_t, cudaStream_t stream) {
-  if (unit_bytes <= 0 || unit_bytes % 128 || n_units <= 0
-      || (long long)unit_bytes * n_units < n || region_len > n)
+                        int negfeed, int unit_bytes, int units_per_stream,
+                        int n_streams, int* counts, int* xs_t,
+                        uint8_t* vals_t, cudaStream_t stream) {
+  const long long grid = (long long)units_per_stream * n_streams;
+  if (unit_bytes <= 0 || unit_bytes % 128 || units_per_stream <= 0
+      || n_streams <= 0 || grid > 0x7fffffffLL
+      || (long long)unit_bytes * units_per_stream < n || region_len > n)
     return (int)cudaErrorInvalidValue;
   // this library carries its own CUDA runtime, whose current device is
   // not the caller's: select the tensors' device explicitly
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  segment_kernel<<<n_units, kThreads, 0, stream>>>(
+  segment_kernel<<<(int)grid, kThreads, 0, stream>>>(
       cur, prev, region, region_len, n, thr, thr_map, negfeed, unit_bytes,
-      counts, xs_t, vals_t);
+      units_per_stream, counts, xs_t, vals_t);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,9 @@
 """Pipeline models: configured end-to-end frame processors."""
 
+from cudavideostream_tpu_torch.models.batched import (
+    BatchedDeltaPipeline,
+    from_jax_batched,
+)
 from cudavideostream_tpu_torch.models.pipeline import DeltaStreamPipeline
 
-__all__ = ["DeltaStreamPipeline"]
+__all__ = ["DeltaStreamPipeline", "BatchedDeltaPipeline", "from_jax_batched"]

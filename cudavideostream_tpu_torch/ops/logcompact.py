@@ -14,6 +14,10 @@ The counterpart of the JAX package's ``ops/logcompact.py``:
 * :func:`fused_diff_compact_mask` — ``fused_diff_compact(emit="mask")``,
   the bitmask-only emission: per-unit vals blocks and the packed bits at
   the mask geometry (:func:`tiled_geometry_mask`), no index blocks;
+* :func:`fused_diff_compact_batched` — ``fused_diff_compact_batched``,
+  the tiled emission of B independent streams in one launch (the TPU
+  kernel's ``stream_tiles`` super-frame mode), element (K1) or segment
+  (K5) scheme;
 * :func:`pair_compact` — ``_kernel_pair``: a stable compaction of
   ``(xs, vals)`` pairs by ``vals != 0``, emitted flat;
 * :func:`merge_tiles` — ``merge_tiles``, through :func:`pair_compact`;
@@ -94,7 +98,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.cvs_tiled_grid.argtypes = [ll, i]
         lib.cvs_tiled_grid.restype = i
         lib.cvs_fused_diff_compact_tiled.argtypes = [
-            i, p, p, p, ll, ll, ll, i, p, i, i, i, p, p, i, p, p, p, p, p,
+            i, p, p, p, ll, ll, ll, i, i, p, i, i, i, p, p, i, p, p, p, p, p,
         ]
         lib.cvs_fused_diff_compact_tiled.restype = i
         _bind_common(lib, "logcompact")
@@ -442,29 +446,36 @@ def fused_diff_compact_reference(
 
 def _launch_tiled(name, current, previous, threshold, negative_feedback,
                   overlay_region, threshold_map, n_pad, unit_bytes, emit_xs,
-                  emit_bits):
+                  emit_bits, n_streams=None):
     """One launch of the tiled K1 entry point; returns ``(pos, counts,
-    xs_t or None, vals_t, bits or None)``."""
+    xs_t or None, vals_t, bits or None)``. ``n_streams``: None for one
+    frame (``pos`` 0-d), else the batched mode over that many frames of
+    ``current.numel() / n_streams`` bytes (``pos`` one int32 per stream,
+    the blocks of stream ``b`` from unit ``b * n_pad / unit_bytes``,
+    ``overlay_region`` one strip per stream)."""
     region_len = _check_kernel_args(name, current, previous, overlay_region,
                                     threshold_map)
+    b = n_streams or 1
+    region_len //= b
     region_ptr = overlay_region.data_ptr() if region_len else None
     lib = _kernel_lib()
     dev = current.device
-    n_units = n_pad // unit_bytes
+    n_units = b * n_pad // unit_bytes
     xs_t = (torch.empty((n_units, unit_bytes), dtype=torch.int32, device=dev)
             if emit_xs else None)
     vals_t = torch.empty((n_units, unit_bytes), dtype=torch.uint8, device=dev)
-    bits = (torch.empty(n_pad // 8, dtype=torch.uint8, device=dev)
+    bits = (torch.empty(b * n_pad // 8, dtype=torch.uint8, device=dev)
             if emit_bits else None)
     counts = torch.empty(n_units, dtype=counts_dtype(unit_bytes), device=dev)
-    scratch = torch.empty(lib.cvs_tiled_grid(n_pad, unit_bytes),
+    scratch = torch.empty(b * lib.cvs_tiled_grid(n_pad, unit_bytes),
                           dtype=torch.int32, device=dev)
-    pos = torch.empty((), dtype=torch.int32, device=dev)
+    pos = torch.empty(() if n_streams is None else (b,), dtype=torch.int32,
+                      device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.cvs_fused_diff_compact_tiled(
         _device_index(dev),
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len,
-        current.numel(), n_pad, int(threshold), _ptr(threshold_map),
+        current.numel() // b, n_pad, b, int(threshold), _ptr(threshold_map),
         int(bool(negative_feedback)),
         unit_bytes, counts.element_size(), scratch.data_ptr(),
         counts.data_ptr(), int(emit_xs),
@@ -668,6 +679,178 @@ def fused_diff_compact_mask_reference(
     return pos, counts, vals_t, bits, previous
 
 
+# -- K1 and K5, batched ----------------------------------------------------
+
+def _check_batched_args(current, previous, n_streams, threshold, scheme,
+                        overlay_region, threshold_map):
+    """The checks of a batched call, in the JAX package's order
+    (``logcompact.py:1035-1046, 1075-1078``); returns ``n``, the bytes of
+    one stream's frame."""
+    if int(n_streams) < 1:
+        raise ValueError("need at least one stream")
+    for name, t in (("current", current), ("previous", previous)):
+        if t.dim() != 1 or t.numel() % n_streams:
+            raise ValueError("expect flat (B*n,) frames")
+        if t.dtype != torch.uint8 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D uint8 tensor")
+    if current.device != previous.device:
+        raise ValueError("current and previous must be on one device")
+    if previous.numel() != current.numel() or current.numel() == 0:
+        raise ValueError("current and previous must have one nonzero length")
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}: one of {SCHEMES}")
+    if scheme == "register":
+        raise ValueError("overlay fusion / threshold maps / batching: "
+                         "element/segment schemes only")
+    n = current.numel() // n_streams
+    if not 0 <= int(threshold) <= 255:
+        raise ValueError("threshold must be in [0, 255]")
+    if threshold_map is not None:
+        if (not isinstance(threshold_map, torch.Tensor)
+                or threshold_map.dtype != torch.uint8
+                or threshold_map.dim() != 1
+                or not threshold_map.is_contiguous()):
+            raise ValueError("threshold_map must be a contiguous 1-D uint8 "
+                             "tensor")
+        if threshold_map.numel() != n:
+            raise ValueError("threshold_map length must equal the frame's")
+        if threshold_map.device != current.device:
+            raise ValueError("threshold_map must be on the frame's device")
+    if overlay_region is not None:
+        if (overlay_region.dtype != torch.uint8 or overlay_region.dim() != 1
+                or not overlay_region.is_contiguous()
+                or overlay_region.numel() % n_streams):
+            raise ValueError("overlay_region must be a contiguous 1-D uint8 "
+                             "tensor of one strip per stream")
+        if overlay_region.device != current.device:
+            raise ValueError("overlay_region must be on the frame's device")
+        if overlay_region.numel() // n_streams > n:
+            raise ValueError("overlay_region is longer than the frame")
+    return n
+
+
+def batched_geometry(n: int, scheme: str = "element",
+                     sub_rows: int = 0) -> Tuple[int, int]:
+    """``(n_pad, unit_bytes)`` of each stream of a batched call on
+    ``n``-byte frames: the solo tiled geometry, whole tiles for a scheme
+    other than ``"element"`` (``logcompact.py:1039-1046``)."""
+    return tiled_geometry(n, sub_rows if scheme == "element" else 0)
+
+
+def fused_diff_compact_batched(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    n_streams: int,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    scheme: str = "element",
+    threshold_map: Optional[torch.Tensor] = None,
+    skip_static: bool = True,
+    sub_rows: int = 0,
+    pair: bool = False,
+    overlay_region: Optional[torch.Tensor] = None,
+):
+    """Tiled diff+compact of ``n_streams`` independent streams in one
+    launch; returns ``(pos (B,), counts (B, U), xs_t (B, U, unit_bytes),
+    vals_t (B, U, unit_bytes), new_prev (B*n,))`` as the JAX
+    ``fused_diff_compact_batched`` does.
+
+    ``current`` and ``previous`` are flat ``(B * n,)`` uint8, stream ``b``
+    at ``[b * n, (b + 1) * n)``. Stream ``b``'s outputs equal a solo
+    :func:`fused_diff_compact_tiled` of its frame (same ``sub_rows``, same
+    map): ``pos[b]`` int32, ``counts[b]`` narrowed (:func:`counts_dtype`),
+    indices stream-local, blocks zero past each count. ``new_prev`` is
+    ``previous``, updated in place.
+
+    ``threshold_map``: one ``(n,)`` map shared by every stream.
+    ``scheme``: ``"element"`` (K1) or ``"segment"`` (K5, whole-tile units
+    whatever ``sub_rows`` says); ``"register"`` refuses batching, as in the
+    JAX package. ``skip_static`` and ``pair`` are TPU fast paths and lane
+    layouts with identical outputs: accepted and ignored.
+
+    ``overlay_region``: an optional flat ``(B * L,)`` tensor of one
+    ``L``-byte strip per stream, which replaces the first ``L`` bytes of
+    that stream's ``current``. The JAX function has no region (a Mosaic
+    DMA limit; its caller substitutes the strips with one pass over the
+    super-frame); here the kernel reads strip ``b`` for stream ``b``, which
+    saves that pass.
+
+    CUDA tensors launch the kernel once for every stream (and count one in
+    ``fused_diff_compact_batched.launches``, or in
+    ``segment_compact.launches`` for the segment scheme); CPU tensors run
+    :func:`fused_diff_compact_batched_reference`.
+    """
+    n = _check_batched_args(current, previous, n_streams, threshold, scheme,
+                            overlay_region, threshold_map)
+    if current.device.type == "cpu":
+        return fused_diff_compact_batched_reference(
+            current, previous, n_streams, threshold, negative_feedback,
+            scheme, threshold_map, skip_static, sub_rows, pair,
+            overlay_region)
+    n_pad, unit_bytes = batched_geometry(n, scheme, sub_rows)
+    b = int(n_streams)
+    ups = n_pad // unit_bytes
+    if scheme == "segment":
+        counts, xs_t, vals_t, _ = _launch_segment(
+            current, previous, threshold, negative_feedback, overlay_region,
+            threshold_map, b)
+        counts = counts.view(b, ups)
+        pos = counts.sum(dim=1, dtype=torch.int32)
+        counts = counts.to(counts_dtype(unit_bytes))
+    else:
+        pos, counts, xs_t, vals_t, _ = _launch_tiled(
+            "fused_diff_compact_batched", current, previous, threshold,
+            negative_feedback, overlay_region, threshold_map, n_pad,
+            unit_bytes, True, False, n_streams=b)
+        fused_diff_compact_batched.launches += 1
+    return (pos, counts.view(b, ups), xs_t.view(b, ups, unit_bytes),
+            vals_t.view(b, ups, unit_bytes), previous)
+
+
+fused_diff_compact_batched.launches = 0
+
+
+def fused_diff_compact_batched_reference(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    n_streams: int,
+    threshold: int = 20,
+    negative_feedback: bool = True,
+    scheme: str = "element",
+    threshold_map: Optional[torch.Tensor] = None,
+    skip_static: bool = True,
+    sub_rows: int = 0,
+    pair: bool = False,
+    overlay_region: Optional[torch.Tensor] = None,
+):
+    """The plain PyTorch version of :func:`fused_diff_compact_batched`:
+    each stream through the plain version of its solo scheme, on views of
+    the flat buffers (``new_prev`` lands in ``previous`` in place), the
+    outputs stacked."""
+    n = _check_batched_args(current, previous, n_streams, threshold, scheme,
+                            overlay_region, threshold_map)
+    n_pad, unit_bytes = batched_geometry(n, scheme, sub_rows)
+    b_count = int(n_streams)
+    strip = 0 if overlay_region is None else overlay_region.numel() // b_count
+    outs = []
+    for b in range(b_count):
+        cur_b = current[b * n:(b + 1) * n]
+        prev_b = previous[b * n:(b + 1) * n]
+        reg_b = (None if overlay_region is None
+                 else overlay_region[b * strip:(b + 1) * strip])
+        if scheme == "segment":
+            counts, xs_t, vals_t, _ = segment_compact_reference(
+                cur_b, prev_b, threshold, negative_feedback, reg_b,
+                threshold_map)
+            outs.append((counts.sum(dtype=torch.int32),
+                         counts.to(counts_dtype(unit_bytes)), xs_t, vals_t))
+        else:
+            outs.append(_tiled_plain(
+                cur_b, prev_b, threshold, negative_feedback, reg_b,
+                threshold_map, n_pad, unit_bytes, True, False)[:4])
+    return tuple(torch.stack(parts) for parts in zip(*outs)) + (previous,)
+
+
 # -- K5 -------------------------------------------------------------------
 
 def _segment_lib() -> ctypes.CDLL:
@@ -677,7 +860,7 @@ def _segment_lib() -> ctypes.CDLL:
         lib = build.load("segment_compact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.cvs_segment_compact.argtypes = [
-            i, p, p, p, ll, ll, i, p, i, i, i, p, p, p, p,
+            i, p, p, p, ll, ll, i, p, i, i, i, i, p, p, p, p,
         ]
         lib.cvs_segment_compact.restype = i
         lib.cvs_error_string.argtypes = [i]
@@ -713,11 +896,26 @@ def segment_compact(
         return segment_compact_reference(current, previous, threshold,
                                          negative_feedback, overlay_region,
                                          threshold_map)
+    return _launch_segment(current, previous, threshold, negative_feedback,
+                           overlay_region, threshold_map, 1)
+
+
+def _launch_segment(current, previous, threshold, negative_feedback,
+                    overlay_region, threshold_map, n_streams):
+    """One K5 launch over ``n_streams`` frames of ``current.numel() /
+    n_streams`` bytes (the batched mode past 1, ``overlay_region`` one
+    strip per stream); returns ``(counts int32, xs_t, vals_t, previous)``,
+    the tiles of stream ``b`` from ``b * units_per_stream``. Counts one in
+    ``segment_compact.launches``."""
+    dev = current.device
     region_len = _check_kernel_args("segment_compact", current, previous,
                                     overlay_region, threshold_map)
+    region_len //= n_streams
     lib = _segment_lib()
-    n_pad, unit_bytes = tiled_geometry(current.numel(), 0)
-    n_units = n_pad // unit_bytes
+    n = current.numel() // n_streams
+    n_pad, unit_bytes = tiled_geometry(n, 0)
+    ups = n_pad // unit_bytes
+    n_units = n_streams * ups
     counts = torch.empty(n_units, dtype=torch.int32, device=dev)
     xs_t = torch.empty((n_units, unit_bytes), dtype=torch.int32, device=dev)
     vals_t = torch.empty((n_units, unit_bytes), dtype=torch.uint8,
@@ -725,9 +923,9 @@ def segment_compact(
     rc = lib.cvs_segment_compact(
         _device_index(dev), current.data_ptr(), previous.data_ptr(),
         overlay_region.data_ptr() if region_len else None, region_len,
-        current.numel(), int(threshold), _ptr(threshold_map),
-        int(bool(negative_feedback)), unit_bytes, n_units, counts.data_ptr(),
-        xs_t.data_ptr(), vals_t.data_ptr(),
+        n, int(threshold), _ptr(threshold_map),
+        int(bool(negative_feedback)), unit_bytes, ups, n_streams,
+        counts.data_ptr(), xs_t.data_ptr(), vals_t.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, lib, "segment_compact")

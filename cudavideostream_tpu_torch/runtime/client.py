@@ -95,7 +95,11 @@ def write_ppm(path: str, frame: np.ndarray, height: int, width: int) -> None:
         f.write(np.ascontiguousarray(img).tobytes())
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line. It takes every option of the JAX client; those of
+    parts not ported yet (saving, PPM dumps, recording, the browser
+    viewer, the aux stream) raise ``NotImplementedError`` naming their
+    ``ROADMAP.md`` item."""
     p = argparse.ArgumentParser(description="CUDA delta-stream client")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=2734)
@@ -108,7 +112,25 @@ def main(argv=None) -> int:
                    choices=["auto", "v1", "v2", "v3", "v4"],
                    help="auto sniffs the v2/v3/v4 magic (default); v1 = "
                         "reference wire")
+    for flag, kw in (("--save", {}), ("--ppm", {}),
+                     ("--ppm-every", {"type": int}), ("--record", {}),
+                     ("--http", {"type": int, "metavar": "PORT"}),
+                     ("--aux", {"action": "store_true"}),
+                     ("--aux-port", {"type": int, "metavar": "PORT"})):
+        p.add_argument(flag, help="not ported yet: ROADMAP.md M18", **kw)
     args = p.parse_args(argv)
+    given = [f for f in ("save", "ppm", "ppm_every", "record", "http",
+                         "aux_port") if getattr(args, f) is not None]
+    if given or args.aux:
+        raise NotImplementedError(
+            "the client's --save, --ppm, --ppm-every, --record, --http, "
+            "--aux and --aux-port are not ported to cudavideostream_tpu_torch "
+            "yet: see ROADMAP.md M18")
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
 
     cli = DeltaStreamClient(args.host, args.port, args.height, args.width,
                             wire_format=args.wire)

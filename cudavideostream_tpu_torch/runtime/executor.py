@@ -203,6 +203,16 @@ class TiledLander:
     def _ema(self, old: Optional[float], new: float) -> float:
         return new if old is None else old + self.ALPHA * (new - old)
 
+    def _plan(self, pos: int, counts: np.ndarray, unit_bytes: int,
+              has_bits: bool):
+        """``(t_lo, t_hi, kind)``: the span of non-empty units (``(0, 0)``
+        when none) and the flavor that lands it, counted."""
+        nz = np.flatnonzero(counts)
+        t_lo, t_hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        kind = self.pick(pos, t_lo, t_hi, unit_bytes, has_bits)
+        self.fetch_counts[kind] += 1
+        return t_lo, t_hi, kind
+
     def land(self, pos: int, counts: np.ndarray, blocks, staged: _Staged,
              copier: _Copier):
         """Land one frame; ``blocks`` are its device ``(counts, xs_t or
@@ -216,10 +226,8 @@ class TiledLander:
             raise ValueError("fetch mode 'mask' needs the pipeline's packed "
                              "bits (config.emit_bitmask)")
         unit_bytes = vals_t_d.shape[1]
-        nz = np.flatnonzero(counts)
-        t_lo, t_hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
-        kind = self.pick(pos, t_lo, t_hi, unit_bytes, bits_d is not None)
-        self.fetch_counts[kind] += 1
+        t_lo, t_hi, kind = self._plan(pos, counts, unit_bytes,
+                                      bits_d is not None)
         if t_hi == 0:
             return self._empty(kind, counts, unit_bytes)
         t0 = time.perf_counter()
@@ -252,26 +260,88 @@ class TiledLander:
 
     def _land_tiles(self, pos, counts, xs_t_d, vals_t_d, t_lo, t_hi, staged,
                     copier):
+        xw, vw = copier.run(
+            staged, lambda: self._tiles_window(xs_t_d, vals_t_d, t_lo, t_hi))
+        return self._tiles_payload(pos, counts, xw, vw, t_lo)
+
+    def _tiles_window(self, xs_t_d, vals_t_d, t_lo: int, t_hi: int):
+        """The device blocks of units ``[t_lo, t_hi)`` that a ``tiles``
+        landing copies, the indices narrowed to unit-local."""
         unit_bytes = xs_t_d.shape[1]
         narrow = self.compact_dtype(unit_bytes)
+        xw = xs_t_d[t_lo:t_hi]
+        if narrow is not None:
+            # unit-local index; the int16 bits are read back as uint16 on
+            # the host
+            xw = torch.remainder(xw, unit_bytes).to(
+                torch.uint8 if narrow is np.uint8 else torch.int16)
+        return xw, vals_t_d[t_lo:t_hi]
 
-        def window():
-            xw = xs_t_d[t_lo:t_hi]
-            if narrow is not None:
-                # unit-local index; the int16 bits are read back as
-                # uint16 on the host
-                xw = torch.remainder(xw, unit_bytes).to(
-                    torch.uint8 if narrow is np.uint8 else torch.int16)
-            return xw, vals_t_d[t_lo:t_hi]
-
-        xw, vw = copier.run(staged, window)
-        if narrow is np.uint16:
+    def _tiles_payload(self, pos: int, counts: np.ndarray, xw: np.ndarray,
+                       vw: np.ndarray, t_lo: int):
+        """The TiledPayload of a landed ``tiles`` window, and its bytes."""
+        unit_bytes = vw.shape[1]
+        t_hi = t_lo + vw.shape[0]
+        if self.compact_dtype(unit_bytes) is np.uint16:
             xw = xw.view(np.uint16)
         res = wire.TiledPayload(
             pos, counts[t_lo:t_hi],
             self.rebuild_xs(xw, counts[t_lo:t_hi], t_lo, unit_bytes), vw,
         )
         return res, xw.nbytes + vw.nbytes
+
+    def land_many(self, items, staged: _Staged, copier: _Copier):
+        """Land the tiled payloads of several streams from one batched
+        step (the JAX ``land_many``). Each item is ``(pos, counts_host,
+        counts_d, xs_t_d, vals_t_d)``; returns a same-length list of
+        TiledPayload or flat ``(xs, vals)``.
+
+        Each item takes its own flavor (:meth:`pick`), but every ``flat``
+        item's K2 merge is dispatched, and every item's copy queued, before
+        the one wait: B landings wait on the device once. The wall time of
+        the batch is shared out to the items by their bytes to teach
+        ``auto``."""
+        if self.mode == "mask":
+            raise ValueError("fetch mode 'mask' needs the packed bits, which "
+                             "a batched step does not emit")
+        plans = []
+        for pos, counts, counts_d, xs_t_d, vals_t_d in items:
+            plans.append((pos, counts,
+                          *self._plan(pos, counts, xs_t_d.shape[1], False),
+                          counts_d, xs_t_d, vals_t_d))
+
+        def windows():
+            out = []
+            for pos, _, t_lo, t_hi, kind, counts_d, xs_t_d, vals_t_d in plans:
+                if t_hi == 0:
+                    continue
+                if kind == "flat":
+                    xs, vals = logcompact.merge_tiles(counts_d, xs_t_d,
+                                                      vals_t_d)
+                    out += [xs[:pos], vals[:pos]]
+                else:
+                    out += self._tiles_window(xs_t_d, vals_t_d, t_lo, t_hi)
+            return out
+
+        t0 = time.perf_counter()
+        host = iter(copier.run(staged, windows))
+        seconds = time.perf_counter() - t0
+        results, landed = [], []
+        for pos, counts, t_lo, t_hi, kind, _, xs_t_d, _ in plans:
+            if t_hi == 0:
+                results.append(self._empty(kind, counts, xs_t_d.shape[1]))
+                continue
+            a, b = next(host), next(host)
+            if kind == "flat":
+                res, nbytes = (a, b), a.nbytes + b.nbytes
+            else:
+                res, nbytes = self._tiles_payload(pos, counts, a, b, t_lo)
+            results.append(res)
+            landed.append((kind, nbytes))
+        total = sum(nbytes for _, nbytes in landed)
+        for kind, nbytes in landed:
+            self._learn(kind, nbytes, seconds * nbytes / total)
+        return results
 
     def _learn(self, kind: str, nbytes: int, seconds: float) -> None:
         """Fold one timed non-empty landing into the measurements."""
@@ -525,12 +595,14 @@ class ExecMetrics:
         self.win_fps = 0.0
         self.win_bw_ref = 0
 
-    def record(self, frame_s: float, pos: int) -> None:
+    def record(self, frame_s: float, pos: int,
+               wire_bytes: Optional[int] = None) -> None:
         self.frame_time = frame_s
         self.pos = pos
         self.frames += 1
         self.total_frames += 1
-        self.wire_bytes += 4 + 5 * pos  # the v1 framing cost
+        # the v1 framing cost, unless the sender counted its bytes
+        self.wire_bytes += 4 + 5 * pos if wire_bytes is None else wire_bytes
 
     def status_line(self, read_s: float = 0.0) -> Optional[str]:
         """Returns the status string once per second, else None."""

@@ -37,6 +37,7 @@ import time
 import numpy as np
 
 from cudavideostream_tpu_torch.config import (
+    CompactionBackend,
     PayloadOverflowError,
     StreamConfig,
     Visualizer,
@@ -204,12 +205,51 @@ def load_threshold_map(path: str) -> np.ndarray:
     return np.asarray(tm, dtype=np.uint8).ravel()
 
 
-def setup(argv=None):
-    """Parse the command line; returns ``(config, executor, args)``, the
-    executor on its pipeline (with the ``--threshold-map`` map) as
-    :func:`main` serves it."""
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to cudavideostream_tpu_torch yet: see "
+        f"ROADMAP.md {item}")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line. It takes every option of the JAX server:
+    ``--no-pair-lanes`` and ``--calibrate 0`` are no-ops (a TPU lane
+    layout with identical outputs; no link to calibrate), and the options
+    of parts not ported yet raise ``NotImplementedError`` naming their
+    ``ROADMAP.md`` item."""
     p = argparse.ArgumentParser(description="CUDA delta-stream server")
-    p.add_argument("--source", default="synthetic", choices=["synthetic"])
+    p.add_argument("--source", default="synthetic",
+                   choices=["synthetic", "file", "v4l2"],
+                   help="file and v4l2 are not ported yet (ROADMAP.md M16)")
+    p.add_argument("--path", help="file source path / camera device (not "
+                                  "ported yet: ROADMAP.md M16)")
+    p.add_argument("--prefetch", action="store_true",
+                   help="capture on a dedicated thread (not ported yet: "
+                        "ROADMAP.md M16)")
+    p.add_argument("--compaction", default="pallas",
+                   choices=[b.value for b in CompactionBackend],
+                   help="pallas = the fused kernel (K1); sort and host are "
+                        "not ported yet (ROADMAP.md M12)")
+    p.add_argument("--backend", default="device", choices=["device", "oracle"],
+                   help="oracle (the NumPy executor) is not ported yet "
+                        "(ROADMAP.md M18)")
+    p.add_argument("--mesh", default=None, metavar="D,S",
+                   help="the sharded pipeline (not ported yet: ROADMAP.md "
+                        "M15)")
+    p.add_argument("--no-pair-lanes", action="store_true",
+                   help="a TPU lane layout with identical outputs: no-op")
+    p.add_argument("--resume", default=None, metavar="CKPT",
+                   help="resume from a state checkpoint (not ported yet: "
+                        "ROADMAP.md M13)")
+    p.add_argument("--save-state", default=None, metavar="CKPT",
+                   help="write a state checkpoint (not ported yet: "
+                        "ROADMAP.md M13)")
+    p.add_argument("--link-cache", default=None, metavar="JSON",
+                   help="persist the lander's learned rates (not ported "
+                        "yet: ROADMAP.md M13)")
+    p.add_argument("--calibrate", type=int, default=0, metavar="N",
+                   help="pre-serve link round trips; 0 (the default) is a "
+                        "no-op, N > 0 is not ported yet (ROADMAP.md M13)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=2734)
     p.add_argument("--height", type=int, default=1080)
@@ -280,9 +320,19 @@ def setup(argv=None):
                         "PyTorch versions)")
     args = p.parse_args(argv)
     if args.aux_port is not None:
-        raise NotImplementedError(
-            "--aux-port is not ported to cudavideostream_tpu_torch yet: see "
-            "ROADMAP.md M18")
+        raise _not_ported("--aux-port", "M18")
+    if args.backend != "device":
+        raise _not_ported(f"--backend {args.backend}", "M18")
+    if args.compaction != CompactionBackend.PALLAS.value:
+        raise _not_ported(f"--compaction {args.compaction}", "M12")
+    if args.mesh is not None:
+        raise _not_ported("--mesh", "M15")
+    if args.source != "synthetic" or args.path is not None or args.prefetch:
+        raise _not_ported("--source file|v4l2, --path and --prefetch", "M16")
+    if (args.resume is not None or args.save_state is not None
+            or args.link_cache is not None or args.calibrate):
+        raise _not_ported("--resume, --save-state, --link-cache and "
+                          "--calibrate N > 0", "M13")
     if args.fetch != "auto" and not args.tiled:
         p.error("--fetch tiles/flat/mask applies to --tiled payloads")
     if args.bitmask and not args.tiled:
@@ -298,6 +348,14 @@ def setup(argv=None):
             p.error("--land-batch requires --tiled payloads")
         if args.pipelined:
             p.error("--land-batch is exclusive with --pipelined")
+    return args
+
+
+def setup(argv=None):
+    """Parse the command line (:func:`parse_args`); returns ``(config,
+    executor, args)``, the executor on its pipeline (with the
+    ``--threshold-map`` map) as :func:`main` serves it."""
+    args = parse_args(argv)
     mask_flavor = args.bitmask or args.fetch == "mask"
     cfg = StreamConfig(
         height=args.height,
@@ -316,6 +374,7 @@ def setup(argv=None):
         mask_payload=args.wire == "v4" and mask_flavor,
         maskonly_payload=args.maskonly,
         wire_format=args.wire,
+        pair_lanes=not args.no_pair_lanes,
         **({"subtile_rows": args.subtile}
            if args.subtile is not None else {}),
     )

@@ -54,6 +54,8 @@ _3U32 = struct.Struct("<III")
 MAGIC_V2 = b"CVSTPU-WIRE-V2\x00\x01"
 MAGIC_V3 = b"CVSTPU-WIRE-V3\x00\x01"
 MAGIC_V4 = b"CVSTPU-WIRE-V4\x00\x01"
+# the prefix a server sends before the base frame, by wire format (v1: none)
+MAGICS = {"v2": MAGIC_V2, "v3": MAGIC_V3, "v4": MAGIC_V4}
 _GAP_ESC = 0xFFFF
 
 # v3 per-frame mode prefix (one byte); WINMASK appears in v4 streams only
@@ -73,6 +75,16 @@ _LOWBIT8 = np.array(
 _HIGHBIT8 = np.array(
     [v.bit_length() - 1 if v else 0 for v in range(256)], np.int64
 )
+
+
+def apply_payload(frame: np.ndarray, xs: np.ndarray,
+                  vals: np.ndarray) -> None:
+    """The client's uint8 wrap-add scatter
+    (``reference_cpu.client_apply``), in place on ``frame``: a server's
+    mirror of a client's state. Payload indices are distinct."""
+    if len(xs):
+        frame[np.asarray(xs, dtype=np.int64)] += np.asarray(vals,
+                                                          dtype=np.uint8)
 
 
 def pack_payload(pos: int, xs: np.ndarray, vals: np.ndarray) -> bytes:
@@ -363,6 +375,45 @@ def encode_frame_v4_numpy(pos: int, xs: np.ndarray, vals: np.ndarray,
     return bytes([MODE_RAW]) + np.ascontiguousarray(
         frame_after, dtype=np.uint8
     ).tobytes()
+
+
+# the stateless encodes of one frame, ``frame_after`` the client state
+# after this payload: for servers that keep a reconstruction per client
+# already (multiserve's per-stream mirror); others use V3Encoder/V4Encoder
+encode_frame_v3 = encode_frame_v3_numpy
+encode_frame_v4 = encode_frame_v4_numpy
+
+
+def v3_frame_extent(data, off: int, n_bytes: int) -> int:
+    """End offset of the v3 (or v4) frame whose mode byte is
+    ``data[off]``, from its header alone, over an in-memory capture
+    (bytes or mmap); the replayer's framing scan. Raises ``ValueError`` on
+    a truncated frame or an unknown mode."""
+    if off + 1 > len(data):
+        raise ValueError("truncated v3 frame: mode byte")
+    mode = data[off]
+    if mode == MODE_RAW:
+        end = off + 1 + n_bytes
+    elif mode == MODE_BITMASK:
+        if off + 5 > len(data):
+            raise ValueError("truncated v3 frame: bitmask header")
+        (pos,) = _U32.unpack_from(data, off + 1)
+        end = off + 1 + 4 + (n_bytes + 7) // 8 + pos
+    elif mode == MODE_DELTA16:
+        if off + 9 > len(data):
+            raise ValueError("truncated v3 frame: delta16 header")
+        pos, n_exc = _2U32.unpack_from(data, off + 1)
+        end = off + 1 + 8 + 3 * pos + 4 * n_exc
+    elif mode == MODE_WINMASK:
+        if off + 13 > len(data):
+            raise ValueError("truncated v4 frame: winmask header")
+        pos, _start, wb = _3U32.unpack_from(data, off + 1)
+        end = off + 13 + wb // 8 + pos
+    else:
+        raise ValueError(f"unknown v3 mode {mode} at offset {off}")
+    if end > len(data):
+        raise ValueError("truncated v3 frame: body")
+    return end
 
 
 @dataclasses.dataclass

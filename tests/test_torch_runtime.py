@@ -243,11 +243,14 @@ def test_port_imports_nothing_of_jax():
     files = _port_python_files()
     assert len(files) > 10 and files[-1].exists()
     rel = {str(f.relative_to(REPO)) for f in files}
-    # the modules of the tiled and visualizer slices are in the scan
+    # the modules of the tiled, visualizer and multi-stream slices are in
+    # the scan
     for mod in ("ops/logcompact.py", "runtime/wire.py", "runtime/executor.py",
                 "runtime/server.py", "runtime/client.py",
                 "models/pipeline.py", "kernels/build.py", "ops/filters.py",
-                "ops/hist.py", "ops/convolve.py", "models/variants.py"):
+                "ops/hist.py", "ops/convolve.py", "models/variants.py",
+                "models/batched.py", "runtime/multiserve.py",
+                "runtime/broadcast.py", "runtime/replay.py"):
         assert f"cudavideostream_tpu_torch/{mod}" in rel, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -262,6 +265,102 @@ def test_port_imports_nothing_of_jax():
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+
+# -- the JAX package's command lines (ROADMAP.md fault 3.1) ---------------
+
+def _jax_options(name):
+    """``(option, kwargs)`` of every ``add_argument`` call in the JAX
+    ``runtime/<name>.py:main``, found by an ``ast`` scan, with ``type``,
+    ``default``, ``choices`` and ``action`` evaluated in that module."""
+    import importlib
+
+    path = REPO / "cudavideostream_tpu" / "runtime" / f"{name}.py"
+    namespace = vars(importlib.import_module(
+        f"cudavideostream_tpu.runtime.{name}"))
+    main = next(node for node in ast.parse(path.read_text()).body
+                if isinstance(node, ast.FunctionDef) and node.name == "main")
+    found = []
+    for node in ast.walk(main):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"):
+            kw = {k.arg: eval(compile(ast.Expression(k.value), str(path),
+                                      "eval"), namespace)
+                  for k in node.keywords
+                  if k.arg in ("type", "default", "choices", "action")}
+            found.append((node.args[0].value, kw))
+    return found
+
+
+def _option_values(option, kw, tmp_path):
+    """The values to try an option with: every choice, else its default
+    and one other value."""
+    if kw.get("action") == "store_true":
+        return [[]]
+    if "choices" in kw:
+        return [[str(c)] for c in kw["choices"]]
+    if option == "--threshold-map":
+        path = tmp_path / "map.npy"
+        np.save(path, np.full((48, 64), 20, np.uint8))
+        return [[str(path)]]
+    if option == "--mesh":
+        return [["1,1"]]
+    typ = kw.get("type", str)
+    other = {int: "1", float: "1.5", str: "x"}[typ]
+    default = kw.get("default")
+    return [[str(v)] for v in dict.fromkeys([default, other]) if v is not None]
+
+
+# flags an option needs beside it for the JAX server's own combination
+# checks to pass
+_CONTEXT = {"--fetch": ["--tiled"], "--bitmask": ["--tiled"],
+            "--maskonly": ["--tiled", "--fetch", "mask"],
+            "--land-batch": ["--tiled"]}
+
+
+@pytest.mark.parametrize("name", ["server", "client", "multiserve",
+                                  "broadcast", "replay"])
+def test_port_takes_every_jax_option(name, tmp_path):
+    """Each option of the JAX entry point's command line, with each of its
+    choices: the port's parser accepts it, or raises
+    ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it;
+    never a usage error. ``--no-pair-lanes`` and ``--calibrate 0`` are
+    documented no-ops."""
+    import importlib
+    import re
+
+    module = importlib.import_module(
+        f"cudavideostream_tpu_torch.runtime.{name}")
+    base = {"server": ["--device", "cpu", "--height", "48", "--width", "64"],
+            "client": [], "multiserve": ["--device", "cpu"],
+            "broadcast": ["--device", "cpu"],
+            "replay": [str(tmp_path / "session.cvs")]}[name]
+    options = _jax_options(name)
+    assert len(options) >= {"server": 30, "client": 11, "multiserve": 17,
+                            "broadcast": 15, "replay": 8}[name]
+    bad, refused = [], 0
+    for option, kw in options:
+        if not option.startswith("--"):
+            continue  # the replay path, given in base
+        for value in _option_values(option, kw, tmp_path):
+            argv = base + _CONTEXT.get(option, []) + [option, *value]
+            try:
+                module.parse_args(argv)
+            except NotImplementedError as e:
+                if not re.search(r"ROADMAP\.md M\d+", str(e)):
+                    bad.append((argv, f"names no item: {e}"))
+                refused += 1
+            except SystemExit:
+                bad.append((argv, "usage error"))
+    assert not bad, bad
+    if name in ("server", "client", "broadcast"):
+        assert refused
+    if name in ("server", "broadcast"):
+        assert module.parse_args(base + ["--calibrate", "0"]).calibrate == 0
+    if name == "server":
+        cfg = server_mod.setup(base + ["--no-pair-lanes"])[0]
+        assert cfg.pair_lanes is False
+        with pytest.raises(NotImplementedError, match="ROADMAP.md M12"):
+            server_mod.setup(base + ["--compaction", "sort"])
 
 # -- the tiled slice: tiled payloads, wire v2/v3, the pipelined executor --
 

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time K1's flat emission (``fused_diff_compact``) of one checkout.
+"""Time K1's flat emission (``fused_diff_compact``), or with ``tiled``
+its tiled emission at ``subtile_rows=1`` (``fused_diff_compact_tiled``),
+of one checkout.
 
-    python3 tools/time_k1_flat.py CHECKOUT_ROOT
+    python3 tools/time_k1_flat.py CHECKOUT_ROOT [flat|tiled]
 
 Imports ``cudavideostream_tpu_torch`` from ``CHECKOUT_ROOT`` and prints
 five medians, each of 100 CUDA-event-timed launches at 1080p (~6% changed
@@ -14,7 +16,7 @@ To compare two commits, unpack the other one into a git-ignored directory
 call to one card, in turns::
 
     for t in build/parent . . build/parent; do
-        python3 tools/time_k1_flat.py "$(cd $t && pwd)"; done
+        python3 tools/time_k1_flat.py "$(cd $t && pwd)" tiled; done
 """
 
 import statistics
@@ -26,6 +28,7 @@ import torch
 
 def main() -> int:
     root = sys.argv[1]
+    emission = sys.argv[2] if len(sys.argv) > 2 else "flat"
     sys.path.insert(0, root)
     import cudavideostream_tpu_torch
     from cudavideostream_tpu_torch.ops import logcompact
@@ -46,7 +49,10 @@ def main() -> int:
         rng.integers(0, 256, 288_000, dtype=np.uint8)).to(dev)
     prevs = [p0.clone() for _ in range(100)]
     curs = [c0.clone() for _ in range(8)]
-    logcompact.fused_diff_compact(c0, p0.clone(), 20, True, region)
+    k1 = {"flat": logcompact.fused_diff_compact,
+          "tiled": lambda c, p, *a: logcompact.fused_diff_compact_tiled(
+              c, p, *a, 1)}[emission]
+    k1(c0, p0.clone(), 20, True, region)
     medians = []
     for _ in range(5):
         for p in prevs:
@@ -57,13 +63,12 @@ def main() -> int:
         torch.cuda._sleep(200_000_000)
         for i in range(100):
             starts[i].record()
-            logcompact.fused_diff_compact(curs[i % 8], prevs[i], 20, True,
-                                          region)
+            k1(curs[i % 8], prevs[i], 20, True, region)
             ends[i].record()
         torch.cuda.synchronize()
         medians.append(statistics.median(
             a.elapsed_time(b) for a, b in zip(starts, ends)))
-    print(root, torch.cuda.get_device_name(0),
+    print(root, emission, torch.cuda.get_device_name(0),
           " ".join(f"{m:.4f}" for m in medians), "ms")
     return 0
 
