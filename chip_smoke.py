@@ -31,7 +31,15 @@ Phases (any failure raises and the script exits non-zero):
    against its plain version and against solo K1 tiled launches on each
    stream, K5 batched likewise and equal to K1 batched at
    ``subtile_rows=0``, and ``BatchedDeltaPipeline.step`` at B = 4 against
-   each stream's NumPy spec; plus one pipeline step of each
+   each stream's NumPy spec; K1's ``index_offset`` mode (flat and tiled at
+   ``subtile_rows`` 1, 8, 0, two densities) on every shard of the frame cut
+   into S = 2, 4 and 8 row shards at its shard base, and at the largest
+   offset int32 admits, against its plain version and against the
+   offset-free launch shifted on its valid entries only;
+   ``ShardedDeltaPipeline.step_flat`` on S = 1, 2, 4, 8 shards laid on
+   ``cuda:0``, both payload layouts, visualizers 0, 3 and 5, the noise
+   filter and the door map, against the NumPy spec, K1 launched S times a
+   step; plus one pipeline step of each
    configuration (flat, tiled, tiled with bits, bitmask-only, each also
    with a per-pixel "door" map), of each of the 8 named variants, and of
    binarize and red-overlap on each tiled emission, against the NumPy
@@ -61,7 +69,12 @@ Phases (any failure raises and the script exits non-zero):
    byte-exact every frame with one K1 batched launch per batched frame;
    the broadcast server (wire v3) with a client from the start and one
    joining late, and the session a raw reader recorded replayed
-   byte-identical by ``ReplayServer``;
+   byte-identical by ``ReplayServer``; then the sharded paths, each
+   byte-exact every frame: ``server --mesh 1,1`` (wire v1, and
+   ``--pipelined --wire v3``) built by ``server.setup``, an S = 4
+   ``ShardedStreamExecutor`` with its shards on ``cuda:0``, and
+   ``multiserve --streams 4 --mesh 1,1``, with S K1 launches a frame (K2
+   only for a (1, 1) mesh's ``flat`` landings);
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2): each kernel, its plain
@@ -78,7 +91,11 @@ Phases (any failure raises and the script exits non-zero):
    card's SM clock and an SM's issue ceiling of 128 lanes per clock); K1
    batched at B = 4 against four solo K1 tiled launches, in turns, and
    against its bound, K5 batched against its bound, and the B = 4 batched
-   step.
+   step; the sharded step at S = 1, 2, 4, 8 on ``cuda:0`` against the solo
+   tiled step, in turns, and the per-shard K1 tiled launch with its
+   ``index_offset`` at S = 4 and 8 against its plain version and its bound
+   on the shard's bytes (shards on one card run one after another: no
+   interconnect, no scaling).
 
 It prints progress lines, then the card's ``nvidia-smi`` line, then one
 JSON line of kernel records, and last
@@ -1112,6 +1129,17 @@ def phase_crosscheck_path(cfg):
             "k5_batched_launches": k5_batched}
 
 
+def _host_state(state):
+    """A copy of an executor's device state on the host: one tensor, or
+    the sharded pipeline's shards (a list over ``space``, or its ``(data,
+    space)`` grid), in the global layout."""
+    if isinstance(state, torch.Tensor):
+        return state.to("cpu", copy=True).numpy()
+    from cudavideostream_tpu_torch.parallel.sharded import gather
+
+    return gather(state)
+
+
 class _RecordingExecutor:
     """The server's executor, plus a digest of the device state and the
     overlay text after every frame (the server calls start, process,
@@ -1136,13 +1164,13 @@ class _RecordingExecutor:
 
     def process(self, frame, text=""):
         if len(self.inputs) < self.n_aux:
-            state = self.inner._state.to("cpu", copy=True).numpy()
+            state = _host_state(self.inner._state)
             self.inputs.append((state, np.array(frame, copy=True), text))
         t0 = time.perf_counter()
         out = self.inner.process(frame, text=text)
         self.process_s.append(time.perf_counter() - t0)
         self.texts.append(text)
-        state = self.inner._state.cpu().numpy()
+        state = _host_state(self.inner._state)
         self.digests.append(hashlib.sha256(state).hexdigest())
         self._keep(out)
         return out
@@ -1355,7 +1383,7 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0, inner=None):
         + (f"; landings {inner.fetch_counts}" if inner.fetch_counts else ""))
     return {"frames": frames, "launches": launches,
             "nonempty": sum(p > 0 for p in positions),
-            "fetch_counts": dict(inner.fetch_counts)}
+            "fetch_counts": dict(inner.fetch_counts), "fps": frames / wall}
 
 
 class _RecordingBatchedPipe:
@@ -1370,11 +1398,12 @@ class _RecordingBatchedPipe:
         return getattr(self.inner, name)
 
     def step(self, prev, frames, texts):
+        b_count = len(frames)
         if self.first is None:
-            self.first = (prev.cpu().numpy().reshape(self.n_streams, -1),
+            self.first = (_host_state(prev).reshape(b_count, -1),
                           np.array(frames), list(texts))
         out = self.inner.step(prev, frames, texts)
-        state = out[0].cpu().numpy().reshape(self.n_streams, -1)
+        state = _host_state(out[0]).reshape(b_count, -1)
         self.digests.append([hashlib.sha256(x).hexdigest() for x in state])
         return out
 
@@ -1409,13 +1438,13 @@ def _ppm_bgr(path, height, width):
     return rgb.reshape(height, width, 3)[:, :, ::-1].ravel()
 
 
-def phase_multiserve(cfg, label, n_frames=16, aux=False):
+def phase_multiserve(cfg, label, n_frames=16, aux=False, mesh=None):
     """The multi-stream server at 1080p, 4 streams, each with a loopback
     client admitted at the first frame: every stream's reconstruction must
     equal its server state every frame, and the batched kernel must run
     once per batched frame. With ``aux``, frame 0's aux frames, dumped to
     ``--aux-dir`` as PPMs, must equal each stream's ``step_oracle``
-    aux."""
+    aux. With ``mesh``, the sharded pipeline serves (``--mesh``)."""
     from cudavideostream_tpu_torch.ops import reference_cpu
     from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
     from cudavideostream_tpu_torch.runtime.multiserve import MultiStreamServer
@@ -1427,7 +1456,7 @@ def phase_multiserve(cfg, label, n_frames=16, aux=False):
     with tempfile.TemporaryDirectory() as tmp:
         server = MultiStreamServer(
             cfg, [SyntheticSource(cfg, seed=SEED + b) for b in range(b_count)],
-            verbose=False, aux_dir=tmp if aux else None)
+            verbose=False, aux_dir=tmp if aux else None, mesh=mesh)
         rec = server.pipe = _RecordingBatchedPipe(server.pipe)
         server.listen()
         digests = [[] for _ in range(b_count)]
@@ -2528,6 +2557,258 @@ def phase_batched_times(cfg):
             "step_ms": step_ms}
 
 
+# -- the sharded slice: K1 index_offset and the sharded pipeline -------------
+
+def _sharded_mesh(s):
+    """A ``(1, s)`` mesh with every shard on ``cuda:0``: the one card
+    holds S shards, which run one after another on its stream."""
+    from cudavideostream_tpu_torch.parallel import make_mesh
+
+    return make_mesh(s, devices=["cuda:0"] * s)
+
+
+def _offset_k1(emit, sub, cur, prev, off, region, plain=False):
+    """One K1 call in ``emit`` (flat, or tiled at ``sub``) with
+    ``index_offset=off`` on a copy of ``prev``; its outputs."""
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+
+    kw = dict(overlay_region=region, index_offset=off)
+    if emit == "flat":
+        fn = lc.fused_diff_compact_reference if plain else lc.fused_diff_compact
+        return fn(cur, prev.clone(), 20, True, **kw)
+    fn = (lc.fused_diff_compact_tiled_reference if plain
+          else lc.fused_diff_compact_tiled)
+    return fn(cur, prev.clone(), 20, True, sub_rows=sub, **kw)
+
+
+def phase_offset_vs_plain(cfg):
+    """K1's ``index_offset`` mode at 1080p: flat and tiled (subtile 1, 8,
+    0) on every shard of the frame cut into S = 2, 4 and 8 row shards, at
+    two densities, the first shard with the overlay region, and at the
+    largest offset int32 admits; every launch exact against its plain
+    version and equal to the offset-free launch with the offset added to
+    its valid entries only."""
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 20)
+    cases = 0
+    emissions = (("flat", 0), ("tiled", 1), ("tiled", 8), ("tiled", 0))
+    frames = {d: [torch.from_numpy(a).to(dev) for a in frame_pair(rng, n, d)]
+              for d in (0.06, 0.5)}
+    region_np = rng.integers(0, 256, 288_000, dtype=np.uint8)
+
+    def check(label, emit, sub, cur, prev, off, region):
+        got = _offset_k1(emit, sub, cur, prev, off, region)
+        labels = (("pos", "xs", "vals", "new_prev") if emit == "flat" else
+                  ("pos", "counts", "xs_t", "vals_t", "new_prev"))
+        _equal_or_raise(label, got, _offset_k1(emit, sub, cur, prev, off,
+                                               region, plain=True), labels)
+        base = _offset_k1(emit, sub, cur, prev, 0, region)
+        i = 1 if emit == "flat" else 2
+        valid = got[i + 1] != 0
+        shifted = torch.where(valid, base[i] + off, 0).to(torch.int32)
+        if not torch.equal(got[i], shifted) or int(valid.sum()) != int(got[0]):
+            raise AssertionError(f"{label}: not the offset-free launch "
+                                 "shifted on its valid entries")
+
+    for s_count in (2, 4, 8):
+        ln = n // s_count
+        for emit, sub in emissions:
+            for d, (prev_full, cur_full) in frames.items():
+                for s in range(s_count):
+                    cur = cur_full[s * ln:(s + 1) * ln].clone()
+                    prev = prev_full[s * ln:(s + 1) * ln].clone()
+                    region = (torch.from_numpy(region_np[:ln]).to(dev)
+                              if s == 0 else None)
+                    check(f"K1 index_offset S={s_count} shard {s}", emit, sub,
+                          cur, prev, s * ln, region)
+                    cases += 1
+                log(f"[check] K1 index_offset {emit}"
+                    f"{'' if emit == 'flat' else f' subtile={sub}'} "
+                    f"S={s_count} d={d}: every shard base 0..{(s_count - 1) * ln}"
+                    f" (Ln={ln}), shard 0 with the overlay region: exact "
+                    f"against its plain version and equal to the offset-free "
+                    f"launch shifted on valid entries only")
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+
+    prev_full, cur_full = frames[0.06]
+    for emit, sub in emissions:
+        big = (1 << 31) - lc.tiled_geometry(n, sub)[0] - 1
+        check("K1 index_offset large", emit, sub, cur_full, prev_full, big,
+              None)
+        cases += 1
+        log(f"[check] K1 index_offset {emit}"
+            f"{'' if emit == 'flat' else f' subtile={sub}'} at 1080p, offset "
+            f"{big} (the largest int32 admits): exact, shifted on valid "
+            f"entries only")
+    return cases
+
+
+def _sharded_payload(pipe, out):
+    """Host ``(pos, xs, vals)`` of one ``step_flat``'s outputs."""
+    from cudavideostream_tpu_torch.parallel.sharded import gather
+    from cudavideostream_tpu_torch.runtime import wire
+
+    if pipe.payload_layout == "sharded":
+        counts = gather(out[1])
+        tp = wire.TiledPayload(int(counts.sum(dtype=np.int64)), counts,
+                               gather(out[2]), gather(out[3]))
+        return (tp.pos, *tp.to_flat())
+    pos = int(out[1])
+    xs, vals = out[2].cpu().numpy(), out[3].cpu().numpy()
+    if xs[pos:].any() or vals[pos:].any():
+        raise AssertionError("the replicated payload is not zero past pos")
+    return pos, xs[:pos], vals[:pos]
+
+
+def phase_sharded_steps(cfg):
+    """``ShardedDeltaPipeline.step_flat`` at 1080p on S = 1, 2, 4, 8 shards
+    laid on ``cuda:0``, both payload layouts, with visualizers 0, 3 and 5,
+    the noise filter and the door map, each against ``step_oracle``: the
+    state, the payload and the aux frame; K1 launched S times a step."""
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.config import Visualizer
+    from cudavideostream_tpu_torch.parallel import ShardedDeltaPipeline
+    from cudavideostream_tpu_torch.parallel.sharded import gather
+    from cudavideostream_tpu_torch.utils import fonts
+
+    rng = np.random.default_rng(SEED + 21)
+    n = cfg.frame_bytes
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    door = np.repeat(door_map(cfg, rng).ravel(), 3)
+    text = "FPS: 30 BW: 1234 kbps"
+    variants = (("visualizer 0", {}, None),
+                ("visualizer 3", {"visualizer": Visualizer.RED_OVERLAP}, None),
+                ("visualizer 5", {"visualizer": Visualizer.BINARIZE}, None),
+                ("noise filter", {"noise_filter": True}, None),
+                ("door map", {}, door))
+    steps = 0
+    for s in (1, 2, 4, 8):
+        for layout in ("sharded", "replicated"):
+            for label, kw, tm in variants:
+                c = dataclasses.replace(cfg, **kw)
+                pipe = ShardedDeltaPipeline(c, _sharded_mesh(s),
+                                            payload_layout=layout,
+                                            threshold_map=tm)
+                st = pipe.init_state_flat(prev_np)
+                counters = _zero_launches()
+                out = pipe.step_flat(st, cur_np, text=text)
+                torch.cuda.synchronize()
+                k1 = (lc.fused_diff_compact_tiled if layout == "sharded"
+                      else lc.fused_diff_compact)
+                hist = counters["histogram"].launches
+                if k1.launches != s or hist != (
+                        s if c.visualizer == Visualizer.BINARIZE else 0):
+                    raise AssertionError(f"sharded step S={s}: K1 launched "
+                                         f"{k1.launches}, K4 {hist} times")
+                pos, xs, vals = _sharded_payload(pipe, out)
+                e_prev, e_pos, e_xs, e_vals, e_aux = reference_cpu.step_oracle(
+                    prev_np, cur_np, c, atlas=pipe.atlas_np,
+                    char_ids=fonts.encode_text(text), threshold_map=tm)
+                aux = None if out[4] is None else gather(out[4])
+                if not (pos == e_pos and np.array_equal(xs, e_xs)
+                        and np.array_equal(vals, e_vals)
+                        and np.array_equal(gather(out[0]), e_prev)
+                        and (aux is None if e_aux is None
+                             else np.array_equal(aux, e_aux))):
+                    raise AssertionError(f"sharded step S={s} {layout} "
+                                         f"{label}: differs from step_oracle")
+                steps += 1
+                log(f"[check] sharded step S={s} on cuda:0, {layout} layout, "
+                    f"{label}: step_flat at 1080p == step_oracle (pos={pos}, "
+                    f"aux {'none' if aux is None else 'equal'}; K1 "
+                    f"{k1.__name__} launched {s}x)")
+    return steps
+
+
+def phase_sharded_times(cfg):
+    """The sharded step (``"sharded"`` layout, the ``server --mesh`` step)
+    at S = 1, 2, 4, 8 on ``cuda:0`` against the solo tiled
+    ``pipeline.step``, in turns; the per-shard K1 tiled launch with
+    ``index_offset`` (subtile 1) at S = 4 and 8 against its plain version
+    and its bound on ``Ln`` bytes. Shards on one card run one after
+    another on its stream: these times show no interconnect and no
+    scaling."""
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+    from cudavideostream_tpu_torch.parallel import ShardedDeltaPipeline
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 22)
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    cur = torch.from_numpy(cur_np).to(dev)
+    curs = [cur.clone() for _ in range(CUR_COPIES)]
+    text = "FPS: 30 BW: 1234 kbps"
+    tcfg = dataclasses.replace(cfg, tiled_payload=True)
+    solo = DeltaStreamPipeline(tcfg)
+    solo_prev0 = solo.init_state(prev_np)
+    pipes = {s: ShardedDeltaPipeline(cfg, _sharded_mesh(s),
+                                     payload_layout="sharded")
+             for s in (1, 2, 4, 8)}
+    states = {s: [p.init_state_flat(prev_np) for _ in range(30)]
+              for s, p in pipes.items()}
+    solo_prevs = [solo_prev0.clone() for _ in range(30)]
+    prev_t = torch.from_numpy(prev_np).to(dev)
+
+    def refill():
+        for p in solo_prevs:
+            p.copy_(solo_prev0)
+        for s, sts in states.items():
+            ln = n // s
+            for st in sts:
+                for k, t in enumerate(st):
+                    t.copy_(prev_t[k * ln:(k + 1) * ln])
+
+    solo.step(solo_prev0.clone(), cur, text=text)  # warm-up
+    for p in pipes.values():
+        p.step_flat(p.init_state_flat(prev_np), cur, text=text)
+    turns = {}
+    order = ["solo", 1, 2, 4, 8]
+    for key in order + order[::-1]:
+        refill()
+        if key == "solo":
+            fn = lambda i: solo.step(solo_prevs[i], curs[i % CUR_COPIES],
+                                     text=text)
+        else:
+            fn = (lambda i, k=key: pipes[k].step_flat(
+                states[k][i], curs[i % CUR_COPIES], text=text))
+        turns.setdefault(key, []).append(_event_median_ms(fn, 30))
+    k1 = {}
+    for s in (4, 8):
+        ln = n // s
+        shard = s - 1  # the last shard: the largest offset of the mesh
+        c0 = cur[shard * ln:(shard + 1) * ln].clone()
+        cs = [c0.clone() for _ in range(CUR_COPIES)]
+        p0 = prev_t[shard * ln:(shard + 1) * ln].clone()
+        ps = [p0.clone() for _ in range(ITERS)]
+        ms = _event_median_ms(lambda i: lc.fused_diff_compact_tiled(
+            cs[i % CUR_COPIES], ps[i], 20, True, None, 1,
+            index_offset=shard * ln), ITERS)
+        plain = _event_median_ms(lambda i: lc.fused_diff_compact_tiled_reference(
+            cs[i % CUR_COPIES], p0.clone(), 20, True, None, 1,
+            index_offset=shard * ln), 10, backlog=False)
+        t_pad, t_unit = lc.tiled_geometry(ln, 1)
+        nbytes = 3 * ln + 5 * t_pad + t_pad // t_unit + 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        k1[s] = {"ms": ms, "plain_ms": plain, "bound_ms": bound}
+        log(f"[time] K1 tiled subtile=1 with index_offset={shard * ln} (S={s}, "
+            f"shard {shard}, Ln={ln}): {ms:.4f} ms (bound {bound:.5f} ms = "
+            f"{nbytes} B at 3.35 TB/s; {bound / ms:.1%} of it); its plain "
+            f"PyTorch version {plain:.4f} ms")
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    log(f"[time] the served step at 1080p, overlay text, medians of 30 (CUDA "
+        f"events), in turns: solo tiled pipeline.step "
+        f"{' / '.join(f'{x:.4f}' for x in turns['solo'])} ms; sharded "
+        f"step_flat on cuda:0: " + "; ".join(
+            f"S={s} {' / '.join(f'{x:.4f}' for x in turns[s])} ms"
+            for s in (1, 2, 4, 8))
+        + " (shards on one card run one after another: no interconnect, no "
+          "scaling)")
+    return {"k1": k1, "step_ms": med}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2546,6 +2827,8 @@ def main() -> int:
     map_cases = phase_map_vs_plain(cfg)
     scheme_cases = phase_schemes_vs_plain(cfg)
     batched_cases = phase_batched_vs_plain(cfg)
+    offset_cases = phase_offset_vs_plain(cfg)
+    sharded_steps = phase_sharded_steps(cfg)
     mcfg = dataclasses.replace(tcfg, emit_bitmask=True, fetch_mode="mask",
                                mask_payload=True, wire_format="v4")
     runs = {
@@ -2615,7 +2898,40 @@ def main() -> int:
         runs[key] = phase_multiserve(dataclasses.replace(tcfg, **kw), label,
                                      aux="visualizer" in kw)
     runs["broadcast"] = phase_broadcast_replay(cfg)
+    # the sharded paths: server --mesh as its command line builds it, an
+    # S = 4 executor with its shards on cuda:0 (the library's devices=;
+    # the server takes D*S cards), and multiserve --mesh 1,1
+    from cudavideostream_tpu_torch.runtime.sharded_executor import (
+        ShardedStreamExecutor,
+    )
+
+    for key, flags in (("mesh11_v1", []),
+                       ("mesh11_pipelined_v3", ["--pipelined", "--wire",
+                                                "v3"])):
+        mcfg11, inner, _ = server_mod.setup(["--port", "0", "--mesh", "1,1"]
+                                            + flags)
+        runs[key] = phase_serving(
+            mcfg11, " ".join(["--mesh 1,1"] + (flags or ["wire v1"])),
+            inner=inner)
+    runs["mesh14_cuda0"] = phase_serving(
+        cfg, "ShardedStreamExecutor S=4 on cuda:0, wire v1",
+        inner=ShardedStreamExecutor(cfg, mesh=_sharded_mesh(4)))
+    runs["multiserve_mesh11"] = phase_multiserve(
+        cfg, "--streams 4 --mesh 1,1", mesh=_sharded_mesh(1))
     none = dict.fromkeys(_launch_counters(), 0)
+    for key, s_count in (("mesh11_v1", 1), ("mesh11_pipelined_v3", 1),
+                         ("mesh14_cuda0", 4)):
+        run = runs[key]
+        # S K1 tiled launches a frame; K2 only for the flat landings of
+        # a (1, 1) mesh under auto, none at S > 1 (tiles pinned)
+        _expect_launches(run, key, {
+            **none, "fused_diff_compact_tiled": s_count * run["frames"],
+            "pair_compact": run["fetch_counts"]["flat"]})
+        if s_count > 1 and run["fetch_counts"]["tiles"] != run["frames"]:
+            raise AssertionError(f"{key}: S > 1 must land through tiles")
+    run = runs["multiserve_mesh11"]
+    _expect_launches(run, "multiserve_mesh11", {
+        **none, "fused_diff_compact": 4 * run["frames"]})
     for key in ("multiserve_v1", "multiserve_v3", "multiserve_binarize_aux"):
         run = runs[key]
         # one batched launch per batched frame (not one per stream); one K2
@@ -2678,6 +2994,7 @@ def main() -> int:
     ftimes = phase_filter_times(cfg)
     xtimes = phase_map_scheme_times(cfg, clock_mhz)
     btimes = phase_batched_times(cfg)
+    stimes = phase_sharded_times(cfg)
 
     def launches(name):
         by_path = {k: r["launches"][name] for k, r in runs.items()}
@@ -2732,10 +3049,28 @@ def main() -> int:
          f"byte-exact in {scheme_cases['k7']} cases; {isetp} ISETP in its "
          f"SASS; bound at {clock_mhz} MHz x {K7_LANES_PER_SM} lanes per "
          f"SM"),
+        ("fused_diff_compact index_offset", "logcompact.cu", f"{lc}:297", 0,
+         stimes["k1"][4]["ms"], stimes["k1"][4]["plain_ms"],
+         stimes["k1"][4]["bound_ms"], None,
+         f"byte-exact in {offset_cases} cases (flat and tiled at subtile 1, "
+         f"8, 0, every shard base of S = 2, 4, 8, a large offset); timed as "
+         f"K1 tiled subtile=1 on the last shard of S=4; "
+         f"{sharded_steps} sharded steps equal step_oracle"),
     ]
     kernels = []
+    mesh_paths = ("mesh11_v1", "mesh11_pipelined_v3", "mesh14_cuda0",
+                  "multiserve_mesh11")
     for name, src, replaces, err, ms, plain, bound, lib_ms, check in records:
-        total, by_path = launches(name)
+        if name.endswith("index_offset"):
+            # the launches of the sharded paths, every one with its shard
+            # base as index_offset (tiled on server --mesh, flat on
+            # multiserve --mesh)
+            by_path = {k: runs[k]["launches"]["fused_diff_compact_tiled"]
+                       + runs[k]["launches"]["fused_diff_compact"]
+                       for k in mesh_paths}
+            total = sum(by_path.values())
+        else:
+            total, by_path = launches(name)
         extra = {}
         if name == "segment_compact":
             # K5's batched mode, B = 4, and its launches (the cross-check
@@ -2745,6 +3080,12 @@ def main() -> int:
                      "batched_bound_ms": btimes["k5_bound_ms"],
                      "batched_launches":
                          runs["crosscheck"]["k5_batched_launches"]}
+        elif name.endswith("index_offset"):
+            extra = {"s8_ms": stimes["k1"][8]["ms"],
+                     "s8_plain_ms": stimes["k1"][8]["plain_ms"],
+                     "s8_bound_ms": stimes["k1"][8]["bound_ms"],
+                     "sharded_step_ms": stimes["step_ms"],
+                     "served_fps": {k: runs[k].get("fps") for k in mesh_paths}}
         elif name in ("fused_diff_compact", "fused_diff_compact_tiled",
                       "fused_diff_compact_mask"):
             emission = {"fused_diff_compact": "flat",

@@ -128,6 +128,18 @@
 // c == p == 0 and never ship, whatever the map would hold there. The
 // bound grows by n bytes read: K1 flat with a map moves 55,987,204 B at
 // 1080p, 16.71 us at 3.35 TB/s.
+//
+// INDEX OFFSET (the flat and solo tiled entry points, index_offset; the TPU
+// kernel's has_offset, logcompact.py:353 and :509): a host-known int added
+// to every valid emitted index, so that a kernel launched on one row shard
+// of a frame (the sharded pipeline, shard s at s * Ln) writes GLOBAL frame
+// indices. It is added where an entry is staged, so the zero fill past
+// each unit's count stays 0 (K2 and K3 test validity by vals != 0), and it
+// costs one integer add per shipped byte: no load, no store, no branch.
+// The entry points refuse index_offset < 0 and index_offset + n_pad past
+// INT_MAX (indices stay int32); the batched launches take none, as the
+// TPU's fused_diff_compact_batched takes none. The bytes are those of the
+// launch without it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -308,7 +320,7 @@ __global__ void __launch_bounds__(kThreads)
 compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                const uint8_t* __restrict__ region, long long region_len,
                long long n, int thr, const uint8_t* __restrict__ thr_map,
-               int negfeed, int tiles_per_block,
+               int negfeed, int index_offset, int tiles_per_block,
                const int* __restrict__ counts, int grid,
                int* __restrict__ xs, uint8_t* __restrict__ vals,
                long long cap, int* __restrict__ pos_out) {
@@ -357,7 +369,7 @@ compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       if ((m >> k) & 1u) {
-        s_xs[r] = (int)(i0 + k);
+        s_xs[r] = (int)(i0 + k + index_offset);
         s_vals[r] = (uint8_t)(c.b[k] - p.b[k]);  // (c - p) mod 256
         ++r;
       }
@@ -402,7 +414,7 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                   const uint8_t* __restrict__ region, long long region_len,
                   long long n, long long n_pad, int tiles_per_stream,
                   int thr, const uint8_t* __restrict__ thr_map, int negfeed,
-                  int unit_bytes, int counts_bytes,
+                  int index_offset, int unit_bytes, int counts_bytes,
                   int* __restrict__ tile_tot, void* __restrict__ counts,
                   int* __restrict__ xs_t, uint8_t* __restrict__ vals_t,
                   uint8_t* __restrict__ bits) {
@@ -456,7 +468,7 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     if ((m >> k) & 1u) {
-      if (kXs) s_xs[r] = (int)(i0 + k);
+      if (kXs) s_xs[r] = (int)(i0 + k + index_offset);
       s_vals[r] = (uint8_t)(c.b[k] - p.b[k]);  // (c - p) mod 256
       ++r;
     }
@@ -537,8 +549,9 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                            const uint8_t* __restrict__ region,
                            long long region_len, long long n, int thr,
                            const uint8_t* __restrict__ thr_map,
-                           int negfeed, int unit_bytes, int chunks_per_unit,
-                           int units_per_stream, int counts_bytes,
+                           int negfeed, int index_offset, int unit_bytes,
+                           int chunks_per_unit, int units_per_stream,
+                           int counts_bytes,
                            const int* __restrict__ chunk_counts,
                            void* __restrict__ counts,
                            int* __restrict__ xs_t,
@@ -598,7 +611,7 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     if ((m >> k) & 1u) {
-      if (kXs) s_xs[r] = (int)(i0 + k);
+      if (kXs) s_xs[r] = (int)(i0 + k + index_offset);
       s_vals[r] = (uint8_t)(c.b[k] - p.b[k]);
       ++r;
     }
@@ -646,7 +659,8 @@ cudaError_t launch_tiled(int grid, int per_stream, const uint8_t* cur,
                          uint8_t* prev, const uint8_t* region,
                          long long region_len, long long n, long long n_pad,
                          int thr, const uint8_t* thr_map, int negfeed,
-                         int unit_bytes, int counts_bytes, int* scratch,
+                         int index_offset, int unit_bytes, int counts_bytes,
+                         int* scratch,
                          void* counts, int emit_xs, int* xs_t,
                          uint8_t* vals_t, uint8_t* bits,
                          cudaStream_t stream) {
@@ -654,13 +668,13 @@ cudaError_t launch_tiled(int grid, int per_stream, const uint8_t* cur,
     if (emit_xs)
       tiled_unit_kernel<true, kBatched><<<grid, kThreads, 0, stream>>>(
           cur, prev, region, region_len, n, n_pad, per_stream, thr, thr_map,
-          negfeed, unit_bytes, counts_bytes, scratch, counts, xs_t, vals_t,
-          bits);
+          negfeed, index_offset, unit_bytes, counts_bytes, scratch, counts,
+          xs_t, vals_t, bits);
     else
       tiled_unit_kernel<false, kBatched><<<grid, kThreads, 0, stream>>>(
           cur, prev, region, region_len, n, n_pad, per_stream, thr, thr_map,
-          negfeed, unit_bytes, counts_bytes, scratch, counts, nullptr,
-          vals_t, bits);
+          negfeed, index_offset, unit_bytes, counts_bytes, scratch, counts,
+          nullptr, vals_t, bits);
     return cudaGetLastError();
   }
   const int chunks_per_unit = (unit_bytes + kTileBytes - 1) / kTileBytes;
@@ -672,15 +686,15 @@ cudaError_t launch_tiled(int grid, int per_stream, const uint8_t* cur,
   if (e != cudaSuccess) return e;
   if (emit_xs)
     tiled_chunk_compact_kernel<true, kBatched><<<grid, kThreads, 0, stream>>>(
-        cur, prev, region, region_len, n, thr, thr_map, negfeed, unit_bytes,
-        chunks_per_unit, units_per_stream, counts_bytes, scratch, counts,
-        xs_t, vals_t, bits);
+        cur, prev, region, region_len, n, thr, thr_map, negfeed, index_offset,
+        unit_bytes, chunks_per_unit, units_per_stream, counts_bytes, scratch,
+        counts, xs_t, vals_t, bits);
   else
     tiled_chunk_compact_kernel<false, kBatched><<<grid, kThreads, 0,
                                                   stream>>>(
-        cur, prev, region, region_len, n, thr, thr_map, negfeed, unit_bytes,
-        chunks_per_unit, units_per_stream, counts_bytes, scratch, counts,
-        nullptr, vals_t, bits);
+        cur, prev, region, region_len, n, thr, thr_map, negfeed, index_offset,
+        unit_bytes, chunks_per_unit, units_per_stream, counts_bytes, scratch,
+        counts, nullptr, vals_t, bits);
   return cudaGetLastError();
 }
 
@@ -692,16 +706,19 @@ extern "C" {
 // picks tiles_per_block and grid so that grid * tiles_per_block * 4096
 // >= n (which also covers every slot below cap <= n). thr_map, when not
 // null, is the per-byte threshold map (n bytes, 16-byte aligned) and
-// replaces thr. Returns the cudaError_t of the launches (0 on success).
+// replaces thr. index_offset is added to every valid index (see INDEX
+// OFFSET). Returns the cudaError_t of the launches (0 on success).
 int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
                            const uint8_t* region, long long region_len,
                            long long n, int thr, const uint8_t* thr_map,
-                           int negfeed,
+                           int negfeed, int index_offset,
                            int tiles_per_block, int grid, int* counts,
                            int* xs, uint8_t* vals, long long cap,
                            int* pos_out, cudaStream_t stream) {
   // this library carries its own CUDA runtime, whose current device is
   // not the caller's: select the tensors' device explicitly
+  if (index_offset < 0 || index_offset + n > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   count_kernel<<<grid, kThreads, 0, stream>>>(
@@ -710,7 +727,7 @@ int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   compact_kernel<<<grid, kThreads, 0, stream>>>(
-      cur, prev, region, region_len, n, thr, thr_map, negfeed,
+      cur, prev, region, region_len, n, thr, thr_map, negfeed, index_offset,
       tiles_per_block, counts, grid, xs, vals, cap, pos_out);
   return (int)cudaGetLastError();
 }
@@ -733,21 +750,25 @@ int cvs_tiled_grid(long long n_pad, int unit_bytes) {
 // * n_pad entries, and so has xs_t when emit_xs is nonzero (it may be null
 // otherwise); bits, when not null, has n_streams * n_pad / 8 bytes and is
 // 2-byte aligned; region holds n_streams strips of region_len bytes;
-// thr_map as for cvs_fused_diff_compact; pos_out has n_streams ints.
+// thr_map as for cvs_fused_diff_compact; pos_out has n_streams ints;
+// index_offset as for cvs_fused_diff_compact, 0 when n_streams > 1.
 // Returns the cudaError_t of the launches (0 on success).
 int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
                                  uint8_t* prev, const uint8_t* region,
                                  long long region_len, long long n,
                                  long long n_pad, int n_streams, int thr,
                                  const uint8_t* thr_map, int negfeed,
-                                 int unit_bytes, int counts_bytes,
-                                 int* scratch, void* counts, int emit_xs,
+                                 int index_offset, int unit_bytes,
+                                 int counts_bytes, int* scratch,
+                                 void* counts, int emit_xs,
                                  int* xs_t, uint8_t* vals_t, uint8_t* bits,
                                  int* pos_out, cudaStream_t stream) {
   if (unit_bytes <= 0 || unit_bytes % kBytesPerThread || n_pad % unit_bytes
       || n_pad < n || n_streams < 1 || region_len > n
       || (counts_bytes != 1 && counts_bytes != 2 && counts_bytes != 4)
-      || (emit_xs && xs_t == nullptr) || ((uintptr_t)bits & 1))
+      || (emit_xs && xs_t == nullptr) || ((uintptr_t)bits & 1)
+      || index_offset < 0 || index_offset + n_pad > 0x7fffffffLL
+      || (index_offset && n_streams > 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -757,12 +778,13 @@ int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
   e = n_streams > 1
           ? launch_tiled<true>((int)grid, per_stream, cur, prev, region,
                                region_len, n, n_pad, thr, thr_map, negfeed,
-                               unit_bytes, counts_bytes, scratch, counts,
+                               0, unit_bytes, counts_bytes, scratch, counts,
                                emit_xs, xs_t, vals_t, bits, stream)
           : launch_tiled<false>((int)grid, per_stream, cur, prev, region,
                                 region_len, n, n_pad, thr, thr_map, negfeed,
-                                unit_bytes, counts_bytes, scratch, counts,
-                                emit_xs, xs_t, vals_t, bits, stream);
+                                index_offset, unit_bytes, counts_bytes,
+                                scratch, counts, emit_xs, xs_t, vals_t, bits,
+                                stream);
   if (e != cudaSuccess) return (int)e;
   sum_kernel<<<n_streams, 1024, 0, stream>>>(scratch, per_stream, pos_out);
   return (int)cudaGetLastError();

@@ -4,6 +4,10 @@ from cudavideostream_tpu_torch.models.batched import (
     BatchedDeltaPipeline,
     from_jax_batched,
 )
-from cudavideostream_tpu_torch.models.pipeline import DeltaStreamPipeline
+from cudavideostream_tpu_torch.models.pipeline import (
+    DeltaStreamPipeline,
+    from_jax_sharded,
+)
 
-__all__ = ["DeltaStreamPipeline", "BatchedDeltaPipeline", "from_jax_batched"]
+__all__ = ["DeltaStreamPipeline", "BatchedDeltaPipeline", "from_jax_batched",
+           "from_jax_sharded"]

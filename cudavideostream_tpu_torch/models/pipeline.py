@@ -110,6 +110,31 @@ def from_jax_pipeline(config: StreamConfig, prev_np: np.ndarray,
     return pipe, prev
 
 
+def from_jax_sharded(config: StreamConfig, mesh, state_np: np.ndarray,
+                     conv_weights_q16: Optional[np.ndarray] = None,
+                     threshold_map: Optional[np.ndarray] = None,
+                     payload_layout: str = "replicated"):
+    """Take over the JAX sharded pipeline's stream(s) on a mesh of this
+    package (``parallel.make_mesh``): its state as numpy
+    (``np.asarray(jax_state)``: flat ``(frame_bytes,)`` for ``step_flat``,
+    ``(B, frame_bytes)`` for ``step``), its exact Q16 noise-filter taps
+    (``jpipe.conv_q16``) and its per-byte threshold map
+    (``jpipe.threshold_map_np``, None without one). Returns ``(pipeline,
+    state)``, the state laid out over the mesh as its ``init_state_flat``
+    or ``init_state`` lays it."""
+    from cudavideostream_tpu_torch.parallel.sharded import (
+        ShardedDeltaPipeline,
+    )
+
+    pipe = ShardedDeltaPipeline(config, mesh, payload_layout=payload_layout,
+                                threshold_map=threshold_map,
+                                conv_weights_q16=conv_weights_q16)
+    state_np = np.asarray(state_np, dtype=np.uint8)
+    state = (pipe.init_state_flat(state_np) if state_np.ndim == 1
+             else pipe.init_state(state_np))
+    return pipe, state
+
+
 class DeltaStreamPipeline:
     """Configured pipeline over device-resident state.
 

@@ -30,7 +30,11 @@ The counterpart of the JAX package's ``ops/logcompact.py``:
   (``scheme="register"`` selects K6, ``ops.register_compact``).
 
 Every K1 entry point and K5 take ``threshold_map``, a per-byte uint8 map
-that replaces the scalar threshold (the JAX ``thr_is_map``).
+that replaces the scalar threshold (the JAX ``thr_is_map``). The flat and
+the solo tiled K1 entry points take ``index_offset`` (the JAX
+``has_offset``), an int added to every valid emitted index, which lets a
+launch on one row shard of a frame emit global frame indices
+(``parallel.sharded``).
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/logcompact.cu``, ``csrc/pair_compact.cu``,
@@ -92,13 +96,14 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = build.load("logcompact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.cvs_fused_diff_compact.argtypes = [
-            i, p, p, p, ll, ll, i, p, i, i, i, p, p, p, ll, p, p,
+            i, p, p, p, ll, ll, i, p, i, i, i, i, p, p, p, ll, p, p,
         ]
         lib.cvs_fused_diff_compact.restype = i
         lib.cvs_tiled_grid.argtypes = [ll, i]
         lib.cvs_tiled_grid.restype = i
         lib.cvs_fused_diff_compact_tiled.argtypes = [
-            i, p, p, p, ll, ll, ll, i, i, p, i, i, i, p, p, i, p, p, p, p, p,
+            i, p, p, p, ll, ll, ll, i, i, p, i, i, i, i, p, p, i, p, p, p, p,
+            p,
         ]
         lib.cvs_fused_diff_compact_tiled.restype = i
         _bind_common(lib, "logcompact")
@@ -313,6 +318,22 @@ def _check_scheme(scheme, overlay_region, threshold_map, emit_bits=False):
                          "element/segment schemes only")
 
 
+def _check_offset(index_offset, scheme, n_pad) -> int:
+    """The index offset as an int; refuses another scheme than
+    ``"element"`` as the JAX package does (``logcompact.py:696-697``), and
+    an offset that would carry an index past int32 (where the JAX package
+    would wrap)."""
+    off = int(index_offset)
+    if off and scheme != "element":
+        raise ValueError("index_offset: element scheme only")
+    if off < 0:
+        raise ValueError("index_offset must be >= 0")
+    if off + n_pad >= 1 << 31:
+        raise ValueError(f"index_offset {off} + {n_pad} padded frame bytes "
+                         "exceed int32")
+    return off
+
+
 def _whole_tile_blocks(scheme, current, previous, threshold,
                        negative_feedback, overlay_region, threshold_map):
     """``(counts int32, xs_t, vals_t)`` of the segment (K5) or register
@@ -344,6 +365,7 @@ def fused_diff_compact(
     capacity: Optional[int] = None,
     threshold_map: Optional[torch.Tensor] = None,
     scheme: str = "element",
+    index_offset: int = 0,
 ):
     """Flat-emit diff+compact; returns ``(pos, xs, vals, new_prev)``.
 
@@ -366,6 +388,12 @@ def fused_diff_compact(
     ``"register"`` (K6, ``ops.register_compact``; neither), whose blocks
     :func:`merge_tiles` (K2) concatenates. All three give the same bytes.
 
+    ``index_offset``: added to every valid index (``xs[:pos]``; the zeros
+    past ``pos`` stay 0), so that a launch on row shard ``s`` of a frame,
+    given ``s * shard_bytes``, emits global frame indices. Element scheme
+    only; ``index_offset + n_pad`` must stay below 2**31, ``n_pad`` the
+    frame padded to whole tiles (:func:`tiled_geometry`).
+
     CUDA tensors launch the kernel (and count one in
     ``fused_diff_compact.launches``); CPU tensors run
     :func:`fused_diff_compact_reference`.
@@ -373,6 +401,7 @@ def fused_diff_compact(
     _check_args(current, previous, threshold, overlay_region, threshold_map)
     _check_scheme(scheme, overlay_region, threshold_map)
     n = current.numel()
+    off = _check_offset(index_offset, scheme, tiled_geometry(n, 0)[0])
     cap = n if capacity is None else min(int(capacity), n)
     if scheme != "element":
         counts, xs_t, vals_t = _whole_tile_blocks(
@@ -384,7 +413,7 @@ def fused_diff_compact(
     if dev.type == "cpu":
         return fused_diff_compact_reference(
             current, previous, threshold, negative_feedback, overlay_region,
-            capacity, threshold_map,
+            capacity, threshold_map, off,
         )
     region_len = _check_kernel_args("fused_diff_compact", current, previous,
                                     overlay_region, threshold_map)
@@ -400,7 +429,7 @@ def fused_diff_compact(
         _device_index(dev),
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len, n,
         int(threshold), _ptr(threshold_map), int(bool(negative_feedback)),
-        per_block, grid,
+        off, per_block, grid,
         counts.data_ptr(), xs.data_ptr(), vals.data_ptr(), cap,
         pos.data_ptr(), stream,
     )
@@ -420,24 +449,26 @@ def fused_diff_compact_reference(
     overlay_region: Optional[torch.Tensor] = None,
     capacity: Optional[int] = None,
     threshold_map: Optional[torch.Tensor] = None,
+    index_offset: int = 0,
 ):
     """The plain PyTorch version of :func:`fused_diff_compact`: the same
     outputs from ``diff_mask``, ``nonzero`` and ``masked_select``, with
     ``new_prev`` written into ``previous`` in place. ``nonzero`` makes it
     synchronize with the device on CUDA tensors."""
     _check_args(current, previous, threshold, overlay_region, threshold_map)
+    n = current.numel()
+    off = _check_offset(index_offset, "element", tiled_geometry(n, 0)[0])
     cur = region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
         cur, previous, _thr(threshold, threshold_map), negative_feedback
     )
     idx = torch.nonzero(mask).flatten()  # ascending
     shipped = torch.masked_select(dvals, mask)
-    n = current.numel()
     cap = n if capacity is None else min(int(capacity), n)
     k = min(idx.numel(), cap)
     xs = torch.zeros(cap, dtype=torch.int32, device=current.device)
     vals = torch.zeros(cap, dtype=torch.uint8, device=current.device)
-    xs[:k] = idx[:k].to(torch.int32)
+    xs[:k] = (idx[:k] + off).to(torch.int32)
     vals[:k] = shipped[:k]
     previous.copy_(new_prev)  # in place, as the kernel does
     pos = torch.tensor(idx.numel(), dtype=torch.int32, device=current.device)
@@ -446,9 +477,10 @@ def fused_diff_compact_reference(
 
 def _launch_tiled(name, current, previous, threshold, negative_feedback,
                   overlay_region, threshold_map, n_pad, unit_bytes, emit_xs,
-                  emit_bits, n_streams=None):
+                  emit_bits, n_streams=None, index_offset=0):
     """One launch of the tiled K1 entry point; returns ``(pos, counts,
-    xs_t or None, vals_t, bits or None)``. ``n_streams``: None for one
+    xs_t or None, vals_t, bits or None)``. ``index_offset``: a checked int
+    (:func:`_check_offset`), 0 in the batched mode. ``n_streams``: None for one
     frame (``pos`` 0-d), else the batched mode over that many frames of
     ``current.numel() / n_streams`` bytes (``pos`` one int32 per stream,
     the blocks of stream ``b`` from unit ``b * n_pad / unit_bytes``,
@@ -476,7 +508,7 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
         _device_index(dev),
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len,
         current.numel() // b, n_pad, b, int(threshold), _ptr(threshold_map),
-        int(bool(negative_feedback)),
+        int(bool(negative_feedback)), index_offset,
         unit_bytes, counts.element_size(), scratch.data_ptr(),
         counts.data_ptr(), int(emit_xs),
         None if xs_t is None else xs_t.data_ptr(), vals_t.data_ptr(),
@@ -488,7 +520,7 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
 
 def _tiled_plain(current, previous, threshold, negative_feedback,
                  overlay_region, threshold_map, n_pad, unit_bytes, emit_xs,
-                 emit_bits):
+                 emit_bits, index_offset=0):
     """The plain PyTorch version of :func:`_launch_tiled`: the mask from
     ``diff_mask``, each entry's rank in its unit from a per-unit
     ``cumsum``, one scatter into zeroed blocks, and ``pack_bitmask``;
@@ -510,7 +542,8 @@ def _tiled_plain(current, previous, threshold, negative_feedback,
     xs_t = None
     if emit_xs:
         xs_t = torch.zeros(n_pad, dtype=torch.int32, device=dev)
-        xs_t[slot] = torch.nonzero(m).flatten().to(torch.int32)
+        xs_t[slot] = (torch.nonzero(m).flatten() + index_offset).to(
+            torch.int32)
         xs_t = xs_t.view(n_units, unit_bytes)
     vals_t = torch.zeros(n_pad, dtype=torch.uint8, device=dev)
     vals_t[slot] = dvals[mask]
@@ -531,6 +564,7 @@ def fused_diff_compact_tiled(
     emit_bits: bool = False,
     threshold_map: Optional[torch.Tensor] = None,
     scheme: str = "element",
+    index_offset: int = 0,
 ):
     """Tiled-emit diff+compact; returns ``(pos, counts, xs_t, vals_t,
     new_prev)`` as JAX ``fused_diff_compact(emit="tiled")`` does, and
@@ -557,12 +591,17 @@ def fused_diff_compact_tiled(
     ``sub_rows`` says (the JAX package zeroes it for them,
     ``logcompact.py:894-903``): its outputs are those of ``sub_rows=0``.
 
+    ``index_offset`` as for :func:`fused_diff_compact`: added to every
+    valid index of ``xs_t``, the zero fill left 0.
+
     CUDA tensors launch the kernel (and count one in
     ``fused_diff_compact_tiled.launches``); CPU tensors run
     :func:`fused_diff_compact_tiled_reference`.
     """
     _check_args(current, previous, threshold, overlay_region, threshold_map)
     _check_scheme(scheme, overlay_region, threshold_map, emit_bits)
+    n_pad, unit_bytes = tiled_geometry(current.numel(), sub_rows)
+    off = _check_offset(index_offset, scheme, n_pad)
     if scheme != "element":
         counts, xs_t, vals_t = _whole_tile_blocks(
             scheme, current, previous, threshold, negative_feedback,
@@ -573,12 +612,12 @@ def fused_diff_compact_tiled(
     if current.device.type == "cpu":
         return fused_diff_compact_tiled_reference(
             current, previous, threshold, negative_feedback, overlay_region,
-            sub_rows, emit_bits, threshold_map,
+            sub_rows, emit_bits, threshold_map, off,
         )
-    n_pad, unit_bytes = tiled_geometry(current.numel(), sub_rows)
     out = _launch_tiled("fused_diff_compact_tiled", current, previous,
                         threshold, negative_feedback, overlay_region,
-                        threshold_map, n_pad, unit_bytes, True, emit_bits)
+                        threshold_map, n_pad, unit_bytes, True, emit_bits,
+                        index_offset=off)
     fused_diff_compact_tiled.launches += 1
     return _tiled_result(out, previous, emit_bits)
 
@@ -602,15 +641,17 @@ def fused_diff_compact_tiled_reference(
     sub_rows: int = 0,
     emit_bits: bool = False,
     threshold_map: Optional[torch.Tensor] = None,
+    index_offset: int = 0,
 ):
     """The plain PyTorch version of :func:`fused_diff_compact_tiled`: the
     mask from ``diff_mask``, each entry's rank in its unit from a
     per-unit ``cumsum``, one scatter into zeroed blocks."""
     _check_args(current, previous, threshold, overlay_region, threshold_map)
     n_pad, unit_bytes = tiled_geometry(current.numel(), sub_rows)
+    off = _check_offset(index_offset, "element", n_pad)
     out = _tiled_plain(current, previous, threshold, negative_feedback,
                        overlay_region, threshold_map, n_pad, unit_bytes,
-                       True, emit_bits)
+                       True, emit_bits, off)
     return _tiled_result(out, previous, emit_bits)
 
 

@@ -48,28 +48,43 @@ for _v in range(256):
 del _v, _idx
 
 
+def _tensors(x) -> list:
+    """The tensors of a step output: one tensor, or a list of them (one
+    per shard of a sharded step)."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
 class _Staged:
     """One dispatched frame: its step outputs past ``new_prev`` (the
     visualizer's aux frame last, or None), and host copies of its sizes
-    queued behind the step and marked by an event."""
+    queued behind the step and marked by an event on each device they
+    come from. A size, and the aux, may be a list of per-shard tensors
+    (``parallel.sharded``): it lands as a list of arrays, and the aux
+    frame as the shards' frames joined by ``aux_join``."""
 
-    def __init__(self, outs, n_sizes: int):
+    def __init__(self, outs, n_sizes: int, aux_join=np.concatenate):
         self.outs = outs
         self.aux = outs[-1]
+        self.aux_join = aux_join
         self.aux_host = None  # the landed aux, once a copy has run
-        sizes = outs[:n_sizes]
-        if sizes[0].is_cuda:
+        self.events = {}      # device -> the event after the step's work
+        self.sizes = []
+        for x in outs[:n_sizes]:
             # non-blocking device-to-host copies land in pinned memory
-            self.sizes = [t.to("cpu", non_blocking=True) for t in sizes]
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.sizes, self.event = list(sizes), None
+            host = [t.to("cpu", non_blocking=True) if t.is_cuda else t
+                    for t in _tensors(x)]
+            self.sizes.append(host if isinstance(x, (list, tuple))
+                              else host[0])
+            for t in _tensors(x):
+                if t.is_cuda and t.device not in self.events:
+                    ev = self.events[t.device] = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(t.device))
 
     def wait(self):
-        if self.event is not None:
-            self.event.synchronize()
-        return [t.numpy() for t in self.sizes]
+        for ev in self.events.values():
+            ev.synchronize()
+        return [[t.numpy() for t in x] if isinstance(x, list) else x.numpy()
+                for x in self.sizes]
 
 
 class _Copier:
@@ -79,35 +94,83 @@ class _Copier:
     landing it adds no wait on the device."""
 
     def __init__(self, device: torch.device):
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # the key under which a frame's tensors record their events
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self._streams = {}  # the landing stream of each CUDA device
+
+    def _stream(self, dev: torch.device) -> torch.cuda.Stream:
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(dev)
+        return stream
+
+    def _aux(self, staged: _Staged) -> list:
+        """The aux tensors still to copy with this landing."""
+        if staged.aux is None or staged.aux_host is not None:
+            return []
+        return _tensors(staged.aux)
+
+    def _set_aux(self, staged: _Staged, aux: list, host: list) -> list:
+        if aux:
+            parts = host[len(host) - len(aux):]
+            del host[len(host) - len(aux):]
+            staged.aux_host = (staged.aux_join(parts)
+                               if isinstance(staged.aux, list) else parts[0])
+        return host
 
     def run(self, staged: _Staged, fn):
-        """``fn()`` returns the device tensors to copy; returns them as
-        host arrays once the copies are done, and sets
-        ``staged.aux_host``."""
-        aux = [] if staged.aux is None or staged.aux_host is not None else [
-            staged.aux]
-        if self.stream is None:
-            host = [t.numpy() for t in [*fn(), *aux]]
-        else:
-            with torch.cuda.stream(self.stream):
-                self.stream.wait_event(staged.event)
-                host = [t.to("cpu", non_blocking=True)
-                        for t in [*fn(), *aux]]
-                done = torch.cuda.Event()
-                done.record()
-            done.synchronize()
-            host = [t.numpy() for t in host]
-        if aux:
-            staged.aux_host = host.pop()
-        return host
+        """``fn()`` returns the device tensors to copy, all on this
+        copier's device (``fn`` may launch work there, on the landing
+        stream); returns them as host arrays once the copies are done,
+        and sets ``staged.aux_host``."""
+        aux = self._aux(staged)
+        if self.device.type != "cuda":
+            return self._set_aux(staged, aux,
+                                 [t.numpy() for t in [*fn(), *aux]])
+        stream = self._stream(self.device)
+        with torch.cuda.stream(stream):
+            stream.wait_event(staged.events[self.device])
+            host = [t.to("cpu", non_blocking=True) for t in [*fn(), *aux]]
+            done = torch.cuda.Event()
+            done.record()
+        done.synchronize()
+        return self._set_aux(staged, aux, [t.numpy() for t in host])
+
+    def run_views(self, staged: _Staged, views):
+        """Copy ``views`` (device tensors from any of the frame's devices,
+        with no work left to run on them: slices of the step's outputs)
+        to the host, each on its own device's landing stream behind that
+        device's event; one wait for them all. Returns host arrays and
+        sets ``staged.aux_host``, as :meth:`run` does."""
+        aux = self._aux(staged)
+        host, used = [], {}
+        for t in [*views, *aux]:
+            if not t.is_cuda:
+                host.append(t)
+                continue
+            stream = self._stream(t.device)
+            with torch.cuda.stream(stream):
+                if t.device not in used:
+                    stream.wait_event(staged.events[t.device])
+                    used[t.device] = stream
+                host.append(t.to("cpu", non_blocking=True))
+        dones = []
+        for stream in used.values():
+            ev = torch.cuda.Event()
+            ev.record(stream)
+            dones.append(ev)
+        for ev in dones:
+            ev.synchronize()
+        return self._set_aux(staged, aux, [t.numpy() for t in host])
 
     def land_aux(self, staged: _Staged):
         """The frame's aux frame as a host array (None without one),
         copied now unless a landing copy already brought it."""
         if staged.aux is not None and staged.aux_host is None:
-            self.run(staged, lambda: [])
+            self.run_views(staged, [])
         return staged.aux_host
 
 
@@ -143,13 +206,23 @@ class TiledLander:
     result of the fixed flavor, or of ``tiles`` under ``auto``, with no
     device work, and teaches ``auto`` nothing. The wire bytes are the
     same whichever flavor lands; ``fetch_counts`` records the choices.
+
+    Two landings serve the sharded pipeline (``parallel.sharded``), whose
+    shards' blocks may lie on several devices and hold global indices
+    (K1's ``index_offset``): :meth:`land_shard_spans`, the ``tiles``
+    flavor over every shard's units, and the ``shards`` flavor of
+    :meth:`land_many` (``multiserve --mesh``), each shard one tile. Both
+    copy the blocks from the device that holds each shard, int32 as they
+    are: a shard pads to whole units, so unit ``t`` of the concatenated
+    shards does not start at byte ``t * unit_bytes`` and the unit-local
+    narrowing of ``tiles`` would not rebuild its indices.
     """
 
     #: weight of the newest measurement in the rate and extra-time EMAs
     ALPHA = 0.3
 
     def __init__(self, mode: str = "auto", return_mask: bool = False):
-        if mode not in ("auto", "tiles", "flat", "mask"):
+        if mode not in ("auto", "tiles", "flat", "mask", "shards"):
             raise ValueError(f"unknown landing flavor {mode!r}")
         self.mode = mode
         self.return_mask = return_mask
@@ -218,6 +291,9 @@ class TiledLander:
         """Land one frame; ``blocks`` are its device ``(counts, xs_t or
         None, vals_t, bits or None)``. Returns a TiledPayload, a
         MaskPayload or flat ``(xs, vals)``."""
+        if self.mode == "shards":
+            raise ValueError("the shards flavor lands per-shard blocks "
+                             "through land_many")
         counts_d, xs_t_d, vals_t_d, bits_d = blocks
         if xs_t_d is None and self.mode != "mask":
             raise ValueError("bitmask-only payloads land through fetch "
@@ -290,11 +366,62 @@ class TiledLander:
         )
         return res, xw.nbytes + vw.nbytes
 
+    def land_shard_spans(self, pos: int, shards, staged: _Staged,
+                         copier: _Copier):
+        """The ``tiles`` landing of one frame whose units lie in several
+        shards: each item of ``shards`` is one shard's ``(counts_host,
+        xs_t_d, vals_t_d)``, its blocks holding global indices. Copies
+        every shard's non-empty unit span, int32 as it is, from its own
+        device (one wait for all) and returns one TiledPayload of the
+        spans in shard order, which is ascending index order."""
+        views, spans = [], []
+        for counts, xs_t_d, vals_t_d in shards:
+            nz = np.flatnonzero(counts)
+            if nz.size:
+                t_lo, t_hi = int(nz[0]), int(nz[-1]) + 1
+                views += [xs_t_d[t_lo:t_hi], vals_t_d[t_lo:t_hi]]
+                spans.append(counts[t_lo:t_hi])
+        self.fetch_counts["tiles"] += 1
+        unit_bytes = shards[0][2].shape[1]
+        if not spans:
+            return self._empty("tiles", shards[0][0], unit_bytes)
+        host = copier.run_views(staged, views)
+        return wire.TiledPayload(pos, np.concatenate(spans),
+                                 np.concatenate(host[0::2]),
+                                 np.concatenate(host[1::2]))
+
+    def _land_shards(self, items, staged: _Staged, copier: _Copier):
+        """The ``shards`` flavor of :meth:`land_many`: each item's
+        ``xs_t_d`` and ``vals_t_d`` are lists of per-shard ``(Ln,)`` flat
+        blocks (global indices, zero past each count), and each shard
+        lands as one tile of its count-prefix, copied from its own device
+        (every item's copies queued, one wait). A tile's slot count is the
+        item's largest count, since only prefixes are read."""
+        views = []
+        for _, counts, _, xs_d, vals_d in items:
+            for c, x, v in zip(counts, xs_d, vals_d):
+                if c:
+                    views += [x[:int(c)], v[:int(c)]]
+        host = iter(copier.run_views(staged, views))
+        out = []
+        for pos, counts, *_ in items:
+            width = max(1, int(np.max(counts)))
+            xs_b = np.zeros((len(counts), width), np.int32)
+            vals_b = np.zeros((len(counts), width), np.uint8)
+            for s, c in enumerate(counts):
+                if c:
+                    xs_b[s, :c] = next(host)
+                    vals_b[s, :c] = next(host)
+            self.fetch_counts["tiles"] += 1
+            out.append(wire.TiledPayload(pos, counts, xs_b, vals_b))
+        return out
+
     def land_many(self, items, staged: _Staged, copier: _Copier):
         """Land the tiled payloads of several streams from one batched
         step (the JAX ``land_many``). Each item is ``(pos, counts_host,
         counts_d, xs_t_d, vals_t_d)``; returns a same-length list of
-        TiledPayload or flat ``(xs, vals)``.
+        TiledPayload or flat ``(xs, vals)``. In the ``shards`` flavor the
+        blocks are per-shard lists (:meth:`_land_shards`).
 
         Each item takes its own flavor (:meth:`pick`), but every ``flat``
         item's K2 merge is dispatched, and every item's copy queued, before
@@ -304,6 +431,8 @@ class TiledLander:
         if self.mode == "mask":
             raise ValueError("fetch mode 'mask' needs the packed bits, which "
                              "a batched step does not emit")
+        if self.mode == "shards":
+            return self._land_shards(items, staged, copier)
         plans = []
         for pos, counts, counts_d, xs_t_d, vals_t_d in items:
             plans.append((pos, counts,

@@ -15,7 +15,15 @@ payloads with its native scatter (``ROADMAP.md`` M18); here the payload is
 packed once and sent with ``sendall``, and applied with the NumPy
 wrap-add, to the same bytes.
 
+With ``--mesh D,S`` the streams shard over a ``(data=D, space=S)`` mesh
+(``parallel.sharded``, the ``"sharded"`` payload layout): stream ``b``
+runs on data row ``b // (B / D)``, each frame's rows cut into S shards
+that compact their rows with K1 flat and its ``index_offset`` mode, and
+each stream's payload lands as one tile per shard, copied from the
+device that holds it (the ``shards`` landing).
+
 Run:  ``python -m cudavideostream_tpu_torch.runtime.multiserve --streams 4``
+      ``python -m cudavideostream_tpu_torch.runtime.multiserve --streams 4 --mesh 1,1``
 """
 
 from __future__ import annotations
@@ -37,6 +45,10 @@ from cudavideostream_tpu_torch.config import (
     Visualizer,
 )
 from cudavideostream_tpu_torch.models import BatchedDeltaPipeline
+from cudavideostream_tpu_torch.parallel.sharded import (
+    ShardedDeltaPipeline,
+    gather,
+)
 from cudavideostream_tpu_torch.runtime import wire
 from cudavideostream_tpu_torch.runtime.client import write_ppm
 from cudavideostream_tpu_torch.runtime.executor import (
@@ -45,17 +57,20 @@ from cudavideostream_tpu_torch.runtime.executor import (
     _Copier,
     _Staged,
 )
+from cudavideostream_tpu_torch.runtime.sharded_executor import make_mesh
 from cudavideostream_tpu_torch.runtime.sources import FrameSource, make_source
 
 
 class MultiStreamServer:
     """B streams on one card: one batched step per frame, each stream's
-    payload landed and sent to that stream's client."""
+    payload landed and sent to that stream's client. With a ``(data,
+    space)`` mesh (``parallel.make_mesh``): the sharded pipeline's step,
+    B divisible by the data axis."""
 
     def __init__(self, config: StreamConfig, sources: List[FrameSource],
                  verbose: bool = True, overlay_status: bool = True,
                  aux_dir: Optional[str] = None, aux_every: int = 30,
-                 device=None):
+                 device=None, mesh=None):
         # aux_dir: where every aux_every-th batched frame's aux frames go,
         # one aux_<b>_<n>.ppm per stream
         if config.fetch_mode == "mask":
@@ -67,7 +82,17 @@ class MultiStreamServer:
         self.cfg = config
         self.sources = sources
         self.B = len(sources)
-        self.pipe = BatchedDeltaPipeline(config, self.B, device=device)
+        self._sharded = mesh is not None
+        if self._sharded:
+            if self.B % mesh.shape["data"]:
+                raise ValueError(f"{self.B} streams not divisible by "
+                                 f"data={mesh.shape['data']}")
+            self.pipe = ShardedDeltaPipeline(config, mesh,
+                                             payload_layout="sharded")
+            first = mesh.device(0, 0)
+        else:
+            self.pipe = BatchedDeltaPipeline(config, self.B, device=device)
+            first = self.pipe.device
         self.aux_dir = aux_dir
         self.aux_every = aux_every
         self.verbose = verbose
@@ -78,8 +103,11 @@ class MultiStreamServer:
         self._arrived = threading.Event()  # some client is pending
         self._clients: List[Optional[socket.socket]] = [None] * self.B
         self._stop = threading.Event()
-        self._lander = TiledLander(config.fetch_mode)
-        self._copier = _Copier(self.pipe.device)
+        # the sharded layout lands each shard's count-prefix from its own
+        # device: a device merge would gather every shard to one device
+        self._lander = TiledLander("shards" if self._sharded
+                                   else config.fetch_mode)
+        self._copier = _Copier(first)
         self.metrics = ExecMetrics()
 
     @property
@@ -151,6 +179,8 @@ class MultiStreamServer:
         """One batched step's payloads on the host: per stream a
         TiledPayload or flat ``(xs, vals)``, or None where a flat payload
         overflowed the capacity; returns ``(pos (B,), payloads, aux)``."""
+        if self._sharded:
+            return self._land_sharded(outs)
         if self.cfg.tiled_payload:
             staged = _Staged(outs, 2)
             pos, counts = staged.wait()
@@ -170,6 +200,30 @@ class MultiStreamServer:
             payloads = [(next(host), next(host)) if fits[b] else None
                         for b in range(self.B)]
         return pos, payloads, self._copier.land_aux(staged)
+
+    def _land_sharded(self, outs):
+        """The sharded step's payloads: its ``(data, space)`` grids of
+        per-shard counts ``(B/D, 1)`` and flat blocks ``(B/D, Ln)``; each
+        stream's shards land as one TiledPayload (the ``shards``
+        flavor)."""
+        counts_g, xs_g, vals_g, aux_g = outs
+        S, D = self.pipe.n_space, self.pipe.n_data
+
+        def join(parts):  # the grid's per-shard arrays, listed row by row
+            return gather([parts[d * S:(d + 1) * S] for d in range(D)])
+
+        staged = _Staged((sum(counts_g, []),
+                          None if aux_g is None else sum(aux_g, [])), 1,
+                         aux_join=join)
+        counts = join(staged.wait()[0]).astype(np.int32)  # (B, S)
+        Bl = self.B // D
+        payloads = self._lander.land_many(
+            [(int(counts[b].sum()), counts[b], None,
+              [x[b % Bl] for x in xs_g[b // Bl]],
+              [v[b % Bl] for v in vals_g[b // Bl]]) for b in range(self.B)],
+            staged, self._copier)
+        return (counts.sum(axis=1, dtype=np.int64), payloads,
+                self._copier.land_aux(staged))
 
     def serve(self, max_frames: Optional[int] = None,
               wait_first_client: bool = True,
@@ -311,8 +365,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--checkpoint-to", default=None,
                    help="write the per-stream state when serving ends")
     p.add_argument("--mesh", default=None, metavar="D,S",
-                   help="shard the streams over a device mesh (not ported "
-                        "yet: ROADMAP.md M15)")
+                   help="shard the B streams over a (data=D, space=S) "
+                        "device mesh (B divisible by D; image rows shard "
+                        "across S; every shard on the CPU with --device "
+                        "cpu)")
     p.add_argument("--aux-dir", default=None,
                    help="dump per-stream visualizer aux frames here as "
                         "aux_<stream>_<frame>.ppm")
@@ -325,9 +381,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "PyTorch versions)")
     args = p.parse_args(argv)
     if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh is not ported to cudavideostream_tpu_torch yet: see "
-            "ROADMAP.md M15")
+        try:
+            args.mesh = tuple(int(x) for x in args.mesh.split(","))
+        except ValueError:
+            args.mesh = ()
+        if len(args.mesh) != 2 or min(args.mesh) < 1:
+            p.error("--mesh takes D,S: two positive ints")
+        if args.capacity is not None:
+            p.error("--capacity applies to the single-chip batched path "
+                    "only")
     if args.source != "synthetic" or args.path is not None:
         raise NotImplementedError(
             "the file source (--source file, --path) is not ported to "
@@ -338,19 +400,24 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     args = parse_args(argv)
     # the tiled payload is the batched fast path (one launch for every
-    # stream); a capacity bound needs the flat payload
+    # stream); a capacity bound needs the flat payload, and the mesh has
+    # its own payload layout
     cfg = StreamConfig(height=args.height, width=args.width, host=args.host,
                        port=args.port, wire_format=args.wire,
                        visualizer=Visualizer(args.visualizer),
                        noise_filter=args.noise_filter, conv_k=args.conv_k,
-                       tiled_payload=args.capacity is None,
+                       tiled_payload=args.mesh is None
+                       and args.capacity is None,
                        payload_capacity=args.capacity)
     sources = [make_source(args.source, cfg, seed=b)
                for b in range(args.streams)]
     if args.aux_dir:
         os.makedirs(args.aux_dir, exist_ok=True)
+    mesh = None
+    if args.mesh is not None:
+        mesh = make_mesh(*args.mesh, device=args.device)
     server = MultiStreamServer(cfg, sources, aux_dir=args.aux_dir,
-                               device=args.device)
+                               device=args.device, mesh=mesh)
     n = server.serve(max_frames=args.frames, resume_from=args.resume_from,
                      checkpoint_to=args.checkpoint_to)
     print(f"served {n} batched frames over {args.streams} streams",

@@ -24,6 +24,12 @@ Run:  ``python -m cudavideostream_tpu_torch.runtime.server --source synthetic``
       ``python -m cudavideostream_tpu_torch.runtime.server --tiled --pipelined --wire v3``
       ``python -m cudavideostream_tpu_torch.runtime.server --tiled --fetch mask --maskonly --wire v4 --land-batch 8``
       ``python -m cudavideostream_tpu_torch.runtime.server --threshold-map map.npy``
+      ``python -m cudavideostream_tpu_torch.runtime.server --mesh 1,1 --pipelined``
+
+``--mesh 1,S`` serves the stream from the sharded pipeline
+(``parallel.sharded``): the frame's rows cut into S shards over S CUDA
+devices, each compacting its rows with K1's ``index_offset`` mode, the
+same wire bytes.
 """
 
 from __future__ import annotations
@@ -49,6 +55,11 @@ from cudavideostream_tpu_torch.runtime.executor import (
     BatchedLandExecutor,
     PipelinedExecutor,
     StreamExecutor,
+)
+from cudavideostream_tpu_torch.runtime.sharded_executor import (
+    PipelinedShardedExecutor,
+    ShardedStreamExecutor,
+    make_mesh,
 )
 from cudavideostream_tpu_torch.runtime.sources import FrameSource, make_source
 
@@ -234,8 +245,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="oracle (the NumPy executor) is not ported yet "
                         "(ROADMAP.md M18)")
     p.add_argument("--mesh", default=None, metavar="D,S",
-                   help="the sharded pipeline (not ported yet: ROADMAP.md "
-                        "M15)")
+                   help="run the stream sharded over a (data=D, space=S) "
+                        "device mesh (D*S CUDA devices, or every shard on "
+                        "the CPU with --device cpu): image rows shard "
+                        "across S, each shard compacting its own with K1; "
+                        "D must be 1 (multiserve --mesh shards streams)")
     p.add_argument("--no-pair-lanes", action="store_true",
                    help="a TPU lane layout with identical outputs: no-op")
     p.add_argument("--resume", default=None, metavar="CKPT",
@@ -319,14 +333,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions)")
     args = p.parse_args(argv)
+    # the JAX server's refusals of --mesh (server.py:393-416), before the
+    # options that are not ported yet, as there
+    if args.mesh is not None:
+        try:
+            args.mesh = tuple(int(x) for x in args.mesh.split(","))
+        except ValueError:
+            args.mesh = ()
+        if len(args.mesh) != 2 or min(args.mesh) < 1:
+            p.error("--mesh takes D,S: two positive ints")
+        if args.tiled or args.backend == "oracle":
+            p.error("--mesh is exclusive with --tiled/--backend oracle")
+        if args.compaction != CompactionBackend.PALLAS.value:
+            p.error("--mesh supports --compaction pallas only")
+        if args.capacity is not None:
+            p.error("--capacity applies to flat single-chip payloads only")
     if args.aux_port is not None:
         raise _not_ported("--aux-port", "M18")
     if args.backend != "device":
         raise _not_ported(f"--backend {args.backend}", "M18")
     if args.compaction != CompactionBackend.PALLAS.value:
         raise _not_ported(f"--compaction {args.compaction}", "M12")
-    if args.mesh is not None:
-        raise _not_ported("--mesh", "M15")
     if args.source != "synthetic" or args.path is not None or args.prefetch:
         raise _not_ported("--source file|v4l2, --path and --prefetch", "M16")
     if (args.resume is not None or args.save_state is not None
@@ -378,10 +405,16 @@ def setup(argv=None):
         **({"subtile_rows": args.subtile}
            if args.subtile is not None else {}),
     )
-    pipe = DeltaStreamPipeline(
-        cfg, device=args.device,
-        threshold_map=(None if args.threshold_map is None
-                       else load_threshold_map(args.threshold_map)))
+    thr_map = (None if args.threshold_map is None
+               else load_threshold_map(args.threshold_map))
+    if args.mesh is not None:
+        # --pipelined and --threshold-map compose with the mesh: the map
+        # is cut along rows like the frame
+        cls = (PipelinedShardedExecutor if args.pipelined
+               else ShardedStreamExecutor)
+        return cfg, cls(cfg, mesh=make_mesh(*args.mesh, device=args.device),
+                        threshold_map=thr_map), args
+    pipe = DeltaStreamPipeline(cfg, device=args.device, threshold_map=thr_map)
     if args.land_batch:
         executor = BatchedLandExecutor(cfg, pipeline=pipe,
                                        depth=args.land_batch)

@@ -473,7 +473,7 @@ def test_multiserve_main_and_client_main(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("module,argv,item", [
-    (multiserve, ["--mesh", "1,1"], "M15"),
+    (multiserve, ["--mesh", "1,1"], None),
     (multiserve, ["--source", "file"], "M16"),
     (multiserve, ["--path", "x.npy"], "M16"),
     (broadcast, ["--link-cache", "l.json"], "M13"),
@@ -482,9 +482,14 @@ def test_multiserve_main_and_client_main(capsys, tmp_path):
 ], ids=["multi_mesh", "multi_file", "multi_path", "bc_link_cache",
         "bc_calibrate", "bc_v4l2"])
 def test_entry_points_name_their_roadmap_item(module, argv, item):
+    """Options of parts not ported yet name their ROADMAP.md item; an
+    option ported since (``item`` None: ``--mesh``, M15) is taken."""
+    argv = argv + ["--device", "cpu", "--height", "48", "--width", "64"]
+    if item is None:
+        assert module.parse_args(argv).mesh == (1, 1)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        module.main(argv + ["--device", "cpu", "--height", "48", "--width",
-                            "64"])
+        module.main(argv)
 
 
 # -- landing several streams at once ----------------------------------------

@@ -250,7 +250,10 @@ def test_port_imports_nothing_of_jax():
                 "models/pipeline.py", "kernels/build.py", "ops/filters.py",
                 "ops/hist.py", "ops/convolve.py", "models/variants.py",
                 "models/batched.py", "runtime/multiserve.py",
-                "runtime/broadcast.py", "runtime/replay.py"):
+                "runtime/broadcast.py", "runtime/replay.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/halo_conv.py", "parallel/sharded.py",
+                "runtime/sharded_executor.py"):
         assert f"cudavideostream_tpu_torch/{mod}" in rel, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -356,7 +359,12 @@ def test_port_takes_every_jax_option(name, tmp_path):
         assert refused
     if name in ("server", "broadcast"):
         assert module.parse_args(base + ["--calibrate", "0"]).calibrate == 0
+    if name in ("server", "multiserve"):
+        # --mesh is served: the sharded pipeline over a (1, 1) mesh
+        assert module.parse_args(base + ["--mesh", "1,1"]).mesh == (1, 1)
     if name == "server":
+        cfg, ex, _ = server_mod.setup(base + ["--mesh", "1,1"])
+        assert type(ex).__name__ == "ShardedStreamExecutor"
         cfg = server_mod.setup(base + ["--no-pair-lanes"])[0]
         assert cfg.pair_lanes is False
         with pytest.raises(NotImplementedError, match="ROADMAP.md M12"):
@@ -677,8 +685,13 @@ def test_lander_auto_follows_the_byte_model():
     assert lander.pick(0, 0, 0, 128, True) == "tiles"
     for mode in ("flat", "tiles", "mask"):
         assert TiledLander(mode).pick(10**6, 0, 48_608, 128, True) == mode
+    # "shards" (multiserve --mesh) lands per-shard blocks through
+    # land_many only; a name that is no flavor is refused
+    with pytest.raises(ValueError, match="land_many"):
+        TiledLander("shards").land(0, np.zeros(1, np.uint8), (None,) * 4,
+                                   None, None)
     with pytest.raises(ValueError):
-        TiledLander("shards")
+        TiledLander("windows")
 
 
 def test_auto_landing_survives_a_static_start():
