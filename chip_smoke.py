@@ -17,8 +17,15 @@ Phases (any failure raises and the script exits non-zero):
    (``subtile_rows`` 1, 8 and 0) and K1 tiled with packed bits
    (``subtile_rows`` 1) over densities, thresholds, negative feedback and
    the overlay region, and again on every emission with a per-byte
-   threshold map (and a map of 0s and 255s, and ragged lengths); K2 on
-   every tiled output and on raw pairs; K3 on every bitmask-only output
+   threshold map (and a map of 0s and 255s, and ragged lengths); K1
+   flat's one-pass kernel at its edges (lengths 1, 15, 16, 17, a tile and
+   a tile +- 1 byte, tile counts just under and over its persistent grid,
+   each with and without a map, a region across the first tile, pos = 0
+   and pos = n, cap just under and over pos) and in 20 launches back to
+   back on one stream and on two streams at once; K2 on every tiled
+   output and on raw pairs (the same edges at its tile, all valid, none
+   valid, 20 launches back to back on one and on two streams; xs == 0 at
+   valid pairs kept); K3 on every bitmask-only output
    and on raw streams; K4 on the gray values of a random frame, of the
    synthetic scene, of one value everywhere and of 0/255 only, and on
    ragged lengths; K5 (segment) and K6 (register) against their plain
@@ -77,7 +84,8 @@ Phases (any failure raises and the script exits non-zero):
    only for a (1, 1) mesh's ``flat`` landings);
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
-   inputs cold in L2): each kernel, its plain
+   inputs cold in L2), and a profiler trace that must show one kernel
+   launch per K1 flat and per K2 call: each kernel, its plain
    version and its bound (and, for K3, ``torch.masked_select`` as its
    library yardstick), ``pipeline.step`` flat and tiled, the landings
    (``pos`` prefix; tiles, flat and mask flavors, the mask landing's host
@@ -129,6 +137,9 @@ K7_LANES_PER_SM = 4 * 32
 ITERS = 100
 CUR_COPIES = 8
 SEED = 2734
+# the kernels redesigned as one-pass compactions, and the slice of the
+# port that redesigned them (the two-pass times stand in PERF.md, section 6)
+REDESIGNED = {"fused_diff_compact": 8, "pair_compact": 8}
 
 
 def log(msg: str) -> None:
@@ -235,6 +246,44 @@ def _equal_or_raise(name, got, want,
     return err
 
 
+def _back_to_back(label, launch, plain, cases, streams, labels):
+    """``launch(*case)`` for every case back to back, on the current stream
+    or alternating over ``streams`` new streams that run at once, with no
+    sync between the launches; then each result against ``plain(*case)``.
+    A launch that left its scratch in a wrong state would fail the next
+    launch on its stream; two streams that shared scratch would fail each
+    other. Returns the number of launches."""
+    main = torch.cuda.current_stream()
+    ss = ([torch.cuda.Stream() for _ in range(streams)] if streams > 1
+          else [main])
+    for s in ss:
+        s.wait_stream(main)
+    outs = []
+    for i, case in enumerate(cases):
+        with torch.cuda.stream(ss[i % len(ss)]):
+            outs.append(launch(*case))
+    for s in ss:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    for i, (case, got) in enumerate(zip(cases, outs)):
+        _equal_or_raise(f"{label}, launch {i}", got, plain(*case), labels)
+    return len(cases)
+
+
+def _onepass_grid(lib_name):
+    """(tile, persistent grid) of the one-pass K1 flat (no map) or K2."""
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+
+    idx = torch.cuda.current_device()
+    if lib_name == "flat":
+        lib = lc._kernel_lib()
+        return (lib.cvs_flat_tile_bytes(),
+                lc._persistent_blocks(lib, "cvs_flat_blocks", idx, 0))
+    lib = lc._pair_lib()
+    return (lib.cvs_pair_tile(),
+            lc._persistent_blocks(lib, "cvs_pair_blocks", idx))
+
+
 def phase_kernel_vs_plain(cfg):
     from cudavideostream_tpu_torch.ops import logcompact
     from cudavideostream_tpu_torch.ops import reference_cpu
@@ -245,14 +294,20 @@ def phase_kernel_vs_plain(cfg):
     region = torch.from_numpy(rng.integers(
         0, 255, 288_000, endpoint=True, dtype=np.uint8)).to(dev)
 
-    def run_both(name, prev, cur, thr, negfeed, reg, capacity=None):
+    def run_both(name, prev, cur, thr, negfeed, reg, capacity=None,
+                 tm=None):
         p_k, p_p = prev.clone(), prev.clone()
         k = logcompact.fused_diff_compact(cur, p_k, thr, negfeed, reg,
-                                          capacity)
+                                          capacity, threshold_map=tm)
         torch.cuda.synchronize()
         p = logcompact.fused_diff_compact_reference(cur, p_p, thr, negfeed,
-                                                    reg, capacity)
+                                                    reg, capacity,
+                                                    threshold_map=tm)
         return _equal_or_raise(name, k, p), int(k[0])
+
+    def pair(m, density):
+        return [torch.from_numpy(a).to(dev)
+                for a in frame_pair(rng, m, density)]
 
     max_err, cases = 0, 0
     for density in (0.0, 0.06, 1.0):
@@ -282,6 +337,66 @@ def phase_kernel_vs_plain(cfg):
     err, pos = run_both("capacity", prev, cur, 20, True, region, 100_000)
     max_err, cases = max(max_err, err), cases + 1
     log(f"[check] capacity=100000 < pos={pos}: exact")
+
+    # the one-pass kernel's edges: lengths around a tile and around the
+    # persistent grid's size in tiles, a region across the first tile's
+    # end, the map, pos at 0 and at n, cap around pos
+    tile, blocks = _onepass_grid("flat")
+    edges = (1, 15, 16, 17, tile - 1, tile, tile + 1,
+             (blocks - 1) * tile + 5, (blocks + 1) * tile - 3)
+    for m in edges:
+        prev, cur = pair(m, 0.06)
+        reg = region[:min(m, tile + 700)]
+        tm = torch.from_numpy(byte_map(rng, m)).to(dev)
+        for label, kw in (("", {}), (" with a per-byte map", {"tm": tm})):
+            err, pos = run_both(f"one-pass n={m}{label}", prev, cur, 20, True,
+                                reg, **kw)
+            max_err, cases = max(max_err, err), cases + 1
+        log(f"[check] K1 flat one-pass n={m} ({-(-m // tile)} tiles of "
+            f"{tile} B, grid {min(blocks, -(-m // tile))} of {blocks}), "
+            f"overlay {reg.numel()} B, without and with a per-byte map: "
+            f"pos={pos} exact")
+    prev, cur = pair(n, 0.06)
+    err, pos = run_both("pos=0", prev, prev.clone(), 20, True, None)
+    max_err, cases = max(max_err, err), cases + 1
+    prev, cur = pair(n, 1.0)
+    err, pos_n = run_both("pos=n", prev, cur, 0, True, None)
+    max_err, cases = max(max_err, err), cases + 1
+    if (pos, pos_n) != (0, n):
+        raise AssertionError(f"pos {pos} and {pos_n}, not 0 and {n}")
+    log(f"[check] K1 flat one-pass pos=0 (cur == prev) and pos=n={n} "
+        f"(density 1.0, thr 0): exact")
+    prev, cur = pair(n, 0.06)
+    pos = int(logcompact.fused_diff_compact_reference(
+        cur, prev.clone(), 20, True, region)[0])
+    for cap in (pos - 1, pos, pos + 1, pos + 17):
+        err, _ = run_both(f"cap={cap}", prev, cur, 20, True, region, cap)
+        max_err, cases = max(max_err, err), cases + 1
+    log(f"[check] K1 flat one-pass cap = pos-1, pos, pos+1, pos+17 "
+        f"(pos={pos}): exact")
+
+    # twenty launches back to back: on one stream, then over two streams
+    # at once; lengths and densities vary, so a launch that left the
+    # ticket, a status word or the done count set would fail the next
+    sizes = (n, 17, tile + 1, n // 3, 1, (blocks + 1) * tile - 3)
+    for streams in (1, 2):
+        flat = []
+        for i in range(20):
+            prev, cur = pair(sizes[i % len(sizes)], (0.0, 0.06, 1.0)[i % 3])
+            reg = region[:min(cur.numel(), 288_000)] if i % 2 else None
+            flat.append((cur, prev.clone(), prev.clone(), reg))
+        torch.cuda.synchronize()
+        cases += _back_to_back(
+            f"K1 flat back to back, {streams} stream(s)",
+            lambda c, pk, pp, r: logcompact.fused_diff_compact(
+                c, pk, 20, True, r),
+            lambda c, pk, pp, r: logcompact.fused_diff_compact_reference(
+                c, pp, 20, True, r),
+            flat, streams, ("pos", "xs", "vals", "new_prev"))
+        log(f"[check] K1 flat one-pass: 20 launches back to back on "
+            f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
+            f" (n {', '.join(str(x) for x in sizes)}; densities 0/0.06/1): "
+            f"each exact against its plain version")
 
     # one full pipeline step on the card against the NumPy spec
     from cudavideostream_tpu_torch.models import DeltaStreamPipeline
@@ -373,23 +488,61 @@ def phase_tiled_vs_plain(cfg):
         log(f"[check] K1 tiled n={m} overlay=700 B, subtile 1/8/0: exact; "
             f"K2 merge_tiles exact")
     # raw pairs: a third of the xs are 0 (a valid index), vals zero in
-    # between; the last length takes two tiles per block
-    for m in (48_608 * 128, 777, 4096 * 1024 + 5):
+    # between; lengths around K2's tile and around its persistent grid in
+    # tiles, then every pair valid and none
+    tile, blocks = _onepass_grid("pair")
+
+    def raw(m, density):
         xs = torch.from_numpy(rng.integers(0, 3, m).astype(np.int32)).to(dev)
         vals = torch.from_numpy(np.where(
-            rng.random(m) < 0.3, rng.integers(1, 255, m, endpoint=True), 0
-        ).astype(np.uint8)).to(dev)
+            rng.random(m) < density, rng.integers(1, 255, m, endpoint=True),
+            0).astype(np.uint8)).to(dev)
+        return xs, vals
+
+    for m in (48_608 * 128, 777, 4096 * 1024 + 5, 1, 15, 16, 17, tile - 1,
+              tile, tile + 1, (blocks - 1) * tile + 5,
+              (blocks + 1) * tile - 3):
+        xs, vals = raw(m, 0.3)
         got = logcompact.pair_compact(xs, vals)
         torch.cuda.synchronize()
         _equal_or_raise(f"pair_compact n={m}", got,
                         logcompact.pair_compact_reference(xs, vals),
                         ("pos", "xs", "vals"))
         pos = int(got[0])
-        if not bool((got[1][:pos] == 0).any()):
+        if m >= 777 and not bool((got[1][:pos] == 0).any()):
             raise AssertionError("no kept pair with index 0 in the check")
         cases["k2"] += 1
-        log(f"[check] K2 pair_compact on {m} raw pairs (pos={pos}, xs == 0 "
-            f"kept): exact")
+        log(f"[check] K2 pair_compact on {m} raw pairs ({-(-m // tile)} "
+            f"tiles of {tile}, grid {min(blocks, -(-m // tile))} of "
+            f"{blocks}; pos={pos}"
+            f"{', xs == 0 kept' if m >= 777 else ''}): exact")
+    for density, want in ((1.0, "all"), (0.0, "none")):
+        xs, vals = raw(48_608 * 128, density)
+        got = logcompact.pair_compact(xs, vals)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"pair_compact {want} valid", got,
+                        logcompact.pair_compact_reference(xs, vals),
+                        ("pos", "xs", "vals"))
+        if int(got[0]) != (xs.numel() if density else 0):
+            raise AssertionError(f"pair_compact {want} valid: pos {int(got[0])}")
+        cases["k2"] += 1
+        log(f"[check] K2 pair_compact on {xs.numel()} raw pairs, {want} "
+            f"valid (pos={int(got[0])}): exact")
+    # twenty launches back to back: on one stream, then over two streams
+    # at once, lengths and densities varying
+    sizes = (48_608 * 128, 17, tile + 1, 777, 1, (blocks + 1) * tile - 3)
+    for streams in (1, 2):
+        pairs = [raw(sizes[i % len(sizes)], (0.0, 0.3, 1.0)[i % 3])
+                 for i in range(20)]
+        torch.cuda.synchronize()
+        cases["k2"] += _back_to_back(
+            f"K2 back to back, {streams} stream(s)", logcompact.pair_compact,
+            logcompact.pair_compact_reference, pairs, streams,
+            ("pos", "xs", "vals"))
+        log(f"[check] K2 pair_compact: 20 launches back to back on "
+            f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
+            f" (n {', '.join(str(x) for x in sizes)}; densities 0/0.3/1): "
+            f"each exact against its plain version")
 
     tcfg = dataclasses.replace(cfg, tiled_payload=True)
     pipe = DeltaStreamPipeline(tcfg)
@@ -1696,24 +1849,48 @@ def _event_median_ms(fn, iters, backlog=True):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def _profile_ms(fn, names, label):
+def _profile_ms(fn, names, label, per_call=False):
     """Device time per launch of each named kernel (a template's
     instantiations included) over 20 calls of ``fn(i)``, from a
-    torch.profiler trace."""
+    torch.profiler trace. With ``per_call``, also the kernels the trace
+    holds per call, all names counted (copies and memsets apart); returns
+    that count, None when the trace holds no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(20):
             fn(i)
         torch.cuda.synchronize()
+    events = prof.key_averages()
     passes = {name: e.device_time_total / e.count / 1e3
-              for e in prof.key_averages() for name in names
+              for e in events for name in names
               if f"::{name}(" in e.key or f"::{name}<" in e.key}
     for name, ms in passes.items():
         log(f"[trace] {label} {name}: {ms:.4f} ms per launch (profiler)")
     if len(passes) != len(names):
         log(f"[trace] {label}: the profiler saw no device time for "
             f"{sorted(set(names) - set(passes))}: not measured")
+    if not per_call:
+        return None
+    kernels = {e.key: e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))}
+    if not kernels:
+        log(f"[trace] {label}: no kernel in the trace: launches per call "
+            f"not measured")
+        return None
+    per = sum(kernels.values()) / 20
+    log(f"[trace] {label}: {per:g} kernel launch(es) per call over 20 calls "
+        f"(profiler: " + "; ".join(f"{_kernel_name(k)} x{c}"
+                                  for k, c in kernels.items()) + ")")
+    return per
+
+
+def _kernel_name(key):
+    """A profiler key's kernel name, without namespace, return type or
+    arguments: ``void (anonymous namespace)::k<false>(int*)`` -> ``k<false>``."""
+    head = key.replace("(anonymous namespace)::", "").split("(")[0].split()
+    return head[-1].split("::")[-1] if head else key
 
 
 def phase_times(cfg):
@@ -1762,10 +1939,10 @@ def phase_times(cfg):
             curs[i % CUR_COPIES], prevs[i], 20, True, region), ITERS,
         backlog=False)
     refill()
-    # the kernel's own passes, from a profiler trace of 20 launches
-    _profile_ms(lambda i: logcompact.fused_diff_compact(
+    # the kernel, from a profiler trace of 20 calls: one launch a call
+    k_per_call = _profile_ms(lambda i: logcompact.fused_diff_compact(
         curs[i % CUR_COPIES], prevs[i], 20, True, region),
-        ("count_kernel", "compact_kernel"), "K1 flat")
+        ("flat_lookback_kernel",), "K1 flat", per_call=True)
     refill()
     step_ms = _event_median_ms(
         lambda i: pipe.step(prevs[i], curs[i % CUR_COPIES], text=text),
@@ -1806,8 +1983,12 @@ def phase_times(cfg):
         f"{statistics.median(host_land) * 1e3:.4f} ms host")
     log(f"[time] SyntheticSource next() on the host: "
         f"{statistics.median(src_s) * 1e3:.2f} ms/frame (not a kernel time)")
+    if k_per_call != 1:
+        raise AssertionError(f"K1 flat: {k_per_call} launches a call in the "
+                             f"trace, not 1")
     return {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "step_ms": step_ms, "land_ms": land_ms}
+            "step_ms": step_ms, "land_ms": land_ms,
+            "per_call": k_per_call}
 
 
 def _busy_and_overlap(prof):
@@ -1910,8 +2091,8 @@ def phase_tiled_times(cfg):
         lambda i: logcompact.pair_compact_reference(
             blocks[i % 4][1].reshape(-1), blocks[i % 4][2].reshape(-1)),
         ITERS, backlog=False)
-    _profile_ms(lambda i: logcompact.merge_tiles(*blocks[i % 4]),
-                ("count_kernel", "compact_kernel"), "K2")
+    k2_per_call = _profile_ms(lambda i: logcompact.merge_tiles(*blocks[i % 4]),
+                              ("pair_lookback_kernel",), "K2", per_call=True)
     refill()
     step_ms = _event_median_ms(
         lambda i: pipe.step(prevs[i], curs[i % CUR_COPIES], text=text),
@@ -2032,8 +2213,12 @@ def phase_tiled_times(cfg):
             f"{wall / 10:.4f} ms per frame under the profiler, device busy "
             f"{busy / 10:.4f} ms per frame (idle {1 - busy / wall:.1%}), "
             f"two streams busy at once {both / 10:.4f} ms per frame")
+    if k2_per_call != 1:
+        raise AssertionError(f"K2: {k2_per_call} launches a call in the "
+                             f"trace, not 1")
     return {"k1_ms": k1[1], "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bound,
-            "k2_ms": k2, "k2_plain_ms": k2_plain, "k2_bound_ms": k2_bound}
+            "k2_ms": k2, "k2_plain_ms": k2_plain, "k2_bound_ms": k2_bound,
+            "k2_per_call": k2_per_call, "flat_land_ms": land["flat"][0]}
 
 
 def phase_mask_times(cfg):
@@ -3093,6 +3278,11 @@ def main() -> int:
                         "fused_diff_compact_mask": "mask"}[name]
             extra = {"map_ms": xtimes["k1_map_ms"][emission],
                      "map_bound_ms": xtimes["k1_map_bound_ms"][emission]}
+        if name in REDESIGNED:
+            # one launch a call now, as this run's trace counts them
+            extra.update(redesigned=REDESIGNED[name], launches_per_call=(
+                times["per_call"] if name == "fused_diff_compact"
+                else ttimes["k2_per_call"]))
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -21,33 +21,42 @@
 //     donation); each byte of prev is read and written by the same thread
 //     of the last kernel only, after every earlier read of it.
 //
-// FLAT emission (cvs_fused_diff_compact):
+// FLAT emission (cvs_fused_diff_compact, flat_lookback_kernel):
 //   * xs[k] / vals[k] hold the k-th shipped index / value, ascending;
 //     pos (the count) goes to *pos_out;
 //   * xs and vals are zero from pos to cap (the length of both buffers);
 //     a frame that ships more than cap bytes writes only the first cap
 //     entries, and the caller sees pos > cap.
-// Design. The TPU kernel's tile geometry, MXU prefix sums and shift passes
-// exist for Mosaic; flat output is a global stable compaction and does not
-// depend on them. Here:
-//   1. count_kernel: each block counts the shipped bytes of its span of
-//      tiles_per_block tiles of 4096 bytes (256 threads x 16-byte loads);
-//   2. compact_kernel: each block sums the counts of the blocks before it
-//      (its output offset) and of all blocks (pos) — a few hundred ints
-//      from L2 — then, tile by tile, recomputes the mask, ranks the
-//      shipped bytes with a warp shuffle scan plus a scan of the 8 warp
-//      totals, stages (index, value) in shared memory in rank order and
-//      writes them out coalesced at offset + rank. It writes new_prev and
-//      zero-fills its share of the slots [pos, cap).
-// No atomics: the order is ascending by construction.
 // Bound. On an H100 the function is bound by device-memory bytes: it
 // reads prev and cur (2n; the region stands in for the first region_len
 // bytes of cur, which are never loaded) and writes new_prev (n), xs
 // (4 * cap) and vals (cap), all full length because of the zero fill:
 // about 8n at cap = n, 49.8 MB at 1080p (n = 6,220,800), or about 15 us
-// at 3.35 TB/s. The second pass rereads cur and prev (another 2n, mostly
-// from the 50 MB L2 at this size), which this simple two-pass design
-// accepts.
+// at 3.35 TB/s. The zero tail [pos, cap) is most of it (about 28 MB at
+// 10% shipped).
+// Design. The TPU kernel's tile geometry, MXU prefix sums and shift passes
+// exist for Mosaic; flat output is a global stable compaction and does not
+// depend on them. A two-pass design (count, then compact) pays a second
+// launch, reads every input byte twice, and sums every block's count in
+// every block. This one is ONE launch that reads each input byte once,
+// with decoupled look-back (csrc/lookback.cuh): a persistent grid
+// (occupancy x SMs, cvs_flat_blocks: 3 blocks an SM under an 80-register
+// cap) takes tiles of kFlatTile = 8,192 bytes in ascending order from a
+// ticket. Per tile, each thread holds 2 groups of 16 bytes of cur (or the
+// region), prev (and the map), loaded during the previous tile; it
+// computes its groups' ship masks with byte-SIMD compares, stores new_prev
+// at once (the only read of those prev bytes came just before, by the
+// same thread: no look-back or tail loop reads prev), ranks its groups in
+// the tile (one block scan of packed counts), publishes the tile's count,
+// issues the next tile's loads, and stages (tile-local index as uint16,
+// value) in 24 KB of dynamic shared memory. Warp 0 then looks back for the
+// tile's offset, and the tile's entries go out coalesced at offset + rank,
+// with the tile's band of the zero tail in 16-byte stores. The look-back
+// chain, not the bytes, is what bounds it at 1080p, where the grid holds
+// nearly every tile at once: every tile's offset waits on its slowest
+// predecessor's loads, which is why the count goes out before anything
+// else. No atomics decide where an entry goes: the order is ascending by
+// construction.
 //
 // TILED emission (cvs_fused_diff_compact_tiled): the frame, padded to
 // n_pad bytes (padding reads as cur == prev and never ships), is cut into
@@ -123,11 +132,13 @@
 // thr_is_map, logcompact.py:368 and :927-935): byte i ships iff
 // |c - p| > thr_map[i], the map read at the byte's own index also where
 // the region stands in for cur. It is one more 16-byte vector load in
-// group_mask, the one place the ship test lives, so every emission takes
-// it; a null map keeps the scalar compare. Bytes past n read as
-// c == p == 0 and never ship, whatever the map would hold there. The
-// bound grows by n bytes read: K1 flat with a map moves 55,987,204 B at
-// 1080p, 16.71 us at 3.35 TB/s.
+// group_mask, the one place the tiled emissions' ship test lives, and in
+// flat_load / flat_group, the flat kernel's, whose instance with the map
+// (kMap) is apart so that the one without it holds no map registers; a
+// null map keeps the scalar compare. Bytes past n read as c == p == 0 and
+// never ship, whatever the map would hold there. The bound grows by n
+// bytes read: K1 flat with a map moves 55,987,204 B at 1080p, 16.71 us at
+// 3.35 TB/s.
 //
 // INDEX OFFSET (the flat and solo tiled entry points, index_offset; the TPU
 // kernel's has_offset, logcompact.py:353 and :509): a host-known int added
@@ -144,7 +155,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+namespace lb = cvs_lookback;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -152,10 +167,7 @@ constexpr int kBytesPerThread = 16;
 constexpr int kTileBytes = kThreads * kBytesPerThread;  // 4096
 constexpr unsigned kFull = 0xffffffffu;
 
-union Vec16 {
-  uint4 v;
-  uint8_t b[16];
-};
+using Vec16 = lb::Vec16;
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
@@ -177,6 +189,25 @@ __device__ __forceinline__ Vec16 load16(const uint8_t* __restrict__ src,
   return r;
 }
 
+// Bytes [i0, i0 + 16) of the frame the diff sees (i0 < n): the overlay
+// region over cur's first region_len bytes; bytes past n read as 0.
+// kCheck as for load16.
+template <bool kCheck>
+__device__ __forceinline__ Vec16 load_cur16(const uint8_t* __restrict__ cur,
+                                            const uint8_t* __restrict__ region,
+                                            long long region_len, long long n,
+                                            long long i0) {
+  if (i0 + 16 <= region_len) return load16<kCheck>(region, i0, region_len);
+  if (i0 >= region_len) return load16<kCheck>(cur, i0, n);
+  Vec16 c;  // the group straddles the end of the overlay region
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    long long i = i0 + k;
+    c.b[k] = i < region_len ? region[i] : (i < n ? cur[i] : 0);
+  }
+  return c;
+}
+
 // The 16-bit ship mask of the group of 16 bytes at i0 (bit k = byte
 // i0 + k), with the current bytes (region-substituted) in c and the
 // previous bytes in p. Bytes past n never ship. The threshold is thr, or
@@ -194,17 +225,7 @@ __device__ __forceinline__ unsigned group_mask(
     return 0;
   }
   p = load16<kCheck>(prev, i0, n);
-  if (i0 + 16 <= region_len) {
-    c = load16<kCheck>(region, i0, region_len);
-  } else if (i0 >= region_len) {
-    c = load16<kCheck>(cur, i0, n);
-  } else {  // the group straddles the end of the overlay region
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      long long i = i0 + k;
-      c.b[k] = i < region_len ? region[i] : (i < n ? cur[i] : 0);
-    }
-  }
+  c = load_cur16<kCheck>(cur, region, region_len, n, i0);
   Vec16 t;
   if (thr_map != nullptr) t = load16<false>(thr_map, i0, n);  // shared
   unsigned m = 0;
@@ -290,116 +311,182 @@ __device__ __forceinline__ void store_bits(uint8_t* bits, long long i0,
   *reinterpret_cast<uint16_t*>(bits + i0 / 8) = (uint16_t)m;
 }
 
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ prev,
-             const uint8_t* __restrict__ region, long long region_len,
-             long long n, int thr, const uint8_t* __restrict__ thr_map,
-             int tiles_per_block, int* __restrict__ counts) {
-  __shared__ int s_warp[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long base = (long long)blockIdx.x * tiles_per_block * kTileBytes;
-  int cnt = 0;
-  for (int t = 0; t < tiles_per_block; ++t) {
-    long long i0 = base + (long long)t * kTileBytes + threadIdx.x * kBytesPerThread;
-    Vec16 c, p;
-    cnt += __popc(group_mask<false>(cur, prev, region, region_len, n, thr,
-                                    thr_map, i0, c, p));
-  }
-  cnt = warp_sum(cnt);
-  if (lane == 0) s_warp[warp] = cnt;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int tot = 0;
+// ---- flat emission: one pass with decoupled look-back -----------------
+
+// 16-byte groups per thread per tile, and the blocks an SM must hold
+// (the register cap)
+constexpr int kFlatVecs = 2;
+constexpr int kFlatMinBlocks = 3;
+constexpr int kFlatTile = kTileBytes * kFlatVecs;  // 8,192 bytes
+// staging per slot: the tile-local index (uint16) and the value
+constexpr size_t kFlatSmem = 3 * (size_t)kFlatTile;
+static_assert(kFlatTile <= 65536, "tile-local indices are uint16");
+
+// The loads of the thread's groups of the tile at base, all issued before
+// any is used: c (region-substituted cur), p (prev) and, with kMap, the
+// map. Groups at or past n read as zeros (they never ship).
+template <bool kMap>
+__device__ __forceinline__ void flat_load(
+    const uint8_t* __restrict__ cur, const uint8_t* prev,
+    const uint8_t* __restrict__ region, long long region_len, long long n,
+    const uint8_t* __restrict__ thr_map, long long base,
+    Vec16 (&c)[kFlatVecs], Vec16 (&p)[kFlatVecs], Vec16 (&tm)[kFlatVecs]) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) tot += s_warp[w];
-    counts[blockIdx.x] = tot;
+  for (int q = 0; q < kFlatVecs; ++q) {
+    const long long i0 = base + q * kTileBytes + threadIdx.x * kBytesPerThread;
+    if (i0 >= n) {
+      c[q].v = p[q].v = tm[q].v = make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    p[q] = load16<false>(prev, i0, n);
+    c[q] = load_cur16<false>(cur, region, region_len, n, i0);
+    if (kMap) tm[q] = load16<false>(thr_map, i0, n);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
-               const uint8_t* __restrict__ region, long long region_len,
-               long long n, int thr, const uint8_t* __restrict__ thr_map,
-               int negfeed, int index_offset, int tiles_per_block,
-               const int* __restrict__ counts, int grid,
-               int* __restrict__ xs, uint8_t* __restrict__ vals,
-               long long cap, int* __restrict__ pos_out) {
-  __shared__ int s_xs[kTileBytes];
-  __shared__ uint8_t s_vals[kTileBytes];
-  __shared__ int s_warp[kWarps];
-  __shared__ long long s_red[2][kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// One group, four bytes at a time with byte-SIMD: returns the ship mask
+// (bit k = byte k: |c - p| > the threshold, unsigned bytes, so never a
+// uint8 wrap), writes new_prev into prev at i0 in place, and leaves the
+// shipped values (c - p) & 255 in c.
+template <bool kMap>
+__device__ __forceinline__ unsigned flat_group(uint8_t* prev, long long i0,
+                                               long long n, unsigned thr4,
+                                               const Vec16& tm, int negfeed,
+                                               Vec16& c, const Vec16& p) {
+  const unsigned cw[4] = {c.v.x, c.v.y, c.v.z, c.v.w};
+  const unsigned pw[4] = {p.v.x, p.v.y, p.v.z, p.v.w};
+  const unsigned tw[4] = {tm.v.x, tm.v.y, tm.v.z, tm.v.w};
+  unsigned m = 0, np[4], d[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned ship = __vcmpgtu4(__vabsdiffu4(cw[j], pw[j]),
+                                     kMap ? tw[j] : thr4);  // 0xff: ships
+    m |= (((ship & 0x80808080u) * 0x00204081u) >> 28) << (4 * j);
+    np[j] = negfeed ? (cw[j] & ship) | (pw[j] & ~ship) : cw[j];
+    d[j] = __vsub4(cw[j], pw[j]);
+  }
+  if (i0 < n) {
+    Vec16 w;
+    w.v = make_uint4(np[0], np[1], np[2], np[3]);
+    if (i0 + 16 <= n) {
+      *reinterpret_cast<uint4*>(prev + i0) = w.v;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (i0 + k < n) prev[i0 + k] = w.b[k];
+    }
+  }
+  c.v = make_uint4(d[0], d[1], d[2], d[3]);
+  return m;  // c == p == 0 past n, so those bytes never ship
+}
 
-  // this block's output offset (counts of the blocks before it) and pos
-  long long before = 0, total = 0;
-  for (int j = threadIdx.x; j < grid; j += kThreads) {
-    long long cj = counts[j];
-    total += cj;
-    if (j < (int)blockIdx.x) before += cj;
+// The thread's groups of the tile at base, once loaded: ship masks, their
+// counts, new_prev stored, and the shipped values in d (c and p stay
+// free for the next tile's loads).
+template <bool kMap>
+__device__ __forceinline__ void flat_compute(
+    uint8_t* prev, long long base, long long n, unsigned thr4, int negfeed,
+    const Vec16 (&c)[kFlatVecs], const Vec16 (&p)[kFlatVecs],
+    const Vec16 (&tm)[kFlatVecs], Vec16 (&d)[kFlatVecs],
+    unsigned (&m)[kFlatVecs], int (&cnt)[kFlatVecs]) {
+#pragma unroll
+  for (int q = 0; q < kFlatVecs; ++q) {
+    d[q] = c[q];
+    m[q] = flat_group<kMap>(
+        prev, base + q * kTileBytes + threadIdx.x * kBytesPerThread, n, thr4,
+        tm[q], negfeed, d[q], p[q]);
+    cnt[q] = __popc(m[q]);
   }
-  before = warp_sum(before);
-  total = warp_sum(total);
-  if (lane == 0) {
-    s_red[0][warp] = before;
-    s_red[1][warp] = total;
-  }
+}
+
+template <bool kMap>
+__global__ void __launch_bounds__(kThreads, kFlatMinBlocks)
+flat_lookback_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
+                     const uint8_t* __restrict__ region, long long region_len,
+                     long long n, int thr, const uint8_t* __restrict__ thr_map,
+                     int negfeed, int index_offset,
+                     unsigned long long* scratch, int* __restrict__ xs,
+                     uint8_t* __restrict__ vals, long long cap,
+                     int* __restrict__ pos_out) {
+  constexpr int V = kFlatVecs;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* s_idx = reinterpret_cast<uint16_t*>(smem);
+  uint8_t* s_vals = smem + 2 * kFlatTile;
+  __shared__ unsigned s_warp[(V + 1) / 2 * kWarps];
+  __shared__ long long s_off, s_next[2];
+  __shared__ int s_last;
+  const int t = threadIdx.x;
+  const lb::Scratch sc = lb::scratch_at(scratch);
+  const long long tiles = (n + kFlatTile - 1) / kFlatTile;
+  const unsigned thr4 = (unsigned)thr * 0x01010101u;
+
+  if (t == 0) s_next[0] = atomicAdd(sc.ticket, 1u);
   __syncthreads();
-  before = 0;
-  total = 0;
+  long long tile = s_next[0];
+  Vec16 c[V], p[V], tm[V], d[V];
+  unsigned m[V];
+  int cnt[V];
+  if (tile < tiles)
+    flat_load<kMap>(cur, prev, region, region_len, n, thr_map,
+                    tile * kFlatTile, c, p, tm);
+  // s_next alternates between two words: the one written in this
+  // iteration was last read two barriers ago
+  for (int it = 1; tile < tiles; it ^= 1) {
+    const long long base = tile * kFlatTile;
+    flat_compute<kMap>(prev, base, n, thr4, negfeed, c, p, tm, d, m, cnt);
+    if (t == 0) s_next[it] = atomicAdd(sc.ticket, 1u);
+    int rank[V], total;
+    lb::tile_ranks<V>(cnt, s_warp, rank, total);
+    if (t == 0) lb::publish_count(sc.status, tile, total);
+    // the next tile's loads fly while this one looks back, is staged and
+    // goes out
+    const long long next = s_next[it];
+    if (next < tiles)
+      flat_load<kMap>(cur, prev, region, region_len, n, thr_map,
+                      next * kFlatTile, c, p, tm);
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    before += s_red[0][w];
-    total += s_red[1][w];
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *pos_out = (int)total;
-
-  const long long span = (long long)tiles_per_block * kTileBytes;
-  const long long base = (long long)blockIdx.x * span;
-  long long off = before;
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const long long i0 = base + (long long)t * kTileBytes + threadIdx.x * kBytesPerThread;
-    Vec16 c, p;
-    const unsigned m = group_mask<false>(cur, prev, region, region_len, n,
-                                         thr, thr_map, i0, c, p);
-    const int cnt = __popc(m);
-
-    // rank within the tile: warp inclusive scan, then the warp totals
-    int tile_total;
-    int r = block_excl_scan(cnt, s_warp, tile_total);
+    for (int q = 0; q < V; ++q) {
+      int r = rank[q];
+      const int local = q * kTileBytes + t * kBytesPerThread;
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      if ((m >> k) & 1u) {
-        s_xs[r] = (int)(i0 + k + index_offset);
-        s_vals[r] = (uint8_t)(c.b[k] - p.b[k]);  // (c - p) mod 256
-        ++r;
+      for (int k = 0; k < 16; ++k) {
+        if ((m[q] >> k) & 1u) {
+          s_idx[r] = (uint16_t)(local + k);
+          s_vals[r] = d[q].b[k];
+          ++r;
+        }
       }
     }
-
-    store_new_prev<false>(prev, i0, n, m, c, p, negfeed);
+    // warp 0 looks back once it has staged: by then the predecessors have
+    // mostly published, and it spins little
+    if (t < 32) {
+      const long long off = lb::tile_offset(sc.status, tile, total);
+      if (t == 0) {
+        s_off = off;
+        if (tile == tiles - 1) *pos_out = (int)(off + total);
+      }
+    }
     __syncthreads();
-
-    // coalesced write-out of the tile's entries at off + rank
-    for (int q = threadIdx.x; q < tile_total; q += kThreads) {
-      long long o = off + q;
-      if (o < cap) {
-        xs[o] = s_xs[q];
-        vals[o] = s_vals[q];
-      }
+    const long long off = s_off;
+    const long long room = cap - off;
+    const int w = room <= 0 ? 0 : (total < room ? total : (int)room);
+    const int idx0 = (int)base + index_offset;
+    for (int j = t; j < w; j += kThreads) {
+      xs[off + j] = idx0 + s_idx[j];
+      vals[off + j] = s_vals[j];
     }
-    off += tile_total;
-    // No barrier needed before the next tile: its writes to s_warp come
-    // after every read of s_warp (which precede the barrier above), and
-    // its writes to s_xs/s_vals come after its own first barrier, which
-    // no thread passes before all have finished this write-out.
+    long long lo, hi;
+    lb::tail_band(base, base + kFlatTile < n ? base + kFlatTile : n, off,
+                  total, n, cap, lo, hi);
+    lb::zero_fill(xs, lo, hi);
+    lb::zero_fill(vals, lo, hi);
+    // No barrier before the next tile: its s_warp writes come after every
+    // read of s_warp (before the barrier above), its staging after its
+    // first barrier, which no thread passes before all have finished this
+    // write-out, and s_off is read above, before it.
+    tile = next;
   }
-
-  // zero fill: this block owns output slots [base, base + span)
-  const long long z0 = total > base ? total : base;
-  const long long z1 = cap < base + span ? cap : base + span;
-  for (long long o = z0 + threadIdx.x; o < z1; o += kThreads) {
-    xs[o] = 0;
-    vals[o] = 0;
-  }
+  lb::release_scratch(sc, tiles, &s_last);
 }
 
 // ---- tiled emission ----------------------------------------------------
@@ -702,33 +789,50 @@ cudaError_t launch_tiled(int grid, int per_stream, const uint8_t* cur,
 
 extern "C" {
 
-// Launch K1 on `stream`. `counts` is scratch of `grid` ints; the caller
-// picks tiles_per_block and grid so that grid * tiles_per_block * 4096
-// >= n (which also covers every slot below cap <= n). thr_map, when not
-// null, is the per-byte threshold map (n bytes, 16-byte aligned) and
-// replaces thr. index_offset is added to every valid index (see INDEX
-// OFFSET). Returns the cudaError_t of the launches (0 on success).
+// The flat kernel's persistent grid on `device` (blocks per SM at its
+// shared memory, times the SM count), with the map (has_map) or without;
+// sets the attribute that admits its dynamic shared memory there.
+int cvs_flat_blocks(int device, int has_map, int* blocks) {
+  return (int)(has_map
+                   ? lb::persistent_blocks(device, flat_lookback_kernel<true>,
+                                           kFlatSmem, blocks)
+                   : lb::persistent_blocks(device, flat_lookback_kernel<false>,
+                                           kFlatSmem, blocks));
+}
+
+int cvs_flat_tile_bytes(void) { return kFlatTile; }
+
+// Launch K1's flat emission on `stream`: ONE kernel, grid blocks (at most
+// cvs_flat_blocks' count, after that call on this device). `scratch` holds
+// 2 + ceil(n / cvs_flat_tile_bytes()) zeroed 8-byte words that no launch
+// on another stream uses (see csrc/lookback.cuh); the launch leaves them
+// zero. thr_map, when not null, is the per-byte threshold map (n bytes,
+// 16-byte aligned) and replaces thr. index_offset is added to every valid
+// index (see INDEX OFFSET). xs and vals hold cap <= n entries and are
+// 16-byte aligned. Returns the cudaError_t of the launch (0 on success).
 int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
                            const uint8_t* region, long long region_len,
                            long long n, int thr, const uint8_t* thr_map,
-                           int negfeed, int index_offset,
-                           int tiles_per_block, int grid, int* counts,
-                           int* xs, uint8_t* vals, long long cap,
-                           int* pos_out, cudaStream_t stream) {
+                           int negfeed, int index_offset, int grid,
+                           unsigned long long* scratch, int* xs,
+                           uint8_t* vals, long long cap, int* pos_out,
+                           cudaStream_t stream) {
+  if (index_offset < 0 || index_offset + n > 0x7fffffffLL || n < 1
+      || grid < 1 || cap < 0 || cap > n || region_len > n
+      || ((uintptr_t)xs & 15) || ((uintptr_t)vals & 15))
+    return (int)cudaErrorInvalidValue;
   // this library carries its own CUDA runtime, whose current device is
   // not the caller's: select the tensors' device explicitly
-  if (index_offset < 0 || index_offset + n > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  count_kernel<<<grid, kThreads, 0, stream>>>(
-      cur, prev, region, region_len, n, thr, thr_map, tiles_per_block,
-      counts);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  compact_kernel<<<grid, kThreads, 0, stream>>>(
-      cur, prev, region, region_len, n, thr, thr_map, negfeed, index_offset,
-      tiles_per_block, counts, grid, xs, vals, cap, pos_out);
+  if (thr_map != nullptr)
+    flat_lookback_kernel<true><<<grid, kThreads, kFlatSmem, stream>>>(
+        cur, prev, region, region_len, n, thr, thr_map, negfeed,
+        index_offset, scratch, xs, vals, cap, pos_out);
+  else
+    flat_lookback_kernel<false><<<grid, kThreads, kFlatSmem, stream>>>(
+        cur, prev, region, region_len, n, thr, thr_map, negfeed,
+        index_offset, scratch, xs, vals, cap, pos_out);
   return (int)cudaGetLastError();
 }
 

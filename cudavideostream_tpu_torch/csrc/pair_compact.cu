@@ -15,40 +15,54 @@
 //
 // The TPU kernel writes per-tile blocks that a serial loop of
 // dynamic_update_slices then merges; that split exists for the TPU's
-// sequential grid. Here the output is flat in one launch pair, the same
-// design as K1's flat emission (csrc/logcompact.cu):
-//   1. count_kernel: each block counts the valid pairs of its span of
-//      tiles_per_block tiles of 4096 pairs (16-byte loads of vals);
-//   2. compact_kernel: each block sums the counts of the blocks before it
-//      (its offset) and of all blocks (pos), then tile by tile ranks the
-//      valid pairs with a block scan, loads xs only for the 16-byte words
-//      that hold a valid pair, stages (xs, vals) in shared memory in rank
-//      order, writes them out coalesced at offset + rank, and zero-fills
-//      its own share of the slots [pos, n).
-// No atomics: the order is the input order by construction.
+// sequential grid. Here the output is flat in ONE launch that reads each
+// input byte once (pair_lookback_kernel), with decoupled look-back
+// (csrc/lookback.cuh): a persistent grid (occupancy x SMs,
+// cvs_pair_blocks: 3 blocks an SM under an 80-register cap) takes tiles of
+// kPairTile = 8,192 pairs in ascending order from a ticket. Per tile, each
+// thread has its 2 groups of 16 vals (loaded during the previous tile),
+// issues the loads of the 16-byte words of xs that hold a valid pair,
+// ranks its groups in the tile (one block scan of packed counts, while
+// those loads fly), publishes the tile's count, issues the next tile's
+// vals loads, and stages (xs, vals) in rank order in 40 KB of dynamic
+// shared memory. Warp 0 then looks back for the tile's offset, and the
+// tile's pairs go out coalesced at offset + rank, with the tile's band of
+// the zero tail of both outputs in 16-byte stores. No atomics decide where
+// a pair goes: the order is the input order by construction.
 //
 // Bound. Device-memory bytes: it reads vals (n) and, where a pair is
 // valid, its xs (4 pos; a 16-byte word of xs is read only when it holds
 // one), and writes xs_out and vals_out full length (5 n) plus pos. At
 // 1080p and sub_rows = 1 (n = 6,221,824) with pos = 10% of n that is
 // about 40 MB, 12 us at 3.35 TB/s; reading every xs would add 4 n
-// (18.57 us for the whole function). The count pass rereads vals.
+// (18.57 us for the whole function). The zero tail is most of it (about
+// 28 MB at 10% valid); a two-pass design (count, then compact) also paid
+// a second launch and a second read of vals. As in K1's flat emission,
+// the look-back chain bounds it at 1080p; the xs loads, which wait on the
+// vals, add a second round trip to each tile that the block scan and the
+// look-back only partly hide.
 //
 // K3 replaces the TPU kernel cudavideostream_tpu/ops/logcompact.py:_kernel_vals
 // (launched by _vals_compact from _merge_vals_two_stage) together with
 // the serial merge _merge_vals_impl, i.e. both branches of merge_vals:
 // the merge of the bitmask-only emission's per-unit vals blocks, whose
-// indices the landing rebuilds from the packed bits. It is K2 with the xs
-// stream removed: count_kernel as above, then vals_compact_kernel, which
-// ranks, stages and writes the valid vals and zero-fills [pos, n) in
-// 16-byte stores. Bound: it reads n bytes and writes n bytes (plus pos):
-// 12,451,844 B at 1080p's mask geometry (n = 6,225,920), 3.72 us at
-// 3.35 TB/s. The count pass rereads vals, as in K2.
+// indices the landing rebuilds from the packed bits. It is K2's function
+// with the xs stream removed, in the two-pass design: count_kernel counts
+// the valid vals of each block's span of 4,096-byte tiles (ops/
+// logcompact.py:tile_plan), then vals_compact_kernel sums the counts of
+// the blocks before it, rereads vals, ranks, stages and writes the valid
+// vals and zero-fills [pos, n) in 16-byte stores. Bound: it reads n bytes and writes
+// n bytes (plus pos): 12,451,844 B at 1080p's mask geometry
+// (n = 6,225,920), 3.72 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+namespace lb = cvs_lookback;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -56,10 +70,7 @@ constexpr int kPerThread = 16;
 constexpr int kTileBytes = kThreads * kPerThread;  // 4096 pairs
 constexpr unsigned kFull = 0xffffffffu;
 
-union Vec16 {
-  uint4 v;
-  uint8_t b[16];
-};
+using Vec16 = lb::Vec16;
 
 // The 16-bit validity mask (bit k: vals[i0 + k] != 0) and the vals;
 // pairs at or past n are invalid.
@@ -111,111 +122,141 @@ count_kernel(const uint8_t* __restrict__ vals, long long n,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-compact_kernel(const int* __restrict__ xs, const uint8_t* __restrict__ vals,
-               long long n, int tiles_per_block,
-               const int* __restrict__ counts, int grid,
-               int* __restrict__ xs_out, uint8_t* __restrict__ vals_out,
-               int* __restrict__ pos_out) {
-  __shared__ int s_xs[kTileBytes];
-  __shared__ uint8_t s_vals[kTileBytes];
-  __shared__ int s_warp[kWarps];
-  __shared__ long long s_red[2][kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// ---- K2: one pass with decoupled look-back ------------------------------
 
-  // this block's output offset (counts of the blocks before it) and pos
-  long long before = 0, total = 0;
-  for (int j = threadIdx.x; j < grid; j += kThreads) {
-    long long cj = counts[j];
-    total += cj;
-    if (j < (int)blockIdx.x) before += cj;
-  }
-  before = warp_sum(before);
-  total = warp_sum(total);
-  if (lane == 0) {
-    s_red[0][warp] = before;
-    s_red[1][warp] = total;
-  }
-  __syncthreads();
-  before = 0;
-  total = 0;
+// 16-pair groups per thread per tile, and the blocks an SM must hold (the
+// register cap)
+constexpr int kPairVecs = 2;
+constexpr int kPairMinBlocks = 3;
+constexpr int kPairTile = kTileBytes * kPairVecs;  // 8,192 pairs
+// staging per slot: xs (int32) and vals (uint8)
+constexpr size_t kPairSmem = 5 * (size_t)kPairTile;
+
+// The vals of the thread's groups of the tile at base (zeros past n).
+__device__ __forceinline__ void pair_load(const uint8_t* __restrict__ vals,
+                                          long long n, long long base,
+                                          Vec16 (&v)[kPairVecs]) {
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    before += s_red[0][w];
-    total += s_red[1][w];
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *pos_out = (int)total;
-
-  const long long span = (long long)tiles_per_block * kTileBytes;
-  const long long base = (long long)blockIdx.x * span;
-  long long off = before;
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const long long i0 = base + (long long)t * kTileBytes + threadIdx.x * kPerThread;
-    Vec16 v;
-    const unsigned m = i0 < n ? valid_mask(vals, i0, n, v) : 0u;
-    const int cnt = __popc(m);
-
-    // rank within the tile: warp inclusive scan, then the warp totals
-    int incl = cnt;
+  for (int q = 0; q < kPairVecs; ++q) {
+    const long long i0 = base + q * kTileBytes + threadIdx.x * kPerThread;
+    if (i0 + 16 <= n) {
+      v[q].v = *reinterpret_cast<const uint4*>(vals + i0);
+    } else {
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      int y = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += y;
+      for (int k = 0; k < 16; ++k) v[q].b[k] = (i0 + k < n) ? vals[i0 + k] : 0;
     }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    int wpre = 0, tile_total = 0;
+  }
+}
+
+// The validity masks of the thread's groups of the tile at base and their
+// counts, from its vals, and the loads of the 16-byte words of xs that
+// hold a valid pair (issued, not waited for).
+__device__ __forceinline__ void pair_xs(const int* __restrict__ xs,
+                                        long long n, long long base,
+                                        const Vec16 (&v)[kPairVecs],
+                                        unsigned (&m)[kPairVecs],
+                                        int (&cnt)[kPairVecs],
+                                        Vec16 (&x)[kPairVecs][4]) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      int x = s_warp[w];
-      if (w < warp) wpre += x;
-      tile_total += x;
-    }
-    int r = wpre + incl - cnt;
-    // xs, read only for the 16-byte words that hold a valid pair
+  for (int q = 0; q < kPairVecs; ++q) {
+    m[q] = lb::nonzero_bits(v[q].v);
+    cnt[q] = __popc(m[q]);
+    const long long i0 = base + q * kTileBytes + threadIdx.x * kPerThread;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const unsigned mq = (m >> (4 * q)) & 0xfu;
-      if (!mq) continue;
-      const long long j0 = i0 + 4 * q;
-      int x[4];
+    for (int w = 0; w < 4; ++w) {
+      if (!((m[q] >> (4 * w)) & 0xfu)) continue;
+      const long long j0 = i0 + 4 * w;
       if (j0 + 4 <= n) {
-        const int4 w4 = *reinterpret_cast<const int4*>(xs + j0);
-        x[0] = w4.x; x[1] = w4.y; x[2] = w4.z; x[3] = w4.w;
+        x[q][w].v = *reinterpret_cast<const uint4*>(xs + j0);
       } else {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) x[k] = (j0 + k < n) ? xs[j0 + k] : 0;
+        for (int k = 0; k < 4; ++k) x[q][w].i[k] = (j0 + k < n) ? xs[j0 + k] : 0;
       }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kPairMinBlocks)
+pair_lookback_kernel(const int* __restrict__ xs,
+                     const uint8_t* __restrict__ vals, long long n,
+                     unsigned long long* scratch, int* __restrict__ xs_out,
+                     uint8_t* __restrict__ vals_out,
+                     int* __restrict__ pos_out) {
+  constexpr int V = kPairVecs;
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* s_xs = reinterpret_cast<int*>(smem);
+  uint8_t* s_vals = smem + 4 * kPairTile;
+  __shared__ unsigned s_warp[(V + 1) / 2 * kWarps];
+  __shared__ long long s_off, s_next[2];
+  __shared__ int s_last;
+  const int t = threadIdx.x;
+  const lb::Scratch sc = lb::scratch_at(scratch);
+  const long long tiles = (n + kPairTile - 1) / kPairTile;
+
+  if (t == 0) s_next[0] = atomicAdd(sc.ticket, 1u);
+  __syncthreads();
+  long long tile = s_next[0];
+  Vec16 v[V];
+  unsigned m[V];
+  int cnt[V];
+  Vec16 x[V][4];
+  if (tile < tiles) pair_load(vals, n, tile * kPairTile, v);
+  // s_next alternates between two words, as in K1's flat_lookback_kernel
+  for (int it = 1; tile < tiles; it ^= 1) {
+    const long long base = tile * kPairTile;
+    // xs at the valid pairs: in flight through the block scan and the
+    // look-back
+    pair_xs(xs, n, base, v, m, cnt, x);
+    if (t == 0) s_next[it] = atomicAdd(sc.ticket, 1u);
+    int rank[V], total;
+    lb::tile_ranks<V>(cnt, s_warp, rank, total);
+    if (t == 0) lb::publish_count(sc.status, tile, total);
+    // the next tile's vals fly while this one looks back, is staged and
+    // goes out
+    const long long next = s_next[it];
+    Vec16 vn[V];
+    if (next < tiles) pair_load(vals, n, next * kPairTile, vn);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if ((mq >> k) & 1u) {
-          s_xs[r] = x[k];
-          s_vals[r] = v.b[4 * q + k];
-          ++r;
+    for (int q = 0; q < V; ++q) {
+      int r = rank[q];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if ((m[q] >> (4 * w + k)) & 1u) {
+            s_xs[r] = x[q][w].i[k];
+            s_vals[r] = v[q].b[4 * w + k];
+            ++r;
+          }
         }
       }
     }
-    __syncthreads();
-
-    // coalesced write-out of the tile's pairs at off + rank
-    for (int q = threadIdx.x; q < tile_total; q += kThreads) {
-      xs_out[off + q] = s_xs[q];
-      vals_out[off + q] = s_vals[q];
+    // warp 0 looks back once it has staged: by then the predecessors have
+    // mostly published, and it spins little
+    if (t < 32) {
+      const long long off = lb::tile_offset(sc.status, tile, total);
+      if (t == 0) {
+        s_off = off;
+        if (tile == tiles - 1) *pos_out = (int)(off + total);
+      }
     }
-    off += tile_total;
-    // No barrier needed before the next tile: its writes to s_warp come
-    // after every read of s_warp (which precede the barrier above), and
-    // its writes to s_xs/s_vals come after its own first barrier, which
-    // no thread passes before all have finished this write-out.
+    __syncthreads();
+    const long long off = s_off;
+    for (int j = t; j < total; j += kThreads) {
+      xs_out[off + j] = s_xs[j];
+      vals_out[off + j] = s_vals[j];
+    }
+    long long lo, hi;
+    lb::tail_band(base, base + kPairTile < n ? base + kPairTile : n, off,
+                  total, n, n, lo, hi);
+    lb::zero_fill(xs_out, lo, hi);
+    lb::zero_fill(vals_out, lo, hi);
+    // No barrier before the next tile (as in K1's flat_lookback_kernel).
+#pragma unroll
+    for (int q = 0; q < V; ++q) v[q] = vn[q];
+    tile = next;
   }
-
-  // zero fill: this block owns output slots [base, base + span)
-  const long long z0 = total > base ? total : base;
-  const long long z1 = n < base + span ? n : base + span;
-  for (long long o = z0 + threadIdx.x; o < z1; o += kThreads) {
-    xs_out[o] = 0;
-    vals_out[o] = 0;
-  }
+  lb::release_scratch(sc, tiles, &s_last);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -306,24 +347,35 @@ vals_compact_kernel(const uint8_t* __restrict__ vals, long long n,
 
 extern "C" {
 
-// Launch K2 on `stream`. `counts` is scratch of `grid` ints; the caller
-// picks tiles_per_block and grid so that grid * tiles_per_block * 4096
-// >= n. xs_out and vals_out have n entries. Returns the cudaError_t of
-// the launches (0 on success).
+// K2's persistent grid on `device` (blocks per SM at its shared memory,
+// times the SM count); sets the attribute that admits its dynamic shared
+// memory there.
+int cvs_pair_blocks(int device, int* blocks) {
+  return (int)lb::persistent_blocks(device, pair_lookback_kernel, kPairSmem,
+                                    blocks);
+}
+
+int cvs_pair_tile(void) { return kPairTile; }
+
+// Launch K2 on `stream`: ONE kernel, grid blocks (at most cvs_pair_blocks'
+// count, after that call on this device). `scratch` holds 2 + ceil(n /
+// cvs_pair_tile()) zeroed 8-byte words that no launch on another stream
+// uses (see csrc/lookback.cuh); the launch leaves them zero. xs, vals,
+// xs_out and vals_out have n entries and are 16-byte aligned. Returns the
+// cudaError_t of the launch (0 on success).
 int cvs_pair_compact(int device, const int* xs, const uint8_t* vals,
-                     long long n, int tiles_per_block, int grid, int* counts,
+                     long long n, int grid, unsigned long long* scratch,
                      int* xs_out, uint8_t* vals_out, int* pos_out,
                      cudaStream_t stream) {
+  if (n < 1 || grid < 1 || ((uintptr_t)xs & 15) || ((uintptr_t)vals & 15)
+      || ((uintptr_t)xs_out & 15) || ((uintptr_t)vals_out & 15))
+    return (int)cudaErrorInvalidValue;
   // this library carries its own CUDA runtime, whose current device is
   // not the caller's: select the tensors' device explicitly
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  count_kernel<<<grid, kThreads, 0, stream>>>(vals, n, tiles_per_block,
-                                               counts);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  compact_kernel<<<grid, kThreads, 0, stream>>>(
-      xs, vals, n, tiles_per_block, counts, grid, xs_out, vals_out, pos_out);
+  pair_lookback_kernel<<<grid, kThreads, kPairSmem, stream>>>(
+      xs, vals, n, scratch, xs_out, vals_out, pos_out);
   return (int)cudaGetLastError();
 }
 

@@ -60,15 +60,18 @@ a copy.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from cudavideostream_tpu_torch.kernels import build
 from cudavideostream_tpu_torch.ops import diff as diff_ops
 
-TILE_BYTES = 4096  # one tile of the kernel: 256 threads x 16 bytes
-MAX_GRID = 1024    # blocks per launch; larger frames take more tiles per block
+# One tile of the tiled, mask and batched K1 kernels and of K3: 256
+# threads x 16 bytes. K1's flat emission and K2 take larger tiles (their
+# libraries say how large: ``cvs_flat_tile_bytes``, ``cvs_pair_tile``).
+TILE_BYTES = 4096
+MAX_GRID = 1024    # K3's blocks per launch; larger streams take more tiles per block
 
 # The JAX package's tile geometry (``logcompact.py:73-128``), copied: the
 # tiled emission's unit count and unit size follow from it, and they
@@ -96,9 +99,13 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = build.load("logcompact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.cvs_fused_diff_compact.argtypes = [
-            i, p, p, p, ll, ll, i, p, i, i, i, i, p, p, p, ll, p, p,
+            i, p, p, p, ll, ll, i, p, i, i, i, p, p, p, ll, p, p,
         ]
         lib.cvs_fused_diff_compact.restype = i
+        lib.cvs_flat_blocks.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.cvs_flat_blocks.restype = i
+        lib.cvs_flat_tile_bytes.argtypes = []
+        lib.cvs_flat_tile_bytes.restype = i
         lib.cvs_tiled_grid.argtypes = [ll, i]
         lib.cvs_tiled_grid.restype = i
         lib.cvs_fused_diff_compact_tiled.argtypes = [
@@ -117,8 +124,12 @@ def _pair_lib() -> ctypes.CDLL:
     if lib is None:
         lib = build.load("pair_compact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_pair_compact.argtypes = [i, p, p, ll, i, i, p, p, p, p, p]
+        lib.cvs_pair_compact.argtypes = [i, p, p, ll, i, p, p, p, p, p]
         lib.cvs_pair_compact.restype = i
+        lib.cvs_pair_blocks.argtypes = [i, ctypes.POINTER(i)]
+        lib.cvs_pair_blocks.restype = i
+        lib.cvs_pair_tile.argtypes = []
+        lib.cvs_pair_tile.restype = i
         lib.cvs_vals_compact.argtypes = [i, p, ll, i, i, p, p, p, p]
         lib.cvs_vals_compact.restype = i
         _bind_common(lib, "pair_compact")
@@ -137,10 +148,68 @@ def _device_index(dev: torch.device) -> int:
 
 
 def tile_plan(n: int) -> Tuple[int, int]:
-    """``(tiles_per_block, grid)`` of a launch over an ``n``-byte frame."""
+    """``(tiles_per_block, grid)`` of a K3 launch (``vals_compact``, the
+    two-pass design, its only user) over an ``n``-byte stream."""
     n_tiles = -(-n // TILE_BYTES)
     per_block = max(1, -(-n_tiles // MAX_GRID))
     return per_block, -(-n_tiles // per_block)
+
+
+# -- the one-pass compactions (K1 flat, K2): launch plan and scratch --------
+
+class FlatPlan(NamedTuple):
+    """The launch of a one-pass compaction (``csrc/lookback.cuh``) over
+    ``n`` entries in tiles of ``tile`` entries."""
+    tiles: int          # tile t holds entries [t * tile, (t + 1) * tile) of [0, n)
+    grid: int           # blocks launched: the persistent grid, at most one a tile
+    scratch_words: int  # 8-byte words: the ticket, the count done, a status a tile
+
+
+def flat_plan(n: int, cap: int, blocks: int, tile: int) -> FlatPlan:
+    """The plan of a one-pass compaction of ``n`` entries into ``cap``
+    output slots, on a card whose persistent grid is ``blocks`` blocks
+    (occupancy x SMs). Blocks take tiles while there are any; each tile
+    writes its entries and its band of the zero tail
+    (``csrc/lookback.cuh:tail_band``), so no more blocks than tiles are
+    launched."""
+    if n < 1 or not 0 <= cap <= n or blocks < 1 or tile < 1:
+        raise ValueError(f"no plan for n={n}, cap={cap}, blocks={blocks}, "
+                         f"tile={tile}")
+    tiles = -(-n // tile)
+    return FlatPlan(tiles, min(blocks, tiles), 2 + tiles)
+
+
+_blocks: dict = {}   # (kernel, device index, variant) -> persistent grid
+_scratch: dict = {}  # (device, stream handle) -> zeroed int64 words
+
+
+def _persistent_blocks(lib: ctypes.CDLL, fn: str, idx: int, *args) -> int:
+    """The persistent grid of a one-pass kernel on device ``idx``, asked
+    of its library once per device (which also admits the kernel's
+    dynamic shared memory there)."""
+    key = (fn, idx, args)
+    blocks = _blocks.get(key)
+    if blocks is None:
+        out = ctypes.c_int()
+        _raise_on(getattr(lib, fn)(idx, *args, ctypes.byref(out)), lib, fn)
+        blocks = _blocks[key] = out.value
+    return blocks
+
+
+def flat_scratch(device: torch.device, stream: int,
+                 words: int) -> torch.Tensor:
+    """The scratch of the one-pass compactions launched on ``stream`` of
+    ``device``: at least ``words`` int64 words, zero at creation, and left
+    zero by every launch (its last block resets what it used). It is keyed
+    by (device, stream), so launches that can overlap (K1 on the compute
+    stream, K2 on a landing stream) never share it; launches on one
+    stream run in order and may."""
+    key = (torch.device(device), int(stream))
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 1024), dtype=torch.int64, device=device)
+        _scratch[key] = buf
+    return buf
 
 
 # -- the JAX package's tile geometry -------------------------------------
@@ -419,19 +488,21 @@ def fused_diff_compact(
                                     overlay_region, threshold_map)
     region_ptr = overlay_region.data_ptr() if region_len else None
     lib = _kernel_lib()
-    per_block, grid = tile_plan(n)
+    idx = _device_index(dev)
+    plan = flat_plan(n, cap, _persistent_blocks(
+        lib, "cvs_flat_blocks", idx, int(threshold_map is not None)),
+        lib.cvs_flat_tile_bytes())
     xs = torch.empty(cap, dtype=torch.int32, device=dev)
     vals = torch.empty(cap, dtype=torch.uint8, device=dev)
-    counts = torch.empty(grid, dtype=torch.int32, device=dev)
     pos = torch.empty((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = flat_scratch(dev, stream, plan.scratch_words)
     rc = lib.cvs_fused_diff_compact(
-        _device_index(dev),
+        idx,
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len, n,
         int(threshold), _ptr(threshold_map), int(bool(negative_feedback)),
-        off, per_block, grid,
-        counts.data_ptr(), xs.data_ptr(), vals.data_ptr(), cap,
-        pos.data_ptr(), stream,
+        off, plan.grid, scratch.data_ptr(), xs.data_ptr(), vals.data_ptr(),
+        cap, pos.data_ptr(), stream,
     )
     _raise_on(rc, lib, "fused_diff_compact")
     fused_diff_compact.launches += 1
@@ -1064,16 +1135,18 @@ def pair_compact(xs_flat: torch.Tensor, vals_flat: torch.Tensor):
         raise ValueError("the kernel reads 16-byte vectors: xs and vals "
                          "must be 16-byte aligned")
     lib = _pair_lib()
-    per_block, grid = tile_plan(n)
+    idx = _device_index(dev)
+    plan = flat_plan(n, n, _persistent_blocks(lib, "cvs_pair_blocks", idx),
+                     lib.cvs_pair_tile())
     xs = torch.empty(n, dtype=torch.int32, device=dev)
     vals = torch.empty(n, dtype=torch.uint8, device=dev)
-    counts = torch.empty(grid, dtype=torch.int32, device=dev)
     pos = torch.empty((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = flat_scratch(dev, stream, plan.scratch_words)
     rc = lib.cvs_pair_compact(
-        _device_index(dev), xs_flat.data_ptr(), vals_flat.data_ptr(), n,
-        per_block, grid, counts.data_ptr(), xs.data_ptr(), vals.data_ptr(),
-        pos.data_ptr(), stream,
+        idx, xs_flat.data_ptr(), vals_flat.data_ptr(), n, plan.grid,
+        scratch.data_ptr(), xs.data_ptr(), vals.data_ptr(), pos.data_ptr(),
+        stream,
     )
     _raise_on(rc, lib, "pair_compact")
     pair_compact.launches += 1
