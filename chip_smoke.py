@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
    nvcc, triton;
 2. build: every hand-written kernel, from ``csrc/`` (six sources), one
    ``nvcc`` per source, all started together; K7's SASS must keep its
-   256 compares per value (``cuobjdump -sass``, ISETP counted);
+   256 compares per value (``cuobjdump -sass``, ISETP counted), and each
+   instance of K1's tiled kernel must issue a global load before its
+   first shared-memory store;
 3. each kernel against its plain PyTorch version at 1080p on the card,
    byte for byte: K1 flat, K1 tiled and K1's bitmask-only emission
    (``subtile_rows`` 1, 8 and 0) and K1 tiled with packed bits
@@ -25,8 +27,13 @@ Phases (any failure raises and the script exits non-zero):
    back on one stream and on two streams at once; K2 on every tiled
    output and on raw pairs (the same edges at its tile, all valid, none
    valid, 20 launches back to back on one and on two streams; xs == 0 at
-   valid pairs kept); K3 on every bitmask-only output
-   and on raw streams; K4 on the gray values of a random frame, of the
+   valid pairs kept); K1 tiled's one launch at 1, just under and just
+   over one wave of tiles (subtile 1 and 8, and bitmask-only) and in 20
+   launches back to back mixed with K1 flat, bitmask-only and batched, on
+   one stream and on two at once; K3 on every bitmask-only output, on raw
+   streams and, one pass, at its edges (lengths 1, 15, 16, 17, a tile and
+   a tile +- 1, tile counts around its grid, every byte nonzero and none,
+   20 launches back to back mixed with K2 on one and on two streams); K4 on the gray values of a random frame, of the
    synthetic scene, of one value everywhere and of 0/255 only, and on
    ragged lengths; K5 (segment) and K6 (register) against their plain
    versions, K5 == K6 == K1 tiled at ``subtile_rows=0`` bit for bit and
@@ -39,7 +46,8 @@ Phases (any failure raises and the script exits non-zero):
    stream, K5 batched likewise and equal to K1 batched at
    ``subtile_rows=0``, and ``BatchedDeltaPipeline.step`` at B = 4 against
    each stream's NumPy spec; K1's ``index_offset`` mode (flat and tiled at
-   ``subtile_rows`` 1, 8, 0, two densities) on every shard of the frame cut
+   ``subtile_rows`` 1, 8, 0, two densities; tiled at 1 and 8 with a
+   per-byte map) on every shard of the frame cut
    into S = 2, 4 and 8 row shards at its shard base, and at the largest
    offset int32 admits, against its plain version and against the
    offset-free launch shifted on its valid entries only;
@@ -84,8 +92,10 @@ Phases (any failure raises and the script exits non-zero):
    only for a (1, 1) mesh's ``flat`` landings);
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
-   inputs cold in L2), and a profiler trace that must show one kernel
-   launch per K1 flat and per K2 call: each kernel, its plain
+   inputs cold in L2), the empty-launch floor (``torch.cuda._sleep(0)``),
+   and a profiler trace that must show one kernel launch per call of K1
+   flat, K1 tiled, bitmask-only, batched and with ``index_offset``, K2
+   and K3: each kernel, its plain
    version and its bound (and, for K3, ``torch.masked_select`` as its
    library yardstick), ``pipeline.step`` flat and tiled, the landings
    (``pos`` prefix; tiles, flat and mask flavors, the mask landing's host
@@ -137,9 +147,12 @@ K7_LANES_PER_SM = 4 * 32
 ITERS = 100
 CUR_COPIES = 8
 SEED = 2734
-# the kernels redesigned as one-pass compactions, and the slice of the
-# port that redesigned them (the two-pass times stand in PERF.md, section 6)
-REDESIGNED = {"fused_diff_compact": 8, "pair_compact": 8}
+# the kernels redesigned as one-launch kernels, and the slice of the port
+# that redesigned them (the earlier times stand in PERF.md, section 6)
+REDESIGNED = {"fused_diff_compact": 8, "pair_compact": 8,
+              "fused_diff_compact_tiled": 9, "fused_diff_compact_mask": 9,
+              "fused_diff_compact_batched": 9, "vals_compact": 9,
+              "fused_diff_compact index_offset": 9}
 
 
 def log(msg: str) -> None:
@@ -226,7 +239,38 @@ def phase_build():
         f"{len(sass)} lines")
     if isetp < 256:
         raise AssertionError("K7's SASS lost its 256 compares per value")
+    loads_first(cuobjdump, build.build("logcompact"), "tiled_unit_kernel")
     return isetp
+
+
+def loads_first(cuobjdump, lib, kernel):
+    """Fail unless every instance of ``kernel`` in ``lib``'s SASS issues a
+    global load before its first shared-memory store: nothing (no zeroing
+    of its staging) waits in front of its loads."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    found = 0
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        if kernel not in name:
+            continue
+        ops = []
+        for line in body.splitlines():
+            toks = line.split("*/", 1)[1].split() if "*/" in line else []
+            if toks and not toks[0].startswith("0x"):
+                # the opcode, after a predicate such as @!P0
+                ops.append(toks[1] if toks[0].startswith("@") else toks[0])
+        ldg = next((i for i, o in enumerate(ops)
+                    if o.startswith(("LDG", "LD.")) or o == "LD"), None)
+        sts = next((i for i, o in enumerate(ops) if o.startswith("STS")), None)
+        log(f"[build] csrc/logcompact.cu SASS {name.strip()[:60]}...: first "
+            f"LDG at instruction {ldg}, first STS at {sts}, of {len(ops)}")
+        if ldg is None or (sts is not None and sts < ldg):
+            raise AssertionError(f"{kernel}: a shared store comes before the "
+                                 "first global load")
+        found += 1
+    if found != 4:
+        raise AssertionError(f"{kernel}: {found} instances in the SASS, not 4")
 
 
 def _equal_or_raise(name, got, want,
@@ -271,17 +315,66 @@ def _back_to_back(label, launch, plain, cases, streams, labels):
 
 
 def _onepass_grid(lib_name):
-    """(tile, persistent grid) of the one-pass K1 flat (no map) or K2."""
+    """(tile, persistent grid) of the one-pass K1 flat (no map), K2 or
+    K3; for K1 tiled, (its 4096-byte tile, the blocks one wave holds)."""
     from cudavideostream_tpu_torch.ops import logcompact as lc
 
     idx = torch.cuda.current_device()
-    if lib_name == "flat":
+    if lib_name in ("flat", "tiled"):
         lib = lc._kernel_lib()
+        if lib_name == "tiled":
+            return (lc.TILE_BYTES,
+                    lc._persistent_blocks(lib, "cvs_tiled_wave", idx))
         return (lib.cvs_flat_tile_bytes(),
                 lc._persistent_blocks(lib, "cvs_flat_blocks", idx, 0))
     lib = lc._pair_lib()
+    if lib_name == "vals":
+        return (lib.cvs_vals_tile(),
+                lc._persistent_blocks(lib, "cvs_vals_blocks", idx))
     return (lib.cvs_pair_tile(),
             lc._persistent_blocks(lib, "cvs_pair_blocks", idx))
+
+
+def _n_for_tiles(target, mask=False, over=False):
+    """``(n, tiles)``: a frame length whose tiled (or bitmask-only)
+    emission at subtile_rows=1 pads to ``target`` tiles of 4096 bytes, or
+    where the geometry cannot (the mask geometry pads to pairs of tiles)
+    to the nearest count below it (``over``: above it)."""
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+
+    geometry = lc.tiled_geometry_mask if mask else lc.tiled_geometry
+    m = target * 4096 - 1000
+    while True:
+        tiles = -(-geometry(m, 1)[0] // lc.TILE_BYTES)
+        if (tiles >= target if over else tiles <= target) or m == 1:
+            return m, tiles
+        m = m + 1024 if over else max(m - 1024, 1)
+
+
+_K1_LABELS = ("pos", "counts", "blocks", "vals_t or bits", "new_prev")
+
+
+def _k1_any(kind, cur, prev, plain=False):
+    """One K1 call of ``kind`` (tiled subtile 1 or 8, bitmask-only,
+    batched over 4 streams, or flat) on a copy of ``prev``, or its plain
+    version: the launches that share one stream's scratch words."""
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+
+    p = prev.clone()
+    if kind in ("tiled1", "tiled8"):
+        fn = (lc.fused_diff_compact_tiled_reference if plain
+              else lc.fused_diff_compact_tiled)
+        return fn(cur, p, 20, True, None, int(kind[-1]))
+    if kind == "mask":
+        fn = (lc.fused_diff_compact_mask_reference if plain
+              else lc.fused_diff_compact_mask)
+        return fn(cur, p, 20, True, None, 1)
+    if kind == "batched4":
+        fn = (lc.fused_diff_compact_batched_reference if plain
+              else lc.fused_diff_compact_batched)
+        return fn(cur, p, 4, sub_rows=1)
+    fn = lc.fused_diff_compact_reference if plain else lc.fused_diff_compact
+    return fn(cur, p, 20, True)
 
 
 def phase_kernel_vs_plain(cfg):
@@ -487,6 +580,20 @@ def phase_tiled_vs_plain(cfg):
                      region[:700], sub)
         log(f"[check] K1 tiled n={m} overlay=700 B, subtile 1/8/0: exact; "
             f"K2 merge_tiles exact")
+    # K1 tiled's one launch at tile counts 1, just under and just over one
+    # wave of resident blocks (1080p's are the 12-case lines above)
+    _, wave = _onepass_grid("tiled")
+    for target, over in ((1, False), (wave - 1, False), (wave + 1, True)):
+        m, tiles = _n_for_tiles(target, over=over)
+        prev_np, cur_np = frame_pair(rng, m, 0.06)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        for sub in (1, 8):
+            run_both(f"tiled {tiles} tiles sub={sub}", prev, cur, 20, True,
+                     region[:min(700, m)], sub)
+        log(f"[check] K1 tiled one launch on {tiles} tiles of 4096 B (n={m}; "
+            f"one wave holds {wave} blocks), subtile 1/8: exact; K2 "
+            f"merge_tiles exact")
     # raw pairs: a third of the xs are 0 (a valid index), vals zero in
     # between; lengths around K2's tile and around its persistent grid in
     # tiles, then every pair valid and none
@@ -543,6 +650,30 @@ def phase_tiled_vs_plain(cfg):
             f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
             f" (n {', '.join(str(x) for x in sizes)}; densities 0/0.3/1): "
             f"each exact against its plain version")
+
+    # K1's tiled emission keeps its streams' pos words in the scratch of
+    # its stream, beside K1 flat's look-back words: twenty launches of
+    # each kind in turn, back to back on one stream and on two at once
+    small = 12_345
+    frames = {}
+    for kind, m, d in (("tiled1", n, 0.06), ("tiled8", small, 0.3),
+                       ("mask", n, 1.0), ("batched4", 4 * small, 0.06),
+                       ("flat", small, 0.3)):
+        frames[kind] = [torch.from_numpy(a).to(dev)
+                        for a in reversed(frame_pair(rng, m, d))]
+    kinds = list(frames)
+    for streams in (1, 2):
+        cases_bb = [(kinds[i % len(kinds)], *frames[kinds[i % len(kinds)]])
+                    for i in range(20)]
+        torch.cuda.synchronize()
+        cases["k1"] += _back_to_back(
+            f"K1 back to back, {streams} stream(s)", _k1_any,
+            lambda *c: _k1_any(*c, plain=True), cases_bb, streams,
+            _K1_LABELS)
+        log(f"[check] K1 tiled subtile 1 and 8, bitmask-only, batched B=4 "
+            f"and flat: 20 launches back to back on "
+            f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
+            f": each exact against its plain version")
 
     tcfg = dataclasses.replace(cfg, tiled_payload=True)
     pipe = DeltaStreamPipeline(tcfg)
@@ -670,6 +801,67 @@ def phase_mask_vs_plain(cfg):
         pos = check_vals(f"vals_compact n={m} d={density}", vals)
         log(f"[check] K3 vals_compact on a raw stream of {m} B "
             f"(pos={pos}): exact")
+    # K3's one pass at its edges: lengths around its tile and its
+    # persistent grid in tiles, every byte nonzero and none
+    tile, blocks = _onepass_grid("vals")
+
+    def raw_vals(m, density):
+        return torch.from_numpy(np.where(
+            rng.random(m) < density, rng.integers(1, 255, m, endpoint=True),
+            0).astype(np.uint8)).to(dev)
+
+    for m, density in ((1, 1.0), (15, 0.3), (16, 0.3), (17, 0.3),
+                       (tile - 1, 0.3), (tile, 0.3), (tile + 1, 0.3),
+                       ((blocks - 1) * tile + 5, 0.1),
+                       ((blocks + 1) * tile - 3, 0.1), (6_225_920, 1.0),
+                       (6_225_920, 0.0)):
+        pos = check_vals(f"vals_compact one pass n={m} d={density}",
+                         raw_vals(m, density))
+        if density in (0.0, 1.0) and pos != (m if density else 0):
+            raise AssertionError(f"vals_compact n={m}: pos {pos}")
+        log(f"[check] K3 vals_compact one pass n={m} ({-(-m // tile)} tiles "
+            f"of {tile} B, grid {min(blocks, -(-m // tile))} of {blocks}; "
+            f"d={density}, pos={pos}): exact")
+    # twenty launches back to back, K3 and K2 (whose look-back words share
+    # the stream's scratch) in turn, on one stream and on two at once
+    sizes = (6_225_920, 17, tile + 1, 777, 1, (blocks + 1) * tile - 3)
+    for streams in (1, 2):
+        bb = []
+        for i in range(20):
+            m, d = sizes[i % len(sizes)], (0.0, 0.3, 1.0)[i % 3]
+            vals = raw_vals(m, d)
+            bb.append((vals, torch.arange(m, dtype=torch.int32, device=dev)
+                       if i % 4 == 3 else None))
+
+        def launch(vals, xs):
+            return (logcompact.vals_compact(vals) if xs is None
+                    else logcompact.pair_compact(xs, vals))
+
+        def plain(vals, xs):
+            return (logcompact.vals_compact_reference(vals) if xs is None
+                    else logcompact.pair_compact_reference(xs, vals))
+
+        torch.cuda.synchronize()
+        cases["k3"] += _back_to_back(
+            f"K3 back to back, {streams} stream(s)", launch, plain, bb,
+            streams, ("pos", "vals or xs", "vals"))
+        log(f"[check] K3 vals_compact (and K2 every fourth launch): 20 "
+            f"launches back to back on "
+            f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
+            f" (n {', '.join(str(x) for x in sizes)}; densities 0/0.3/1): "
+            f"each exact against its plain version")
+    # K1's bitmask-only emission at tile counts 1 and around one wave
+    _, wave = _onepass_grid("tiled")
+    for target, over in ((1, False), (wave - 1, False), (wave + 1, True)):
+        m, tiles = _n_for_tiles(target, mask=True, over=over)
+        prev_np, cur_np = frame_pair(rng, m, 0.06)
+        prev, cur = (torch.from_numpy(prev_np).to(dev),
+                     torch.from_numpy(cur_np).to(dev))
+        run_mask(f"mask {tiles} tiles", prev, cur, 20, True,
+                 region[:min(700, m)], 1)
+        log(f"[check] K1 mask one launch on {tiles} tiles of 4096 B "
+            f"(n={m}; one wave holds {wave} blocks), subtile 1: exact; K3 "
+            f"merge_vals exact")
 
     text = "FPS: 30 BW: 1234 kbps"
     prev_np, cur_np = frame_pair(rng, n, 0.06)
@@ -1854,14 +2046,32 @@ def _profile_ms(fn, names, label, per_call=False):
     instantiations included) over 20 calls of ``fn(i)``, from a
     torch.profiler trace. With ``per_call``, also the kernels the trace
     holds per call, all names counted (copies and memsets apart); returns
-    that count, None when the trace holds no kernel."""
+    that count, None when the trace holds no kernel. The profiler on the
+    card now and then loses launch records (one of 20, or a whole trace):
+    a trace that holds fewer records than calls and no kernel but the
+    named ones is taken again, at most three times in all; one with more
+    is never retaken."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(20):
-            fn(i)
+    def ours(key):
+        return any(f"::{n}(" in key or f"::{n}<" in key for n in names)
+
+    for attempt in range(3):
         torch.cuda.synchronize()
-    events = prof.key_averages()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(20):
+                fn(i)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = {e.key: e.count for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset"))}
+        recorded = sum(kernels.values())
+        if (not per_call or recorded >= 20 or attempt == 2
+                or not all(ours(k) for k in kernels)):
+            break
+        log(f"[trace] {label}: the profiler recorded {recorded} kernel "
+            f"launch(es) of 20 calls: traced again")
     passes = {name: e.device_time_total / e.count / 1e3
               for e in events for name in names
               if f"::{name}(" in e.key or f"::{name}<" in e.key}
@@ -1872,25 +2082,34 @@ def _profile_ms(fn, names, label, per_call=False):
             f"{sorted(set(names) - set(passes))}: not measured")
     if not per_call:
         return None
-    kernels = {e.key: e.count for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith(("Memcpy", "Memset"))}
     if not kernels:
         log(f"[trace] {label}: no kernel in the trace: launches per call "
             f"not measured")
         return None
-    per = sum(kernels.values()) / 20
+    per = recorded / 20
     log(f"[trace] {label}: {per:g} kernel launch(es) per call over 20 calls "
         f"(profiler: " + "; ".join(f"{_kernel_name(k)} x{c}"
                                   for k, c in kernels.items()) + ")")
     return per
 
 
+def _one_per_call(per_call):
+    """Fail unless each redesigned kernel's trace held one kernel a call
+    (None: the profiler saw no kernel, which also fails)."""
+    for label, per in per_call.items():
+        if per != 1:
+            raise AssertionError(f"{label}: {per} launches a call in the "
+                                 f"trace, not 1")
+
+
 def _kernel_name(key):
     """A profiler key's kernel name, without namespace, return type or
-    arguments: ``void (anonymous namespace)::k<false>(int*)`` -> ``k<false>``."""
-    head = key.replace("(anonymous namespace)::", "").split("(")[0].split()
-    return head[-1].split("::")[-1] if head else key
+    arguments: ``void (anonymous namespace)::k<true, false>(int*)`` ->
+    ``k<true, false>``."""
+    head = key.replace("(anonymous namespace)::", "").split("(")[0].strip()
+    if head.startswith("void "):
+        head = head[len("void "):]
+    return head.split("::")[-1] or key
 
 
 def phase_times(cfg):
@@ -1933,6 +2152,9 @@ def phase_times(cfg):
     k_ms = _event_median_ms(
         lambda i: logcompact.fused_diff_compact(
             curs[i % CUR_COPIES], prevs[i], 20, True, region), ITERS)
+    # the floor under every short kernel's time: one empty kernel launch
+    # (a kernel that spins for 0 clocks), timed as the kernels are
+    floor_ms = _event_median_ms(lambda i: torch.cuda._sleep(0), ITERS)
     refill()
     plain_ms = _event_median_ms(
         lambda i: logcompact.fused_diff_compact_reference(
@@ -1978,17 +2200,18 @@ def phase_times(cfg):
         f"{bound_ms / k_ms:.1%} of it)")
     log(f"[time] plain PyTorch version: {plain_ms:.4f} ms "
         f"(synchronizes in nonzero)")
+    log(f"[time] empty kernel launch (torch.cuda._sleep(0)): {floor_ms:.4f} "
+        f"ms, the CUDA-event pair median of {ITERS} behind the backlog: the "
+        f"floor under every short kernel's time")
     log(f"[time] pipeline.step (overlay blend + kernel): {step_ms:.4f} ms")
     log(f"[time] pos-prefix landing: {land_ms:.4f} ms device span, "
         f"{statistics.median(host_land) * 1e3:.4f} ms host")
     log(f"[time] SyntheticSource next() on the host: "
         f"{statistics.median(src_s) * 1e3:.2f} ms/frame (not a kernel time)")
-    if k_per_call != 1:
-        raise AssertionError(f"K1 flat: {k_per_call} launches a call in the "
-                             f"trace, not 1")
+    _one_per_call({"K1 flat": k_per_call})
     return {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "step_ms": step_ms, "land_ms": land_ms,
-            "per_call": k_per_call}
+            "per_call": k_per_call, "floor_ms": floor_ms}
 
 
 def _busy_and_overlap(prof):
@@ -2079,9 +2302,9 @@ def phase_tiled_times(cfg):
             curs[i % CUR_COPIES], prevs[i], 20, True, region, 1), ITERS,
         backlog=False)
     refill()
-    _profile_ms(lambda i: logcompact.fused_diff_compact_tiled(
+    k1_per_call = _profile_ms(lambda i: logcompact.fused_diff_compact_tiled(
         curs[i % CUR_COPIES], prevs[i], 20, True, region, 1),
-        ("tiled_unit_kernel", "sum_kernel"), "K1 tiled subtile=1")
+        ("tiled_unit_kernel",), "K1 tiled subtile=1", per_call=True)
     # K2 on K1's blocks; 4 copies (31 MB each) rotate, so each launch
     # reads blocks last touched ~90 MB of traffic back: cold in the L2
     blocks = [(out[1], out[2].clone(), out[3].clone()) for _ in range(4)]
@@ -2213,11 +2436,10 @@ def phase_tiled_times(cfg):
             f"{wall / 10:.4f} ms per frame under the profiler, device busy "
             f"{busy / 10:.4f} ms per frame (idle {1 - busy / wall:.1%}), "
             f"two streams busy at once {both / 10:.4f} ms per frame")
-    if k2_per_call != 1:
-        raise AssertionError(f"K2: {k2_per_call} launches a call in the "
-                             f"trace, not 1")
+    _one_per_call({"K1 tiled": k1_per_call, "K2": k2_per_call})
     return {"k1_ms": k1[1], "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bound,
-            "k2_ms": k2, "k2_plain_ms": k2_plain, "k2_bound_ms": k2_bound,
+            "k1_per_call": k1_per_call, "k2_ms": k2,
+            "k2_plain_ms": k2_plain, "k2_bound_ms": k2_bound,
             "k2_per_call": k2_per_call, "flat_land_ms": land["flat"][0]}
 
 
@@ -2275,9 +2497,9 @@ def phase_mask_times(cfg):
             curs[i % CUR_COPIES], prevs[i], 20, True, region, 1), ITERS,
         backlog=False)
     refill()
-    _profile_ms(lambda i: logcompact.fused_diff_compact_mask(
+    k1_per_call = _profile_ms(lambda i: logcompact.fused_diff_compact_mask(
         curs[i % CUR_COPIES], prevs[i], 20, True, region, 1),
-        ("tiled_unit_kernel", "sum_kernel"), "K1 mask subtile=1")
+        ("tiled_unit_kernel",), "K1 mask subtile=1", per_call=True)
     # K1 tiled without and with bits, in turns (plain, bits, bits, plain)
     tiled_ms = {False: [], True: []}
     for bits in (False, True, True, False):
@@ -2300,8 +2522,9 @@ def phase_mask_times(cfg):
         lambda i: torch.masked_select(flat_vals[i % 16],
                                       flat_vals[i % 16] != 0),
         ITERS, backlog=False)
-    _profile_ms(lambda i: logcompact.merge_vals(*blocks[i % 16]),
-                ("count_kernel", "vals_compact_kernel"), "K3")
+    k3_per_call = _profile_ms(
+        lambda i: logcompact.merge_vals(*blocks[i % 16]),
+        ("vals_lookback_kernel",), "K3", per_call=True)
 
     # the mask landing on one step's outputs, as a MaskPayload (wire v4)
     # and as arrays rebuilt from the bits; the rebuild and the v4 encode
@@ -2385,9 +2608,12 @@ def phase_mask_times(cfg):
         f"mask landing: {statistics.median(served_s) * 1e3:.4f} ms median "
         f"on the host; modes {dict(sorted(modes.items()))} (0 delta16, 1 "
         f"bitmask, 2 raw, 3 winmask: only 3 forwards the bits)")
+    _one_per_call({"K1 mask": k1_per_call, "K3": k3_per_call})
     return {"k1_ms": k1, "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bound,
-            "k3_ms": k3, "k3_plain_ms": k3_plain, "k3_bound_ms": k3_bound,
-            "k3_library_ms": k3_lib}
+            "k1_per_call": k1_per_call, "k3_ms": k3,
+            "k3_plain_ms": k3_plain, "k3_bound_ms": k3_bound,
+            "k3_library_ms": k3_lib, "k3_per_call": k3_per_call,
+            "land_ms": land[True][0]}
 
 
 def phase_filter_times(cfg):
@@ -2690,8 +2916,9 @@ def phase_batched_times(cfg):
         refill()
         turns.setdefault(name, []).append(_event_median_ms(fn, ITERS))
     refill()
-    _profile_ms(batched, ("tiled_unit_kernel", "sum_kernel"),
-                "K1 batched B=4 subtile=1")
+    k1_per_call = _profile_ms(batched, ("tiled_unit_kernel",),
+                              "K1 batched B=4 subtile=1", per_call=True)
+    _one_per_call({"K1 batched": k1_per_call})
     refill()
     k1_plain = _event_median_ms(
         lambda i: lc.fused_diff_compact_batched_reference(
@@ -2737,6 +2964,7 @@ def phase_batched_times(cfg):
     log(f"[time] BatchedDeltaPipeline.step, B={b_count}, four overlay texts "
         f"(blends, strips, one K1 batched launch): {step_ms:.4f} ms device")
     return {"k1_ms": k1, "k1_solo4_ms": statistics.median(turns["solo"]),
+            "k1_per_call": k1_per_call,
             "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bound, "k5_ms": k5,
             "k5_plain_ms": k5_plain, "k5_bound_ms": k5_bound,
             "step_ms": step_ms}
@@ -2752,12 +2980,13 @@ def _sharded_mesh(s):
     return make_mesh(s, devices=["cuda:0"] * s)
 
 
-def _offset_k1(emit, sub, cur, prev, off, region, plain=False):
+def _offset_k1(emit, sub, cur, prev, off, region, plain=False, tm=None):
     """One K1 call in ``emit`` (flat, or tiled at ``sub``) with
-    ``index_offset=off`` on a copy of ``prev``; its outputs."""
+    ``index_offset=off`` (and the per-byte map ``tm``) on a copy of
+    ``prev``; its outputs."""
     from cudavideostream_tpu_torch.ops import logcompact as lc
 
-    kw = dict(overlay_region=region, index_offset=off)
+    kw = dict(overlay_region=region, index_offset=off, threshold_map=tm)
     if emit == "flat":
         fn = lc.fused_diff_compact_reference if plain else lc.fused_diff_compact
         return fn(cur, prev.clone(), 20, True, **kw)
@@ -2782,13 +3011,14 @@ def phase_offset_vs_plain(cfg):
               for d in (0.06, 0.5)}
     region_np = rng.integers(0, 256, 288_000, dtype=np.uint8)
 
-    def check(label, emit, sub, cur, prev, off, region):
-        got = _offset_k1(emit, sub, cur, prev, off, region)
+    def check(label, emit, sub, cur, prev, off, region, tm=None):
+        got = _offset_k1(emit, sub, cur, prev, off, region, tm=tm)
         labels = (("pos", "xs", "vals", "new_prev") if emit == "flat" else
                   ("pos", "counts", "xs_t", "vals_t", "new_prev"))
         _equal_or_raise(label, got, _offset_k1(emit, sub, cur, prev, off,
-                                               region, plain=True), labels)
-        base = _offset_k1(emit, sub, cur, prev, 0, region)
+                                               region, plain=True, tm=tm),
+                        labels)
+        base = _offset_k1(emit, sub, cur, prev, 0, region, tm=tm)
         i = 1 if emit == "flat" else 2
         valid = got[i + 1] != 0
         shifted = torch.where(valid, base[i] + off, 0).to(torch.int32)
@@ -2814,9 +3044,25 @@ def phase_offset_vs_plain(cfg):
                     f" (Ln={ln}), shard 0 with the overlay region: exact "
                     f"against its plain version and equal to the offset-free "
                     f"launch shifted on valid entries only")
+    # the tiled emission's one launch with a per-byte map, every shard
+    # base of S = 2, 4, 8, subtile 1 and 8
+    prev_full, cur_full = frames[0.06]
+    tm_full = torch.from_numpy(byte_map(rng, n)).to(dev)
+    for s_count in (2, 4, 8):
+        ln = n // s_count
+        for sub in (1, 8):
+            for s in range(s_count):
+                sl = slice(s * ln, (s + 1) * ln)
+                check(f"K1 index_offset map S={s_count} shard {s}", "tiled",
+                      sub, cur_full[sl].clone(), prev_full[sl].clone(),
+                      s * ln, None, tm=tm_full[sl].clone())
+                cases += 1
+            log(f"[check] K1 index_offset tiled subtile={sub} S={s_count} "
+                f"with a per-byte map: every shard base 0..{(s_count - 1) * ln}"
+                f" (Ln={ln}): exact against its plain version and equal to "
+                f"the offset-free launch shifted on valid entries only")
     from cudavideostream_tpu_torch.ops import logcompact as lc
 
-    prev_full, cur_full = frames[0.06]
     for emit, sub in emissions:
         big = (1 << 31) - lc.tiled_geometry(n, sub)[0] - 1
         check("K1 index_offset large", emit, sub, cur_full, prev_full, big,
@@ -2974,10 +3220,16 @@ def phase_sharded_times(cfg):
         plain = _event_median_ms(lambda i: lc.fused_diff_compact_tiled_reference(
             cs[i % CUR_COPIES], p0.clone(), 20, True, None, 1,
             index_offset=shard * ln), 10, backlog=False)
+        per_call = _profile_ms(lambda i: lc.fused_diff_compact_tiled(
+            cs[i % CUR_COPIES], ps[i], 20, True, None, 1,
+            index_offset=shard * ln), ("tiled_unit_kernel",),
+            f"K1 tiled index_offset S={s}", per_call=True)
+        _one_per_call({f"K1 tiled index_offset S={s}": per_call})
         t_pad, t_unit = lc.tiled_geometry(ln, 1)
         nbytes = 3 * ln + 5 * t_pad + t_pad // t_unit + 4
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        k1[s] = {"ms": ms, "plain_ms": plain, "bound_ms": bound}
+        k1[s] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                 "per_call": per_call}
         log(f"[time] K1 tiled subtile=1 with index_offset={shard * ln} (S={s}, "
             f"shard {shard}, Ln={ln}): {ms:.4f} ms (bound {bound:.5f} ms = "
             f"{nbytes} B at 3.35 TB/s; {bound / ms:.1%} of it); its plain "
@@ -3265,6 +3517,8 @@ def main() -> int:
                      "batched_bound_ms": btimes["k5_bound_ms"],
                      "batched_launches":
                          runs["crosscheck"]["k5_batched_launches"]}
+        elif name == "vals_compact":
+            extra = {"mask_land_ms": mtimes["land_ms"]}
         elif name.endswith("index_offset"):
             extra = {"s8_ms": stimes["k1"][8]["ms"],
                      "s8_plain_ms": stimes["k1"][8]["plain_ms"],
@@ -3280,9 +3534,15 @@ def main() -> int:
                      "map_bound_ms": xtimes["k1_map_bound_ms"][emission]}
         if name in REDESIGNED:
             # one launch a call now, as this run's trace counts them
-            extra.update(redesigned=REDESIGNED[name], launches_per_call=(
-                times["per_call"] if name == "fused_diff_compact"
-                else ttimes["k2_per_call"]))
+            extra.update(redesigned=REDESIGNED[name], launches_per_call={
+                "fused_diff_compact": times["per_call"],
+                "pair_compact": ttimes["k2_per_call"],
+                "fused_diff_compact_tiled": ttimes["k1_per_call"],
+                "fused_diff_compact_mask": mtimes["k1_per_call"],
+                "fused_diff_compact_batched": btimes["k1_per_call"],
+                "vals_compact": mtimes["k3_per_call"],
+                "fused_diff_compact index_offset":
+                    stimes["k1"][4]["per_call"]}[name])
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3295,6 +3555,7 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": "operations" if name == "vpu_probe" else "bytes",
             "library_ms": lib_ms,
+            "floor_ms": times["floor_ms"],
             "check": check,
             "launches_by_path": by_path,
             **extra,

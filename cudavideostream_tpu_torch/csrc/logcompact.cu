@@ -66,26 +66,34 @@
 // (global indices) and vals_t[...], zeros in the rest of its block, and
 // its count in counts[u], narrowed to counts_bytes = 1, 2 or 4 bytes.
 // pos = the sum of all counts. The order inside a unit is the byte order,
-// so no pass ever looks across units, and no atomics are used.
+// so no pass ever looks across units, and no atomics decide where an
+// entry goes.
 // Design, units that divide the 4096-byte tile (unit_bytes <= 4096, a
-// power of two: every sub_rows <= 32):
-//   1. tiled_unit_kernel: one block per tile, one pass. Each thread
-//      masks its 16 bytes; a block scan (warp shuffle scan, then the 8
-//      warp totals) gives every thread its exclusive prefix, and its rank
-//      in its unit is that prefix minus the prefix at the unit's first
-//      thread (8 threads per unit at 128-byte units). Entries are staged
-//      in shared memory at unit_start + rank over zeros, and the tile's
-//      4096 slots of xs_t and vals_t are written out whole with 16-byte
-//      stores: the zero tail costs no extra pass. The unit's first thread
-//      writes its count; the block's total goes to scratch[block];
-//   2. sum_kernel: one block sums the per-tile totals into pos.
+// power of two: every sub_rows <= 32): ONE kernel a call,
+// tiled_unit_kernel, one block per tile, one pass. Each thread issues its
+// 16-byte loads first (nothing is zeroed in front of them) and masks its
+// 16 bytes; a block scan (warp shuffle scan, then the 8 warp totals)
+// gives every thread its exclusive prefix, and its rank in its unit is
+// that prefix minus the prefix at the unit's first thread (8 threads per
+// unit at 128-byte units). Entries are staged in shared memory at
+// unit_start + rank, and the tile's 4096 slots of xs_t and vals_t are
+// written out whole with 16-byte stores, each word cut to its unit's
+// count and zero past it: the zero tail costs no extra pass and the
+// staging is never zeroed. The unit's first thread writes its count.
+// pos is folded into the same launch: thread 0 adds the block's total to
+// its stream's word of a scratch that survives the launch, and the last
+// block of each stream writes that stream's pos (add_stream_total). A
+// second kernel for pos (one block summing the tile totals after the
+// tiles) would pay a launch and its gap, which at a row shard's size
+// (382 tiles) cost as much as the tiles themselves.
 // Units larger than a tile (sub_rows = 0: 63,488-byte units at 1080p)
-// take the flat design scoped to the unit: tiled_chunk_count_kernel
-// counts each 4096-byte chunk of each unit; tiled_chunk_compact_kernel
-// sums the counts of the chunks before it in its unit (its offset) and
-// of the whole unit (the count), ranks, stages and writes its entries at
-// offset + rank, and zero-fills its own chunk's slots past the unit's
-// count; sum_kernel makes pos from the chunk counts.
+// take the flat two-pass design scoped to the unit:
+// tiled_chunk_count_kernel counts each 4096-byte chunk of each unit;
+// tiled_chunk_compact_kernel sums the counts of the chunks before it in
+// its unit (its offset) and of the whole unit (the count), ranks, stages
+// and writes its entries at offset + rank, zero-fills its own chunk's
+// slots past the unit's count, and folds its chunk's total into pos the
+// same way. No served path takes this one.
 // Bound. Reads cur and prev (2n) and writes new_prev (n), xs_t (4 n_pad),
 // vals_t (n_pad), counts (one to four bytes per unit) and pos: at 1080p
 // and sub_rows = 1, 49,820,132 B, or 14.87 us at 3.35 TB/s. The
@@ -119,9 +127,9 @@
 // i_s * n_flat rebase); the map, when given, is shared and read at the
 // stream-local byte; the overlay region is per stream (B strips of
 // region_len bytes, strip b at region + b * region_len); pos_out holds one
-// int per stream (sum_kernel, one block per stream). Offsets are long long:
-// B * n_pad passes 2^31 at B ~ 346 at 1080p. At n % 16 != 0 a stream's bytes
-// are not 16-byte aligned; load16 and store_new_prev then take their byte
+// int per stream, from one scratch word per stream (add_stream_total).
+// Offsets are long long: B * n_pad passes 2^31 at B ~ 346 at 1080p. At
+// n % 16 != 0 a stream's bytes are not 16-byte aligned; load16 and store_new_prev then take their byte
 // loops. The stream arithmetic and those address checks are compiled into
 // the batched instances only (template kBatched): the solo emissions keep
 // their own code, whose buffers are always aligned. The bound is B times
@@ -491,10 +499,59 @@ flat_lookback_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
 
 // ---- tiled emission ----------------------------------------------------
 
+// pos folded into the launch. Word b of `sums` (b the block's stream)
+// packs two counts: above kDoneShift, how many of the stream's blocks
+// have added their total; below it, the sum of those totals (a stream's
+// pos is below 2^31, so no carry reaches the block count). Each block
+// adds (1 << kDoneShift) | total in ONE atomic, as soon as its block scan
+// has the total. The block whose atomic returns per_stream - 1 blocks
+// before it is the stream's last: it writes pos_out[b] from the atomic's
+// own value and zeroes the word for the next launch on this stream.
+// Integer sums commute, so pos does not depend on the order in which
+// blocks finish; and no fence is needed, since pos comes from the atomic
+// alone and nothing else a block writes is read in this launch.
+constexpr int kDoneShift = 32;
+
+__device__ __forceinline__ void add_stream_total(unsigned long long* sums,
+                                                 long long stream,
+                                                 long long per_stream,
+                                                 int total,
+                                                 int* __restrict__ pos_out) {
+  const unsigned long long old = atomicAdd(
+      sums + stream, (1ull << kDoneShift) | (unsigned long long)total);
+  if ((long long)(old >> kDoneShift) == per_stream - 1) {
+    pos_out[stream] = (int)((unsigned)old + (unsigned)total);
+    atomicExch(sums + stream, 0ull);
+  }
+}
+
+// The first k bytes of x, zeros after them (0 <= k <= 16).
+__device__ __forceinline__ uint4 keep_bytes(uint4 x, int k) {
+  unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int kk = k - 4 * j;
+    if (kk <= 0) w[j] = 0;
+    else if (kk < 4) w[j] &= (1u << (8 * kk)) - 1;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The first k ints of x, zeros after them (k <= 0: none).
+__device__ __forceinline__ int4 keep_ints(int4 x, int k) {
+  return make_int4(k > 0 ? x.x : 0, k > 1 ? x.y : 0, k > 2 ? x.z : 0,
+                   k > 3 ? x.w : 0);
+}
+
 // One block per 4096-byte tile of one stream (tiles_per_stream blocks per
 // stream); units of unit_bytes divide the tile. kXs: write the index
 // blocks xs_t (false: the bitmask-only emission). kBatched: more than one
-// stream (see BATCHED). bits: the packed ship mask, or null.
+// stream (see BATCHED). bits: the packed ship mask, or null. sums: the
+// streams' pos words (add_stream_total).
+// Nothing stands in front of the loads: the staging is never zeroed.
+// Each 16-byte output word keeps its unit's staged entries and writes
+// zeros past the unit's count (keep_bytes, keep_ints), so the slots past
+// a count are never read from shared memory.
 template <bool kXs, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
@@ -502,19 +559,20 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                   long long n, long long n_pad, int tiles_per_stream,
                   int thr, const uint8_t* __restrict__ thr_map, int negfeed,
                   int index_offset, int unit_bytes, int counts_bytes,
-                  int* __restrict__ tile_tot, void* __restrict__ counts,
+                  unsigned long long* sums, void* __restrict__ counts,
                   int* __restrict__ xs_t, uint8_t* __restrict__ vals_t,
-                  uint8_t* __restrict__ bits) {
+                  uint8_t* __restrict__ bits, int* __restrict__ pos_out) {
   __shared__ __align__(16) int s_xs[kXs ? kTileBytes : 4];
   __shared__ __align__(16) uint8_t s_vals[kTileBytes];
-  __shared__ int s_excl[kThreads];
+  __shared__ int s_excl[kThreads + 1];
+  __shared__ uint8_t s_keep[kXs ? kThreads : 1];
   __shared__ int s_warp[kWarps];
   const int t = threadIdx.x;
   // this block's stream; its inputs and outputs from here on are the
   // stream's own, at stream-local offsets
-  long long out0 = 0, tile = blockIdx.x;
+  long long out0 = 0, tile = blockIdx.x, stream = 0;
   if (kBatched) {
-    const long long stream = blockIdx.x / tiles_per_stream;
+    stream = blockIdx.x / tiles_per_stream;
     tile = blockIdx.x % tiles_per_stream;
     cur += stream * n;
     prev += stream * n;
@@ -527,23 +585,17 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   const long long base = tile * kTileBytes;
   const long long i0 = base + t * kBytesPerThread;
 
-  // zero the staging slots: int4 q * 256 + t, so a warp's stores are
-  // consecutive 16-byte words
-  if (kXs) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      reinterpret_cast<int4*>(s_xs)[q * kThreads + t] = make_int4(0, 0, 0, 0);
-  }
-  reinterpret_cast<uint4*>(s_vals)[t] = make_uint4(0, 0, 0, 0);
-
   Vec16 c, p;
   const unsigned m = group_mask<kBatched>(cur, prev, region, region_len, n,
                                           thr, thr_map, i0, c, p);
   const int cnt = __popc(m);
   int total;
-  // (its barrier also orders the zeroing before the staging below)
   const int excl = block_excl_scan(cnt, s_warp, total);
   s_excl[t] = excl;
+  if (t == 0) {
+    s_excl[kThreads] = total;
+    add_stream_total(sums, stream, tiles_per_stream, total, pos_out);
+  }
   __syncthreads();
 
   // rank in the unit: the block prefix minus the prefix at the unit's
@@ -551,6 +603,11 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   const int tpu = unit_bytes / kBytesPerThread;
   const int first = t - t % tpu;
   const int slot0 = first * kBytesPerThread;
+  const int unit_count = s_excl[first + tpu] - s_excl[first];
+  // the entries among this thread's 16 slots of the unit's block
+  int keep = unit_count - (t - first) * kBytesPerThread;
+  keep = keep < 0 ? 0 : (keep > 16 ? 16 : keep);
+  if (kXs) s_keep[t] = (uint8_t)keep;
   int r = slot0 + excl - s_excl[first];
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
@@ -562,13 +619,9 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   }
   store_new_prev<kBatched>(prev, i0, n, m, c, p, negfeed);
   if (bits != nullptr && i0 < n_pad) store_bits(bits, i0, m);
-  if (t == first && base + slot0 < n_pad) {
-    const int next = first + tpu;
-    const int cu = (next < kThreads ? s_excl[next] : total) - s_excl[first];
+  if (t == first && base + slot0 < n_pad)
     store_count(counts, counts_bytes, (out0 + base + slot0) / unit_bytes,
-                cu);
-  }
-  if (t == 0) tile_tot[blockIdx.x] = total;
+                unit_count);
   __syncthreads();
 
   // the tile's 4096 slots, entries and zero tails alike, in 16-byte words
@@ -578,12 +631,13 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
       const int w = q * kThreads + t;
       if (base + 4 * w < n_pad)
         reinterpret_cast<int4*>(xs_t + base)[w] =
-            reinterpret_cast<const int4*>(s_xs)[w];
+            keep_ints(reinterpret_cast<const int4*>(s_xs)[w],
+                      s_keep[w >> 2] - 4 * (w & 3));
     }
   }
   if (i0 < n_pad)
     *reinterpret_cast<uint4*>(vals_t + i0) =
-        reinterpret_cast<const uint4*>(s_vals)[t];
+        keep_bytes(reinterpret_cast<const uint4*>(s_vals)[t], keep);
 }
 
 // Units larger than a tile: block b is chunk b % chunks_per_unit of unit
@@ -640,10 +694,12 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                            int chunks_per_unit, int units_per_stream,
                            int counts_bytes,
                            const int* __restrict__ chunk_counts,
+                           unsigned long long* sums,
                            void* __restrict__ counts,
                            int* __restrict__ xs_t,
                            uint8_t* __restrict__ vals_t,
-                           uint8_t* __restrict__ bits) {
+                           uint8_t* __restrict__ bits,
+                           int* __restrict__ pos_out) {
   __shared__ int s_xs[kXs ? kTileBytes : 1];
   __shared__ uint8_t s_vals[kTileBytes];
   __shared__ int s_warp[kWarps];
@@ -653,9 +709,9 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   const int chunk = blockIdx.x % chunks_per_unit;
   const long long ubase = U * unit_bytes;  // the unit's output slots
   // the unit's first byte in its stream's frame
-  long long ulocal = ubase;
+  long long ulocal = ubase, stream = 0;
   if (kBatched) {
-    const long long stream = U / units_per_stream;
+    stream = U / units_per_stream;
     cur += stream * n;
     prev += stream * n;
     if (region_len) region += stream * region_len;
@@ -695,6 +751,9 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   const int cnt = __popc(m);
   int chunk_total;
   int r = block_excl_scan(cnt, s_warp, chunk_total);
+  if (t == 0)
+    add_stream_total(sums, stream, (long long)units_per_stream * chunks_per_unit,
+                     chunk_total, pos_out);
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     if ((m >> k) & 1u) {
@@ -722,66 +781,70 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   }
 }
 
-// out[b] = the sum of the m ints v[b * m, (b + 1) * m): one block of 1024
-// threads per stream b
-__global__ void __launch_bounds__(1024)
-sum_kernel(const int* __restrict__ v, int m, int* __restrict__ out) {
-  __shared__ long long s[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v += (long long)blockIdx.x * m;
-  long long a = 0;
-  for (int j = threadIdx.x; j < m; j += 1024) a += v[j];
-  a = warp_sum(a);
-  if (lane == 0) s[warp] = a;
-  __syncthreads();
-  if (warp == 0) {
-    a = warp_sum(s[lane]);
-    if (lane == 0) out[blockIdx.x] = (int)a;
-  }
+// The arguments of one tiled launch, as the entry point checked them.
+struct TiledArgs {
+  const uint8_t* cur;
+  uint8_t* prev;
+  const uint8_t* region;
+  long long region_len, n, n_pad;
+  int thr;
+  const uint8_t* thr_map;
+  int negfeed, index_offset, unit_bytes, counts_bytes;
+  unsigned long long* sums;
+  int* chunk_counts;
+  void* counts;
+  int emit_xs;
+  int* xs_t;
+  uint8_t* vals_t;
+  uint8_t* bits;
+  int* pos_out;
+};
+
+// Units that divide the tile: ONE kernel, tiled_unit_kernel, pos folded
+// in (add_stream_total).
+template <bool kBatched>
+cudaError_t launch_tiled_unit(int grid, int per_stream, const TiledArgs& a,
+                              cudaStream_t stream) {
+  if (a.emit_xs)
+    tiled_unit_kernel<true, kBatched><<<grid, kThreads, 0, stream>>>(
+        a.cur, a.prev, a.region, a.region_len, a.n, a.n_pad, per_stream,
+        a.thr, a.thr_map, a.negfeed, a.index_offset, a.unit_bytes,
+        a.counts_bytes, a.sums, a.counts, a.xs_t, a.vals_t, a.bits,
+        a.pos_out);
+  else
+    tiled_unit_kernel<false, kBatched><<<grid, kThreads, 0, stream>>>(
+        a.cur, a.prev, a.region, a.region_len, a.n, a.n_pad, per_stream,
+        a.thr, a.thr_map, a.negfeed, a.index_offset, a.unit_bytes,
+        a.counts_bytes, a.sums, a.counts, nullptr, a.vals_t, a.bits,
+        a.pos_out);
+  return cudaGetLastError();
 }
 
-// The tiled kernels of one launch, the batched or the solo instances.
+// Units larger than a tile: the chunk counts, then the compaction, pos
+// folded into the second kernel (add_stream_total).
 template <bool kBatched>
-cudaError_t launch_tiled(int grid, int per_stream, const uint8_t* cur,
-                         uint8_t* prev, const uint8_t* region,
-                         long long region_len, long long n, long long n_pad,
-                         int thr, const uint8_t* thr_map, int negfeed,
-                         int index_offset, int unit_bytes, int counts_bytes,
-                         int* scratch,
-                         void* counts, int emit_xs, int* xs_t,
-                         uint8_t* vals_t, uint8_t* bits,
-                         cudaStream_t stream) {
-  if (kTileBytes % unit_bytes == 0) {
-    if (emit_xs)
-      tiled_unit_kernel<true, kBatched><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, n_pad, per_stream, thr, thr_map,
-          negfeed, index_offset, unit_bytes, counts_bytes, scratch, counts,
-          xs_t, vals_t, bits);
-    else
-      tiled_unit_kernel<false, kBatched><<<grid, kThreads, 0, stream>>>(
-          cur, prev, region, region_len, n, n_pad, per_stream, thr, thr_map,
-          negfeed, index_offset, unit_bytes, counts_bytes, scratch, counts,
-          nullptr, vals_t, bits);
-    return cudaGetLastError();
-  }
-  const int chunks_per_unit = (unit_bytes + kTileBytes - 1) / kTileBytes;
-  const int units_per_stream = (int)(n_pad / unit_bytes);
+cudaError_t launch_tiled_chunks(int grid, const TiledArgs& a,
+                                cudaStream_t stream) {
+  const int chunks_per_unit = (a.unit_bytes + kTileBytes - 1) / kTileBytes;
+  const int units_per_stream = (int)(a.n_pad / a.unit_bytes);
   tiled_chunk_count_kernel<kBatched><<<grid, kThreads, 0, stream>>>(
-      cur, prev, region, region_len, n, thr, thr_map, unit_bytes,
-      chunks_per_unit, units_per_stream, scratch);
+      a.cur, a.prev, a.region, a.region_len, a.n, a.thr, a.thr_map,
+      a.unit_bytes, chunks_per_unit, units_per_stream, a.chunk_counts);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (emit_xs)
+  if (a.emit_xs)
     tiled_chunk_compact_kernel<true, kBatched><<<grid, kThreads, 0, stream>>>(
-        cur, prev, region, region_len, n, thr, thr_map, negfeed, index_offset,
-        unit_bytes, chunks_per_unit, units_per_stream, counts_bytes, scratch,
-        counts, xs_t, vals_t, bits);
+        a.cur, a.prev, a.region, a.region_len, a.n, a.thr, a.thr_map,
+        a.negfeed, a.index_offset, a.unit_bytes, chunks_per_unit,
+        units_per_stream, a.counts_bytes, a.chunk_counts, a.sums, a.counts,
+        a.xs_t, a.vals_t, a.bits, a.pos_out);
   else
     tiled_chunk_compact_kernel<false, kBatched><<<grid, kThreads, 0,
                                                   stream>>>(
-        cur, prev, region, region_len, n, thr, thr_map, negfeed, index_offset,
-        unit_bytes, chunks_per_unit, units_per_stream, counts_bytes, scratch,
-        counts, nullptr, vals_t, bits);
+        a.cur, a.prev, a.region, a.region_len, a.n, a.thr, a.thr_map,
+        a.negfeed, a.index_offset, a.unit_bytes, chunks_per_unit,
+        units_per_stream, a.counts_bytes, a.chunk_counts, a.sums, a.counts,
+        nullptr, a.vals_t, a.bits, a.pos_out);
   return cudaGetLastError();
 }
 
@@ -836,22 +899,33 @@ int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
   return (int)cudaGetLastError();
 }
 
-// Scratch ints that a tiled launch needs per stream (its grid over one
-// stream): one per 4096-byte tile when unit_bytes divides the tile, else
-// one per chunk of a unit.
-int cvs_tiled_grid(long long n_pad, int unit_bytes) {
-  if (kTileBytes % unit_bytes == 0)
-    return (int)((n_pad + kTileBytes - 1) / kTileBytes);
+// The blocks of the tiled emission's one kernel (with index blocks, one
+// stream) that one wave on `device` holds: its occupancy times the SM
+// count. No launch needs it; it says how many waves a frame's tiles are.
+int cvs_tiled_wave(int device, int* blocks) {
+  return (int)lb::persistent_blocks(device, tiled_unit_kernel<true, false>,
+                                    0, blocks);
+}
+
+// Chunk-count ints that a tiled launch needs per stream: none when
+// unit_bytes divides the tile (the unit path, one kernel), else one per
+// chunk of a unit.
+int cvs_tiled_chunks(long long n_pad, int unit_bytes) {
+  if (kTileBytes % unit_bytes == 0) return 0;
   const int chunks_per_unit = (unit_bytes + kTileBytes - 1) / kTileBytes;
   return (int)(n_pad / unit_bytes * chunks_per_unit);
 }
 
 // Launch K1 with tiled emission on `stream`, over n_streams frames of n
-// bytes each (1 for the solo emission; see BATCHED above). n_pad is a
-// multiple of unit_bytes, which is a multiple of 16; `scratch` holds
-// n_streams * cvs_tiled_grid(n_pad, unit_bytes) ints; counts has n_streams
-// * n_pad / unit_bytes entries of counts_bytes bytes; vals_t has n_streams
-// * n_pad entries, and so has xs_t when emit_xs is nonzero (it may be null
+// bytes each (1 for the solo emission; see BATCHED above): ONE kernel when
+// unit_bytes divides 4096, the count and the compaction kernels when it
+// does not. n_pad is a multiple of unit_bytes, which is a multiple of 16;
+// `sums` holds n_streams zeroed 8-byte words that no launch on another
+// stream uses (the streams' pos, folded into the launch; it leaves them
+// zero); chunk_counts holds n_streams * cvs_tiled_chunks(n_pad,
+// unit_bytes) ints (null when that is 0); counts has n_streams * n_pad /
+// unit_bytes entries of counts_bytes bytes; vals_t has n_streams * n_pad
+// entries, and so has xs_t when emit_xs is nonzero (it may be null
 // otherwise); bits, when not null, has n_streams * n_pad / 8 bytes and is
 // 2-byte aligned; region holds n_streams strips of region_len bytes;
 // thr_map as for cvs_fused_diff_compact; pos_out has n_streams ints;
@@ -863,35 +937,39 @@ int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
                                  long long n_pad, int n_streams, int thr,
                                  const uint8_t* thr_map, int negfeed,
                                  int index_offset, int unit_bytes,
-                                 int counts_bytes, int* scratch,
-                                 void* counts, int emit_xs,
-                                 int* xs_t, uint8_t* vals_t, uint8_t* bits,
-                                 int* pos_out, cudaStream_t stream) {
+                                 int counts_bytes, unsigned long long* sums,
+                                 int* chunk_counts, void* counts,
+                                 int emit_xs, int* xs_t, uint8_t* vals_t,
+                                 uint8_t* bits, int* pos_out,
+                                 cudaStream_t stream) {
   if (unit_bytes <= 0 || unit_bytes % kBytesPerThread || n_pad % unit_bytes
       || n_pad < n || n_streams < 1 || region_len > n
       || (counts_bytes != 1 && counts_bytes != 2 && counts_bytes != 4)
       || (emit_xs && xs_t == nullptr) || ((uintptr_t)bits & 1)
       || index_offset < 0 || index_offset + n_pad > 0x7fffffffLL
-      || (index_offset && n_streams > 1))
+      || (index_offset && n_streams > 1) || sums == nullptr
+      || (cvs_tiled_chunks(n_pad, unit_bytes) && chunk_counts == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int per_stream = cvs_tiled_grid(n_pad, unit_bytes);
+  const bool unit = kTileBytes % unit_bytes == 0;
+  const long long per_stream =
+      unit ? (n_pad + kTileBytes - 1) / kTileBytes
+           : cvs_tiled_chunks(n_pad, unit_bytes);
   const long long grid = (long long)n_streams * per_stream;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  e = n_streams > 1
-          ? launch_tiled<true>((int)grid, per_stream, cur, prev, region,
-                               region_len, n, n_pad, thr, thr_map, negfeed,
-                               0, unit_bytes, counts_bytes, scratch, counts,
-                               emit_xs, xs_t, vals_t, bits, stream)
-          : launch_tiled<false>((int)grid, per_stream, cur, prev, region,
-                                region_len, n, n_pad, thr, thr_map, negfeed,
-                                index_offset, unit_bytes, counts_bytes,
-                                scratch, counts, emit_xs, xs_t, vals_t, bits,
-                                stream);
-  if (e != cudaSuccess) return (int)e;
-  sum_kernel<<<n_streams, 1024, 0, stream>>>(scratch, per_stream, pos_out);
-  return (int)cudaGetLastError();
+  const TiledArgs a{cur, prev, region, region_len, n, n_pad, thr, thr_map,
+                    negfeed, n_streams > 1 ? 0 : index_offset, unit_bytes,
+                    counts_bytes, sums, chunk_counts, counts, emit_xs, xs_t,
+                    vals_t, bits, pos_out};
+  if (unit)
+    e = n_streams > 1
+            ? launch_tiled_unit<true>((int)grid, (int)per_stream, a, stream)
+            : launch_tiled_unit<false>((int)grid, (int)per_stream, a, stream);
+  else
+    e = n_streams > 1 ? launch_tiled_chunks<true>((int)grid, a, stream)
+                      : launch_tiled_chunks<false>((int)grid, a, stream);
+  return (int)e;
 }
 
 const char* cvs_error_string(int e) {

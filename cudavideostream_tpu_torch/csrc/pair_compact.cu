@@ -47,13 +47,24 @@
 // the serial merge _merge_vals_impl, i.e. both branches of merge_vals:
 // the merge of the bitmask-only emission's per-unit vals blocks, whose
 // indices the landing rebuilds from the packed bits. It is K2's function
-// with the xs stream removed, in the two-pass design: count_kernel counts
-// the valid vals of each block's span of 4,096-byte tiles (ops/
-// logcompact.py:tile_plan), then vals_compact_kernel sums the counts of
-// the blocks before it, rereads vals, ranks, stages and writes the valid
-// vals and zero-fills [pos, n) in 16-byte stores. Bound: it reads n bytes and writes
-// n bytes (plus pos): 12,451,844 B at 1080p's mask geometry
-// (n = 6,225,920), 3.72 us at 3.35 TB/s.
+// with the xs stream removed, on the same one-pass machinery
+// (vals_lookback_kernel, csrc/lookback.cuh): a persistent grid
+// (occupancy x SMs, cvs_vals_blocks) takes tiles of kValsTile bytes in
+// ascending order from a ticket; per tile, each thread ranks its groups
+// of 16 vals (loaded during the previous tile) in one block scan,
+// publishes the tile's count, issues the next tile's loads, and stages
+// the valid vals in rank order in shared memory; warp 0 looks back for
+// the tile's offset, and the tile's vals go out coalesced at offset +
+// rank, in 16-byte stores wherever the output's alignment allows (each
+// store's 16 bytes funnel-shifted out of two aligned staging words:
+// write_shifted), with the tile's band of the zero tail. A two-pass
+// design (count every tile, then compact) reads vals twice and pays a
+// second launch. With no xs stream, no load waits on another: one round
+// trip a tile, as in K1's flat emission.
+// A K3 tile reads one byte an entry where K1 flat reads two, so its tile
+// is larger: kValsTile bytes, picked by timing (PERF.md, section 6).
+// Bound: it reads n bytes and writes n bytes (plus pos): 12,451,844 B at
+// 1080p's mask geometry (n = 6,225,920), 3.72 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,59 +79,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 16;
 constexpr int kTileBytes = kThreads * kPerThread;  // 4096 pairs
-constexpr unsigned kFull = 0xffffffffu;
 
 using Vec16 = lb::Vec16;
-
-// The 16-bit validity mask (bit k: vals[i0 + k] != 0) and the vals;
-// pairs at or past n are invalid.
-__device__ __forceinline__ unsigned valid_mask(const uint8_t* __restrict__ vals,
-                                               long long i0, long long n,
-                                               Vec16& v) {
-  if (i0 + 16 <= n) {
-    v.v = *reinterpret_cast<const uint4*>(vals + i0);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 16; ++k) v.b[k] = (i0 + k < n) ? vals[i0 + k] : 0;
-  }
-  unsigned m = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k)
-    if (v.b[k]) m |= 1u << k;
-  return m;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(kFull, v, d);
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const uint8_t* __restrict__ vals, long long n,
-             int tiles_per_block, int* __restrict__ counts) {
-  __shared__ int s_warp[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long base = (long long)blockIdx.x * tiles_per_block * kTileBytes;
-  int cnt = 0;
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const long long i0 = base + (long long)t * kTileBytes + threadIdx.x * kPerThread;
-    if (i0 < n) {
-      Vec16 v;
-      cnt += __popc(valid_mask(vals, i0, n, v));
-    }
-  }
-  cnt = warp_sum(cnt);
-  if (lane == 0) s_warp[warp] = cnt;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int tot = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) tot += s_warp[w];
-    counts[blockIdx.x] = tot;
-  }
-}
 
 // ---- K2: one pass with decoupled look-back ------------------------------
 
@@ -132,12 +92,13 @@ constexpr int kPairTile = kTileBytes * kPairVecs;  // 8,192 pairs
 // staging per slot: xs (int32) and vals (uint8)
 constexpr size_t kPairSmem = 5 * (size_t)kPairTile;
 
-// The vals of the thread's groups of the tile at base (zeros past n).
-__device__ __forceinline__ void pair_load(const uint8_t* __restrict__ vals,
+// The vals of the thread's V groups of the tile at base (zeros past n).
+template <int V>
+__device__ __forceinline__ void vals_load(const uint8_t* __restrict__ vals,
                                           long long n, long long base,
-                                          Vec16 (&v)[kPairVecs]) {
+                                          Vec16 (&v)[V]) {
 #pragma unroll
-  for (int q = 0; q < kPairVecs; ++q) {
+  for (int q = 0; q < V; ++q) {
     const long long i0 = base + q * kTileBytes + threadIdx.x * kPerThread;
     if (i0 + 16 <= n) {
       v[q].v = *reinterpret_cast<const uint4*>(vals + i0);
@@ -200,7 +161,7 @@ pair_lookback_kernel(const int* __restrict__ xs,
   unsigned m[V];
   int cnt[V];
   Vec16 x[V][4];
-  if (tile < tiles) pair_load(vals, n, tile * kPairTile, v);
+  if (tile < tiles) vals_load<V>(vals, n, tile * kPairTile, v);
   // s_next alternates between two words, as in K1's flat_lookback_kernel
   for (int it = 1; tile < tiles; it ^= 1) {
     const long long base = tile * kPairTile;
@@ -215,7 +176,7 @@ pair_lookback_kernel(const int* __restrict__ xs,
     // goes out
     const long long next = s_next[it];
     Vec16 vn[V];
-    if (next < tiles) pair_load(vals, n, next * kPairTile, vn);
+    if (next < tiles) vals_load<V>(vals, n, next * kPairTile, vn);
 #pragma unroll
     for (int q = 0; q < V; ++q) {
       int r = rank[q];
@@ -259,88 +220,127 @@ pair_lookback_kernel(const int* __restrict__ xs,
   lb::release_scratch(sc, tiles, &s_last);
 }
 
+// ---- K3: one pass with decoupled look-back ------------------------------
+
+// 16-byte groups per thread per tile
+constexpr int kValsVecs = 4;
+constexpr int kValsTile = kTileBytes * kValsVecs;  // 16,384 bytes
+// staging, and one 16-byte word past it that write_shifted may read
+constexpr size_t kValsSmem = (size_t)kValsTile + 16;
+
+// Bytes [e, e + 16) of the 32 bytes lo:hi (0 <= e < 16, the same in every
+// thread): four funnel shifts of the word pairs that hold them.
+__device__ __forceinline__ uint4 shift_bytes(const uint4& lo, const uint4& hi,
+                                             int e) {
+  const unsigned w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int q = e >> 2, sh = 8 * (e & 3);
+  unsigned r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // w[q + i] and w[q + i + 1], with constant indices: selects, not a
+    // local-memory array
+    unsigned a = w[i], b = w[i + 1];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      if (q == k) {
+        a = w[i + k];
+        b = w[i + k + 1];
+      }
+    }
+    r[i] = __funnelshift_r(a, b, sh);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// out[off, off + total) = s[0, total): the bytes up to out's first 16-byte
+// boundary and after its last one one at a time, the words between them
+// in 16-byte stores, each from two aligned 16-byte staging words (s is
+// 16-byte aligned and readable 16 bytes past total); the block's threads
+// stride the words.
+__device__ __forceinline__ void write_shifted(const uint8_t* s, int total,
+                                              uint8_t* __restrict__ out,
+                                              long long off) {
+  const long long end = off + total;
+  long long a = (off + 15) & ~15LL, b = end & ~15LL;
+  if (a > b) a = b = end;  // inside one word: all of it in the head
+  for (long long o = off + threadIdx.x; o < a; o += kThreads) out[o] = s[o - off];
+  for (long long o = b + threadIdx.x; o < end; o += kThreads)
+    out[o] = s[o - off];
+  const uint4* s4 = reinterpret_cast<const uint4*>(s);
+  uint4* o4 = reinterpret_cast<uint4*>(out);
+  const int e = (int)((a - off) & 15);  // every word's staging offset, mod 16
+  for (long long o = a + 16LL * threadIdx.x; o < b; o += 16LL * kThreads) {
+    const int so = (int)(o - off) >> 4;
+    o4[o >> 4] = e ? shift_bytes(s4[so], s4[so + 1], e) : s4[so];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-vals_compact_kernel(const uint8_t* __restrict__ vals, long long n,
-                    int tiles_per_block, const int* __restrict__ counts,
-                    int grid, uint8_t* __restrict__ vals_out,
-                    int* __restrict__ pos_out) {
-  __shared__ uint8_t s_vals[kTileBytes];
-  __shared__ int s_warp[kWarps];
-  __shared__ long long s_red[2][kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+vals_lookback_kernel(const uint8_t* __restrict__ vals, long long n,
+                     unsigned long long* scratch,
+                     uint8_t* __restrict__ vals_out,
+                     int* __restrict__ pos_out) {
+  constexpr int V = kValsVecs;
+  extern __shared__ __align__(16) uint8_t s_vals[];
+  __shared__ unsigned s_warp[(V + 1) / 2 * kWarps];
+  __shared__ long long s_off, s_next[2];
+  __shared__ int s_last;
+  const int t = threadIdx.x;
+  const lb::Scratch sc = lb::scratch_at(scratch);
+  const long long tiles = (n + kValsTile - 1) / kValsTile;
 
-  // this block's output offset (counts of the blocks before it) and pos
-  long long before = 0, total = 0;
-  for (int j = threadIdx.x; j < grid; j += kThreads) {
-    long long cj = counts[j];
-    total += cj;
-    if (j < (int)blockIdx.x) before += cj;
-  }
-  before = warp_sum(before);
-  total = warp_sum(total);
-  if (lane == 0) {
-    s_red[0][warp] = before;
-    s_red[1][warp] = total;
-  }
+  if (t == 0) s_next[0] = atomicAdd(sc.ticket, 1u);
   __syncthreads();
-  before = 0;
-  total = 0;
+  long long tile = s_next[0];
+  Vec16 v[V];
+  if (tile < tiles) vals_load<V>(vals, n, tile * kValsTile, v);
+  // s_next alternates between two words, as in K1's flat_lookback_kernel
+  for (int it = 1; tile < tiles; it ^= 1) {
+    const long long base = tile * kValsTile;
+    unsigned m[V];
+    int cnt[V];
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    before += s_red[0][w];
-    total += s_red[1][w];
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *pos_out = (int)total;
-
-  const long long span = (long long)tiles_per_block * kTileBytes;
-  const long long base = (long long)blockIdx.x * span;
-  long long off = before;
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const long long i0 = base + (long long)t * kTileBytes + threadIdx.x * kPerThread;
-    Vec16 v;
-    const unsigned m = i0 < n ? valid_mask(vals, i0, n, v) : 0u;
-    const int cnt = __popc(m);
-
-    // rank within the tile: warp inclusive scan, then the warp totals
-    int incl = cnt;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      int y = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += y;
+    for (int q = 0; q < V; ++q) {
+      m[q] = lb::nonzero_bits(v[q].v);
+      cnt[q] = __popc(m[q]);
     }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    int wpre = 0, tile_total = 0;
+    if (t == 0) s_next[it] = atomicAdd(sc.ticket, 1u);
+    int rank[V], total;
+    lb::tile_ranks<V>(cnt, s_warp, rank, total);
+    if (t == 0) lb::publish_count(sc.status, tile, total);
+    // the next tile's vals fly while this one looks back, is staged and
+    // goes out
+    const long long next = s_next[it];
+    Vec16 vn[V];
+    if (next < tiles) vals_load<V>(vals, n, next * kValsTile, vn);
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      int x = s_warp[w];
-      if (w < warp) wpre += x;
-      tile_total += x;
+    for (int q = 0; q < V; ++q) {
+      int r = rank[q];
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if ((m[q] >> k) & 1u) s_vals[r++] = v[q].b[k];
     }
-    int r = wpre + incl - cnt;
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      if ((m >> k) & 1u) s_vals[r++] = v.b[k];
+    // warp 0 looks back once it has staged (as in K1's flat_lookback_kernel)
+    if (t < 32) {
+      const long long off = lb::tile_offset(sc.status, tile, total);
+      if (t == 0) {
+        s_off = off;
+        if (tile == tiles - 1) *pos_out = (int)(off + total);
+      }
+    }
     __syncthreads();
-
-    // coalesced write-out of the tile's vals at off + rank
-    for (int q = threadIdx.x; q < tile_total; q += kThreads)
-      vals_out[off + q] = s_vals[q];
-    off += tile_total;
-    // No barrier needed before the next tile (as in compact_kernel).
+    const long long off = s_off;
+    write_shifted(s_vals, total, vals_out, off);
+    long long lo, hi;
+    lb::tail_band(base, base + kValsTile < n ? base + kValsTile : n, off,
+                  total, n, n, lo, hi);
+    lb::zero_fill(vals_out, lo, hi);
+    // No barrier before the next tile (as in K1's flat_lookback_kernel).
+#pragma unroll
+    for (int q = 0; q < V; ++q) v[q] = vn[q];
+    tile = next;
   }
-
-  // zero fill of this block's slots [base, base + span) past pos: bytes up
-  // to a 16-byte boundary, then 16-byte stores, then the bytes after them
-  const long long z0 = total > base ? total : base;
-  const long long z1 = n < base + span ? n : base + span;
-  if (z0 >= z1) return;
-  long long a = (z0 + 15) & ~15LL, b = z1 & ~15LL;
-  if (a > b) a = b = z1;
-  for (long long o = z0 + threadIdx.x; o < a; o += kThreads) vals_out[o] = 0;
-  for (long long o = a + 16LL * threadIdx.x; o < b; o += 16LL * kThreads)
-    *reinterpret_cast<uint4*>(vals_out + o) = make_uint4(0, 0, 0, 0);
-  for (long long o = b + threadIdx.x; o < z1; o += kThreads) vals_out[o] = 0;
+  lb::release_scratch(sc, tiles, &s_last);
 }
 
 }  // namespace
@@ -379,22 +379,30 @@ int cvs_pair_compact(int device, const int* xs, const uint8_t* vals,
   return (int)cudaGetLastError();
 }
 
-// Launch K3 on `stream`: count_kernel, then vals_compact_kernel. `counts`
-// is scratch of `grid` ints; the caller picks tiles_per_block and grid so
-// that grid * tiles_per_block * 4096 >= n. vals_out has n bytes and is
-// 16-byte aligned. Returns the cudaError_t of the launches (0 on success).
-int cvs_vals_compact(int device, const uint8_t* vals, long long n,
-                     int tiles_per_block, int grid, int* counts,
-                     uint8_t* vals_out, int* pos_out, cudaStream_t stream) {
-  if ((uintptr_t)vals_out & 15) return (int)cudaErrorInvalidValue;
+// K3's persistent grid on `device`, as cvs_pair_blocks.
+int cvs_vals_blocks(int device, int* blocks) {
+  return (int)lb::persistent_blocks(device, vals_lookback_kernel, kValsSmem,
+                                    blocks);
+}
+
+int cvs_vals_tile(void) { return kValsTile; }
+
+// Launch K3 on `stream`: ONE kernel, grid blocks (at most cvs_vals_blocks'
+// count, after that call on this device). `scratch` holds 2 + ceil(n /
+// cvs_vals_tile()) zeroed 8-byte words that no launch on another stream
+// uses (see csrc/lookback.cuh); the launch leaves them zero. vals and
+// vals_out have n bytes and are 16-byte aligned. Returns the cudaError_t
+// of the launch (0 on success).
+int cvs_vals_compact(int device, const uint8_t* vals, long long n, int grid,
+                     unsigned long long* scratch, uint8_t* vals_out,
+                     int* pos_out, cudaStream_t stream) {
+  if (n < 1 || grid < 1 || ((uintptr_t)vals & 15)
+      || ((uintptr_t)vals_out & 15))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  count_kernel<<<grid, kThreads, 0, stream>>>(vals, n, tiles_per_block,
-                                               counts);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  vals_compact_kernel<<<grid, kThreads, 0, stream>>>(
-      vals, n, tiles_per_block, counts, grid, vals_out, pos_out);
+  vals_lookback_kernel<<<grid, kThreads, kValsSmem, stream>>>(
+      vals, n, scratch, vals_out, pos_out);
   return (int)cudaGetLastError();
 }
 

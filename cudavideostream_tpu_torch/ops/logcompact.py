@@ -67,11 +67,11 @@ import torch
 from cudavideostream_tpu_torch.kernels import build
 from cudavideostream_tpu_torch.ops import diff as diff_ops
 
-# One tile of the tiled, mask and batched K1 kernels and of K3: 256
-# threads x 16 bytes. K1's flat emission and K2 take larger tiles (their
-# libraries say how large: ``cvs_flat_tile_bytes``, ``cvs_pair_tile``).
+# One tile of the tiled, mask and batched K1 kernels: 256 threads x 16
+# bytes. K1's flat emission, K2 and K3 take larger tiles (their libraries
+# say how large: ``cvs_flat_tile_bytes``, ``cvs_pair_tile``,
+# ``cvs_vals_tile``).
 TILE_BYTES = 4096
-MAX_GRID = 1024    # K3's blocks per launch; larger streams take more tiles per block
 
 # The JAX package's tile geometry (``logcompact.py:73-128``), copied: the
 # tiled emission's unit count and unit size follow from it, and they
@@ -106,11 +106,13 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.cvs_flat_blocks.restype = i
         lib.cvs_flat_tile_bytes.argtypes = []
         lib.cvs_flat_tile_bytes.restype = i
-        lib.cvs_tiled_grid.argtypes = [ll, i]
-        lib.cvs_tiled_grid.restype = i
+        lib.cvs_tiled_wave.argtypes = [i, ctypes.POINTER(i)]
+        lib.cvs_tiled_wave.restype = i
+        lib.cvs_tiled_chunks.argtypes = [ll, i]
+        lib.cvs_tiled_chunks.restype = i
         lib.cvs_fused_diff_compact_tiled.argtypes = [
-            i, p, p, p, ll, ll, ll, i, i, p, i, i, i, i, p, p, i, p, p, p, p,
-            p,
+            i, p, p, p, ll, ll, ll, i, i, p, i, i, i, i, p, p, p, i, p, p, p,
+            p, p,
         ]
         lib.cvs_fused_diff_compact_tiled.restype = i
         _bind_common(lib, "logcompact")
@@ -130,8 +132,12 @@ def _pair_lib() -> ctypes.CDLL:
         lib.cvs_pair_blocks.restype = i
         lib.cvs_pair_tile.argtypes = []
         lib.cvs_pair_tile.restype = i
-        lib.cvs_vals_compact.argtypes = [i, p, ll, i, i, p, p, p, p]
+        lib.cvs_vals_compact.argtypes = [i, p, ll, i, p, p, p, p]
         lib.cvs_vals_compact.restype = i
+        lib.cvs_vals_blocks.argtypes = [i, ctypes.POINTER(i)]
+        lib.cvs_vals_blocks.restype = i
+        lib.cvs_vals_tile.argtypes = []
+        lib.cvs_vals_tile.restype = i
         _bind_common(lib, "pair_compact")
         _libs["pair_compact"] = lib
     return lib
@@ -147,15 +153,7 @@ def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def tile_plan(n: int) -> Tuple[int, int]:
-    """``(tiles_per_block, grid)`` of a K3 launch (``vals_compact``, the
-    two-pass design, its only user) over an ``n``-byte stream."""
-    n_tiles = -(-n // TILE_BYTES)
-    per_block = max(1, -(-n_tiles // MAX_GRID))
-    return per_block, -(-n_tiles // per_block)
-
-
-# -- the one-pass compactions (K1 flat, K2): launch plan and scratch --------
+# -- the one-pass compactions (K1 flat, K2, K3): launch plan and scratch ---
 
 class FlatPlan(NamedTuple):
     """The launch of a one-pass compaction (``csrc/lookback.cuh``) over
@@ -199,11 +197,13 @@ def _persistent_blocks(lib: ctypes.CDLL, fn: str, idx: int, *args) -> int:
 def flat_scratch(device: torch.device, stream: int,
                  words: int) -> torch.Tensor:
     """The scratch of the one-pass compactions launched on ``stream`` of
-    ``device``: at least ``words`` int64 words, zero at creation, and left
-    zero by every launch (its last block resets what it used). It is keyed
-    by (device, stream), so launches that can overlap (K1 on the compute
-    stream, K2 on a landing stream) never share it; launches on one
-    stream run in order and may."""
+    ``device``, and of K1's tiled emission (its streams' ``pos`` words,
+    ``csrc/logcompact.cu:add_stream_total``): at least ``words`` int64
+    words, zero at creation, and left zero by every launch (its last block
+    resets what it used). It is keyed by (device, stream), so launches
+    that can overlap (K1 on the compute stream, K2 or K3 on a landing
+    stream) never share it; launches on one stream run in order and
+    may."""
     key = (torch.device(device), int(stream))
     buf = _scratch.get(key)
     if buf is None or buf.numel() < words:
@@ -570,18 +570,21 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
     bits = (torch.empty(b * n_pad // 8, dtype=torch.uint8, device=dev)
             if emit_bits else None)
     counts = torch.empty(n_units, dtype=counts_dtype(unit_bytes), device=dev)
-    scratch = torch.empty(b * lib.cvs_tiled_grid(n_pad, unit_bytes),
-                          dtype=torch.int32, device=dev)
+    # chunk counts: only units larger than a tile (the two-kernel path)
+    chunks = lib.cvs_tiled_chunks(n_pad, unit_bytes)
+    chunk_counts = (torch.empty(b * chunks, dtype=torch.int32, device=dev)
+                    if chunks else None)
     pos = torch.empty(() if n_streams is None else (b,), dtype=torch.int32,
                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    sums = flat_scratch(dev, stream, b)  # one pos word per stream
     rc = lib.cvs_fused_diff_compact_tiled(
         _device_index(dev),
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len,
         current.numel() // b, n_pad, b, int(threshold), _ptr(threshold_map),
         int(bool(negative_feedback)), index_offset,
-        unit_bytes, counts.element_size(), scratch.data_ptr(),
-        counts.data_ptr(), int(emit_xs),
+        unit_bytes, counts.element_size(), sums.data_ptr(),
+        _ptr(chunk_counts), counts.data_ptr(), int(emit_xs),
         None if xs_t is None else xs_t.data_ptr(), vals_t.data_ptr(),
         None if bits is None else bits.data_ptr(), pos.data_ptr(), stream,
     )
@@ -1221,14 +1224,16 @@ def vals_compact(vals_flat: torch.Tensor):
         raise ValueError("the kernel reads 16-byte vectors: vals must be "
                          "16-byte aligned")
     lib = _pair_lib()
-    per_block, grid = tile_plan(n)
+    idx = _device_index(dev)
+    plan = flat_plan(n, n, _persistent_blocks(lib, "cvs_vals_blocks", idx),
+                     lib.cvs_vals_tile())
     vals = torch.empty(n, dtype=torch.uint8, device=dev)
-    counts = torch.empty(grid, dtype=torch.int32, device=dev)
     pos = torch.empty((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = flat_scratch(dev, stream, plan.scratch_words)
     rc = lib.cvs_vals_compact(
-        _device_index(dev), vals_flat.data_ptr(), n, per_block, grid,
-        counts.data_ptr(), vals.data_ptr(), pos.data_ptr(), stream,
+        idx, vals_flat.data_ptr(), n, plan.grid, scratch.data_ptr(),
+        vals.data_ptr(), pos.data_ptr(), stream,
     )
     _raise_on(rc, lib, "vals_compact")
     vals_compact.launches += 1

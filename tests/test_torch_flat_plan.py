@@ -1,11 +1,14 @@
-"""The launch plan of the port's one-pass compactions, K1's flat emission
-and K2 (``csrc/lookback.cuh``), on the CPU: the tiles cover the input
+"""The launch plan of the port's one-pass compactions, K1's flat emission,
+K2 and K3 (``csrc/lookback.cuh``), on the CPU: the tiles cover the input
 once, the tiles' bands of the zero tail cover ``[pos, cap)`` once, the
 scratch is never shared between two streams, and a host model of one
 launch built on the plan writes every output slot exactly once and
-equals the plain versions. The plain versions are also held against the
-JAX package at the new tiles' boundaries (Pallas in interpret mode).
-Tolerance is zero throughout.
+equals the plain versions. K1's tiled emission folds ``pos`` into its one
+launch: a host model of its per-stream words gives the plain version's
+``pos`` in any finishing order of the blocks and leaves the words zero.
+The plain versions are also held against the JAX package at the new
+tiles' boundaries (Pallas in interpret mode). Tolerance is zero
+throughout.
 
 The kernels themselves are held against their plain versions on the card
 by ``chip_smoke.py``.
@@ -40,6 +43,10 @@ def _constexpr(source, name):
 
 FLAT_TILE = _constexpr("logcompact.cu", "kFlatTile")
 PAIR_TILE = _constexpr("pair_compact.cu", "kPairTile")
+VALS_TILE = _constexpr("pair_compact.cu", "kValsTile")
+TILED_TILE = _constexpr("logcompact.cu", "kTileBytes")
+DONE_SHIFT = _constexpr("logcompact.cu", "kDoneShift")
+MASK_BYTES = 6_225_920  # K3's stream at 1080p: the mask geometry's n_pad
 
 
 def _tail_band_statements():
@@ -73,6 +80,8 @@ def _tail_band(start, end, excl, count, n, cap):
 
 def test_tile_sizes_read_from_the_kernels():
     assert FLAT_TILE == PAIR_TILE == 8_192
+    assert VALS_TILE % 4_096 == 0 and VALS_TILE >= 8_192
+    assert TILED_TILE == logcompact.TILE_BYTES == 4_096
     assert _tail_band(0, 16, 0, 3, 40, 40) == (27, 40)
 
 
@@ -147,6 +156,34 @@ def test_tail_bands_at_the_frame_sizes(n, tile, density):
     sizes = np.diff(np.minimum(np.arange(0, n + tile, tile), n))
     counts = rng.binomial(sizes, density)
     _check_bands(counts, n, n, tile)
+
+
+VALS_EDGES = [1, 15, 16, 17, VALS_TILE - 1, VALS_TILE, VALS_TILE + 1,
+              2 * VALS_TILE - 1, 2 * VALS_TILE + 1, MASK_BYTES]
+
+
+@pytest.mark.parametrize("n", VALS_EDGES)
+def test_vals_plan_tiles_cover_the_input_once(n):
+    """K3's plan at its own tile, read from ``csrc/pair_compact.cu``."""
+    for blocks in (1, 132, 528, 1_056):
+        plan = logcompact.flat_plan(n, n, blocks, VALS_TILE)
+        assert (plan.tiles - 1) * VALS_TILE < n <= plan.tiles * VALS_TILE
+        assert plan.grid == min(blocks, plan.tiles) >= 1
+        assert plan.scratch_words == 2 + plan.tiles
+    if n == MASK_BYTES:
+        assert plan.tiles == -(-MASK_BYTES // VALS_TILE)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.1, 1.0])
+@pytest.mark.parametrize("n", [1, 17, VALS_TILE - 1, VALS_TILE,
+                               VALS_TILE + 1, MASK_BYTES])
+def test_vals_tail_bands(n, density):
+    """K3's tiles' bands of the zero tail cover ``[pos, n)`` once, at its
+    tile's edges and at the mask geometry."""
+    rng = np.random.default_rng([n, int(density * 10), 3])
+    sizes = np.diff(np.minimum(np.arange(0, n + VALS_TILE, VALS_TILE), n))
+    counts = rng.binomial(sizes, density)
+    _check_bands(counts, n, n, VALS_TILE)
 
 
 def test_flat_scratch_is_keyed_by_device_and_stream(monkeypatch):
@@ -239,6 +276,109 @@ def test_one_launch_model_matches_flat_k1(capacity, blocks):
     np.testing.assert_array_equal(m_vals, want[2].numpy())
 
 
+@pytest.mark.parametrize("density", [0.0, 0.1, 1.0])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, VALS_TILE - 1, VALS_TILE,
+                               VALS_TILE + 1, 2 * VALS_TILE + 1])
+def test_one_launch_model_matches_vals_compact(n, density):
+    """A host model of one K3 launch at its own tile and the grid of one
+    SM's worth of blocks, against the plain version: every slot written
+    once."""
+    rng = np.random.default_rng([n, int(density * 10), 5])
+    vals = np.where(rng.random(n) < density,
+                    rng.integers(1, 255, n, endpoint=True), 0).astype(np.uint8)
+    pos, (m_vals,), writes = _one_launch(vals != 0, (vals,), n, n, 4,
+                                         VALS_TILE, rng)
+    want = logcompact.vals_compact_reference(torch.from_numpy(vals))
+    assert (writes == 1).all()
+    assert pos == int(want[0])
+    np.testing.assert_array_equal(m_vals, want[1].numpy())
+
+
+@pytest.mark.parametrize("n", [16, 17, VALS_TILE - 1, VALS_TILE + 1])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_vals_compact_matches_jax_at_tile_boundaries(n, density):
+    rng = np.random.default_rng([n, int(density * 100), 7])
+    vals = np.where(rng.random(n) < density,
+                    rng.integers(1, 255, n, endpoint=True), 0).astype(np.uint8)
+    counts, vals_t = (np.asarray(a) for a in jax_logcompact._vals_compact(
+        jnp.asarray(vals), interpret=True))
+    want = np.concatenate([vals_t[t, :c] for t, c in enumerate(counts)])
+    pos, got = logcompact.vals_compact(torch.from_numpy(vals))
+    pos = int(pos)
+    assert pos == want.size
+    np.testing.assert_array_equal(got[:pos].numpy(), want)
+    assert not got[pos:].any()
+
+
+def _block_totals(keep, n_pad, unit_bytes):
+    """The totals that K1's tiled blocks add to their stream's ``pos``
+    word, in block order: one per 4096-byte tile when the unit divides the
+    tile, else one per 4096-byte chunk of each unit."""
+    m = np.zeros(n_pad, np.int64)
+    m[:keep.size] = keep
+    if TILED_TILE % unit_bytes == 0:
+        m = np.concatenate([m, np.zeros(-n_pad % TILED_TILE, np.int64)])
+        return m.reshape(-1, TILED_TILE).sum(1)
+    per_unit = -(-unit_bytes // TILED_TILE)
+    units = m.reshape(-1, unit_bytes)
+    return np.array([units[u, c * TILED_TILE:(c + 1) * TILED_TILE].sum()
+                     for u in range(units.shape[0])
+                     for c in range(per_unit)])
+
+
+def _folded_pos(totals, streams, rng):
+    """A host model of ``add_stream_total``: the blocks (``totals``, one
+    row a stream) finish in a random order, each adds ``(1 << kDoneShift)
+    | total`` to its stream's word; the one that finds every other block
+    of its stream counted writes ``pos`` and zeroes the word. Returns each
+    stream's ``pos``, how often it was written, and the words after."""
+    per_stream = totals.shape[1]
+    words = [0] * streams
+    pos, written = [None] * streams, [0] * streams
+    for blk in rng.permutation(streams * per_stream):
+        s, total = blk // per_stream, int(totals.flat[blk])
+        old = words[s]
+        words[s] = old + ((1 << DONE_SHIFT) | total)
+        if old >> DONE_SHIFT == per_stream - 1:
+            pos[s] = (old & ((1 << DONE_SHIFT) - 1)) + total
+            written[s] += 1
+            words[s] = 0
+    return pos, written, words
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("sub", [1, 8, 0])
+@pytest.mark.parametrize("streams,offset", [(1, 0), (1, 3 * 4096 + 128),
+                                            (4, 0)])
+def test_folded_pos_in_any_finishing_order(streams, offset, sub, seed):
+    """K1 tiled's ``pos``, summed from the blocks' totals in any order in
+    which they finish, is the plain version's, at B = 1 (with and without
+    an index offset, which moves no count) and B = 4; each stream's pos is
+    written once, and the words are left zero for the next launch."""
+    rng = np.random.default_rng([streams, offset, sub, seed])
+    n = 64 * 48 * 3
+    prev = rng.integers(0, 256, streams * n, dtype=np.uint8)
+    cur = ((prev.astype(np.int32) + np.where(
+        rng.random(streams * n) < 0.2, rng.integers(30, 200, streams * n),
+        rng.integers(-15, 16, streams * n))) % 256).astype(np.uint8)
+    if streams == 1:
+        want = [int(logcompact.fused_diff_compact_tiled_reference(
+            torch.from_numpy(cur), torch.from_numpy(prev.copy()), 20, True,
+            None, sub, index_offset=offset)[0])]
+    else:
+        want = logcompact.fused_diff_compact_batched_reference(
+            torch.from_numpy(cur), torch.from_numpy(prev.copy()), streams,
+            20, True, sub_rows=sub)[0].tolist()
+    n_pad, unit_bytes = logcompact.tiled_geometry(n, sub)
+    keep = np.abs(cur.astype(np.int32) - prev.astype(np.int32)) > 20
+    totals = np.stack([_block_totals(keep[b * n:(b + 1) * n], n_pad,
+                                     unit_bytes) for b in range(streams)])
+    assert totals.shape[1] > 1
+    pos, written, words = _folded_pos(totals, streams, rng)
+    assert pos == want and sum(want) > 0
+    assert written == [1] * streams and words == [0] * streams
+
+
 @pytest.mark.parametrize("n", [16, 17, PAIR_TILE - 1, PAIR_TILE + 1])
 @pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
 def test_pair_compact_matches_jax_at_tile_boundaries(n, density):
@@ -284,25 +424,61 @@ def test_flat_matches_jax_at_tile_boundaries(n, overlay):
     np.testing.assert_array_equal(new_prev.numpy(), j_prev)
 
 
-def _entry_body(source, name):
-    text = (CSRC / source).read_text()
-    start = text.index(f"int {name}(")
+def _function_body(source, name):
+    """The body of function ``name`` in ``csrc/source``, its comments
+    stripped."""
+    text = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
+    start = re.search(rf"^\S[^\n]*\b{name}\(", text, re.M).start()
     return text[start:text.index("\n}\n", start)]
+
+
+# the kernel each entry point launches once a call, and in how many
+# instances it picks that one from
+ONE_KERNEL = {
+    "cvs_fused_diff_compact": ("flat_lookback_kernel", 2),
+    "cvs_pair_compact": ("pair_lookback_kernel", 1),
+    "cvs_fused_diff_compact_tiled": ("tiled_unit_kernel", 2),
+    "cvs_vals_compact": ("vals_lookback_kernel", 1),
+}
 
 
 @pytest.mark.parametrize("source,name", [
     ("logcompact.cu", "cvs_fused_diff_compact"),
     ("pair_compact.cu", "cvs_pair_compact"),
+    ("logcompact.cu", "cvs_fused_diff_compact_tiled"),
+    ("pair_compact.cu", "cvs_vals_compact"),
 ])
 def test_one_launch_per_call(source, name):
     """Each entry point launches one kernel per call (K1 flat picks one
-    of two instances, with or without the map) and zeroes nothing apart:
-    no memset, no second kernel for the tail or the counts."""
-    body = _entry_body(source, name)
-    launches = re.findall(r"(\w+)(?:<\w+>)?<<<", body)
-    assert set(launches) == {"flat_lookback_kernel" if source ==
-                             "logcompact.cu" else "pair_lookback_kernel"}
-    assert len(launches) == (2 if source == "logcompact.cu" else 1)
-    if len(launches) == 2:
-        assert "if (thr_map != nullptr)" in body and "else" in body
+    of two instances, with or without the map; K1 tiled, on the unit path
+    that every served emission takes, one of two, with or without the
+    index blocks) and zeroes nothing apart: no memset, no second kernel
+    for the tail, the counts or ``pos``."""
+    body = _function_body(source, name)
+    kernel, instances = ONE_KERNEL[name]
+    if name == "cvs_fused_diff_compact_tiled":
+        # the unit branch goes to launch_tiled_unit, whose launches count
+        unit = re.search(r"if \(unit\)\s*e = ([^;]+);", body)
+        assert unit and "launch_tiled_unit<" in unit.group(1)
+        assert "chunks" not in unit.group(1) and "<<<" not in body
+        body = _function_body(source, "launch_tiled_unit")
+    launches = re.findall(r"(\w+)(?:<[^<>]*>)?<<<", body)
+    assert set(launches) == {kernel}
+    assert len(launches) == instances
+    if instances == 2:
+        assert "if (" in body and "else" in body
     assert "Memset" not in body and "count_kernel" not in body
+    # the second kernels of the two-pass designs (sum_kernel, K3's
+    # count_kernel and vals_compact_kernel) are gone from the source
+    code = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
+    defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                             r"\([^)]*\)\s+)?(\w+)\(", code))
+    assert defined == KERNELS[source]
+
+
+KERNELS = {
+    "logcompact.cu": {"flat_lookback_kernel", "tiled_unit_kernel",
+                      "tiled_chunk_count_kernel",
+                      "tiled_chunk_compact_kernel"},
+    "pair_compact.cu": {"pair_lookback_kernel", "vals_lookback_kernel"},
+}

@@ -164,10 +164,3 @@ def test_diff_mask_matches_jax(thr, rng):
         np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(npv.numpy(), np.asarray(jnp_))
 
-
-def test_tile_plan_covers_every_byte():
-    for n in (1, 4095, 4096, 4097, 6_220_800, 24_883_200):
-        per_block, grid = logcompact.tile_plan(n)
-        assert grid <= logcompact.MAX_GRID
-        assert grid * per_block * logcompact.TILE_BYTES >= n
-        assert (grid - 1) * per_block * logcompact.TILE_BYTES < n

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K1 emissions, K2 and K3 of one checkout, at 1080p.
+"""Time the K1 emissions, K2, K3 and the tiled and sharded steps of one
+checkout, at 1080p.
 
     python3 tools/time_k1_flat.py CHECKOUT_ROOT [MODE ...]
 
@@ -15,6 +16,15 @@ events time the device alone. Modes:
 * ``tiled``: K1 tiled at ``subtile_rows=1`` (``fused_diff_compact_tiled``);
 * ``mask``: K1's bitmask-only emission at ``subtile_rows=1``;
 * ``batched``: K1 batched over B = 4 streams of that frame, ``subtile_rows=1``;
+* ``offset``: K1 tiled at ``subtile_rows=1`` with ``index_offset`` on the
+  last row shard of the frame cut into S = 4 and into S = 8 shards (the
+  sharded path's per-shard launch; one line for each S);
+* ``step``: the tiled ``pipeline.step`` (``--tiled``: overlay text, then K1
+  tiled at ``subtile_rows=1``), five medians of 30 calls (a step is
+  several launches: the backlog must outlast their enqueueing);
+* ``sharded``: ``ShardedDeltaPipeline.step_flat`` on S = 4 row shards, all
+  four on ``cuda:0`` (the ``server --mesh`` step, four K1 tiled launches
+  with their ``index_offset``), timed as ``step`` is;
 * ``pair``: K2 (``merge_tiles``) on the ``tiled`` blocks of the same frame,
   4 copies in turn (31 MB each), so they are cold in L2;
 * ``vals``: K3 (``merge_vals``) on the ``mask`` blocks, 16 copies in turn.
@@ -25,29 +35,34 @@ call to one card, in turns::
 
     for t in build/parent . . build/parent; do
         python3 tools/time_k1_flat.py "$(cd $t && pwd)" flat pair; done
+
+Each line names the card and its power limit as ``nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader`` prints them.
 """
 
 import statistics
+import subprocess
 import sys
 
 import numpy as np
 import torch
 
-MODES = ("flat", "map", "tiled", "mask", "batched", "pair", "vals")
+MODES = ("flat", "map", "tiled", "mask", "batched", "offset", "step",
+         "sharded", "pair", "vals")
 
 
-def _medians(fn, refill=None):
-    """Five medians of 100 CUDA-event-timed calls of ``fn(i)``."""
+def _medians(fn, refill=None, iters=100):
+    """Five medians of ``iters`` CUDA-event-timed calls of ``fn(i)``."""
     fn(0)
     medians = []
     for _ in range(5):
         if refill is not None:
             refill()
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(100)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(100)]
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
         torch.cuda.synchronize()
         torch.cuda._sleep(200_000_000)
-        for i in range(100):
+        for i in range(iters):
             starts[i].record()
             fn(i)
             ends[i].record()
@@ -82,8 +97,70 @@ def main() -> int:
     region = torch.from_numpy(
         rng.integers(0, 256, 288_000, dtype=np.uint8)).to(dev)
     tm = torch.full((n,), 20, dtype=torch.uint8, device=dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.splitlines()[0]
     for mode in modes:
+        if mode == "offset":
+            for s_count in (4, 8):
+                ln = n // s_count
+                off = (s_count - 1) * ln  # the last shard's base
+                c_s = c0[off:off + ln].clone()
+                p_s = p0[off:off + ln].clone()
+                prevs = [p_s.clone() for _ in range(100)]
+                curs = [c_s.clone() for _ in range(8)]
+
+                def refill(prevs=prevs, p_s=p_s):
+                    for p in prevs:
+                        p.copy_(p_s)
+
+                def fn(i, prevs=prevs, curs=curs, off=off):
+                    lc.fused_diff_compact_tiled(curs[i % 8], prevs[i], 20,
+                                                True, None, 1,
+                                                index_offset=off)
+
+                medians = _medians(fn, refill)
+                print(root, f"offset S={s_count}", card,
+                      " ".join(f"{m:.4f}" for m in medians), "ms",
+                      flush=True)
+            continue
         refill = None
+        if mode in ("step", "sharded"):
+            import dataclasses
+
+            from cudavideostream_tpu_torch.config import StreamConfig
+            from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+            from cudavideostream_tpu_torch.parallel import (
+                ShardedDeltaPipeline,
+                make_mesh,
+            )
+
+            cfg = StreamConfig()
+            text = "FPS: 30 BW: 1234 kbps"
+            curs = [c0.clone() for _ in range(8)]
+            if mode == "step":
+                pipe = DeltaStreamPipeline(
+                    dataclasses.replace(cfg, tiled_payload=True))
+                init, step = pipe.init_state, pipe.step
+            else:
+                pipe = ShardedDeltaPipeline(
+                    cfg, make_mesh(4, devices=["cuda:0"] * 4),
+                    payload_layout="sharded")
+                init, step = pipe.init_state_flat, pipe.step_flat
+            states = [None] * 30
+
+            def refill(states=states, init=init):
+                for i in range(len(states)):
+                    states[i] = init(prev)
+
+            def fn(i, step=step, states=states, curs=curs):
+                step(states[i], curs[i % 8], text=text)
+
+            refill()
+            medians = _medians(fn, refill, iters=30)
+            print(root, mode, card, " ".join(f"{m:.4f}" for m in medians),
+                  "ms", flush=True)
+            continue
         if mode in ("flat", "map", "tiled", "mask", "batched"):
             b = 4 if mode == "batched" else 1
             pb, cb = p0.repeat(b), c0.repeat(b)
@@ -125,8 +202,8 @@ def main() -> int:
             def fn(i, blocks=blocks):
                 lc.merge_vals(*blocks[i % 16])
         medians = _medians(fn, refill)
-        print(root, mode, torch.cuda.get_device_name(0),
-              " ".join(f"{m:.4f}" for m in medians), "ms", flush=True)
+        print(root, mode, card, " ".join(f"{m:.4f}" for m in medians), "ms",
+              flush=True)
     return 0
 
 
