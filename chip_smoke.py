@@ -93,9 +93,9 @@ Phases (any failure raises and the script exits non-zero):
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2), the empty-launch floor (``torch.cuda._sleep(0)``),
-   and a profiler trace that must show one kernel launch per call of K1
-   flat, K1 tiled, bitmask-only, batched and with ``index_offset``, K2
-   and K3: each kernel, its plain
+   and a profiler trace and a CUDA graph capture that must show one
+   kernel launch per call of K1 flat, K1 tiled, bitmask-only, batched and
+   with ``index_offset``, K2 and K3: each kernel, its plain
    version and its bound (and, for K3, ``torch.masked_select`` as its
    library yardstick), ``pipeline.step`` flat and tiled, the landings
    (``pos`` prefix; tiles, flat and mask flavors, the mask landing's host
@@ -124,6 +124,7 @@ It exits non-zero, and prints no result, without a CUDA device.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -145,6 +146,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 # SM of the data sheet allow on its 45 SMs, so this is its peak rate.
 K7_LANES_PER_SM = 4 * 32
 ITERS = 100
+PROFILE_PAD_S = 0.05  # host sleep at each end of a profiler trace
 CUR_COPIES = 8
 SEED = 2734
 # the kernels redesigned as one-launch kernels, and the slice of the port
@@ -2044,30 +2046,39 @@ def _event_median_ms(fn, iters, backlog=True):
 def _profile_ms(fn, names, label, per_call=False):
     """Device time per launch of each named kernel (a template's
     instantiations included) over 20 calls of ``fn(i)``, from a
-    torch.profiler trace. With ``per_call``, also the kernels the trace
-    holds per call, all names counted (copies and memsets apart); returns
-    that count, None when the trace holds no kernel. The profiler on the
-    card now and then loses launch records (one of 20, or a whole trace):
-    a trace that holds fewer records than calls and no kernel but the
-    named ones is taken again, at most three times in all; one with more
-    is never retaken."""
+    torch.profiler trace. With ``per_call``, also the kernels launched per
+    call, all names counted (copies and memsets apart), which is returned.
+
+    The profiler on the card now and then loses launch records: one of
+    20, or a whole trace, and now and then several traces in a row. So the
+    trace's window is padded on the host on both sides (the card's
+    timestamps stray a few ms from the host's), a trace that holds fewer
+    records than calls and no kernel but the named ones is taken again, at
+    most five times in all, and one with more is never retaken. The count
+    per call also comes from a CUDA graph capture of three calls
+    (:func:`_graph_per_call`), which sees every kernel the call enqueues
+    and loses none: a trace that holds every call's records must agree
+    with it, and when every trace lost records the capture's count is the
+    one returned."""
     from torch.profiler import ProfilerActivity, profile
 
     def ours(key):
         return any(f"::{n}(" in key or f"::{n}<" in key for n in names)
 
-    for attempt in range(3):
+    for attempt in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             for i in range(20):
                 fn(i)
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         events = prof.key_averages()
         kernels = {e.key: e.count for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.key.startswith(("Memcpy", "Memset"))}
         recorded = sum(kernels.values())
-        if (not per_call or recorded >= 20 or attempt == 2
+        if (not per_call or recorded >= 20 or attempt == 4
                 or not all(ours(k) for k in kernels)):
             break
         log(f"[trace] {label}: the profiler recorded {recorded} kernel "
@@ -2082,20 +2093,113 @@ def _profile_ms(fn, names, label, per_call=False):
             f"{sorted(set(names) - set(passes))}: not measured")
     if not per_call:
         return None
-    if not kernels:
-        log(f"[trace] {label}: no kernel in the trace: launches per call "
-            f"not measured")
-        return None
+    graph = _graph_per_call(fn, names, label)
+    if recorded < 20 and all(ours(k) for k in kernels):
+        log(f"[trace] {label}: the profiler kept {recorded} of 20 calls' "
+            f"records in {attempt + 1} traces: the graph capture's "
+            f"{graph:g} kernel(s) per call stands")
+        return graph
     per = recorded / 20
     log(f"[trace] {label}: {per:g} kernel launch(es) per call over 20 calls "
         f"(profiler: " + "; ".join(f"{_kernel_name(k)} x{c}"
                                   for k, c in kernels.items()) + ")")
+    if per != graph:
+        raise AssertionError(f"{label}: the profiler counts {per:g} kernels "
+                             f"a call, the graph capture {graph:g}")
     return per
 
 
+def _graph_per_call(fn, names, label, calls=3):
+    """Kernels enqueued per call of ``fn(i)``: the kernel nodes of a CUDA
+    graph captured over ``calls`` calls on a side stream (after one call
+    there, so the stream's scratch exists), read with the driver's
+    ``cuGraphGetNodes``; the graph is never launched. Each kernel node's
+    name is read where the driver can (``cuFuncGetName`` or
+    ``cuKernelGetName``) and must then hold one of ``names``."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        for i in range(calls):
+            fn(i)
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    _cu_ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)),
+           "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    _cu_ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)),
+           "cuGraphGetNodes")
+    kinds, kernel_names = {}, []
+    for node in nodes:
+        kind = ctypes.c_int()
+        _cu_ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)), "cuGraphNodeGetType")
+        kinds[kind.value] = kinds.get(kind.value, 0) + 1
+        if kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            kernel_names.append(_kernel_node_name(cu, node))
+    graph.reset()
+    kernels = kinds.get(0, 0)
+    per = kernels / calls
+    known = [k for k in kernel_names if k is not None]
+    log(f"[trace] {label}: {per:g} kernel(s) per call in a graph capture "
+        f"of {calls} calls ({count.value} nodes: {kernels} kernel, "
+        f"{count.value - kernels} other; names "
+        + (", ".join(sorted(set(_demangled_tail(k, names) for k in known)))
+           if known else "not read") + ")")
+    strays = [k for k in known if not any(n in k for n in names)]
+    if strays:
+        raise AssertionError(f"{label}: the graph capture holds kernels "
+                             f"other than {names}: {sorted(set(strays))}")
+    return per
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` (CUDA 12): func, grid and block
+    dims, shared bytes, params, extra, kern, ctx."""
+    _fields_ = [("func", ctypes.c_void_p),
+                ("dims", ctypes.c_uint * 7),
+                ("params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p)]
+
+
+def _kernel_node_name(cu, node):
+    """The mangled name of a kernel node's function, or None where this
+    driver cannot say."""
+    get = getattr(cu, "cuGraphKernelNodeGetParams_v2", None)
+    if get is None:
+        return None
+    params = _KernelNodeParams()
+    if get(ctypes.c_void_p(node), ctypes.byref(params)) != 0:
+        return None
+    name = ctypes.c_char_p()
+    if params.func and hasattr(cu, "cuFuncGetName"):
+        rc = cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func))
+    elif params.kern and hasattr(cu, "cuKernelGetName"):
+        rc = cu.cuKernelGetName(ctypes.byref(name),
+                                ctypes.c_void_p(params.kern))
+    else:
+        return None
+    return name.value.decode() if rc == 0 and name.value else None
+
+
+def _demangled_tail(mangled, names):
+    """The first of ``names`` a mangled kernel name holds, or the name."""
+    return next((n for n in names if n in mangled), mangled)
+
+
+def _cu_ok(rc, fn):
+    if rc != 0:
+        raise RuntimeError(f"{fn} returned CUresult {rc}")
+
+
 def _one_per_call(per_call):
-    """Fail unless each redesigned kernel's trace held one kernel a call
-    (None: the profiler saw no kernel, which also fails)."""
+    """Fail unless each redesigned kernel launched one kernel a call."""
     for label, per in per_call.items():
         if per != 1:
             raise AssertionError(f"{label}: {per} launches a call in the "
