@@ -11,9 +11,11 @@ Phases (any failure raises and the script exits non-zero):
    nvcc, triton;
 2. build: every hand-written kernel, from ``csrc/`` (six sources), one
    ``nvcc`` per source, all started together; K7's SASS must keep its
-   256 compares per value (``cuobjdump -sass``, ISETP counted), and each
-   instance of K1's tiled kernel must issue a global load before its
-   first shared-memory store;
+   256 compares per value (``cuobjdump -sass``, ISETP counted), each
+   instance of K1's tiled kernel and K4's kernel must load from global
+   memory before its first shared-memory store, and K6's cluster launch must fit
+   the card (its cluster size, shared memory per CTA and
+   ``cudaOccupancyMaxActiveClusters``, which must not be 0);
 3. each kernel against its plain PyTorch version at 1080p on the card,
    byte for byte: K1 flat, K1 tiled and K1's bitmask-only emission
    (``subtile_rows`` 1, 8 and 0) and K1 tiled with packed bits
@@ -34,11 +36,17 @@ Phases (any failure raises and the script exits non-zero):
    streams and, one pass, at its edges (lengths 1, 15, 16, 17, a tile and
    a tile +- 1, tile counts around its grid, every byte nonzero and none,
    20 launches back to back mixed with K2 on one and on two streams); K4 on the gray values of a random frame, of the
-   synthetic scene, of one value everywhere and of 0/255 only, and on
-   ragged lengths; K5 (segment) and K6 (register) against their plain
-   versions, K5 == K6 == K1 tiled at ``subtile_rows=0`` bit for bit and
-   all three schemes flat equal to K1's plain version, K5 with the region
-   and a map, ragged lengths; K7 on the scene's gray grid, out-of-range
+   synthetic scene, of one value everywhere, of 255 everywhere and of
+   0/255 only, on ragged lengths, at its launch plan's edges (lengths
+   1-17, around one block's share and one full grid's, 1080p +- 1), on a
+   shard's gray values at S = 4 and 8, and in 20 launches back to back on
+   one stream and on two streams at once; K5 (segment) and K6 (register)
+   against their plain versions, K5 == K6 == K1 tiled at
+   ``subtile_rows=0`` bit for bit and all three schemes flat equal to K1's
+   plain version, K5 with the region and a map, ragged lengths and units
+   (1,024 B to 51,200 B), K6 with one CTA's band shipping every byte and
+   the next none, on a unit longer than one round of a CTA, and in 20
+   launches back to back on one and two streams; K7 on the scene's gray grid, out-of-range
    values and ragged row counts; K1 batched (B = 1, 3, 4, 8 streams,
    ``subtile_rows`` 1, 8, 0, three densities, no map or a shared door map,
    per-stream overlay strips, and the JAX package's ragged geometries)
@@ -94,8 +102,9 @@ Phases (any failure raises and the script exits non-zero):
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2), the empty-launch floor (``torch.cuda._sleep(0)``),
    and a profiler trace and a CUDA graph capture that must show one
-   kernel launch per call of K1 flat, K1 tiled, bitmask-only, batched and
-   with ``index_offset``, K2 and K3: each kernel, its plain
+   kernel launch per call, and no memset node, of K1 flat, K1 tiled,
+   bitmask-only, batched and with ``index_offset``, K2, K3, K4 and K6:
+   each kernel, its plain
    version and its bound (and, for K3, ``torch.masked_select`` as its
    library yardstick), ``pipeline.step`` flat and tiled, the landings
    (``pos`` prefix; tiles, flat and mask flavors, the mask landing's host
@@ -154,7 +163,8 @@ SEED = 2734
 REDESIGNED = {"fused_diff_compact": 8, "pair_compact": 8,
               "fused_diff_compact_tiled": 9, "fused_diff_compact_mask": 9,
               "fused_diff_compact_batched": 9, "vals_compact": 9,
-              "fused_diff_compact index_offset": 9}
+              "fused_diff_compact index_offset": 9, "histogram": 10,
+              "register_compact": 10}
 
 
 def log(msg: str) -> None:
@@ -241,14 +251,26 @@ def phase_build():
         f"{len(sass)} lines")
     if isetp < 256:
         raise AssertionError("K7's SASS lost its 256 compares per value")
-    loads_first(cuobjdump, build.build("logcompact"), "tiled_unit_kernel")
+    loads_first(cuobjdump, "logcompact", "tiled_unit_kernel", 4)
+    loads_first(cuobjdump, "histogram", "hist_kernel", 1)
+    plan = register_compact.register_plan(torch.device("cuda"))
+    log(f"[build] K6 register_compact: clusters of {plan['cluster']} CTAs "
+        f"(one a tile) x {plan['threads']} threads, {plan['smem']} B of "
+        f"dynamic shared memory per CTA; cudaOccupancyMaxActiveClusters "
+        f"{plan['active_clusters']}")
+    if plan["active_clusters"] < 1:
+        raise AssertionError("K6: no cluster of its launch fits the card")
     return isetp
 
 
-def loads_first(cuobjdump, lib, kernel):
-    """Fail unless every instance of ``kernel`` in ``lib``'s SASS issues a
-    global load before its first shared-memory store: nothing (no zeroing
-    of its staging) waits in front of its loads."""
+def loads_first(cuobjdump, source, kernel, instances):
+    """Fail unless each of the ``instances`` instances of ``kernel`` in the
+    SASS of ``csrc/source.cu`` loads from global memory before its first
+    shared-memory store: nothing (no zeroing of its staging or its bins)
+    waits in front of its loads."""
+    from cudavideostream_tpu_torch.kernels import build
+
+    lib = build.build(source)
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     found = 0
@@ -265,14 +287,15 @@ def loads_first(cuobjdump, lib, kernel):
         ldg = next((i for i, o in enumerate(ops)
                     if o.startswith(("LDG", "LD.")) or o == "LD"), None)
         sts = next((i for i, o in enumerate(ops) if o.startswith("STS")), None)
-        log(f"[build] csrc/logcompact.cu SASS {name.strip()[:60]}...: first "
+        log(f"[build] csrc/{source}.cu SASS {name.strip()[:60]}...: first "
             f"LDG at instruction {ldg}, first STS at {sts}, of {len(ops)}")
         if ldg is None or (sts is not None and sts < ldg):
             raise AssertionError(f"{kernel}: a shared store comes before the "
                                  "first global load")
         found += 1
-    if found != 4:
-        raise AssertionError(f"{kernel}: {found} instances in the SASS, not 4")
+    if found != instances:
+        raise AssertionError(f"{kernel}: {found} instances in the SASS, not "
+                             f"{instances}")
 
 
 def _equal_or_raise(name, got, want,
@@ -976,7 +999,7 @@ def phase_filters_vs_plain(cfg):
     rng = np.random.default_rng(SEED + 6)
     cases = {"k4": 0, "steps": 0}
 
-    def check_hist(label, g):
+    def check_hist(label, g, quiet=False):
         got = hist.histogram(g)
         torch.cuda.synchronize()
         _equal_or_raise(f"K4 {label}", (got,),
@@ -984,8 +1007,13 @@ def phase_filters_vs_plain(cfg):
         if int(got.sum()) != g.numel():
             raise AssertionError(f"K4 {label}: counts do not sum to n")
         cases["k4"] += 1
-        log(f"[check] K4 histogram of {label} ({g.numel()} values, "
-            f"{int((got > 0).sum())} bins used): exact")
+        if not quiet:
+            log(f"[check] K4 histogram of {label} ({g.numel()} values, "
+                f"{int((got > 0).sum())} bins used): exact")
+
+    def random_gray(m):
+        return torch.from_numpy(rng.integers(0, 256, m,
+                                             dtype=np.uint8)).to(dev)
 
     src = SyntheticSource(cfg, seed=SEED)
     src.base_frame()
@@ -999,8 +1027,49 @@ def phase_filters_vs_plain(cfg):
     check_hist("0/255 only", torch.from_numpy(np.where(
         rng.random(npx) < 0.5, 0, 255).astype(np.uint8)).to(dev))
     for m in (1_000_003, 12_345, 1):
-        check_hist(f"a ragged length {m}", torch.from_numpy(
-            rng.integers(0, 256, m, dtype=np.uint8)).to(dev))
+        check_hist(f"a ragged length {m}", random_gray(m))
+    check_hist("255 at every pixel",
+               torch.full((npx,), 255, dtype=torch.uint8, device=dev))
+
+    # the launch plan's edges: lengths 1-17 (block 0 alone, the ragged
+    # tail), around one block's share of 16-byte vectors and one full
+    # grid's (a block on every SM), 1080p +- 1, and a shard's gray values
+    # at S = 4 and 8 (the sharded --visualizer 5 step runs K4 once a shard)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    block = hist.HIST_THREADS * 16
+    for label, lengths in (
+            ("n = 1..17", range(1, 18)),
+            (f"around one block's share ({block} B)",
+             (block - 1, block, block + 1)),
+            (f"around one full grid's share ({sms} blocks x {block} B)",
+             (sms * block - 1, sms * block, sms * block + 1,
+              sms * block + 17)),
+            ("1080p +- 1", (npx - 1, npx + 1))):
+        for m in lengths:
+            check_hist(f"n={m}", random_gray(m), quiet=True)
+        log(f"[check] K4 histogram {label}: n = "
+            f"{', '.join(str(m) for m in lengths)} (grids "
+            f"{', '.join(str(hist.hist_plan(m, sms)) for m in lengths)} of "
+            f"{sms}): each exact")
+    scene = filters.gray_pixels(torch.from_numpy(next(src)).to(dev))
+    for s_count in (4, 8):
+        shard = scene[(s_count - 1) * npx // s_count:]
+        check_hist(f"the last of {s_count} row shards of the scene's gray "
+                   f"values", shard)
+    for streams in (1, 2):
+        grays = [(random_gray(m),) for m in
+                 (npx, 17, 1, npx // 4, block + 1, sms * block + 17) * 3
+                 + (npx - 1, 255)]
+        torch.cuda.synchronize()
+        cases["k4"] += _back_to_back(
+            f"K4 back to back, {streams} stream(s)",
+            lambda g: (hist.histogram(g),),
+            lambda g: (hist.histogram_reference(g),), grays, streams,
+            ("counts",))
+        log(f"[check] K4 histogram: 20 launches back to back on "
+            f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
+            f" (lengths from 1 to {npx}): each exact against its plain "
+            f"version (the per-stream scratch left zero by each)")
 
     text = "FPS: 30 BW: 1234 kbps"
     prev_np, cur_np = frame_pair(rng, n, 0.06)
@@ -1220,15 +1289,69 @@ def phase_schemes_vs_plain(cfg):
     log("[check] K5 with the overlay region, a per-byte map and both, "
         "negfeed on and off: exact against its plain version; == K1 tiled "
         "subtile=0 and flat == K1's plain version")
-    for m in (129, 9000, 12_345):
+    for m in (129, 9000, 12_345, 200_000):
         prev_np, cur_np = frame_pair(rng, m, 0.06)
         prev, cur = (torch.from_numpy(prev_np).to(dev),
                      torch.from_numpy(cur_np).to(dev))
         against_plain(prev, cur, 20, True)
         against_plain(prev, cur, 20, True, region[:min(m, 700)],
                       torch.from_numpy(byte_map(rng, m)).to(dev))
-        log(f"[check] K5 and K6 n={m}: exact; K5 with overlay and map "
-            f"exact; the schemes equal K1")
+        n_pad, unit = logcompact.tiled_geometry(m, 0)
+        log(f"[check] K5 and K6 n={m} ({n_pad // unit} tile(s) of {unit} B, "
+            f"{unit // 128} rows): exact; K5 with overlay and map exact; the "
+            f"schemes equal K1")
+
+    # K6's cluster: one CTA's band shipping every byte and its neighbour's
+    # none; a unit longer than one round of a CTA (two passes); 20
+    # launches back to back
+    c_size = register_compact.register_plan(dev)["cluster"]
+
+    def k6(label, cur, prev, thr=20, negfeed=True):
+        got = register_compact.register_compact(cur, prev.clone(), thr,
+                                                negfeed)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"K6 {label}", got, register_compact.
+                        register_compact_reference(cur, prev.clone(), thr,
+                                                   negfeed), blocks)
+        cases["k6"] += 1
+        return got
+
+    n_pad, unit = logcompact.tiled_geometry(n, 0)
+    band = unit // c_size
+    prev = torch.from_numpy(frame_pair(rng, n, 0.0)[0]).to(dev)
+    at = torch.arange(n, device=dev) % unit
+    for label, ships in (("the first CTA's band ships every byte, the next "
+                          "none", at < band),
+                         ("the first band none, the second every byte",
+                          (at >= band) & (at < 2 * band))):
+        got = k6(label, torch.where(ships, prev + 128, prev), prev)
+        log(f"[check] K6 {label} (clusters of {c_size} CTAs, bands of "
+            f"{band} B of {unit}): exact, counts "
+            f"{int(got[0].min())}..{int(got[0].max())}")
+    m = (1 << 27) + 12_345
+    n_pad, unit = logcompact.tiled_geometry(m, 0)
+    prev_np, cur_np = frame_pair(rng, m, 0.06)
+    k6(f"n={m}", torch.from_numpy(cur_np).to(dev),
+       torch.from_numpy(prev_np).to(dev))
+    log(f"[check] K6 n={m} ({n_pad // unit} tiles of {unit} B, a band of "
+        f"{unit // c_size} B a CTA, longer than one round): exact")
+    for streams in (1, 2):
+        pairs = []
+        for i in range(20):
+            m = (n, 129, 9000, 12_345, 200_000)[i % 5]
+            prev_np, cur_np = frame_pair(rng, m, (0.0, 0.06, 1.0)[i % 3])
+            p = torch.from_numpy(prev_np).to(dev)
+            pairs.append((torch.from_numpy(cur_np).to(dev), p, p.clone()))
+        torch.cuda.synchronize()
+        cases["k6"] += _back_to_back(
+            f"K6 back to back, {streams} stream(s)",
+            lambda c, pk, pp: register_compact.register_compact(c, pk),
+            lambda c, pk, pp: register_compact.register_compact_reference(
+                c, pp), pairs, streams, blocks)
+        log(f"[check] K6 register_compact: 20 launches back to back on "
+            f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
+            f" (n 6220800, 129, 9000, 12345, 200000; densities 0/0.06/1): "
+            f"each exact against its plain version")
 
     def probe(label, g2, want=None):
         got = hist.vpu_probe(g2)
@@ -2115,7 +2238,8 @@ def _graph_per_call(fn, names, label, calls=3):
     there, so the stream's scratch exists), read with the driver's
     ``cuGraphGetNodes``; the graph is never launched. Each kernel node's
     name is read where the driver can (``cuFuncGetName`` or
-    ``cuKernelGetName``) and must then hold one of ``names``."""
+    ``cuKernelGetName``) and must then hold one of ``names``. A memset
+    node fails the call: a one-launch kernel zeroes nothing apart."""
     cu = ctypes.CDLL("libcuda.so.1")
     stream = torch.cuda.Stream()
     with torch.cuda.stream(stream):
@@ -2145,11 +2269,15 @@ def _graph_per_call(fn, names, label, calls=3):
     kernels = kinds.get(0, 0)
     per = kernels / calls
     known = [k for k in kernel_names if k is not None]
+    memsets = kinds.get(2, 0)  # CU_GRAPH_NODE_TYPE_MEMSET
     log(f"[trace] {label}: {per:g} kernel(s) per call in a graph capture "
         f"of {calls} calls ({count.value} nodes: {kernels} kernel, "
-        f"{count.value - kernels} other; names "
+        f"{memsets} memset, {count.value - kernels - memsets} other; names "
         + (", ".join(sorted(set(_demangled_tail(k, names) for k in known)))
            if known else "not read") + ")")
+    if memsets:
+        raise AssertionError(f"{label}: the graph capture holds {memsets} "
+                             f"memset node(s)")
     strays = [k for k in known if not any(n in k for n in names)]
     if strays:
         raise AssertionError(f"{label}: the graph capture holds kernels "
@@ -2760,7 +2888,9 @@ def phase_filter_times(cfg):
                                 ITERS, backlog=False)
     k4_lib = _event_median_ms(lambda i: torch.bincount(g, minlength=256),
                               ITERS, backlog=False)
-    _profile_ms(lambda i: hist.histogram(g), ("hist_kernel",), "K4")
+    k4_per_call = _profile_ms(lambda i: hist.histogram(g), ("hist_kernel",),
+                              "K4", per_call=True)
+    _one_per_call({"K4": k4_per_call})
     # bound: each gray byte read once, the 256 int32 bins written once
     k4_bytes = g.numel() + 4 * 256
     k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
@@ -2827,7 +2957,8 @@ def phase_filter_times(cfg):
     log(f"[time] aux landing ({n} B device to host, pinned): {aux_ms:.4f} ms "
         f"event span, {aux_host_ms:.4f} ms host")
     return {"k4_ms": k4, "k4_plain_ms": k4_plain, "k4_bound_ms": k4_bound,
-            "k4_library_ms": k4_lib}
+            "k4_library_ms": k4_lib, "k4_one_ms": k4_one,
+            "k4_per_call": k4_per_call}
 
 
 def phase_map_scheme_times(cfg, clock_mhz):
@@ -2901,8 +3032,10 @@ def phase_map_scheme_times(cfg, clock_mhz):
     k6 = _event_median_ms(lambda i: register_compact.register_compact(
         curs[i % CUR_COPIES], prevs[i]), ITERS)
     refill()
-    _profile_ms(lambda i: register_compact.register_compact(
-        curs[i % CUR_COPIES], prevs[i]), ("register_kernel",), "K6")
+    k6_per_call = _profile_ms(lambda i: register_compact.register_compact(
+        curs[i % CUR_COPIES], prevs[i]), ("register_kernel",), "K6",
+        per_call=True)
+    _one_per_call({"K6": k6_per_call})
     refill()
     k6_plain = _event_median_ms(
         lambda i: register_compact.register_compact_reference(
@@ -2974,6 +3107,7 @@ def phase_map_scheme_times(cfg, clock_mhz):
             "k5_plain_ms": k5_plain, "k5_bound_ms": ms(k5_bytes),
             "k5_map_bound_ms": ms(k5_bytes + n),
             "k6_ms": k6, "k6_plain_ms": k6_plain, "k6_bound_ms": ms(k5_bytes),
+            "k6_per_call": k6_per_call,
             "k7_ms": k7, "k7_plain_ms": k7_plain,
             "k7_bound_ms": max(k7_ops_ms, k7_bytes_ms)}
 
@@ -3623,6 +3757,8 @@ def main() -> int:
                          runs["crosscheck"]["k5_batched_launches"]}
         elif name == "vals_compact":
             extra = {"mask_land_ms": mtimes["land_ms"]}
+        elif name == "histogram":
+            extra = {"one_value_ms": ftimes["k4_one_ms"]}
         elif name.endswith("index_offset"):
             extra = {"s8_ms": stimes["k1"][8]["ms"],
                      "s8_plain_ms": stimes["k1"][8]["plain_ms"],
@@ -3645,6 +3781,8 @@ def main() -> int:
                 "fused_diff_compact_mask": mtimes["k1_per_call"],
                 "fused_diff_compact_batched": btimes["k1_per_call"],
                 "vals_compact": mtimes["k3_per_call"],
+                "histogram": ftimes["k4_per_call"],
+                "register_compact": xtimes["k6_per_call"],
                 "fused_diff_compact index_offset":
                     stimes["k1"][4]["per_call"]}[name])
         kernels.append({

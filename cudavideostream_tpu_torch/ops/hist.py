@@ -5,10 +5,12 @@ probe (K7): the counterparts of the JAX package's ``ops/hist_pallas.py``
 and ``vpu_probe``, the benchmark probe of ``benchmarks/binarize_pallas_ab``.
 
 * :func:`histogram` — on a CUDA tensor it launches the hand-written
-  Hopper kernel (``csrc/histogram.cu``) and adds one to its ``launches``
-  count; on a CPU tensor it runs :func:`histogram_reference`. There is no
-  other route: a CUDA tensor either reaches the kernel or the call
-  raises.
+  Hopper kernel (``csrc/histogram.cu``: one launch a call, at most one
+  block per SM, the blocks' sums merged through a per-stream scratch
+  that the last block empties, :func:`hist_plan`, :func:`hist_scratch`)
+  and adds one to its ``launches`` count; on a CPU tensor it runs
+  :func:`histogram_reference`. There is no other route: a CUDA tensor
+  either reaches the kernel or the call raises.
 * :func:`histogram_reference` — the plain PyTorch version: the chunked
   compare-and-sum of the JAX package's ``_value_histogram_xla``.
 
@@ -32,11 +34,17 @@ import torch
 from cudavideostream_tpu_torch.kernels import build
 
 NBINS = 256
+# threads of a K4 block (csrc/histogram.cu kThreads), each reading 16-byte
+# vectors, and the int32 words of its scratch: the 256 sums, the done count
+HIST_THREADS = 1024
+HIST_SCRATCH_WORDS = NBINS + 1
 # bins compared at once by the plain version: a 1080p call holds a
 # (2,073,600, 32) bool block, 66 MB, at a time
 _REF_CHUNK = 32
 
 _lib = None
+# K4's scratch per (device, stream): the blocks' sums and the done count
+_scratch: dict = {}
 
 
 def _hist_lib() -> ctypes.CDLL:
@@ -45,17 +53,45 @@ def _hist_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("histogram")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_histogram.argtypes = [i, p, ll, p, p]
+        lib.cvs_histogram.argtypes = [i, p, ll, i, p, p, p]
         lib.cvs_histogram.restype = i
         lib.cvs_error_string.argtypes = [i]
         lib.cvs_error_string.restype = ctypes.c_char_p
-        lib.cvs_hist_bins.argtypes = []
-        lib.cvs_hist_bins.restype = i
-        if lib.cvs_hist_bins() != NBINS:
-            raise RuntimeError("csrc/histogram.cu bin count disagrees with "
-                               "ops/hist.py NBINS")
+        for name in ("cvs_hist_bins", "cvs_hist_threads",
+                     "cvs_hist_scratch_words"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        if ((lib.cvs_hist_bins(), lib.cvs_hist_threads(),
+             lib.cvs_hist_scratch_words())
+                != (NBINS, HIST_THREADS, HIST_SCRATCH_WORDS)):
+            raise RuntimeError("csrc/histogram.cu bins, threads or scratch "
+                               "words disagree with ops/hist.py")
         _lib = lib
     return _lib
+
+
+def hist_plan(n: int, sms: int) -> int:
+    """Blocks of one K4 launch over ``n`` bytes on a card of ``sms`` SMs:
+    one per :data:`HIST_THREADS` whole 16-byte vectors, at most one per
+    SM, at least one (block 0 also counts the ragged tail of fewer than
+    16 bytes). Block ``b``'s thread ``t`` reads vectors ``b *
+    HIST_THREADS + t``, then every ``grid * HIST_THREADS`` further."""
+    if n <= 0 or sms <= 0:
+        raise ValueError("hist_plan takes a nonzero length and SM count")
+    return max(1, min(sms, -(-(n // 16) // HIST_THREADS)))
+
+
+def hist_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """K4's scratch for launches on ``stream`` of ``device``:
+    :data:`HIST_SCRATCH_WORDS` int32 (the 256 sums and the done count),
+    zero at creation and left zero by every launch (its last block
+    empties it). Keyed by (device, stream), so launches that can overlap
+    never share one, as ``logcompact.flat_scratch`` is."""
+    key = (torch.device(device), int(stream))
+    if key not in _scratch:
+        _scratch[key] = torch.zeros(HIST_SCRATCH_WORDS, dtype=torch.int32,
+                                    device=device)
+    return _scratch[key]
 
 
 def histogram(g: torch.Tensor) -> torch.Tensor:
@@ -84,8 +120,11 @@ def histogram(g: torch.Tensor) -> torch.Tensor:
     lib = _hist_lib()
     out = torch.empty(NBINS, dtype=torch.int32, device=dev)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    rc = lib.cvs_histogram(idx, g.data_ptr(), n, out.data_ptr(),
-                           torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = hist_scratch(torch.device("cuda", idx), stream)
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    rc = lib.cvs_histogram(idx, g.data_ptr(), n, hist_plan(n, sms),
+                           scratch.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"histogram kernel launch failed: "
                            f"{lib.cvs_error_string(rc).decode()} ({rc})")

@@ -7,8 +7,12 @@ The counterpart of the JAX package's ``ops/pallas_compact.py``
 through ``logcompact.fused_diff_compact(scheme="register")`` and
 ``fused_diff_compact_tiled(scheme="register")``. Like it, this is a
 correctness cross-check, a third independently derived implementation of
-K1's bytes, and not a peer of K1 in speed: the design walks each tile's
-rows in order, one warp per tile (``csrc/register_compact.cu``).
+K1's bytes, reached by no serving path. The kernel
+(``csrc/register_compact.cu``) takes each tile on one thread-block
+cluster of CTAs, each CTA a band of the tile's 16-byte vectors ranked by
+warp ballots, the carried offset passed between the CTAs through
+distributed shared memory (:func:`register_plan` gives the launch's
+shape); every SM is busy at 1080p.
 
 * :func:`register_compact` — on a CUDA tensor it launches the
   hand-written Hopper kernel and adds one to its ``launches`` count; on a
@@ -47,8 +51,25 @@ def _register_lib() -> ctypes.CDLL:
         lib.cvs_register_compact.restype = i
         lib.cvs_error_string.argtypes = [i]
         lib.cvs_error_string.restype = ctypes.c_char_p
+        lib.cvs_register_plan.argtypes = [i, p, p, p, p]
+        lib.cvs_register_plan.restype = i
         _lib = lib
     return _lib
+
+
+def register_plan(device: torch.device) -> dict:
+    """The shape of a K6 launch on ``device`` (a CUDA device): CTAs per
+    cluster (one cluster a tile), threads per CTA, dynamic shared memory
+    per CTA in bytes, and ``active_clusters``, the clusters the card holds
+    at once (``cudaOccupancyMaxActiveClusters``; 0 would mean no launch
+    could run). Raises where the card refuses the question."""
+    lib = _register_lib()
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = lib.cvs_register_plan(logcompact._device_index(torch.device(device)),
+                               *(ctypes.byref(v) for v in vals))
+    logcompact._raise_on(rc, lib, "register_compact plan")
+    return dict(zip(("cluster", "threads", "smem", "active_clusters"),
+                    (v.value for v in vals)))
 
 
 def register_compact(current: torch.Tensor, previous: torch.Tensor,

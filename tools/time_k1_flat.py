@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K1 emissions, K2, K3 and the tiled and sharded steps of one
-checkout, at 1080p.
+"""Time the K1 emissions, K2, K3, K4, K6 and the tiled and sharded steps
+of one checkout, at 1080p.
 
     python3 tools/time_k1_flat.py CHECKOUT_ROOT [MODE ...]
 
@@ -27,7 +27,12 @@ events time the device alone. Modes:
   with their ``index_offset``), timed as ``step`` is;
 * ``pair``: K2 (``merge_tiles``) on the ``tiled`` blocks of the same frame,
   4 copies in turn (31 MB each), so they are cold in L2;
-* ``vals``: K3 (``merge_vals``) on the ``mask`` blocks, 16 copies in turn.
+* ``vals``: K3 (``merge_vals``) on the ``mask`` blocks, 16 copies in turn;
+* ``hist``: K4 (``histogram``) on the gray values of the synthetic scene
+  (hot in L2, as the binarize chain leaves them), then on a frame of one
+  value everywhere (every add on one bin): two lines;
+* ``register``: K6 (``register_compact``, threshold 20, negative
+  feedback) on the frame, ``prev`` fresh and ``cur`` rotated as for K1.
 
 To compare two commits, unpack the other one into a git-ignored directory
 (``git archive COMMIT | tar -x -C build/parent``) and time both in one
@@ -48,7 +53,7 @@ import numpy as np
 import torch
 
 MODES = ("flat", "map", "tiled", "mask", "batched", "offset", "step",
-         "sharded", "pair", "vals")
+         "sharded", "pair", "vals", "hist", "register")
 
 
 def _medians(fn, refill=None, iters=100):
@@ -101,6 +106,23 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
     for mode in modes:
+        if mode == "hist":
+            from cudavideostream_tpu_torch.config import StreamConfig
+            from cudavideostream_tpu_torch.ops import filters, hist
+            from cudavideostream_tpu_torch.runtime.sources import (
+                SyntheticSource,
+            )
+
+            src = SyntheticSource(StreamConfig(), seed=2734)
+            src.base_frame()
+            g = filters.gray_pixels(torch.from_numpy(next(src)).to(dev))
+            for label, gv in (("hist", g), ("hist one",
+                                            torch.full_like(g, 137))):
+                medians = _medians(lambda i, gv=gv: hist.histogram(gv))
+                print(root, label, card,
+                      " ".join(f"{m:.4f}" for m in medians), "ms",
+                      flush=True)
+            continue
         if mode == "offset":
             for s_count in (4, 8):
                 ln = n // s_count
@@ -186,6 +208,18 @@ def main() -> int:
 
             def fn(i, k1=k1, curs=curs, prevs=prevs):
                 k1(curs[i % 8], prevs[i])
+        elif mode == "register":
+            from cudavideostream_tpu_torch.ops import register_compact
+
+            prevs = [p0.clone() for _ in range(100)]
+            curs = [c0.clone() for _ in range(8)]
+
+            def refill():
+                for p in prevs:
+                    p.copy_(p0)
+
+            def fn(i, curs=curs, prevs=prevs):
+                register_compact.register_compact(curs[i % 8], prevs[i])
         elif mode == "pair":
             out = lc.fused_diff_compact_tiled(c0, p0.clone(), 20, True,
                                               region, 1)
