@@ -13,9 +13,11 @@ Phases (any failure raises and the script exits non-zero):
    ``nvcc`` per source, all started together; K7's SASS must keep its
    256 compares per value (``cuobjdump -sass``, ISETP counted), each
    instance of K1's tiled kernel and K4's kernel must load from global
-   memory before its first shared-memory store, and K6's cluster launch must fit
-   the card (its cluster size, shared memory per CTA and
-   ``cudaOccupancyMaxActiveClusters``, which must not be 0);
+   memory before its first shared-memory store, and K5's and K6's cluster
+   launches must fit the card (cluster size, shared memory per CTA and
+   ``cudaOccupancyMaxActiveClusters``, which must not be 0), as must K7's
+   slices (the CTAs its plan puts on an SM); K7's SASS mix (ISETP, IADD3,
+   VIADD, IMAD, SEL, P2R per value and bin) is printed;
 3. each kernel against its plain PyTorch version at 1080p on the card,
    byte for byte: K1 flat, K1 tiled and K1's bitmask-only emission
    (``subtile_rows`` 1, 8 and 0) and K1 tiled with packed bits
@@ -44,14 +46,17 @@ Phases (any failure raises and the script exits non-zero):
    against their plain versions, K5 == K6 == K1 tiled at
    ``subtile_rows=0`` bit for bit and all three schemes flat equal to K1's
    plain version, K5 with the region and a map, ragged lengths and units
-   (1,024 B to 51,200 B), K6 with one CTA's band shipping every byte and
-   the next none, on a unit longer than one round of a CTA, and in 20
-   launches back to back on one and two streams; K7 on the scene's gray grid, out-of-range
-   values and ragged row counts; K1 batched (B = 1, 3, 4, 8 streams,
+   (1,024 B to 51,200 B), K5 and K6 with one CTA's band shipping every
+   byte and the next none, on a unit longer than one round of a CTA (K5
+   == K6 == K1 tiled at n = 134,230,073), and in 20 launches back to back
+   on one and two streams (K5 solo, with a map and batched); K7 on the
+   scene's gray grid, out-of-range values, ragged row counts, tiles of 8,
+   360 and 480 rows, 15, 45, 135, 307 and 3,001 tiles, and in 20 launches
+   back to back on one and two streams; K1 batched (B = 1, 3, 4, 8 streams,
    ``subtile_rows`` 1, 8, 0, three densities, no map or a shared door map,
    per-stream overlay strips, and the JAX package's ragged geometries)
    against its plain version and against solo K1 tiled launches on each
-   stream, K5 batched likewise and equal to K1 batched at
+   stream, K5 batched likewise (B = 1, 3, 4, 8) and equal to K1 batched at
    ``subtile_rows=0``, and ``BatchedDeltaPipeline.step`` at B = 4 against
    each stream's NumPy spec; K1's ``index_offset`` mode (flat and tiled at
    ``subtile_rows`` 1, 8, 0, two densities; tiled at 1 and 8 with a
@@ -103,7 +108,8 @@ Phases (any failure raises and the script exits non-zero):
    inputs cold in L2), the empty-launch floor (``torch.cuda._sleep(0)``),
    and a profiler trace and a CUDA graph capture that must show one
    kernel launch per call, and no memset node, of K1 flat, K1 tiled,
-   bitmask-only, batched and with ``index_offset``, K2, K3, K4 and K6:
+   bitmask-only, batched and with ``index_offset``, K2, K3, K4, K5 (solo,
+   with a map, batched), K6 and K7:
    each kernel, its plain
    version and its bound (and, for K3, ``torch.masked_select`` as its
    library yardstick), ``pipeline.step`` flat and tiled, the landings
@@ -164,7 +170,12 @@ REDESIGNED = {"fused_diff_compact": 8, "pair_compact": 8,
               "fused_diff_compact_tiled": 9, "fused_diff_compact_mask": 9,
               "fused_diff_compact_batched": 9, "vals_compact": 9,
               "fused_diff_compact index_offset": 9, "histogram": 10,
-              "register_compact": 10}
+              "register_compact": 10, "segment_compact": 11,
+              "vpu_probe": 11}
+# the instructions counted in K7's SASS, and the (value, bin) pairs of its
+# unrolled body: a thread's 4 values x 256 bins of compare-and-add
+K7_SASS_OPS = ("ISETP", "IADD3", "VIADD", "IMAD", "SEL", "P2R")
+K7_BODY_PAIRS = 4 * 256
 
 
 def log(msg: str) -> None:
@@ -219,9 +230,12 @@ def phase_environment():
 
 
 def phase_build():
-    """Build and bind the six sources; returns the number of ISETP
-    (integer compare) instructions in K7's SASS, which must keep its 256
-    compares per value (fails below 256: the compiler folded them)."""
+    """Build and bind the six sources; returns the counts of K7's SASS
+    instructions by opcode (:data:`K7_SASS_OPS`): its ISETP (integer
+    compare) count must keep its 256 compares per value (fails below 256:
+    the compiler folded them). Prints, and fails on a card that cannot
+    hold them, the launch plans of K5 and K6 (clusters) and of K7 (equal
+    slices, all resident at once)."""
     from cudavideostream_tpu_torch.kernels import build
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
@@ -245,10 +259,13 @@ def phase_build():
     sass = subprocess.run([cuobjdump, "-sass", str(build.build("probe"))],
                           check=True, capture_output=True,
                           text=True).stdout.splitlines()
-    isetp = sum("ISETP" in line for line in sass)
+    mix = {op: sum(f" {op}" in line for line in sass) for op in K7_SASS_OPS}
+    isetp = mix["ISETP"]
     log(f"[build] csrc/probe.cu SASS (cuobjdump -sass): {isetp} ISETP "
         f"compares, {sum('IADD' in line for line in sass)} IADD, in "
-        f"{len(sass)} lines")
+        f"{len(sass)} lines; per value and bin of its unrolled body ("
+        f"{K7_BODY_PAIRS} pairs): " + ", ".join(
+            f"{op} {mix[op] / K7_BODY_PAIRS:.3f}" for op in K7_SASS_OPS))
     if isetp < 256:
         raise AssertionError("K7's SASS lost its 256 compares per value")
     loads_first(cuobjdump, "logcompact", "tiled_unit_kernel", 4)
@@ -260,7 +277,23 @@ def phase_build():
         f"{plan['active_clusters']}")
     if plan["active_clusters"] < 1:
         raise AssertionError("K6: no cluster of its launch fits the card")
-    return isetp
+    plan = logcompact.segment_plan(torch.device("cuda"))
+    log(f"[build] K5 segment_compact: clusters of {plan['cluster']} CTAs "
+        f"(one a tile) x {plan['threads']} threads, {plan['smem']} B of "
+        f"dynamic shared memory per CTA; cudaOccupancyMaxActiveClusters "
+        f"{plan['active_clusters']}")
+    if plan["active_clusters"] < 1:
+        raise AssertionError("K5: no cluster of its launch fits the card")
+    plan = hist.probe_plan(torch.device("cuda"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[build] K7 vpu_probe: no cluster; {hist.probe_slices(45, sms)} "
+        f"equal slices at 1080p (45 tiles), {plan['per_sm']} CTAs of "
+        f"{plan['threads']} threads an SM in whole waves; "
+        f"cudaOccupancyMaxActiveBlocksPerMultiprocessor {plan['resident']}")
+    if plan["resident"] < plan["per_sm"]:
+        raise AssertionError("K7: an SM cannot hold the CTAs its plan "
+                             "gives it")
+    return mix
 
 
 def loads_first(cuobjdump, source, kernel, instances):
@@ -1328,13 +1361,50 @@ def phase_schemes_vs_plain(cfg):
         log(f"[check] K6 {label} (clusters of {c_size} CTAs, bands of "
             f"{band} B of {unit}): exact, counts "
             f"{int(got[0].min())}..{int(got[0].max())}")
+    # K5's cluster: the same edges, and its first tiles past 64 KB
+    k5_size = logcompact.segment_plan(dev)["cluster"]
+    n_pad, unit = logcompact.tiled_geometry(n, 0)
+    band = unit // k5_size
+    for label, ships in (("the first CTA's chunk ships every byte, the "
+                          "next none", at < band),
+                         ("the first chunk none, the second every byte",
+                          (at >= band) & (at < 2 * band))):
+        cur = torch.where(ships, prev + 128, prev)
+        for tm in (None, torch.full((n,), 20, dtype=torch.uint8,
+                                    device=dev)):
+            got = logcompact.segment_compact(cur, prev.clone(), 20, True,
+                                             None, tm)
+            torch.cuda.synchronize()
+            _equal_or_raise(f"K5 {label}", got, logcompact.
+                            segment_compact_reference(cur, prev.clone(), 20,
+                                                      True, None, tm),
+                            blocks)
+            cases["k5"] += 1
+        log(f"[check] K5 {label} (clusters of {k5_size} CTAs, chunks of "
+            f"{band} B of {unit}), without and with a map: exact, counts "
+            f"{int(got[0].min())}..{int(got[0].max())}")
     m = (1 << 27) + 12_345
     n_pad, unit = logcompact.tiled_geometry(m, 0)
     prev_np, cur_np = frame_pair(rng, m, 0.06)
-    k6(f"n={m}", torch.from_numpy(cur_np).to(dev),
-       torch.from_numpy(prev_np).to(dev))
+    cur, prev = (torch.from_numpy(cur_np).to(dev),
+                 torch.from_numpy(prev_np).to(dev))
+    want = k6(f"n={m}", cur, prev)
     log(f"[check] K6 n={m} ({n_pad // unit} tiles of {unit} B, a band of "
         f"{unit // c_size} B a CTA, longer than one round): exact")
+    got = logcompact.segment_compact(cur, prev.clone())
+    _equal_or_raise(f"K5 n={m} == K6", got, want, blocks)
+    got = [logcompact.fused_diff_compact_tiled(cur, prev.clone(), sub_rows=0,
+                                               scheme=s)
+           for s in ("segment", "element")]
+    _equal_or_raise(f"K5 n={m} == K1 tiled subtile=0", got[0], got[1],
+                    tiled)
+    cases["k5"] += 1
+    log(f"[check] K5 n={m} ({n_pad // unit} tiles of {unit} B, a chunk of "
+        f"{unit // k5_size} B a CTA, two rounds: its first tiles past 64 KB)"
+        f": == K6 (held against its plain version above) == K1 tiled "
+        f"subtile=0, bit for bit")
+    del cur, prev, want, got
+    torch.cuda.empty_cache()
     for streams in (1, 2):
         pairs = []
         for i in range(20):
@@ -1352,6 +1422,41 @@ def phase_schemes_vs_plain(cfg):
             f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
             f" (n 6220800, 129, 9000, 12345, 200000; densities 0/0.06/1): "
             f"each exact against its plain version")
+    # K5 solo, with a map and batched (B = 4, streams not 16-byte aligned
+    # at n = 9,233), back to back
+    tm = torch.from_numpy(byte_map(rng, n)).to(dev)
+
+    def k5_any(kind, cur, prev, plain=False):
+        if kind.startswith("batched"):
+            fn = (logcompact.fused_diff_compact_batched_reference if plain
+                  else logcompact.fused_diff_compact_batched)
+            return fn(cur, prev, 4, scheme="segment")
+        fn = (logcompact.segment_compact_reference if plain
+              else logcompact.segment_compact)
+        return fn(cur, prev, 20, True, None,
+                  tm[:cur.numel()].contiguous() if kind == "map" else None)
+
+    for streams in (1, 2):
+        cases_b = []
+        for i in range(20):
+            kind, m = (("solo", n), ("map", n), ("batched", n),
+                       ("solo", 12_345), ("batched ragged", 9233))[i % 5]
+            b = 4 if kind.startswith("batched") else 1
+            prev_np, cur_np = frame_pair(rng, b * m, (0.0, 0.06, 1.0)[i % 3])
+            p = torch.from_numpy(prev_np).to(dev)
+            cases_b.append((kind, torch.from_numpy(cur_np).to(dev), p,
+                            p.clone()))
+        torch.cuda.synchronize()
+        cases["k5"] += _back_to_back(
+            f"K5 back to back, {streams} stream(s)",
+            lambda kind, c, pk, pp: k5_any(kind, c, pk),
+            lambda kind, c, pk, pp: k5_any(kind, c, pp, plain=True),
+            cases_b, streams, tiled)
+        log(f"[check] K5 segment_compact: 20 launches back to back on "
+            f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
+            f" (solo, with a map and batched B=4 at 1080p, solo n=12345, "
+            f"batched B=4 n=9233; densities 0/0.06/1): each exact against "
+            f"its plain version")
 
     def probe(label, g2, want=None):
         got = hist.vpu_probe(g2)
@@ -1376,6 +1481,31 @@ def phase_schemes_vs_plain(cfg):
     for rows in (1000, 1001):
         probe(f"{rows} rows of values in [-300, 600]", torch.from_numpy(
             rng.integers(-300, 600, (rows, 128)).astype(np.int32)).to(dev))
+    # the plan's edges: one tile of 8, 360 and 480 rows (most of the 264
+    # slices empty or a few vectors); 15, 45 and 135 tiles (720p, 1080p and
+    # 4K gray: slices across tile ends); tiles of 8 rows, more than one
+    # wave of slices holds (307 and 3,001 tiles: two and 12 waves)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows in (8, 360, 480, 7200, 16_200, 64_800, 8 * 307, 8 * 3001):
+        g2 = torch.from_numpy(rng.integers(0, 256, (rows, 128)).astype(
+            np.int32)).to(dev)
+        tiles = rows // hist.probe_tile(rows)
+        probe(f"{rows} gray rows, {hist.probe_slices(tiles, sms)} slices",
+              g2, hist.probe_tile(rows) * 128)
+    for streams in (1, 2):
+        grids = [torch.from_numpy(rng.integers(
+            -20, 300, ((8, 360, 7200, 16_200, 64_800)[i % 5], 128)).astype(
+                np.int32)).to(dev) for i in range(20)]
+        torch.cuda.synchronize()
+        cases["k7"] += _back_to_back(
+            f"K7 back to back, {streams} stream(s)",
+            lambda g2: (hist.vpu_probe(g2),),
+            lambda g2: (hist.vpu_probe_reference(g2),),
+            [(g2,) for g2 in grids], streams, ("checksums",))
+        log(f"[check] K7 vpu_probe: 20 launches back to back on "
+            f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
+            f" (rows 8, 360, 7200, 16200, 64800: the per-stream count of "
+            f"finished slices): each exact against its plain version")
     return cases
 
 
@@ -1472,7 +1602,7 @@ def phase_batched_vs_plain(cfg):
             f"1/8/0, with and without a byte map and 700 B overlay strips: "
             f"exact against its plain version and solo launches")
 
-    for b in (1, 3):
+    for b in (1, 3, 4, 8):
         for d in (0.06, 1.0):
             prev, cur = frames[d][0][:b * n], frames[d][1][:b * n]
             for tm, reg in ((None, None), (door, strips[:b * 288_000])):
@@ -3019,10 +3149,14 @@ def phase_map_scheme_times(cfg, clock_mhz):
         k5_ms.setdefault(m is not None, []).append(_event_median_ms(
             lambda i: lc.segment_compact(curs[i % CUR_COPIES], prevs[i], 20,
                                          True, region, m), ITERS))
-    refill()
-    _profile_ms(lambda i: lc.segment_compact(curs[i % CUR_COPIES], prevs[i],
-                                             20, True, region),
-                ("segment_kernel",), "K5")
+    k5_per_call = {}
+    for m, label in ((None, "K5"), (tm, "K5 with the map")):
+        refill()
+        k5_per_call[label] = _profile_ms(
+            lambda i: lc.segment_compact(curs[i % CUR_COPIES], prevs[i], 20,
+                                         True, region, m),
+            ("segment_kernel",), label, per_call=True)
+    _one_per_call(k5_per_call)
     refill()
     k5_plain = _event_median_ms(
         lambda i: lc.segment_compact_reference(
@@ -3047,7 +3181,9 @@ def phase_map_scheme_times(cfg, clock_mhz):
         torch.int32).view(-1, 128)
     hist.vpu_probe(g2)  # warm-up
     k7 = _event_median_ms(lambda i: hist.vpu_probe(g2), ITERS)
-    _profile_ms(lambda i: hist.vpu_probe(g2), ("probe_kernel",), "K7")
+    k7_per_call = _profile_ms(lambda i: hist.vpu_probe(g2),
+                              ("probe_kernel",), "K7", per_call=True)
+    _one_per_call({"K7": k7_per_call})
     k7_plain = _event_median_ms(lambda i: hist.vpu_probe_reference(g2), 10,
                                 backlog=False)
 
@@ -3108,6 +3244,9 @@ def phase_map_scheme_times(cfg, clock_mhz):
             "k5_map_bound_ms": ms(k5_bytes + n),
             "k6_ms": k6, "k6_plain_ms": k6_plain, "k6_bound_ms": ms(k5_bytes),
             "k6_per_call": k6_per_call,
+            "k5_per_call": k5_per_call["K5"],
+            "k5_map_per_call": k5_per_call["K5 with the map"],
+            "k7_per_call": k7_per_call,
             "k7_ms": k7, "k7_plain_ms": k7_plain,
             "k7_bound_ms": max(k7_ops_ms, k7_bytes_ms)}
 
@@ -3165,6 +3304,14 @@ def phase_batched_times(cfg):
     refill()
     k5 = _event_median_ms(lambda i: batched(i, "segment"), ITERS)
     refill()
+    # the kernel's batched launch (the entry point adds PyTorch's sum of
+    # each stream's counts for pos: one reduce kernel)
+    k5_per_call = _profile_ms(lambda i: lc._launch_segment(
+        curs[i % CUR_COPIES], prevs[i], 20, True, reg, None, b_count),
+        ("segment_kernel",), "K5 batched B=4 (_launch_segment)",
+        per_call=True)
+    _one_per_call({"K5 batched": k5_per_call})
+    refill()
     k5_plain = _event_median_ms(
         lambda i: lc.fused_diff_compact_batched_reference(
             curs[i % CUR_COPIES], prevs[i], b_count, scheme="segment",
@@ -3204,6 +3351,7 @@ def phase_batched_times(cfg):
     return {"k1_ms": k1, "k1_solo4_ms": statistics.median(turns["solo"]),
             "k1_per_call": k1_per_call,
             "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bound, "k5_ms": k5,
+            "k5_per_call": k5_per_call,
             "k5_plain_ms": k5_plain, "k5_bound_ms": k5_bound,
             "step_ms": step_ms}
 
@@ -3494,7 +3642,7 @@ def main() -> int:
     cfg = StreamConfig()  # the default: 1080p BGR24, threshold 20, negfeed
     tcfg = dataclasses.replace(cfg, tiled_payload=True)
     smi, clock_mhz = phase_environment()
-    isetp = phase_build()
+    k7_sass = phase_build()
     max_err, cases = phase_kernel_vs_plain(cfg)
     tiled_cases = phase_tiled_vs_plain(cfg)
     mask_cases = phase_mask_vs_plain(cfg)
@@ -3721,9 +3869,9 @@ def main() -> int:
         ("vpu_probe", "probe.cu",
          "cudavideostream_tpu/ops/hist_pallas.py:98", 0,
          xtimes["k7_ms"], xtimes["k7_plain_ms"], xtimes["k7_bound_ms"], None,
-         f"byte-exact in {scheme_cases['k7']} cases; {isetp} ISETP in its "
-         f"SASS; bound at {clock_mhz} MHz x {K7_LANES_PER_SM} lanes per "
-         f"SM"),
+         f"byte-exact in {scheme_cases['k7']} cases; "
+         f"{k7_sass['ISETP']} ISETP in its SASS; bound at {clock_mhz} MHz "
+         f"x {K7_LANES_PER_SM} lanes per SM"),
         ("fused_diff_compact index_offset", "logcompact.cu", f"{lc}:297", 0,
          stimes["k1"][4]["ms"], stimes["k1"][4]["plain_ms"],
          stimes["k1"][4]["bound_ms"], None,
@@ -3754,7 +3902,13 @@ def main() -> int:
                      "batched_plain_ms": btimes["k5_plain_ms"],
                      "batched_bound_ms": btimes["k5_bound_ms"],
                      "batched_launches":
-                         runs["crosscheck"]["k5_batched_launches"]}
+                         runs["crosscheck"]["k5_batched_launches"],
+                     "map_launches_per_call": xtimes["k5_map_per_call"],
+                     "batched_launches_per_call": btimes["k5_per_call"]}
+        elif name == "vpu_probe":
+            # K7's SASS by opcode, per (value, bin) of its unrolled body
+            extra = {"sass_per_value_and_bin": {
+                op: k7_sass[op] / K7_BODY_PAIRS for op in K7_SASS_OPS}}
         elif name == "vals_compact":
             extra = {"mask_land_ms": mtimes["land_ms"]}
         elif name == "histogram":
@@ -3783,6 +3937,8 @@ def main() -> int:
                 "vals_compact": mtimes["k3_per_call"],
                 "histogram": ftimes["k4_per_call"],
                 "register_compact": xtimes["k6_per_call"],
+                "segment_compact": xtimes["k5_per_call"],
+                "vpu_probe": xtimes["k7_per_call"],
                 "fused_diff_compact index_offset":
                     stimes["k1"][4]["per_call"]}[name])
         kernels.append({

@@ -16,7 +16,10 @@ and ``vpu_probe``, the benchmark probe of ``benchmarks/binarize_pallas_ab``.
 
 * :func:`vpu_probe` — 256 compares and adds per value of an ``(M, 128)``
   int32 grid, one checksum per tile of the JAX tile geometry; on a CUDA
-  tensor the kernel of ``csrc/probe.cu``, on a CPU tensor
+  tensor the kernel of ``csrc/probe.cu`` (one launch a call: equal
+  slices of the values on every SM, :func:`probe_slices`, each tile's
+  partial sums added by the last CTA to finish, which a per-stream count
+  in :func:`probe_scratch` finds), on a CPU tensor
   :func:`vpu_probe_reference`, as above.
 
 The histogram kernel reads the gray values as ``uint8``, one per pixel,
@@ -151,7 +154,13 @@ def histogram_reference(g: torch.Tensor) -> torch.Tensor:
 
 # -- K7 -------------------------------------------------------------------
 
+# CTAs of a K7 launch an SM holds (csrc/probe.cu kCtasPerSm): the slices
+# come in whole waves of PROBE_CTAS_PER_SM x the SMs
+PROBE_CTAS_PER_SM = 2
+
 _probe_lib = None
+# K7's scratch per (device, stream): its count of finished slices
+_probe_scratch: dict = {}
 
 
 def _probe() -> ctypes.CDLL:
@@ -160,17 +169,66 @@ def _probe() -> ctypes.CDLL:
     if _probe_lib is None:
         lib = build.load("probe")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cvs_vpu_probe.argtypes = [i, p, i, i, p, p]
+        lib.cvs_vpu_probe.argtypes = [i, p, i, i, i, p, p, p, p]
         lib.cvs_vpu_probe.restype = i
         lib.cvs_error_string.argtypes = [i]
         lib.cvs_error_string.restype = ctypes.c_char_p
         lib.cvs_probe_bins.argtypes = []
         lib.cvs_probe_bins.restype = i
+        lib.cvs_probe_plan.argtypes = [i, p, p, p]
+        lib.cvs_probe_plan.restype = i
         if lib.cvs_probe_bins() != NBINS:
             raise RuntimeError("csrc/probe.cu bin count disagrees with "
                                "ops/hist.py NBINS")
         _probe_lib = lib
     return _probe_lib
+
+
+def probe_slices(tiles: int, sms: int) -> int:
+    """CTAs of one K7 launch over ``tiles`` tiles on a card of ``sms``
+    SMs: the fewest whole waves of :data:`PROBE_CTAS_PER_SM` CTAs an SM
+    that give every tile a CTA (264 on an H100 up to 264 tiles). CTA
+    ``c`` takes the 16-byte vectors ``[c * V // slices, (c + 1) * V //
+    slices)`` of the ``V`` of the grid's whole tiles: a slice is never
+    longer than a tile."""
+    if tiles <= 0 or sms <= 0:
+        raise ValueError("probe_slices takes a nonzero tile and SM count")
+    wave = PROBE_CTAS_PER_SM * sms
+    return -(-tiles // wave) * wave
+
+
+def probe_plan(device: torch.device) -> dict:
+    """The shape of a K7 launch on ``device`` (a CUDA device): threads
+    per CTA, the CTAs an SM is planned to hold (``per_sm``), and
+    ``resident``, the CTAs it can hold
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; below ``per_sm``
+    the slices would not all run at once)."""
+    lib = _probe()
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    rc = lib.cvs_probe_plan(idx, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"vpu_probe plan failed: "
+                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+    plan = dict(zip(("threads", "per_sm", "resident"),
+                    (v.value for v in vals)))
+    if plan["per_sm"] != PROBE_CTAS_PER_SM:
+        raise RuntimeError("csrc/probe.cu CTAs an SM disagree with "
+                           "ops/hist.py PROBE_CTAS_PER_SM")
+    return plan
+
+
+def probe_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """K7's scratch for launches on ``stream`` of ``device``: one int32,
+    the count of finished slices, zero at creation and left zero by every
+    launch (its last CTA resets it). Keyed by (device, stream), as
+    :func:`hist_scratch` is."""
+    key = (torch.device(device), int(stream))
+    if key not in _probe_scratch:
+        _probe_scratch[key] = torch.zeros(1, dtype=torch.int32,
+                                          device=device)
+    return _probe_scratch[key]
 
 
 def probe_tile(rows: int) -> int:
@@ -224,9 +282,15 @@ def vpu_probe(g2: torch.Tensor, unroll: bool = False) -> torch.Tensor:
     lib = _probe()
     out = torch.empty(grid, dtype=torch.int32, device=dev)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    rc = lib.cvs_vpu_probe(idx, g2.data_ptr(), tile * 128, grid,
-                           out.data_ptr(),
-                           torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    slices = probe_slices(
+        grid, torch.cuda.get_device_properties(idx).multi_processor_count)
+    part = torch.empty(2 * slices, dtype=torch.int32, device=dev)
+    rc = lib.cvs_vpu_probe(idx, g2.data_ptr(), tile * 128, grid, slices,
+                           part.data_ptr(),
+                           probe_scratch(torch.device("cuda", idx),
+                                         stream).data_ptr(),
+                           out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"vpu_probe kernel launch failed: "
                            f"{lib.cvs_error_string(rc).decode()} ({rc})")

@@ -978,10 +978,32 @@ def _segment_lib() -> ctypes.CDLL:
             i, p, p, p, ll, ll, i, p, i, i, i, i, p, p, p, p,
         ]
         lib.cvs_segment_compact.restype = i
+        lib.cvs_segment_plan.argtypes = [i, p, p, p, p]
+        lib.cvs_segment_plan.restype = i
         lib.cvs_error_string.argtypes = [i]
         lib.cvs_error_string.restype = ctypes.c_char_p
         _libs["segment_compact"] = lib
     return lib
+
+
+def cluster_plan(lib: ctypes.CDLL, fn: str, device: torch.device) -> dict:
+    """The shape of a cluster launch (K5's, K6's) on ``device`` (a CUDA
+    device), from ``lib``'s ``fn``: CTAs per cluster (one cluster a tile),
+    threads per CTA, dynamic shared memory per CTA in bytes, and
+    ``active_clusters``, the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0 would mean no launch could
+    run). Raises where the card refuses the question."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = getattr(lib, fn)(_device_index(torch.device(device)),
+                          *(ctypes.byref(v) for v in vals))
+    _raise_on(rc, lib, fn)
+    return dict(zip(("cluster", "threads", "smem", "active_clusters"),
+                    (v.value for v in vals)))
+
+
+def segment_plan(device: torch.device) -> dict:
+    """K5's launch shape on ``device`` (:func:`cluster_plan`)."""
+    return cluster_plan(_segment_lib(), "cvs_segment_plan", device)
 
 
 def segment_compact(
@@ -1000,7 +1022,9 @@ def segment_compact(
     ``previous``, updated in place.
 
     The port of ``_kernel`` (``logcompact.py:537``), an independent
-    derivation that shares no code with K1. CUDA tensors launch
+    derivation that shares no code with K1 or K6: one thread-block
+    cluster a tile, each CTA a band of its leaves (:func:`segment_plan`
+    gives the launch's shape). CUDA tensors launch
     ``csrc/segment_compact.cu`` (and count one in
     ``segment_compact.launches``); CPU tensors run
     :func:`segment_compact_reference`.

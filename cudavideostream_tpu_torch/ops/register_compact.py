@@ -61,15 +61,9 @@ def register_plan(device: torch.device) -> dict:
     """The shape of a K6 launch on ``device`` (a CUDA device): CTAs per
     cluster (one cluster a tile), threads per CTA, dynamic shared memory
     per CTA in bytes, and ``active_clusters``, the clusters the card holds
-    at once (``cudaOccupancyMaxActiveClusters``; 0 would mean no launch
-    could run). Raises where the card refuses the question."""
-    lib = _register_lib()
-    vals = [ctypes.c_int(0) for _ in range(4)]
-    rc = lib.cvs_register_plan(logcompact._device_index(torch.device(device)),
-                               *(ctypes.byref(v) for v in vals))
-    logcompact._raise_on(rc, lib, "register_compact plan")
-    return dict(zip(("cluster", "threads", "smem", "active_clusters"),
-                    (v.value for v in vals)))
+    at once (``logcompact.cluster_plan``)."""
+    return logcompact.cluster_plan(_register_lib(), "cvs_register_plan",
+                                   device)
 
 
 def register_compact(current: torch.Tensor, previous: torch.Tensor,

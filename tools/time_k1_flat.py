@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K1 emissions, K2, K3, K4, K6 and the tiled and sharded steps
-of one checkout, at 1080p.
+"""Time the K1 emissions, K2, K3, K4, K5, K6, K7 and the tiled and
+sharded steps of one checkout, at 1080p.
 
     python3 tools/time_k1_flat.py CHECKOUT_ROOT [MODE ...]
 
@@ -32,7 +32,14 @@ events time the device alone. Modes:
   (hot in L2, as the binarize chain leaves them), then on a frame of one
   value everywhere (every add on one bin): two lines;
 * ``register``: K6 (``register_compact``, threshold 20, negative
-  feedback) on the frame, ``prev`` fresh and ``cur`` rotated as for K1.
+  feedback) on the frame, ``prev`` fresh and ``cur`` rotated as for K1;
+* ``segment``: K5 (``segment_compact``, threshold 20, negative feedback,
+  the overlay region) on the frame, as ``register``;
+* ``segment_map``: the same with a per-byte map of 20s;
+* ``segment_batched``: K5 batched over B = 4 streams of that frame
+  (``fused_diff_compact_batched(scheme="segment")``);
+* ``probe``: K7 (``vpu_probe``) on the synthetic scene's gray values as
+  an ``(M, 128)`` int32 grid (45 tiles of 360 rows).
 
 To compare two commits, unpack the other one into a git-ignored directory
 (``git archive COMMIT | tar -x -C build/parent``) and time both in one
@@ -53,7 +60,8 @@ import numpy as np
 import torch
 
 MODES = ("flat", "map", "tiled", "mask", "batched", "offset", "step",
-         "sharded", "pair", "vals", "hist", "register")
+         "sharded", "pair", "vals", "hist", "register", "segment",
+         "segment_map", "segment_batched", "probe")
 
 
 def _medians(fn, refill=None, iters=100):
@@ -106,7 +114,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
     for mode in modes:
-        if mode == "hist":
+        if mode in ("hist", "probe"):
             from cudavideostream_tpu_torch.config import StreamConfig
             from cudavideostream_tpu_torch.ops import filters, hist
             from cudavideostream_tpu_torch.runtime.sources import (
@@ -116,6 +124,13 @@ def main() -> int:
             src = SyntheticSource(StreamConfig(), seed=2734)
             src.base_frame()
             g = filters.gray_pixels(torch.from_numpy(next(src)).to(dev))
+            if mode == "probe":
+                g2 = g.to(torch.int32).view(-1, 128)
+                medians = _medians(lambda i: hist.vpu_probe(g2))
+                print(root, mode, card,
+                      " ".join(f"{m:.4f}" for m in medians), "ms",
+                      flush=True)
+                continue
             for label, gv in (("hist", g), ("hist one",
                                             torch.full_like(g, 137))):
                 medians = _medians(lambda i, gv=gv: hist.histogram(gv))
@@ -183,8 +198,9 @@ def main() -> int:
             print(root, mode, card, " ".join(f"{m:.4f}" for m in medians),
                   "ms", flush=True)
             continue
-        if mode in ("flat", "map", "tiled", "mask", "batched"):
-            b = 4 if mode == "batched" else 1
+        if mode in ("flat", "map", "tiled", "mask", "batched", "segment",
+                    "segment_map", "segment_batched"):
+            b = 4 if mode.endswith("batched") else 1
             pb, cb = p0.repeat(b), c0.repeat(b)
             prevs = [pb.clone() for _ in range(100)]
             curs = [cb.clone() for _ in range(8)]
@@ -204,6 +220,12 @@ def main() -> int:
                     c, p, 20, True, region, 1),
                 "batched": lambda c, p: lc.fused_diff_compact_batched(
                     c, p, 4, 20, True, sub_rows=1),
+                "segment": lambda c, p: lc.segment_compact(c, p, 20, True,
+                                                           region),
+                "segment_map": lambda c, p: lc.segment_compact(
+                    c, p, 20, True, region, tm),
+                "segment_batched": lambda c, p: lc.fused_diff_compact_batched(
+                    c, p, 4, 20, True, scheme="segment"),
             }[mode]
 
             def fn(i, k1=k1, curs=curs, prevs=prevs):
