@@ -139,6 +139,7 @@ It exits non-zero, and prints no result, without a CUDA device.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -236,6 +237,7 @@ def phase_build():
     the compiler folded them). Prints, and fails on a card that cannot
     hold them, the launch plans of K5 and K6 (clusters) and of K7 (equal
     slices, all resident at once)."""
+    from cudavideostream_tpu_torch import native
     from cudavideostream_tpu_torch.kernels import build
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
@@ -244,9 +246,14 @@ def phase_build():
     t0 = time.perf_counter()
     names = ("logcompact", "pair_compact", "histogram", "segment_compact",
              "register_compact", "probe")
-    # one nvcc per source, all at once
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    # one nvcc per source, and the host library's cc, all at once
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        host_lib = pool.submit(native.build)
         list(pool.map(build.build, names))
+        host_lib.result()
+    log(f"[build] native/csrc/cvstpu.c ({native.compiler()} "
+        f"{' '.join(native.CFLAGS)}) bound from "
+        f"{os.path.relpath(native.load()._name)}")
     logcompact._kernel_lib()
     logcompact._pair_lib()
     logcompact._segment_lib()
@@ -1988,11 +1995,12 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0, inner=None):
 
 class _RecordingBatchedPipe:
     """The multi-stream server's pipeline, plus a digest of each stream's
-    state after every step, and the first step's inputs."""
+    state and its overlay text at every step, and the first step's
+    inputs."""
 
     def __init__(self, inner):
         self.inner = inner
-        self.digests, self.first = [], None
+        self.digests, self.texts, self.first = [], [], None
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
@@ -2003,6 +2011,7 @@ class _RecordingBatchedPipe:
             self.first = (_host_state(prev).reshape(b_count, -1),
                           np.array(frames), list(texts))
         out = self.inner.step(prev, frames, texts)
+        self.texts.append(list(texts))
         state = _host_state(out[0]).reshape(b_count, -1)
         self.digests.append([hashlib.sha256(x).hexdigest() for x in state])
         return out
@@ -3632,6 +3641,542 @@ def phase_sharded_times(cfg):
     return {"k1": k1, "step_ms": med}
 
 
+# -- the camera path: file, prefetch and device sources, the native library --
+
+CAMERA_FILE_FRAMES = 16  # frames in the served .npy clip
+CAMERA_SERVED = 20  # frames each run serves: the clip loops
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    """``obj.name = value`` for the duration of the block."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+class _TimedSource:
+    """A source, each frame it gives timed on the host clock."""
+
+    def __init__(self, inner):
+        self.inner, self.next_s = inner, []
+
+    def __iter__(self):
+        return self
+
+    def base_frame(self):
+        return self.inner.base_frame()
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        frame = next(self.inner)
+        self.next_s.append(time.perf_counter() - t0)
+        return frame
+
+    def close(self):
+        close = getattr(self.inner, "close", None)
+        if close is not None:
+            close()
+
+
+def _state_sum(state):
+    """The C client's digest of one state: the sum of its bytes."""
+    return int(state.sum(dtype=np.uint64))
+
+
+class _ClipOracle:
+    """``step_oracle``'s states for a looping file clip served from its
+    first frame, per sequence of overlay texts (one a served frame): each
+    state's sha256 and byte sum, and the last state."""
+
+    def __init__(self, cfg, frames, atlas):
+        self.cfg, self.frames, self.atlas = cfg, frames, atlas
+        self._memo = {}
+
+    def states(self, texts):
+        from cudavideostream_tpu_torch.ops import reference_cpu
+        from cudavideostream_tpu_torch.utils import fonts
+
+        key = tuple(texts)
+        if key not in self._memo:
+            prev = self.frames[0]
+            digests = [hashlib.sha256(prev).hexdigest()]
+            sums, positions = [_state_sum(prev)], []
+            for k, text in enumerate(texts, start=1):
+                prev, pos = reference_cpu.step_oracle(
+                    prev, self.frames[k % len(self.frames)], self.cfg,
+                    atlas=self.atlas, char_ids=fonts.encode_text(text))[:2]
+                digests.append(hashlib.sha256(prev).hexdigest())
+                sums.append(_state_sum(prev))
+                positions.append(pos)
+            self._memo[key] = {"digests": digests, "sums": sums,
+                               "positions": positions, "last": prev}
+        return self._memo[key]
+
+
+def _py_client(port, cfg):
+    """The port's Python client: the base frame's and every state's
+    sha256 until the server closes, and the wire it decoded."""
+    from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
+
+    t0 = time.perf_counter()
+    cli = DeltaStreamClient("127.0.0.1", port, cfg.height, cfg.width)
+    cli.connect()
+    cli.sock.settimeout(120)
+    base = hashlib.sha256(cli.frame).hexdigest()
+    digests = []
+    _digest_reader(cli, digests)
+    return {"kind": "python", "base": base, "states": digests,
+            "wire": cli.wire_format, "s": time.perf_counter() - t0}
+
+
+def _c_client(port, cfg):
+    """The native C client (the reference client's v1 read loop):
+    frames decoded, the last state and the sum of every state's bytes."""
+    from cudavideostream_tpu_torch import native
+
+    t0 = time.perf_counter()
+    frames, last, digest = native.client_decode_np(
+        "127.0.0.1", port, cfg.frame_bytes, 10**6, timeout=120)
+    return {"kind": "C", "frames": frames, "last": last, "digest": digest,
+            "s": time.perf_counter() - t0}
+
+
+def _check_client(label, got, want, n_served):
+    """A client's states against the oracle's: from the state it joined
+    at (its base frame) to the last, every one."""
+    if got["kind"] == "python":
+        if got["base"] not in want["digests"]:
+            raise AssertionError(f"{label}: the Python client's base frame "
+                                 "is no oracle state")
+        k = want["digests"].index(got["base"])
+        if got["states"] != want["digests"][k + 1:]:
+            raise AssertionError(f"{label}: the Python client's states != "
+                                 "step_oracle's")
+        return n_served - k
+    frames = got["frames"]
+    k = n_served - frames
+    if (frames < 1 or not np.array_equal(got["last"], want["last"])
+            or got["digest"] != sum(want["sums"][k + 1:])):
+        raise AssertionError(f"{label}: the C client's reconstruction != "
+                             f"step_oracle's ({frames} frames)")
+    return frames
+
+
+def _serve_file_main(argv, client, cfg):
+    """``server.main(argv)`` in a thread, its executor wrapped in a
+    ``_RecordingExecutor`` and its source timed, with ``client(port, cfg)``
+    once it listens. Returns what the run recorded."""
+    from cudavideostream_tpu_torch.runtime import server as server_mod
+
+    made, errors = {}, []
+    listening = threading.Event()
+    real_setup, real_make = server_mod.setup, server_mod.make_source
+
+    def setup(a=None):
+        cfg_, ex, args = real_setup(a)
+        made["inner"], made["rec"] = ex, _RecordingExecutor(ex)
+        return cfg_, made["rec"], args
+
+    def make_source(*a, **kw):
+        made["source"] = _TimedSource(real_make(*a, **kw))
+        return made["source"]
+
+    class Server(server_mod.DeltaStreamServer):
+        def listen(self):
+            sock = super().listen()
+            made["port"] = self.port
+            listening.set()
+            return sock
+
+    def run():
+        try:
+            server_mod.main(argv)
+        except BaseException as e:
+            errors.append(e)
+            listening.set()
+
+    with _patched(server_mod, "setup", setup), \
+            _patched(server_mod, "make_source", make_source), \
+            _patched(server_mod, "DeltaStreamServer", Server):
+        counters = _zero_launches()  # counts of this run only
+        t0 = time.perf_counter()
+        th = threading.Thread(target=run, name="smoke-file", daemon=True)
+        th.start()
+        if not listening.wait(120) or errors:
+            raise errors[0] if errors else RuntimeError("no listen")
+        got = client(made["port"], cfg)
+        th.join(timeout=120)
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if th.is_alive():
+        raise RuntimeError(f"{argv}: the server did not finish")
+    if errors:
+        raise errors[0]
+    return dict(made, got=got, wall=wall, launches=launches)
+
+
+def _serve_multi_file(path, cfg, n_frames, streams=4, device="cuda"):
+    """``multiserve.main --streams 4 --source file --path``: the port's
+    Python client on streams 0 and 1, the C client on 2 and 3; each
+    stream's server states recorded."""
+    from cudavideostream_tpu_torch.runtime import multiserve
+
+    made, errors = {}, []
+    listening = threading.Event()
+
+    class Server(multiserve.MultiStreamServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.pipe = _RecordingBatchedPipe(self.pipe)
+            made["server"] = self
+
+        def listen(self):
+            super().listen()
+            made["ports"] = self.ports
+            listening.set()
+
+    def run():
+        try:
+            multiserve.main(["--streams", str(streams), "--source", "file",
+                             "--path", path, "--frames", str(n_frames),
+                             "--port", "0", "--device", device, "--height",
+                             str(cfg.height), "--width", str(cfg.width)])
+        except BaseException as e:
+            errors.append(e)
+            listening.set()
+
+    with _patched(multiserve, "MultiStreamServer", Server):
+        counters = _zero_launches()
+        t0 = time.perf_counter()
+        th = threading.Thread(target=run, name="smoke-multifile",
+                              daemon=True)
+        th.start()
+        if not listening.wait(120) or errors:
+            raise errors[0] if errors else RuntimeError("no listen")
+        got = [None] * streams
+        readers = [threading.Thread(
+            target=lambda b=b: got.__setitem__(b, (
+                _py_client if b < 2 else _c_client)(made["ports"][b], cfg)),
+            daemon=True) for b in range(streams)]
+        for r in readers:
+            r.start()
+        th.join(timeout=300)
+        for r in readers:
+            r.join(timeout=60)
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if th.is_alive() or any(r.is_alive() for r in readers):
+        raise RuntimeError("multiserve --source file: the server or a "
+                           "client did not finish")
+    if errors:
+        raise errors[0]
+    return dict(made, got=got, wall=wall, launches=launches)
+
+
+def _send_ms(send, iters=15):
+    """Median host time of ``send(sock)`` on one end of a socketpair
+    whose other end a thread drains (1 MiB reads)."""
+    a, b = socket.socketpair()
+    for s in (a, b):
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4 << 20)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
+    b.settimeout(120)
+
+    def drain():
+        buf = bytearray(1 << 20)
+        while b.recv_into(buf):
+            pass
+
+    th = threading.Thread(target=drain, daemon=True)
+    th.start()
+    times = []
+    with a, b:
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            send(a)
+            times.append(time.perf_counter() - t0)
+        a.shutdown(socket.SHUT_WR)
+        th.join(timeout=60)
+    return statistics.median(times) * 1e3
+
+
+def _host_ms(fn, iters=15):
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def phase_wire_host_times(cfg, smi, device="cuda"):
+    """The native senders and encoder against the NumPy path the port
+    used before them, on K1 tiled (``subtile_rows=1``) payloads of two
+    1080p frame pairs, the synthetic scene and ~6% scattered changes, in
+    turns (native, NumPy, NumPy, native), host-clock medians of 15: the
+    v1 send of the tiled blocks (``wire_send_segments_fd`` against
+    ``to_flat`` + ``pack_payload`` + ``sendall``), of the flat payload
+    (``wire_send_payload_fd`` against ``pack_payload`` + ``sendall``), and
+    the v3 encode (``V3Encoder.encode`` in C off the blocks against
+    ``to_flat``, the shadow apply and ``encode_frame_v3_numpy``)."""
+    from cudavideostream_tpu_torch import native
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.runtime import wire
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    tcfg = dataclasses.replace(cfg, tiled_payload=True, subtile_rows=1)
+    pipe = DeltaStreamPipeline(tcfg, device=device)
+    scene = SyntheticSource(cfg, seed=SEED)
+    pairs = {"scene": (scene.base_frame(), next(scene)),
+             "6% scattered": frame_pair(np.random.default_rng(SEED + 12),
+                                        cfg.frame_bytes, 0.06)}
+    out = {}
+    for label, (prev_np, cur_np) in pairs.items():
+        _, pos, counts, xs_t, vals_t, _ = pipe.step(pipe.init_state(prev_np),
+                                                   cur_np)
+        tp = wire.TiledPayload(int(pos), counts.cpu().numpy(),
+                               xs_t.cpu().numpy(), vals_t.cpu().numpy())
+        xs, vals = tp.to_flat()
+        iovecs = 2 * int(np.count_nonzero(tp.counts)) + 1
+        after = prev_np.copy()
+        after[xs] += vals
+        if (wire.V3Encoder(prev_np).encode(tp.pos, tp, None)
+                != wire.encode_frame_v3_numpy(tp.pos, xs, vals, after)):
+            raise AssertionError(f"{label}: the C v3 encode differs from "
+                                 "the NumPy spec")
+
+        def segments(sock, tp=tp):
+            if native.wire_send_segments_fd(sock.fileno(), tp.pos, tp.counts,
+                                            tp.xs, tp.vals):
+                raise BrokenPipeError("writev")
+
+        def tiled_sendall(sock, tp=tp):
+            sock.sendall(tp.to_wire_bytes())
+
+        def flat_writev(sock, tp=tp, xs=xs, vals=vals):
+            if native.wire_send_payload_fd(sock.fileno(), tp.pos, xs, vals):
+                raise BrokenPipeError("writev")
+
+        def flat_sendall(sock, tp=tp, xs=xs, vals=vals):
+            sock.sendall(wire.pack_payload(tp.pos, xs, vals))
+
+        enc = wire.V3Encoder(prev_np)
+        shadow = prev_np.copy()
+
+        def v3_numpy(tp=tp, shadow=shadow):
+            fx, fv = tp.to_flat()
+            shadow[fx] += fv
+            wire.encode_frame_v3_numpy(tp.pos, fx, fv, shadow)
+
+        turns = {"segments": [], "tiled_sendall": [], "flat_writev": [],
+                 "flat_sendall": [], "v3_c": [], "v3_numpy": []}
+        for native_first in (True, False):
+            for name, fn in (("segments", segments),
+                             ("tiled_sendall", tiled_sendall),
+                             ("flat_writev", flat_writev),
+                             ("flat_sendall", flat_sendall))[
+                                 ::1 if native_first else -1]:
+                turns[name].append(_send_ms(fn))
+            for name, fn in (("v3_c", lambda: enc.encode(tp.pos, tp, None)),
+                             ("v3_numpy", v3_numpy))[
+                                 ::1 if native_first else -1]:
+                turns[name].append(_host_ms(fn))
+        out[label] = dict(turns, pos=tp.pos, iovecs=iovecs)
+        log(f"[time] wire on the host, {label} (pos {tp.pos}, "
+            f"{tp.counts.size} units of 128 B, {iovecs} iovecs): v1 tiled "
+            f"wire_send_segments_fd {_pair(turns['segments'])} ms against "
+            f"to_flat + pack_payload + sendall "
+            f"{_pair(turns['tiled_sendall'])}; v1 flat wire_send_payload_fd "
+            f"{_pair(turns['flat_writev'])} against pack_payload + sendall "
+            f"{_pair(turns['flat_sendall'])}; v3 C encode off the blocks "
+            f"{_pair(turns['v3_c'])} against to_flat + NumPy "
+            f"{_pair(turns['v3_numpy'])} (socketpair, a thread draining; "
+            f"host-clock medians of 15, in turns; {smi})")
+    return out
+
+
+def _pair(values):
+    return " / ".join(f"{v:.3f}" for v in values)
+
+
+def phase_camera_path(cfg, smi, device="cuda"):
+    """The camera path at 1080p: a 16-frame ``.npy`` clip of the
+    synthetic scene served by ``server.main --source file`` (flat wire v1,
+    the same with ``--prefetch``, ``--tiled --fetch flat`` through the
+    ``writev`` segments sender, and the same under ``--wire v3`` through
+    the C encoder), each v1 run decoded once by the port's Python client
+    and once by the native C client, every state equal to
+    ``step_oracle``'s and K1 launched once a served frame; ``multiserve
+    --streams 4 --source file`` (Python clients on two streams, C clients
+    on two); the device generator on the card against the same function
+    on the CPU, and chained into ``pipeline.step``; and the native
+    library's ``v4l2_open`` on a path that does not exist (a camera, if
+    the machine has one, grabs 4 frames)."""
+    from cudavideostream_tpu_torch import native
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.runtime.sources import (
+        SyntheticSource,
+        V4L2Source,
+        device_synthetic_frames,
+    )
+
+    n = CAMERA_SERVED
+    scene = SyntheticSource(cfg, seed=SEED)
+    frames = np.stack([next(scene) for _ in range(CAMERA_FILE_FRAMES)])
+    oracle = _ClipOracle(cfg, frames, DeltaStreamPipeline(
+        cfg, device="cpu").atlas_np)
+    runs = {}
+    none = dict.fromkeys(_launch_counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.npy")
+        np.save(path, frames.reshape(-1, cfg.height, cfg.width, 3))
+        base = ["--source", "file", "--path", path, "--frames", str(n),
+                "--port", "0", "--device", device, "--height",
+                str(cfg.height), "--width", str(cfg.width)]
+        v1, pf = ("file_v1", []), ("file_v1_prefetch", ["--prefetch"])
+        tiled = ["--tiled", "--fetch", "flat"]
+        # with and without --prefetch in turns, each by both clients
+        for (key, flags), client in (
+                (v1, _py_client), (pf, _py_client), (pf, _c_client),
+                (v1, _c_client), (pf, _py_client), (v1, _py_client),
+                (("file_tiled_flat_v1", tiled), _py_client),
+                (("file_tiled_flat_v1", tiled), _c_client),
+                (("file_tiled_flat_v3", tiled + ["--wire", "v3"]),
+                 _py_client)):
+            label = "server --source file " + " ".join(flags or ["(v1)"])
+            run = _serve_file_main(base + flags, client, cfg)
+            rec = run["rec"]
+            if len(rec.texts) != n:
+                raise AssertionError(f"{label}: served {len(rec.texts)} "
+                                     f"of {n} frames")
+            want = oracle.states(rec.texts)
+            if rec.digests != want["digests"][1:]:
+                raise AssertionError(f"{label}: the server's states != "
+                                     "step_oracle's")
+            _check_client(label, run["got"], want, n)
+            is_tiled = "--tiled" in flags
+            nonempty = sum(p > 0 for p in want["positions"])
+            _expect_launches(run | {"frames": n}, label, {
+                **none,
+                "fused_diff_compact_tiled" if is_tiled
+                else "fused_diff_compact": n,
+                "pair_compact": nonempty if is_tiled else 0})
+            fps = n / run["got"]["s"]
+            src_ms = statistics.median(run["source"].next_s) * 1e3
+            proc_ms = statistics.median(rec.process_s) * 1e3
+            log(f"[serve] {label}: {n} frames at 1080p from a "
+                f"{CAMERA_FILE_FRAMES}-frame .npy, looped, decoded by "
+                f"the {run['got']['kind']} client, byte-exact every frame "
+                f"against step_oracle; {fps:.2f} fps from the client's "
+                f"connect to the stream's end ({1e3 / fps:.2f} ms a "
+                f"frame, the per-frame state digests included; "
+                f"{n / run['wall']:.2f} fps with the server's start); "
+                f"source {src_ms:.4f} ms, executor.process "
+                f"{proc_ms:.2f} ms (host-clock medians; {smi}); kernel "
+                "launches: "
+                + ", ".join(f"{k}={v}" for k, v in run["launches"].items()
+                            if v))
+            if run["got"]["kind"] == "python" and run["got"]["wire"] != (
+                    "v3" if "v3" in flags else "v1"):
+                raise AssertionError(f"{label}: decoded the wrong wire")
+            runs.setdefault(key, []).append(
+                {"client": f"{run['got']['kind']} client", "fps": fps,
+                 "source_ms": src_ms, "process_ms": proc_ms,
+                 "frames": n, "launches": run["launches"]})
+        log("[serve] the C client reads wire v1 only (the reference "
+            "client's loop): the v3 run is decoded by the Python client; "
+            "with and without --prefetch were served in turns")
+
+        n_multi = 16
+        run = _serve_multi_file(path, cfg, n_multi, device=device)
+        server = run["server"]
+        rec = server.pipe
+        for b, got in enumerate(run["got"]):
+            texts = [t[b] for t in rec.texts]
+            want = oracle.states(texts)
+            if [d[b] for d in rec.digests] != want["digests"][1:]:
+                raise AssertionError(f"multiserve --source file: stream {b}'s "
+                                     "server states != step_oracle's")
+            seen = _check_client(f"multiserve stream {b}", got, want, n_multi)
+            log(f"[serve] multiserve --streams 4 --source file stream {b}: "
+                f"{seen} of {n_multi} frames at 1080p through the "
+                f"{got['kind']} client, byte-exact against step_oracle")
+        _expect_launches(run | {"frames": n_multi}, "multiserve --source file",
+                         {**none, "fused_diff_compact_batched": n_multi,
+                          "pair_compact": server.fetch_counts["flat"]})
+        log(f"[serve] multiserve --streams 4 --source file: "
+            f"{n_multi / run['wall']:.2f} batched frames/s wall ({4 * n_multi / run['wall']:.2f} stream "
+            f"frames/s; {smi}); landings {server.fetch_counts}; kernel "
+            "launches: " + ", ".join(f"{k}={v}" for k, v in
+                                     run["launches"].items() if v))
+        runs["multiserve_file"] = [{"client": "python and C clients",
+                                    "fps": n_multi / run["wall"],
+                                    "frames": n_multi,
+                                    "launches": run["launches"]}]
+
+    # the device generator: the card's frames against the CPU's
+    gen = {}
+    pipe = DeltaStreamPipeline(cfg, device=device)
+    for bank in (0, 8):
+        init_c, next_c = device_synthetic_frames(cfg, seed=0, noise_bank=bank,
+                                                 device=device)
+        init_h, next_h = device_synthetic_frames(cfg, seed=0, noise_bank=bank,
+                                                 device="cpu")
+        if not torch.equal(init_c.cpu(), init_h):
+            raise AssertionError(f"device_synthetic_frames bank {bank}: the "
+                                 "background differs on the card")
+        for t in range(8):
+            if not torch.equal(next_c((SEED, t), t).cpu(),
+                               next_h((SEED, t), t)):
+                raise AssertionError(f"device_synthetic_frames bank {bank}: "
+                                     f"frame {t} differs on the card")
+        prev_np = next_h((SEED, 7), 7).numpy()
+        frame = next_c((SEED, 8), 8)
+        out = pipe.step(pipe.init_state(prev_np), frame)
+        e_prev, e_pos, e_xs, e_vals = reference_cpu.step_oracle(
+            prev_np, frame.cpu().numpy(), cfg)[:4]
+        pos, xs, vals = _payload_host(cfg, out)
+        if not (pos == e_pos and np.array_equal(xs, e_xs)
+                and np.array_equal(vals, e_vals)
+                and np.array_equal(out[0].cpu().numpy(), e_prev)):
+            raise AssertionError(f"device_synthetic_frames bank {bank}: the "
+                                 "chained step differs from step_oracle")
+        gen_ms = _event_median_ms(lambda i: next_c((SEED, i), i), 30)
+        state = pipe.init_state(prev_np)
+        step_ms = _event_median_ms(
+            lambda i: pipe.step(state, next_c((SEED, i), i)), 30)
+        gen[bank] = {"ms": gen_ms, "with_step_ms": step_ms}
+        log(f"[check] device_synthetic_frames noise_bank={bank} at 1080p: "
+            f"the first 8 frames on cuda == on the CPU, byte for byte; "
+            f"frame 8 chained into pipeline.step == step_oracle (pos={pos})")
+        log(f"[time] device_synthetic_frames noise_bank={bank}: "
+            f"{gen_ms:.4f} ms a frame; with pipeline.step {step_ms:.4f} ms "
+            f"(CUDA events, medians of 30; {smi})")
+
+    # the camera: the real library on a path that is not there
+    lib = native.load()
+    missing = os.path.join(tempfile.gettempdir(), "cvstpu-no-such-video")
+    rc = lib.v4l2_open(missing.encode(), cfg.width, cfg.height)
+    if rc != -2:  # -ENOENT
+        raise AssertionError(f"v4l2_open on a missing path gave {rc}, "
+                             "not -ENOENT")
+    log(f"[v4l2] v4l2_open({missing}) = {rc} (-ENOENT), as expected")
+    if os.path.exists("/dev/video0"):
+        with V4L2Source(cfg) as cam:
+            grabbed = [next(cam) for _ in range(4)]
+        if any(f.shape != (cfg.frame_bytes,) for f in grabbed):
+            raise AssertionError("v4l2: a grabbed frame has the wrong size")
+        log("[v4l2] /dev/video0: 4 frames grabbed at 1080p")
+    else:
+        log("[v4l2] no camera on this machine")
+    return {"runs": runs, "generator": gen}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3741,6 +4286,10 @@ def main() -> int:
         inner=ShardedStreamExecutor(cfg, mesh=_sharded_mesh(4)))
     runs["multiserve_mesh11"] = phase_multiserve(
         cfg, "--streams 4 --mesh 1,1", mesh=_sharded_mesh(1))
+    camera = phase_camera_path(cfg, smi)
+    for key, by_client in camera["runs"].items():
+        for i, run in enumerate(by_client, start=1):
+            runs[f"camera {key} run {i} ({run['client']})"] = run
     none = dict.fromkeys(_launch_counters(), 0)
     for key, s_count in (("mesh11_v1", 1), ("mesh11_pipelined_v3", 1),
                          ("mesh14_cuda0", 4)):
@@ -3818,6 +4367,7 @@ def main() -> int:
     xtimes = phase_map_scheme_times(cfg, clock_mhz)
     btimes = phase_batched_times(cfg)
     stimes = phase_sharded_times(cfg)
+    phase_wire_host_times(cfg, smi)
 
     def launches(name):
         by_path = {k: r["launches"][name] for k, r in runs.items()}

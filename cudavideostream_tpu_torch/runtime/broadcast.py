@@ -13,6 +13,10 @@ server's state *is* every client's reconstruction. So:
   its first delta;
 * dead or slow clients are dropped without disturbing the stream.
 
+The joiners' state follows each payload through the native library's C
+scatter. Frames come from the synthetic scene, a file or a camera
+(``--source file|v4l2 --path``).
+
 Fan-out never blocks: each client owns a bounded send queue drained by its
 own writer thread, so a slow-but-alive client (full TCP buffers, a
 ``sendall`` that would block) stalls neither the pipeline nor the other
@@ -20,6 +24,7 @@ clients. A client :attr:`ClientSender.MAX_QUEUE` frames behind is dropped
 with a logged reason.
 
 Run:  ``python -m cudavideostream_tpu_torch.runtime.broadcast --tiled``
+      ``python -m cudavideostream_tpu_torch.runtime.broadcast --source file --path frames.npy``
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from cudavideostream_tpu_torch import native
 from cudavideostream_tpu_torch.config import PayloadOverflowError, StreamConfig
 from cudavideostream_tpu_torch.runtime import wire
 from cudavideostream_tpu_torch.runtime.executor import (
@@ -260,7 +266,8 @@ class BroadcastServer:
                 # flat; the joiners' state follows each payload
                 if isinstance(xs, (wire.TiledPayload, wire.MaskPayload)):
                     xs, vals = xs.to_flat()
-                wire.apply_payload(state, xs, vals)
+                native.client_apply_np(state, np.asarray(xs)[:pos],
+                                       np.asarray(vals)[:pos])
             self._fanout(self._pack(pos, xs, vals))
             self._record_wire_bytes(pos)
 
@@ -337,9 +344,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="multi-client broadcast server")
     p.add_argument("--source", default="synthetic",
                    choices=["synthetic", "file", "v4l2"],
-                   help="file and v4l2 are not ported yet (ROADMAP.md M16)")
-    p.add_argument("--path", help="file source path / camera device (not "
-                                  "ported yet: ROADMAP.md M16)")
+                   help="synthetic scene, a .npy or raw BGR24 file "
+                        "(--path), or a V4L2 camera (--path, default "
+                        "/dev/video0)")
+    p.add_argument("--path", help="file source path / camera device")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=2734)
     p.add_argument("--height", type=int, default=1080)
@@ -376,10 +384,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise NotImplementedError(
             "--link-cache and --calibrate N > 0 are not ported to "
             "cudavideostream_tpu_torch yet: see ROADMAP.md M13")
-    if args.source != "synthetic" or args.path is not None:
-        raise NotImplementedError(
-            f"the {args.source} source (--source file|v4l2, --path) is not "
-            "ported to cudavideostream_tpu_torch yet: see ROADMAP.md M16")
     if args.fetch != "auto" and not args.tiled:
         p.error("--fetch tiles/flat/mask applies to --tiled payloads")
     if args.land_batch and not args.tiled:
@@ -403,10 +407,15 @@ def main(argv=None) -> int:
                                     depth=args.land_batch)
                 if args.land_batch else StreamExecutor(cfg,
                                                        device=args.device))
-    source = make_source(args.source, cfg)
+    source = make_source(args.source, cfg, path=args.path)
     server = BroadcastServer(cfg, source, executor=executor,
                              sndbuf=args.sndbuf)
-    n = server.serve(max_frames=args.frames)
+    try:
+        n = server.serve(max_frames=args.frames)
+    finally:
+        close = getattr(source, "close", None)  # the camera handle
+        if close is not None:
+            close()
     print(f"served {n} frames", file=sys.stderr)
     return 0
 

@@ -10,10 +10,11 @@ mid-stream: a joiner's base frame is the stream's *current*
 reconstruction, kept on the host with in-place scatters of each payload,
 so no stream restarts.
 
-The JAX server sends with its native ``writev`` helpers and applies
-payloads with its native scatter (``ROADMAP.md`` M18); here the payload is
-packed once and sent with ``sendall``, and applied with the NumPy
-wrap-add, to the same bytes.
+Streams come from the synthetic scene (stream ``b`` seeded ``b``) or
+from one file (``--source file --path F``, shared by every stream). Each
+payload is applied to its stream's mirror by the native library's C
+scatter; wire v1 payloads go out with its ``writev`` sender, v3 frames
+through its C encoder.
 
 With ``--mesh D,S`` the streams shard over a ``(data=D, space=S)`` mesh
 (``parallel.sharded``, the ``"sharded"`` payload layout): stream ``b``
@@ -24,6 +25,7 @@ device that holds it (the ``shards`` landing).
 
 Run:  ``python -m cudavideostream_tpu_torch.runtime.multiserve --streams 4``
       ``python -m cudavideostream_tpu_torch.runtime.multiserve --streams 4 --mesh 1,1``
+      ``python -m cudavideostream_tpu_torch.runtime.multiserve --streams 4 --source file --path frames.npy``
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from cudavideostream_tpu_torch import native
 from cudavideostream_tpu_torch.config import (
     PayloadOverflowError,
     StreamConfig,
@@ -166,14 +169,22 @@ class MultiStreamServer:
                 conn.close()
 
     def _send(self, b: int, buf: bytes) -> None:
-        conn = self._clients[b]
         try:
-            conn.sendall(buf)
+            self._clients[b].sendall(buf)
         except OSError:
-            conn.close()
-            self._clients[b] = None
-            if self.verbose:
-                print(f"\nstream {b}: client dropped", flush=True)
+            self._drop(b)
+
+    def _send_v1(self, b: int, p: int, xs, vals) -> None:
+        """One wire v1 payload in one native ``writev``."""
+        if native.wire_send_payload_fd(self._clients[b].fileno(), p, xs,
+                                       vals) < 0:
+            self._drop(b)
+
+    def _drop(self, b: int) -> None:
+        self._clients[b].close()
+        self._clients[b] = None
+        if self.verbose:
+            print(f"\nstream {b}: client dropped", flush=True)
 
     def _land(self, outs):
         """One batched step's payloads on the host: per stream a
@@ -284,8 +295,14 @@ class MultiStreamServer:
                         continue
                     xs, vals = (pl.to_flat()
                                 if isinstance(pl, wire.TiledPayload) else pl)
-                    wire.apply_payload(recon[b], xs, vals)
+                    native.client_apply_np(recon[b], xs, vals)
                     if self._clients[b] is None:
+                        continue
+                    if self.cfg.wire_format == "v1":
+                        # the mirror's scatter flattened a tiled payload
+                        # already: its flat arrays go out as they are
+                        wire_total += 4 + 5 * p
+                        self._send_v1(b, p, xs, vals)
                         continue
                     if v34:
                         # recon[b] is the client's state after this payload
@@ -293,10 +310,8 @@ class MultiStreamServer:
                                if self.cfg.wire_format == "v4"
                                else wire.encode_frame_v3)
                         buf = enc(p, xs, vals, recon[b])
-                    elif self.cfg.wire_format == "v2":
-                        buf = wire.pack_payload_v2(p, xs, vals)
                     else:
-                        buf = wire.pack_payload(p, xs, vals)
+                        buf = wire.pack_payload_v2(p, xs, vals)
                     wire_total += len(buf)
                     self._send(b, buf)
                 if (self.aux_dir and aux is not None
@@ -337,15 +352,14 @@ class MultiStreamServer:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The command line; options of the JAX server that are not ported
-    yet raise ``NotImplementedError`` naming their ``ROADMAP.md`` item."""
+    """The command line: every option of the JAX multi-stream server."""
     p = argparse.ArgumentParser(description="multi-stream (B cameras) server")
     p.add_argument("--streams", type=int, default=2)
     p.add_argument("--source", default="synthetic",
                    choices=["synthetic", "file"],
-                   help="the file source is not ported yet (ROADMAP.md M16)")
-    p.add_argument("--path", help="file source path (not ported yet: "
-                                  "ROADMAP.md M16)")
+                   help="synthetic scenes (stream b seeded b) or one file "
+                        "(--path) for every stream")
+    p.add_argument("--path", help="file source path (shared by streams)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=2734,
                    help="stream b listens on port+b")
@@ -390,10 +404,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.capacity is not None:
             p.error("--capacity applies to the single-chip batched path "
                     "only")
-    if args.source != "synthetic" or args.path is not None:
-        raise NotImplementedError(
-            "the file source (--source file, --path) is not ported to "
-            "cudavideostream_tpu_torch yet: see ROADMAP.md M16")
     return args
 
 
@@ -409,7 +419,7 @@ def main(argv=None) -> int:
                        tiled_payload=args.mesh is None
                        and args.capacity is None,
                        payload_capacity=args.capacity)
-    sources = [make_source(args.source, cfg, seed=b)
+    sources = [make_source(args.source, cfg, path=args.path, seed=b)
                for b in range(args.streams)]
     if args.aux_dir:
         os.makedirs(args.aux_dir, exist_ok=True)

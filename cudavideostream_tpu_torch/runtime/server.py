@@ -8,6 +8,11 @@ the default wire v1 ``[u32 pos][i32 xs[pos]][u8 vals[pos]]``, which the
 reference OpenCV client decodes unmodified; under the opt-in v2/v3/v4
 the magic first (``runtime.wire``). The 1 Hz status line is printed and
 rendered into the stream via the glyph overlay (``server.cpp:164-168``).
+Frames come from a camera (``--source v4l2``), a file (``--source file
+--path F``) or the synthetic scene; ``--prefetch`` captures them on their
+own thread. Wire v1 payloads go out with one ``writev`` each from the
+native library (``native``), a tiled payload's units straight from their
+blocks; v3 and v4 frames are encoded by its C encoder.
 
 With a visualizer (``--visualizer 1-5``) each landed frame also brings
 its aux frame to the host; ``--aux-dir`` dumps every ``aux_every``-th one
@@ -20,6 +25,8 @@ a hair-trigger region inside an insensitive noisy scene. The wire bytes
 and the client do not change.
 
 Run:  ``python -m cudavideostream_tpu_torch.runtime.server --source synthetic``
+      ``python -m cudavideostream_tpu_torch.runtime.server --source file --path frames.npy --prefetch``
+      ``python -m cudavideostream_tpu_torch.runtime.server --source v4l2 --path /dev/video0``
       ``python -m cudavideostream_tpu_torch.runtime.server --visualizer 5 --aux-dir aux/``
       ``python -m cudavideostream_tpu_torch.runtime.server --tiled --pipelined --wire v3``
       ``python -m cudavideostream_tpu_torch.runtime.server --tiled --fetch mask --maskonly --wire v4 --land-batch 8``
@@ -42,6 +49,7 @@ import time
 
 import numpy as np
 
+from cudavideostream_tpu_torch import native
 from cudavideostream_tpu_torch.config import (
     CompactionBackend,
     PayloadOverflowError,
@@ -61,7 +69,11 @@ from cudavideostream_tpu_torch.runtime.sharded_executor import (
     ShardedStreamExecutor,
     make_mesh,
 )
-from cudavideostream_tpu_torch.runtime.sources import FrameSource, make_source
+from cudavideostream_tpu_torch.runtime.sources import (
+    FrameSource,
+    PrefetchSource,
+    make_source,
+)
 
 
 class DeltaStreamServer:
@@ -188,18 +200,29 @@ class DeltaStreamServer:
 
     def _send(self, conn: socket.socket, result, v3enc) -> None:
         pos, xs, vals, aux = result
-        if v3enc is not None:
-            # v3 rebuilds a MaskPayload's indices; v4 forwards its bits
-            buf = v3enc.encode(pos, xs, vals)
+        if v3enc is not None or self.cfg.wire_format == "v2":
+            if v3enc is not None:
+                # v3 rebuilds a MaskPayload's indices; v4 forwards its bits
+                buf = v3enc.encode(pos, xs, vals)
+            else:
+                if isinstance(xs, (wire.TiledPayload, wire.MaskPayload)):
+                    xs, vals = xs.to_flat()
+                buf = wire.pack_payload_v2(pos, xs, vals)
+            conn.sendall(buf)
+            # the metrics count v1 framing; correct them to the bytes sent
+            self.executor.metrics.wire_bytes += len(buf) - (4 + 5 * pos)
         else:
-            if isinstance(xs, (wire.TiledPayload, wire.MaskPayload)):
+            # v1 in one writev: a tiled payload's unit prefixes gathered
+            # by the iovec list, the bytes of the flat payload
+            if isinstance(xs, wire.MaskPayload):
                 xs, vals = xs.to_flat()
-            pack = (wire.pack_payload_v2 if self.cfg.wire_format == "v2"
-                    else wire.pack_payload)
-            buf = pack(pos, xs, vals)
-        conn.sendall(buf)
-        # the metrics count v1 framing; correct them to the bytes sent
-        self.executor.metrics.wire_bytes += len(buf) - (4 + 5 * pos)
+            if isinstance(xs, wire.TiledPayload):
+                rc = native.wire_send_segments_fd(conn.fileno(), pos,
+                                                  xs.counts, xs.xs, xs.vals)
+            else:
+                rc = native.wire_send_payload_fd(conn.fileno(), pos, xs, vals)
+            if rc < 0:
+                raise BrokenPipeError(f"writev failed: {rc}")
         k, self._n_out = self._n_out, self._n_out + 1
         if self.aux_dir and aux is not None and k % self.aux_every == 0:
             write_ppm(os.path.join(self.aux_dir, f"aux_{k:06d}.ppm"), aux,
@@ -231,12 +254,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="CUDA delta-stream server")
     p.add_argument("--source", default="synthetic",
                    choices=["synthetic", "file", "v4l2"],
-                   help="file and v4l2 are not ported yet (ROADMAP.md M16)")
-    p.add_argument("--path", help="file source path / camera device (not "
-                                  "ported yet: ROADMAP.md M16)")
+                   help="synthetic scene, a .npy or raw BGR24 file "
+                        "(--path), or a V4L2 camera (--path, default "
+                        "/dev/video0)")
+    p.add_argument("--path", help="file source path / camera device")
     p.add_argument("--prefetch", action="store_true",
-                   help="capture on a dedicated thread (not ported yet: "
-                        "ROADMAP.md M16)")
+                   help="capture on a dedicated thread, one frame ahead")
     p.add_argument("--compaction", default="pallas",
                    choices=[b.value for b in CompactionBackend],
                    help="pallas = the fused kernel (K1); sort and host are "
@@ -354,8 +377,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise _not_ported(f"--backend {args.backend}", "M18")
     if args.compaction != CompactionBackend.PALLAS.value:
         raise _not_ported(f"--compaction {args.compaction}", "M12")
-    if args.source != "synthetic" or args.path is not None or args.prefetch:
-        raise _not_ported("--source file|v4l2, --path and --prefetch", "M16")
     if (args.resume is not None or args.save_state is not None
             or args.link_cache is not None or args.calibrate):
         raise _not_ported("--resume, --save-state, --link-cache and "
@@ -427,7 +448,9 @@ def setup(argv=None):
 
 def main(argv=None) -> int:
     cfg, executor, args = setup(argv)
-    source = make_source(args.source, cfg, seed=args.seed)
+    source = make_source(args.source, cfg, path=args.path, seed=args.seed)
+    if args.prefetch:
+        source = PrefetchSource(source)
     if args.aux_dir:
         os.makedirs(args.aux_dir, exist_ok=True)
     server = DeltaStreamServer(cfg, source, executor=executor,
@@ -436,6 +459,10 @@ def main(argv=None) -> int:
         served = server.serve(max_frames=args.frames)
     finally:
         server.close()
+        # the prefetch thread and the camera handle
+        close = getattr(source, "close", None)
+        if close is not None:
+            close()
     print(f"served {served} frames", file=sys.stderr)
     return 0
 

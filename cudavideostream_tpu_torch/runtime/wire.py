@@ -1,8 +1,10 @@
 """The TCP wire formats v1 to v4 — the byte-exact compatibility contract.
 
-A copy of the JAX package's ``runtime/wire.py`` (its numpy paths: the JAX
-package's native encoder is a byte-identical fast path, ``ROADMAP.md``
-M18). Little-endian, no framing, no checksum.
+A copy of the JAX package's ``runtime/wire.py``. Little-endian, no
+framing, no checksum. The NumPy encoders here are the byte-layout spec;
+:class:`V3Encoder`, :class:`V4Encoder` and :func:`encode_frame_v3` encode
+through the native library's C encoder (``native.encode_v3_np``), straight
+off a :class:`TiledPayload`'s blocks, to the same bytes.
 
 **v1 (default)**, exactly what the reference server writes
 (``server/src/threads.cpp:224-231``) and the reference client reads
@@ -45,6 +47,8 @@ import struct
 from typing import Tuple
 
 import numpy as np
+
+from cudavideostream_tpu_torch import native
 
 _U32 = struct.Struct("<I")
 _2U32 = struct.Struct("<II")
@@ -270,8 +274,8 @@ def v3_sizes(pos: int, n_exc: int, n_bytes: int) -> Tuple[int, int, int]:
 def encode_frame_v3_numpy(pos: int, xs: np.ndarray, vals: np.ndarray,
                           frame_after: np.ndarray) -> bytes:
     """One v3 frame, the cheapest of the three modes — the byte-layout
-    spec. ``frame_after`` is the client state after this payload (what
-    mode 2 ships)."""
+    spec, which the native encoder matches byte for byte. ``frame_after``
+    is the client state after this payload (what mode 2 ships)."""
     n = frame_after.size
     xs = np.asarray(xs, dtype=np.int64)[:pos]
     vals = np.asarray(vals, dtype=np.uint8)[:pos]
@@ -292,13 +296,35 @@ def encode_frame_v3_numpy(pos: int, xs: np.ndarray, vals: np.ndarray,
     ).tobytes()
 
 
+def _native_v3(pos: int, xs, vals, shadow: np.ndarray, apply: bool) -> bytes:
+    """The C encoder over a :class:`TiledPayload`'s blocks, or over a flat
+    payload's first ``pos`` entries as one block."""
+    if isinstance(xs, TiledPayload):
+        return native.encode_v3_np(xs.counts, xs.xs, xs.vals, shadow, apply)
+    return native.encode_v3_np([pos], np.asarray(xs)[:pos],
+                               np.asarray(vals)[:pos], shadow, apply)
+
+
+def encode_frame_v3(pos: int, xs, vals, frame_after: np.ndarray) -> bytes:
+    """The stateless v3 encode of one frame, ``frame_after`` the client
+    state after this payload (what mode 2 ships): for servers that keep a
+    reconstruction per client already (multiserve's per-stream mirror);
+    others use :class:`V3Encoder`. Through the C encoder, the bytes of
+    :func:`encode_frame_v3_numpy`."""
+    return _native_v3(pos, xs, vals,
+                      np.ascontiguousarray(frame_after, dtype=np.uint8),
+                      apply=False)
+
+
 class V3Encoder:
     """Per-connection adaptive encoder for the v3 wire.
 
     Keeps a shadow of the client's frame, applying every payload with the
     client's own uint8 wrap-add, so mode 2 ships the exact post-apply
     state whichever executor produced the payload (a pipelined executor's
-    payloads lag a frame; a device snapshot would be off by one).
+    payloads lag a frame; a device snapshot would be off by one). The C
+    encoder applies and encodes in one pass, straight off a
+    :class:`TiledPayload`'s blocks (no :meth:`TiledPayload.to_flat`).
     """
 
     def __init__(self, base_frame: np.ndarray):
@@ -311,13 +337,7 @@ class V3Encoder:
             # v3 has no winmask mode: rebuild the index stream once
             pos = xs.pos
             xs, vals = xs.to_flat()
-        if isinstance(xs, TiledPayload):
-            xs, vals = xs.to_flat()
-        xs = np.asarray(xs, dtype=np.int64)[:pos]
-        vals = np.asarray(vals, dtype=np.uint8)[:pos]
-        if pos:
-            self.frame[xs] = self.frame[xs] + vals  # uint8 wrap-add
-        buf = encode_frame_v3_numpy(pos, xs, vals, self.frame)
+        buf = _native_v3(pos, xs, vals, self.frame, apply=True)
         self.last_mode = buf[0]
         return buf
 
@@ -340,6 +360,20 @@ def winmask_window(xs: np.ndarray) -> Tuple[int, int]:
     start = (int(xs[0]) // 8) * 8
     end = (int(xs[-1]) // 8 + 1) * 8
     return start, end - start
+
+
+def _window(pos: int, xs) -> Tuple[int, int]:
+    """:func:`winmask_window` of a flat payload's first ``pos`` indices or
+    of a :class:`TiledPayload` (its first and last entries)."""
+    if not pos:
+        return 0, 0
+    if isinstance(xs, TiledPayload):
+        rows = xs.xs.shape[0]
+        nz = np.flatnonzero(np.asarray(xs.counts)[:rows])
+        first = xs.xs[nz[0], 0]
+        last = xs.xs[nz[-1], int(xs.counts[nz[-1]]) - 1]
+        return winmask_window([first, last])
+    return winmask_window(np.asarray(xs)[[0, pos - 1]])
 
 
 def winmask_size(pos: int, win_bytes: int) -> int:
@@ -377,10 +411,8 @@ def encode_frame_v4_numpy(pos: int, xs: np.ndarray, vals: np.ndarray,
     ).tobytes()
 
 
-# the stateless encodes of one frame, ``frame_after`` the client state
-# after this payload: for servers that keep a reconstruction per client
-# already (multiserve's per-stream mirror); others use V3Encoder/V4Encoder
-encode_frame_v3 = encode_frame_v3_numpy
+# the stateless v4 encode of one frame, peer of encode_frame_v3 (the
+# JAX package's has no native path either)
 encode_frame_v4 = encode_frame_v4_numpy
 
 
@@ -450,18 +482,28 @@ class V4Encoder(V3Encoder):
     """Per-connection adaptive encoder for the v4 wire: v3's shadow and
     modes plus mode 3. A :class:`MaskPayload` whose winmask encoding wins
     is trimmed and forwarded as it is — no index stream is built, and the
-    shadow applies through the bits."""
+    shadow applies through the bits. Other payloads go through the C v3
+    encoder (the shadow applied in the same pass), and mode 3 replaces its
+    choice where it is smaller: the bytes of :func:`encode_frame_v4_numpy`."""
 
     def encode(self, pos: int, xs, vals) -> bytes:
         if isinstance(xs, MaskPayload):
             return self._encode_mask(xs)
-        if isinstance(xs, TiledPayload):
-            xs, vals = xs.to_flat()
-        xs = np.asarray(xs, dtype=np.int64)[:pos]
-        vals = np.asarray(vals, dtype=np.uint8)[:pos]
-        if pos:
-            self.frame[xs] = self.frame[xs] + vals  # uint8 wrap-add
-        buf = encode_frame_v4_numpy(pos, xs, vals, self.frame)
+        buf = _native_v3(pos, xs, vals, self.frame, apply=True)
+        start, wb = _window(pos, xs)
+        # delta16 wins its ties with mode 3, which wins its own with
+        # bitmask and raw
+        size_w = winmask_size(pos, wb)
+        if size_w < len(buf) or (size_w == len(buf)
+                                 and buf[0] != MODE_DELTA16):
+            if isinstance(xs, TiledPayload):
+                xs, vals = xs.to_flat()
+            xs = np.asarray(xs, dtype=np.int64)[:pos]
+            window = np.zeros(wb, dtype=np.uint8)
+            window[xs - start] = 1
+            buf = (bytes([MODE_WINMASK]) + _3U32.pack(pos, start, wb)
+                   + np.packbits(window, bitorder="little").tobytes()
+                   + np.asarray(vals, dtype=np.uint8)[:pos].tobytes())
         self.last_mode = buf[0]
         return buf
 

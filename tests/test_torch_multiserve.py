@@ -472,23 +472,29 @@ def test_multiserve_main_and_client_main(capsys, tmp_path):
     assert tuple(np.load(ckpt)["geometry"]) == (2, 48, 64)
 
 
-@pytest.mark.parametrize("module,argv,item", [
-    (multiserve, ["--mesh", "1,1"], None),
-    (multiserve, ["--source", "file"], "M16"),
-    (multiserve, ["--path", "x.npy"], "M16"),
-    (broadcast, ["--link-cache", "l.json"], "M13"),
-    (broadcast, ["--calibrate", "2"], "M13"),
-    (broadcast, ["--source", "v4l2"], "M16"),
+@pytest.mark.parametrize("module,argv,want", [
+    (multiserve, ["--mesh", "1,1"], ("mesh", (1, 1))),
+    (multiserve, ["--source", "file"],
+     (ValueError, "file source needs --path")),
+    (multiserve, ["--path", "x.npy"], ("path", "x.npy")),
+    (broadcast, ["--link-cache", "l.json"],
+     (NotImplementedError, "ROADMAP.md M13")),
+    (broadcast, ["--calibrate", "2"], (NotImplementedError, "ROADMAP.md M13")),
+    (broadcast, ["--source", "v4l2", "--path", "/nonexistent/video9"],
+     (RuntimeError, "camera device /nonexistent/video9 not present")),
 ], ids=["multi_mesh", "multi_file", "multi_path", "bc_link_cache",
         "bc_calibrate", "bc_v4l2"])
-def test_entry_points_name_their_roadmap_item(module, argv, item):
-    """Options of parts not ported yet name their ROADMAP.md item; an
-    option ported since (``item`` None: ``--mesh``, M15) is taken."""
+def test_entry_points_name_their_roadmap_item(module, argv, want):
+    """Options of parts not ported yet name their ROADMAP.md item. Options
+    ported since are taken (``want`` an attribute and its parsed value:
+    ``--mesh``, M15; ``--path``, M16), or fail as the JAX entry points do
+    (a file source without ``--path``, a camera that is not there)."""
     argv = argv + ["--device", "cpu", "--height", "48", "--width", "64"]
-    if item is None:
-        assert module.parse_args(argv).mesh == (1, 1)
+    key, value = want
+    if isinstance(key, str):
+        assert getattr(module.parse_args(argv), key) == value
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    with pytest.raises(key, match=value):
         module.main(argv)
 
 
