@@ -102,7 +102,14 @@ Phases (any failure raises and the script exits non-zero):
    ``--pipelined --wire v3``) built by ``server.setup``, an S = 4
    ``ShardedStreamExecutor`` with its shards on ``cuda:0``, and
    ``multiserve --streams 4 --mesh 1,1``, with S K1 launches a frame (K2
-   only for a (1, 1) mesh's ``flat`` landings);
+   only for a (1, 1) mesh's ``flat`` landings); then the camera path: a
+   16-frame ``.npy`` clip served by ``server --source file`` (flat wire
+   v1, the same with ``--prefetch``, ``--tiled --fetch tiles`` through
+   the segments sender and under ``--wire v3`` through the C encoder off
+   the tiled blocks, each frame's native sender counted) to the Python
+   and the C client, ``multiserve --streams 4 --source file``,
+   ``device_synthetic_frames`` on the card against the CPU and chained
+   into ``pipeline.step``, and ``v4l2_open`` on a missing path;
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2), the empty-launch floor (``torch.cuda._sleep(0)``),
@@ -128,7 +135,9 @@ Phases (any failure raises and the script exits non-zero):
    tiled step, in turns, and the per-shard K1 tiled launch with its
    ``index_offset`` at S = 4 and 8 against its plain version and its bound
    on the shard's bytes (shards on one card run one after another: no
-   interconnect, no scaling).
+   interconnect, no scaling); and on the host the native wire senders and
+   the C v3 encoder against the NumPy path on two 1080p tiled payloads,
+   each native sender's bytes read back once.
 
 It prints progress lines, then the card's ``nvidia-smi`` line, then one
 JSON line of kernel records, and last
@@ -3766,6 +3775,37 @@ def _check_client(label, got, want, n_served):
     return frames
 
 
+@contextlib.contextmanager
+def _counted_sends():
+    """Count, for the duration of the block, the frames each native wire
+    path sends: ``payload`` (``wire_send_payload_fd``), ``segments``
+    (``wire_send_segments_fd``), and the v3 encodes off ``TiledPayload``
+    blocks (``v3_tiled``) or off flat arrays (``v3_flat``)."""
+    from cudavideostream_tpu_torch import native
+    from cudavideostream_tpu_torch.runtime import wire
+
+    sends = {"payload": 0, "segments": 0, "v3_tiled": 0, "v3_flat": 0}
+
+    def counted(key, fn):
+        def call(*a, **kw):
+            sends[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    def v3(pos, xs, *a, **kw):
+        sends["v3_tiled" if isinstance(xs, wire.TiledPayload)
+              else "v3_flat"] += 1
+        return real_v3(pos, xs, *a, **kw)
+
+    real_v3 = wire._native_v3
+    with _patched(native, "wire_send_payload_fd",
+                  counted("payload", native.wire_send_payload_fd)), \
+            _patched(native, "wire_send_segments_fd",
+                     counted("segments", native.wire_send_segments_fd)), \
+            _patched(wire, "_native_v3", v3):
+        yield sends
+
+
 def _serve_file_main(argv, client, cfg):
     """``server.main(argv)`` in a thread, its executor wrapped in a
     ``_RecordingExecutor`` and its source timed, with ``client(port, cfg)``
@@ -3904,6 +3944,28 @@ def _send_ms(send, iters=15):
     return statistics.median(times) * 1e3
 
 
+def _sent_bytes(send):
+    """The bytes ``send(sock)`` writes on one end of a socketpair, read
+    whole on the other by a thread."""
+    a, b = socket.socketpair()
+    b.settimeout(120)
+    got = bytearray()
+
+    def read():
+        while chunk := b.recv(1 << 20):
+            got.extend(chunk)
+
+    th = threading.Thread(target=read, daemon=True)
+    th.start()
+    with a, b:
+        send(a)
+        a.shutdown(socket.SHUT_WR)
+        th.join(timeout=60)
+        if th.is_alive():
+            raise RuntimeError("the socketpair's reader did not finish")
+    return bytes(got)
+
+
 def _host_ms(fn, iters=15):
     times = []
     for _ in range(iters):
@@ -3922,7 +3984,9 @@ def phase_wire_host_times(cfg, smi, device="cuda"):
     ``to_flat`` + ``pack_payload`` + ``sendall``), of the flat payload
     (``wire_send_payload_fd`` against ``pack_payload`` + ``sendall``), and
     the v3 encode (``V3Encoder.encode`` in C off the blocks against
-    ``to_flat``, the shadow apply and ``encode_frame_v3_numpy``)."""
+    ``to_flat``, the shadow apply and ``encode_frame_v3_numpy``). Each
+    native sender's bytes are read back once and held against the NumPy
+    packers'."""
     from cudavideostream_tpu_torch import native
     from cudavideostream_tpu_torch.models import DeltaStreamPipeline
     from cudavideostream_tpu_torch.runtime import wire
@@ -3941,7 +4005,7 @@ def phase_wire_host_times(cfg, smi, device="cuda"):
         tp = wire.TiledPayload(int(pos), counts.cpu().numpy(),
                                xs_t.cpu().numpy(), vals_t.cpu().numpy())
         xs, vals = tp.to_flat()
-        iovecs = 2 * int(np.count_nonzero(tp.counts)) + 1
+        nonempty = int(np.count_nonzero(tp.counts))
         after = prev_np.copy()
         after[xs] += vals
         if (wire.V3Encoder(prev_np).encode(tp.pos, tp, None)
@@ -3964,6 +4028,14 @@ def phase_wire_host_times(cfg, smi, device="cuda"):
         def flat_sendall(sock, tp=tp, xs=xs, vals=vals):
             sock.sendall(wire.pack_payload(tp.pos, xs, vals))
 
+        # what the timed native senders put on the socket, once
+        if _sent_bytes(segments) != tp.to_wire_bytes():
+            raise AssertionError(f"{label}: wire_send_segments_fd's bytes "
+                                 "differ from to_wire_bytes()")
+        if _sent_bytes(flat_writev) != wire.pack_payload(tp.pos, xs, vals):
+            raise AssertionError(f"{label}: wire_send_payload_fd's bytes "
+                                 "differ from pack_payload")
+
         enc = wire.V3Encoder(prev_np)
         shadow = prev_np.copy()
 
@@ -3985,17 +4057,19 @@ def phase_wire_host_times(cfg, smi, device="cuda"):
                              ("v3_numpy", v3_numpy))[
                                  ::1 if native_first else -1]:
                 turns[name].append(_host_ms(fn))
-        out[label] = dict(turns, pos=tp.pos, iovecs=iovecs)
+        out[label] = dict(turns, pos=tp.pos, nonempty_units=nonempty)
         log(f"[time] wire on the host, {label} (pos {tp.pos}, "
-            f"{tp.counts.size} units of 128 B, {iovecs} iovecs): v1 tiled "
-            f"wire_send_segments_fd {_pair(turns['segments'])} ms against "
+            f"{tp.counts.size} units of 128 B, {nonempty} not empty): v1 "
+            f"tiled wire_send_segments_fd {_pair(turns['segments'])} ms "
+            f"against "
             f"to_flat + pack_payload + sendall "
             f"{_pair(turns['tiled_sendall'])}; v1 flat wire_send_payload_fd "
             f"{_pair(turns['flat_writev'])} against pack_payload + sendall "
             f"{_pair(turns['flat_sendall'])}; v3 C encode off the blocks "
             f"{_pair(turns['v3_c'])} against to_flat + NumPy "
             f"{_pair(turns['v3_numpy'])} (socketpair, a thread draining; "
-            f"host-clock medians of 15, in turns; {smi})")
+            f"host-clock medians of 15, in turns; {smi}); both native "
+            "senders' bytes read back equal to the NumPy packers'")
     return out
 
 
@@ -4006,11 +4080,12 @@ def _pair(values):
 def phase_camera_path(cfg, smi, device="cuda"):
     """The camera path at 1080p: a 16-frame ``.npy`` clip of the
     synthetic scene served by ``server.main --source file`` (flat wire v1,
-    the same with ``--prefetch``, ``--tiled --fetch flat`` through the
-    ``writev`` segments sender, and the same under ``--wire v3`` through
-    the C encoder), each v1 run decoded once by the port's Python client
-    and once by the native C client, every state equal to
-    ``step_oracle``'s and K1 launched once a served frame; ``multiserve
+    the same with ``--prefetch``, ``--tiled --fetch tiles`` through the
+    segments sender, and the same under ``--wire v3`` through the C
+    encoder off the tiled blocks), each v1 run decoded once by the port's
+    Python client and once by the native C client, every state equal to
+    ``step_oracle``'s, K1 launched once a served frame and every frame
+    sent by the native function its label names; ``multiserve
     --streams 4 --source file`` (Python clients on two streams, C clients
     on two); the device generator on the card against the same function
     on the CPU, and chained into ``pipeline.step``; and the native
@@ -4039,17 +4114,18 @@ def phase_camera_path(cfg, smi, device="cuda"):
                 "--port", "0", "--device", device, "--height",
                 str(cfg.height), "--width", str(cfg.width)]
         v1, pf = ("file_v1", []), ("file_v1_prefetch", ["--prefetch"])
-        tiled = ["--tiled", "--fetch", "flat"]
+        tiled = ["--tiled", "--fetch", "tiles"]
         # with and without --prefetch in turns, each by both clients
         for (key, flags), client in (
                 (v1, _py_client), (pf, _py_client), (pf, _c_client),
                 (v1, _c_client), (pf, _py_client), (v1, _py_client),
-                (("file_tiled_flat_v1", tiled), _py_client),
-                (("file_tiled_flat_v1", tiled), _c_client),
-                (("file_tiled_flat_v3", tiled + ["--wire", "v3"]),
+                (("file_tiled_tiles_v1", tiled), _py_client),
+                (("file_tiled_tiles_v1", tiled), _c_client),
+                (("file_tiled_tiles_v3", tiled + ["--wire", "v3"]),
                  _py_client)):
             label = "server --source file " + " ".join(flags or ["(v1)"])
-            run = _serve_file_main(base + flags, client, cfg)
+            with _counted_sends() as sends:
+                run = _serve_file_main(base + flags, client, cfg)
             rec = run["rec"]
             if len(rec.texts) != n:
                 raise AssertionError(f"{label}: served {len(rec.texts)} "
@@ -4060,12 +4136,21 @@ def phase_camera_path(cfg, smi, device="cuda"):
                                      "step_oracle's")
             _check_client(label, run["got"], want, n)
             is_tiled = "--tiled" in flags
-            nonempty = sum(p > 0 for p in want["positions"])
             _expect_launches(run | {"frames": n}, label, {
                 **none,
                 "fused_diff_compact_tiled" if is_tiled
-                else "fused_diff_compact": n,
-                "pair_compact": nonempty if is_tiled else 0})
+                else "fused_diff_compact": n})
+            # every frame lands as tiles and leaves by the named sender
+            want_sends = dict.fromkeys(sends, 0)
+            want_sends[("v3_tiled" if "v3" in flags else "segments")
+                       if is_tiled else "payload"] = n
+            if sends != want_sends:
+                raise AssertionError(f"{label}: sent by {sends}, not "
+                                     f"{want_sends}")
+            if is_tiled and run["inner"].fetch_counts != {
+                    "tiles": n, "flat": 0, "mask": 0}:
+                raise AssertionError(f"{label}: landings "
+                                     f"{run['inner'].fetch_counts}")
             fps = n / run["got"]["s"]
             src_ms = statistics.median(run["source"].next_s) * 1e3
             proc_ms = statistics.median(rec.process_s) * 1e3
@@ -4077,8 +4162,9 @@ def phase_camera_path(cfg, smi, device="cuda"):
                 f"frame, the per-frame state digests included; "
                 f"{n / run['wall']:.2f} fps with the server's start); "
                 f"source {src_ms:.4f} ms, executor.process "
-                f"{proc_ms:.2f} ms (host-clock medians; {smi}); kernel "
-                "launches: "
+                f"{proc_ms:.2f} ms (host-clock medians; {smi}); sent by "
+                + ", ".join(f"{k}={v}" for k, v in sends.items() if v)
+                + "; kernel launches: "
                 + ", ".join(f"{k}={v}" for k, v in run["launches"].items()
                             if v))
             if run["got"]["kind"] == "python" and run["got"]["wire"] != (
@@ -4087,7 +4173,8 @@ def phase_camera_path(cfg, smi, device="cuda"):
             runs.setdefault(key, []).append(
                 {"client": f"{run['got']['kind']} client", "fps": fps,
                  "source_ms": src_ms, "process_ms": proc_ms,
-                 "frames": n, "launches": run["launches"]})
+                 "frames": n, "launches": run["launches"],
+                 "sends": dict(sends)})
         log("[serve] the C client reads wire v1 only (the reference "
             "client's loop): the v3 run is decoded by the Python client; "
             "with and without --prefetch were served in turns")

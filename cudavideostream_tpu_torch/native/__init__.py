@@ -1,7 +1,7 @@
 """The port's native host library, ``native/csrc/cvstpu.c``, bound with
 ``ctypes`` (the counterpart of the JAX package's ``native/``).
 
-It holds the host's hot loops: the ``writev`` senders of wire v1 payloads,
+It holds the host's hot loops: the senders of wire v1 payloads,
 flat and tiled (:func:`wire_send_payload_fd`, :func:`wire_send_segments_fd`),
 the adaptive v3 encoder straight off the tiled blocks (:func:`encode_v3_np`),
 the client's wrap-add scatter and its C read loop (:func:`client_apply_np`,
@@ -54,9 +54,10 @@ _c = ctypes
 _U8P = _c.POINTER(_c.c_uint8)
 _I32P = _c.POINTER(_c.c_int32)
 _SIGNATURES = {
-    "wire_send_payload": ([_c.c_int, _c.c_uint32, _I32P, _U8P], _c.c_int),
+    "wire_send_payload": ([_c.c_int, _c.c_uint32, _I32P, _U8P, _c.c_int],
+                          _c.c_int),
     "wire_send_segments": ([_c.c_int, _c.c_uint32, _I32P, _U8P, _I32P,
-                            _c.c_int, _c.c_int], _c.c_int),
+                            _c.c_int, _c.c_int, _c.c_int], _c.c_int),
     "compact_bitmask": ([_U8P, _U8P, _c.c_int64, _I32P, _U8P], _c.c_int64),
     "compact_update": ([_U8P, _U8P, _U8P, _c.c_int64, _I32P, _U8P],
                        _c.c_int64),
@@ -170,33 +171,46 @@ def _check_indices(xs: np.ndarray, n: int) -> None:
         raise ValueError("payload index out of range")
 
 
-def wire_send_payload_fd(fd: int, pos: int, xs, vals) -> int:
+def _timeout_ms(timeout: float | None) -> int:
+    """A socket's timeout as the senders' bound: ``None`` (blocking)
+    waits as long as it takes."""
+    return -1 if timeout is None else int(timeout * 1000)
+
+
+def wire_send_payload_fd(fd: int, pos: int, xs, vals,
+                         timeout: float | None = None) -> int:
     """Send ``[u32 pos][i32 xs[:pos]][u8 vals[:pos]]`` on a raw fd with
-    one ``writev`` (short-write safe). Returns 0, or ``-errno``."""
+    one ``writev`` (short-write safe). ``timeout`` is the socket's
+    (``sock.gettimeout()``): a full send buffer is waited on for at most
+    that many seconds in all, as ``sendall`` does. Returns 0, or
+    ``-errno`` (``-ETIMEDOUT`` when the timeout runs out)."""
     xs = np.ascontiguousarray(xs, dtype=np.int32)
     vals = np.ascontiguousarray(vals, dtype=np.uint8)
     if pos < 0 or xs.size < pos or vals.size < pos:
         raise ValueError(f"pos {pos} exceeds the payload ({xs.size} xs, "
                          f"{vals.size} vals)")
     return load().wire_send_payload(fd, pos, _ptr(xs, ctypes.c_int32),
-                                    _ptr(vals, ctypes.c_uint8))
+                                    _ptr(vals, ctypes.c_uint8),
+                                    _timeout_ms(timeout))
 
 
-def wire_send_segments_fd(fd: int, pos: int, counts, xs_t, vals_t) -> int:
-    """Scatter-gather send of a tiled payload on a raw fd: the header,
-    every unit's ``xs`` prefix, then every unit's ``vals`` prefix, the
-    bytes of the flat v1 payload, with no host repacking (one iovec a
-    non-empty unit and array, ``writev`` 1,024 at a time). ``counts`` may
-    be uint8, int16 or int32 and describe more units than the blocks hold
-    if the extra counts are zero. Returns 0, or ``-errno`` (-12 when the
-    iovec list cannot be allocated)."""
+def wire_send_segments_fd(fd: int, pos: int, counts, xs_t, vals_t,
+                          timeout: float | None = None) -> int:
+    """Send a tiled payload on a raw fd: the header, every unit's ``xs``
+    prefix, then every unit's ``vals`` prefix, the bytes of the flat v1
+    payload, gathered in C into one buffer and sent with one write (no
+    repacking in Python). ``counts`` may be uint8, int16 or int32 and
+    describe more units than the blocks hold if the extra counts are
+    zero. ``timeout`` as in :func:`wire_send_payload_fd`. Returns 0, or
+    ``-errno`` (``-ENOMEM`` when the buffer cannot be allocated,
+    ``-ETIMEDOUT`` when the timeout runs out)."""
     c, xs_t, vals_t = _blocks(counts, xs_t, vals_t)
     if int(c.sum(dtype=np.int64)) != pos:
         raise ValueError(f"pos {pos} != the counts' sum {int(c.sum())}")
     rows, cap = xs_t.shape
     return load().wire_send_segments(
         fd, pos, _ptr(xs_t, ctypes.c_int32), _ptr(vals_t, ctypes.c_uint8),
-        _ptr(c, ctypes.c_int32), rows, cap)
+        _ptr(c, ctypes.c_int32), rows, cap, _timeout_ms(timeout))
 
 
 def encode_v3_np(counts, xs, vals, shadow: np.ndarray, apply: bool) -> bytes:

@@ -10,8 +10,8 @@
  *     (the reference does three write() calls, threads.cpp:229-231);
  *     short-write safe.
  *   - wire_send_segments: send of a *tiled* payload (per-unit prefixes
- *     from the kernel) without re-packing in Python: long segments as an
- *     iovec each, short ones gathered in C into one buffer.
+ *     from the kernel) without re-packing in Python: the prefixes
+ *     gathered in C into one buffer, one write.
  *   - compact_bitmask: dense (delta, bitmask) -> (xs, vals) packer using
  *     64-bit word scans + ctz; compact_update: the same from the host's
  *     own (cur, prev) with prev updated in place.
@@ -24,8 +24,9 @@
  *
  * Changes from the JAX package's copy: send_iovs waits with poll() when
  * the socket is non-blocking (a Python socket with a timeout is one at
- * the fd level) instead of failing with EAGAIN; wire_send_segments
- * gathers short segments into one buffer instead of an iovec each;
+ * the fd level), for at most the socket's timeout, instead of failing
+ * with EAGAIN; wire_send_segments gathers the segments into one buffer
+ * instead of an iovec each;
  * wire_encode_v3 refuses an out-of-range count or index before it
  * writes; and client_decode takes a receive timeout.
  *
@@ -45,22 +46,46 @@
 #include <sys/socket.h>
 #include <sys/time.h>
 #include <sys/uio.h>
+#include <time.h>
 #include <unistd.h>
 
 /* ------------------------------------------------------------------ */
 /* wire                                                               */
 /* ------------------------------------------------------------------ */
 
-static int send_iovs(int fd, struct iovec *iov, int iovcnt) {
+/* Milliseconds left before a CLOCK_MONOTONIC deadline (0 when past). */
+static int ms_left(const struct timespec *deadline) {
+    struct timespec now;
+    clock_gettime(CLOCK_MONOTONIC, &now);
+    int64_t ms = (int64_t)(deadline->tv_sec - now.tv_sec) * 1000 +
+                 (deadline->tv_nsec - now.tv_nsec) / 1000000;
+    return ms < 0 ? 0 : (ms > INT32_MAX ? INT32_MAX : (int)ms);
+}
+
+/* writev() every byte of the iovecs, 1,024 iovecs a call. A non-blocking
+ * fd (a Python socket with a timeout is one at the fd level) with a full
+ * send buffer is polled until it drains, for at most timeout_ms in all,
+ * as sendall() honours the socket's timeout: -ETIMEDOUT when it runs
+ * out. timeout_ms < 0 waits as long as it takes. */
+static int send_iovs(int fd, struct iovec *iov, int iovcnt, int timeout_ms) {
+    struct timespec deadline;
+    clock_gettime(CLOCK_MONOTONIC, &deadline);
+    deadline.tv_sec += timeout_ms / 1000;
+    deadline.tv_nsec += (long)(timeout_ms % 1000) * 1000000;
+    if (deadline.tv_nsec >= 1000000000) {
+        deadline.tv_sec += 1;
+        deadline.tv_nsec -= 1000000000;
+    }
     while (iovcnt > 0) {
         ssize_t n = writev(fd, iov, iovcnt > 1024 ? 1024 : iovcnt);
         if (n < 0) {
             if (errno == EINTR) continue;
             if (errno == EAGAIN || errno == EWOULDBLOCK) {
-                /* a non-blocking socket with a full send buffer: wait
-                 * until it drains, as a blocking writev would */
                 struct pollfd p = {.fd = fd, .events = POLLOUT};
-                if (poll(&p, 1, -1) < 0 && errno != EINTR) return -errno;
+                int wait = timeout_ms < 0 ? -1 : ms_left(&deadline);
+                int r = poll(&p, 1, wait);
+                if (r < 0 && errno != EINTR) return -errno;
+                if (r == 0) return -ETIMEDOUT;
                 continue;
             }
             return -errno;
@@ -80,7 +105,7 @@ static int send_iovs(int fd, struct iovec *iov, int iovcnt) {
 
 /* [u32 pos][i32 xs[pos]][u8 vals[pos]] in one gather write. */
 int wire_send_payload(int fd, uint32_t pos, const int32_t *xs,
-                      const uint8_t *vals) {
+                      const uint8_t *vals, int timeout_ms) {
     struct iovec iov[3];
     iov[0].iov_base = &pos;
     iov[0].iov_len = sizeof pos;
@@ -88,66 +113,36 @@ int wire_send_payload(int fd, uint32_t pos, const int32_t *xs,
     iov[1].iov_len = (size_t)pos * sizeof *xs;
     iov[2].iov_base = (void *)vals;
     iov[2].iov_len = pos;
-    return send_iovs(fd, iov, pos ? 3 : 1);
+    return send_iovs(fd, iov, pos ? 3 : 1, timeout_ms);
 }
-
-/* A segment shorter than this on average costs more as an iovec than as
- * bytes copied: the kernel's per-iovec cost (~0.4 us on the H100's host,
- * measured by chip_smoke.py's wire timings) buys ~4 KB of memcpy. */
-#define SEGMENT_GATHER_BYTES 4096
 
 /* Tiled payload: n_tiles segments; tile t holds counts[t] valid entries
  * at xs + t*tile_cap / vals + t*tile_cap. Sends header, all xs prefixes,
  * then all vals prefixes — wire-identical to a flat payload, with no
- * host repacking in Python. Segments of SEGMENT_GATHER_BYTES or more on
- * average go out as an iovec each; shorter ones (unit sizes of a few
- * hundred bytes) are copied into one buffer first, which one write
- * sends. */
+ * host repacking in Python. The prefixes are copied into one buffer in
+ * C and sent with one write: a unit holds a few hundred bytes, and an
+ * iovec a prefix took about twice as long as this copy on 1080p tiled
+ * payloads (PERF.md, the host wire timings). */
 int wire_send_segments(int fd, uint32_t pos, const int32_t *xs,
                        const uint8_t *vals, const int32_t *counts,
-                       int n_tiles, int tile_cap) {
-    int segments = 0;
-    for (int t = 0; t < n_tiles; ++t) segments += counts[t] > 0;
+                       int n_tiles, int tile_cap, int timeout_ms) {
     size_t body = (size_t)pos * (sizeof *xs + 1);
-    if (segments && body < (size_t)SEGMENT_GATHER_BYTES * 2 * segments) {
-        uint8_t *buf = malloc(sizeof pos + body);
-        if (!buf) return -12;
-        uint8_t *xo = buf + sizeof pos;
-        uint8_t *vo = xo + (size_t)pos * sizeof *xs;
-        memcpy(buf, &pos, sizeof pos);
-        for (int t = 0; t < n_tiles; ++t) {
-            if (counts[t] <= 0) continue;
-            size_t c = (size_t)counts[t];
-            memcpy(xo, xs + (size_t)t * tile_cap, c * sizeof *xs);
-            memcpy(vo, vals + (size_t)t * tile_cap, c);
-            xo += c * sizeof *xs;
-            vo += c;
-        }
-        struct iovec one = {.iov_base = buf, .iov_len = sizeof pos + body};
-        int rc = send_iovs(fd, &one, 1);
-        free(buf);
-        return rc;
-    }
-    struct iovec *iov = malloc((2 * (size_t)n_tiles + 1) * sizeof *iov);
-    if (!iov) return -12;
-    int k = 0;
-    iov[k].iov_base = &pos;
-    iov[k].iov_len = sizeof pos;
-    ++k;
+    uint8_t *buf = malloc(sizeof pos + body);
+    if (!buf) return -ENOMEM;
+    uint8_t *xo = buf + sizeof pos;
+    uint8_t *vo = xo + (size_t)pos * sizeof *xs;
+    memcpy(buf, &pos, sizeof pos);
     for (int t = 0; t < n_tiles; ++t) {
         if (counts[t] <= 0) continue;
-        iov[k].iov_base = (void *)(xs + (size_t)t * tile_cap);
-        iov[k].iov_len = (size_t)counts[t] * sizeof *xs;
-        ++k;
+        size_t c = (size_t)counts[t];
+        memcpy(xo, xs + (size_t)t * tile_cap, c * sizeof *xs);
+        memcpy(vo, vals + (size_t)t * tile_cap, c);
+        xo += c * sizeof *xs;
+        vo += c;
     }
-    for (int t = 0; t < n_tiles; ++t) {
-        if (counts[t] <= 0) continue;
-        iov[k].iov_base = (void *)(vals + (size_t)t * tile_cap);
-        iov[k].iov_len = (size_t)counts[t];
-        ++k;
-    }
-    int rc = send_iovs(fd, iov, k);
-    free(iov);
+    struct iovec one = {.iov_base = buf, .iov_len = sizeof pos + body};
+    int rc = send_iovs(fd, &one, 1, timeout_ms);
+    free(buf);
     return rc;
 }
 

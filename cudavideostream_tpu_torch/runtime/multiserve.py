@@ -176,8 +176,9 @@ class MultiStreamServer:
 
     def _send_v1(self, b: int, p: int, xs, vals) -> None:
         """One wire v1 payload in one native ``writev``."""
-        if native.wire_send_payload_fd(self._clients[b].fileno(), p, xs,
-                                       vals) < 0:
+        conn = self._clients[b]
+        if native.wire_send_payload_fd(conn.fileno(), p, xs, vals,
+                                       conn.gettimeout()) < 0:
             self._drop(b)
 
     def _drop(self, b: int) -> None:

@@ -212,15 +212,17 @@ class DeltaStreamServer:
             # the metrics count v1 framing; correct them to the bytes sent
             self.executor.metrics.wire_bytes += len(buf) - (4 + 5 * pos)
         else:
-            # v1 in one writev: a tiled payload's unit prefixes gathered
-            # by the iovec list, the bytes of the flat payload
+            # v1 in C: a tiled payload's unit prefixes gathered into one
+            # buffer, a flat payload's arrays in one writev
             if isinstance(xs, wire.MaskPayload):
                 xs, vals = xs.to_flat()
             if isinstance(xs, wire.TiledPayload):
                 rc = native.wire_send_segments_fd(conn.fileno(), pos,
-                                                  xs.counts, xs.xs, xs.vals)
+                                                  xs.counts, xs.xs, xs.vals,
+                                                  conn.gettimeout())
             else:
-                rc = native.wire_send_payload_fd(conn.fileno(), pos, xs, vals)
+                rc = native.wire_send_payload_fd(conn.fileno(), pos, xs, vals,
+                                                 conn.gettimeout())
             if rc < 0:
                 raise BrokenPipeError(f"writev failed: {rc}")
         k, self._n_out = self._n_out, self._n_out + 1

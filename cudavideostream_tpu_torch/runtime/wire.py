@@ -381,6 +381,22 @@ def winmask_size(pos: int, win_bytes: int) -> int:
     return 13 + win_bytes // 8 + pos
 
 
+def winmask_wins(size_w: int, size_d: int, size_b: int, size_r: int) -> bool:
+    """Mode 3's tie rule: delta16 wins its ties with mode 3, which wins
+    its own with bitmask and raw."""
+    return size_w < size_d and size_w <= size_b and size_w <= size_r
+
+
+def winmask_bytes(pos: int, xs, vals, start: int, win_bytes: int) -> bytes:
+    """One mode-3 frame of the first ``pos`` ascending flat indices
+    ``xs`` in the window ``(start, win_bytes)``."""
+    window = np.zeros(win_bytes, dtype=np.uint8)
+    window[np.asarray(xs, dtype=np.int64)[:pos] - start] = 1
+    return (bytes([MODE_WINMASK]) + _3U32.pack(pos, start, win_bytes)
+            + np.packbits(window, bitorder="little").tobytes()
+            + np.asarray(vals, dtype=np.uint8)[:pos].tobytes())
+
+
 def encode_frame_v4_numpy(pos: int, xs: np.ndarray, vals: np.ndarray,
                           frame_after: np.ndarray) -> bytes:
     """One v4 frame, the cheapest of the v3 modes and mode 3 by exact
@@ -393,15 +409,10 @@ def encode_frame_v4_numpy(pos: int, xs: np.ndarray, vals: np.ndarray,
     n_exc = int(np.count_nonzero(np.diff(xs, prepend=-1) >= _GAP_ESC))
     start, wb = winmask_window(xs)
     size_d, size_b, size_r = v3_sizes(pos, n_exc, n)
-    size_w = winmask_size(pos, wb)
-    if size_d <= size_w and size_d <= size_b and size_d <= size_r:
+    if winmask_wins(winmask_size(pos, wb), size_d, size_b, size_r):
+        return winmask_bytes(pos, xs, vals, start, wb)
+    if size_d <= size_b and size_d <= size_r:
         return bytes([MODE_DELTA16]) + pack_payload_v2(pos, xs, vals)
-    if size_w <= size_b and size_w <= size_r:
-        window = np.zeros(wb, dtype=np.uint8)
-        window[xs - start] = 1
-        bits = np.packbits(window, bitorder="little")
-        return (bytes([MODE_WINMASK]) + _3U32.pack(pos, start, wb)
-                + bits.tobytes() + vals.tobytes())
     if size_b <= size_r:
         mask = pack_bitmask_from_xs(xs, n)
         return (bytes([MODE_BITMASK]) + _U32.pack(pos) + mask.tobytes()
@@ -482,28 +493,33 @@ class V4Encoder(V3Encoder):
     """Per-connection adaptive encoder for the v4 wire: v3's shadow and
     modes plus mode 3. A :class:`MaskPayload` whose winmask encoding wins
     is trimmed and forwarded as it is — no index stream is built, and the
-    shadow applies through the bits. Other payloads go through the C v3
-    encoder (the shadow applied in the same pass), and mode 3 replaces its
-    choice where it is smaller: the bytes of :func:`encode_frame_v4_numpy`."""
+    shadow applies through the bits. Other payloads are sized first: where
+    mode 3 must win the C encode is skipped, else the C v3 encoder runs
+    (the shadow applied in the same pass) and mode 3 replaces its choice
+    where :func:`winmask_wins`: the bytes of :func:`encode_frame_v4_numpy`."""
 
     def encode(self, pos: int, xs, vals) -> bytes:
         if isinstance(xs, MaskPayload):
             return self._encode_mask(xs)
-        buf = _native_v3(pos, xs, vals, self.frame, apply=True)
         start, wb = _window(pos, xs)
-        # delta16 wins its ties with mode 3, which wins its own with
-        # bitmask and raw
         size_w = winmask_size(pos, wb)
-        if size_w < len(buf) or (size_w == len(buf)
-                                 and buf[0] != MODE_DELTA16):
+        # delta16 is smallest with no escaped gap: if mode 3 beats even
+        # that, it wins whatever the gaps, and the C encode is skipped
+        if winmask_wins(size_w, *v3_sizes(pos, 0, self.frame.size)):
             if isinstance(xs, TiledPayload):
                 xs, vals = xs.to_flat()
-            xs = np.asarray(xs, dtype=np.int64)[:pos]
-            window = np.zeros(wb, dtype=np.uint8)
-            window[xs - start] = 1
-            buf = (bytes([MODE_WINMASK]) + _3U32.pack(pos, start, wb)
-                   + np.packbits(window, bitorder="little").tobytes()
-                   + np.asarray(vals, dtype=np.uint8)[:pos].tobytes())
+            native.client_apply_np(self.frame, np.asarray(xs)[:pos],
+                                   np.asarray(vals)[:pos])
+            buf = winmask_bytes(pos, xs, vals, start, wb)
+        else:
+            buf = _native_v3(pos, xs, vals, self.frame, apply=True)
+            # the C encoder's choice is delta16 (its exact size) or a
+            # mode smaller than delta16, so this is the tie rule
+            if (size_w < len(buf) or (size_w == len(buf)
+                                      and buf[0] != MODE_DELTA16)):
+                if isinstance(xs, TiledPayload):
+                    xs, vals = xs.to_flat()
+                buf = winmask_bytes(pos, xs, vals, start, wb)
         self.last_mode = buf[0]
         return buf
 
@@ -540,8 +556,7 @@ class V4Encoder(V3Encoder):
         n_exc = int(glo[0] + 1 >= _GAP_ESC) + int(
             np.count_nonzero(glo[1:] - ghi[:-1] >= _GAP_ESC))
         size_d, size_b, size_r = v3_sizes(pos, n_exc, self.frame.size)
-        size_w = winmask_size(pos, wb)
-        if size_w < size_d and size_w <= size_b and size_w <= size_r:
+        if winmask_wins(winmask_size(pos, wb), size_d, size_b, size_r):
             bw = bits[b0:b1]
             seg = self.frame[start: start + wb]
             m = np.unpackbits(bw, bitorder="little")[: seg.size].view(bool)

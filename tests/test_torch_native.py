@@ -6,15 +6,18 @@ Every socket has a timeout and every thread is joined with one.
 """
 
 import dataclasses
+import errno
 import socket
 import struct
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 from cudavideostream_tpu import native as jax_native
+from cudavideostream_tpu.runtime import wire as jax_wire
 from cudavideostream_tpu_torch import native
 from cudavideostream_tpu_torch.config import StreamConfig
 from cudavideostream_tpu_torch.ops import reference_cpu as ref
@@ -261,13 +264,13 @@ def test_wire_send_payload_bytes(pos, blocking, rng):
     assert got == jax_got
 
 
-# (units, unit bytes, density): segments shorter than 4 KB on average are
-# gathered into one buffer in C, longer ones go out as an iovec each
+# (units, unit bytes, density): the segments are gathered into one buffer
+# in C whatever their lengths
 SEGMENTS = [
     (12, 128, 0.05),     # short segments, empty units among them
-    (3000, 128, 0.02),   # thousands of short segments, gathered
-    (40, 4096, 0.6),     # long segments: an iovec each
-    (800, 2048, 0.9),    # more than 1,024 long ones: several writev calls
+    (3000, 128, 0.02),   # thousands of short segments
+    (40, 4096, 0.6),     # long segments
+    (800, 2048, 0.9),    # more than 1,024 of them, a buffer of 8 MB
     (5, 64, 0.0),        # every unit empty: the header alone
 ]
 
@@ -279,8 +282,8 @@ SEGMENTS = [
 def test_wire_send_segments_bytes(counts_dtype, n_units, unit, density, rng):
     """The send of a tiled payload's segments: the flat payload's v1
     bytes and the JAX package's sender's, for uint8, int16 and int32
-    counts, zero-count units, short segments gathered in C and long ones
-    in more iovecs than one writev takes."""
+    counts, zero-count units, short and long segments, and more segments
+    than the JAX sender's one writev takes."""
     tp = _tiled(rng, n_units, unit, density, counts_dtype)
     if n_units == 800:
         assert 2 * np.count_nonzero(tp.counts) + 1 > 1024
@@ -340,6 +343,42 @@ def test_send_error_is_a_negative_errno(rng):
                                          np.arange(3, dtype=np.int32),
                                          np.ones(3, np.uint8))
     assert rc < 0
+
+
+@pytest.mark.parametrize("sender", ["payload", "segments"])
+def test_senders_time_out_on_a_peer_that_never_reads(sender, rng):
+    """A live peer that never drains its socket: the senders wait for
+    the socket's timeout in all, as ``sendall`` does, and return
+    -ETIMEDOUT instead of blocking forever. The send runs in a thread;
+    should it block, closing the peer ends it and the test fails."""
+    a, b = socket.socketpair()
+    a.settimeout(0.3)
+    tp = _tiled(rng, 64, 1 << 16, 1.0)  # 20 MB: more than any send buffer
+    xs, vals = tp.to_flat()
+    out = {}
+
+    def send():
+        t0 = time.monotonic()
+        if sender == "payload":
+            out["rc"] = native.wire_send_payload_fd(
+                a.fileno(), tp.pos, xs, vals, a.gettimeout())
+        else:
+            out["rc"] = native.wire_send_segments_fd(
+                a.fileno(), tp.pos, tp.counts, tp.xs, tp.vals,
+                a.gettimeout())
+        out["waited"] = time.monotonic() - t0
+
+    with a, b:
+        t = threading.Thread(target=send, daemon=True)
+        t.start()
+        t.join(TIMEOUT)
+        blocked = t.is_alive()
+        if blocked:
+            b.close()
+            t.join(TIMEOUT)
+    assert not blocked, "the sender ignored the socket's timeout"
+    assert out["rc"] == -errno.ETIMEDOUT
+    assert 0.25 <= out["waited"] < TIMEOUT
 
 
 # -- the v3 encoder ----------------------------------------------------------
@@ -424,6 +463,60 @@ def test_encoders_through_c_equal_the_spec(n, k, spread, encoder, rng):
         if encoder == "v3":
             assert wire.encode_frame_v3(k, xs, vals, state) == want
             assert wire.encode_frame_v3(k, tp, None, state) == want
+
+
+def _v4_case(case, n, rng):
+    """Ascending indices that take each of ``V4Encoder.encode``'s ways:
+    ``dense`` a 3,000-byte run, where mode 3 beats even gap-free delta16
+    and the C encode is skipped; ``gaps`` two runs split by an escaped
+    gap, sized so mode 3 wins only by delta16's exact size, after the C
+    encode; ``scattered`` 40 indices, where a v3 mode wins."""
+    if case == "dense":
+        return np.arange(16_003, 19_003)
+    if case == "scattered":
+        return np.sort(rng.choice(n, 40, replace=False))
+    for m in range(1, 10_000):
+        run = np.arange(8, 8 + m)
+        xs = np.concatenate([run, run + m - 1 + wire._GAP_ESC])
+        n_exc = int(np.count_nonzero(np.diff(xs, prepend=-1)
+                                     >= wire._GAP_ESC))
+        size_w = wire.winmask_size(xs.size, wire.winmask_window(xs)[1])
+        if (not wire.winmask_wins(size_w, *wire.v3_sizes(xs.size, 0, n))
+                and wire.winmask_wins(
+                    size_w, *wire.v3_sizes(xs.size, n_exc, n))):
+            return xs
+    raise AssertionError("no run length puts mode 3 between the sizes")
+
+
+@pytest.mark.parametrize("case,c_calls,mode", [
+    ("dense", 0, wire.MODE_WINMASK), ("gaps", 1, wire.MODE_WINMASK),
+    ("scattered", 1, wire.MODE_DELTA16)])
+def test_v4_encoder_skips_the_c_encode_where_mode3_must_win(
+        case, c_calls, mode, rng, monkeypatch):
+    """``V4Encoder.encode`` on flat and tiled payloads sizes mode 3 first:
+    where it must win the C encode is skipped and the shadow applied on
+    its own, else the C encode runs and mode 3 still replaces it by the
+    tie rule. Every way gives the spec's bytes and shadow, and the JAX
+    package's encoder's bytes."""
+    n = 300_000
+    xs = _v4_case(case, n, rng)
+    vals = rng.integers(1, 255, xs.size, endpoint=True, dtype=np.uint8)
+    base = rng.integers(0, 255, n, endpoint=True, dtype=np.uint8)
+    after = base.copy()
+    after[xs] += vals
+    want = wire.encode_frame_v4_numpy(xs.size, xs, vals, after)
+    assert want[0] == mode
+    assert jax_wire.V4Encoder(base).encode(xs.size, xs, vals) == want
+    calls = []
+    c_encode = wire._native_v3
+    monkeypatch.setattr(wire, "_native_v3",
+                        lambda *a, **k: calls.append(1) or c_encode(*a, **k))
+    for payload in ((xs, vals), (_as_tiled(xs, vals, n, 500), None)):
+        calls.clear()
+        enc = wire.V4Encoder(base)
+        assert enc.encode(xs.size, *payload) == want
+        assert len(calls) == c_calls and enc.last_mode == mode
+        np.testing.assert_array_equal(enc.frame, after)
 
 
 def test_encode_v3_rejects_out_of_range_before_writing(rng):

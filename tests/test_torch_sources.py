@@ -510,6 +510,15 @@ def test_device_synthetic_frames_own_background(cfg):
         device_synthetic_frames(cfg, background=np.zeros(5, np.uint8))
 
 
+def test_device_synthetic_frames_default_to_the_card(cfg, monkeypatch):
+    """With no device the generator runs on the card, as every entry
+    point of the port: where there is none it raises, never falling back
+    to the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        device_synthetic_frames(cfg, seed=3)
+
+
 def test_device_frames_step_equals_oracle(cfg):
     """A generated frame chained into ``pipeline.step`` on the CPU: the
     step's state and payload equal ``step_oracle``'s."""
