@@ -109,7 +109,23 @@ Phases (any failure raises and the script exits non-zero):
    the tiled blocks, each frame's native sender counted) to the Python
    and the C client, ``multiserve --streams 4 --source file``,
    ``device_synthetic_frames`` on the card against the CPU and chained
-   into ``pipeline.step``, and ``v4l2_open`` on a missing path;
+   into ``pipeline.step``, and ``v4l2_open`` on a missing path; then
+   the last modules, on a 16-frame clip through ``server.main --source
+   file``: the SORT and HOST backends (3 steps each against
+   ``step_oracle``, the HOST fast path and its ``--noise-filter`` path;
+   then 16 frames served each, no kernel launched, the fast path bringing
+   n/8 bytes a frame from the card), ``--backend oracle`` (6 frames),
+   ``--aux-port`` under ``--visualizer 1`` and ``5`` read by an
+   ``AuxStreamClient`` (each frame it gets equal to the oracle's aux
+   frame), ``--save-state`` then ``--resume`` (the joining client's base
+   frame is the saved state), ``--link-cache`` written and reloaded (the
+   second run's lander starts from the saved rate), ``--calibrate 2``,
+   the client's ``--record`` (re-served by ``ReplayServer``), ``--save``,
+   ``--ppm`` and ``--http`` (``/`` and ``/stream``), each byte-exact
+   against ``step_oracle`` with its launches counted; ``median_filter``
+   at k = 3, 5, 7 against ``reference_cpu``; the sort step against the
+   pallas step, the host's pack time, the served runs' device idle share
+   from a trace, and ``median_filter`` at k = 3 and 5 are timed;
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2), the empty-launch floor (``torch.cuda._sleep(0)``),
@@ -4264,6 +4280,525 @@ def phase_camera_path(cfg, smi, device="cuda"):
     return {"runs": runs, "generator": gen}
 
 
+BACKEND_SERVED = 16  # frames each run of the backends phase serves
+ORACLE_SERVED = 6  # frames the NumPy oracle backend serves at 1080p
+
+
+class _TextsExecutor:
+    """The executor the server's command line built, recording each
+    frame's overlay text, ``process`` time and (under HOST) the bytes its
+    pipeline brought from the card; every other attribute is the
+    executor's own, so the command line still sees ``load_state``,
+    ``save_link_cache`` and the rest."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.texts, self.process_s, self.fetched = [], [], []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def process(self, frame, text=""):
+        self.texts.append(text)
+        t0 = time.perf_counter()
+        out = self.inner.process(frame, text=text)
+        self.process_s.append(time.perf_counter() - t0)
+        pipe = getattr(self.inner, "pipe", None)
+        self.fetched.append(getattr(pipe, "last_fetch_bytes", None))
+        return out
+
+
+def _serve_main(argv, client, trace=False):
+    """``server.main(argv)`` in a thread, its executor recorded
+    (``_TextsExecutor``) and its aux sink kept, with ``client(port,
+    made)`` once it listens; with ``trace``, the stream runs under the
+    profiler and the card's busy time is returned. Returns what the run
+    recorded."""
+    from cudavideostream_tpu_torch.runtime import server as server_mod
+
+    made, errors = {}, []
+    listening = threading.Event()
+    real_setup, real_sink = server_mod.setup, server_mod.AuxStreamSink
+
+    def setup(a=None):
+        cfg_, ex, args = real_setup(a)
+        made["inner"], made["rec"] = ex, _TextsExecutor(ex)
+        return cfg_, made["rec"], args
+
+    def sink(*a, **kw):
+        made["sink"] = real_sink(*a, **kw)
+        return made["sink"]
+
+    class Server(server_mod.DeltaStreamServer):
+        def listen(self):
+            sock = super().listen()
+            made["port"] = self.port
+            listening.set()
+            return sock
+
+    def run():
+        try:
+            server_mod.main(argv)
+        except BaseException as e:
+            errors.append(e)
+            listening.set()
+
+    with _patched(server_mod, "setup", setup), \
+            _patched(server_mod, "AuxStreamSink", sink), \
+            _patched(server_mod, "DeltaStreamServer", Server):
+        counters = _zero_launches()  # counts of this run only
+        th = threading.Thread(target=run, name="smoke-backends", daemon=True)
+        th.start()
+        if not listening.wait(300) or errors:
+            raise errors[0] if errors else RuntimeError(f"{argv}: no listen")
+        prof = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if trace
+            else contextlib.nullcontext())
+        with prof:
+            t0 = time.perf_counter()  # the profiler's start-up left out
+            got = client(made["port"], made)
+            th.join(timeout=300)
+            wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if th.is_alive():
+        raise RuntimeError(f"{argv}: the server did not finish")
+    if errors:
+        raise errors[0]
+    busy = _busy_and_overlap(prof) if trace else None
+    return dict(made, got=got, wall=wall, launches=launches,
+                busy_ms=None if busy is None else busy[0])
+
+
+def _chain_digests(cfg, base, frames, start, texts, atlas, aux=False):
+    """``step_oracle`` from ``base`` over ``frames[(start + k) % len]``
+    with the k-th text: the sha256 of the base and of every state (and of
+    every aux frame with ``aux``)."""
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.utils import fonts
+
+    prev = base
+    states, auxes = [hashlib.sha256(prev).hexdigest()], []
+    for k, text in enumerate(texts):
+        prev, _, _, _, a = reference_cpu.step_oracle(
+            prev, frames[(start + k) % len(frames)], cfg, atlas=atlas,
+            char_ids=fonts.encode_text(text))
+        states.append(hashlib.sha256(prev).hexdigest())
+        if aux:
+            auxes.append(hashlib.sha256(a).hexdigest())
+    return states, auxes
+
+
+def _check_states(label, got, want):
+    """The Python client's base frame and every state against the
+    oracle's digests, from the base on."""
+    if got["base"] != want[0] or got["states"] != want[1:]:
+        raise AssertionError(f"{label}: the client's states != step_oracle's "
+                             f"({len(got['states'])} of {len(want) - 1})")
+
+
+def _replayed(path, cfg):
+    """``ReplayServer`` re-serving a recorded session to the Python client
+    (the base frame's and every state's sha256)."""
+    from cudavideostream_tpu_torch.runtime.replay import ReplayServer
+
+    replay = ReplayServer(path, cfg.frame_bytes, port=0, verbose=False)
+    replay.listen()
+    th = threading.Thread(target=replay.serve, name="smoke-replay",
+                          daemon=True)
+    th.start()
+    got = _py_client(replay.port, cfg)
+    th.join(timeout=120)
+    replay.close()
+    if th.is_alive():
+        raise RuntimeError("the replay server did not finish")
+    return got
+
+
+def _idle(run, device_work=True):
+    """The card's idle share over a traced run, and its log text. A run
+    with no device work (the NumPy oracle) is idle throughout; elsewhere a
+    trace without device records is not a measurement."""
+    busy = run["busy_ms"]
+    if busy is None:
+        if not device_work:
+            return 1.0, "no device activity in the trace, idle 100%"
+        return None, "the profiler saw no device activity: idle not measured"
+    share = 1 - busy / (run["wall"] * 1e3)
+    return share, f"device busy {busy:.3f} ms in all, idle {share:.1%}"
+
+
+def phase_backends_and_extras(cfg, smi, device="cuda"):
+    """The slice of the last modules at 1080p, on a 16-frame ``.npy``
+    clip of the synthetic scene served by ``server.main --source file``:
+    the SORT and HOST backends (a step each against ``step_oracle``, then
+    served, the HOST fast path and its noise-filter path, with no
+    kernel launched and n/8 bytes from the card a frame on the fast
+    path), the NumPy oracle backend, the live aux stream under
+    ``--visualizer 1`` and ``5``, ``--save-state`` then ``--resume``,
+    ``--link-cache`` written and reloaded, ``--calibrate 2``, the client's
+    ``--record`` (re-served by ``ReplayServer``), ``--save``, ``--ppm`` and
+    ``--http``, and ``median_filter`` at k = 3, 5, 7 against
+    ``reference_cpu``. Every served state is checked against
+    ``step_oracle``, every kernel's launches counted."""
+    import urllib.request
+
+    from cudavideostream_tpu_torch import native
+    from cudavideostream_tpu_torch.config import (
+        CompactionBackend,
+        Visualizer,
+    )
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import convolve, diff, reference_cpu
+    from cudavideostream_tpu_torch.runtime import auxstream
+    from cudavideostream_tpu_torch.runtime import client as client_mod
+    from cudavideostream_tpu_torch.runtime import server as server_mod
+    from cudavideostream_tpu_torch.runtime.executor import StreamExecutor
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+    from cudavideostream_tpu_torch.utils import fonts
+
+    n = BACKEND_SERVED
+    scene = SyntheticSource(cfg, seed=SEED + 20)
+    frames = np.stack([next(scene) for _ in range(CAMERA_FILE_FRAMES)])
+    atlas = fonts.make_atlas(cfg.overlay_scale, cfg.overlay_font)
+    none = dict.fromkeys(_launch_counters(), 0)
+    out = {"runs": {}}
+
+    # -- the SORT and HOST steps against step_oracle, and their times ----
+    nf_cfg = dataclasses.replace(cfg, noise_filter=True)
+    for label, c in (
+            ("sort", dataclasses.replace(
+                cfg, compaction=CompactionBackend.SORT)),
+            ("host", dataclasses.replace(
+                cfg, compaction=CompactionBackend.HOST)),
+            ("host --noise-filter", dataclasses.replace(
+                nf_cfg, compaction=CompactionBackend.HOST))):
+        pipe = DeltaStreamPipeline(c, device=device)
+        prev, oprev = pipe.init_state(frames[0]), frames[0]
+        counters = _zero_launches()
+        for k, text in enumerate(["", "FPS: 30", "FPS: 31"], start=1):
+            o = pipe.step(prev, frames[k], text=text)
+            oprev, opos, oxs, ovals = reference_cpu.step_oracle(
+                oprev, frames[k], c, atlas=atlas,
+                char_ids=fonts.encode_text(text))[:4]
+            pos = int(o[1])
+            xs = o[2] if isinstance(o[2], np.ndarray) else o[2].cpu().numpy()
+            vals = (o[3] if isinstance(o[3], np.ndarray)
+                    else o[3].cpu().numpy())
+            if not (pos == opos and np.array_equal(xs[:pos], oxs)
+                    and np.array_equal(vals[:pos], ovals)
+                    and np.array_equal(prev.cpu().numpy(), oprev)):
+                raise AssertionError(f"{label} step {k} != step_oracle")
+            if label == "sort" and (xs[pos:].any() or vals[pos:].any()):
+                raise AssertionError("the sort payload is not zero past pos")
+        if any(fn.launches for fn in counters.values()):
+            raise AssertionError(f"{label}: a step launched a kernel")
+        log(f"[check] {label} pipeline.step at 1080p: 3 steps with overlay "
+            f"texts == step_oracle (pos, xs, vals, new_prev), no kernel "
+            f"launched")
+    # the host's pack at the clip's density, and what it brings over
+    cur, prev_h = frames[2], frames[1].copy()
+    mask, delta, _ = diff.diff_mask(torch.from_numpy(cur),
+                                    torch.from_numpy(prev_h), cfg.threshold)
+    bits = diff.pack_bitmask(mask).numpy()
+    delta = delta.numpy()
+    pack = {"update": _host_ms(lambda: native.compact_update_np(
+                cur, prev_h, bits)),
+            "bitmask": _host_ms(lambda: native.compact_bitmask_np(
+                delta, bits))}
+    out["host_pack_ms"] = pack
+    out["host_pos"] = int(mask.sum())
+    log(f"[time] HOST pack on the host at 1080p, pos={out['host_pos']} "
+        f"({out['host_pos'] / cfg.frame_bytes:.2%}): compact_update_np (fast "
+        f"path) {pack['update']:.3f} ms, compact_bitmask_np (noise-filter "
+        f"path) {pack['bitmask']:.3f} ms (host-clock medians of 15; {smi}); "
+        f"from the card per frame {bits.nbytes} B of bits (fast), "
+        f"{bits.nbytes + delta.nbytes} B with the delta")
+    dev_frames = [torch.from_numpy(f).to(device) for f in frames[:2]]
+    steps = {"pallas": [], "sort": []}
+    pipes = {label: DeltaStreamPipeline(
+        dataclasses.replace(cfg, compaction=comp), device=device)
+        for label, comp in (("pallas", CompactionBackend.PALLAS),
+                            ("sort", CompactionBackend.SORT))}
+    for _ in range(2):
+        for label, pipe in pipes.items():
+            state = pipe.init_state(frames[0])
+            steps[label].append(_event_median_ms(
+                lambda i: pipe.step(state, dev_frames[i % 2]), 30))
+    out["sort_step_ms"], out["pallas_step_ms"] = steps["sort"], steps["pallas"]
+    log(f"[time] pipeline.step at 1080p on the clip's first two frames, "
+        f"by turns (pallas, then sort, twice): sort "
+        f"{_pair(steps['sort'])} ms, pallas {_pair(steps['pallas'])} ms "
+        f"(CUDA events, medians of 30; {smi})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.npy")
+        np.save(path, frames.reshape(-1, cfg.height, cfg.width, 3))
+        base = ["--source", "file", "--path", path, "--frames", str(n),
+                "--port", "0", "--device", device, "--height",
+                str(cfg.height), "--width", str(cfg.width)]
+        py = lambda port, made: _py_client(port, cfg)  # noqa: E731
+
+        def served(key, label, argv, c=cfg, frames_n=n, trace=False,
+                   client=py, want=None):
+            """One run of ``server.main``, every state byte-exact against
+            the oracle's; its launches, fps and (traced) idle share."""
+            run = _serve_main(argv, client, trace=trace)
+            rec = run["rec"]
+            if len(rec.texts) != frames_n:
+                raise AssertionError(f"{label}: served {len(rec.texts)} of "
+                                     f"{frames_n} frames")
+            states = _chain_digests(c, frames[0], frames, 1, rec.texts,
+                                    atlas)[0]
+            if run["got"] is not None and "states" in run["got"]:
+                _check_states(label, run["got"], states)
+            if want is not None:
+                _expect_launches(run | {"frames": frames_n}, label,
+                                 {**none, **want})
+            fps = frames_n / run["wall"]
+            share, idle = (_idle(run, "--backend" not in argv) if trace
+                           else (None, "not traced"))
+            log(f"[serve] {label}: {frames_n} frames at 1080p from the "
+                f"clip, byte-exact every frame against step_oracle; "
+                f"{fps:.2f} fps from the client's connect to the stream's "
+                f"end; executor.process "
+                f"{statistics.median(rec.process_s) * 1e3:.2f} ms "
+                f"(host-clock median); {idle} ({smi}); kernel launches: "
+                + (", ".join(f"{k}={v}" for k, v in run["launches"].items()
+                             if v) or "none"))
+            out["runs"][key] = {"frames": frames_n, "fps": fps,
+                                "idle": share, "launches": run["launches"],
+                                "process_ms": statistics.median(
+                                    rec.process_s) * 1e3}
+            return run, states
+
+        # -- the backends, served ----------------------------------------
+        served("sort", "server --compaction sort",
+               base + ["--compaction", "sort"], trace=True, want={})
+        run, _ = served("host", "server --compaction host",
+                        base + ["--compaction", "host"], trace=True, want={})
+        if set(run["rec"].fetched) != {(cfg.frame_bytes + 7) // 8}:
+            raise AssertionError("HOST fast path: the card sent "
+                                 f"{set(run['rec'].fetched)} B a frame, not "
+                                 f"{(cfg.frame_bytes + 7) // 8}")
+        log(f"[check] server --compaction host: every frame brought "
+            f"{(cfg.frame_bytes + 7) // 8} B (n/8, the bitmask) from the "
+            f"card and nothing else")
+        run, _ = served("host_noise_filter",
+                        "server --compaction host --noise-filter",
+                        base + ["--compaction", "host", "--noise-filter"],
+                        c=nf_cfg, trace=True, want={})
+        if set(run["rec"].fetched) != {cfg.frame_bytes
+                                       + (cfg.frame_bytes + 7) // 8}:
+            raise AssertionError("HOST noise-filter path: the card sent "
+                                 f"{set(run['rec'].fetched)} B a frame")
+        served("oracle", "server --backend oracle",
+               base[:4] + ["--frames", str(ORACLE_SERVED)] + base[6:]
+               + ["--backend", "oracle"], frames_n=ORACLE_SERVED,
+               trace=True, want={})
+
+        # -- the live aux stream ------------------------------------------
+        for vis in (1, 5):
+            vcfg = dataclasses.replace(cfg, visualizer=Visualizer(vis))
+            received = []
+
+            def aux_client(port, made, received=received):
+                aux = auxstream.AuxStreamClient("127.0.0.1",
+                                                made["sink"].port)
+                aux.connect()
+                if (aux.height, aux.width) != (cfg.height, cfg.width):
+                    raise AssertionError("aux stream: wrong geometry")
+
+                def read():
+                    try:
+                        while True:
+                            idx, f = aux.read_frame()
+                            received.append(
+                                (idx, hashlib.sha256(f).hexdigest()))
+                    except (ConnectionError, OSError):
+                        pass
+                    finally:
+                        aux.close()
+
+                th = threading.Thread(target=read, daemon=True)
+                th.start()
+                _wait_until(lambda: made["sink"].n_clients == 1,
+                            "the aux viewer")
+                got = _py_client(port, cfg)
+                th.join(timeout=120)
+                if th.is_alive():
+                    raise RuntimeError("the aux reader did not finish")
+                return got
+
+            label = f"server --visualizer {vis} --aux-port 0"
+            run, _ = served(f"aux_vis{vis}", label, base + [
+                "--visualizer", str(vis), "--aux-port", "0"], c=vcfg,
+                client=aux_client, want={
+                    "fused_diff_compact": n,
+                    "histogram": n if vis == 5 else 0})
+            auxes = _chain_digests(vcfg, frames[0], frames, 1,
+                                   run["rec"].texts, atlas, aux=True)[1]
+            if not received or any(d != auxes[i] for i, d in received):
+                raise AssertionError(f"{label}: the aux stream's frames != "
+                                     "step_oracle's aux frames")
+            if [i for i, _ in received] != sorted({i for i, _ in received}):
+                raise AssertionError(f"{label}: aux frames out of order")
+            out["runs"][f"aux_vis{vis}"]["aux_received"] = len(received)
+            log(f"[check] {label}: an AuxStreamClient received "
+                f"{len(received)} of {n} aux frames (latest-wins), each "
+                f"equal to step_oracle's aux frame of its index")
+
+        # -- --save-state, then --resume ----------------------------------
+        ckpt = os.path.join(tmp, "state.npz")
+        served("save_state", "server --save-state", base + [
+            "--save-state", ckpt], want={"fused_diff_compact": n})
+        saved = np.load(ckpt)["prev"]
+        run = _serve_main(base + ["--resume", ckpt], py)
+        want = _chain_digests(cfg, saved, frames, 0, run["rec"].texts,
+                              atlas)[0]
+        _check_states("server --resume", run["got"], want)
+        _expect_launches(run | {"frames": n}, "server --resume",
+                         {**none, "fused_diff_compact": n})
+        out["runs"]["resume"] = {"frames": n, "fps": n / run["wall"],
+                                 "launches": run["launches"]}
+        log(f"[check] server --resume: the joining client's base frame is "
+            f"the saved state ({hashlib.sha256(saved).hexdigest()[:12]}), "
+            f"and its {n} states equal step_oracle's from it, byte for byte")
+
+        # -- --link-cache, written and reloaded; --calibrate --------------
+        cache = os.path.join(tmp, "link.json")
+        loads = []
+        real_load = StreamExecutor.load_link_cache
+
+        def load(self, p):
+            ok = real_load(self, p)
+            loads.append((ok, self.copy_rate))
+            return ok
+
+        with _patched(StreamExecutor, "load_link_cache", load):
+            for i, extra in enumerate(([], ["--calibrate", "0"])):
+                run, _ = served(f"link_cache_{i + 1}",
+                                f"server --tiled --link-cache (run {i + 1})",
+                                base + ["--tiled", "--link-cache", cache]
+                                + extra)
+                fc = run["inner"].fetch_counts
+                _expect_launches(run | {"frames": n}, "--link-cache", {
+                    **none, "fused_diff_compact_tiled": n,
+                    "pair_compact": fc["flat"]})
+                with open(cache) as f:
+                    data = json.load(f)
+                if i == 0:
+                    first = data
+        if not (loads[0][0] is False and loads[1] == (True, first["bps"])):
+            raise AssertionError(f"--link-cache: loads {loads}, saved "
+                                 f"{first['bps']}")
+        out["link_cache"] = {"saved_bps": first["bps"],
+                             "extra_s": first["lander"]["extra_s"]}
+        log(f"[check] --link-cache: run 1 saved copy rate {first['bps']:.0f} "
+            f"B/s and extra times {first['lander']['extra_s']}; run 2 "
+            f"(--calibrate 0) loaded it and its lander started from that "
+            f"rate; both runs byte-exact")
+        _, ex, _ = server_mod.setup(["--port", "0", "--calibrate", "2",
+                                     "--device", device])
+        out["calibrated_bps"] = ex.copy_rate
+        if not ex.copy_rate or ex.copy_rate <= 0:
+            raise AssertionError("--calibrate 2 measured no copy rate")
+        log(f"[time] --calibrate 2: 2 pinned copies of 512 KiB from the "
+            f"card on the landing stream, copy rate {ex.copy_rate:.0f} B/s "
+            f"({ex.copy_rate / 1e9:.2f} GB/s; {smi})")
+
+        # -- the client's --record, --save, --ppm and --http --------------
+        rec_path = os.path.join(tmp, "session.cvs")
+        save_path = os.path.join(tmp, "frames.npy")
+        ppm = os.path.join(tmp, "f")
+
+        def client_main(port, made):
+            rc = client_mod.main(["--port", str(port), "--height",
+                                  str(cfg.height), "--width", str(cfg.width),
+                                  "--record", rec_path, "--save", save_path,
+                                  "--ppm", ppm, "--ppm-every", "5"])
+            if rc != 0:
+                raise AssertionError(f"client.main returned {rc}")
+
+        run, states = served("client_extras",
+                             "client --record --save --ppm --ppm-every 5",
+                             base, client=client_main,
+                             want={"fused_diff_compact": n})
+        replay = _replayed(rec_path, cfg)
+        _check_states("ReplayServer of client --record", replay, states)
+        saved_frames = np.load(save_path)
+        if [hashlib.sha256(f).hexdigest() for f in saved_frames] != states[1:]:
+            raise AssertionError("client --save: the frames != the states")
+        ppms = sorted(x for x in os.listdir(tmp) if x.endswith(".ppm"))
+        want_ppm = [f"f_{k:06d}.ppm" for k in range(1, n + 1, 5)]
+        if ppms != want_ppm or not np.array_equal(_ppm_bgr(
+                os.path.join(tmp, ppms[0]), cfg.height, cfg.width),
+                saved_frames[0]):
+            raise AssertionError(f"client --ppm: wrote {ppms}")
+        log(f"[check] client --record: ReplayServer re-served the "
+            f"{os.path.getsize(rec_path)} B session byte-exact ({n} states "
+            f"== step_oracle's); --save wrote the {n} states; --ppm "
+            f"--ppm-every 5 wrote {len(ppms)} viewable P6 images, the first "
+            f"equal to state 1")
+        relayed = os.path.join(tmp, "relayed.cvs")
+
+        def http_client(port, made):
+            """``client --http``'s relay in front of the server: its page,
+            then ``/stream`` read to the end and kept."""
+            relay = client_mod.make_http_relay(
+                0, "127.0.0.1", port, cfg.height, cfg.width, timeout=120,
+                listen_host="127.0.0.1")
+            url = f"http://127.0.0.1:{relay.server_address[1]}"
+            rth = threading.Thread(target=relay.serve_forever, daemon=True)
+            rth.start()
+            try:
+                with urllib.request.urlopen(url + "/", timeout=120) as r:
+                    html = r.read()
+                with urllib.request.urlopen(url + "/stream",
+                                            timeout=120) as r, \
+                        open(relayed, "wb") as f:
+                    f.write(r.read())
+            finally:
+                relay.shutdown()
+                relay.server_close()
+                rth.join(timeout=30)
+            if (f'id="w" value="{cfg.width}"'.encode() not in html
+                    or f'id="h" value="{cfg.height}"'.encode() not in html):
+                raise AssertionError("client --http: / is not the viewer at "
+                                     "this geometry")
+            return {"html": len(html)}
+
+        run, states = served("http_relay", "client --http (/, /stream)",
+                             base, client=http_client,
+                             want={"fused_diff_compact": n})
+        html = run["got"]["html"]
+        _check_states("client --http /stream", _replayed(relayed, cfg),
+                      states)
+        log(f"[check] client --http: / served examples/viewer.html at "
+            f"{cfg.width}x{cfg.height} ({html} B); /stream relayed the "
+            f"server's wire bytes, which decode to step_oracle's {n} states")
+
+    # -- median_filter -----------------------------------------------------
+    frame_d = torch.from_numpy(frames[3]).to(device)
+    med = {}
+    for k in (3, 5, 7):
+        got = convolve.median_filter(frame_d, k, cfg.height, cfg.width)
+        want = reference_cpu.median_filter(frames[3], k, cfg.height,
+                                           cfg.width)
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError(f"median_filter k={k} != reference_cpu")
+        if k < 7:
+            med[k] = [_event_median_ms(lambda i: convolve.median_filter(
+                frame_d, k, cfg.height, cfg.width), 10, backlog=False)
+                for _ in range(2)]
+    out["median_ms"] = med
+    log(f"[check] median_filter k=3, 5, 7 at 1080p on the card == "
+        f"reference_cpu.median_filter, byte for byte")
+    log(f"[time] median_filter at 1080p: k=3 {_pair(med[3])} ms, k=5 "
+        f"{_pair(med[5])} ms (CUDA events, medians of 10, twice; {smi})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4377,6 +4912,9 @@ def main() -> int:
     for key, by_client in camera["runs"].items():
         for i, run in enumerate(by_client, start=1):
             runs[f"camera {key} run {i} ({run['client']})"] = run
+    extras = phase_backends_and_extras(cfg, smi)
+    for key, run in extras["runs"].items():
+        runs[f"backends {key}"] = run
     none = dict.fromkeys(_launch_counters(), 0)
     for key, s_count in (("mesh11_v1", 1), ("mesh11_pipelined_v3", 1),
                          ("mesh14_cuda0", 4)):

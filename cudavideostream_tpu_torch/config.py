@@ -8,10 +8,8 @@ geometry 1920x1080 BGR24 (``kernels.cu:107-133``), ``LR_THRESHOLDS 20``,
 ``K 3`` conv kernel, the ``NOISE_VISUALIZER`` mode select, and the
 ``127.0.0.1:2734`` endpoint (``threads.cpp:187``, ``client/opencv.cpp:23``).
 
-Fields that select work this port has not brought up yet are still
-accepted here; :class:`~cudavideostream_tpu_torch.models.pipeline.DeltaStreamPipeline`
-refuses them with ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that ports them.
+Every field selects work the port runs; ``pair_lanes`` is a TPU lane
+layout with identical outputs, and a no-op here.
 """
 
 from __future__ import annotations

@@ -27,9 +27,11 @@ in the JAX package, ``batched.py:93-97``) follows ``_fast_impl``:
    launch per stream);
 4. one batched K1 launch (``fused_diff_compact_batched``).
 
-Any other configuration (the flat payload with ``--capacity``, an overlay
-cell taller than the frame) runs the solo step per stream on views of the
-flat state and stacks the results, as ``_vmap_impl`` does. The JAX
+Any other configuration (the flat payload, with or without
+``--capacity``, the SORT backend, an overlay cell taller than the frame)
+runs the solo step per stream on views of the flat state and stacks the
+results, as ``_vmap_impl`` does. The HOST backend is refused, as in the
+JAX package: its host shadow serves one stream. The JAX
 package's chunking of the batch into several kernel calls
 (``_chunk_streams``) exists for a Mosaic SMEM bound and is not ported: one
 CUDA grid takes every stream's tiles.
@@ -42,7 +44,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from cudavideostream_tpu_torch.config import StreamConfig, Visualizer
+from cudavideostream_tpu_torch.config import (
+    CompactionBackend,
+    StreamConfig,
+    Visualizer,
+)
 from cudavideostream_tpu_torch.models.pipeline import (
     MAX_OVERLAY_CHARS,
     DeltaStreamPipeline,
@@ -83,6 +89,10 @@ class BatchedDeltaPipeline:
             config, device=device, atlas=atlas, threshold_map=threshold_map,
             conv_weights_q16=conv_weights_q16)
         self.device = self._solo.device
+        if config.compaction is CompactionBackend.HOST:
+            raise ValueError(
+                "HOST compaction packs per stream on the host — run solo "
+                "pipelines instead of a batched one")
         cell_h = self._solo.atlas.shape[1]
         self._fast = config.tiled_payload and cell_h <= config.height
         # the shared map, repeated per stream, for the red modes' mask over

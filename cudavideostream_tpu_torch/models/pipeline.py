@@ -21,15 +21,27 @@ feedback and the compaction. Here one step is, in that order:
    (``kernels.cu:451``). The aux frame is computed before it, on the same
    stream, because every visualizer reads the previous frame as it was.
 
-The port runs PALLAS compaction with flat emission (the default), tiled
-emission (``tiled_payload``, per-unit blocks at ``subtile_rows``), tiled
-emission with the packed change bits (``emit_bitmask``) or the
+The PALLAS backend (the default) runs the fused kernel with flat emission,
+tiled emission (``tiled_payload``, per-unit blocks at ``subtile_rows``),
+tiled emission with the packed change bits (``emit_bitmask``) or the
 bitmask-only emission (``maskonly_payload``: vals blocks and bits, no
 index blocks); every visualizer and the noise filter on each; the scalar
 threshold or a per-byte threshold map (``threshold_map``), which every
-emission's kernel reads and the red visualizers' mask too; and wire v1 to
-v4. Other configurations raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+emission's kernel reads and the red visualizers' mask too.
+
+The two other backends run no kernel of their own, as in the JAX package,
+where their device work is XLA ops; they blend the overlay into the whole
+frame and take the dense diff (``ops.diff.diff_mask``):
+
+* SORT compacts on the device by one ``torch.sort`` over packed keys
+  (``ops.compact.compact_sort``);
+* HOST packs on the host with the native library. Without the noise
+  filter only the packed change bits (n/8 bytes) leave the device: the
+  host takes the values from its own copy of the frame against a shadow
+  of the previous frame (``native.compact_update_np``), which makes the
+  pipeline stateful (one stream per pipeline; ``init_state`` first). With
+  the noise filter the dense delta is fetched too and packed by
+  ``native.compact_bitmask_np``.
 """
 
 from __future__ import annotations
@@ -39,11 +51,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from cudavideostream_tpu_torch import native
 from cudavideostream_tpu_torch.config import (
     CompactionBackend,
+    PayloadOverflowError,
     StreamConfig,
     Visualizer,
 )
+from cudavideostream_tpu_torch.ops import compact as compact_ops
 from cudavideostream_tpu_torch.ops import convolve as conv_ops
 from cudavideostream_tpu_torch.ops import diff as diff_ops
 from cudavideostream_tpu_torch.ops import filters as filter_ops
@@ -68,15 +83,6 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def check_slice(config: StreamConfig) -> None:
-    """Refuse configurations this port does not run yet."""
-    if config.compaction is not CompactionBackend.PALLAS:
-        raise NotImplementedError(
-            f"compaction={config.compaction.value} is not ported to "
-            "cudavideostream_tpu_torch yet: see ROADMAP.md M12"
-        )
 
 
 def from_jax_state(prev_np: np.ndarray, atlas_np: Optional[np.ndarray] = None,
@@ -161,7 +167,6 @@ class DeltaStreamPipeline:
         threshold_map[i]``, which overrides ``config.threshold``. It is
         kept on the device (``threshold_map``) and as numpy
         (``threshold_map_np``, as in the JAX pipeline)."""
-        check_slice(config)
         self.config = config
         self.device = resolve_device(device)
         self.threshold_map_np = None
@@ -194,8 +199,19 @@ class DeltaStreamPipeline:
             if tuple(atlas.shape) != self.atlas_np.shape:
                 raise ValueError("atlas shape does not match the config's font")
             self.atlas = atlas.to(self.device, torch.uint8)
+        if config.compaction is CompactionBackend.HOST:
+            # the host blends the overlay into its own copy of the frame
+            self._host_atlas = self.atlas.cpu().numpy()
         # the last overlay text and its device glyph indices
         self._ids: Tuple[str, Optional[torch.Tensor]] = (None, None)
+        # the HOST backend's fast path: the host takes the payload values
+        # from its own copy of the frame against this shadow of the
+        # device's prev (negative feedback included); the noise filter
+        # runs on the device, where the host copy would not follow it
+        self._host_fast = (config.compaction is CompactionBackend.HOST
+                           and not config.noise_filter)
+        self._host_prev: Optional[np.ndarray] = None
+        self.last_fetch_bytes = 0
 
     # -- state ------------------------------------------------------------
     def init_state(self, base_frame: np.ndarray) -> torch.Tensor:
@@ -205,6 +221,9 @@ class DeltaStreamPipeline:
         base = np.asarray(base_frame, dtype=np.uint8).ravel()
         if base.size != self.config.frame_bytes:
             raise ValueError("base frame size mismatch")
+        if self._host_fast:
+            # (re)sync the host shadow; load_state comes through here too
+            self._host_prev = base.copy()
         return torch.from_numpy(base.copy()).to(self.device)
 
     # -- the fused step ---------------------------------------------------
@@ -280,7 +299,13 @@ class DeltaStreamPipeline:
           launch;
         * with ``maskonly_payload``: ``(new_prev, pos, counts, vals_t,
           bits, aux)``, the bitmask-only emission
-          (:func:`~cudavideostream_tpu_torch.ops.logcompact.fused_diff_compact_mask`).
+          (:func:`~cudavideostream_tpu_torch.ops.logcompact.fused_diff_compact_mask`);
+        * under the HOST backend: ``pos`` an int and ``xs``/``vals`` host
+          numpy arrays exactly ``pos`` long, packed by the native library
+          (see :meth:`_step_dense`), after the step has waited for the
+          device. A frame that changes more than ``payload_capacity``
+          bytes raises :class:`PayloadOverflowError` with the advanced
+          state as ``state``.
 
         The step does not wait for the device: callers read the sizes and
         copy what they need (see ``runtime.executor``).
@@ -302,6 +327,9 @@ class DeltaStreamPipeline:
                 cell_h, cfg.width,
             )
         aux = self._aux(cur, region, prev)
+        if cfg.compaction is not CompactionBackend.PALLAS:
+            return self._step_dense(prev, frame, cur, region, text, n_chars,
+                                    aux)
         # pair_lanes is a TPU lane layout with identical outputs
         if cfg.maskonly_payload:
             pos, counts, vals_t, bits, new_prev = (
@@ -328,3 +356,63 @@ class DeltaStreamPipeline:
             capacity=cfg.capacity, threshold_map=self.threshold_map,
         )
         return new_prev, pos, xs, vals, aux
+
+    def _step_dense(self, prev: torch.Tensor, frame, cur: torch.Tensor,
+                    region: Optional[torch.Tensor], text: str, n_chars: int,
+                    aux: Optional[torch.Tensor]):
+        """The SORT and HOST backends (the JAX ``pipeline.py:251-278,
+        335-381``): the overlay blended into the whole frame, the dense
+        diff with negative feedback into ``prev`` in place, then the sort
+        on the device or the native packers on the host.
+        ``last_fetch_bytes`` keeps what the HOST backend brought from the
+        device for the frame: the n/8-byte bitmask on the fast path, the
+        dense delta as well under the noise filter."""
+        cfg = self.config
+        host = cfg.compaction is CompactionBackend.HOST
+        if host and self._host_fast and self._host_prev is None:
+            raise RuntimeError(
+                "HOST backend: call init_state(base_frame) before step() - "
+                "the host packer derives payload values from its "
+                "previous-frame shadow")
+        cur = logcompact.region_frame(cur, region)
+        thr = (cfg.threshold if self.threshold_map is None
+               else self.threshold_map)
+        mask, delta, new_prev = diff_ops.diff_mask(cur, prev, thr,
+                                                   cfg.negative_feedback)
+        prev.copy_(new_prev)  # the state is updated in place, as by K1
+        if not host:
+            pos, xs, vals = compact_ops.compact(mask, delta, cfg.capacity,
+                                                "sort")
+            return prev, pos, xs, vals, aux
+        bits = diff_ops.pack_bitmask(mask).cpu().numpy()
+        if self._host_fast:
+            # the host's own frame bytes: a device frame comes down once,
+            # as the JAX step's np.asarray brings it
+            if isinstance(frame, torch.Tensor):
+                cur_host = frame.to("cpu", torch.uint8).reshape(-1).numpy()
+            else:
+                cur_host = np.ascontiguousarray(frame,
+                                                dtype=np.uint8).reshape(-1)
+            if n_chars:
+                cur_host = reference_cpu.overlay_blit(
+                    cur_host, self._host_atlas,
+                    fonts.encode_text(text, MAX_OVERLAY_CHARS)[:n_chars],
+                    cfg.height, cfg.width)
+            xs, vals = native.compact_update_np(cur_host, self._host_prev,
+                                                bits)
+            if not cfg.negative_feedback:
+                # new_prev = cur everywhere, not just at the set bits
+                np.copyto(self._host_prev, cur_host)
+            self.last_fetch_bytes = bits.nbytes
+        else:
+            delta = delta.cpu().numpy()
+            xs, vals = native.compact_bitmask_np(delta, bits)
+            self.last_fetch_bytes = bits.nbytes + delta.nbytes
+        pos = xs.size
+        if pos > cfg.capacity:
+            # state= keeps the executor in step: the host shadow has
+            # already taken this frame
+            raise PayloadOverflowError(
+                f"frame changed {pos} bytes > payload_capacity "
+                f"{cfg.capacity}", state=prev)
+        return prev, pos, xs, vals, aux

@@ -10,8 +10,12 @@ stays in int32: the Q16 taps of a normalized kernel add up to about
 65,536, so it stays below 255 * 65,536 * (1 + rounding) for any K up to
 15. There is no ``F.conv2d``: cuDNN would sum in float (TF32 by default
 on the card), and a float sum in another order does not give these
-bytes. ``median_filter`` has no caller on a serving path and is not
-ported yet (ROADMAP M11).
+bytes.
+
+:func:`median_filter` is the reference's benchmarked-and-rejected median
+variant (``tests/noise_filter_benchmark/v3.cu``), byte-exact against
+:func:`reference_cpu.median_filter`. No serving path calls it; it is
+reached by the API only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,3 +52,55 @@ def accumulate_q16(padded: torch.Tensor, weights_q16: np.ndarray, rows: int,
             if w:
                 acc += w * padded[i:i + rows, 3 * j:3 * j + width * 3]
     return (acc >> 16).clamp(0, 255).to(torch.uint8).reshape(-1)
+
+
+def _oddeven_merge_network(n: int):
+    """Batcher odd-even mergesort compare-exchange pairs for n inputs."""
+    pairs = []
+
+    def merge(lo, length, r):
+        step = r * 2
+        if step < length:
+            merge(lo, length, step)
+            merge(lo + r, length, step)
+            for i in range(lo + r, lo + length - r, step):
+                if i + r < lo + length:
+                    pairs.append((i, i + r))
+        elif lo + r < lo + length:
+            pairs.append((lo, lo + r))
+
+    def sort(lo, length):
+        if length > 1:
+            m = length // 2
+            sort(lo, m)
+            sort(lo + m, length - m)
+            merge(lo, length, 1)
+
+    # Batcher needs a power-of-two width; indices >= n are virtual +inf
+    # sentinels and their exchanges are dropped
+    p = 1
+    while p < n:
+        p *= 2
+    sort(0, p)
+    return [(a, b) for a, b in pairs if a < n and b < n]
+
+
+def median_filter(frame: torch.Tensor, k: int, height: int,
+                  width: int) -> torch.Tensor:
+    """Zero-padded KxK per-channel median; flat uint8 in and out.
+
+    The k² shifted views of the padded byte-space image go through a
+    Batcher odd-even compare-exchange network of ``torch.minimum`` and
+    ``torch.maximum`` (the structure of the reference's unrolled bubble
+    sort, ``v3.cu:32-47``), and the middle one is the median. The
+    network's virtual sentinels are +inf, so its dropped exchanges leave
+    the real elements in place. ``frame`` is not modified."""
+    pad = k // 2
+    img = frame.reshape(height, width * 3)
+    padded = F.pad(img, (3 * pad, 3 * pad, pad, pad))
+    win = [padded[i:i + height, 3 * j:3 * j + width * 3]
+           for i in range(k) for j in range(k)]
+    for a, b in _oddeven_merge_network(len(win)):
+        win[a], win[b] = (torch.minimum(win[a], win[b]),
+                          torch.maximum(win[a], win[b]))
+    return win[(k * k) // 2].contiguous().reshape(-1)

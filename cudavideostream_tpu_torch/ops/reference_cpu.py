@@ -1,13 +1,13 @@
 """Golden CPU reference (pure NumPy) for the operators of the ported slices.
 
 A copy of the subset of the JAX package's ``ops/reference_cpu.py`` that
-the port's serving paths run: ``diff_encode``, ``client_apply``, the
-filter bank (grayscale, the binarize stack, the heatmap LUT, the red
-visualizers), the Q16 convolution of the noise filter, ``overlay_blit``
-and ``step_oracle`` (with the per-byte threshold map). It is the
-byte-exact spec the port's device path is held to, and it lets
-``chip_smoke.py`` check the card's output at 1080p without the JAX
-package. ``median_filter`` waits for its device twin (ROADMAP M11).
+the port runs: ``diff_encode``, ``client_apply``, the filter bank
+(grayscale, the binarize stack, the heatmap LUT, the red visualizers),
+the Q16 convolution of the noise filter, ``median_filter`` (reached by
+the API only), ``overlay_blit`` and ``step_oracle`` (with the per-byte
+threshold map). It is the byte-exact spec the port's device path is held
+to, and it lets ``chip_smoke.py`` check the card's output at 1080p
+without the JAX package.
 
 Frames are flat ``uint8`` arrays of ``H*W*3`` bytes in BGR byte order,
 exactly the ``cv::Mat::data`` layout the reference operates on.
@@ -276,6 +276,29 @@ def convolve(frame: np.ndarray, weights: np.ndarray, height: int, width: int) ->
             acc += wq[i, j] * padded[i : i + height, j : j + width]
     out = np.clip(acc >> 16, 0, 255).astype(np.uint8)
     return out.ravel()
+
+
+def median_filter(frame: np.ndarray, k: int, height: int, width: int) -> np.ndarray:
+    """Zero-padded KxK per-channel median (the reference's rejected-but-
+    benchmarked variant, ``tests/noise_filter_benchmark/v3.cu:32-90``).
+
+    The median of the k*k window is the ``(k*k)//2``-th order statistic
+    (0-based), matching the C bubble-sort-and-middle implementation.
+    """
+    img = np.asarray(frame, dtype=np.uint8).reshape(height, width, 3)
+    pad = k // 2
+    padded = np.zeros((height + 2 * pad, width + 2 * pad, 3), dtype=np.uint8)
+    padded[pad : pad + height, pad : pad + width] = img
+    stack = np.stack(
+        [
+            padded[i : i + height, j : j + width]
+            for i in range(k)
+            for j in range(k)
+        ],
+        axis=0,
+    )
+    stack.sort(axis=0)
+    return stack[(k * k) // 2].ravel()
 
 
 def overlay_blit(

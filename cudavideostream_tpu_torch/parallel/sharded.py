@@ -35,8 +35,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from cudavideostream_tpu_torch.config import StreamConfig, Visualizer
-from cudavideostream_tpu_torch.models.pipeline import check_slice
+from cudavideostream_tpu_torch.config import (
+    CompactionBackend,
+    StreamConfig,
+    Visualizer,
+)
+from cudavideostream_tpu_torch.ops import compact as compact_ops
 from cudavideostream_tpu_torch.ops import diff as diff_ops
 from cudavideostream_tpu_torch.ops import filters as filter_ops
 from cudavideostream_tpu_torch.ops import logcompact
@@ -100,7 +104,11 @@ class ShardedDeltaPipeline:
         pipeline, ``models.pipeline.from_jax_sharded``). ``threshold_map``:
         a per-byte map of the frame's length, cut along rows like the
         frame, so each shard reads its own slice."""
-        check_slice(config)
+        if config.compaction is not CompactionBackend.PALLAS:
+            # every shard compacts with K1, as in the JAX package, whose
+            # server refuses the other backends under --mesh
+            raise ValueError("the sharded pipeline compacts with the pallas "
+                             f"backend only, not {config.compaction.value}")
         if payload_layout not in ("replicated", "sharded"):
             raise ValueError(f"unknown payload_layout {payload_layout!r}")
         self.payload_layout = payload_layout
@@ -120,11 +128,13 @@ class ShardedDeltaPipeline:
                 f"{self.local_rows}-row shard; use fewer space shards or a "
                 f"smaller conv_k")
         if self.local_bytes >= 1 << 31:
-            # the JAX package compacts such shards with compact_sort
-            raise NotImplementedError(
-                f"a {self.local_bytes}-byte shard needs the sort backend, "
-                "which is not ported to cudavideostream_tpu_torch yet: see "
-                "ROADMAP.md M12")
+            # the JAX package compacts such shards with compact_sort, which
+            # refuses them (the packed keys stop at 8,388,607 bytes): ask
+            # it, on meta tensors that hold no bytes
+            meta = torch.empty(self.local_bytes, dtype=torch.bool,
+                               device="meta")
+            compact_ops.compact_sort(meta, meta.to(torch.uint8),
+                                     self.local_bytes)
         if conv_weights_q16 is None:
             if conv_weights is None:
                 conv_weights = reference_cpu.gaussian_kernel(config.conv_k)

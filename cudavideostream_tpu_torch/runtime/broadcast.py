@@ -339,8 +339,8 @@ class BroadcastServer:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The command line; options of the JAX server that are not ported
-    yet raise ``NotImplementedError`` naming their ``ROADMAP.md`` item."""
+    """The command line: every option of the JAX broadcast server, with
+    its defaults."""
     p = argparse.ArgumentParser(description="multi-client broadcast server")
     p.add_argument("--source", default="synthetic",
                    choices=["synthetic", "file", "v4l2"],
@@ -371,19 +371,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "overflow is fatal under v1/v2, one raw resync "
                         "frame to every client under v3/v4")
     p.add_argument("--link-cache", default=None, metavar="JSON",
-                   help="persist the lander's learned rates (not ported "
-                        "yet: ROADMAP.md M13)")
-    p.add_argument("--calibrate", type=int, default=0, metavar="N",
-                   help="pre-serve link round trips; 0 (the default) is a "
-                        "no-op, N > 0 is not ported yet (ROADMAP.md M13)")
+                   help="load the lander's measured rates before serving and "
+                        "write them back after (see the server's "
+                        "--link-cache)")
+    p.add_argument("--calibrate", type=int, default=2, metavar="N",
+                   help="time N copies from the device before the first "
+                        "frame (0 disables; see the server's --calibrate)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions)")
     args = p.parse_args(argv)
-    if args.link_cache is not None or args.calibrate:
-        raise NotImplementedError(
-            "--link-cache and --calibrate N > 0 are not ported to "
-            "cudavideostream_tpu_torch yet: see ROADMAP.md M13")
     if args.fetch != "auto" and not args.tiled:
         p.error("--fetch tiles/flat/mask applies to --tiled payloads")
     if args.land_batch and not args.tiled:
@@ -408,6 +405,17 @@ def main(argv=None) -> int:
                 if args.land_batch else StreamExecutor(cfg,
                                                        device=args.device))
     source = make_source(args.source, cfg, path=args.path)
+    # the lander's warm start, as the server's (the JAX broadcast.py:436-446;
+    # like the server, no frame of the source is taken before serving)
+    if args.link_cache and executor.load_link_cache(args.link_cache):
+        print(f"link cache loaded from {args.link_cache} (copy rate "
+              f"{executor.copy_rate} B/s)", file=sys.stderr)
+    if args.calibrate:
+        rate = executor.calibrate_link(rounds=args.calibrate)
+        print(f"calibrated copy rate {rate} B/s ({args.calibrate} copies)",
+              file=sys.stderr)
+    n = executor.prewarm_fetch()
+    print(f"prewarmed {n} fetch jits", file=sys.stderr)
     server = BroadcastServer(cfg, source, executor=executor,
                              sndbuf=args.sndbuf)
     try:
@@ -416,6 +424,9 @@ def main(argv=None) -> int:
         close = getattr(source, "close", None)  # the camera handle
         if close is not None:
             close()
+    if args.link_cache:
+        executor.save_link_cache(args.link_cache)
+        print(f"link cache saved to {args.link_cache}", file=sys.stderr)
     print(f"served {n} frames", file=sys.stderr)
     return 0
 

@@ -16,15 +16,20 @@ frame N, and a blocking ``.cpu()`` on the step's stream would queue
 behind frame N's kernels. The event of frame N-1 was recorded before
 frame N's kernels, and the landing stream runs beside them.
 
-The JAX executor's tiered static slices, fetch rungs, speculative windows,
-host-authored overlay landings and link cache exist for XLA's static
-shapes and a ~30 ms host-to-TPU round trip; eager PyTorch slices at any
-length, and the card's copies take microseconds (``ROADMAP.md`` says where
-each of those mechanisms goes).
+The JAX executor's tiered static slices, fetch rungs, speculative windows
+and host-authored overlay landings exist for XLA's static shapes and a
+~30 ms host-to-TPU round trip; eager PyTorch slices at any length, and the
+card's copies take microseconds (``ROADMAP.md`` says where each of those
+mechanisms goes). Its warm start is kept with what this lander learns:
+the state file (``save_state``/``load_state``), the link cache of the
+measured copy rate and each flavor's extra time, and a calibration by
+timed copies; ``prewarm_fetch`` has nothing to compile.
 """
 
 from __future__ import annotations
 
+import json
+import math
 import time
 from typing import Optional
 
@@ -70,6 +75,9 @@ class _Staged:
         self.events = {}      # device -> the event after the step's work
         self.sizes = []
         for x in outs[:n_sizes]:
+            if not isinstance(x, (torch.Tensor, list, tuple)):
+                self.sizes.append(np.asarray(x))  # the HOST backend's int
+                continue
             # non-blocking device-to-host copies land in pinned memory
             host = [t.to("cpu", non_blocking=True) if t.is_cuda else t
                     for t in _tensors(x)]
@@ -83,8 +91,8 @@ class _Staged:
     def wait(self):
         for ev in self.events.values():
             ev.synchronize()
-        return [[t.numpy() for t in x] if isinstance(x, list) else x.numpy()
-                for x in self.sizes]
+        return [[t.numpy() for t in x] if isinstance(x, list)
+                else np.asarray(x) for x in self.sizes]
 
 
 class _Copier:
@@ -549,6 +557,7 @@ class StreamExecutor:
         self.lander = (TiledLander(config.fetch_mode,
                                    return_mask=config.mask_payload)
                        if config.tiled_payload else None)
+        self._copy_rate: Optional[float] = None  # without a lander
         self.metrics = ExecMetrics()
 
     @property
@@ -585,7 +594,14 @@ class StreamExecutor:
     def _dispatch(self, frame, text: str):
         """Run the step, advance the state and stage the sizes' copies."""
         t0 = time.perf_counter()
-        out = self.pipe.step(self._state, frame, text=text)
+        try:
+            out = self.pipe.step(self._state, frame, text=text)
+        except PayloadOverflowError as e:
+            # the HOST backend raises after the state advanced: a caller
+            # that recovers through resync ships that state
+            if e.state is not None:
+                self._state = e.state
+            raise
         self._state = out[0]
         return t0, _Staged(out[1:], 2 if self.cfg.tiled_payload else 1)
 
@@ -617,7 +633,13 @@ class StreamExecutor:
                 f"{self.cfg.capacity}"
             )
         xs_d, vals_d = staged.outs[1:3]
-        xs, vals = self._copier.run(staged, lambda: (xs_d[:pos], vals_d[:pos]))
+        if isinstance(xs_d, np.ndarray):
+            # the HOST backend packed on the host: only the aux is left
+            xs, vals = xs_d, vals_d
+            self._copier.land_aux(staged)
+        else:
+            xs, vals = self._copier.run(staged,
+                                        lambda: (xs_d[:pos], vals_d[:pos]))
         self.metrics.record(time.perf_counter() - t0, pos)
         return pos, xs, vals, staged.aux_host
 
@@ -631,6 +653,154 @@ class StreamExecutor:
     def flush(self):
         """No pending work in the synchronous executor."""
         return None
+
+    # -- checkpoint and resume (the JAX ``save_state``/``load_state``) ----
+    def save_state(self, path: str) -> None:
+        """Write the stream's state in the JAX package's ``.npz`` format:
+        ``prev``, ``geometry``, ``threshold``, ``negative_feedback``."""
+        if self._state is None:
+            raise RuntimeError("no state to save")
+        np.savez(
+            path,
+            prev=self._state.to("cpu", copy=True).numpy(),
+            geometry=np.array([self.cfg.height, self.cfg.width]),
+            threshold=np.array([self.cfg.threshold]),
+            negative_feedback=np.array([int(self.cfg.negative_feedback)]),
+        )
+
+    def load_state(self, path: str) -> None:
+        """Resume from a state file of either package. Refuses another
+        geometry, threshold or negative feedback: both shape what the
+        previous frame holds (sub-threshold drift accumulates in it)."""
+        data = np.load(path if path.endswith(".npz") else path + ".npz")
+        if tuple(data["geometry"]) != (self.cfg.height, self.cfg.width):
+            raise ValueError("checkpoint geometry mismatch")
+        if int(data["threshold"][0]) != self.cfg.threshold:
+            raise ValueError(
+                f"checkpoint threshold {int(data['threshold'][0])} != "
+                f"config threshold {self.cfg.threshold}")
+        if "negative_feedback" in data and bool(
+                data["negative_feedback"][0]) != self.cfg.negative_feedback:
+            raise ValueError(
+                "checkpoint negative_feedback mismatch "
+                f"(saved {bool(data['negative_feedback'][0])}, "
+                f"config {self.cfg.negative_feedback})")
+        # init_state also resyncs the HOST backend's host shadow
+        self._state = self.pipe.init_state(data["prev"])
+
+    # -- the lander's warm start (server --link-cache / --calibrate) -----
+    # The JAX file's keys: version, the seven-field fingerprint, bps,
+    # merge_s and lander. Here bps is the landing's measured copy rate,
+    # merge_s the flat flavor's extra time (its K2 merge) and lander holds
+    # every flavor's extra time; keys of the JAX lander are ignored. Every
+    # value is advisory: a stale one costs landing time, never a byte.
+    LINK_CACHE_VERSION = 1
+
+    @property
+    def copy_rate(self) -> Optional[float]:
+        """The measured device-to-host copy rate, bytes/s (the lander's
+        ``copy_bytes_per_s`` with a tiled payload), or None."""
+        return (self.lander.copy_bytes_per_s if self.lander is not None
+                else self._copy_rate)
+
+    @copy_rate.setter
+    def copy_rate(self, rate: float) -> None:
+        if self.lander is not None:
+            self.lander.copy_bytes_per_s = rate
+        else:
+            self._copy_rate = rate
+
+    def _link_fingerprint(self) -> list:
+        return [self.cfg.frame_bytes, self.cfg.capacity, self.cfg.fetch_mode,
+                self.cfg.subtile_rows, self.cfg.tiled_payload,
+                self.cfg.emit_bitmask, self.cfg.maskonly_payload]
+
+    def save_link_cache(self, path: str) -> None:
+        extra = dict(self.lander.extra_s) if self.lander is not None else {}
+        data = {"version": self.LINK_CACHE_VERSION,
+                "fingerprint": self._link_fingerprint(),
+                "bps": self.copy_rate,
+                "merge_s": extra.get("flat"),
+                "lander": {"extra_s": extra}}
+        with open(path, "w") as f:
+            json.dump(data, f)
+
+    def load_link_cache(self, path: str) -> bool:
+        """Seed the copy rate and the flavors' extra times from an earlier
+        session's file (either package's). Returns False and changes
+        nothing when the file is missing or unreadable, its version or
+        fingerprint differs, ``bps`` is missing, or any value is not a
+        finite number (``NaN``, ``Infinity``), ``bps`` not positive or a
+        time negative."""
+        try:
+            with open(path) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            return False
+        if (not isinstance(data, dict)
+                or data.get("version") != self.LINK_CACHE_VERSION
+                or data.get("fingerprint") != self._link_fingerprint()):
+            return False
+        bps = data.get("bps")
+        lander = data.get("lander", {})
+        extra = lander.get("extra_s", {}) if isinstance(lander, dict) else None
+        if not (_finite(bps) and bps > 0) or not isinstance(extra, dict):
+            return False
+        times = [data.get("merge_s"), extra.get("flat"), extra.get("mask")]
+        if any(t is not None and not (_finite(t) and t >= 0) for t in times):
+            return False
+        self.copy_rate = float(bps)
+        if self.lander is not None:
+            for kind in ("flat", "mask"):
+                if extra.get(kind) is not None:
+                    self.lander.extra_s[kind] = float(extra[kind])
+        return True
+
+    def calibrate_link(self, rounds: int = 2, nbytes: int = 1 << 19
+                       ) -> Optional[float]:
+        """Seed the copy rate before the first frame: time ``rounds``
+        copies of ``nbytes`` from the device into pinned host memory on the
+        landing stream (after one untimed copy that warms the path), each
+        folded into the rate as a landing is. Returns the rate, bytes/s."""
+        dev = self._copier.device
+        buf = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+        if dev.type == "cuda":
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            stream = self._copier._stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+
+            def copy():
+                with torch.cuda.stream(stream):
+                    host.copy_(buf, non_blocking=True)
+                stream.synchronize()
+        else:
+            host = torch.empty(nbytes, dtype=torch.uint8)
+
+            def copy():
+                host.copy_(buf)
+        copy()
+        for _ in range(max(0, rounds)):
+            t1 = time.perf_counter()
+            copy()
+            rate = nbytes / max(time.perf_counter() - t1, 1e-9)
+            old = self.copy_rate
+            self.copy_rate = (rate if old is None
+                              else old + TiledLander.ALPHA * (rate - old))
+        return self.copy_rate
+
+    def prewarm_fetch(self) -> int:
+        """The JAX executor compiles its landing's fetch jits here, one per
+        static slice length. Eager PyTorch compiles nothing per length, so
+        this is a no-op: it runs no step, needs no state, and returns 0
+        (jits compiled)."""
+        return 0
+
+
+def _finite(x) -> bool:
+    """A JSON number that is finite (``json`` reads ``NaN`` and
+    ``Infinity`` as floats); booleans are not numbers here."""
+    return (isinstance(x, (int, float)) and not isinstance(x, bool)
+            and math.isfinite(x))
 
 
 class PipelinedExecutor(StreamExecutor):

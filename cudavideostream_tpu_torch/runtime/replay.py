@@ -5,9 +5,8 @@ The wire stream is self-contained (base frame + ordered payloads), so a
 byte-capture of it *is* a session journal. This module turns that into
 an ops tool the reference lacks:
 
-* recording: any capture of the raw bytes a server sends (the JAX
-  package's ``client --record session.cvs``; this package's client does
-  not record yet, ``ROADMAP.md`` M18);
+* recording: any capture of the raw bytes a server sends (``client
+  --record session.cvs``, of this package or of the JAX one);
 * :class:`ReplayServer` re-serves a recorded session to any number of
   sequential clients, byte-identically, with optional pacing — no
   accelerator needed (think: incident replay, client regression tests,

@@ -37,6 +37,21 @@ Run:  ``python -m cudavideostream_tpu_torch.runtime.server --source synthetic``
 (``parallel.sharded``): the frame's rows cut into S shards over S CUDA
 devices, each compacting its rows with K1's ``index_offset`` mode, the
 same wire bytes.
+
+``--compaction sort`` compacts by one ``torch.sort`` on the card, and
+``--compaction host`` packs on the host from an n/8-byte change bitmask
+(``models.pipeline``); ``--backend oracle`` serves from the NumPy spec
+with no device (``runtime.oracle_executor``). ``--aux-port`` serves the
+live aux frame on a side socket (``runtime.auxstream``). ``--save-state``
+writes the stream's state after serving and ``--resume`` serves from such
+a file: its bytes are the base frame. ``--link-cache`` keeps the lander's
+measured rates across sessions and ``--calibrate N`` (default 2) times N
+copies from the card before the first frame.
+
+      ``python -m cudavideostream_tpu_torch.runtime.server --compaction host``
+      ``python -m cudavideostream_tpu_torch.runtime.server --visualizer 1 --aux-port 2735``
+      ``python -m cudavideostream_tpu_torch.runtime.server --frames 300 --save-state s.npz``
+      ``python -m cudavideostream_tpu_torch.runtime.server --resume s.npz --tiled --link-cache link.json``
 """
 
 from __future__ import annotations
@@ -58,12 +73,14 @@ from cudavideostream_tpu_torch.config import (
 )
 from cudavideostream_tpu_torch.models import DeltaStreamPipeline
 from cudavideostream_tpu_torch.runtime import wire
+from cudavideostream_tpu_torch.runtime.auxstream import AuxStreamSink
 from cudavideostream_tpu_torch.runtime.client import write_ppm
 from cudavideostream_tpu_torch.runtime.executor import (
     BatchedLandExecutor,
     PipelinedExecutor,
     StreamExecutor,
 )
+from cudavideostream_tpu_torch.runtime.oracle_executor import OracleExecutor
 from cudavideostream_tpu_torch.runtime.sharded_executor import (
     PipelinedShardedExecutor,
     ShardedStreamExecutor,
@@ -80,11 +97,19 @@ class DeltaStreamServer:
     def __init__(self, config: StreamConfig, source: FrameSource,
                  executor: StreamExecutor | None = None, verbose: bool = True,
                  overlay_status: bool = True, device=None,
-                 aux_dir: str | None = None, aux_every: int = 30):
+                 aux_dir: str | None = None, aux_every: int = 30,
+                 resume: bool = False, aux_sink=None):
         self.cfg = config
         self.source = source
         self.executor = executor or StreamExecutor(config, device=device)
         self.verbose = verbose
+        # resume: the executor already holds a state (load_state), and the
+        # stream goes on from it: its bytes are the base frame, which a
+        # client that kept its reconstruction already has
+        self.resume = resume
+        # the live aux relay (runtime.auxstream.AuxStreamSink): viewers
+        # come and go, and a slow one never holds back the delta stream
+        self.aux_sink = aux_sink
         # render the 1 Hz status into the video (server.cpp:166-168);
         # off => deterministic streams for tests
         self.overlay_status = overlay_status
@@ -131,7 +156,10 @@ class DeltaStreamServer:
 
     def _stream_to(self, conn: socket.socket, max_frames: int | None) -> int:
         conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        base = self.executor.start(self.source.base_frame())
+        if self.resume:
+            base = self.executor.resync()
+        else:
+            base = self.executor.start(self.source.base_frame())
         v3enc = None
         if self.cfg.wire_format == "v2":
             conn.sendall(wire.MAGIC_V2)
@@ -226,6 +254,8 @@ class DeltaStreamServer:
             if rc < 0:
                 raise BrokenPipeError(f"writev failed: {rc}")
         k, self._n_out = self._n_out, self._n_out + 1
+        if self.aux_sink is not None and aux is not None:
+            self.aux_sink.push(k, aux)
         if self.aux_dir and aux is not None and k % self.aux_every == 0:
             write_ppm(os.path.join(self.aux_dir, f"aux_{k:06d}.ppm"), aux,
                       self.cfg.height, self.cfg.width)
@@ -241,18 +271,7 @@ def load_threshold_map(path: str) -> np.ndarray:
     return np.asarray(tm, dtype=np.uint8).ravel()
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to cudavideostream_tpu_torch yet: see "
-        f"ROADMAP.md {item}")
-
-
-def parse_args(argv=None) -> argparse.Namespace:
-    """The command line. It takes every option of the JAX server:
-    ``--no-pair-lanes`` and ``--calibrate 0`` are no-ops (a TPU lane
-    layout with identical outputs; no link to calibrate), and the options
-    of parts not ported yet raise ``NotImplementedError`` naming their
-    ``ROADMAP.md`` item."""
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="CUDA delta-stream server")
     p.add_argument("--source", default="synthetic",
                    choices=["synthetic", "file", "v4l2"],
@@ -264,11 +283,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="capture on a dedicated thread, one frame ahead")
     p.add_argument("--compaction", default="pallas",
                    choices=[b.value for b in CompactionBackend],
-                   help="pallas = the fused kernel (K1); sort and host are "
-                        "not ported yet (ROADMAP.md M12)")
+                   help="pallas = the fused kernel (K1); sort = one "
+                        "torch.sort over packed keys on the device; host = "
+                        "the device ships the n/8-byte change bitmask and "
+                        "the host packs")
     p.add_argument("--backend", default="device", choices=["device", "oracle"],
-                   help="oracle (the NumPy executor) is not ported yet "
-                        "(ROADMAP.md M18)")
+                   help="device = the PyTorch/CUDA pipeline; oracle = the "
+                        "NumPy spec on the CPU (slow, no device)")
     p.add_argument("--mesh", default=None, metavar="D,S",
                    help="run the stream sharded over a (data=D, space=S) "
                         "device mesh (D*S CUDA devices, or every shard on "
@@ -278,17 +299,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-pair-lanes", action="store_true",
                    help="a TPU lane layout with identical outputs: no-op")
     p.add_argument("--resume", default=None, metavar="CKPT",
-                   help="resume from a state checkpoint (not ported yet: "
-                        "ROADMAP.md M13)")
+                   help="serve on from a state checkpoint (.npz of "
+                        "--save-state, either package's): its bytes are the "
+                        "base frame, so a client that kept its "
+                        "reconstruction stays byte-exact")
     p.add_argument("--save-state", default=None, metavar="CKPT",
-                   help="write a state checkpoint (not ported yet: "
-                        "ROADMAP.md M13)")
+                   help="write the stream's state checkpoint here after "
+                        "serving")
     p.add_argument("--link-cache", default=None, metavar="JSON",
-                   help="persist the lander's learned rates (not ported "
-                        "yet: ROADMAP.md M13)")
-    p.add_argument("--calibrate", type=int, default=0, metavar="N",
-                   help="pre-serve link round trips; 0 (the default) is a "
-                        "no-op, N > 0 is not ported yet (ROADMAP.md M13)")
+                   help="load the lander's measured copy rate and extra "
+                        "times from this file before serving (if it "
+                        "matches this configuration) and write them back "
+                        "after; advisory, never a byte of the stream")
+    p.add_argument("--calibrate", type=int, default=2, metavar="N",
+                   help="time N copies of 512 KiB from the device into "
+                        "pinned memory before the first frame and seed the "
+                        "copy rate with them (0 disables; default 2; no-op "
+                        "for --backend oracle/--mesh)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=2734)
     p.add_argument("--height", type=int, default=1080)
@@ -306,8 +333,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--aux-dir", default=None,
                    help="dump every 30th visualizer aux frame as a PPM here")
     p.add_argument("--aux-port", type=int, default=None, metavar="PORT",
-                   help="serve the live aux frame on a side socket (not "
-                        "ported yet: ROADMAP.md M18)")
+                   help="also serve the live visualizer frame on this side "
+                        "socket (client --aux, or the --http viewer's aux "
+                        "panel); a slow viewer drops frames and never "
+                        "stalls the delta stream (requires --visualizer)")
     p.add_argument("--threshold-map", default=None, metavar="FILE.npy",
                    help="per-byte uint8 threshold map (an (H, W) map is per "
                         "pixel) in place of --threshold")
@@ -357,9 +386,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions)")
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line. It takes every option of the JAX server, with its
+    defaults; ``--no-pair-lanes`` is a no-op (a TPU lane layout with
+    identical outputs). The refusals are the JAX server's own: those of
+    flag combinations here, those that need the configuration in
+    :func:`setup` and :func:`main`."""
+    p = _parser()
     args = p.parse_args(argv)
-    # the JAX server's refusals of --mesh (server.py:393-416), before the
-    # options that are not ported yet, as there
+    # the JAX server's refusals of --mesh (server.py:393-416)
     if args.mesh is not None:
         try:
             args.mesh = tuple(int(x) for x in args.mesh.split(","))
@@ -373,16 +411,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             p.error("--mesh supports --compaction pallas only")
         if args.capacity is not None:
             p.error("--capacity applies to flat single-chip payloads only")
-    if args.aux_port is not None:
-        raise _not_ported("--aux-port", "M18")
-    if args.backend != "device":
-        raise _not_ported(f"--backend {args.backend}", "M18")
-    if args.compaction != CompactionBackend.PALLAS.value:
-        raise _not_ported(f"--compaction {args.compaction}", "M12")
-    if (args.resume is not None or args.save_state is not None
-            or args.link_cache is not None or args.calibrate):
-        raise _not_ported("--resume, --save-state, --link-cache and "
-                          "--calibrate N > 0", "M13")
     if args.fetch != "auto" and not args.tiled:
         p.error("--fetch tiles/flat/mask applies to --tiled payloads")
     if args.bitmask and not args.tiled:
@@ -396,16 +424,50 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.land_batch:
         if not args.tiled:
             p.error("--land-batch requires --tiled payloads")
-        if args.pipelined:
-            p.error("--land-batch is exclusive with --pipelined")
+        if args.pipelined or args.backend == "oracle":
+            p.error("--land-batch is exclusive with --pipelined/--backend "
+                    "oracle (the oracle executor lands per frame)")
     return args
 
 
 def setup(argv=None):
     """Parse the command line (:func:`parse_args`); returns ``(config,
-    executor, args)``, the executor on its pipeline (with the
-    ``--threshold-map`` map) as :func:`main` serves it."""
+    executor, args)``, the executor as :func:`main` serves it: on its
+    pipeline (with the ``--threshold-map`` map, the ``--compaction``
+    backend), or the NumPy oracle; its state loaded under ``--resume``,
+    its rates from ``--link-cache`` and ``--calibrate``, in the JAX
+    server's order (``server.py:506-534``). Unlike the JAX server, it does
+    not start the executor on a frame of the source before serving: its
+    ``prewarm_fetch`` has nothing to compile and needs no state, so the
+    source's first frame stays the base frame."""
     args = parse_args(argv)
+    cfg, executor = _executor(args)
+    if args.resume or args.save_state:
+        if not hasattr(executor, "load_state"):
+            _parser().error("--resume/--save-state need a checkpointable "
+                            "executor (not available under --mesh or "
+                            "--backend oracle)")
+    if args.resume:
+        executor.load_state(args.resume)
+    warmable = hasattr(executor, "load_link_cache")
+    if args.link_cache and not warmable:
+        _parser().error("--link-cache needs a device StreamExecutor (not "
+                        "available under --mesh or --backend oracle)")
+    if args.link_cache and executor.load_link_cache(args.link_cache):
+        print(f"link cache loaded from {args.link_cache} (copy rate "
+              f"{executor.copy_rate} B/s)", file=sys.stderr)
+    if args.calibrate and warmable:
+        rate = executor.calibrate_link(rounds=args.calibrate)
+        print(f"calibrated copy rate {rate} B/s ({args.calibrate} copies)",
+              file=sys.stderr)
+    if warmable:
+        n = executor.prewarm_fetch()
+        print(f"prewarmed {n} fetch jits", file=sys.stderr)
+    return cfg, executor, args
+
+
+def _executor(args):
+    """The configuration and the executor the command line asks for."""
     mask_flavor = args.bitmask or args.fetch == "mask"
     cfg = StreamConfig(
         height=args.height,
@@ -414,6 +476,7 @@ def setup(argv=None):
         visualizer=Visualizer(args.visualizer),
         noise_filter=args.noise_filter,
         conv_k=args.conv_k,
+        compaction=CompactionBackend(args.compaction),
         host=args.host,
         port=args.port,
         payload_capacity=args.capacity,
@@ -436,16 +499,19 @@ def setup(argv=None):
         cls = (PipelinedShardedExecutor if args.pipelined
                else ShardedStreamExecutor)
         return cfg, cls(cfg, mesh=make_mesh(*args.mesh, device=args.device),
-                        threshold_map=thr_map), args
+                        threshold_map=thr_map)
+    if args.backend == "oracle":
+        if thr_map is not None:
+            _parser().error("--threshold-map is not supported by --backend "
+                            "oracle")
+        return cfg, OracleExecutor(cfg)
     pipe = DeltaStreamPipeline(cfg, device=args.device, threshold_map=thr_map)
     if args.land_batch:
-        executor = BatchedLandExecutor(cfg, pipeline=pipe,
-                                       depth=args.land_batch)
-    elif args.pipelined:
-        executor = PipelinedExecutor(cfg, pipeline=pipe)
-    else:
-        executor = StreamExecutor(cfg, pipeline=pipe)
-    return cfg, executor, args
+        return cfg, BatchedLandExecutor(cfg, pipeline=pipe,
+                                        depth=args.land_batch)
+    if args.pipelined:
+        return cfg, PipelinedExecutor(cfg, pipeline=pipe)
+    return cfg, StreamExecutor(cfg, pipeline=pipe)
 
 
 def main(argv=None) -> int:
@@ -455,16 +521,33 @@ def main(argv=None) -> int:
         source = PrefetchSource(source)
     if args.aux_dir:
         os.makedirs(args.aux_dir, exist_ok=True)
+    aux_sink = None
+    if args.aux_port is not None:
+        if not args.visualizer:
+            _parser().error("--aux-port needs --visualizer (no aux frame "
+                            "exists)")
+        aux_sink = AuxStreamSink(cfg.height, cfg.width, host=cfg.host,
+                                 port=args.aux_port)
+        print(f"aux stream on {cfg.host}:{aux_sink.port}", file=sys.stderr)
     server = DeltaStreamServer(cfg, source, executor=executor,
-                               aux_dir=args.aux_dir)
+                               aux_dir=args.aux_dir, resume=bool(args.resume),
+                               aux_sink=aux_sink)
     try:
         served = server.serve(max_frames=args.frames)
     finally:
         server.close()
+        if aux_sink is not None:
+            aux_sink.close()
         # the prefetch thread and the camera handle
         close = getattr(source, "close", None)
         if close is not None:
             close()
+    if args.save_state:
+        executor.save_state(args.save_state)
+        print(f"state saved to {args.save_state}", file=sys.stderr)
+    if args.link_cache:
+        executor.save_link_cache(args.link_cache)
+        print(f"link cache saved to {args.link_cache}", file=sys.stderr)
     print(f"served {served} frames", file=sys.stderr)
     return 0
 

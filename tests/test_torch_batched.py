@@ -290,7 +290,9 @@ def test_batched_pipeline_refusals(small_config):
         pipe.step(prev, frames[:1], ["a", "b"])
     with pytest.raises(ValueError, match="base frame size"):
         pipe.init_state(np.zeros((2, 7), np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M12"):
+    # the HOST backend's host shadow serves one stream: refused, as the
+    # JAX package refuses it (SORT runs the solo step per stream)
+    with pytest.raises(ValueError, match="HOST compaction packs per stream"):
         BatchedDeltaPipeline(dataclasses.replace(
             cfg, tiled_payload=False,
-            compaction=type(cfg.compaction)("sort")), 2, device="cpu")
+            compaction=type(cfg.compaction)("host")), 2, device="cpu")

@@ -477,9 +477,8 @@ def test_multiserve_main_and_client_main(capsys, tmp_path):
     (multiserve, ["--source", "file"],
      (ValueError, "file source needs --path")),
     (multiserve, ["--path", "x.npy"], ("path", "x.npy")),
-    (broadcast, ["--link-cache", "l.json"],
-     (NotImplementedError, "ROADMAP.md M13")),
-    (broadcast, ["--calibrate", "2"], (NotImplementedError, "ROADMAP.md M13")),
+    (broadcast, ["--link-cache", "l.json"], ("link_cache", "l.json")),
+    (broadcast, ["--calibrate", "2"], ("calibrate", 2)),
     (broadcast, ["--source", "v4l2", "--path", "/nonexistent/video9"],
      (RuntimeError, "camera device /nonexistent/video9 not present")),
 ], ids=["multi_mesh", "multi_file", "multi_path", "bc_link_cache",
@@ -487,8 +486,9 @@ def test_multiserve_main_and_client_main(capsys, tmp_path):
 def test_entry_points_name_their_roadmap_item(module, argv, want):
     """Options of parts not ported yet name their ROADMAP.md item. Options
     ported since are taken (``want`` an attribute and its parsed value:
-    ``--mesh``, M15; ``--path``, M16), or fail as the JAX entry points do
-    (a file source without ``--path``, a camera that is not there)."""
+    ``--mesh``, M15; ``--path``, M16; ``--link-cache`` and ``--calibrate``,
+    M13), or fail as the JAX entry points do (a file source without
+    ``--path``, a camera that is not there)."""
     argv = argv + ["--device", "cpu", "--height", "48", "--width", "64"]
     key, value = want
     if isinstance(key, str):

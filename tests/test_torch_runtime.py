@@ -325,10 +325,11 @@ _CONTEXT = {"--fetch": ["--tiled"], "--bitmask": ["--tiled"],
                                   "broadcast", "replay"])
 def test_port_takes_every_jax_option(name, tmp_path):
     """Each option of the JAX entry point's command line, with each of its
-    choices: the port's parser accepts it, or raises
-    ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it;
-    never a usage error. ``--no-pair-lanes`` and ``--calibrate 0`` are
-    documented no-ops."""
+    choices: the port's parser accepts it (every part is ported: a
+    ``NotImplementedError`` would have to name the ``ROADMAP.md`` item
+    that ports it); never a usage error. ``--no-pair-lanes`` is a
+    documented no-op and ``--calibrate 0`` turns the calibration off;
+    ``--calibrate`` takes the JAX default of 2."""
     import importlib
     import re
 
@@ -356,10 +357,10 @@ def test_port_takes_every_jax_option(name, tmp_path):
             except SystemExit:
                 bad.append((argv, "usage error"))
     assert not bad, bad
-    if name in ("server", "client", "broadcast"):
-        assert refused
+    assert not refused
     if name in ("server", "broadcast"):
         assert module.parse_args(base + ["--calibrate", "0"]).calibrate == 0
+        assert module.parse_args(base).calibrate == 2
     if name in ("server", "multiserve"):
         # --mesh is served: the sharded pipeline over a (1, 1) mesh
         assert module.parse_args(base + ["--mesh", "1,1"]).mesh == (1, 1)
@@ -368,8 +369,12 @@ def test_port_takes_every_jax_option(name, tmp_path):
         assert type(ex).__name__ == "ShardedStreamExecutor"
         cfg = server_mod.setup(base + ["--no-pair-lanes"])[0]
         assert cfg.pair_lanes is False
-        with pytest.raises(NotImplementedError, match="ROADMAP.md M12"):
-            server_mod.setup(base + ["--compaction", "sort"])
+        for backend in ("sort", "host"):
+            cfg, ex, _ = server_mod.setup(base + ["--compaction", backend])
+            assert cfg.compaction.value == backend
+            assert type(ex).__name__ == "StreamExecutor"
+        cfg, ex, _ = server_mod.setup(base + ["--backend", "oracle"])
+        assert type(ex).__name__ == "OracleExecutor"
 
 # -- the tiled slice: tiled payloads, wire v2/v3, the pipelined executor --
 

@@ -425,9 +425,9 @@ def test_server_mesh_refusals(flags):
 
 def test_mesh_construction_refusals():
     """The executor's, the pipeline's, the mesh's and multiserve's
-    refusals, each as the JAX package makes it; and the port's own: a
-    shard past int32 (the JAX sort backend, ROADMAP.md M12), and a mesh
-    on CUDA where there is none."""
+    refusals, each as the JAX package makes it; a shard past int32, which
+    goes to compact_sort, refused there as in the JAX package; and the
+    port's own: a mesh on CUDA where there is none."""
     cfg, jcfg = _cfg(), jax_config(_cfg())
     for tiled, d, msg in ((True, 1, "single-chip emit mode"),
                           (False, 2, "data axis must be 1")):
@@ -453,7 +453,7 @@ def test_mesh_construction_refusals():
         jax_make_mesh(9)
     with pytest.raises(ValueError, match="requested 9 devices, have 8"):
         make_mesh(9, devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M12"):
+    with pytest.raises(ValueError, match="exceeds packed-key compaction"):
         ShardedDeltaPipeline(StreamConfig(height=2 ** 15, width=2 ** 15),
                              make_mesh(1, device="cpu"))
     if not torch.cuda.is_available():

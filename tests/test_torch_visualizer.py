@@ -313,13 +313,14 @@ def test_aux_dir_loopback_matches_jax(tmp_path, rng, vis):
                               visualizer=Visualizer.NONE)),
     (["--visualizer", "6"], SystemExit),
     (["--conv-k", "16", "--noise-filter"], ValueError),
-    (["--aux-port", "2800", "--visualizer", "1"], NotImplementedError),
+    (["--aux-port", "0", "--visualizer", "1"],
+     dict(visualizer=Visualizer.HEATMAP)),
 ], ids=["binarize", "heatmap_denoised", "maskonly_red_overlap",
         "noise_filter", "bad_visualizer", "bad_conv_k", "aux_port"])
 def test_server_main_visualizer_flags(flags, want, tmp_path, monkeypatch):
-    """The JAX server's --visualizer, --noise-filter, --conv-k and
-    --aux-dir map to the config and the server; --aux-port waits for its
-    ROADMAP item."""
+    """The JAX server's --visualizer, --noise-filter, --conv-k, --aux-dir
+    and --aux-port map to the config and the server (--aux-port to its
+    live aux sink)."""
     served = []
     monkeypatch.setattr(server_mod.DeltaStreamServer, "serve",
                         lambda self, max_frames=None: served.append(self)
@@ -328,8 +329,7 @@ def test_server_main_visualizer_flags(flags, want, tmp_path, monkeypatch):
     args = ["--device", "cpu", "--frames", "1", "--height", "48", "--width",
             "64", "--aux-dir", aux_dir] + flags
     if isinstance(want, type):
-        with pytest.raises(want, match="M18" if want is
-                           NotImplementedError else None):
+        with pytest.raises(want):
             server_mod.main(args)
         assert not served
         return
@@ -338,6 +338,7 @@ def test_server_main_visualizer_flags(flags, want, tmp_path, monkeypatch):
     for k, v in want.items():
         assert getattr(srv.cfg, k) == v, k
     assert srv.aux_dir == aux_dir and srv.aux_every == 30
+    assert (srv.aux_sink is not None) == ("--aux-port" in flags)
     assert os.path.isdir(aux_dir)
 
 
