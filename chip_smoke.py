@@ -125,7 +125,22 @@ Phases (any failure raises and the script exits non-zero):
    against ``step_oracle`` with its launches counted; ``median_filter``
    at k = 3, 5, 7 against ``reference_cpu``; the sort step against the
    pallas step, the host's pack time, the served runs' device idle share
-   from a trace, and ``median_filter`` at k = 3 and 5 are timed;
+   from a trace, and ``median_filter`` at k = 3 and 5 are timed; then the
+   headline bench, ``python -m cudavideostream_tpu_torch.bench`` with
+   ``--emit tiled`` and ``--emit flat`` (16 steps in one CUDA graph, 5
+   replays) and ``--all-variants`` (8 steps, 3 replays, one process a
+   variant), each gated byte-exact against ``step_oracle`` and printing
+   its one JSON line; and in this process the tiled, flat, binarize and
+   tiled ``--noise-bank 0`` runs, whose captured graph must hold T nodes
+   of K1 (and of K4 under binarize), whose every replay must equal the
+   same steps launched eagerly (timed beside it), and whose fps times
+   the bytes a step must move (the generator's plane read and frame
+   write, K1's, the digest's) must stay under 3.35 TB/s; then the
+   measurement utils on the card: ``bench_scan_chain`` over the tiled
+   steps (within 2x of the tiled run's replays), ``bench_op``,
+   ``bench_op_amortized`` and ``measure_rtt`` on the device generator,
+   and a ``profiling.trace`` whose ``trace.json`` must hold K1's CUDA
+   kernel record and the ``annotate``d span;
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2), the empty-launch floor (``torch.cuda._sleep(0)``),
@@ -170,6 +185,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -2404,7 +2420,6 @@ def _graph_per_call(fn, names, label, calls=3):
     name is read where the driver can (``cuFuncGetName`` or
     ``cuKernelGetName``) and must then hold one of ``names``. A memset
     node fails the call: a one-launch kernel zeroes nothing apart."""
-    cu = ctypes.CDLL("libcuda.so.1")
     stream = torch.cuda.Stream()
     with torch.cuda.stream(stream):
         fn(0)
@@ -2414,6 +2429,34 @@ def _graph_per_call(fn, names, label, calls=3):
                           capture_error_mode="thread_local"):
         for i in range(calls):
             fn(i)
+    kinds, kernel_names = _graph_nodes(graph)
+    graph.reset()
+    total = sum(kinds.values())
+    kernels = kinds.get(0, 0)
+    per = kernels / calls
+    known = [k for k in kernel_names if k is not None]
+    memsets = kinds.get(2, 0)  # CU_GRAPH_NODE_TYPE_MEMSET
+    log(f"[trace] {label}: {per:g} kernel(s) per call in a graph capture "
+        f"of {calls} calls ({total} nodes: {kernels} kernel, "
+        f"{memsets} memset, {total - kernels - memsets} other; names "
+        + (", ".join(sorted(set(_demangled_tail(k, names) for k in known)))
+           if known else "not read") + ")")
+    if memsets:
+        raise AssertionError(f"{label}: the graph capture holds {memsets} "
+                             f"memset node(s)")
+    strays = [k for k in known if not any(n in k for n in names)]
+    if strays:
+        raise AssertionError(f"{label}: the graph capture holds kernels "
+                             f"other than {names}: {sorted(set(strays))}")
+    return per
+
+
+def _graph_nodes(graph):
+    """The nodes of a kept CUDA graph (``keep_graph=True``), read with
+    the CUDA driver API's ``cuGraphGetNodes``: their count by node type
+    (``CUgraphNodeType``: 0 kernel, 2 memset) and each kernel node's
+    mangled name, None where the CUDA driver cannot say."""
+    cu = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
     _cu_ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)),
@@ -2429,24 +2472,7 @@ def _graph_per_call(fn, names, label, calls=3):
         kinds[kind.value] = kinds.get(kind.value, 0) + 1
         if kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
             kernel_names.append(_kernel_node_name(cu, node))
-    graph.reset()
-    kernels = kinds.get(0, 0)
-    per = kernels / calls
-    known = [k for k in kernel_names if k is not None]
-    memsets = kinds.get(2, 0)  # CU_GRAPH_NODE_TYPE_MEMSET
-    log(f"[trace] {label}: {per:g} kernel(s) per call in a graph capture "
-        f"of {calls} calls ({count.value} nodes: {kernels} kernel, "
-        f"{memsets} memset, {count.value - kernels - memsets} other; names "
-        + (", ".join(sorted(set(_demangled_tail(k, names) for k in known)))
-           if known else "not read") + ")")
-    if memsets:
-        raise AssertionError(f"{label}: the graph capture holds {memsets} "
-                             f"memset node(s)")
-    strays = [k for k in known if not any(n in k for n in names)]
-    if strays:
-        raise AssertionError(f"{label}: the graph capture holds kernels "
-                             f"other than {names}: {sorted(set(strays))}")
-    return per
+    return kinds, kernel_names
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -4799,6 +4825,291 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
     return out
 
 
+BENCH_FRAMES, BENCH_ITERS = 16, 5  # the headline runs: T steps, replays
+VARIANT_FRAMES, VARIANT_ITERS = 8, 3  # the --all-variants run
+BENCH_JSON_KEYS = {"metric", "value", "unit", "vs_baseline"}
+BENCH_STDERR_KEYS = ("bench: card", "byte-exact vs oracle", "fps samples",
+                     "peak device memory", "FAILED", "wrote")
+
+
+def _bench_cli(argv, timeout):
+    """``python -m cudavideostream_tpu_torch.bench ARGV`` from the root of
+    the checkout: it must exit 0, pass its gate and print exactly one
+    JSON line with the JAX bench's keys. Logs its stderr's result lines;
+    returns the line's record."""
+    cmd = [sys.executable, "-m", "cudavideostream_tpu_torch.bench", *argv]
+    shown = "python -m cudavideostream_tpu_torch.bench " + " ".join(argv)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if any(k in line for k in BENCH_STDERR_KEYS):
+            log(f"[bench]   {line}")
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"{shown}: rc {proc.returncode}, {len(lines)} "
+                             f"stdout lines:\n{proc.stdout}\n{proc.stderr}")
+    if "[headline] byte-exact vs oracle: OK" not in proc.stderr:
+        raise AssertionError(f"{shown}: its gate did not pass")
+    rec = json.loads(lines[0])
+    if (set(rec) != BENCH_JSON_KEYS
+            or rec["metric"] != "1080p_fps_per_chip_diff_encode_compact"
+            or not rec["value"] > 0):
+        raise AssertionError(f"{shown}: bad result line {lines[0]}")
+    log(f"[bench] {shown}: exit 0 in {secs:.1f} s, gate byte-exact against "
+        f"step_oracle; {lines[0]}")
+    return rec
+
+
+def _bench_bytes(vcfg):
+    """The bytes one bench step must move at ``vcfg``, from one step's
+    outputs: the generator's plane read and frame write (2n), K1's read
+    of cur and prev and its writes (new_prev, pos, counts, the payload
+    blocks, the bits) and the digest's reads of the payload (and of the
+    aux frame)."""
+    from cudavideostream_tpu_torch import bench
+
+    chain = bench.BenchChain(vcfg, bench.TEXT, 1)
+    out = chain.pipe.step(chain.init.clone(), chain.frame(0), bench.TEXT)
+    _, _, xs, vals, aux = bench.payload_parts(vcfg, out)
+    n = vcfg.frame_bytes
+    outputs = out[1:-1]  # pos, counts, the blocks, the bits (not aux)
+    k1 = 3 * n + sum(t.nbytes for t in outputs)
+    digest = xs.nbytes + vals.nbytes + (0 if aux is None else aux.nbytes)
+    return {"generator": 2 * n, "k1": k1, "digest": digest,
+            "total": 2 * n + k1 + digest}
+
+
+def _op_name(key):
+    """A profiler key's kernel name, with the functor a generic PyTorch
+    kernel runs: ``void at::native::vectorized_elementwise_kernel<4,
+    at::native::BitwiseAndFunctor<bool>, ...>(...)`` ->
+    ``vectorized_elementwise_kernel[BitwiseAndFunctor]``."""
+    head = key.replace("(anonymous namespace)::", "")
+    head = head[len("void "):] if head.startswith("void ") else head
+    base = head.split("<")[0].split("(")[0].split("::")[-1].strip()
+    for tail in ("Functor|functor", "_kernel_cuda|_kernel_impl"):
+        inner = [w for w in re.findall(rf"(\w+(?:{tail}))\b", head)
+                 if w != base]
+        if inner:
+            return f"{base}[{inner[0]}]"
+    return base
+
+
+def _replay_breakdown(g, label, step_ms, replays=3):
+    """Device time per step of each kernel of a bench graph, from a
+    profiler trace of ``replays`` replays (the profiler may lose
+    records: the line says how many it kept), against the step's
+    CUDA-event time ``step_ms``: the rest is the gaps between the
+    graph's nodes. Returns ``{kernel: ms a step}``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(replays):
+            g.replay()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    steps = replays * g.k
+    by_name, kept = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = _op_name(e.key)
+            ms, count = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + e.device_time_total / 1e3 / steps,
+                             count + e.count)
+            kept += e.count
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    busy = sum(ms for ms, _ in by_name.values())
+    log(f"[bench] {label}: where a replayed step's {step_ms:.4f} ms go "
+        f"(profiler over {replays} replays, {kept} device records kept): "
+        f"kernels and copies {busy:.4f} ms, gaps {step_ms - busy:.4f} ms; "
+        + "; ".join(f"{name} {ms:.4f} ms x{c / steps:g}"
+                    for name, (ms, c) in rows[:12]))
+    return {name: ms for name, (ms, _) in rows}
+
+
+def phase_bench(cfg, smi):
+    """The headline bench: ``python -m cudavideostream_tpu_torch.bench``
+    with ``--emit tiled`` and ``flat`` and ``--all-variants`` (one
+    process per variant), each gated byte-exact against step_oracle;
+    then, in this process with the launch counts set to 0 before each
+    run, the tiled, flat, binarize and tiled bank-0 runs whose captured
+    CUDA graph must hold T K1 nodes (and T K4 nodes under binarize),
+    whose replays must equal the eager steps (under bank 0 each replay
+    reads the key words refilled before it), and whose fps times the
+    bytes a step must move must stay under the card's 3.35 TB/s; then
+    the measurement utils (:func:`_bench_utils`)."""
+    from cudavideostream_tpu_torch import bench
+    from cudavideostream_tpu_torch.config import Visualizer
+
+    log(f"[bench] {smi}")
+    cli = {}
+    for emit in ("tiled", "flat"):
+        cli[emit] = _bench_cli(["--frames", str(BENCH_FRAMES), "--iters",
+                                str(BENCH_ITERS), "--emit", emit], 600)
+    cli["all_variants"] = _bench_cli(
+        ["--all-variants", "--frames", str(VARIANT_FRAMES), "--iters",
+         str(VARIANT_ITERS)], 600)
+    with open(bench.VARIANTS_JSON) as f:
+        table = json.load(f)
+    from cudavideostream_tpu_torch.models import variants
+
+    if sorted(table) != variants.available() or not all(
+            v > 0 for v in table.values()):
+        raise AssertionError(f"--all-variants table {table}")
+    log(f"[bench] --all-variants --frames {VARIANT_FRAMES} --iters "
+        f"{VARIANT_ITERS}: every variant's process passed its gate; fps "
+        + ", ".join(f"{k} {v}" for k, v in table.items()) + f" ({smi})")
+
+    tcfg = dataclasses.replace(cfg, tiled_payload=True)
+    runs, out = {}, {"cli": cli, "variants": table}
+    k1_tiled = {"fused_diff_compact_tiled": "tiled_unit_kernel"}
+    for label, vcfg, frames, iters, bank, want in (
+            ("tiled", tcfg, BENCH_FRAMES, BENCH_ITERS, 8, k1_tiled),
+            ("flat", cfg, BENCH_FRAMES, BENCH_ITERS, 8,
+             {"fused_diff_compact": "flat_lookback_kernel"}),
+            ("binarize", dataclasses.replace(
+                tcfg, visualizer=Visualizer.BINARIZE),
+             VARIANT_FRAMES, VARIANT_ITERS, 8,
+             {**k1_tiled, "histogram": "hist_kernel"}),
+            ("tiled bank 0", tcfg, VARIANT_FRAMES, VARIANT_ITERS, 0,
+             k1_tiled)):
+        nbytes = _bench_bytes(vcfg)
+        census = {}
+
+        def on_capture(g):
+            kinds, names = _graph_nodes(g.graph)
+            census.update(kinds=kinds, names=names, graph=g)
+
+        counters = _zero_launches()
+        res = bench.run_config(vcfg, bench.TEXT, frames, iters,
+                               label=f"bench {label}", noise_bank=bank,
+                               on_capture=on_capture)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        # the gate, two warm-up passes, the capture, and the iters + 1
+        # eager passes that check the replays: each a wrapper call that
+        # launches (a replay calls no wrapper)
+        calls = 1 + 3 * frames + (iters + 1) * frames
+        _expect_launches({"launches": launches, "frames": frames},
+                         f"bench {label}",
+                         {**dict.fromkeys(counters, 0),
+                          **dict.fromkeys(want, calls)})
+        names = census["names"]
+        if any(n is None for n in names):
+            raise AssertionError(f"bench {label}: the CUDA driver did not "
+                                 f"name every kernel node of the graph")
+        nodes = {k: sum(kern in n for n in names)
+                 for k, kern in want.items()}
+        for k, got in nodes.items():
+            if got != frames:
+                raise AssertionError(f"bench {label}: the graph of {frames} "
+                                     f"steps holds {got} {want[k]} nodes")
+        tbps = res["fps"] * nbytes["total"] / 1e12
+        log(f"[bench] {label}: the CUDA graph of {frames} steps holds "
+            f"{sum(census['kinds'].values())} nodes ({census['kinds'].get(0, 0)} "
+            f"kernel, {census['kinds'].get(2, 0)} memset), among them "
+            + ", ".join(f"{want[k]} x{v}" for k, v in nodes.items())
+            + f"; {res['fps']:.2f} fps replayed (CUDA events, median of "
+            f"{iters} replays: "
+            + ", ".join(f"{x:.2f}" for x in res["samples"])
+            + f") against {res['eager_fps']:.2f} fps launched eagerly ("
+            + ", ".join(f"{x:.2f}" for x in res["eager_samples"])
+            + f"; every replay == the eager steps); peak "
+            f"{res['peak_bytes']} B of device memory; {smi}")
+        log(f"[bench] {label}: a step must move {nbytes['total']} B "
+            f"(generator {nbytes['generator']}, K1 {nbytes['k1']}, digest "
+            f"{nbytes['digest']}): {res['fps']:.2f} fps x {nbytes['total']} "
+            f"B = {tbps:.4f} TB/s, {tbps / (HBM_BYTES_PER_S / 1e12):.1%} of "
+            f"3.35 TB/s")
+        if tbps * 1e12 > HBM_BYTES_PER_S:
+            raise AssertionError(f"bench {label}: {tbps:.3f} TB/s is more "
+                                 f"than the card moves: work was skipped")
+        g = census.pop("graph")
+        breakdown = _replay_breakdown(g, label, 1e3 / res["fps"])
+        # every replay of the graph: its upload, the timed ones, one
+        # before each eager pass and the profiler's
+        runs[f"bench {label}"] = {"launches": launches, "frames": frames,
+                                  "graph_nodes": nodes,
+                                  "replays": g.replays}
+        out[label] = {"fps": res["fps"], "eager_fps": res["eager_fps"],
+                      "samples": res["samples"],
+                      "eager_samples": res["eager_samples"],
+                      "peak_bytes": res["peak_bytes"], "bytes": nbytes,
+                      "tbps": tbps, "kernels_ms_per_step": breakdown}
+    out["utils"] = _bench_utils(tcfg, out["tiled"]["fps"], smi, runs)
+    out["runs"] = runs
+    return out
+
+
+def _bench_utils(tcfg, fps, smi, runs):
+    """The port's measurement utils on the card, over the bench's tiled
+    steps, with the launch counts set to 0 first: ``bench_scan_chain``
+    (its ms a step within 2x of ``1e3 / fps``, the tiled run's replays
+    of the same steps), one eager step inside ``profiling.trace`` and
+    ``annotate`` (its ``trace.json`` must hold K1's CUDA kernel record
+    and the span), and ``bench_op``, ``bench_op_amortized`` and
+    ``measure_rtt`` on the device generator (which launches no kernel of
+    the port). Adds the run to ``runs``; returns the times."""
+    from cudavideostream_tpu_torch import bench
+    from cudavideostream_tpu_torch.utils import profiling, timing
+
+    counters = _zero_launches()
+    chain = bench.BenchChain(tcfg, bench.TEXT, BENCH_FRAMES)
+    ticks = iter(range(1 << 30))
+
+    def one(prev):
+        # frames 0 .. T-1 in turn: the capture follows whole warm-up
+        # passes, so the graph holds t = 0 .. T-1 as the bench's does
+        return chain.step(prev, next(ticks) % BENCH_FRAMES)
+
+    carry = chain.init.clone()
+    ms = timing.bench_scan_chain(one, carry, k=BENCH_FRAMES,
+                                 iters=BENCH_ITERS)
+    ratio = ms * fps / 1e3
+    if not 0.5 < ratio < 2.0:
+        raise AssertionError(f"bench_scan_chain: {ms:.4f} ms a step, "
+                             f"{ratio:.2f}x the tiled run's replays")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            with profiling.annotate("bench step"):
+                chain.step(carry, 0)
+        with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    if (not any("tiled_unit_kernel" in k for k in kernels)
+            or not any(e.get("name") == "bench step" for e in events)):
+        raise AssertionError(f"profiling.trace on the card: no K1 kernel "
+                             f"record or no span among {len(events)} events "
+                             f"({len(kernels)} kernel records)")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    _expect_launches(
+        {"launches": launches, "frames": BENCH_FRAMES}, "bench scan_chain",
+        {**dict.fromkeys(counters, 0), "fused_diff_compact_tiled":
+         (timing.ChainGraph.WARMUP_PASSES + 1) * BENCH_FRAMES + 1})
+    runs["bench scan_chain"] = {"launches": launches,
+                                "frames": BENCH_FRAMES, "graph_nodes": {}}
+    op_ms = timing.bench_op(chain.frame, 0)
+    amortized_ms = timing.bench_op_amortized(chain.frame, 0)
+    rtt_s = timing.measure_rtt(chain.init)
+    if not (op_ms > 0 and amortized_ms >= 0 and rtt_s > 0):
+        raise AssertionError(f"bench_op {op_ms}, bench_op_amortized "
+                             f"{amortized_ms}, measure_rtt {rtt_s}")
+    log(f"[bench] utils on the card: bench_scan_chain {ms:.4f} ms a tiled "
+        f"step ({BENCH_FRAMES} steps a graph, {BENCH_ITERS} replays; "
+        f"{ratio:.3f}x the tiled run's); profiling.trace holds "
+        f"{len(kernels)} CUDA kernel records, K1's and the annotated span "
+        f"among them; the device generator: bench_op {op_ms:.4f} ms, "
+        f"bench_op_amortized {amortized_ms:.4f} ms; measure_rtt "
+        f"{rtt_s * 1e6:.1f} us ({smi})")
+    return {"scan_chain_ms": ms, "scan_chain_ratio": ratio,
+            "trace_kernel_records": len(kernels), "bench_op_ms": op_ms,
+            "bench_op_amortized_ms": amortized_ms, "measure_rtt_s": rtt_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4915,6 +5226,10 @@ def main() -> int:
     extras = phase_backends_and_extras(cfg, smi)
     for key, run in extras["runs"].items():
         runs[f"backends {key}"] = run
+    bench_out = phase_bench(cfg, smi)
+    runs.update(bench_out["runs"])
+    log("[bench] summary " + json.dumps(
+        {k: v for k, v in bench_out.items() if k != "runs"}))
     none = dict.fromkeys(_launch_counters(), 0)
     for key, s_count in (("mesh11_v1", 1), ("mesh11_pipelined_v3", 1),
                          ("mesh14_cuda0", 4)):
@@ -5101,6 +5416,15 @@ def main() -> int:
                         "fused_diff_compact_mask": "mask"}[name]
             extra = {"map_ms": xtimes["k1_map_ms"][emission],
                      "map_bound_ms": xtimes["k1_map_bound_ms"][emission]}
+        # the bench path's CUDA graphs: this kernel's nodes in each, and
+        # the replays that launched them (the wrapper counts its calls,
+        # the capture's included, never a replay)
+        graphs = {k: {"nodes": r["graph_nodes"][name],
+                      "replays": r["replays"]}
+                  for k, r in bench_out["runs"].items()
+                  if name in r["graph_nodes"]}
+        if graphs:
+            extra["bench_graphs"] = graphs
         if name in REDESIGNED:
             # one launch a call now, as this run's trace counts them
             extra.update(redesigned=REDESIGNED[name], launches_per_call={

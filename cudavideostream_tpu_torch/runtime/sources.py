@@ -342,6 +342,9 @@ def device_synthetic_frames(config: StreamConfig, seed: int = 0,
     * ``key``: the words of the JAX step's key (``jax.random.key_data``,
       any sequence of uint32 words): the hash's seed is ``key[0] ^
       (key[-1] * 2654435761)`` mod 2**32, as the JAX generator takes it.
+      A tensor of words gives the same frame with the seed computed on
+      the device, so a captured CUDA graph takes new words on each
+      replay (the words of a static tensor, refilled between replays).
     * ``noise_bank > 0`` makes that many clipped noisy planes at init
       (plane ``k`` hashed with seed ``seed * 0x9E3779B9 + 0x85EB + k`` mod
       2**32; the JAX generator refuses a seed whose sum passes 2**32) and
@@ -408,8 +411,14 @@ def device_synthetic_frames(config: StreamConfig, seed: int = 0,
         return init, next_frame
 
     def next_frame(key, t: int) -> torch.Tensor:
-        words = [int(k) & _M32 for k in np.asarray(key).ravel()]
-        seed32 = words[0] ^ ((words[-1] * _H0) & _M32)
+        if isinstance(key, torch.Tensor):
+            # on the device, never read by the host: a CUDA graph that
+            # captures the frame reads the key words of each replay
+            words = key.to(device, torch.int64).reshape(-1) & _M32
+            seed32 = words[0] ^ ((words[-1] * _H0) & _M32)
+        else:
+            words = [int(k) & _M32 for k in np.asarray(key).ravel()]
+            seed32 = words[0] ^ ((words[-1] * _H0) & _M32)
         img = torch.where(box(t), 255, bg32 + hash_noise(seed32))
         return torch.clamp(img, 0, 255).to(torch.uint8).reshape(-1)
 

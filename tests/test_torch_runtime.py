@@ -254,7 +254,11 @@ def test_port_imports_nothing_of_jax():
                 "parallel/__init__.py", "parallel/mesh.py",
                 "parallel/halo_conv.py", "parallel/sharded.py",
                 "runtime/sharded_executor.py", "runtime/sources.py",
-                "native/__init__.py", "native/build.py"):
+                "native/__init__.py", "native/build.py", "bench.py",
+                "utils/timing.py", "utils/profiling.py", "utils/png.py",
+                "utils/shapes.py", "examples/stream_demo.py",
+                "examples/make_artifacts.py",
+                "examples/classical_heatmap.py"):
         assert f"cudavideostream_tpu_torch/{mod}" in rel, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
