@@ -140,7 +140,18 @@ Phases (any failure raises and the script exits non-zero):
    steps (within 2x of the tiled run's replays), ``bench_op``,
    ``bench_op_amortized`` and ``measure_rtt`` on the device generator,
    and a ``profiling.trace`` whose ``trace.json`` must hold K1's CUDA
-   kernel record and the ``annotate``d span;
+   kernel record and the ``annotate``d span; then the per-kernel table:
+   ``python -m cudavideostream_tpu_torch.bench --full`` (the headline's
+   JSON line, then every row of the table and the ``prev_copy`` line
+   with a finite time above 0), one step of each of its 22 rows at 1080p
+   on the card against the same step through the plain versions on the
+   CPU, byte for byte, and each row's CUDA graph captured in this
+   process as the table captures it, the launch counts set to 0 first:
+   it must hold one node a step of each kernel its row launches (K1 flat
+   or tiled, two for K1's whole-tile chunk path; K5 and K2 on the
+   segment row; K4 on ``histogram`` and ``binarize_pipeline``) and no
+   other kernel of the port, and its carry after the table's replays
+   must equal the same steps launched eagerly, byte for byte;
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2), the empty-launch floor (``torch.cuda._sleep(0)``),
@@ -3738,25 +3749,40 @@ def _state_sum(state):
     return int(state.sum(dtype=np.uint64))
 
 
+def _frames_before_serving(argv):
+    """The frames ``server.main(argv)`` takes from its source before it
+    serves: one where it starts a device executor on the source's base
+    frame, as the JAX server does (``server.py:526-533``): under
+    ``--link-cache`` or ``--calibrate`` (default 2), unless ``--resume``,
+    ``--mesh`` or ``--backend oracle``; else none."""
+    def value(flag, default):
+        return argv[argv.index(flag) + 1] if flag in argv else default
+
+    warmable = "--mesh" not in argv and value("--backend", "") != "oracle"
+    asked = "--link-cache" in argv or int(value("--calibrate", 2))
+    return int(warmable and bool(asked) and "--resume" not in argv)
+
+
 class _ClipOracle:
     """``step_oracle``'s states for a looping file clip served from its
-    first frame, per sequence of overlay texts (one a served frame): each
-    state's sha256 and byte sum, and the last state."""
+    frame ``first`` (the base frame), per sequence of overlay texts (one a
+    served frame): each state's sha256 and byte sum, and the last
+    state."""
 
     def __init__(self, cfg, frames, atlas):
         self.cfg, self.frames, self.atlas = cfg, frames, atlas
         self._memo = {}
 
-    def states(self, texts):
+    def states(self, texts, first=0):
         from cudavideostream_tpu_torch.ops import reference_cpu
         from cudavideostream_tpu_torch.utils import fonts
 
-        key = tuple(texts)
+        key = (first, tuple(texts))
         if key not in self._memo:
-            prev = self.frames[0]
+            prev = self.frames[first]
             digests = [hashlib.sha256(prev).hexdigest()]
             sums, positions = [_state_sum(prev)], []
-            for k, text in enumerate(texts, start=1):
+            for k, text in enumerate(texts, start=first + 1):
                 prev, pos = reference_cpu.step_oracle(
                     prev, self.frames[k % len(self.frames)], self.cfg,
                     atlas=self.atlas, char_ids=fonts.encode_text(text))[:2]
@@ -3859,9 +3885,9 @@ def _serve_file_main(argv, client, cfg):
     real_setup, real_make = server_mod.setup, server_mod.make_source
 
     def setup(a=None):
-        cfg_, ex, args = real_setup(a)
+        cfg_, ex, source, args = real_setup(a)
         made["inner"], made["rec"] = ex, _RecordingExecutor(ex)
-        return cfg_, made["rec"], args
+        return cfg_, made["rec"], source, args
 
     def make_source(*a, **kw):
         made["source"] = _TimedSource(real_make(*a, **kw))
@@ -4172,7 +4198,10 @@ def phase_camera_path(cfg, smi, device="cuda"):
             if len(rec.texts) != n:
                 raise AssertionError(f"{label}: served {len(rec.texts)} "
                                      f"of {n} frames")
-            want = oracle.states(rec.texts)
+            # the base frame is the clip's frame 1: the server started its
+            # executor on frame 0, as the JAX server does
+            want = oracle.states(rec.texts,
+                                 first=_frames_before_serving(base + flags))
             if rec.digests != want["digests"][1:]:
                 raise AssertionError(f"{label}: the server's states != "
                                      "step_oracle's")
@@ -4347,9 +4376,9 @@ def _serve_main(argv, client, trace=False):
     real_setup, real_sink = server_mod.setup, server_mod.AuxStreamSink
 
     def setup(a=None):
-        cfg_, ex, args = real_setup(a)
+        cfg_, ex, source, args = real_setup(a)
         made["inner"], made["rec"] = ex, _TextsExecutor(ex)
-        return cfg_, made["rec"], args
+        return cfg_, made["rec"], source, args
 
     def sink(*a, **kw):
         made["sink"] = real_sink(*a, **kw)
@@ -4574,8 +4603,9 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
             if len(rec.texts) != frames_n:
                 raise AssertionError(f"{label}: served {len(rec.texts)} of "
                                      f"{frames_n} frames")
-            states = _chain_digests(c, frames[0], frames, 1, rec.texts,
-                                    atlas)[0]
+            first = _frames_before_serving(argv)
+            states = _chain_digests(c, frames[first], frames, first + 1,
+                                    rec.texts, atlas)[0]
             if run["got"] is not None and "states" in run["got"]:
                 _check_states(label, run["got"], states)
             if want is not None:
@@ -4662,7 +4692,8 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
                 client=aux_client, want={
                     "fused_diff_compact": n,
                     "histogram": n if vis == 5 else 0})
-            auxes = _chain_digests(vcfg, frames[0], frames, 1,
+            first = _frames_before_serving(base)
+            auxes = _chain_digests(vcfg, frames[first], frames, first + 1,
                                    run["rec"].texts, atlas, aux=True)[1]
             if not received or any(d != auxes[i] for i, d in received):
                 raise AssertionError(f"{label}: the aux stream's frames != "
@@ -4724,8 +4755,8 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
             f"B/s and extra times {first['lander']['extra_s']}; run 2 "
             f"(--calibrate 0) loaded it and its lander started from that "
             f"rate; both runs byte-exact")
-        _, ex, _ = server_mod.setup(["--port", "0", "--calibrate", "2",
-                                     "--device", device])
+        _, ex, _, _ = server_mod.setup(["--port", "0", "--calibrate", "2",
+                                        "--device", device])
         out["calibrated_bps"] = ex.copy_rate
         if not ex.copy_rate or ex.copy_rate <= 0:
             raise AssertionError("--calibrate 2 measured no copy rate")
@@ -5073,23 +5104,35 @@ def _bench_utils(tcfg, fps, smi, runs):
     if not 0.5 < ratio < 2.0:
         raise AssertionError(f"bench_scan_chain: {ms:.4f} ms a step, "
                              f"{ratio:.2f}x the tiled run's replays")
-    with tempfile.TemporaryDirectory() as tmp:
-        with profiling.trace(tmp):
-            with profiling.annotate("bench step"):
-                chain.step(carry, 0)
-        with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    if (not any("tiled_unit_kernel" in k for k in kernels)
-            or not any(e.get("name") == "bench step" for e in events)):
-        raise AssertionError(f"profiling.trace on the card: no K1 kernel "
-                             f"record or no span among {len(events)} events "
-                             f"({len(kernels)} kernel records)")
+    # the profiler on the card now and then loses a trace's records: a
+    # trace without K1's record or the span is taken again, five at most
+    for traced in range(1, 6):
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp):
+                time.sleep(PROFILE_PAD_S)
+                with profiling.annotate("bench step"):
+                    chain.step(carry, 0)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S)
+            with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if (any("tiled_unit_kernel" in k for k in kernels)
+                and any(e.get("name") == "bench step" for e in events)):
+            break
+        log(f"[bench] profiling.trace on the card: no K1 kernel record or "
+            f"no span among {len(events)} events ({len(kernels)} kernel "
+            f"records) in trace {traced}" + (": traced again"
+                                             if traced < 5 else ""))
+    else:
+        raise AssertionError("profiling.trace on the card: no K1 kernel "
+                             "record or no span in 5 traces")
     launches = {k: fn.launches for k, fn in counters.items()}
     _expect_launches(
         {"launches": launches, "frames": BENCH_FRAMES}, "bench scan_chain",
         {**dict.fromkeys(counters, 0), "fused_diff_compact_tiled":
-         (timing.ChainGraph.WARMUP_PASSES + 1) * BENCH_FRAMES + 1})
+         (timing.ChainGraph.WARMUP_PASSES + 1) * BENCH_FRAMES + traced})
     runs["bench scan_chain"] = {"launches": launches,
                                 "frames": BENCH_FRAMES, "graph_nodes": {}}
     op_ms = timing.bench_op(chain.frame, 0)
@@ -5100,7 +5143,7 @@ def _bench_utils(tcfg, fps, smi, runs):
                              f"{amortized_ms}, measure_rtt {rtt_s}")
     log(f"[bench] utils on the card: bench_scan_chain {ms:.4f} ms a tiled "
         f"step ({BENCH_FRAMES} steps a graph, {BENCH_ITERS} replays; "
-        f"{ratio:.3f}x the tiled run's); profiling.trace holds "
+        f"{ratio:.3f}x the tiled run's); profiling.trace (trace {traced}) holds "
         f"{len(kernels)} CUDA kernel records, K1's and the annotated span "
         f"among them; the device generator: bench_op {op_ms:.4f} ms, "
         f"bench_op_amortized {amortized_ms:.4f} ms; measure_rtt "
@@ -5108,6 +5151,202 @@ def _bench_utils(tcfg, fps, smi, runs):
     return {"scan_chain_ms": ms, "scan_chain_ratio": ratio,
             "trace_kernel_records": len(kernels), "bench_op_ms": op_ms,
             "bench_op_amortized_ms": amortized_ms, "measure_rtt_s": rtt_s}
+
+
+# the port's kernels each row of the kernel table launches a step: its
+# launch counter and, per counter, the graph's kernel nodes of one step
+# (K1's whole-tile chunk path, subtile_rows=0, is two kernels)
+_K1_CHUNKS = ("tiled_chunk_count_kernel", "tiled_chunk_compact_kernel")
+_K1_UNIT, _K1_FLAT = ("tiled_unit_kernel",), ("flat_lookback_kernel",)
+_K4 = {"histogram": ("hist_kernel",)}
+TABLE_KERNELS = {
+    "diff+compact_tiled": {"fused_diff_compact_tiled": _K1_CHUNKS},
+    "diff+compact_subtiled1": {"fused_diff_compact_tiled": _K1_UNIT},
+    "diff+compact_subtiled1_clustered": {"fused_diff_compact_tiled": _K1_UNIT},
+    "diff+compact_subtiled8": {"fused_diff_compact_tiled": _K1_UNIT},
+    "diff+compact_subtiled8_clustered": {"fused_diff_compact_tiled": _K1_UNIT},
+    "diff+compact_tiled_clustered": {"fused_diff_compact_tiled": _K1_CHUNKS},
+    "diff+compact_pallas": {"fused_diff_compact": _K1_FLAT},
+    "diff+compact_segment": {"segment_compact": ("segment_kernel",),
+                             "pair_compact": ("pair_lookback_kernel",)},
+    "histogram": _K4,
+    "binarize_pipeline": _K4,
+}
+PORT_KERNELS = ("flat_lookback_kernel", "tiled_unit_kernel",
+                "tiled_chunk_count_kernel", "tiled_chunk_compact_kernel",
+                "pair_lookback_kernel", "vals_lookback_kernel", "hist_kernel",
+                "segment_kernel", "register_kernel", "probe_kernel")
+TABLE_CLI_TIMEOUT_S = 600
+
+
+def _leaves_np(carry):
+    """The host copies of a carry's tensors."""
+    leaves = carry if isinstance(carry, tuple) else (carry,)
+    return [t.cpu().numpy() for t in leaves]
+
+
+def _table_lines(text, names, label):
+    """The rows a kernel table printed after its ``kernel table:`` line:
+    ``{name: ms}`` in order; each name must be one of ``names``, in their
+    order, every time finite and above 0, and ``histogram_mxu``'s
+    not-ported line must stand after ``histogram``."""
+    lines = text.splitlines()
+    start = next((i for i, line in enumerate(lines)
+                  if line.startswith("kernel table:")), None)
+    if start is None:
+        raise AssertionError(f"{label}: no kernel table in its output")
+    rows = lines[start + 1:start + 2 + len(names)]
+    mxu = [i for i, line in enumerate(rows)
+           if line.startswith("histogram_mxu: no row")]
+    if mxu != [names.index("histogram") + 1]:
+        raise AssertionError(f"{label}: the histogram_mxu line is missing "
+                             "or misplaced")
+    del rows[mxu[0]]
+    got = {}
+    for line in rows:
+        name, ms = line.split()[:2]
+        got[name] = float(ms)
+    if list(got) != names or not all(
+            np.isfinite(ms) and ms > 0 for ms in got.values()):
+        raise AssertionError(f"{label}: rows {got}, not a finite time above "
+                             f"0 for each of {names}")
+    return got
+
+
+def phase_kernel_table(smi):
+    """The per-kernel table at 1080p (``kernel_table.py``, ``bench
+    --full``): the CLI, ``python -m cudavideostream_tpu_torch.bench
+    --full``, must exit 0 with the headline's one JSON line, every row
+    and the ``prev_copy`` line with a finite time above 0; then in this
+    process one step of each row on the card must equal the same step
+    through the plain versions on the CPU, byte for byte. Then each row's
+    graph of ``kernel_table.K`` steps is captured here as the table
+    captures it (``ChainGraph``), the launch counts set to 0 just before:
+    it must hold, per step, K1's kernel(s), K4's or K5's and K2's where
+    its row launches them, and no other kernel of the port; replayed
+    ``1 + kernel_table.ITERS`` times, as the table replays it, its carry
+    must equal the same row's steps launched eagerly from a fresh carry
+    on the card, byte for byte. The CLI's times are the row's; nothing is
+    timed here. Returns the times and the captures' counts."""
+    from cudavideostream_tpu_torch import kernel_table
+    from cudavideostream_tpu_torch.config import StreamConfig
+    from cudavideostream_tpu_torch.utils.timing import ChainGraph
+
+    cmd = [sys.executable, "-m", "cudavideostream_tpu_torch.bench", "--full"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=TABLE_CLI_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    out = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(out) != 1 or set(
+            json.loads(out[0])) != BENCH_JSON_KEYS:
+        raise AssertionError(f"bench --full: rc {proc.returncode}, stdout "
+                             f"{proc.stdout!r}\n{proc.stderr}")
+    if "[headline] byte-exact vs oracle: OK" not in proc.stderr:
+        raise AssertionError("bench --full: its gate did not pass")
+    cfg = StreamConfig()
+    card_rows = kernel_table.rows(cfg, "cuda")
+    names = [r.name for r in card_rows]
+    cli = _table_lines(proc.stderr, names, "bench --full")
+    copy = [line.split() for line in proc.stderr.splitlines()
+            if line.startswith(kernel_table.COPY_NAME + " ")]
+    if len(copy) != 1 or not (np.isfinite(float(copy[0][1]))
+                              and float(copy[0][1]) > 0):
+        raise AssertionError(f"bench --full: the {kernel_table.COPY_NAME} "
+                             f"line is missing or not a time above 0")
+    copy_ms = float(copy[0][1])
+    for line in proc.stderr.splitlines():
+        if line.startswith(("kernel table:", "histogram_mxu",
+                            kernel_table.COPY_NAME + " ")):
+            log(f"[table]   {line}")
+    log(f"[table] python -m cudavideostream_tpu_torch.bench --full: exit 0 "
+        f"in {secs:.1f} s, {out[0]}; after the headline {len(cli)} rows and "
+        f"{kernel_table.COPY_NAME}, each a finite time above 0")
+
+    for card, plain in zip(card_rows, kernel_table.rows(cfg, "cpu")):
+        got = _leaves_np(card.chain(card.init))
+        want = _leaves_np(plain.chain(plain.init))
+        if len(got) != len(want) or not all(
+                g.dtype == w.dtype and np.array_equal(g, w)
+                for g, w in zip(got, want)):
+            raise AssertionError(f"kernel table {card.name}: a step on the "
+                                 "card != the plain step on the CPU")
+    torch.cuda.synchronize()
+    log(f"[check] kernel table: one step of each of the {len(names)} rows at "
+        f"1080p on the card == the plain versions' step on the CPU, byte for "
+        f"byte (every carry leaf: state, next frame, digest)")
+
+    k, replays = kernel_table.K, 1 + kernel_table.ITERS
+    steps = (ChainGraph.WARMUP_PASSES + replays) * k
+    launches, graphs = None, []
+    for row, fresh in zip(card_rows, kernel_table.rows(cfg, "cuda")):
+        counters = _zero_launches()
+        g = ChainGraph(lambda c, _i, chain=row.chain: chain(c), row.init, k)
+        got = {name: fn.launches for name, fn in counters.items()}
+        launches = got if launches is None else {
+            name: launches[name] + n for name, n in got.items()}
+        kinds, kernel_names = _graph_nodes(g.graph)
+        if any(n is None for n in kernel_names):
+            raise AssertionError(f"kernel table {row.name}: the CUDA driver "
+                                 "did not name every kernel node")
+        want = TABLE_KERNELS.get(row.name, {})
+        nodes = {kern: sum(kern in n for n in kernel_names)
+                 for kern in PORT_KERNELS}
+        expect = {kern: k if kern in sum(want.values(), ()) else 0
+                  for kern in PORT_KERNELS}
+        if nodes != expect:
+            raise AssertionError(f"kernel table {row.name}: the graph of {k} "
+                                 f"steps holds {nodes}, not {expect}")
+        for _ in range(replays):
+            g.replay()
+        torch.cuda.synchronize()
+        replayed = _leaves_np(g.carry)
+        del g
+        c = fresh.init
+        for _ in range(steps):
+            c = fresh.chain(c)
+        eager = _leaves_np(c)
+        if len(replayed) != len(eager) or not all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(replayed, eager)):
+            raise AssertionError(f"kernel table {row.name}: the graph's "
+                                 f"carry after {replays} replays != {steps} "
+                                 f"eager steps on the card")
+        graphs.append({"row": row.name, "kinds": kinds,
+                       "nodes": {n: v for n, v in nodes.items() if v}})
+        log(f"[table] {row.name}: the CUDA graph of {k} steps holds "
+            f"{sum(kinds.values())} nodes ({kinds.get(0, 0)} kernel, "
+            f"{kinds.get(2, 0)} memset)"
+            + "".join(f", {n} x{v}" for n, v in graphs[-1]["nodes"].items())
+            + f"; its carry after {replays} replays == {steps} eager steps, "
+            f"byte for byte")
+    # each graph: its two warm-up passes and its capture, each step one
+    # wrapper call of every kernel its row launches (a replay calls none)
+    want = dict.fromkeys(launches, 0)
+    for gr in graphs:
+        for counter in TABLE_KERNELS.get(gr["row"], {}):
+            want[counter] += (ChainGraph.WARMUP_PASSES + 1) * k
+    _expect_launches({"launches": launches, "frames": len(graphs)},
+                     "kernel table", want)
+    diff_rows = [n for n in names if n.startswith("diff+compact")]
+    for name in names:
+        ref = next(r.jetson_ms for r in card_rows if r.name == name)
+        log(f"[table] {name}: {cli[name]:.4f} ms a step through bench --full"
+            + (f", {copy_ms:.4f} ms of it the copy of prev "
+               f"({kernel_table.COPY_NAME}, timed alone)"
+               if name in diff_rows else "")
+            + f" (jetson, the reference's Jetson Nano: {ref}; {smi})")
+    graph_nodes = {}
+    for gr in graphs:
+        for counter, kerns in TABLE_KERNELS.get(gr["row"], {}).items():
+            graph_nodes.setdefault(counter, {})[f"{gr['row']} k={k}"] = \
+                sum(gr["nodes"][n] for n in kerns)
+    return {"cli_ms": cli, "prev_copy_ms": copy_ms,
+            "jetson_ms": {r.name: r.jetson_ms for r in card_rows},
+            "cli_s": secs,
+            "run": {"launches": launches, "frames": len(graphs),
+                    "graph_nodes": graph_nodes}}
 
 
 def main() -> int:
@@ -5179,7 +5418,7 @@ def main() -> int:
                  ["--tiled", "--fetch", "mask", "--maskonly", "--wire", "v4",
                   "--land-batch", "8", "--visualizer", "3"])):
             argv = flags + ["--threshold-map", path]
-            mapcfg, inner, _ = server_mod.setup(["--port", "0"] + argv)
+            mapcfg, inner, _, _ = server_mod.setup(["--port", "0"] + argv)
             if not np.array_equal(inner.pipe.threshold_map_np,
                                   np.repeat(door.ravel(), 3)):
                 raise AssertionError(f"{key}: the server's map is not the "
@@ -5209,8 +5448,8 @@ def main() -> int:
     for key, flags in (("mesh11_v1", []),
                        ("mesh11_pipelined_v3", ["--pipelined", "--wire",
                                                 "v3"])):
-        mcfg11, inner, _ = server_mod.setup(["--port", "0", "--mesh", "1,1"]
-                                            + flags)
+        mcfg11, inner, _, _ = server_mod.setup(
+            ["--port", "0", "--mesh", "1,1"] + flags)
         runs[key] = phase_serving(
             mcfg11, " ".join(["--mesh 1,1"] + (flags or ["wire v1"])),
             inner=inner)
@@ -5230,6 +5469,10 @@ def main() -> int:
     runs.update(bench_out["runs"])
     log("[bench] summary " + json.dumps(
         {k: v for k, v in bench_out.items() if k != "runs"}))
+    table = phase_kernel_table(smi)
+    runs["kernel table"] = table["run"]
+    log("[table] summary " + json.dumps(
+        {k: v for k, v in table.items() if k != "run"}))
     none = dict.fromkeys(_launch_counters(), 0)
     for key, s_count in (("mesh11_v1", 1), ("mesh11_pipelined_v3", 1),
                          ("mesh14_cuda0", 4)):
@@ -5425,6 +5668,9 @@ def main() -> int:
                   if name in r["graph_nodes"]}
         if graphs:
             extra["bench_graphs"] = graphs
+        # the kernel table's graphs: this kernel's nodes in each
+        if name in table["run"]["graph_nodes"]:
+            extra["kernel_table_graphs"] = table["run"]["graph_nodes"][name]
         if name in REDESIGNED:
             # one launch a call now, as this run's trace counts them
             extra.update(redesigned=REDESIGNED[name], launches_per_call={

@@ -24,14 +24,16 @@ the card's name and power limit.
 
     python -m cudavideostream_tpu_torch.bench [--emit tiled|flat]
         [--frames 48] [--iters 9] [--subtile N] [--noise-bank 8]
-        [--all-variants] [--skip-check] [--device cpu]
+        [--all-variants] [--full] [--skip-check] [--device cpu]
 
 It runs on the card and raises without one, unless ``--device cpu`` is
 given: then it runs 48x64 frames eagerly through the plain PyTorch
 versions and prints no device metric (``value`` null). ``--all-variants``
 runs every named variant in a process of its own (the table on stderr
 and in ``build/bench/variants.json``); a variant that fails makes the
-run exit 1.
+run exit 1. ``--full`` also prints the per-kernel table on stderr,
+after the headline (:mod:`cudavideostream_tpu_torch.kernel_table`; at
+48x64 on the CPU).
 """
 
 from __future__ import annotations
@@ -350,7 +352,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="steps in the CUDA graph")
     p.add_argument("--iters", type=int, default=9, help="graph replays")
     p.add_argument("--full", action="store_true",
-                   help="per-kernel table (not ported: ROADMAP.md M9)")
+                   help="also print the per-kernel table on stderr "
+                        "(kernel_table.py)")
     p.add_argument("--skip-check", action="store_true")
     p.add_argument("--emit", default="tiled", choices=["tiled", "flat"],
                    help="payload layout for the headline (tiled = the "
@@ -396,9 +399,6 @@ def main(argv=None) -> int:
 
     p = _parser()
     args = p.parse_args(argv)
-    if args.full:
-        p.error("--full: the per-kernel table (the JAX package's "
-                "benchmarks/kernels.py) is not ported yet: ROADMAP.md M9")
     device = resolve_device(args.device)
     if device.type == "cuda":
         print(f"bench: card {card_line()} (nvidia-smi name, power.limit)",
@@ -413,6 +413,10 @@ def main(argv=None) -> int:
     res = run_config(cfg, TEXT, args.frames, args.iters, args.skip_check,
                      label="headline", noise_bank=args.noise_bank,
                      device=device)
+    if args.full:
+        from cudavideostream_tpu_torch import kernel_table
+
+        kernel_table.run(device=device, file=sys.stderr)
     failed = _all_variants(args) if args.all_variants else []
     print(_line(METRIC, res["fps"]), flush=True)
     return 1 if failed else 0

@@ -50,9 +50,6 @@ def diff_mask(
     return mask, vals, new_prev
 
 
-_BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
-
-
 def pack_bitmask(mask: torch.Tensor) -> torch.Tensor:
     """Pack a bool mask into LSB-first bitmask bytes: bit ``i % 8`` of
     byte ``i // 8`` is ``mask[i]``; a length that is not a multiple of 8
@@ -62,5 +59,8 @@ def pack_bitmask(mask: torch.Tensor) -> torch.Tensor:
     pad = (-m.numel()) % 8
     if pad:
         m = torch.cat([m, m.new_zeros(pad)])
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=m.device)
-    return (m.view(-1, 8).to(torch.int32) * w).sum(dim=1).to(torch.uint8)
+    # the bit weights made on the mask's device: no upload from the host,
+    # so the function can be captured in a CUDA graph
+    shifts = torch.arange(8, dtype=torch.int32, device=m.device)
+    return (m.view(-1, 8).to(torch.int32) << shifts).sum(dim=1).to(
+        torch.uint8)

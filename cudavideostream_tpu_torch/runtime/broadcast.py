@@ -405,17 +405,20 @@ def main(argv=None) -> int:
                 if args.land_batch else StreamExecutor(cfg,
                                                        device=args.device))
     source = make_source(args.source, cfg, path=args.path)
-    # the lander's warm start, as the server's (the JAX broadcast.py:436-446;
-    # like the server, no frame of the source is taken before serving)
-    if args.link_cache and executor.load_link_cache(args.link_cache):
-        print(f"link cache loaded from {args.link_cache} (copy rate "
-              f"{executor.copy_rate} B/s)", file=sys.stderr)
-    if args.calibrate:
-        rate = executor.calibrate_link(rounds=args.calibrate)
-        print(f"calibrated copy rate {rate} B/s ({args.calibrate} copies)",
-              file=sys.stderr)
-    n = executor.prewarm_fetch()
-    print(f"prewarmed {n} fetch jits", file=sys.stderr)
+    # the lander's warm start, as the server's (the JAX broadcast.py:436-446):
+    # the executor starts on the source's base frame, so the stream's base
+    # frame is the source's second one
+    if args.link_cache or args.calibrate:
+        if args.link_cache and executor.load_link_cache(args.link_cache):
+            print(f"link cache loaded from {args.link_cache} (copy rate "
+                  f"{executor.copy_rate} B/s)", file=sys.stderr)
+        if args.calibrate:
+            rate = executor.calibrate_link(rounds=args.calibrate)
+            print(f"calibrated copy rate {rate} B/s ({args.calibrate} "
+                  f"copies)", file=sys.stderr)
+        executor.start(source.base_frame())
+        n = executor.prewarm_fetch()
+        print(f"prewarmed {n} fetch jits", file=sys.stderr)
     server = BroadcastServer(cfg, source, executor=executor,
                              sndbuf=args.sndbuf)
     try:

@@ -432,15 +432,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def setup(argv=None):
     """Parse the command line (:func:`parse_args`); returns ``(config,
-    executor, args)``, the executor as :func:`main` serves it: on its
-    pipeline (with the ``--threshold-map`` map, the ``--compaction``
-    backend), or the NumPy oracle; its state loaded under ``--resume``,
-    its rates from ``--link-cache`` and ``--calibrate``, in the JAX
-    server's order (``server.py:506-534``). Unlike the JAX server, it does
-    not start the executor on a frame of the source before serving: its
-    ``prewarm_fetch`` has nothing to compile and needs no state, so the
-    source's first frame stays the base frame."""
+    executor, source, args)``, as :func:`main` serves them, in the JAX
+    server's order (``server.py:506-534``): the executor on its pipeline
+    (with the ``--threshold-map`` map, the ``--compaction`` backend), or
+    the NumPy oracle; its state loaded under ``--resume``, its rates from
+    ``--link-cache`` and ``--calibrate``; the source (``--source``,
+    ``--path``, ``--seed``; behind a capture thread under ``--prefetch``).
+    Under ``--link-cache`` or ``--calibrate`` (default 2), a device
+    executor that is not resuming is started on the source's base frame
+    before serving, as the JAX server starts its executor to compile its
+    fetch jits (``server.py:526-533``). That takes the source's first
+    frame: the stream's base frame is then the source's second one, as
+    from the JAX server."""
     args = parse_args(argv)
+    if args.aux_port is not None and not args.visualizer:
+        _parser().error("--aux-port needs --visualizer (no aux frame exists)")
     cfg, executor = _executor(args)
     if args.resume or args.save_state:
         if not hasattr(executor, "load_state"):
@@ -460,10 +466,15 @@ def setup(argv=None):
         rate = executor.calibrate_link(rounds=args.calibrate)
         print(f"calibrated copy rate {rate} B/s ({args.calibrate} copies)",
               file=sys.stderr)
-    if warmable:
+    source = make_source(args.source, cfg, path=args.path, seed=args.seed)
+    if args.prefetch:
+        source = PrefetchSource(source)
+    if warmable and (args.link_cache or args.calibrate):
+        if not args.resume:
+            executor.start(source.base_frame())
         n = executor.prewarm_fetch()
         print(f"prewarmed {n} fetch jits", file=sys.stderr)
-    return cfg, executor, args
+    return cfg, executor, source, args
 
 
 def _executor(args):
@@ -515,17 +526,11 @@ def _executor(args):
 
 
 def main(argv=None) -> int:
-    cfg, executor, args = setup(argv)
-    source = make_source(args.source, cfg, path=args.path, seed=args.seed)
-    if args.prefetch:
-        source = PrefetchSource(source)
+    cfg, executor, source, args = setup(argv)
     if args.aux_dir:
         os.makedirs(args.aux_dir, exist_ok=True)
     aux_sink = None
     if args.aux_port is not None:
-        if not args.visualizer:
-            _parser().error("--aux-port needs --visualizer (no aux frame "
-                            "exists)")
         aux_sink = AuxStreamSink(cfg.height, cfg.width, host=cfg.host,
                                  port=args.aux_port)
         print(f"aux stream on {cfg.host}:{aux_sink.port}", file=sys.stderr)

@@ -164,7 +164,8 @@ def test_server_main_aux_port(vis, monkeypatch):
     """``server.main --aux-port --visualizer``: a viewer attached before
     the first frame receives aux frames equal to ``step_oracle``'s for
     those frames (the sink is latest-wins, so some may be skipped), while
-    the delta stream stays byte-exact."""
+    the delta stream stays byte-exact from the source's second frame (the
+    server starts its executor on the first, as the JAX server does)."""
     monkeypatch.setattr(ExecMetrics, "status_line", lambda self, *a: None)
     h, w = 48, 64
     cfg = StreamConfig(height=h, width=w, visualizer=Visualizer(vis))
@@ -206,6 +207,7 @@ def test_server_main_aux_port(vis, monkeypatch):
         except ConnectionRefusedError:
             threading.Event().wait(0.01)
     src = SyntheticSource(cfg, seed=5)
+    src.base_frame()  # the frame the server's executor started on
     state = src.base_frame()
     np.testing.assert_array_equal(cli.frame, state)
     want_aux = []

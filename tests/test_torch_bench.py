@@ -192,14 +192,6 @@ def test_main_subtile_and_noise_bank_zero(capsys):
     assert len(capsys.readouterr().out.splitlines()) == 1
 
 
-def test_full_is_a_usage_error_naming_the_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as e:
-        bench.main(["--full", "--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md M9" in err and "benchmarks/kernels.py" in err
-
-
 def test_main_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
                                                        capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

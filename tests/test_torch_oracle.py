@@ -182,7 +182,7 @@ def test_oracle_refusals_match_jax(flags, msg, tmp_path, capsys):
 def test_oracle_skips_the_calibration():
     """``--calibrate`` (default 2) is a no-op for the oracle, as in the JAX
     server: it has no copies to time."""
-    cfg, ex, args = server_mod.setup(["--backend", "oracle", "--height",
+    cfg, ex, _, args = server_mod.setup(["--backend", "oracle", "--height",
                                       str(H), "--width", str(W)])
     assert args.calibrate == 2 and isinstance(ex, OracleExecutor)
     assert not hasattr(ex, "calibrate_link")

@@ -369,15 +369,16 @@ def test_port_takes_every_jax_option(name, tmp_path):
         # --mesh is served: the sharded pipeline over a (1, 1) mesh
         assert module.parse_args(base + ["--mesh", "1,1"]).mesh == (1, 1)
     if name == "server":
-        cfg, ex, _ = server_mod.setup(base + ["--mesh", "1,1"])
+        cfg, ex, _, _ = server_mod.setup(base + ["--mesh", "1,1"])
         assert type(ex).__name__ == "ShardedStreamExecutor"
         cfg = server_mod.setup(base + ["--no-pair-lanes"])[0]
         assert cfg.pair_lanes is False
         for backend in ("sort", "host"):
-            cfg, ex, _ = server_mod.setup(base + ["--compaction", backend])
+            cfg, ex, _, _ = server_mod.setup(base + ["--compaction",
+                                                     backend])
             assert cfg.compaction.value == backend
             assert type(ex).__name__ == "StreamExecutor"
-        cfg, ex, _ = server_mod.setup(base + ["--backend", "oracle"])
+        cfg, ex, _, _ = server_mod.setup(base + ["--backend", "oracle"])
         assert type(ex).__name__ == "OracleExecutor"
 
 # -- the tiled slice: tiled payloads, wire v2/v3, the pipelined executor --

@@ -266,8 +266,8 @@ def test_server_mesh_loopback(pipelined, wire_format, client_kind):
     frame equal to an oracle replay; every landing is a ``tiles`` one."""
     argv = ["--mesh", "1,4", "--device", "cpu", "--height", str(H),
             "--width", str(W), "--port", "0", "--wire", wire_format]
-    cfg, ex, _ = server_mod.setup(argv + (["--pipelined"] if pipelined
-                                           else []))
+    cfg, ex, _, _ = server_mod.setup(argv + (["--pipelined"] if pipelined
+                                              else []))
     assert isinstance(ex, PipelinedShardedExecutor if pipelined
                       else ShardedStreamExecutor)
     assert ex.pipe.n_space == 4 and ex.pipe.payload_layout == "sharded"
@@ -296,9 +296,9 @@ def test_server_mesh_threshold_map(tmp_path):
     tm2 = np.full((H, W), 40, np.uint8)
     tm2[10:30, 8:40] = 3
     np.save(path, tm2)
-    cfg, ex, _ = server_mod.setup(["--mesh", "1,2", "--device", "cpu",
-                                   "--height", str(H), "--width", str(W),
-                                   "--threshold-map", str(path)])
+    cfg, ex, _, _ = server_mod.setup(["--mesh", "1,2", "--device", "cpu",
+                                      "--height", str(H), "--width", str(W),
+                                      "--threshold-map", str(path)])
     tm = np.repeat(tm2.ravel(), 3)
     _assert_same(ex.pipe.threshold_map_np, tm)
     src = SyntheticSource(cfg, seed=6)

@@ -25,7 +25,10 @@ import torch
 from conftest import ScriptedSource
 from cudavideostream_tpu import native as jax_native
 from cudavideostream_tpu.config import StreamConfig as JaxConfig
+from cudavideostream_tpu.runtime import broadcast as jax_broadcast
+from cudavideostream_tpu.runtime import server as jax_server
 from cudavideostream_tpu.runtime import sources as jax_sources
+from cudavideostream_tpu.runtime.executor import ExecMetrics as JaxMetrics
 from cudavideostream_tpu_torch import native
 from cudavideostream_tpu_torch.config import StreamConfig
 from cudavideostream_tpu_torch.ops import reference_cpu as ref
@@ -553,11 +556,13 @@ def _clip_file(tmp_path, cfg, n=5):
     return path, frames
 
 
-def _oracle_states(cfg, frames, n_frames):
+def _oracle_states(cfg, frames, n_frames, first=0):
     """The base frame and the state after each served frame of a looping
-    file source."""
-    states = [frames[0]]
-    for k in range(1, n_frames + 1):
+    file source whose frame ``first`` is the base frame (1 where the
+    server starts its executor on the source's first frame before
+    serving, as the JAX server and broadcast do)."""
+    states = [frames[first]]
+    for k in range(first + 1, first + n_frames + 1):
         states.append(ref.step_oracle(states[-1], frames[k % len(frames)],
                                       cfg)[0])
     return states
@@ -624,7 +629,9 @@ def test_server_main_serves_a_file(path_kind, cfg, tmp_path, monkeypatch,
     """``server.main --source file --path`` (with ``--prefetch``, tiled v1
     through the segments sender, v3 and v4 through the C encoder), the
     file looped past its end: the client's every state equals a replay
-    of the file through ``step_oracle``."""
+    of the file through ``step_oracle`` from its base frame, the file's
+    second frame: under the default ``--calibrate 2`` the server starts
+    its executor on the first, as the JAX server does."""
     monkeypatch.setattr(ExecMetrics, "status_line", lambda self, *a: None)
     path, frames = _clip_file(tmp_path, cfg)
     n_frames = 8
@@ -634,7 +641,7 @@ def test_server_main_serves_a_file(path_kind, cfg, tmp_path, monkeypatch,
         "--port", str(port), "--device", "cpu", "--height", str(H),
         "--width", str(W)] + SERVER_FILE_PATHS[path_kind])
     cli = _connect(port)
-    states = _oracle_states(cfg, frames, n_frames)
+    states = _oracle_states(cfg, frames, n_frames, first=1)
     np.testing.assert_array_equal(cli.frame, states[0])
     for k in range(1, n_frames + 1):
         np.testing.assert_array_equal(cli.read_frame()[1], states[k])
@@ -691,10 +698,58 @@ def test_multiserve_main_serves_a_file(wire_format, cfg, tmp_path,
     assert any(np.array_equal(got[b][0], states[0]) for b in range(2))
 
 
+def _read_to_close(port):
+    """Every byte a server sends one raw loopback reader, to its close."""
+    for _ in range(2000):
+        try:
+            sock = socket.create_connection(("127.0.0.1", port),
+                                            timeout=TIMEOUT)
+            break
+        except ConnectionRefusedError:
+            threading.Event().wait(0.01)
+    else:
+        raise AssertionError(f"nothing listens on {port}")
+    chunks = []
+    with sock:
+        while chunk := sock.recv(1 << 16):
+            chunks.append(chunk)
+    return b"".join(chunks)
+
+
+@pytest.mark.parametrize("name", ["server", "broadcast"])
+def test_base_frame_and_deltas_equal_the_jax_main(name, cfg, tmp_path,
+                                                  monkeypatch):
+    """The same ``.npy`` clip served by the JAX ``server``/``broadcast``
+    main (CPU backend) and by the port's, each to a raw loopback reader:
+    the wire bytes are equal, the base frame (the clip's second frame:
+    both start their executor on the first before serving, under the
+    default ``--calibrate 2``) and every delta after it."""
+    for metrics in (ExecMetrics, JaxMetrics):  # no status text overlay
+        monkeypatch.setattr(metrics, "status_line", lambda self, *a: None)
+    path, frames = _clip_file(tmp_path, cfg)
+    argv = ["--source", "file", "--path", path, "--frames", "6",
+            "--height", str(H), "--width", str(W)]
+    mains = {"server": (jax_server.main, server_mod.main),
+             "broadcast": (jax_broadcast.main, broadcast.main)}[name]
+    got = []
+    for main, extra in zip(mains, ([], ["--device", "cpu"])):
+        port = _free_ports(1)
+        t, errors = _run_main(main, argv + ["--port", str(port)] + extra)
+        got.append(_read_to_close(port))
+        t.join(TIMEOUT)
+        assert not t.is_alive() and not errors, errors
+    jax_wire, port_wire = got
+    assert port_wire[:cfg.frame_bytes] == frames[1].tobytes()
+    assert len(port_wire) > cfg.frame_bytes + 4 * 6
+    assert port_wire == jax_wire
+
+
 def test_broadcast_main_serves_a_file(cfg, tmp_path, monkeypatch,
                                       timed_connections):
     """``broadcast.main --source file --path --tiled``: the first client's
-    states equal the oracle replay of the file, every frame."""
+    states equal the oracle replay of the file from its second frame,
+    every frame (the executor starts on the first, as in the JAX
+    broadcast)."""
     monkeypatch.setattr(ExecMetrics, "status_line", lambda self, *a: None)
     path, frames = _clip_file(tmp_path, cfg)
     n_frames = 7
@@ -704,7 +759,7 @@ def test_broadcast_main_serves_a_file(cfg, tmp_path, monkeypatch,
         "--port", str(port), "--device", "cpu", "--height", str(H),
         "--width", str(W), "--tiled", "--fetch", "tiles"])
     cli = _connect(port)
-    states = _oracle_states(cfg, frames, n_frames)
+    states = _oracle_states(cfg, frames, n_frames, first=1)
     np.testing.assert_array_equal(cli.frame, states[0])
     for k in range(1, n_frames + 1):
         np.testing.assert_array_equal(cli.read_frame()[1], states[k])

@@ -263,15 +263,15 @@ def test_server_flag_builds_each_executor_on_the_map(flags, cls, tmp_path,
     server builds; a 2-D map is per pixel (x3 to bytes)."""
     path = str(tmp_path / "map.npy")
     np.save(path, door_map(rng, per_pixel=True))
-    cfg, ex, args = server_mod.setup(
+    cfg, ex, _, args = server_mod.setup(
         ["--device", "cpu", "--height", str(H), "--width", str(W),
          "--threshold-map", path] + flags)
     assert type(ex) is cls and args.threshold_map == path
     np.testing.assert_array_equal(
         ex.pipe.threshold_map_np,
         np.repeat(np.load(path).ravel(), 3))
-    _, ex, _ = server_mod.setup(["--device", "cpu", "--height", str(H),
-                                 "--width", str(W)] + flags)
+    _, ex, _, _ = server_mod.setup(["--device", "cpu", "--height", str(H),
+                                    "--width", str(W)] + flags)
     assert ex.pipe.threshold_map is None
 
 
@@ -302,7 +302,9 @@ def test_server_main_threshold_map_loopback(path, client_kind, tmp_path,
     """The server's ``main(argv)`` with ``--threshold-map`` (a per-pixel
     and a per-byte ``.npy``) over a real socket, decoded by the port's and
     the JAX package's clients: each reconstruction equals a replay of the
-    source through ``step_oracle(threshold_map=)``, every frame. The 1 Hz
+    source through ``step_oracle(threshold_map=)`` from its second frame
+    (the server starts its executor on the first, as the JAX server
+    does), every frame. The 1 Hz
     status text is held off so that the replay knows the overlay."""
     per_pixel, flags = LOOPBACKS[path]
     tm = door_map(rng, per_pixel=per_pixel)
@@ -337,6 +339,7 @@ def test_server_main_threshold_map_loopback(path, client_kind, tmp_path,
             threading.Event().wait(0.05)
     cfg = StreamConfig(height=H, width=W)
     replay = SyntheticSource(cfg, seed=7)
+    replay.base_frame()  # the frame the server's executor started on
     prev = replay.base_frame()
     np.testing.assert_array_equal(cli.frame, prev)
     tm_bytes = np.repeat(tm.ravel(), 3) if per_pixel else tm

@@ -378,10 +378,11 @@ def test_calibrate_prints_the_rate(capsys):
     """``--calibrate 2`` (the default) on a device executor prints the
     measured copy rate; ``--calibrate 0`` times nothing."""
     argv = ["--device", "cpu", "--height", str(H), "--width", str(W)]
-    _, ex, _ = server_mod.setup(argv)
+    _, ex, _, _ = server_mod.setup(argv)
     assert ex.copy_rate > 0
     assert "calibrated copy rate" in capsys.readouterr().err
-    _, ex, _ = server_mod.setup(argv + ["--calibrate", "0", "--pipelined"])
+    _, ex, _, _ = server_mod.setup(argv + ["--calibrate", "0",
+                                          "--pipelined"])
     assert isinstance(ex, PipelinedExecutor) and ex.copy_rate is None
     assert "calibrated" not in capsys.readouterr().err
 
