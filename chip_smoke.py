@@ -151,7 +151,21 @@ Phases (any failure raises and the script exits non-zero):
    or tiled, two for K1's whole-tile chunk path; K5 and K2 on the
    segment row; K4 on ``histogram`` and ``binarize_pipeline``) and no
    other kernel of the port, and its carry after the table's replays
-   must equal the same steps launched eagerly, byte for byte;
+   must equal the same steps launched eagerly, byte for byte; then the
+   served path from a source on the card (``loopback_sweep``): every row
+   of its matrix at 1080p, ``DeviceClusteredSource`` on the 28 device
+   rows (``tiles``, ``flat``, ``auto``, ``mask``, ``maskonly``; wire
+   v1-v4; solo, pipelined and landing batches of 4, 8 and 16) and the
+   host source on the 4 host rows (two on the HOST backend), each through
+   the executor, a TCP socket and a decoding client, gated byte-exact
+   (the client's frame == ``executor.resync()``), its legs, fps,
+   ``pos_mean`` and fetched KB a frame printed with the card, its
+   launches counted from 0 and held to one K1 a frame, one K2 a ``flat``
+   or ``mask`` landing, one K3 a ``maskonly`` landing and none on the
+   HOST backend; one row of each flavor served again under the profiler
+   (the card's idle share) and five to a client that decodes nothing (the
+   decoding client's share of the send leg); and ``loopback.main``'s
+   rows at 1080p, each loop gated;
 5. times from CUDA events (medians over 100 iterations, 30 for functions
    of tens of small launches; device-resident frames at ~6% density,
    inputs cold in L2), the empty-launch floor (``torch.cuda._sleep(0)``),
@@ -5349,6 +5363,197 @@ def phase_kernel_table(smi):
                     "graph_nodes": graph_nodes}}
 
 
+LOOPBACK_FRAMES = 10  # timed frames a solo row (the sweep's --frames)
+# one row of each landing flavor, of host capture and of the HOST backend,
+# served again under the profiler for the card's idle share
+LOOPBACK_TRACED = ("dev_d3_tiles_v3", "dev_d3_flat_v3", "dev_d3_auto_v3",
+                   "dev_d3_mask_v4_batch8", "dev_d3_maskonly_v4_batch8",
+                   "host_d3_tiles_v3", "hostbk_d3_v3")
+# rows served again to a client that decodes nothing: the send leg's
+# share that the decoding client's thread holds (it shares the
+# interpreter lock with the serving loop)
+LOOPBACK_SINK = ("dev_d6_tiles_v1", "dev_d3_tiles_v3", "dev_d3_flat_v3",
+                 "dev_d3_mask_v4_batch8", "hostbk_d3_v3")
+
+
+def _loopback_want(row, frames, fetch_counts):
+    """The launches a sweep row must make over ``frames`` frames: one K1
+    a frame (bitmask-only on the maskonly rows), one K2 a flat or mask
+    landing with index blocks, one K3 a maskonly landing, and none on the
+    HOST backend. Every clustered frame changes the band, so every
+    landing is non-empty."""
+    label, _, _, fetch, _, backend, _ = row
+    want = dict.fromkeys(_launch_counters(), 0)
+    if backend == "host":
+        return want
+    flavor = {"tiles": "tiles", "flat": "flat", "mask": "mask",
+              "maskonly": "mask"}.get(fetch)
+    if flavor and fetch_counts[flavor] != frames:
+        raise AssertionError(f"{label}: landings {fetch_counts}, not "
+                             f"{frames} of --fetch {fetch}")
+    if sum(fetch_counts.values()) != frames:
+        raise AssertionError(f"{label}: landings {fetch_counts} for "
+                             f"{frames} frames")
+    if fetch == "maskonly":
+        want.update(fused_diff_compact_mask=frames, vals_compact=frames)
+    else:
+        want.update(fused_diff_compact_tiled=frames,
+                    pair_compact=fetch_counts["flat"] + fetch_counts["mask"])
+    return want
+
+
+def _sink_client(port, height, width, n_frames, out):
+    """In place of the sweep's decoding client: read the stream into one
+    buffer until the server closes, decoding nothing; ``out["bytes"]``
+    counts what it read."""
+    from cudavideostream_tpu_torch import loopback_sweep as sweep
+
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=sweep.SOCKET_TIMEOUT_S) as sock:
+        buf, n = bytearray(1 << 20), 0
+        while k := sock.recv_into(buf):
+            n += k
+    out["bytes"] = n
+
+
+def _loopback_row(sweep, row, base_cfg, host_cfg, pipes, smi, mode,
+                  device):
+    """One row of ``loopback_sweep``'s matrix, its launches counted from
+    0: ``mode`` "gated" must pass the row's gate; "traced" runs it again
+    under the profiler (and gated) for the card's idle share; "sink"
+    serves it to a client that reads and decodes nothing (no gate: the
+    client keeps no frame), whose send leg, beside the gated row's, is
+    the decoding client's share of it. Returns the row's numbers."""
+    label = row[0]
+    cfg, ex, src, kw = sweep.make_row(row, base_cfg, host_cfg, pipes,
+                                      LOOPBACK_FRAMES, device)
+    counters = _zero_launches()
+    prof = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if mode == "traced"
+        else contextlib.nullcontext())
+    client = (_patched(sweep, "_client_thread", _sink_client)
+              if mode == "sink" else contextlib.nullcontext())
+    with prof, client:
+        t0 = time.perf_counter()
+        # the gate's resync waits for the card
+        med, fps, pos_mean, ok, kb_pf = sweep.run_row(cfg, src, ex, **kw)
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    line = sweep.row_line(label, med, fps, pos_mean, ok, kb_pf)
+    if not ok and mode != "sink":
+        raise AssertionError(f"[loopback] {line}: the client's frame is not "
+                             f"the device state")
+    frames = kw["warm"] + kw["n_frames"]
+    _expect_launches({"launches": launches, "frames": frames}, label,
+                     _loopback_want(row, frames, ex.fetch_counts))
+    fired = ", ".join(f"{k}={v}" for k, v in launches.items() if v) or "none"
+    out = {"legs_ms": med, "fps": fps, "pos_mean": pos_mean,
+           "land_KBpf": kb_pf, "frames": frames, "launches": launches,
+           "fetch_counts": dict(ex.fetch_counts)}
+    if mode == "traced":
+        busy = _busy_and_overlap(prof)
+        share, text = _idle({"busy_ms": None if busy is None else busy[0],
+                             "wall": wall},
+                            device_work=row[5] != "host")
+        out.update(idle=share, wall_s=wall)
+        log(f"[loopback] {label} (traced, {frames} frames in {wall:.3f} s "
+            f"under the profiler): {text}; total "
+            f"{med['total']:.2f} ms a frame; kernel launches: {fired}")
+    elif mode == "sink":
+        log(f"[loopback] {label} to a client that reads and does not "
+            f"decode: capture {med['capture']:.2f} dispatch "
+            f"{med['dispatch']:.2f} land {med['land']:.2f} send "
+            f"{med['send']:.2f} total {med['total']:.2f} ms, {fps:.1f} fps; "
+            f"kernel launches: {fired}; {smi}")
+    else:
+        log(f"[loopback] {line} exact; {frames} frames, kernel launches: "
+            f"{fired}; landings {dict(ex.fetch_counts)}; {smi}")
+    return out
+
+
+def phase_loopback(smi, device="cuda"):
+    """The served path from a source on the card (``loopback_sweep``):
+    every row of its matrix at 1080p — ``DeviceClusteredSource`` on the
+    28 device rows (every landing flavor, wire v1-v4, solo, pipelined and
+    batched), the host source on the 4 host rows (two of them the HOST
+    backend) — through the executor, a TCP socket and a decoding client,
+    each row gated byte-exact (client == ``executor.resync()``), its legs,
+    fps, ``pos_mean`` and fetched KB a frame printed with the card, its
+    launches counted from 0 and held to what the row must launch; the
+    rows of ``LOOPBACK_TRACED`` served again under the profiler for the
+    card's idle share. Then ``loopback.main``'s rows at 1080p (the NumPy
+    source), each gated, their launches counted. Returns both runs."""
+    from cudavideostream_tpu_torch import loopback
+    from cudavideostream_tpu_torch import loopback_sweep as sweep
+    from cudavideostream_tpu_torch.runtime import executor as executor_mod
+
+    base_cfg, host_cfg = sweep.base_configs(device)
+    pipes = sweep.Pipelines(base_cfg, device)
+    log(f"[loopback] loopback_sweep at {base_cfg.height}x{base_cfg.width}, "
+        f"{len(sweep.MATRIX)} rows: row, capture dispatch land send total "
+        f"(ms; medians, batched rows means), fps, pos_mean, gate, fetched "
+        f"KB a frame")
+    t0 = time.perf_counter()
+    rows, total = {}, dict.fromkeys(_launch_counters(), 0)
+    frames = 0
+    for row in sweep.MATRIX:
+        modes = (("gated",) + ("traced",) * (row[0] in LOOPBACK_TRACED)
+                 + ("sink",) * (row[0] in LOOPBACK_SINK))
+        for mode in modes:
+            out = _loopback_row(sweep, row, base_cfg, host_cfg, pipes, smi,
+                                mode, device)
+            key = row[0] + ("" if mode == "gated" else f" {mode}")
+            rows[key] = out
+            frames += out["frames"]
+            for name, n in out["launches"].items():
+                total[name] += n
+    sweep_s = time.perf_counter() - t0
+    log(f"[loopback] every row exact: {len(rows)} runs, {frames} frames in "
+        f"{sweep_s:.1f} s; kernel launches: "
+        + ", ".join(f"{k}={v}" for k, v in total.items() if v))
+
+    # loopback.py's rows: the NumPy source, the oracle and the device
+    # backends; its executors kept to read their landings
+    made = []
+    real = executor_mod.StreamExecutor
+
+    def recording(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    counters = _zero_launches()
+    t0 = time.perf_counter()
+    with _patched(executor_mod, "StreamExecutor", recording):
+        rc = loopback.main(["--frames", str(LOOPBACK_FRAMES), "--device",
+                            device])
+    loop_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if rc != 0 or len(made) != 5:
+        raise AssertionError(f"loopback.main: rc {rc}, {len(made)} device "
+                             "executors (5 expected)")
+    served = LOOPBACK_FRAMES + 2
+    flat_landings = sum(ex.fetch_counts.get("flat", 0) for ex in made)
+    _expect_launches({"launches": launches, "frames": 5 * served},
+                     "loopback.main", {
+                         **dict.fromkeys(_launch_counters(), 0),
+                         "fused_diff_compact": 2 * served,
+                         "fused_diff_compact_tiled": 3 * served,
+                         "pair_compact": flat_landings})
+    log(f"[loopback] python -m cudavideostream_tpu_torch.loopback: "
+        f"exit 0 in {loop_s:.1f} s, every loop's client == the server's "
+        f"state; kernel launches: "
+        + ", ".join(f"{k}={v}" for k, v in launches.items() if v)
+        + f" (the tiled executors' landings "
+        f"{[dict(ex.fetch_counts) for ex in made[2:]]}); {smi}")
+    log("[loopback] summary " + json.dumps(
+        {"card": smi, "rows": {k: {x: v for x, v in r.items()
+                                   if x != "launches"}
+                               for k, r in rows.items()}}))
+    return {"sweep": {"launches": total, "frames": frames},
+            "loopback": {"launches": launches, "frames": 5 * served}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5473,6 +5678,9 @@ def main() -> int:
     runs["kernel table"] = table["run"]
     log("[table] summary " + json.dumps(
         {k: v for k, v in table.items() if k != "run"}))
+    served = phase_loopback(smi)
+    runs["loopback_sweep"] = served["sweep"]
+    runs["loopback"] = served["loopback"]
     none = dict.fromkeys(_launch_counters(), 0)
     for key, s_count in (("mesh11_v1", 1), ("mesh11_pipelined_v3", 1),
                          ("mesh14_cuda0", 4)):

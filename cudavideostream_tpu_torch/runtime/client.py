@@ -39,7 +39,8 @@ _MAGICS = {wire.MAGIC_V2: "v2", wire.MAGIC_V3: "v3", wire.MAGIC_V4: "v4"}
 class DeltaStreamClient:
     def __init__(self, host: str = "127.0.0.1", port: int = 2734,
                  height: int = 1080, width: int = 1920,
-                 wire_format: str = "auto", record: str | None = None):
+                 wire_format: str = "auto", record: str | None = None,
+                 timeout: float | None = None):
         if wire_format not in ("auto", "v1", "v2", "v3", "v4"):
             raise ValueError(f"unknown wire_format {wire_format!r}")
         self.host, self.port = host, port
@@ -48,6 +49,9 @@ class DeltaStreamClient:
         self.wire_format = wire_format
         self.frame: np.ndarray | None = None
         self.sock: socket.socket | None = None
+        # seconds a read may wait once connected (None: the socket's
+        # default)
+        self.timeout = timeout
         # every byte read is teed here: the wire stream is self-contained,
         # so the file is a session runtime.replay re-serves
         self._rec = open(record, "wb") if record else None
@@ -60,6 +64,8 @@ class DeltaStreamClient:
 
     def connect(self) -> None:
         self.sock = socket.create_connection((self.host, self.port))
+        if self.timeout is not None:
+            self.sock.settimeout(self.timeout)
         head = b""
         if self.wire_format in ("v2", "v3", "v4"):
             magic = {"v2": wire.MAGIC_V2, "v3": wire.MAGIC_V3,

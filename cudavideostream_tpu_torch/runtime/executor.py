@@ -240,6 +240,14 @@ class TiledLander:
         self.copy_bytes_per_s: Optional[float] = None
         # per flavor: what a landing takes beyond its bytes at that rate
         self.extra_s = {"flat": None, "mask": None}
+        # payload bytes the landings copied from the device to the host,
+        # the aux frame not counted (the JAX lander's ``fetched_bytes``)
+        self.fetched_bytes = 0
+
+    def _fetched(self, host: list) -> list:
+        """Count the host arrays of one landing's copies; returns them."""
+        self.fetched_bytes += sum(a.nbytes for a in host)
+        return host
 
     @staticmethod
     def compact_dtype(unit_bytes: int):
@@ -320,7 +328,7 @@ class TiledLander:
                 xs, vals = logcompact.merge_tiles(counts_d, xs_t_d, vals_t_d)
                 return xs[:pos], vals[:pos]
 
-            res = tuple(copier.run(staged, merged))
+            res = tuple(self._fetched(copier.run(staged, merged)))
             nbytes = 5 * pos
         elif kind == "mask":
             def window():
@@ -330,7 +338,7 @@ class TiledLander:
                 return (bits_d[t_lo * unit_bytes // 8: t_hi * unit_bytes // 8],
                         vals[:pos])
 
-            bw, vw = copier.run(staged, window)
+            bw, vw = self._fetched(copier.run(staged, window))
             if self.return_mask:
                 res = wire.MaskPayload(pos, t_lo * unit_bytes, bw, vw)
             else:
@@ -344,8 +352,8 @@ class TiledLander:
 
     def _land_tiles(self, pos, counts, xs_t_d, vals_t_d, t_lo, t_hi, staged,
                     copier):
-        xw, vw = copier.run(
-            staged, lambda: self._tiles_window(xs_t_d, vals_t_d, t_lo, t_hi))
+        xw, vw = self._fetched(copier.run(
+            staged, lambda: self._tiles_window(xs_t_d, vals_t_d, t_lo, t_hi)))
         return self._tiles_payload(pos, counts, xw, vw, t_lo)
 
     def _tiles_window(self, xs_t_d, vals_t_d, t_lo: int, t_hi: int):
@@ -393,7 +401,7 @@ class TiledLander:
         unit_bytes = shards[0][2].shape[1]
         if not spans:
             return self._empty("tiles", shards[0][0], unit_bytes)
-        host = copier.run_views(staged, views)
+        host = self._fetched(copier.run_views(staged, views))
         return wire.TiledPayload(pos, np.concatenate(spans),
                                  np.concatenate(host[0::2]),
                                  np.concatenate(host[1::2]))
@@ -410,7 +418,7 @@ class TiledLander:
             for c, x, v in zip(counts, xs_d, vals_d):
                 if c:
                     views += [x[:int(c)], v[:int(c)]]
-        host = iter(copier.run_views(staged, views))
+        host = iter(self._fetched(copier.run_views(staged, views)))
         out = []
         for pos, counts, *_ in items:
             width = max(1, int(np.max(counts)))
@@ -461,7 +469,7 @@ class TiledLander:
             return out
 
         t0 = time.perf_counter()
-        host = iter(copier.run(staged, windows))
+        host = iter(self._fetched(copier.run(staged, windows)))
         seconds = time.perf_counter() - t0
         results, landed = [], []
         for pos, counts, t_lo, t_hi, kind, _, xs_t_d, _ in plans:

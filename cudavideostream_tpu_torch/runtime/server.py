@@ -226,33 +226,44 @@ class DeltaStreamServer:
             if res is not None:
                 self._send(conn, res, v3enc)
 
-    def _send(self, conn: socket.socket, result, v3enc) -> None:
-        pos, xs, vals, aux = result
-        if v3enc is not None or self.cfg.wire_format == "v2":
-            if v3enc is not None:
-                # v3 rebuilds a MaskPayload's indices; v4 forwards its bits
-                buf = v3enc.encode(pos, xs, vals)
-            else:
-                if isinstance(xs, (wire.TiledPayload, wire.MaskPayload)):
-                    xs, vals = xs.to_flat()
-                buf = wire.pack_payload_v2(pos, xs, vals)
+    @staticmethod
+    def _send_payload(conn: socket.socket, result, wire_format: str = "v1",
+                      v3enc=None) -> int:
+        """Send one landed result ``(pos, xs, vals, aux)`` on ``conn`` in
+        ``wire_format`` (the JAX ``DeltaStreamServer._send_payload``);
+        returns the bytes sent. v3 and v4 go through ``v3enc``, the
+        connection's encoder, which keeps the client's state."""
+        pos, xs, vals, _aux = result
+        if wire_format in ("v3", "v4"):
+            # v3 rebuilds a MaskPayload's indices; v4 forwards its bits
+            buf = v3enc.encode(pos, xs, vals)
             conn.sendall(buf)
-            # the metrics count v1 framing; correct them to the bytes sent
-            self.executor.metrics.wire_bytes += len(buf) - (4 + 5 * pos)
-        else:
-            # v1 in C: a tiled payload's unit prefixes gathered into one
-            # buffer, a flat payload's arrays in one writev
-            if isinstance(xs, wire.MaskPayload):
-                xs, vals = xs.to_flat()
+            return len(buf)
+        if isinstance(xs, wire.MaskPayload):
+            xs, vals = xs.to_flat()
+        if wire_format == "v2":
             if isinstance(xs, wire.TiledPayload):
-                rc = native.wire_send_segments_fd(conn.fileno(), pos,
-                                                  xs.counts, xs.xs, xs.vals,
-                                                  conn.gettimeout())
-            else:
-                rc = native.wire_send_payload_fd(conn.fileno(), pos, xs, vals,
-                                                 conn.gettimeout())
-            if rc < 0:
-                raise BrokenPipeError(f"writev failed: {rc}")
+                xs, vals = xs.to_flat()
+            buf = wire.pack_payload_v2(pos, xs, vals)
+            conn.sendall(buf)
+            return len(buf)
+        # v1 in C: a tiled payload's unit prefixes gathered into one
+        # buffer, a flat payload's arrays in one writev
+        if isinstance(xs, wire.TiledPayload):
+            rc = native.wire_send_segments_fd(conn.fileno(), pos, xs.counts,
+                                              xs.xs, xs.vals, conn.gettimeout())
+        else:
+            rc = native.wire_send_payload_fd(conn.fileno(), pos, xs, vals,
+                                             conn.gettimeout())
+        if rc < 0:
+            raise BrokenPipeError(f"writev failed: {rc}")
+        return 4 + 5 * pos
+
+    def _send(self, conn: socket.socket, result, v3enc) -> None:
+        pos, aux = result[0], result[3]
+        sent = self._send_payload(conn, result, self.cfg.wire_format, v3enc)
+        # the metrics count v1 framing; correct them to the bytes sent
+        self.executor.metrics.wire_bytes += sent - (4 + 5 * pos)
         k, self._n_out = self._n_out, self._n_out + 1
         if self.aux_sink is not None and aux is not None:
             self.aux_sink.push(k, aux)

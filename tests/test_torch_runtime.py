@@ -258,7 +258,8 @@ def test_port_imports_nothing_of_jax():
                 "utils/timing.py", "utils/profiling.py", "utils/png.py",
                 "utils/shapes.py", "examples/stream_demo.py",
                 "examples/make_artifacts.py",
-                "examples/classical_heatmap.py"):
+                "examples/classical_heatmap.py", "kernel_table.py",
+                "loopback.py", "loopback_sweep.py"):
         assert f"cudavideostream_tpu_torch/{mod}" in rel, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
