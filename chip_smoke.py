@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
 
 1. environment: the card's name, power limit and SM clock, torch, CUDA,
    nvcc, triton;
-2. build: every hand-written kernel, from ``csrc/`` (six sources), one
+2. build: every hand-written kernel, from ``csrc/`` (eight sources), one
    ``nvcc`` per source, all started together; K7's SASS must keep its
    256 compares per value (``cuobjdump -sass``, ISETP counted), each
    instance of K1's tiled kernel and K4's kernel must load from global
@@ -58,7 +58,14 @@ Phases (any failure raises and the script exits non-zero):
    against its plain version and against solo K1 tiled launches on each
    stream, K5 batched likewise (B = 1, 3, 4, 8) and equal to K1 batched at
    ``subtile_rows=0``, and ``BatchedDeltaPipeline.step`` at B = 4 against
-   each stream's NumPy spec; K1's ``index_offset`` mode (flat and tiled at
+   each stream's NumPy spec; K8 (the noise filter, ``convolve_q16``) at
+   1080p for K = 1, 2, 3, 5, 7, 9 and 15 with Gaussian, mean and signed
+   unnormalized taps, on a ragged width at B = 1, 2 and 4 streams and on
+   S = 4 halo shards against the solo frame; K9 (``binarize_pipeline``,
+   two launches) at 1080p, on the scene, a one-value frame, a tie in the
+   histogram, ragged lengths and an unaligned view, sharded at S = 4, and
+   in 100 launches back to back on two streams (every scratch zero
+   after); K1's ``index_offset`` mode (flat and tiled at
    ``subtile_rows`` 1, 8, 0, two densities; tiled at 1 and 8 with a
    per-byte map) on every shard of the frame cut
    into S = 2, 4 and 8 row shards at its shard base, and at the largest
@@ -132,7 +139,8 @@ Phases (any failure raises and the script exits non-zero):
    variant), each gated byte-exact against ``step_oracle`` and printing
    its one JSON line; and in this process the tiled, flat, binarize and
    tiled ``--noise-bank 0`` runs, whose captured graph must hold T nodes
-   of K1 (and of K4 under binarize), whose every replay must equal the
+   of K1 (and of each of K9's two kernels under binarize), whose every
+   replay must equal the
    same steps launched eagerly (timed beside it), and whose fps times
    the bytes a step must move (the generator's plane read and frame
    write, K1's, the digest's) must stay under 3.35 TB/s; then the
@@ -149,7 +157,8 @@ Phases (any failure raises and the script exits non-zero):
    process as the table captures it, the launch counts set to 0 first:
    it must hold one node a step of each kernel its row launches (K1 flat
    or tiled, two for K1's whole-tile chunk path; K5 and K2 on the
-   segment row; K4 on ``histogram`` and ``binarize_pipeline``) and no
+   segment row; K4 on ``histogram``, K9's two on ``binarize_pipeline``,
+   K8 on ``gaussian_conv_k3/5/7/9``) and no
    other kernel of the port, and its carry after the table's replays
    must equal the same steps launched eagerly, byte for byte; then the
    served path from a source on the card (``loopback_sweep``): every row
@@ -181,7 +190,14 @@ Phases (any failure raises and the script exits non-zero):
    the host, and the synchronous against the pipelined executor per frame;
    the source's host time per frame is printed apart; K4 against its
    plain version, ``torch.bincount`` and its bound, the filters and the
-   noise filter, the ``--visualizer 5`` step and the aux landing; K1
+   noise filter, the ``--visualizer 5`` step and the aux landing; K8 at
+   K = 3, 5, 7, 9 and K9 on cold frames against their plain versions and
+   bounds (K8's the larger of its bytes and its K^2 int32 multiply-adds a
+   byte, and ``F.conv2d`` fp32 as its library yardstick; K9's each launch
+   alone), their kernels per call, and ``pipeline.step`` with
+   ``--noise-filter`` and with ``--visualizer 5``, device and host wall
+   time, kernels against the plain versions (and K9 against the chain
+   of torch ops around K4 that it replaced) in turns; K1
    without and with a map on each emission, in turns; K5, K6 and K7
    against their plain versions and bounds (K7's in operations, at the
    card's SM clock and an SM's issue ceiling of 128 lanes per clock); K1
@@ -297,7 +313,7 @@ def phase_environment():
 
 
 def phase_build():
-    """Build and bind the six sources; returns the counts of K7's SASS
+    """Build and bind the eight sources; returns the counts of K7's SASS
     instructions by opcode (:data:`K7_SASS_OPS`): its ISETP (integer
     compare) count must keep its 256 compares per value (fails below 256:
     the compiler folded them). Prints, and fails on a card that cannot
@@ -305,13 +321,15 @@ def phase_build():
     slices, all resident at once)."""
     from cudavideostream_tpu_torch import native
     from cudavideostream_tpu_torch.kernels import build
+    from cudavideostream_tpu_torch.ops import convolve
+    from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
     from cudavideostream_tpu_torch.ops import register_compact
 
     t0 = time.perf_counter()
     names = ("logcompact", "pair_compact", "histogram", "segment_compact",
-             "register_compact", "probe")
+             "register_compact", "probe", "convolve", "binarize")
     # one nvcc per source, and the host library's cc, all at once
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         host_lib = pool.submit(native.build)
@@ -326,6 +344,8 @@ def phase_build():
     register_compact._register_lib()
     hist._hist_lib()
     hist._probe()
+    convolve._conv_lib()
+    filters._binarize()
     log(f"[build] csrc/{'.cu, csrc/'.join(names)}.cu built and bound in "
         f"{time.perf_counter() - t0:.2f} s")
     cuobjdump = build.find_nvcc()[: -len("nvcc")] + "cuobjdump"
@@ -1197,6 +1217,171 @@ def phase_filters_vs_plain(cfg):
     return cases
 
 
+def phase_noise_binarize_vs_plain(cfg):
+    """K8 (``convolve_q16``) and K9 (``binarize_pipeline``: ``gray_hist``
+    then ``binarize_apply``) against their plain versions on the card,
+    byte for byte: K8 at 1080p for K = 1, 2, 3, 5, 7, 9 and 15 with
+    Gaussian, mean and signed unnormalized taps (sums that wrap in
+    int32), on a ragged width at B = 1, 2 and 4 streams, and on S = 4 halo
+    shards against the solo frame; K9 at 1080p, on the synthetic scene, a
+    one-value frame, a frame whose histogram ties, ragged lengths and an
+    unaligned view, the sharded form at S = 4, and 100 launches back to
+    back on two streams, after which every per-stream scratch is zero."""
+    from cudavideostream_tpu_torch.ops import convolve
+    from cudavideostream_tpu_torch.ops import filters
+    from cudavideostream_tpu_torch.ops import hist
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.parallel import halo_conv
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    dev = torch.device("cuda")
+    h, w, n = cfg.height, cfg.width, cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 30)
+    cases = {"k8": 0, "k9": 0}
+
+    def rand(m):
+        return torch.from_numpy(rng.integers(0, 256, m,
+                                             dtype=np.uint8)).to(dev)
+
+    def taps(kind, k):
+        if kind == "gaussian":
+            return reference_cpu.quantize_kernel_q16(
+                reference_cpu.gaussian_kernel(k))
+        if kind == "mean":
+            return reference_cpu.quantize_kernel_q16(
+                reference_cpu.mean_kernel(k))
+        # signed and unnormalized: sums far outside int32, which wrap
+        return rng.integers(-3_000_000, 3_000_000, (k, k))
+
+    def check8(label, got, want):
+        torch.cuda.synchronize()
+        _equal_or_raise(f"K8 {label}", (got,), (want,), ("out",))
+        cases["k8"] += 1
+
+    frame = rand(n)
+    for k in (1, 2, 3, 5, 7, 9, 15):
+        for kind in ("gaussian", "mean", "signed"):
+            wq = taps(kind, k)
+            check8(f"K={k} {kind}", convolve.convolve_q16(frame, wq, h, w),
+                   convolve.convolve_q16_reference(frame, wq, h, w))
+        log(f"[check] K8 convolve_q16 K={k} at 1080p (grid "
+            f"{convolve.conv_grid(h, w * 3)}): gaussian, mean and signed "
+            f"unnormalized taps, each == convolve_q16_reference, exact")
+    # a ragged width: 5,751 bytes a row (% 16 = 7), so no row but the
+    # first starts 16-byte aligned, and streams at that stride
+    hr, wr = 271, 1917
+    nr = hr * wr * 3
+    for b in (1, 2, 4):
+        frames = rand(b * nr)
+        for k, kind in ((3, "gaussian"), (4, "signed"), (9, "mean")):
+            wq = taps(kind, k)
+            check8(f"ragged B={b} K={k}",
+                   convolve.convolve_q16(frames, wq, hr, wr, streams=b),
+                   torch.cat([convolve.convolve_q16_reference(
+                       frames[s * nr:(s + 1) * nr], wq, hr, wr)
+                       for s in range(b)]))
+        log(f"[check] K8 convolve_q16 on {hr}x{wr} ({wr * 3} B a row, % 16 "
+            f"= {wr * 3 % 16}), B={b} stream(s) at a stride of {nr} B, one "
+            f"launch (grid {convolve.conv_grid(hr, wr * 3, b)}), K = 3 "
+            f"gaussian, 4 signed, 9 mean: each == its plain version per "
+            f"stream, exact")
+    s_count = 4
+    ln = n // s_count
+    for k, kind in ((3, "gaussian"), (4, "signed"), (9, "gaussian"),
+                    (15, "signed")):
+        wq = taps(kind, k)
+        before = convolve.convolve_q16.launches
+        got = torch.cat(halo_conv.sharded_convolve_q16(
+            [frame[i * ln:(i + 1) * ln] for i in range(s_count)], wq,
+            h // s_count, w))
+        if convolve.convolve_q16.launches - before != s_count:
+            raise AssertionError("K8 halo: not one launch a shard")
+        check8(f"S={s_count} halo K={k}", got,
+               convolve.convolve_q16_reference(frame, wq, h, w))
+    log(f"[check] K8 halo form on S={s_count} row shards of 1080p (uint8 "
+        f"halo rows exchanged, one launch a shard), K = 3, 4, 9, 15: the "
+        f"shards' rows == the solo frame's plain version, exact")
+
+    def check9(label, fr):
+        got = filters.binarize_pipeline(fr)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"K9 {label}", (got,),
+                        (filters.binarize_pipeline_reference(fr),), ("out",))
+        cases["k9"] += 1
+        return got
+
+    npx = n // 3
+    src = SyntheticSource(cfg, seed=SEED)
+    src.base_frame()
+    tie = torch.empty((npx, 3), dtype=torch.uint8, device=dev)
+    tie[: npx // 2], tie[npx // 2:] = 90, 200  # gray 90 and 200, equal counts
+    for label, fr in (("a random 1080p frame", frame),
+                      ("the synthetic scene", torch.from_numpy(
+                          next(src)).to(dev)),
+                      ("one value (137) everywhere",
+                       torch.full((n,), 137, dtype=torch.uint8, device=dev)),
+                      ("a histogram tie (gray 90 and 200, npx/2 each)",
+                       tie.reshape(-1))):
+        gray, counts = filters.gray_hist(fr)
+        _equal_or_raise(f"K9 gray_hist {label}", (gray, counts), (
+            filters.gray_pixels(fr),
+            hist.histogram_reference(filters.gray_pixels(fr))),
+            ("gray", "hist"))
+        out = check9(label, fr)
+        log(f"[check] K9 binarize_pipeline on {label}: gray, histogram "
+            f"({int((counts > 0).sum())} bins used) and output == the plain "
+            f"version, exact ({int(out.eq(255).sum()) // 3} pixels 255)")
+    lengths = (1, 15, 16, 17, 12_345, 1_000_003, npx - 1, npx + 1)
+    for m in lengths:
+        check9(f"{m} pixels", rand(3 * m))
+    check9("an unaligned view", rand(3 * 10_007 + 3)[3:])
+    log(f"[check] K9 binarize_pipeline on ragged lengths "
+        f"{', '.join(str(m) for m in lengths)} pixels and on a view 3 B past "
+        f"an aligned start (10,007 pixels): each == the plain version, exact")
+    # the sharded form: each shard's gray and counts, the counts summed,
+    # the sum applied on each shard
+    shards = [frame[i * ln:(i + 1) * ln] for i in range(s_count)]
+    parts = [filters.gray_hist(x) for x in shards]
+    total = sum(c for _, c in parts)
+    got = torch.cat([filters.binarize_apply(g, total) for g, _ in parts])
+    torch.cuda.synchronize()
+    _equal_or_raise("K9 sharded S=4", (got, total), (
+        filters.binarize_pipeline_reference(frame),
+        hist.histogram_reference(filters.gray_pixels(frame))),
+        ("out", "hist"))
+    cases["k9"] += 1
+    log(f"[check] K9 sharded S={s_count}: gray_hist on each shard, the "
+        f"histograms summed, binarize_apply of the sum on each shard == the "
+        f"solo frame's plain version and histogram, exact")
+    # 100 launches back to back on two streams, no sync between them
+    main = torch.cuda.current_stream()
+    ss = [torch.cuda.Stream() for _ in range(2)]
+    for s in ss:
+        s.wait_stream(main)
+    inputs = [frame if i % 5 == 0 else rand(3 * int(rng.integers(1, 300_000)))
+              for i in range(50)]
+    outs = []
+    for i, fr in enumerate(inputs):
+        with torch.cuda.stream(ss[i % 2]):
+            outs.append(filters.binarize_pipeline(fr))
+    for s in ss:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    for i, (fr, got) in enumerate(zip(inputs, outs)):
+        _equal_or_raise(f"K9 back to back, call {i}", (got,),
+                        (filters.binarize_pipeline_reference(fr),), ("out",))
+    dirty = [k for k, v in hist._scratch.items() if v.any()]
+    if dirty:
+        raise AssertionError(f"K9: scratch not zero after the launches: "
+                             f"{dirty}")
+    cases["k9"] += len(inputs)
+    log(f"[check] K9 binarize_pipeline: 100 launches (50 calls) back to back "
+        f"on two streams at once, no sync between them: each call == the "
+        f"plain version, exact, and every per-stream scratch "
+        f"({len(hist._scratch)}) is zero after them")
+    return cases
+
+
 def door_map(cfg, rng):
     """A per-pixel ``(H, W)`` threshold map of the kind ``--threshold-map``
     is for: 60 over the noisy scene, 4 in a "door" rectangle, and a few
@@ -1713,6 +1898,7 @@ def phase_batched_vs_plain(cfg):
         prev = pipe.init_state(np.stack(states))
         cur_np = states
         poss = []
+        counters = _zero_launches()
         for _ in range(3):
             cur_np = [drift(rng, c, 0.06) for c in cur_np]
             out = pipe.step(prev, np.stack(cur_np), texts)
@@ -1737,10 +1923,20 @@ def phase_batched_vs_plain(cfg):
                 states[s] = e_prev
                 poss.append(e_pos)
             cases["steps"] += 1
+        # K8 once a batched frame (every stream in one launch), K9's pair
+        # once a stream
+        k9 = 3 * b if vcfg.visualizer == Visualizer.BINARIZE else 0
+        want = {"convolve_q16": 3 if vcfg.noise_filter else 0,
+                "gray_hist": k9, "binarize_apply": k9, "histogram": 0}
+        got = {name: counters[name].launches for name in want}
+        if got != want:
+            raise AssertionError(f"batched step {label}: launches {got}, "
+                                 f"not {want}")
         log(f"[check] batched step {label}: BatchedDeltaPipeline.step at "
             f"1080p, B={b}, four overlay texts, 3 frames: every stream == its "
             f"step_oracle (aux {'equal' if aux is not None else 'none'}); pos "
-            f"{min(poss)}..{max(poss)}")
+            f"{min(poss)}..{max(poss)}; launches "
+            + ", ".join(f"{k}={v}" for k, v in got.items()))
     return cases
 
 
@@ -1894,6 +2090,8 @@ class _UntilTextsChanged:
 
 
 def _launch_counters():
+    from cudavideostream_tpu_torch.ops import convolve
+    from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
     from cudavideostream_tpu_torch.ops import register_compact
@@ -1908,7 +2106,10 @@ def _launch_counters():
             "histogram": hist.histogram,
             "segment_compact": logcompact.segment_compact,
             "register_compact": register_compact.register_compact,
-            "vpu_probe": hist.vpu_probe}
+            "vpu_probe": hist.vpu_probe,
+            "convolve_q16": convolve.convolve_q16,
+            "gray_hist": filters.gray_hist,
+            "binarize_apply": filters.binarize_apply}
 
 
 def _zero_launches():
@@ -2371,7 +2572,7 @@ def _event_median_ms(fn, iters, backlog=True):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def _profile_ms(fn, names, label, per_call=False):
+def _profile_ms(fn, names, label, per_call=False, kernels_per_call=1):
     """Device time per launch of each named kernel (a template's
     instantiations included) over 20 calls of ``fn(i)``, from a
     torch.profiler trace. With ``per_call``, also the kernels launched per
@@ -2381,7 +2582,8 @@ def _profile_ms(fn, names, label, per_call=False):
     20, or a whole trace, and now and then several traces in a row. So the
     trace's window is padded on the host on both sides (the card's
     timestamps stray a few ms from the host's), a trace that holds fewer
-    records than calls and no kernel but the named ones is taken again, at
+    records than ``kernels_per_call`` a call and no kernel but the named
+    ones is taken again, at
     most five times in all, and one with more is never retaken. The count
     per call also comes from a CUDA graph capture of three calls
     (:func:`_graph_per_call`), which sees every kernel the call enqueues
@@ -2406,7 +2608,7 @@ def _profile_ms(fn, names, label, per_call=False):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.key.startswith(("Memcpy", "Memset"))}
         recorded = sum(kernels.values())
-        if (not per_call or recorded >= 20 or attempt == 4
+        if (not per_call or recorded >= 20 * kernels_per_call or attempt == 4
                 or not all(ours(k) for k in kernels)):
             break
         log(f"[trace] {label}: the profiler recorded {recorded} kernel "
@@ -2422,7 +2624,7 @@ def _profile_ms(fn, names, label, per_call=False):
     if not per_call:
         return None
     graph = _graph_per_call(fn, names, label)
-    if recorded < 20 and all(ours(k) for k in kernels):
+    if recorded < 20 * kernels_per_call and all(ours(k) for k in kernels):
         log(f"[trace] {label}: the profiler kept {recorded} of 20 calls' "
             f"records in {attempt + 1} traces: the graph capture's "
             f"{graph:g} kernel(s) per call stands")
@@ -3065,15 +3267,14 @@ def phase_mask_times(cfg):
 
 def phase_filter_times(cfg):
     """K4 against its plain version, ``torch.bincount`` and its bound; the
-    filters and the noise filter at 1080p; the ``--visualizer 5`` step
+    filters of torch ops at 1080p (K8 and K9 have their own phase,
+    :func:`phase_noise_binarize_times`); the ``--visualizer 5`` step
     against the plain step; the aux landing."""
     from cudavideostream_tpu_torch.config import Visualizer
     from cudavideostream_tpu_torch.models import DeltaStreamPipeline
-    from cudavideostream_tpu_torch.ops import convolve
     from cudavideostream_tpu_torch.ops import diff as diff_ops
     from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import hist
-    from cudavideostream_tpu_torch.ops import reference_cpu
     from cudavideostream_tpu_torch.runtime.executor import (
         StreamExecutor,
         _Staged,
@@ -3111,7 +3312,6 @@ def phase_filter_times(cfg):
     k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
 
     mask = diff_ops.diff_mask(cur, prev0, cfg.threshold)[0]
-    wq3 = reference_cpu.quantize_kernel_q16(reference_cpu.gaussian_kernel(3))
     # these enqueue up to ~50 small launches a call: 30 calls fit the
     # launch queue behind the sleep (100 did not)
     few = 30
@@ -3120,10 +3320,6 @@ def phase_filter_times(cfg):
             lambda i: filters.grayscale_weighted(curs[i % CUR_COPIES]),
         "heatmap": lambda i: filters.heatmap(curs[i % CUR_COPIES], prev0),
         "red_overlap": lambda i: filters.red_overlap(prev0, mask),
-        "binarize_pipeline":
-            lambda i: filters.binarize_pipeline(curs[i % CUR_COPIES]),
-        "convolve_q16 K=3": lambda i: convolve.convolve_q16(
-            curs[i % CUR_COPIES], wq3, cfg.height, cfg.width),
     }
     ops_ms = {name: (_event_median_ms(fn, few),
                      _event_median_ms(fn, few, backlog=False))
@@ -3174,6 +3370,194 @@ def phase_filter_times(cfg):
     return {"k4_ms": k4, "k4_plain_ms": k4_plain, "k4_bound_ms": k4_bound,
             "k4_library_ms": k4_lib, "k4_one_ms": k4_one,
             "k4_per_call": k4_per_call}
+
+
+# int32 multiply-adds an SM issues per clock (the data sheet's 64 INT32
+# lanes): K8's bound in operations is K^2 of them a byte
+INT32_LANES_PER_SM = 64
+K8_TIMED = (3, 5, 7, 9)
+COLD_COPIES = 16  # 16 frames of 6.2 MB: twice the 50 MB L2
+
+
+def _pair4(values):
+    return " / ".join(f"{v:.4f}" for v in values)
+
+
+def _wall_ms(fn, iters):
+    """Median host wall time of ``fn(i)`` followed by a synchronize."""
+    out = []
+    for i in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t)
+    return statistics.median(out) * 1e3
+
+
+def phase_noise_binarize_times(cfg, clock_mhz, smi):
+    """K8 at K = 3, 5, 7, 9 and K9 at 1080p on cold frames (16 copies in
+    turn), CUDA-event medians with the queue held behind a sleep, against
+    their plain versions, their bounds and, for K8, ``F.conv2d`` in fp32
+    (TF32 off, ``groups=3``, on a channel-planar float copy: a time only,
+    no path of the port calls it); their kernels per call from a trace and
+    a graph capture; and ``pipeline.step`` with ``--noise-filter`` and with
+    ``--visualizer 5``, device and host wall time, the kernels against the
+    plain versions (and K9 against the chain of torch ops around K4 that
+    it replaced) in turns."""
+    import torch.nn.functional as F
+
+    from cudavideostream_tpu_torch.config import Visualizer
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import convolve
+    from cudavideostream_tpu_torch.ops import filters
+    from cudavideostream_tpu_torch.ops import reference_cpu
+
+    dev = torch.device("cuda")
+    h, w, n = cfg.height, cfg.width, cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 31)
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    cold = [torch.from_numpy(drift(rng, cur_np, 0.06)).to(dev)
+            for _ in range(COLD_COPIES)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    io_bound = 2 * n / HBM_BYTES_PER_S * 1e3
+    out = {"k8": {}, "k9": {}}
+    for k in K8_TIMED:
+        wq = reference_cpu.quantize_kernel_q16(reference_cpu.gaussian_kernel(k))
+        convolve.convolve_q16(cold[0], wq, h, w)  # warm-up
+        ms = _event_median_ms(
+            lambda i: convolve.convolve_q16(cold[i % COLD_COPIES], wq, h, w),
+            ITERS)
+        plain = _event_median_ms(
+            lambda i: convolve.convolve_q16_reference(cold[i % COLD_COPIES],
+                                                      wq, h, w),
+            10, backlog=False)
+        ops_bound = (k * k * n / (INT32_LANES_PER_SM * sms * clock_mhz * 1e6)
+                     * 1e3)
+        # the library yardstick: fp32 conv2d, channel-planar, exact for these
+        # non-negative normalized taps (every partial sum an integer < 2^24)
+        planar = [c.view(h, w, 3).permute(2, 0, 1).float().unsqueeze(0)
+                  .contiguous() for c in cold]
+        wt = torch.from_numpy(wq.astype(np.float32)).to(dev).expand(
+            3, 1, k, k).contiguous()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib_out = F.conv2d(planar[0], wt, padding=k // 2, groups=3)
+            lib = _event_median_ms(
+                lambda i: F.conv2d(planar[i % COLD_COPIES], wt,
+                                   padding=k // 2, groups=3), ITERS)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        lib_bytes = torch.div(lib_out, 65536, rounding_mode="floor").clamp(
+            0, 255).to(torch.uint8)[0].permute(1, 2, 0).reshape(-1)
+        lib_same = bool(torch.equal(lib_bytes,
+                                    convolve.convolve_q16(cold[0], wq, h, w)))
+        del planar
+        bound = max(io_bound, ops_bound)
+        out["k8"][k] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                        "bound_by": "bytes" if io_bound >= ops_bound
+                        else "operations", "library_ms": lib,
+                        "bytes_bound_ms": io_bound, "ops_bound_ms": ops_bound}
+        log(f"[time] K8 convolve_q16 K={k} at 1080p, cold frames: {ms:.4f} ms "
+            f"(bound {bound:.5f} ms by {out['k8'][k]['bound_by']}: "
+            f"{2 * n} B at 3.35 TB/s {io_bound:.5f} ms, {k * k} int32 "
+            f"multiply-adds a byte at {INT32_LANES_PER_SM} a clock an SM x "
+            f"{sms} SMs x {clock_mhz} MHz {ops_bound:.5f} ms; {bound / ms:.1%} "
+            f"of it); its plain version {plain:.4f} ms; F.conv2d fp32 "
+            f"(TF32 off, groups=3, channel-planar) {lib:.4f} ms, its bytes "
+            f"after >> 16 {'equal' if lib_same else 'differ from'} K8's "
+            f"({smi})")
+    wq3 = reference_cpu.quantize_kernel_q16(reference_cpu.gaussian_kernel(3))
+    out["k8_per_call"] = _profile_ms(
+        lambda i: convolve.convolve_q16(cold[i % COLD_COPIES], wq3, h, w),
+        ("conv_kernel",), "K8", per_call=True)
+    _one_per_call({"K8": out["k8_per_call"]})
+
+    # K9: both launches, each alone, and the plain version; the torch
+    # chain it replaced (torch ops around K4) is timed in the step below
+    def torch_chain(frame):
+        gv = filters.gray_pixels(frame)
+        return filters.binarize_pixels(
+            gv, filters.binarize_threshold(filters.value_histogram(gv)))
+
+    filters.binarize_pipeline(cold[0])  # warm-up
+    gray, counts = filters.gray_hist(cold[0])
+    k9 = {
+        "ms": _event_median_ms(lambda i: filters.binarize_pipeline(
+            cold[i % COLD_COPIES]), ITERS),
+        "gray_hist_ms": _event_median_ms(lambda i: filters.gray_hist(
+            cold[i % COLD_COPIES]), ITERS),
+        "apply_ms": _event_median_ms(
+            lambda i: filters.binarize_apply(gray, counts), ITERS),
+        "plain_ms": _event_median_ms(
+            lambda i: filters.binarize_pipeline_reference(
+                cold[i % COLD_COPIES]), 10, backlog=False),
+        "bound_ms": io_bound,
+        "per_call": _profile_ms(
+            lambda i: filters.binarize_pipeline(cold[i % COLD_COPIES]),
+            ("binarize_gray_kernel", "binarize_apply_kernel"), "K9",
+            per_call=True, kernels_per_call=2)}
+    if k9["per_call"] != 2:
+        raise AssertionError(f"K9: {k9['per_call']} launches a call, not 2")
+    out["k9"] = k9
+    log(f"[time] K9 binarize_pipeline at 1080p, cold frames: {k9['ms']:.4f} "
+        f"ms for its two launches (binarize_gray_kernel alone "
+        f"{k9['gray_hist_ms']:.4f} ms, binarize_apply_kernel alone on hot "
+        f"gray bytes {k9['apply_ms']:.4f} ms; bound {io_bound:.5f} ms = "
+        f"{2 * n} B at 3.35 TB/s, {io_bound / k9['ms']:.1%} of it); its "
+        f"plain version {k9['plain_ms']:.4f} ms ({smi})")
+
+    # pipeline.step, the kernels against the plain versions in turns
+    text = "FPS: 30 BW: 1234 kbps"
+    prev0 = torch.from_numpy(prev_np).to(dev)
+    prevs = [prev0.clone() for _ in range(ITERS)]
+
+    def plain_conv(frame, wq, height, width, streams=1):
+        return convolve.convolve_q16_reference(frame, wq, height, width)
+
+    routes = {
+        "--noise-filter": (dataclasses.replace(cfg, noise_filter=True),
+                           {"K8": None, "plain": (convolve, "convolve_q16",
+                                                  plain_conv)}),
+        "--visualizer 5": (dataclasses.replace(
+            cfg, visualizer=Visualizer.BINARIZE),
+            {"K9": None,
+             "plain": (filters, "binarize_pipeline",
+                       lambda f, out=None: filters.binarize_pipeline_reference(
+                           f)),
+             "torch chain": (filters, "binarize_pipeline",
+                             lambda f, out=None: torch_chain(f))})}
+    steps = {}
+    calls = 8  # steps a reading: a plain step takes ~4 ms
+    for label, (vcfg, kinds) in routes.items():
+        pipe = DeltaStreamPipeline(vcfg)
+        order = list(kinds) + list(reversed(kinds))
+        res = {kind: {"device_ms": [], "wall_ms": []} for kind in kinds}
+        for kind in order:
+            patch = kinds[kind]
+            ctx = (_patched(*patch) if patch is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                pipe.step(prev0.clone(), cold[0], text=text)  # warm-up
+                for p in prevs:
+                    p.copy_(prev0)
+                res[kind]["device_ms"].append(_event_median_ms(
+                    lambda i: pipe.step(prevs[i], cold[i % COLD_COPIES],
+                                        text=text), calls))
+                for p in prevs:
+                    p.copy_(prev0)
+                res[kind]["wall_ms"].append(_wall_ms(
+                    lambda i: pipe.step(prevs[i], cold[i % COLD_COPIES],
+                                        text=text), calls))
+        steps[label] = res
+        log(f"[time] pipeline.step {label} at 1080p, in turns "
+            f"({', '.join(order)}), medians of {calls}: " + "; ".join(
+                f"{kind} device {_pair4(r['device_ms'])} ms, host wall "
+                f"{_pair4(r['wall_ms'])} ms" for kind, r in res.items())
+            + f" ({smi})")
+    out["steps"] = steps
+    return out
 
 
 def phase_map_scheme_times(cfg, clock_mhz):
@@ -3599,11 +3983,15 @@ def phase_sharded_steps(cfg):
                 torch.cuda.synchronize()
                 k1 = (lc.fused_diff_compact_tiled if layout == "sharded"
                       else lc.fused_diff_compact)
-                hist = counters["histogram"].launches
-                if k1.launches != s or hist != (
-                        s if c.visualizer == Visualizer.BINARIZE else 0):
+                got = {name: counters[name].launches for name in (
+                    "histogram", "gray_hist", "binarize_apply",
+                    "convolve_q16")}
+                k9 = s if c.visualizer == Visualizer.BINARIZE else 0
+                want = {"histogram": 0, "gray_hist": k9, "binarize_apply": k9,
+                        "convolve_q16": s if c.noise_filter else 0}
+                if k1.launches != s or got != want:
                     raise AssertionError(f"sharded step S={s}: K1 launched "
-                                         f"{k1.launches}, K4 {hist} times")
+                                         f"{k1.launches} times, {got}")
                 pos, xs, vals = _sharded_payload(pipe, out)
                 e_prev, e_pos, e_xs, e_vals, e_aux = reference_cpu.step_oracle(
                     prev_np, cur_np, c, atlas=pipe.atlas_np,
@@ -3620,7 +4008,9 @@ def phase_sharded_steps(cfg):
                 log(f"[check] sharded step S={s} on cuda:0, {layout} layout, "
                     f"{label}: step_flat at 1080p == step_oracle (pos={pos}, "
                     f"aux {'none' if aux is None else 'equal'}; K1 "
-                    f"{k1.__name__} launched {s}x)")
+                    f"{k1.__name__} launched {s}x"
+                    + "".join(f", {name} {v}x" for name, v in got.items() if v)
+                    + ")")
     return steps
 
 
@@ -4560,11 +4950,15 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
                 raise AssertionError(f"{label} step {k} != step_oracle")
             if label == "sort" and (xs[pos:].any() or vals[pos:].any()):
                 raise AssertionError("the sort payload is not zero past pos")
-        if any(fn.launches for fn in counters.values()):
+        # the noise filter runs K8 on the card under every backend
+        k8 = 3 if c.noise_filter else 0
+        if (any(fn.launches for name, fn in counters.items()
+                if name != "convolve_q16")
+                or counters["convolve_q16"].launches != k8):
             raise AssertionError(f"{label}: a step launched a kernel")
         log(f"[check] {label} pipeline.step at 1080p: 3 steps with overlay "
             f"texts == step_oracle (pos, xs, vals, new_prev), no kernel "
-            f"launched")
+            f"launched" + (" but K8 (convolve_q16=3)" if k8 else ""))
     # the host's pack at the clip's density, and what it brings over
     cur, prev_h = frames[2], frames[1].copy()
     mask, delta, _ = diff.diff_mask(torch.from_numpy(cur),
@@ -4657,7 +5051,7 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
         run, _ = served("host_noise_filter",
                         "server --compaction host --noise-filter",
                         base + ["--compaction", "host", "--noise-filter"],
-                        c=nf_cfg, trace=True, want={})
+                        c=nf_cfg, trace=True, want={"convolve_q16": n})
         if set(run["rec"].fetched) != {cfg.frame_bytes
                                        + (cfg.frame_bytes + 7) // 8}:
             raise AssertionError("HOST noise-filter path: the card sent "
@@ -4705,7 +5099,8 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
                 "--visualizer", str(vis), "--aux-port", "0"], c=vcfg,
                 client=aux_client, want={
                     "fused_diff_compact": n,
-                    "histogram": n if vis == 5 else 0})
+                    **dict.fromkeys(("gray_hist", "binarize_apply"),
+                                    n if vis == 5 else 0)})
             first = _frames_before_serving(base)
             auxes = _chain_digests(vcfg, frames[first], frames, first + 1,
                                    run["rec"].texts, atlas, aux=True)[1]
@@ -5020,7 +5415,8 @@ def phase_bench(cfg, smi):
             ("binarize", dataclasses.replace(
                 tcfg, visualizer=Visualizer.BINARIZE),
              VARIANT_FRAMES, VARIANT_ITERS, 8,
-             {**k1_tiled, "histogram": "hist_kernel"}),
+             {**k1_tiled, "gray_hist": "binarize_gray_kernel",
+              "binarize_apply": "binarize_apply_kernel"}),
             ("tiled bank 0", tcfg, VARIANT_FRAMES, VARIANT_ITERS, 0,
              k1_tiled)):
         nbytes = _bench_bytes(vcfg)
@@ -5173,6 +5569,9 @@ def _bench_utils(tcfg, fps, smi, runs):
 _K1_CHUNKS = ("tiled_chunk_count_kernel", "tiled_chunk_compact_kernel")
 _K1_UNIT, _K1_FLAT = ("tiled_unit_kernel",), ("flat_lookback_kernel",)
 _K4 = {"histogram": ("hist_kernel",)}
+_K8 = {"convolve_q16": ("conv_kernel",)}
+_K9 = {"gray_hist": ("binarize_gray_kernel",),
+       "binarize_apply": ("binarize_apply_kernel",)}
 TABLE_KERNELS = {
     "diff+compact_tiled": {"fused_diff_compact_tiled": _K1_CHUNKS},
     "diff+compact_subtiled1": {"fused_diff_compact_tiled": _K1_UNIT},
@@ -5184,12 +5583,14 @@ TABLE_KERNELS = {
     "diff+compact_segment": {"segment_compact": ("segment_kernel",),
                              "pair_compact": ("pair_lookback_kernel",)},
     "histogram": _K4,
-    "binarize_pipeline": _K4,
+    "binarize_pipeline": _K9,
+    **{f"gaussian_conv_k{k}": _K8 for k in (3, 5, 7, 9)},
 }
 PORT_KERNELS = ("flat_lookback_kernel", "tiled_unit_kernel",
                 "tiled_chunk_count_kernel", "tiled_chunk_compact_kernel",
                 "pair_lookback_kernel", "vals_lookback_kernel", "hist_kernel",
-                "segment_kernel", "register_kernel", "probe_kernel")
+                "segment_kernel", "register_kernel", "probe_kernel",
+                "conv_kernel", "binarize_gray_kernel", "binarize_apply_kernel")
 TABLE_CLI_TIMEOUT_S = 600
 
 
@@ -5569,6 +5970,7 @@ def main() -> int:
     tiled_cases = phase_tiled_vs_plain(cfg)
     mask_cases = phase_mask_vs_plain(cfg)
     filter_cases = phase_filters_vs_plain(cfg)
+    k8k9_cases = phase_noise_binarize_vs_plain(cfg)
     map_cases = phase_map_vs_plain(cfg)
     scheme_cases = phase_schemes_vs_plain(cfg)
     batched_cases = phase_batched_vs_plain(cfg)
@@ -5702,7 +6104,8 @@ def main() -> int:
         _expect_launches(run, key, {
             **none, "fused_diff_compact_batched": run["frames"],
             "pair_compact": run["fetch_counts"]["flat"],
-            "histogram": 4 * run["frames"] if "binarize" in key else 0})
+            **dict.fromkeys(("gray_hist", "binarize_apply"),
+                            4 * run["frames"] if "binarize" in key else 0)})
     _expect_launches(runs["broadcast"], "broadcast", {
         **none, "fused_diff_compact": runs["broadcast"]["frames"]})
     _expect_launches(runs["map_flat_v1"], "map_flat_v1", {
@@ -5714,9 +6117,10 @@ def main() -> int:
     _expect_launches(runs["flat"], "flat", {
         **none, "fused_diff_compact": runs["flat"]["frames"]})
     run = runs["binarize_v1"]
+    # K9's two launches a frame, and no K4: the torch chain is gone
     _expect_launches(run, "binarize_v1", {
         **none, "fused_diff_compact": run["frames"],
-        "histogram": run["frames"]})
+        "gray_hist": run["frames"], "binarize_apply": run["frames"]})
     for key in ("tiled_flat", "tiled_tiles", "tiled_pipelined_v3",
                 "bitmask_mask_v4", "bitmask_auto_v1",
                 "denoised_heatmap_tiled_flat"):
@@ -5731,7 +6135,8 @@ def main() -> int:
                       key, fc["flat"] + fc["mask"])
         _expect_launches(run, key, {
             **none, "fused_diff_compact_tiled": run["frames"],
-            "pair_compact": merges})
+            "pair_compact": merges,
+            "convolve_q16": run["frames"] if "denoised" in key else 0})
     for key in ("maskonly_v4_batch8", "red_overlap_maskonly_batch8",
                 "map_red_overlap_maskonly_batch8"):
         run = runs[key]
@@ -5755,6 +6160,7 @@ def main() -> int:
     ttimes = phase_tiled_times(cfg)
     mtimes = phase_mask_times(cfg)
     ftimes = phase_filter_times(cfg)
+    nbtimes = phase_noise_binarize_times(cfg, clock_mhz, smi)
     xtimes = phase_map_scheme_times(cfg, clock_mhz)
     btimes = phase_batched_times(cfg)
     stimes = phase_sharded_times(cfg)
@@ -5820,6 +6226,23 @@ def main() -> int:
          f"8, 0, every shard base of S = 2, 4, 8, a large offset); timed as "
          f"K1 tiled subtile=1 on the last shard of S=4; "
          f"{sharded_steps} sharded steps equal step_oracle"),
+        # K8 and K9 replace no TPU kernel: the XLA-level ops they stand for
+        ("convolve_q16", "convolve.cu",
+         "cudavideostream_tpu/ops/convolve.py:25", 0,
+         nbtimes["k8"][3]["ms"], nbtimes["k8"][3]["plain_ms"],
+         nbtimes["k8"][3]["bound_ms"], nbtimes["k8"][3]["library_ms"],
+         f"byte-exact in {k8k9_cases['k8']} cases (K = 1-15 with gaussian, "
+         f"mean and signed taps, ragged widths at B = 1, 2, 4, S = 4 halo "
+         f"shards); timed at K=3, the served default; library_ms is "
+         f"F.conv2d fp32, TF32 off, groups=3"),
+        ("binarize_pipeline", "binarize.cu",
+         "cudavideostream_tpu/ops/filters.py:293", 0,
+         nbtimes["k9"]["ms"], nbtimes["k9"]["plain_ms"],
+         nbtimes["k9"]["bound_ms"], None,
+         f"byte-exact in {k8k9_cases['k9']} cases (1080p, the scene, one "
+         f"value, a tie, ragged lengths, an unaligned view, S = 4 shards, "
+         f"100 launches on two streams); two launches a call, "
+         f"binarize_gray_kernel and binarize_apply_kernel"),
     ]
     kernels = []
     mesh_paths = ("mesh11_v1", "mesh11_pipelined_v3", "mesh14_cuda0",
@@ -5832,6 +6255,12 @@ def main() -> int:
             by_path = {k: runs[k]["launches"]["fused_diff_compact_tiled"]
                        + runs[k]["launches"]["fused_diff_compact"]
                        for k in mesh_paths}
+            total = sum(by_path.values())
+        elif name == "binarize_pipeline":
+            # K9's two launches, each counted by its own wrapper
+            by_path = {k: r["launches"]["gray_hist"]
+                       + r["launches"]["binarize_apply"]
+                       for k, r in runs.items()}
             total = sum(by_path.values())
         else:
             total, by_path = launches(name)
@@ -5854,6 +6283,20 @@ def main() -> int:
             extra = {"mask_land_ms": mtimes["land_ms"]}
         elif name == "histogram":
             extra = {"one_value_ms": ftimes["k4_one_ms"]}
+        elif name == "convolve_q16":
+            extra = {"k": 3,
+                     "by_k": {k: v for k, v in nbtimes["k8"].items()
+                              if k != 3},
+                     "launches_per_call": nbtimes["k8_per_call"],
+                     "step_ms": nbtimes["steps"]["--noise-filter"]}
+        elif name == "binarize_pipeline":
+            k9 = nbtimes["k9"]
+            extra = {"gray_hist_launches": launches("gray_hist")[0],
+                     "binarize_apply_launches": launches("binarize_apply")[0],
+                     "gray_hist_ms": k9["gray_hist_ms"],
+                     "apply_ms": k9["apply_ms"],
+                     "launches_per_call": k9["per_call"],
+                     "step_ms": nbtimes["steps"]["--visualizer 5"]}
         elif name.endswith("index_offset"):
             extra = {"s8_ms": stimes["k1"][8]["ms"],
                      "s8_plain_ms": stimes["k1"][8]["plain_ms"],
@@ -5870,15 +6313,20 @@ def main() -> int:
         # the bench path's CUDA graphs: this kernel's nodes in each, and
         # the replays that launched them (the wrapper counts its calls,
         # the capture's included, never a replay)
-        graphs = {k: {"nodes": r["graph_nodes"][name],
-                      "replays": r["replays"]}
-                  for k, r in bench_out["runs"].items()
-                  if name in r["graph_nodes"]}
+        counters = (("gray_hist", "binarize_apply")
+                    if name == "binarize_pipeline" else (name,))
+        graphs = {f"{k} {c}" if len(counters) > 1 else k: {
+                      "nodes": r["graph_nodes"][c], "replays": r["replays"]}
+                  for k, r in bench_out["runs"].items() for c in counters
+                  if c in r["graph_nodes"]}
         if graphs:
             extra["bench_graphs"] = graphs
         # the kernel table's graphs: this kernel's nodes in each
-        if name in table["run"]["graph_nodes"]:
-            extra["kernel_table_graphs"] = table["run"]["graph_nodes"][name]
+        table_graphs = {c: table["run"]["graph_nodes"][c] for c in counters
+                        if c in table["run"]["graph_nodes"]}
+        if table_graphs:
+            extra["kernel_table_graphs"] = (
+                table_graphs if len(counters) > 1 else table_graphs[name])
         if name in REDESIGNED:
             # one launch a call now, as this run's trace counts them
             extra.update(redesigned=REDESIGNED[name], launches_per_call={
@@ -5904,7 +6352,9 @@ def main() -> int:
             "ms": ms,
             "plain_ms": plain,
             "bound_ms": bound,
-            "bound_by": "operations" if name == "vpu_probe" else "bytes",
+            "bound_by": ("operations" if name == "vpu_probe"
+                         else nbtimes["k8"][3]["bound_by"]
+                         if name == "convolve_q16" else "bytes"),
             "library_ms": lib_ms,
             "floor_ms": times["floor_ms"],
             "check": check,

@@ -15,7 +15,8 @@ no such layout, but the flat buffers keep the two APIs one.)
 The fast path (tiled payloads and an overlay cell that fits the frame, as
 in the JAX package, ``batched.py:93-97``) follows ``_fast_impl``:
 
-1. the noise filter per stream (its 2-D borders are per frame);
+1. the noise filter, every stream in one K8 launch
+   (``convolve_q16(streams=B)``; its 2-D borders are per frame);
 2. each stream's overlay strip, blended over its first ``cell_h`` rows;
    the B strips go to the kernel as its per-stream region (the JAX package
    substitutes them into the super-frame with one pass instead, because
@@ -23,8 +24,8 @@ in the JAX package, ``batched.py:93-97``) follows ``_fast_impl``:
 3. the visualizer's aux frame, before the kernel, because the kernel
    updates ``prev`` in place and every visualizer reads the old ``prev``:
    heatmap, grayscale and the red modes over the whole super-frame (each
-   is per pixel), binarize per stream (its histogram is per frame: one K4
-   launch per stream);
+   is per pixel), binarize per stream (its histogram is per frame: K9's
+   pair of launches per stream, each writing its stream's slice);
 4. one batched K1 launch (``fused_diff_compact_batched``).
 
 Any other configuration (the flat payload, with or without
@@ -172,9 +173,13 @@ class BatchedDeltaPipeline:
         if vis == Visualizer.GRAYSCALE:
             return filter_ops.grayscale_weighted(cur)
         if vis == Visualizer.BINARIZE:
-            return torch.cat([
-                filter_ops.binarize_pipeline(cur[b * n:(b + 1) * n])
-                for b in range(B)])
+            # one pair of K9 launches a stream, each writing its stream's
+            # slice of the aux frame
+            out = torch.empty_like(cur)
+            for b in range(B):
+                filter_ops.binarize_pipeline(cur[b * n:(b + 1) * n],
+                                             out=out[b * n:(b + 1) * n])
+            return out
         thr = cfg.threshold if self._thr_map_b is None else self._thr_map_b
         mask = diff_ops.diff_mask(cur, prev, thr)[0]
         if vis == Visualizer.RED_BLACK:
@@ -206,11 +211,9 @@ class BatchedDeltaPipeline:
         cfg = self.config
         n = cfg.frame_bytes
         if cfg.noise_filter:
-            cur = torch.cat([
-                conv_ops.convolve_q16(cur[b * n:(b + 1) * n],
-                                      self._solo.conv_weights_q16,
-                                      cfg.height, cfg.width)
-                for b in range(B)])
+            # every stream in one K8 launch, each padded on its own
+            cur = conv_ops.convolve_q16(cur, self._solo.conv_weights_q16,
+                                        cfg.height, cfg.width, streams=B)
         strips = self._strips(cur, texts)
         aux = self._aux(cur, strips, prev)
         # pair_lanes and skip_static are TPU layouts with identical outputs

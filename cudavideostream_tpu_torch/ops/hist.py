@@ -1,8 +1,11 @@
 """The exact 256-bin histogram of gray values (K4), and the compare
 probe (K7): the counterparts of the JAX package's ``ops/hist_pallas.py``
 ``pallas_histogram``, which ``filters.value_histogram`` sends every
-(M, 128) gray grid to on hardware (the binarize visualizer's threshold),
-and ``vpu_probe``, the benchmark probe of ``benchmarks/binarize_pallas_ab``.
+(M, 128) gray grid to on hardware (the binarize visualizer's threshold;
+in the port that visualizer runs K9, ``csrc/binarize.cu``, whose first
+launch reuses K4's design and its scratch, and K4 serves
+``filters.value_histogram`` and ``gray_histogram``), and ``vpu_probe``,
+the benchmark probe of ``benchmarks/binarize_pallas_ab``.
 
 * :func:`histogram` — on a CUDA tensor it launches the hand-written
   Hopper kernel (``csrc/histogram.cu``: one launch a call, at most one

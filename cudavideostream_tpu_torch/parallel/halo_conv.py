@@ -8,6 +8,10 @@ package's ``ppermute`` of the boundary strips becomes a copy of each
 strip to the neighbour's device (``t.to(dev)``, a no-op where both shards
 share a device, so one code path serves one card and several). The edge
 shards get zero rows, the reference's zero padding at the image border.
+The exchange moves the shards' uint8 rows (the JAX package's moves int32
+ones), and each shard's stencil is one launch of K8
+(:func:`~cudavideostream_tpu_torch.ops.convolve.convolve_q16_halo`),
+which pads horizontally itself; on CPU tensors its plain version.
 """
 
 from __future__ import annotations
@@ -16,9 +20,8 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from cudavideostream_tpu_torch.ops.convolve import accumulate_q16
+from cudavideostream_tpu_torch.ops.convolve import convolve_q16_halo
 
 
 def halo_exchange_rows(shards: Sequence[torch.Tensor],
@@ -55,8 +58,6 @@ def sharded_convolve_q16(local_frames: Sequence[torch.Tensor],
     neighbour is 3 bytes away, and the horizontal zero padding is
     shard-local."""
     pad = weights_q16.shape[0] // 2
-    imgs = [f.reshape(local_rows, width * 3).to(torch.int32)
-            for f in local_frames]
-    return [accumulate_q16(F.pad(img, (3 * pad, 3 * pad)), weights_q16,
-                           local_rows, width)
+    imgs = [f.reshape(local_rows, width * 3) for f in local_frames]
+    return [convolve_q16_halo(img, weights_q16, local_rows, width)
             for img in halo_exchange_rows(imgs, pad)]

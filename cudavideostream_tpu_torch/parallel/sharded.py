@@ -212,17 +212,18 @@ class ShardedDeltaPipeline:
         if vis == Visualizer.GRAYSCALE:
             return [filter_ops.grayscale_weighted(c) for c in curs]
         if vis == Visualizer.BINARIZE:
-            # one histogram for the whole frame: the shards' K4 counts
-            # summed on the row's first device (the JAX psum), exact int32
-            gvs = [filter_ops.gray_pixels(c) for c in curs]
+            # one histogram for the whole frame: each shard's gray values
+            # and counts from K9's first launch, the counts summed on the
+            # row's first device (the JAX psum), exact int32, and K9's
+            # second launch on each shard with the sum
+            grays = [filter_ops.gray_hist(c) for c in curs]
             dev0 = self.mesh.device(d, 0)
             hist = None
-            for g in gvs:
-                h = filter_ops.value_histogram(g).to(dev0)
+            for _, h in grays:
+                h = h.to(dev0)
                 hist = h if hist is None else hist + h
-            t = filter_ops.binarize_threshold(hist)
-            return [filter_ops.binarize_pixels(g, t.to(g.device))
-                    for g in gvs]
+            return [filter_ops.binarize_apply(g, hist.to(g.device))
+                    for g, _ in grays]
         # the red modes: |df| > threshold (or the shard's map) on the
         # overlaid frame — the JAX new_prev != prev wherever it takes it
         masks = []

@@ -1,0 +1,346 @@
+"""K9, the binarize visualizer's two hand-written launches
+(``csrc/binarize.cu``), on the CPU: its plain version
+(``ops/filters.py`` ``binarize_pipeline_reference``) against the JAX
+package's ``binarize_pipeline(fused=True)`` and ``reference_cpu``; the two
+entries, ``gray_hist`` and ``binarize_apply``, against
+``binarize_pipeline``, and their sharded use (each shard's histogram
+summed, the sum applied on each shard) against the solo frame; a host
+model of each launch's plan (the blocks' runs of 16 pixels and the ragged
+tail, every gray byte and output byte written once, no read outside the
+frame; the per-block sums merged through the scratch, left zero) and of
+the first warp's top-2 scan, against ``reference_cpu.top2_scan``; and the
+wrappers on a CUDA tensor, which launch or raise. Tolerance is zero
+throughout.
+
+The kernels themselves are held against their plain version on the card
+by ``chip_smoke.py``.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from cudavideostream_tpu.ops import filters as jax_filters
+from cudavideostream_tpu_torch.config import StreamConfig, Visualizer
+from cudavideostream_tpu_torch.models import BatchedDeltaPipeline
+from cudavideostream_tpu_torch.ops import filters
+from cudavideostream_tpu_torch.ops import hist
+from cudavideostream_tpu_torch.ops import reference_cpu as ref
+
+CSRC = Path(filters.__file__).resolve().parent.parent / "csrc"
+LAYOUTS = {"48x64": (48, 64), "48x50": (48, 50)}
+SMS = 132  # an H100 SXM's SMs
+
+
+def _constexpr(name):
+    """``constexpr int name = ...;`` in ``csrc/binarize.cu``."""
+    code = re.sub(r"//[^\n]*", "", (CSRC / "binarize.cu").read_text())
+    expr = re.search(rf"constexpr\s+int\s+{name}\s*=\s*([^;]+);",
+                     code).group(1)
+    names = set(re.findall(r"[A-Za-z_]\w*", expr))
+    return eval(expr.replace("/", "//"), {"__builtins__": {}},
+                {k: _constexpr(k) for k in names})
+
+
+HIST_THREADS = _constexpr("kHistThreads")
+APPLY_THREADS = _constexpr("kApplyThreads")
+PIX = _constexpr("kPix")
+BINS = _constexpr("kBins")
+SCRATCH = _constexpr("kScratchWords")
+
+
+def _frame(seed, npx):
+    return np.random.default_rng(seed).integers(0, 256, 3 * npx,
+                                                dtype=np.uint8)
+
+
+def test_constants_read_from_the_kernel():
+    assert (HIST_THREADS, APPLY_THREADS, PIX) == (
+        filters.BIN_HIST_THREADS, filters.BIN_APPLY_THREADS,
+        filters.BIN_PIXELS)
+    assert BINS == hist.NBINS and SCRATCH == hist.HIST_SCRATCH_WORDS
+    # 16 pixels: 48 frame bytes (three 16-byte loads), 16 gray bytes (one)
+    assert PIX * 3 % 16 == 0 and PIX % 16 == 0
+    # the scan's warp: 32 lanes of 8 bins
+    assert BINS == 32 * 8
+
+
+# -- the plain version against the JAX package and the spec ----------------
+
+def _tie_frame(npx):
+    """A frame whose gray histogram ties: two bins of equal count hold
+    every pixel (the scan's tie-break takes the later one)."""
+    px = np.zeros((npx, 3), np.uint8)
+    px[npx // 2:] = 200  # gray 200
+    px[:npx // 2] = 90   # gray 90
+    return px.reshape(-1)
+
+
+@pytest.mark.parametrize("case", ["random", "one-value", "tie", "0-255"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_plain_matches_jax_and_spec(layout, case):
+    h, w = LAYOUTS[layout]
+    npx = h * w
+    frame = {"random": _frame(1, npx),
+             "one-value": np.full(3 * npx, 77, np.uint8),
+             "tie": _tie_frame(npx),
+             "0-255": np.where(_frame(2, npx) < 128, 0, 255).astype(
+                 np.uint8)}[case]
+    got = filters.binarize_pipeline(torch.from_numpy(frame.copy()))
+    assert got.dtype == torch.uint8 and got.numel() == frame.size
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_filters.binarize_pipeline(
+            jnp.asarray(frame), fused=True)).ravel())
+    np.testing.assert_array_equal(got.numpy(), ref.binarize_pipeline(frame))
+    np.testing.assert_array_equal(
+        filters.binarize_pipeline_reference(torch.from_numpy(frame)).numpy(),
+        got.numpy())
+
+
+@pytest.mark.parametrize("npx", [1, 15, 16, 17, 48 * 50, 12_345])
+def test_entries_equal_the_pipeline(npx):
+    """``gray_hist`` gives the gray values and their histogram;
+    ``binarize_apply`` of the two, into a fresh tensor or a view, equals
+    ``binarize_pipeline``, on ragged lengths."""
+    frame = torch.from_numpy(_frame(npx, npx))
+    gray, h = filters.gray_hist(frame)
+    assert gray.dtype == torch.uint8 and h.dtype == torch.int32
+    np.testing.assert_array_equal(gray.numpy(),
+                                  filters.gray_pixels(frame).numpy())
+    np.testing.assert_array_equal(
+        h.numpy(), np.bincount(gray.numpy(), minlength=256))
+    want = filters.binarize_pipeline(frame).numpy()
+    np.testing.assert_array_equal(filters.binarize_apply(gray, h).numpy(),
+                                  want)
+    big = torch.full((3 * npx + 5,), 9, dtype=torch.uint8)
+    filters.binarize_apply(gray, h, out=big[2:2 + 3 * npx])
+    np.testing.assert_array_equal(big[2:2 + 3 * npx].numpy(), want)
+    assert big[:2].eq(9).all() and big[-3:].eq(9).all()
+    out = torch.empty(3 * npx, dtype=torch.uint8)
+    assert filters.binarize_pipeline(frame, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("s", [2, 4])
+def test_sharded_sum_equals_the_solo_histogram(s):
+    """Each row shard's ``gray_hist``, the histograms summed (the JAX
+    ``psum``), and ``binarize_apply`` of the sum on each shard: the solo
+    frame's histogram and bytes."""
+    h, w = 48, 50
+    frame = _frame(s, h * w)
+    ln = h // s * w * 3
+    parts = [filters.gray_hist(torch.from_numpy(frame[i * ln:(i + 1) * ln]
+                                                .copy())) for i in range(s)]
+    total = sum(p[1] for p in parts)
+    np.testing.assert_array_equal(
+        total.numpy(), filters.gray_hist(torch.from_numpy(frame))[1].numpy())
+    got = np.concatenate([filters.binarize_apply(g, total).numpy()
+                          for g, _ in parts])
+    np.testing.assert_array_equal(got, ref.binarize_pipeline(frame))
+
+
+def test_refusals():
+    f = torch.zeros(30, dtype=torch.uint8)
+    g, h = filters.gray_hist(f)
+    for bad in (f[:-1], f.to(torch.int32), f[:0], f.reshape(10, 3)[:, 0]):
+        with pytest.raises(ValueError):
+            filters.gray_hist(bad)
+    for args in ((g.to(torch.int32), h), (g, h.to(torch.int64)),
+                 (g, h[:-1])):
+        with pytest.raises(ValueError):
+            filters.binarize_apply(*args)
+    with pytest.raises(ValueError):
+        filters.binarize_apply(g, h, out=torch.empty(29, dtype=torch.uint8))
+    for fn in (filters.gray_hist_plan, filters.apply_plan):
+        with pytest.raises(ValueError):
+            fn(0, SMS)
+
+
+# -- host models of the two launches ----------------------------------------
+
+def _lane_threshold(h):
+    """The first warp's scan in ``binarize_apply_kernel``, lane by lane:
+    8 bins a lane, the running max of the lanes before (-1 for lane 0),
+    each lane's last two indices ``i`` with ``h[i] >= max(h[:i])``, and two
+    maxima over the lanes; then the clamped threshold."""
+    h = np.asarray(h, np.int64).reshape(32, 8)
+    lmax = h.max(axis=1)
+    excl = np.concatenate([[-1], np.maximum.accumulate(lmax)[:-1]])
+    l1, l2 = np.full(32, -1), np.full(32, -1)
+    for lane in range(32):
+        run = excl[lane]
+        for k in range(8):
+            if h[lane, k] >= run:
+                l2[lane], l1[lane] = l1[lane], 8 * lane + k
+            run = max(run, h[lane, k])
+    imax = l1.max()
+    isec = np.where(l1 == imax, l2, l1).max()
+    s = imax + isec
+    return (imax, isec), min(200, max(50, s // 2 if s >= 0 else 0))
+
+
+EDGE_HISTS = [{10: 5, 30: 5}, {200: 9, 100: 7}, {0: 100}, {255: 1}, {},
+              {7: 3, 8: 3, 9: 3}, {0: 1, 255: 1}, {100: 2, 101: 1, 102: 2}]
+
+
+@pytest.mark.parametrize("case", range(len(EDGE_HISTS)))
+def test_lane_scan_matches_top2_scan_edges(case):
+    hh = np.zeros(256, np.int64)
+    for k, v in EDGE_HISTS[case].items():
+        hh[k] = v
+    (imax, isec), t = _lane_threshold(hh)
+    assert (imax, isec) == ref.top2_scan(hh)
+    assert t == ref.binarize_threshold(hh) == int(
+        filters.binarize_threshold(torch.from_numpy(hh)))
+
+
+@settings(deadline=None, max_examples=25)
+@given(st.lists(st.integers(0, 50), min_size=256, max_size=256))
+def test_lane_scan_and_threshold_match_top2_scan(hh):
+    hh = np.asarray(hh, np.int64)
+    (imax, isec), t = _lane_threshold(hh)
+    assert (imax, isec) == ref.top2_scan(hh)
+    assert t == ref.binarize_threshold(hh) == int(
+        filters.binarize_threshold(torch.from_numpy(hh)))
+
+
+def _runs(npx, grid, threads):
+    """Which thread takes each run of 16 pixels (block ``b``'s thread
+    ``t`` takes run ``b * threads + t`` and every ``grid * threads``
+    further), and which takes each pixel of the ragged tail (block 0's
+    thread ``t`` takes pixel ``16 * runs + t``): ``(run_owner,
+    tail_owner)`` as global thread ids."""
+    runs = npx // PIX
+    stride = grid * threads
+    owner = np.arange(runs) % stride  # thread b * threads + t
+    tail = np.arange(npx - runs * PIX)
+    assert (tail < threads).all()  # block 0 holds a thread per tail pixel
+    return owner, tail
+
+
+@pytest.mark.parametrize("npx", [1, 15, 16, 17, 1024 * 16 - 1,
+                                 1024 * 16 + 17, SMS * 1024 * 16 + 5,
+                                 1920 * 1080, 2 * 1920 * 1080 + 3])
+def test_gray_hist_plan_covers_every_pixel_once(npx):
+    """Launch 1: every pixel's three bytes read and its gray byte written
+    by exactly one thread, every read inside the frame; the blocks' sums,
+    added to the scratch and swapped out by the last block to finish,
+    give the histogram and leave the scratch zero."""
+    grid = filters.gray_hist_plan(npx, SMS)
+    assert 1 <= grid <= SMS
+    owner, tail = _runs(npx, grid, HIST_THREADS)
+    runs = npx // PIX
+    assert owner.size == 0 or owner.max() < grid * HIST_THREADS
+    written = np.zeros(npx, np.int64)
+    np.add.at(written, (np.arange(runs)[:, None] * PIX
+                        + np.arange(PIX)).reshape(-1), 1)
+    written[runs * PIX + tail] += 1
+    assert (written == 1).all()
+    # a run's 48 bytes start at 48 * run: inside the 3 * npx frame bytes
+    assert runs == 0 or 48 * (runs - 1) + 48 <= 3 * npx
+    if npx > 300_000:
+        return  # the sums below, at the small lengths
+    frame = _frame(npx, npx)
+    gray = filters.gray_pixels(torch.from_numpy(frame)).numpy()
+    block_of_run = owner // HIST_THREADS
+    scratch = np.zeros(SCRATCH, np.int64)
+    order = np.random.default_rng(npx).permutation(grid)  # finish order
+    out = None
+    for done, b in enumerate(order):
+        px = (np.arange(runs)[block_of_run == b][:, None] * PIX
+              + np.arange(PIX)).reshape(-1)
+        if b == 0:
+            px = np.concatenate([px, runs * PIX + tail])
+        scratch[:BINS] += np.bincount(gray[px], minlength=BINS)
+        scratch[BINS] += 1
+        if scratch[BINS] == grid:  # the last block swaps the sums out
+            assert done == grid - 1
+            out, scratch[:] = scratch[:BINS].copy(), 0
+    assert not scratch.any()
+    np.testing.assert_array_equal(
+        out, hist.histogram_reference(torch.from_numpy(gray)).numpy())
+
+
+@pytest.mark.parametrize("npx", [1, 16, 17, 256 * 16 + 3, 1920 * 1080,
+                                 SMS * 8 * 256 * 16 * 2 + 15])
+def test_apply_plan_writes_every_byte_once(npx):
+    """Launch 2: every pixel's three output bytes written by exactly one
+    thread; every block scans the histogram itself, so any block's
+    threshold is the frame's."""
+    grid = filters.apply_plan(npx, SMS)
+    assert 1 <= grid <= filters.BIN_APPLY_BLOCKS_PER_SM * SMS
+    owner, tail = _runs(npx, grid, APPLY_THREADS)
+    runs = npx // PIX
+    written = np.zeros(3 * npx, np.int64)
+    np.add.at(written, (np.arange(runs)[:, None] * 3 * PIX
+                        + np.arange(3 * PIX)).reshape(-1), 1)
+    for t in tail:
+        written[3 * (runs * PIX + t) + np.arange(3)] += 1
+    assert (written == 1).all()
+    # runs per thread: whole grid strides, so the grid is never idle while
+    # another wave would be needed
+    per_thread = np.bincount(owner, minlength=grid * APPLY_THREADS)
+    assert per_thread.max() - per_thread.min() <= 1
+
+
+# -- the served path, and a CUDA tensor never reaching the plain version ----
+
+def test_served_binarize_batched():
+    """``--visualizer 5`` through the batched pipeline (B = 3, a pair of
+    K9 calls a stream, each into its slice of the aux frame): each
+    stream's aux frame equals the spec's."""
+    cfg = StreamConfig(height=48, width=50, overlay_scale=4,
+                       visualizer=Visualizer.BINARIZE, tiled_payload=True)
+    b, n = 3, cfg.frame_bytes
+    rng = np.random.default_rng(5)
+    prev = rng.integers(0, 256, b * n, dtype=np.uint8)
+    cur = rng.integers(0, 256, b * n, dtype=np.uint8)
+    cur[n:2 * n] = 200  # one stream with one gray value
+    aux = BatchedDeltaPipeline(cfg, b, device="cpu").step(
+        torch.from_numpy(prev), torch.from_numpy(cur))[-1].numpy()
+    for s in range(b):
+        np.testing.assert_array_equal(aux[s * n:(s + 1) * n],
+                                      ref.binarize_pipeline(
+                                          cur[s * n:(s + 1) * n]))
+
+
+def test_binarize_on_cuda_launches_or_raises(monkeypatch):
+    """A CUDA tensor never takes the plain version: without a kernel
+    build (no nvcc here) each entry raises, no plain version is called
+    and no launch is counted."""
+    calls = []
+    for name in ("binarize_pipeline_reference", "gray_pixels",
+                 "binarize_pixels", "binarize_threshold"):
+        monkeypatch.setattr(filters, name, lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(hist, "histogram_reference",
+                        lambda *a: calls.append(a))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(filters.build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(filters, "_bin_lib", None)
+    monkeypatch.setattr(filters.build, "_loaded", {})
+    monkeypatch.setattr(filters.build, "library_path",
+                        lambda name: filters.build.BUILD_DIR / "absent.so")
+    frame = torch.zeros(48 * 64 * 3, dtype=torch.uint8)
+    gray = torch.zeros(48 * 64, dtype=torch.uint8)
+    h = torch.zeros(256, dtype=torch.int32)
+    before = (filters.gray_hist.launches, filters.binarize_apply.launches)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    for fn in (lambda: filters.binarize_pipeline(frame),
+               lambda: filters.gray_hist(frame),
+               lambda: filters.binarize_apply(gray, h)):
+        with pytest.raises(RuntimeError):
+            fn()
+    monkeypatch.undo()
+    assert not calls
+    assert (filters.gray_hist.launches,
+            filters.binarize_apply.launches) == before
