@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. environment: the card's name, power limit and SM clock, torch, CUDA,
    nvcc, triton;
-2. build: every hand-written kernel, from ``csrc/`` (eight sources), one
-   ``nvcc`` per source, all started together; K7's SASS must keep its
+2. build: every hand-written kernel, from ``csrc/`` (ten sources), one
+   ``nvcc`` per source, all started together; no kernel of K9-K13 may
+   keep a stack frame (``cuobjdump -res-usage``); K7's SASS must keep its
    256 compares per value (``cuobjdump -sass``, ISETP counted), each
    instance of K1's tiled kernel and K4's kernel must load from global
    memory before its first shared-memory store, and K5's and K6's cluster
@@ -65,9 +66,21 @@ Phases (any failure raises and the script exits non-zero):
    two launches) at 1080p, on the scene, a one-value frame, a tie in the
    histogram, ragged lengths and an unaligned view, sharded at S = 4, and
    in 100 launches back to back on two streams (every scratch zero
-   after); K1's ``index_offset`` mode (flat and tiled at
-   ``subtile_rows`` 1, 8, 0, two densities; tiled at 1 and 8 with a
-   per-byte map) on every shard of the frame cut
+   after), and with the overlay region read in place of the frame's
+   prefix; K10 (the HOST step, ``diff_pack``) and K11-K13 (``heatmap``,
+   ``red_visualizer`` modes 2 and 3, ``grayscale_average`` and
+   ``_weighted``) at 1080p and on a ragged width, without a region, with
+   the strip and with a strip ending inside a run of 16 pixels, K10 and
+   K12 with thresholds 20 and 0, a map and a map of 0s and 255s, K10 with
+   and without negative feedback and the delta, on ragged lengths (the
+   bits' zero padding) and unaligned views, K11 on sums 0..765 (the
+   wrap), K11-K13 on B = 2 and 4 streams at a ragged stride against solo
+   calls, all four on S = 4 shards against the solo frame and in 20
+   launches back to back on one and on two streams, and a step of
+   ``--visualizer 1-4`` with and without ``--noise-filter`` against the
+   NumPy spec with one launch of its kernel; K1's ``index_offset`` mode
+   (flat and tiled at ``subtile_rows`` 1, 8, 0, two densities; tiled at
+   1 and 8 with a per-byte map) on every shard of the frame cut
    into S = 2, 4 and 8 row shards at its shard base, and at the largest
    offset int32 admits, against its plain version and against the
    offset-free launch shifted on its valid entries only;
@@ -81,7 +94,8 @@ Phases (any failure raises and the script exits non-zero):
    spec, the aux frame included;
 4. serving: the port's server in a thread and the port's client over
    127.0.0.1, 1080p synthetic frames with a changing overlay text, on
-   twelve paths — flat (wire v1), ``--tiled --fetch flat``, ``--tiled
+   twelve paths (K11 once a frame under ``--visualizer 1``, K12 under
+   ``--visualizer 3``) — flat (wire v1), ``--tiled --fetch flat``, ``--tiled
    --fetch tiles``, ``--tiled --pipelined --wire v3``, ``--tiled
    --bitmask --fetch mask --wire v4``, ``--tiled --fetch mask --maskonly
    --wire v4 --land-batch 8``, ``--tiled --bitmask --fetch auto``,
@@ -99,15 +113,17 @@ Phases (any failure raises and the script exits non-zero):
    K7, the JAX package's scheme cross-check and probe, through the public
    entry points on one synthetic 1080p frame, its launches counted the
    same way, now with K1 and K5 batched on two streams; then the
-   multi-stream server (4 streams, a loopback client each) in three runs,
-   wire v1, ``--wire v3`` and ``--visualizer 5 --aux-dir``, every stream
+   multi-stream server (4 streams, a loopback client each) in four runs,
+   wire v1, ``--wire v3``, ``--visualizer 5 --aux-dir`` and
+   ``--visualizer 4 --aux-dir`` (K13 once a batched frame), every stream
    byte-exact every frame with one K1 batched launch per batched frame;
    the broadcast server (wire v3) with a client from the start and one
    joining late, and the session a raw reader recorded replayed
    byte-identical by ``ReplayServer``; then the sharded paths, each
    byte-exact every frame: ``server --mesh 1,1`` (wire v1, and
    ``--pipelined --wire v3``) built by ``server.setup``, an S = 4
-   ``ShardedStreamExecutor`` with its shards on ``cuda:0``, and
+   ``ShardedStreamExecutor`` with its shards on ``cuda:0`` (and again
+   under ``--visualizer 2``, K12 once a shard), and
    ``multiserve --streams 4 --mesh 1,1``, with S K1 launches a frame (K2
    only for a (1, 1) mesh's ``flat`` landings); then the camera path: a
    16-frame ``.npy`` clip served by ``server --source file`` (flat wire
@@ -120,8 +136,9 @@ Phases (any failure raises and the script exits non-zero):
    the last modules, on a 16-frame clip through ``server.main --source
    file``: the SORT and HOST backends (3 steps each against
    ``step_oracle``, the HOST fast path and its ``--noise-filter`` path;
-   then 16 frames served each, no kernel launched, the fast path bringing
-   n/8 bytes a frame from the card), ``--backend oracle`` (6 frames),
+   then 16 frames served each, SORT launching no kernel and HOST K10 once
+   a frame, the fast path bringing n/8 bytes a frame from the card),
+   ``--backend oracle`` (6 frames),
    ``--aux-port`` under ``--visualizer 1`` and ``5`` read by an
    ``AuxStreamClient`` (each frame it gets equal to the oracle's aux
    frame), ``--save-state`` then ``--resume`` (the joining client's base
@@ -158,7 +175,9 @@ Phases (any failure raises and the script exits non-zero):
    it must hold one node a step of each kernel its row launches (K1 flat
    or tiled, two for K1's whole-tile chunk path; K5 and K2 on the
    segment row; K4 on ``histogram``, K9's two on ``binarize_pipeline``,
-   K8 on ``gaussian_conv_k3/5/7/9``) and no
+   K8 on ``gaussian_conv_k3/5/7/9``, K10 on ``host_offload_step``, K11 on
+   ``heatmap_lut``, K12 on ``red_overlap``, K13 on ``grayscale_avg`` and
+   ``grayscale_weighted``) and no
    other kernel of the port, and its carry after the table's replays
    must equal the same steps launched eagerly, byte for byte; then the
    served path from a source on the card (``loopback_sweep``): every row
@@ -170,9 +189,9 @@ Phases (any failure raises and the script exits non-zero):
    (the client's frame == ``executor.resync()``), its legs, fps,
    ``pos_mean`` and fetched KB a frame printed with the card, its
    launches counted from 0 and held to one K1 a frame, one K2 a ``flat``
-   or ``mask`` landing, one K3 a ``maskonly`` landing and none on the
-   HOST backend; one row of each flavor served again under the profiler
-   (the card's idle share) and five to a client that decodes nothing (the
+   or ``mask`` landing, one K3 a ``maskonly`` landing and K10 alone, once
+   a frame, on the HOST backend; one row of each flavor served again
+   under the profiler (the card's idle share) and five to a client that decodes nothing (the
    decoding client's share of the send leg); and ``loopback.main``'s
    rows at 1080p, each loop gated;
 5. times from CUDA events (medians over 100 iterations, 30 for functions
@@ -189,15 +208,21 @@ Phases (any failure raises and the script exits non-zero):
    rebuild apart), ``TiledPayload.to_flat`` and the v3 and v4 encodes on
    the host, and the synchronous against the pipelined executor per frame;
    the source's host time per frame is printed apart; K4 against its
-   plain version, ``torch.bincount`` and its bound, the filters and the
-   noise filter, the ``--visualizer 5`` step and the aux landing; K8 at
+   plain version, ``torch.bincount`` and its bound, the ``--visualizer
+   5`` step and the aux landing; K8 at
    K = 3, 5, 7, 9 and K9 on cold frames against their plain versions and
    bounds (K8's the larger of its bytes and its K^2 int32 multiply-adds a
    byte, and ``F.conv2d`` fp32 as its library yardstick; K9's each launch
    alone), their kernels per call, and ``pipeline.step`` with
    ``--noise-filter`` and with ``--visualizer 5``, device and host wall
    time, kernels against the plain versions (and K9 against the chain
-   of torch ops around K4 that it replaced) in turns; K1
+   of torch ops around K4 that it replaced) in turns; K10-K13 on cold
+   frames against their plain versions and their bounds in bytes (K10
+   also with the delta and with a map, K12 in modes 2 and 3 and with a
+   map, K13 in both weightings), their kernels per call, and
+   ``pipeline.step`` with ``--visualizer 1``, ``--visualizer 3`` and
+   ``--compaction host``, the kernel against its plain version in turns;
+   K1
    without and with a map on each emission, in turns; K5, K6 and K7
    against their plain versions and bounds (K7's in operations, at the
    card's SM clock and an SM's issue ceiling of 128 lanes per clock); K1
@@ -313,15 +338,17 @@ def phase_environment():
 
 
 def phase_build():
-    """Build and bind the eight sources; returns the counts of K7's SASS
+    """Build and bind the ten sources; returns the counts of K7's SASS
     instructions by opcode (:data:`K7_SASS_OPS`): its ISETP (integer
     compare) count must keep its 256 compares per value (fails below 256:
     the compiler folded them). Prints, and fails on a card that cannot
     hold them, the launch plans of K5 and K6 (clusters) and of K7 (equal
-    slices, all resident at once)."""
+    slices, all resident at once); and fails if a kernel of K9-K13 keeps
+    a stack frame (registers spilled to local memory)."""
     from cudavideostream_tpu_torch import native
     from cudavideostream_tpu_torch.kernels import build
     from cudavideostream_tpu_torch.ops import convolve
+    from cudavideostream_tpu_torch.ops import diff
     from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
@@ -329,7 +356,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     names = ("logcompact", "pair_compact", "histogram", "segment_compact",
-             "register_compact", "probe", "convolve", "binarize")
+             "register_compact", "probe", "convolve", "binarize",
+             "diff_pack", "visualize")
     # one nvcc per source, and the host library's cc, all at once
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         host_lib = pool.submit(native.build)
@@ -346,9 +374,24 @@ def phase_build():
     hist._probe()
     convolve._conv_lib()
     filters._binarize()
+    diff._diff_pack_lib()
+    filters._visualize_lib()
     log(f"[build] csrc/{'.cu, csrc/'.join(names)}.cu built and bound in "
         f"{time.perf_counter() - t0:.2f} s")
     cuobjdump = build.find_nvcc()[: -len("nvcc")] + "cuobjdump"
+    for name in ("binarize", "diff_pack", "visualize"):
+        usage = subprocess.run(
+            [cuobjdump, "-res-usage", str(build.build(name))], check=True,
+            capture_output=True, text=True).stdout
+        found = re.findall(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+)",
+                           usage)
+        if not found or any(int(stack) for _, _, stack in found):
+            raise AssertionError(f"csrc/{name}.cu: a kernel spills to a "
+                                 f"stack frame, or no usage was read:\n"
+                                 f"{usage}")
+        log(f"[build] csrc/{name}.cu (cuobjdump -res-usage): "
+            + ", ".join(f"{_demangled_kernel(fn)} {reg} registers"
+                        for fn, reg, _ in found) + ", no stack frame")
     sass = subprocess.run([cuobjdump, "-sass", str(build.build("probe"))],
                           check=True, capture_output=True,
                           text=True).stdout.splitlines()
@@ -387,6 +430,23 @@ def phase_build():
         raise AssertionError("K7: an SM cannot hold the CTAs its plan "
                              "gives it")
     return mix
+
+
+def _demangled_kernel(mangled):
+    """The kernel's name in an Itanium-mangled symbol (a length, then the
+    name: ``...e83b887811heat_kernel...`` -> ``heat_kernel``), with its
+    template arguments as ``<Op, Map>`` where it has them."""
+    name = mangled
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for k in range(len(digits)):
+            cand = mangled[m.end():m.end() + int(digits[k:])]
+            if cand.endswith("_kernel") and len(cand) == int(digits[k:]):
+                name = cand
+    args = re.search(r"_kernelILi(\d+)ELb(\d)E", mangled)
+    if args:
+        name += f"<{args.group(1)}, {str(args.group(2) == '1').lower()}>"
+    return name
 
 
 def loads_first(cuobjdump, source, kernel, instances):
@@ -1382,6 +1442,281 @@ def phase_noise_binarize_vs_plain(cfg):
     return cases
 
 
+def phase_visualize_vs_plain(cfg):
+    """K10 (``diff_pack``, the HOST step) and K11-K13 (``heatmap``,
+    ``red_visualizer``, ``grayscale_average`` / ``_weighted``) against
+    their plain versions on the card, byte for byte: at 1080p and on a
+    ragged width (5,751 B a row), without a region, with the overlay strip
+    and with a strip whose end falls inside a run of 16 pixels; K10 and
+    K12 with thresholds 20 and 0, a per-byte map and a map of 0s and
+    255s; K10 with and without negative feedback and the delta, on
+    lengths 1-17, 127-129 and lengths not a multiple of 8, and on views
+    that start unaligned; K11 on a pair that reaches d = 510..765; K11-K13
+    on B = 2 and 4 streams at a ragged stride against B solo calls; all
+    four on S = 4 row shards against the solo frame; 20 launches of each
+    back to back on one stream and on two at once; K9 with the overlay
+    region; and a 1080p ``pipeline.step`` of ``--visualizer 1-4``, with
+    and without ``--noise-filter``, against ``step_oracle`` with its
+    launches (the HOST steps are checked in the backends phase)."""
+    from cudavideostream_tpu_torch.config import Visualizer
+    from cudavideostream_tpu_torch.ops import diff, filters, hist
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.utils import fonts
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 40)
+    cases = {"k10": 0, "k11": 0, "k12": 0, "k13": 0, "k9_region": 0,
+             "steps": 0}
+    cell_h = fonts.make_atlas(cfg.overlay_scale, cfg.overlay_font).shape[1]
+
+    def rand(m):
+        return torch.from_numpy(rng.integers(0, 256, m,
+                                             dtype=np.uint8)).to(dev)
+
+    def maps(m):
+        return {"20": 20, "0": 0, "a map": rand(m),
+                "a map of 0s and 255s": torch.where(
+                    rand(m) < 128, 0, 255).to(torch.uint8)}
+
+    def k10(label, cur, prev, thr, nf, reg, wd):
+        p1, p2 = prev.clone(), prev.clone()
+        b1, d1 = diff.diff_pack(cur, p1, thr, nf, reg, wd)
+        b2, d2 = diff.diff_pack_reference(cur, p2, thr, nf, reg, wd)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"K10 {label}", (b1, p1) + ((d1,) if wd else ()),
+                        (b2, p2) + ((d2,) if wd else ()),
+                        ("bits", "new_prev", "delta"))
+        cases["k10"] += 1
+        return b1
+
+    # (kernel entry, plain version, K number) of each visualizer op; each
+    # takes (cur, prev, threshold, region, streams)
+    vis_ops = {
+        "heatmap": (
+            lambda c, p, t, r, s: filters.heatmap(c, p, r, s),
+            lambda c, p, t, r, s: filters.heatmap_reference(c, p, r, s),
+            "k11"),
+        "red black": (
+            lambda c, p, t, r, s: filters.red_visualizer(c, p, t, False, r,
+                                                         s),
+            lambda c, p, t, r, s: filters.red_visualizer_reference(
+                c, p, t, False, r, s), "k12"),
+        "red overlap": (
+            lambda c, p, t, r, s: filters.red_visualizer(c, p, t, True, r,
+                                                         s),
+            lambda c, p, t, r, s: filters.red_visualizer_reference(
+                c, p, t, True, r, s), "k12"),
+        "grayscale average": (
+            lambda c, p, t, r, s: filters.grayscale_average(c, r, s),
+            lambda c, p, t, r, s: filters.grayscale_average_reference(
+                c, r, s), "k13"),
+        "grayscale weighted": (
+            lambda c, p, t, r, s: filters.grayscale_weighted(c, r, s),
+            lambda c, p, t, r, s: filters.grayscale_weighted_reference(
+                c, r, s), "k13"),
+    }
+
+    def vis(op, label, cur, prev, thr=20, reg=None, streams=1):
+        launch, plain, k = vis_ops[op]
+        got = launch(cur, prev, thr, reg, streams)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"{k.upper()} {op} {label}", (got,),
+                        (plain(cur, prev, thr, reg, streams),), ("out",))
+        cases[k] += 1
+        return got
+
+    for h, w in ((cfg.height, cfg.width), (271, 1917)):
+        n = h * w * 3
+        strip = cell_h * w * 3
+        regions = {"no region": None, f"the strip ({strip} B)": rand(strip),
+                   f"a strip ending inside a run ({strip + 6} B)":
+                       rand(strip + 6)}
+        cur, prev = (torch.from_numpy(f).to(dev)
+                     for f in frame_pair(rng, n, 0.06)[::-1])
+        thrs = maps(n)
+        for rlabel, reg in regions.items():
+            for tlabel, thr in thrs.items():
+                for nf in (True, False):
+                    for wd in (False, True):
+                        k10(f"{h}x{w} {rlabel} {tlabel} nf={nf} delta={wd}",
+                            cur, prev, thr, nf, reg, wd)
+                for op in ("red black", "red overlap"):
+                    vis(op, f"{h}x{w} {rlabel} {tlabel}", cur, prev, thr, reg)
+            for op in ("heatmap", "grayscale average", "grayscale weighted"):
+                vis(op, f"{h}x{w} {rlabel}", cur, prev, 20, reg)
+        log(f"[check] K10 diff_pack, K11 heatmap, K12 red modes 2 and 3, K13 "
+            f"grayscale average and weighted at {h}x{w} ({w * 3} B a row, "
+            f"% 16 = {w * 3 % 16}), each {', '.join(regions)}; K10 and K12 "
+            f"with threshold {', '.join(thrs)}; K10 with and without "
+            f"negative feedback and the delta: each == its plain version, "
+            f"exact")
+    n = cfg.frame_bytes
+    # K10 on ragged lengths (the last bits byte padded with zeros) and on
+    # views that start 3 bytes past an aligned address
+    lengths = (1, 7, 8, 9, 15, 16, 17, 127, 128, 129, 1_000_003, n + 5)
+    for m in lengths:
+        cur, prev = rand(m), rand(m)
+        bits = k10(f"{m} B", cur, prev, 20, True, None, True)
+        if m % 8 and int(bits[-1]) >> (m % 8):
+            raise AssertionError(f"K10 {m} B: the padding bits are not zero")
+        k10(f"{m} B views", rand(m + 3)[3:], rand(m + 3)[3:], 0, False,
+            None, False)
+    log(f"[check] K10 diff_pack on {', '.join(str(m) for m in lengths)} B "
+        f"(the last bits byte's padding zero) and on views 3 B past an "
+        f"aligned start: each == its plain version, exact")
+    npx = n // 3
+    for m in (1, 15, 16, 17, 12_345, npx - 1, npx + 1):
+        cur, prev = rand(3 * m + 3)[3:], rand(3 * m)
+        for op in vis_ops:
+            vis(op, f"{m} pixels, cur 3 B past an aligned start", cur, prev,
+                rand(3 * m) if op.startswith("red") else 20,
+                rand(min(3 * m, 51)))
+    log("[check] K11-K13 on 1, 15, 16, 17, 12,345 and 1080p +- 1 pixels, "
+        "the frame 3 B past an aligned start, a 51-byte region, K12 with a "
+        "map: each == its plain version, exact")
+    # K11 reaches the colormap's wrap: sums 0..765 over the frame
+    d = torch.arange(npx, device=dev) % 766
+    px = torch.stack([d.clamp(max=255), (d - 255).clamp(0, 255),
+                      (d - 510).clamp(0, 255)], dim=1).to(torch.uint8)
+    heat = vis("heatmap", "with d = 0..765 (the wrap past 510)",
+               px.reshape(-1), torch.zeros(n, dtype=torch.uint8, device=dev))
+    lut = torch.from_numpy(reference_cpu.heatmap_lut().copy()).to(dev)
+    if not torch.equal(heat.view(-1, 3)[:766], lut):
+        raise AssertionError("K11: d = 0..765 does not give the LUT")
+    log("[check] K11 heatmap on a 1080p pair whose per-pixel sums run over "
+        "0..765: == its plain version and the 766-entry LUT in order, "
+        "exact (the wrap past d = 510 included)")
+    # the super-frame: B streams at a ragged stride, one launch
+    hr, wr = 271, 1917
+    nr = hr * wr * 3
+    for b in (2, 4):
+        cur, prev = rand(b * nr + 3)[3:], rand(b * nr)
+        strip = 17 * wr * 3 + 6
+        strips, tmap = rand(b * strip), rand(nr)
+        for op in vis_ops:
+            thr = tmap if op.startswith("red") else 20
+            got = vis(op, f"B={b}", cur, prev, thr, strips, b)
+            for s in range(b):
+                sl = slice(s * nr, (s + 1) * nr)
+                one = vis_ops[op][0](cur[sl], prev[sl], thr,
+                                     strips[s * strip:(s + 1) * strip], 1)
+                torch.cuda.synchronize()
+                _equal_or_raise(f"{op} B={b} stream {s}", (got[sl],), (one,),
+                                ("out",))
+        log(f"[check] K11-K13 on B={b} streams of {hr}x{wr} at a stride of "
+            f"{nr} B (odd: stream 1 starts unaligned), each with its strip "
+            f"of {strip} B, K12 with one stream's map, one launch: == the "
+            f"plain version and == {b} solo launches, exact")
+    # S = 4 row shards, each with its part of the strip and of the map
+    s_count, ln = 4, n // 4
+    cur, prev = (torch.from_numpy(f).to(dev)
+                 for f in frame_pair(rng, n, 0.06)[::-1])
+    region = rand((ln // (cfg.width * 3) + 3) * cfg.width * 3)
+    tmap = rand(n)
+
+    def shard_region(i):
+        return region[i * ln:(i + 1) * ln] if i * ln < region.numel() else None
+
+    for op in vis_ops:
+        thr = tmap if op.startswith("red") else 20
+        got = torch.cat([vis_ops[op][0](
+            cur[i * ln:(i + 1) * ln], prev[i * ln:(i + 1) * ln],
+            thr[i * ln:(i + 1) * ln] if op.startswith("red") else thr,
+            shard_region(i), 1) for i in range(s_count)])
+        vis(op, "the solo frame", cur, prev, thr, region)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"{op} S={s_count}", (got,),
+                        (vis_ops[op][1](cur, prev, thr, region, 1),),
+                        ("out",))
+    bits_s, prevs_s = [], []
+    for i in range(s_count):
+        p = prev[i * ln:(i + 1) * ln].clone()
+        bits_s.append(diff.diff_pack(cur[i * ln:(i + 1) * ln], p,
+                                     tmap[i * ln:(i + 1) * ln], True,
+                                     shard_region(i))[0])
+        prevs_s.append(p)
+    p_solo = prev.clone()
+    b_solo = diff.diff_pack_reference(cur, p_solo, tmap, True, region)[0]
+    torch.cuda.synchronize()
+    _equal_or_raise(f"K10 S={s_count}", (torch.cat(bits_s),
+                                         torch.cat(prevs_s)),
+                    (b_solo, p_solo), ("bits", "new_prev"))
+    cases["k10"] += 1
+    log(f"[check] K10-K13 on S={s_count} row shards of 1080p, each with its "
+        f"part of a {region.numel()} B region (it spans two shards) and its "
+        f"slice of a map, one launch a shard: the shards' outputs == the "
+        f"solo frame's plain version, exact")
+    # 20 launches of each back to back, on one stream and on two at once
+    for streams in (1, 2):
+        k10_cases = [(rand(m), rand(m), rand(m)) for m in (
+            (n, 17, 1, 1_000_003, 12_345)[i % 5] for i in range(20))]
+        cases["k10"] += _back_to_back(
+            f"K10 back to back, {streams} stream(s)",
+            lambda c, p, t: diff.diff_pack(c, p.clone(), t, True, None, True),
+            lambda c, p, t: diff.diff_pack_reference(c, p.clone(), t, True,
+                                                     None, True),
+            k10_cases, streams, ("bits", "delta"))
+        vis_cases = [(rand(m), rand(m), rand(m)) for m in (
+            3 * (npx, 17, 1, 333_335, 4_115)[i % 5] for i in range(20))]
+        for op, (launch, plain, k) in vis_ops.items():
+            cases[k] += _back_to_back(
+                f"{op} back to back, {streams} stream(s)",
+                lambda c, p, t, _l=launch: (_l(c, p, t, None, 1),),
+                lambda c, p, t, _l=plain: (_l(c, p, t, None, 1),),
+                vis_cases, streams, ("out",))
+        log(f"[check] K10-K13: 20 launches of each back to back on "
+            f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
+            f" (lengths from 1 B to 1080p; K12 with a map): each == its plain "
+            f"version, exact")
+    # K9 with the overlay region, read in place of the frame's prefix
+    for h, w in ((cfg.height, cfg.width), (271, 1917)):
+        m = h * w * 3
+        frame = rand(m)
+        for rlen in (cell_h * w * 3, cell_h * w * 3 + 6, 1001, 48, m):
+            reg = rand(rlen)
+            gray, counts = filters.gray_hist(frame, reg)
+            got = filters.binarize_pipeline(frame, region=reg)
+            torch.cuda.synchronize()
+            over = diff.region_frame(frame, reg)
+            _equal_or_raise(f"K9 region {h}x{w} {rlen} B", (
+                gray, counts, got), (
+                filters.gray_pixels(over),
+                hist.histogram_reference(filters.gray_pixels(over)),
+                filters.binarize_pipeline_reference(frame, reg)),
+                ("gray", "hist", "out"))
+            cases["k9_region"] += 1
+    log(f"[check] K9 gray_hist and binarize_pipeline with the overlay region "
+        f"at 1080p and 271x1917 (regions of the strip, the strip + 6 B, "
+        f"1,001 B, one run and the whole frame): gray, histogram and output "
+        f"== the plain version on the overlaid frame, exact")
+
+    # the steps: --visualizer 1-4, with and without the noise filter
+    text = "FPS: 30 BW: 1234 kbps"
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    want = {Visualizer.HEATMAP: "heatmap", Visualizer.RED_BLACK:
+            "red_visualizer", Visualizer.RED_OVERLAP: "red_visualizer",
+            Visualizer.GRAYSCALE: "grayscale_weighted"}
+    for v, counter in want.items():
+        for nf in (False, True):
+            counters = _zero_launches()
+            _check_step(f"--visualizer {v.value}"
+                        + (" --noise-filter" if nf else ""),
+                        dataclasses.replace(cfg, visualizer=v,
+                                            noise_filter=nf),
+                        prev_np, cur_np, text)
+            got = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            expect = {"fused_diff_compact": 1, counter: 1,
+                      **({"convolve_q16": 1} if nf else {})}
+            if got != expect:
+                raise AssertionError(f"--visualizer {v.value} step: "
+                                     f"launches {got}, not {expect}")
+            cases["steps"] += 1
+    log(f"[check] --visualizer 1-4 steps, with and without --noise-filter: "
+        f"one launch of K11, K12 (modes 2 and 3) or K13 a step beside K1 "
+        f"(and K8 under the filter), no overlaid copy of the frame")
+    return cases
+
+
 def door_map(cfg, rng):
     """A per-pixel ``(H, W)`` threshold map of the kind ``--threshold-map``
     is for: 60 over the noisy scene, 4 in a "door" rectangle, and a few
@@ -1923,11 +2258,13 @@ def phase_batched_vs_plain(cfg):
                 states[s] = e_prev
                 poss.append(e_pos)
             cases["steps"] += 1
-        # K8 once a batched frame (every stream in one launch), K9's pair
-        # once a stream
+        # K8 and K12 once a batched frame (every stream in one launch),
+        # K9's pair once a stream
         k9 = 3 * b if vcfg.visualizer == Visualizer.BINARIZE else 0
         want = {"convolve_q16": 3 if vcfg.noise_filter else 0,
-                "gray_hist": k9, "binarize_apply": k9, "histogram": 0}
+                "gray_hist": k9, "binarize_apply": k9, "histogram": 0,
+                "red_visualizer":
+                    3 if vcfg.visualizer == Visualizer.RED_OVERLAP else 0}
         got = {name: counters[name].launches for name in want}
         if got != want:
             raise AssertionError(f"batched step {label}: launches {got}, "
@@ -2091,6 +2428,7 @@ class _UntilTextsChanged:
 
 def _launch_counters():
     from cudavideostream_tpu_torch.ops import convolve
+    from cudavideostream_tpu_torch.ops import diff
     from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
@@ -2109,7 +2447,12 @@ def _launch_counters():
             "vpu_probe": hist.vpu_probe,
             "convolve_q16": convolve.convolve_q16,
             "gray_hist": filters.gray_hist,
-            "binarize_apply": filters.binarize_apply}
+            "binarize_apply": filters.binarize_apply,
+            "diff_pack": diff.diff_pack,
+            "heatmap": filters.heatmap,
+            "red_visualizer": filters.red_visualizer,
+            "grayscale_average": filters.grayscale_average,
+            "grayscale_weighted": filters.grayscale_weighted}
 
 
 def _zero_launches():
@@ -3267,12 +3610,11 @@ def phase_mask_times(cfg):
 
 def phase_filter_times(cfg):
     """K4 against its plain version, ``torch.bincount`` and its bound; the
-    filters of torch ops at 1080p (K8 and K9 have their own phase,
-    :func:`phase_noise_binarize_times`); the ``--visualizer 5`` step
-    against the plain step; the aux landing."""
+    ``--visualizer 5`` step against the plain step; the aux landing. (K8
+    and K9 have their own phase, :func:`phase_noise_binarize_times`, and
+    K10-K13 theirs, :func:`phase_visualize_times`.)"""
     from cudavideostream_tpu_torch.config import Visualizer
     from cudavideostream_tpu_torch.models import DeltaStreamPipeline
-    from cudavideostream_tpu_torch.ops import diff as diff_ops
     from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.runtime.executor import (
@@ -3311,20 +3653,9 @@ def phase_filter_times(cfg):
     k4_bytes = g.numel() + 4 * 256
     k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
 
-    mask = diff_ops.diff_mask(cur, prev0, cfg.threshold)[0]
-    # these enqueue up to ~50 small launches a call: 30 calls fit the
-    # launch queue behind the sleep (100 did not)
+    # a step enqueues up to ~50 small launches: 30 calls fit the launch
+    # queue behind the sleep (100 did not)
     few = 30
-    ops = {
-        "grayscale_weighted":
-            lambda i: filters.grayscale_weighted(curs[i % CUR_COPIES]),
-        "heatmap": lambda i: filters.heatmap(curs[i % CUR_COPIES], prev0),
-        "red_overlap": lambda i: filters.red_overlap(prev0, mask),
-    }
-    ops_ms = {name: (_event_median_ms(fn, few),
-                     _event_median_ms(fn, few, backlog=False))
-              for name, fn in ops.items()}
-
     text = "FPS: 30 BW: 1234 kbps"
     step_ms = {}
     for vis in (Visualizer.NONE, Visualizer.BINARIZE, Visualizer.BINARIZE,
@@ -3358,9 +3689,6 @@ def phase_filter_times(cfg):
         f"{k4_one:.4f} ms; its plain PyTorch version {k4_plain:.4f} ms; "
         f"torch.bincount(g, minlength=256) {k4_lib:.4f} ms (it reads the "
         f"maximum back to size its output)")
-    for name, (ms, wall) in ops_ms.items():
-        log(f"[time] {name} at 1080p: {ms:.4f} ms device, {wall:.4f} ms "
-            f"with the host's launches (queue not held), medians of {few}")
     log(f"[time] pipeline.step without / with --visualizer 5, in turns, "
         f"medians of {few}: "
         f"{' / '.join(f'{x:.4f}' for x in step_ms[Visualizer.NONE])} ms / "
@@ -3410,6 +3738,7 @@ def phase_noise_binarize_times(cfg, clock_mhz, smi):
     from cudavideostream_tpu_torch.config import Visualizer
     from cudavideostream_tpu_torch.models import DeltaStreamPipeline
     from cudavideostream_tpu_torch.ops import convolve
+    from cudavideostream_tpu_torch.ops import diff
     from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import reference_cpu
 
@@ -3524,10 +3853,11 @@ def phase_noise_binarize_times(cfg, clock_mhz, smi):
             cfg, visualizer=Visualizer.BINARIZE),
             {"K9": None,
              "plain": (filters, "binarize_pipeline",
-                       lambda f, out=None: filters.binarize_pipeline_reference(
-                           f)),
+                       lambda f, out=None, region=None:
+                           filters.binarize_pipeline_reference(f, region)),
              "torch chain": (filters, "binarize_pipeline",
-                             lambda f, out=None: torch_chain(f))})}
+                             lambda f, out=None, region=None: torch_chain(
+                                 diff.region_frame(f, region)))})}
     steps = {}
     calls = 8  # steps a reading: a plain step takes ~4 ms
     for label, (vcfg, kinds) in routes.items():
@@ -3558,6 +3888,159 @@ def phase_noise_binarize_times(cfg, clock_mhz, smi):
             + f" ({smi})")
     out["steps"] = steps
     return out
+
+
+def phase_visualize_times(cfg, smi):
+    """K10-K13 at 1080p on cold frames (16 copies in turn), CUDA-event
+    medians with the queue held behind a sleep, against their plain
+    versions and their bounds (the bytes each must move: K10 reads cur
+    and prev and writes prev and the n/8 bits, the map's or the delta's n
+    more where used; K11 and K12 read cur and prev and write the output,
+    the map's n more; K13 reads cur and writes the output); no single
+    PyTorch call computes any of them, so there is no library time. Their
+    kernels per call from a trace and a graph capture. Then
+    ``pipeline.step`` with ``--visualizer 1``, ``--visualizer 3`` and
+    ``--compaction host``, device and host wall time, the kernel against
+    its plain version (the chain of torch ops it replaced) in turns."""
+    from cudavideostream_tpu_torch.config import CompactionBackend, Visualizer
+    from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+    from cudavideostream_tpu_torch.ops import diff, filters
+
+    dev = torch.device("cuda")
+    n = cfg.frame_bytes
+    rng = np.random.default_rng(SEED + 41)
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    cold = [torch.from_numpy(drift(rng, cur_np, 0.06)).to(dev)
+            for _ in range(COLD_COPIES)]
+    prevs = [torch.from_numpy(prev_np).to(dev) for _ in range(COLD_COPIES)]
+    tmaps = [torch.full((n,), cfg.threshold, dtype=torch.uint8, device=dev)
+             for _ in range(COLD_COPIES)]
+
+    def bound(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    c, p, m = (lambda i: cold[i % COLD_COPIES]), (
+        lambda i: prevs[i % COLD_COPIES]), (lambda i: tmaps[i % COLD_COPIES])
+    bits = (n + 7) // 8
+    # (label, kernel call, plain call, bytes, kernel names, launches)
+    timed = {
+        "K10 diff_pack": (
+            lambda i: diff.diff_pack(c(i), p(i), cfg.threshold),
+            lambda i: diff.diff_pack_reference(c(i), p(i), cfg.threshold),
+            3 * n + bits, ("diff_pack_kernel",)),
+        "K10 diff_pack with the delta": (
+            lambda i: diff.diff_pack(c(i), p(i), cfg.threshold,
+                                     want_delta=True),
+            lambda i: diff.diff_pack_reference(c(i), p(i), cfg.threshold,
+                                               want_delta=True),
+            4 * n + bits, ("diff_pack_kernel",)),
+        "K10 diff_pack with a map": (
+            lambda i: diff.diff_pack(c(i), p(i), m(i)),
+            lambda i: diff.diff_pack_reference(c(i), p(i), m(i)),
+            4 * n + bits, ("diff_pack_kernel",)),
+        "K11 heatmap": (
+            lambda i: filters.heatmap(c(i), p(i)),
+            lambda i: filters.heatmap_reference(c(i), p(i)),
+            3 * n, ("heat_kernel",)),
+        "K12 red_visualizer mode 3": (
+            lambda i: filters.red_visualizer(c(i), p(i), cfg.threshold, True),
+            lambda i: filters.red_visualizer_reference(c(i), p(i),
+                                                       cfg.threshold, True),
+            3 * n, ("vis_kernel",)),
+        "K12 red_visualizer mode 3 with a map": (
+            lambda i: filters.red_visualizer(c(i), p(i), m(i), True),
+            lambda i: filters.red_visualizer_reference(c(i), p(i), m(i),
+                                                       True),
+            4 * n, ("vis_kernel",)),
+        "K12 red_visualizer mode 2": (
+            lambda i: filters.red_visualizer(c(i), p(i), cfg.threshold,
+                                             False),
+            lambda i: filters.red_visualizer_reference(c(i), p(i),
+                                                       cfg.threshold, False),
+            3 * n, ("vis_kernel",)),
+        "K13 grayscale_weighted": (
+            lambda i: filters.grayscale_weighted(c(i)),
+            lambda i: filters.grayscale_weighted_reference(c(i)),
+            2 * n, ("vis_kernel",)),
+        "K13 grayscale_average": (
+            lambda i: filters.grayscale_average(c(i)),
+            lambda i: filters.grayscale_average_reference(c(i)),
+            2 * n, ("vis_kernel",)),
+    }
+    out = {}
+    for label, (fn, plain, nbytes, names) in timed.items():
+        fn(0)  # warm-up
+        ms = _event_median_ms(fn, ITERS)
+        plain_ms = _event_median_ms(plain, 10, backlog=False)
+        per_call = _profile_ms(fn, names, label, per_call=True)
+        _one_per_call({label: per_call})
+        b = bound(nbytes)
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                      "bytes": nbytes, "per_call": per_call}
+        log(f"[time] {label} at 1080p, cold frames: {ms:.4f} ms (bound "
+            f"{b:.5f} ms = {nbytes} B at 3.35 TB/s, {b / ms:.1%} of it); its "
+            f"plain version {plain_ms:.4f} ms; no single PyTorch call "
+            f"computes it; {per_call:g} kernel a call ({smi})")
+
+    # pipeline.step, the kernel against its plain version in turns
+    text = "FPS: 30 BW: 1234 kbps"
+    prev0 = torch.from_numpy(prev_np).to(dev)
+    step_prevs = [prev0.clone() for _ in range(ITERS)]
+    routes = {
+        "--visualizer 1": (dataclasses.replace(
+            cfg, visualizer=Visualizer.HEATMAP), (
+            filters, "heatmap",
+            lambda cur, prev, region=None, streams=1:
+                filters.heatmap_reference(cur, prev, region, streams))),
+        "--visualizer 3": (dataclasses.replace(
+            cfg, visualizer=Visualizer.RED_OVERLAP), (
+            filters, "red_visualizer",
+            lambda cur, prev, thr, overlap, region=None, streams=1:
+                filters.red_visualizer_reference(cur, prev, thr, overlap,
+                                                 region, streams))),
+        "--compaction host": (dataclasses.replace(
+            cfg, compaction=CompactionBackend.HOST), (
+            diff, "diff_pack", diff.diff_pack_reference)),
+    }
+    steps = {}
+    calls = 8
+    for label, (vcfg, plain_patch) in routes.items():
+        pipe = DeltaStreamPipeline(vcfg)
+        host = vcfg.compaction is CompactionBackend.HOST
+        kinds = {"kernel": None, "plain": plain_patch}
+        order = ["kernel", "plain", "plain", "kernel"]
+        res = {kind: {"device_ms": [], "wall_ms": []} for kind in kinds}
+        for kind in order:
+            patch = kinds[kind]
+            ctx = (_patched(*patch) if patch is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                # HOST: one state and its host shadow, stepped in order
+                state = pipe.init_state(prev_np)
+                pipe.step(prev0.clone() if not host else state, cold[0],
+                          text=text)  # warm-up
+                for q in step_prevs:
+                    q.copy_(prev0)
+
+                def step(i):
+                    pipe.step(state if host else step_prevs[i],
+                              cold[i % COLD_COPIES], text=text)
+
+                # the HOST step waits for its bits, so no queue is held
+                # and its event span holds the host's pack too
+                res[kind]["device_ms"].append(_event_median_ms(
+                    step, calls, backlog=not host))
+                for q in step_prevs:
+                    q.copy_(prev0)
+                res[kind]["wall_ms"].append(_wall_ms(step, calls))
+        steps[label] = res
+        span = "event span (the host's pack inside)" if host else "device"
+        log(f"[time] pipeline.step {label} at 1080p, in turns "
+            f"({', '.join(order)}), medians of {calls}: " + "; ".join(
+                f"{kind} {span} {_pair4(r['device_ms'])} ms, host wall "
+                f"{_pair4(r['wall_ms'])} ms" for kind, r in res.items())
+            + f" ({smi})")
+    return {"kernels": out, "steps": steps}
 
 
 def phase_map_scheme_times(cfg, clock_mhz):
@@ -3985,10 +4468,13 @@ def phase_sharded_steps(cfg):
                       else lc.fused_diff_compact)
                 got = {name: counters[name].launches for name in (
                     "histogram", "gray_hist", "binarize_apply",
-                    "convolve_q16")}
+                    "convolve_q16", "red_visualizer")}
                 k9 = s if c.visualizer == Visualizer.BINARIZE else 0
                 want = {"histogram": 0, "gray_hist": k9, "binarize_apply": k9,
-                        "convolve_q16": s if c.noise_filter else 0}
+                        "convolve_q16": s if c.noise_filter else 0,
+                        "red_visualizer":
+                            s if c.visualizer == Visualizer.RED_OVERLAP
+                            else 0}
                 if k1.launches != s or got != want:
                     raise AssertionError(f"sharded step S={s}: K1 launched "
                                          f"{k1.launches} times, {got}")
@@ -4950,15 +5436,18 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
                 raise AssertionError(f"{label} step {k} != step_oracle")
             if label == "sort" and (xs[pos:].any() or vals[pos:].any()):
                 raise AssertionError("the sort payload is not zero past pos")
-        # the noise filter runs K8 on the card under every backend
-        k8 = 3 if c.noise_filter else 0
-        if (any(fn.launches for name, fn in counters.items()
-                if name != "convolve_q16")
-                or counters["convolve_q16"].launches != k8):
-            raise AssertionError(f"{label}: a step launched a kernel")
+        # the noise filter runs K8 on the card under every backend, and
+        # HOST its device step, K10, once a step
+        want = {"convolve_q16": 3 if c.noise_filter else 0,
+                "diff_pack": 3 if label.startswith("host") else 0}
+        got = {name: fn.launches for name, fn in counters.items()
+               if fn.launches}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{label}: the steps launched {got}")
         log(f"[check] {label} pipeline.step at 1080p: 3 steps with overlay "
-            f"texts == step_oracle (pos, xs, vals, new_prev), no kernel "
-            f"launched" + (" but K8 (convolve_q16=3)" if k8 else ""))
+            f"texts == step_oracle (pos, xs, vals, new_prev); kernel "
+            f"launches: " + (", ".join(f"{k}={v}" for k, v in got.items())
+                             or "none"))
     # the host's pack at the clip's density, and what it brings over
     cur, prev_h = frames[2], frames[1].copy()
     mask, delta, _ = diff.diff_mask(torch.from_numpy(cur),
@@ -5040,7 +5529,8 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
         served("sort", "server --compaction sort",
                base + ["--compaction", "sort"], trace=True, want={})
         run, _ = served("host", "server --compaction host",
-                        base + ["--compaction", "host"], trace=True, want={})
+                        base + ["--compaction", "host"], trace=True,
+                        want={"diff_pack": n})
         if set(run["rec"].fetched) != {(cfg.frame_bytes + 7) // 8}:
             raise AssertionError("HOST fast path: the card sent "
                                  f"{set(run['rec'].fetched)} B a frame, not "
@@ -5051,7 +5541,8 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
         run, _ = served("host_noise_filter",
                         "server --compaction host --noise-filter",
                         base + ["--compaction", "host", "--noise-filter"],
-                        c=nf_cfg, trace=True, want={"convolve_q16": n})
+                        c=nf_cfg, trace=True,
+                        want={"convolve_q16": n, "diff_pack": n})
         if set(run["rec"].fetched) != {cfg.frame_bytes
                                        + (cfg.frame_bytes + 7) // 8}:
             raise AssertionError("HOST noise-filter path: the card sent "
@@ -5099,6 +5590,7 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
                 "--visualizer", str(vis), "--aux-port", "0"], c=vcfg,
                 client=aux_client, want={
                     "fused_diff_compact": n,
+                    "heatmap": n if vis == 1 else 0,
                     **dict.fromkeys(("gray_hist", "binarize_apply"),
                                     n if vis == 5 else 0)})
             first = _frames_before_serving(base)
@@ -5572,6 +6064,8 @@ _K4 = {"histogram": ("hist_kernel",)}
 _K8 = {"convolve_q16": ("conv_kernel",)}
 _K9 = {"gray_hist": ("binarize_gray_kernel",),
        "binarize_apply": ("binarize_apply_kernel",)}
+# K12 and K13 are instances of one template, vis_kernel<Op, Map>
+_VIS = ("vis_kernel",)
 TABLE_KERNELS = {
     "diff+compact_tiled": {"fused_diff_compact_tiled": _K1_CHUNKS},
     "diff+compact_subtiled1": {"fused_diff_compact_tiled": _K1_UNIT},
@@ -5585,13 +6079,26 @@ TABLE_KERNELS = {
     "histogram": _K4,
     "binarize_pipeline": _K9,
     **{f"gaussian_conv_k{k}": _K8 for k in (3, 5, 7, 9)},
+    "host_offload_step": {"diff_pack": ("diff_pack_kernel",)},
+    "heatmap_lut": {"heatmap": ("heat_kernel",)},
+    "red_overlap": {"red_visualizer": _VIS},
+    "grayscale_avg": {"grayscale_average": _VIS},
+    "grayscale_weighted": {"grayscale_weighted": _VIS},
 }
 PORT_KERNELS = ("flat_lookback_kernel", "tiled_unit_kernel",
                 "tiled_chunk_count_kernel", "tiled_chunk_compact_kernel",
                 "pair_lookback_kernel", "vals_lookback_kernel", "hist_kernel",
                 "segment_kernel", "register_kernel", "probe_kernel",
-                "conv_kernel", "binarize_gray_kernel", "binarize_apply_kernel")
+                "conv_kernel", "binarize_gray_kernel", "binarize_apply_kernel",
+                "diff_pack_kernel", "heat_kernel", "vis_kernel")
 TABLE_CLI_TIMEOUT_S = 600
+# the kernel table's rows that K10-K13 serve
+TABLE_K10_K13 = {"host_offload_step": "K10", "heatmap_lut": "K11",
+                 "red_overlap": "K12", "grayscale_avg": "K13",
+                 "grayscale_weighted": "K13"}
+# the kernel line's records that sum the launches of several wrappers
+COUNTERS = {"binarize_pipeline": ("gray_hist", "binarize_apply"),
+            "grayscale": ("grayscale_average", "grayscale_weighted")}
 
 
 def _leaves_np(carry):
@@ -5780,12 +6287,13 @@ LOOPBACK_SINK = ("dev_d6_tiles_v1", "dev_d3_tiles_v3", "dev_d3_flat_v3",
 def _loopback_want(row, frames, fetch_counts):
     """The launches a sweep row must make over ``frames`` frames: one K1
     a frame (bitmask-only on the maskonly rows), one K2 a flat or mask
-    landing with index blocks, one K3 a maskonly landing, and none on the
-    HOST backend. Every clustered frame changes the band, so every
-    landing is non-empty."""
+    landing with index blocks, one K3 a maskonly landing, and on the HOST
+    backend K10 alone, once a frame. Every clustered frame changes the
+    band, so every landing is non-empty."""
     label, _, _, fetch, _, backend, _ = row
     want = dict.fromkeys(_launch_counters(), 0)
     if backend == "host":
+        want["diff_pack"] = frames
         return want
     flavor = {"tiles": "tiles", "flat": "flat", "mask": "mask",
               "maskonly": "mask"}.get(fetch)
@@ -5971,6 +6479,7 @@ def main() -> int:
     mask_cases = phase_mask_vs_plain(cfg)
     filter_cases = phase_filters_vs_plain(cfg)
     k8k9_cases = phase_noise_binarize_vs_plain(cfg)
+    vis_cases = phase_visualize_vs_plain(cfg)
     map_cases = phase_map_vs_plain(cfg)
     scheme_cases = phase_schemes_vs_plain(cfg)
     batched_cases = phase_batched_vs_plain(cfg)
@@ -6041,7 +6550,10 @@ def main() -> int:
             ("multiserve_v3", "--streams 4 --wire v3", {"wire_format": "v3"}),
             ("multiserve_binarize_aux",
              "--streams 4 --visualizer 5 --aux-dir",
-             {"visualizer": Visualizer.BINARIZE})):
+             {"visualizer": Visualizer.BINARIZE}),
+            ("multiserve_grayscale_aux",
+             "--streams 4 --visualizer 4 --aux-dir",
+             {"visualizer": Visualizer.GRAYSCALE})):
         runs[key] = phase_multiserve(dataclasses.replace(tcfg, **kw), label,
                                      aux="visualizer" in kw)
     runs["broadcast"] = phase_broadcast_replay(cfg)
@@ -6063,6 +6575,12 @@ def main() -> int:
     runs["mesh14_cuda0"] = phase_serving(
         cfg, "ShardedStreamExecutor S=4 on cuda:0, wire v1",
         inner=ShardedStreamExecutor(cfg, mesh=_sharded_mesh(4)))
+    # --visualizer 2 on the sharded path: K12 once a shard
+    red_black = dataclasses.replace(cfg, visualizer=Visualizer.RED_BLACK)
+    runs["mesh14_cuda0_red_black"] = phase_serving(
+        red_black, "ShardedStreamExecutor S=4 on cuda:0 --visualizer 2, "
+        "wire v1", inner=ShardedStreamExecutor(red_black,
+                                               mesh=_sharded_mesh(4)))
     runs["multiserve_mesh11"] = phase_multiserve(
         cfg, "--streams 4 --mesh 1,1", mesh=_sharded_mesh(1))
     camera = phase_camera_path(cfg, smi)
@@ -6078,6 +6596,9 @@ def main() -> int:
         {k: v for k, v in bench_out.items() if k != "runs"}))
     table = phase_kernel_table(smi)
     runs["kernel table"] = table["run"]
+    log("[table] the rows K10-K13 now serve, through bench --full: "
+        + "; ".join(f"{row} {table['cli_ms'][row]:.4f} ms ({kern})"
+                    for row, kern in TABLE_K10_K13.items()) + f" ({smi})")
     log("[table] summary " + json.dumps(
         {k: v for k, v in table.items() if k != "run"}))
     served = phase_loopback(smi)
@@ -6085,27 +6606,34 @@ def main() -> int:
     runs["loopback"] = served["loopback"]
     none = dict.fromkeys(_launch_counters(), 0)
     for key, s_count in (("mesh11_v1", 1), ("mesh11_pipelined_v3", 1),
-                         ("mesh14_cuda0", 4)):
+                         ("mesh14_cuda0", 4), ("mesh14_cuda0_red_black", 4)):
         run = runs[key]
         # S K1 tiled launches a frame; K2 only for the flat landings of
-        # a (1, 1) mesh under auto, none at S > 1 (tiles pinned)
+        # a (1, 1) mesh under auto, none at S > 1 (tiles pinned); K12 once
+        # a shard under --visualizer 2
         _expect_launches(run, key, {
             **none, "fused_diff_compact_tiled": s_count * run["frames"],
-            "pair_compact": run["fetch_counts"]["flat"]})
+            "pair_compact": run["fetch_counts"]["flat"],
+            "red_visualizer":
+                s_count * run["frames"] if "red_black" in key else 0})
         if s_count > 1 and run["fetch_counts"]["tiles"] != run["frames"]:
             raise AssertionError(f"{key}: S > 1 must land through tiles")
     run = runs["multiserve_mesh11"]
     _expect_launches(run, "multiserve_mesh11", {
         **none, "fused_diff_compact": 4 * run["frames"]})
-    for key in ("multiserve_v1", "multiserve_v3", "multiserve_binarize_aux"):
+    for key in ("multiserve_v1", "multiserve_v3", "multiserve_binarize_aux",
+                "multiserve_grayscale_aux"):
         run = runs[key]
-        # one batched launch per batched frame (not one per stream); one K2
-        # merge per flat landing (auto lands an empty stream as tiles)
+        # one batched launch per batched frame (not one per stream), K13's
+        # too under --visualizer 4; one K2 merge per flat landing (auto
+        # lands an empty stream as tiles)
         _expect_launches(run, key, {
             **none, "fused_diff_compact_batched": run["frames"],
             "pair_compact": run["fetch_counts"]["flat"],
             **dict.fromkeys(("gray_hist", "binarize_apply"),
-                            4 * run["frames"] if "binarize" in key else 0)})
+                            4 * run["frames"] if "binarize" in key else 0),
+            "grayscale_weighted":
+                run["frames"] if "grayscale" in key else 0})
     _expect_launches(runs["broadcast"], "broadcast", {
         **none, "fused_diff_compact": runs["broadcast"]["frames"]})
     _expect_launches(runs["map_flat_v1"], "map_flat_v1", {
@@ -6133,16 +6661,20 @@ def main() -> int:
                   "bitmask_mask_v4": run["nonempty"],
                   "denoised_heatmap_tiled_flat": run["nonempty"]}.get(
                       key, fc["flat"] + fc["mask"])
+        # K8 and K11 once a frame under --noise-filter --visualizer 1
         _expect_launches(run, key, {
             **none, "fused_diff_compact_tiled": run["frames"],
             "pair_compact": merges,
-            "convolve_q16": run["frames"] if "denoised" in key else 0})
+            **dict.fromkeys(("convolve_q16", "heatmap"),
+                            run["frames"] if "denoised" in key else 0)})
     for key in ("maskonly_v4_batch8", "red_overlap_maskonly_batch8",
                 "map_red_overlap_maskonly_batch8"):
         run = runs[key]
+        # K12 once a frame under --visualizer 3
         _expect_launches(run, key, {
             **none, "fused_diff_compact_mask": run["frames"],
-            "vals_compact": run["nonempty"]})
+            "vals_compact": run["nonempty"],
+            "red_visualizer": run["frames"] if "red" in key else 0})
     for key, mode in (("tiled_flat", "flat"), ("tiled_tiles", "tiles"),
                       ("bitmask_mask_v4", "mask"),
                       ("maskonly_v4_batch8", "mask"),
@@ -6161,6 +6693,7 @@ def main() -> int:
     mtimes = phase_mask_times(cfg)
     ftimes = phase_filter_times(cfg)
     nbtimes = phase_noise_binarize_times(cfg, clock_mhz, smi)
+    vtimes = phase_visualize_times(cfg, smi)
     xtimes = phase_map_scheme_times(cfg, clock_mhz)
     btimes = phase_batched_times(cfg)
     stimes = phase_sharded_times(cfg)
@@ -6170,6 +6703,7 @@ def main() -> int:
         by_path = {k: r["launches"][name] for k, r in runs.items()}
         return sum(by_path.values()), by_path
 
+    vk = vtimes["kernels"]
     lc = "cudavideostream_tpu/ops/logcompact.py"
     with_map = f"; with a per-byte map byte-exact in {map_cases} cases"
     records = [
@@ -6242,11 +6776,46 @@ def main() -> int:
          f"byte-exact in {k8k9_cases['k9']} cases (1080p, the scene, one "
          f"value, a tie, ragged lengths, an unaligned view, S = 4 shards, "
          f"100 launches on two streams); two launches a call, "
-         f"binarize_gray_kernel and binarize_apply_kernel"),
+         f"binarize_gray_kernel and binarize_apply_kernel; with the overlay "
+         f"region in {vis_cases['k9_region']} more"),
+        # K10-K13 replace no TPU kernel either
+        ("diff_pack", "diff_pack.cu", "cudavideostream_tpu/ops/diff.py:30",
+         0, vk["K10 diff_pack"]["ms"], vk["K10 diff_pack"]["plain_ms"],
+         vk["K10 diff_pack"]["bound_ms"], None,
+         f"byte-exact in {vis_cases['k10']} cases (1080p and 271x1917, "
+         f"regions, thresholds 20 and 0, maps, feedback on and off, with "
+         f"and without the delta, ragged lengths, unaligned views, S = 4 "
+         f"shards, 40 launches back to back); diff_mask and pack_bitmask "
+         f"(cudavideostream_tpu/ops/diff.py:30, :74) in one launch"),
+        ("heatmap", "visualize.cu",
+         "cudavideostream_tpu/ops/filters.py:379", 0,
+         vk["K11 heatmap"]["ms"], vk["K11 heatmap"]["plain_ms"],
+         vk["K11 heatmap"]["bound_ms"], None,
+         f"byte-exact in {vis_cases['k11']} cases (d = 0..765, regions, "
+         f"ragged widths and lengths, B = 2, 4 streams, S = 4 shards, 40 "
+         f"launches back to back); heat_kernel, the LUT by value"),
+        ("red_visualizer", "visualize.cu",
+         "cudavideostream_tpu/ops/filters.py:435", 0,
+         vk["K12 red_visualizer mode 3"]["ms"],
+         vk["K12 red_visualizer mode 3"]["plain_ms"],
+         vk["K12 red_visualizer mode 3"]["bound_ms"], None,
+         f"byte-exact in {vis_cases['k12']} cases (modes 2 and 3, "
+         f"thresholds 20 and 0, maps, regions, streams, shards); timed as "
+         f"mode 3 (red_overlap, :435; mode 2 is red_black, :424); "
+         f"vis_kernel<1|2, false|true>"),
+        ("grayscale", "visualize.cu",
+         "cudavideostream_tpu/ops/filters.py:121", 0,
+         vk["K13 grayscale_weighted"]["ms"],
+         vk["K13 grayscale_weighted"]["plain_ms"],
+         vk["K13 grayscale_weighted"]["bound_ms"], None,
+         f"byte-exact in {vis_cases['k13']} cases (average and weighted, "
+         f"regions, streams, shards); timed as grayscale_weighted (:121, "
+         f"--visualizer 4; grayscale_average is :110); "
+         f"vis_kernel<3|4, false>"),
     ]
     kernels = []
     mesh_paths = ("mesh11_v1", "mesh11_pipelined_v3", "mesh14_cuda0",
-                  "multiserve_mesh11")
+                  "mesh14_cuda0_red_black", "multiserve_mesh11")
     for name, src, replaces, err, ms, plain, bound, lib_ms, check in records:
         if name.endswith("index_offset"):
             # the launches of the sharded paths, every one with its shard
@@ -6256,10 +6825,10 @@ def main() -> int:
                        + runs[k]["launches"]["fused_diff_compact"]
                        for k in mesh_paths}
             total = sum(by_path.values())
-        elif name == "binarize_pipeline":
-            # K9's two launches, each counted by its own wrapper
-            by_path = {k: r["launches"]["gray_hist"]
-                       + r["launches"]["binarize_apply"]
+        elif name in ("binarize_pipeline", "grayscale"):
+            # K9's two launches, or K13's two weightings, each counted by
+            # its own wrapper
+            by_path = {k: sum(r["launches"][c] for c in COUNTERS[name])
                        for k, r in runs.items()}
             total = sum(by_path.values())
         else:
@@ -6297,6 +6866,36 @@ def main() -> int:
                      "apply_ms": k9["apply_ms"],
                      "launches_per_call": k9["per_call"],
                      "step_ms": nbtimes["steps"]["--visualizer 5"]}
+        elif name == "diff_pack":
+            extra = {"delta_ms": vk["K10 diff_pack with the delta"]["ms"],
+                     "delta_bound_ms":
+                         vk["K10 diff_pack with the delta"]["bound_ms"],
+                     "map_ms": vk["K10 diff_pack with a map"]["ms"],
+                     "map_bound_ms":
+                         vk["K10 diff_pack with a map"]["bound_ms"],
+                     "launches_per_call": vk["K10 diff_pack"]["per_call"],
+                     "step_ms": vtimes["steps"]["--compaction host"]}
+        elif name == "heatmap":
+            extra = {"launches_per_call": vk["K11 heatmap"]["per_call"],
+                     "step_ms": vtimes["steps"]["--visualizer 1"]}
+        elif name == "red_visualizer":
+            m2 = vk["K12 red_visualizer mode 2"]
+            mp = vk["K12 red_visualizer mode 3 with a map"]
+            extra = {"mode2_ms": m2["ms"], "mode2_plain_ms": m2["plain_ms"],
+                     "map_ms": mp["ms"], "map_bound_ms": mp["bound_ms"],
+                     "launches_per_call":
+                         vk["K12 red_visualizer mode 3"]["per_call"],
+                     "step_ms": vtimes["steps"]["--visualizer 3"]}
+        elif name == "grayscale":
+            avg = vk["K13 grayscale_average"]
+            extra = {"average_ms": avg["ms"],
+                     "average_plain_ms": avg["plain_ms"],
+                     "grayscale_average_launches":
+                         launches("grayscale_average")[0],
+                     "grayscale_weighted_launches":
+                         launches("grayscale_weighted")[0],
+                     "launches_per_call":
+                         vk["K13 grayscale_weighted"]["per_call"]}
         elif name.endswith("index_offset"):
             extra = {"s8_ms": stimes["k1"][8]["ms"],
                      "s8_plain_ms": stimes["k1"][8]["plain_ms"],
@@ -6313,8 +6912,7 @@ def main() -> int:
         # the bench path's CUDA graphs: this kernel's nodes in each, and
         # the replays that launched them (the wrapper counts its calls,
         # the capture's included, never a replay)
-        counters = (("gray_hist", "binarize_apply")
-                    if name == "binarize_pipeline" else (name,))
+        counters = COUNTERS.get(name, (name,))
         graphs = {f"{k} {c}" if len(counters) > 1 else k: {
                       "nodes": r["graph_nodes"][c], "replays": r["replays"]}
                   for k, r in bench_out["runs"].items() for c in counters

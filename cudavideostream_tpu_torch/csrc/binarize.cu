@@ -21,7 +21,11 @@
 //   out   = gray > t ? 255 : 0, written to all three bytes of the pixel.
 //
 // Launch 1, binarize_gray_kernel: one read of the BGR frame, 16 pixels (48
-// bytes, three 16-byte loads where the frame is 16-byte aligned) a thread;
+// bytes, three 16-byte loads where the frame is 16-byte aligned) a thread,
+// the overlay strip read in place of the frame's first rlen bytes, so no
+// overlaid copy is made (the one run that straddles the strip's end goes a
+// pixel a thread, by threads 16-31 of block 0, as the ragged tail goes by
+// threads 0-15);
 // it writes the 16 gray bytes (one 16-byte store) and counts them in the
 // warp's own 256 shared-memory bins. This is K4's design
 // (csrc/histogram.cu): at most one block of 1,024 threads an SM, the loads
@@ -83,6 +87,23 @@ __device__ __forceinline__ void load_pixels(const uint8_t* px, bool aligned,
   }
 }
 
+// the 48 bytes of run i of the overlaid frame, a run that lies wholly
+// before the region's end (read from region) or after it (from frame)
+__device__ __forceinline__ void load_run(const uint8_t* frame, bool aligned,
+                                         const uint8_t* region,
+                                         long long rlen, long long i,
+                                         unsigned (&w)[12]) {
+  const long long j0 = 48 * i;
+  const uint8_t* p = j0 >= rlen ? frame + j0 : region + j0;
+  load_pixels(p, j0 >= rlen ? aligned : ((uintptr_t)p & 15) == 0, w);
+}
+
+__device__ __forceinline__ unsigned src_byte(const uint8_t* frame,
+                                             const uint8_t* region,
+                                             long long rlen, long long j) {
+  return __ldg(j < rlen ? region + j : frame + j);
+}
+
 __device__ __forceinline__ unsigned gray_of(unsigned b, unsigned g,
                                             unsigned r) {
   return (114u * b + 587u * g + 299u * r) / 1000u;
@@ -90,26 +111,39 @@ __device__ __forceinline__ unsigned gray_of(unsigned b, unsigned g,
 
 __global__ void __launch_bounds__(kHistThreads)
     binarize_gray_kernel(const uint8_t* __restrict__ frame, long long npx,
-                         int aligned, uint8_t* __restrict__ gray,
+                         int aligned, const uint8_t* __restrict__ region,
+                         long long rlen, uint8_t* __restrict__ gray,
                          unsigned* __restrict__ scratch,
                          int* __restrict__ out) {
   __shared__ unsigned sub[kWarps][kBins];  // 32 KB: one histogram a warp
   __shared__ int s_last;
   const long long chunks = npx / kPix;  // whole runs of 16 pixels
   const long long stride = (long long)gridDim.x * kHistThreads;
+  // the run that straddles the region's end, if any, goes pixel by pixel
+  const long long straddle = rlen % 48 && rlen / 48 < chunks ? rlen / 48
+                                                             : -1;
   long long i = (long long)blockIdx.x * kHistThreads + threadIdx.x;
+  if (i == straddle) i += stride;
   // the loads first: this thread's first 16 pixels, and in block 0 one
-  // pixel of the ragged tail of fewer than 16 to each of its threads
+  // pixel a thread of the ragged tail of fewer than 16 (threads 0-15) and
+  // of the straddling run (threads 16-31)
   unsigned w[12];
   const bool first = i < chunks;
-  if (first) load_pixels(frame + 48 * i, aligned, w);
-  const long long tp = chunks * kPix + threadIdx.x;
-  const bool tail = blockIdx.x == 0 && tp < npx;
+  if (first) load_run(frame, aligned, region, rlen, i, w);
+  long long tp = -1;
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < kPix) {
+      if (chunks * kPix + threadIdx.x < npx) tp = chunks * kPix + threadIdx.x;
+    } else if (threadIdx.x < 2 * kPix && straddle >= 0) {
+      tp = straddle * kPix + threadIdx.x - kPix;
+    }
+  }
+  const bool tail = tp >= 0;
   unsigned tb = 0, tg = 0, tr = 0;
   if (tail) {
-    tb = __ldg(frame + 3 * tp);
-    tg = __ldg(frame + 3 * tp + 1);
-    tr = __ldg(frame + 3 * tp + 2);
+    tb = src_byte(frame, region, rlen, 3 * tp);
+    tg = src_byte(frame, region, rlen, 3 * tp + 1);
+    tr = src_byte(frame, region, rlen, 3 * tp + 2);
   }
 
   uint4* s4 = reinterpret_cast<uint4*>(&sub[0][0]);
@@ -138,8 +172,9 @@ __global__ void __launch_bounds__(kHistThreads)
         atomicAdd(bins + ((g[k >> 2] >> (8 * (k & 3))) & 255u), 1u);
     }
     i += stride;
+    if (i == straddle) i += stride;
     have = i < chunks;
-    if (have) load_pixels(frame + 48 * i, aligned, w);
+    if (have) load_run(frame, aligned, region, rlen, i, w);
   }
   if (tail) {
     const unsigned v = gray_of(tb, tg, tr);
@@ -295,20 +330,23 @@ __global__ void __launch_bounds__(kApplyThreads)
 extern "C" {
 
 // Launch 1 of K9 on `stream`: the gray bytes of the npx pixels of the BGR
-// frame into gray[0..npx) (16-byte aligned) and their histogram into
+// frame, whose first rlen bytes are read from region (rlen 0: no region),
+// into gray[0..npx) (16-byte aligned) and their histogram into
 // out[0..256), in one launch of `grid` blocks (ops/filters.py
 // gray_hist_plan). scratch holds cvs_bin_scratch_words() words, zero
 // before the launch and zero after it; launches that may overlap (other
 // streams) each need their own. Returns the cudaError_t of the launch.
-int cvs_gray_hist(int device, const uint8_t* frame, long long npx, int grid,
-                  uint8_t* gray, unsigned* scratch, int* out,
-                  cudaStream_t stream) {
-  if (((uintptr_t)gray & 15) || npx <= 0 || grid <= 0)
+int cvs_gray_hist(int device, const uint8_t* frame, const uint8_t* region,
+                  long long rlen, long long npx, int grid, uint8_t* gray,
+                  unsigned* scratch, int* out, cudaStream_t stream) {
+  if (((uintptr_t)gray & 15) || npx <= 0 || grid <= 0 || rlen < 0
+      || rlen > 3 * npx || (rlen && !region))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   binarize_gray_kernel<<<grid, kHistThreads, 0, stream>>>(
-      frame, npx, ((uintptr_t)frame & 15) == 0, gray, scratch, out);
+      frame, npx, ((uintptr_t)frame & 15) == 0, region, rlen, gray, scratch,
+      out);
   return (int)cudaGetLastError();
 }
 

@@ -146,11 +146,12 @@ def rows(cfg, device) -> List[Row]:
         return b, diff.diff_mask(a, b, THRESHOLD)[2]
 
     def host_offload(c):
-        # the HOST backend's device step: the mask, its n/8-byte bitmask
-        # and the negative-feedback state, no compaction on the card
+        # the HOST backend's device step (K10): the n/8-byte bitmask and
+        # the negative-feedback state, no compaction on the card; K10
+        # updates its prev in place, so it gets a copy, as K1 does above
         a, b, acc = c
-        m, _, new_prev = diff.diff_mask(a, b, THRESHOLD)
-        bits = diff.pack_bitmask(m)
+        new_prev = b.clone()
+        bits, _ = diff.diff_pack(a, new_prev, THRESHOLD)
         return b, new_prev, acc + bits[0].to(torch.int32)
 
     def hist(frame):
@@ -162,8 +163,10 @@ def rows(cfg, device) -> List[Row]:
         return b, filters.heatmap(a, b)
 
     def red(c):
+        # red_overlap(a, diff_mask(a, b)[0]) in one K12 launch: the mask is
+        # symmetric in a and b, and the output is a with R = 255 on it
         a, b = c
-        return b, filters.red_overlap(a, diff.diff_mask(a, b, THRESHOLD)[0])
+        return b, filters.red_visualizer(b, a, THRESHOLD, overlap=True)
 
     def gaussian(k):
         wq = reference_cpu.quantize_kernel_q16(reference_cpu.gaussian_kernel(k))

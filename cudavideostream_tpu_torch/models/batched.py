@@ -23,9 +23,12 @@ in the JAX package, ``batched.py:93-97``) follows ``_fast_impl``:
    Mosaic cannot pipeline a per-stream region input);
 3. the visualizer's aux frame, before the kernel, because the kernel
    updates ``prev`` in place and every visualizer reads the old ``prev``:
-   heatmap, grayscale and the red modes over the whole super-frame (each
-   is per pixel), binarize per stream (its histogram is per frame: K9's
-   pair of launches per stream, each writing its stream's slice);
+   the heatmap (K11), the red modes (K12) and grayscale (K13) in one
+   launch over the whole super-frame (each is per pixel; the B strips go
+   to the kernel at a stride of a frame, as K1 batched takes them, so no
+   overlaid copy is made), binarize per stream (its histogram is per
+   frame: K9's pair of launches per stream, each reading its stream's
+   strip and writing its stream's slice);
 4. one batched K1 launch (``fused_diff_compact_batched``).
 
 Any other configuration (the flat payload, with or without
@@ -56,7 +59,6 @@ from cudavideostream_tpu_torch.models.pipeline import (
     from_jax_state,
 )
 from cudavideostream_tpu_torch.ops import convolve as conv_ops
-from cudavideostream_tpu_torch.ops import diff as diff_ops
 from cudavideostream_tpu_torch.ops import filters as filter_ops
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.ops import overlay as overlay_ops
@@ -96,10 +98,6 @@ class BatchedDeltaPipeline:
                 "pipelines instead of a batched one")
         cell_h = self._solo.atlas.shape[1]
         self._fast = config.tiled_payload and cell_h <= config.height
-        # the shared map, repeated per stream, for the red modes' mask over
-        # the super-frame
-        tm = self._solo.threshold_map
-        self._thr_map_b = None if tm is None else tm.repeat(n_streams)
         self._ids: dict = {}  # overlay text -> device glyph indices
 
     @property
@@ -163,28 +161,28 @@ class BatchedDeltaPipeline:
         if vis == Visualizer.NONE:
             return None
         B, n = self.n_streams, cfg.frame_bytes
-        if strips is not None:
-            # the overlaid super-frame, for the visualizer alone: the
-            # kernel reads the strips as its region
-            cur = cur.clone()
-            cur.view(B, n)[:, :strips.numel() // B] = strips.view(B, -1)
+        # every kernel reads stream b's strip, strips[b * strip:], in place
+        # of the stream's prefix
         if vis == Visualizer.HEATMAP:
-            return filter_ops.heatmap(cur, prev)
+            return filter_ops.heatmap(cur, prev, strips, streams=B)
         if vis == Visualizer.GRAYSCALE:
-            return filter_ops.grayscale_weighted(cur)
+            return filter_ops.grayscale_weighted(cur, strips, streams=B)
         if vis == Visualizer.BINARIZE:
             # one pair of K9 launches a stream, each writing its stream's
             # slice of the aux frame
             out = torch.empty_like(cur)
+            strip = 0 if strips is None else strips.numel() // B
             for b in range(B):
-                filter_ops.binarize_pipeline(cur[b * n:(b + 1) * n],
-                                             out=out[b * n:(b + 1) * n])
+                filter_ops.binarize_pipeline(
+                    cur[b * n:(b + 1) * n], out=out[b * n:(b + 1) * n],
+                    region=(None if strips is None
+                            else strips[b * strip:(b + 1) * strip]))
             return out
-        thr = cfg.threshold if self._thr_map_b is None else self._thr_map_b
-        mask = diff_ops.diff_mask(cur, prev, thr)[0]
-        if vis == Visualizer.RED_BLACK:
-            return filter_ops.red_black(mask)
-        return filter_ops.red_overlap(prev, mask)
+        # the shared map is one stream's: the kernel reads it per stream
+        tm = self._solo.threshold_map
+        return filter_ops.red_visualizer(
+            cur, prev, cfg.threshold if tm is None else tm,
+            vis == Visualizer.RED_OVERLAP, strips, streams=B)
 
     def step(self, prev: torch.Tensor, frames,
              texts: Optional[Sequence[str]] = None):

@@ -12,9 +12,10 @@ feedback and the compaction. Here one step is, in that order:
    (a few hundred KB); the blended prefix is handed to the fused
    diff+compact kernel as its region input, so the overlay costs no pass
    over the whole frame;
-3. the visualizer's aux frame, from the overlaid frame (assembled for it
-   alone) and the previous frame: heatmap, grayscale or binarize, or the
-   red modes from the changed-byte mask;
+3. the visualizer's aux frame from the frame, the overlay strip (read by
+   the kernel in place of the frame's prefix: no overlaid copy is made)
+   and the previous frame: the heatmap (K11), the red modes (K12),
+   grayscale (K13) or binarize (K9), one launch each (K9 two);
 4. the fused diff+compact kernel, which writes the new previous frame into
    the state buffer in place — the counterpart of the JAX pipeline's
    donated ``prev`` and of the reference's ``swap(d_current, d_previous)``
@@ -29,13 +30,16 @@ index blocks); every visualizer and the noise filter on each; the scalar
 threshold or a per-byte threshold map (``threshold_map``), which every
 emission's kernel reads and the red visualizers' mask too.
 
-The two other backends run no kernel of their own, as in the JAX package,
-where their device work is XLA ops; they blend the overlay into the whole
-frame and take the dense diff (``ops.diff.diff_mask``):
+The two other backends compact without K1, as in the JAX package, where
+their device work is XLA ops:
 
-* SORT compacts on the device by one ``torch.sort`` over packed keys
-  (``ops.compact.compact_sort``);
-* HOST packs on the host with the native library. Without the noise
+* SORT blends the overlay into the whole frame, takes the dense diff
+  (``ops.diff.diff_mask``) and compacts on the device by one
+  ``torch.sort`` over packed keys (``ops.compact.compact_sort``);
+* HOST runs K10 (``ops.diff.diff_pack``), one launch that reads the
+  overlay strip in place, updates ``prev`` in place and writes the change
+  bitmask (and the dense delta under the noise filter), and packs on the
+  host with the native library. Without the noise
   filter only the packed change bits (n/8 bytes) leave the device: the
   host takes the values from its own copy of the frame against a shadow
   of the previous frame (``native.compact_update_np``), which makes the
@@ -261,24 +265,20 @@ class DeltaStreamPipeline:
         vis = cfg.visualizer
         if vis == Visualizer.NONE:
             return None
-        # the overlaid frame, for the visualizer alone: the kernel keeps
-        # reading the strip from the region
-        cur = logcompact.region_frame(cur, region)
+        # every kernel reads the strip in place of the frame's prefix
         if vis == Visualizer.HEATMAP:
-            return filter_ops.heatmap(cur, prev)
+            return filter_ops.heatmap(cur, prev, region)
         if vis == Visualizer.GRAYSCALE:
-            return filter_ops.grayscale_weighted(cur)
+            return filter_ops.grayscale_weighted(cur, region)
         if vis == Visualizer.BINARIZE:
-            return filter_ops.binarize_pipeline(cur)
+            return filter_ops.binarize_pipeline(cur, region=region)
         # the red modes: |df| > threshold (or the map) on the overlaid
         # frame, which is the JAX pipeline's new_prev != prev wherever it
         # takes that
         thr = (cfg.threshold if self.threshold_map is None
                else self.threshold_map)
-        mask = diff_ops.diff_mask(cur, prev, thr)[0]
-        if vis == Visualizer.RED_BLACK:
-            return filter_ops.red_black(mask)
-        return filter_ops.red_overlap(prev, mask)
+        return filter_ops.red_visualizer(
+            cur, prev, thr, vis == Visualizer.RED_OVERLAP, region)
 
     def step(self, prev: torch.Tensor, frame, text: str = ""):
         """Run one frame. ``frame`` may be a numpy array or a tensor; it
@@ -361,12 +361,14 @@ class DeltaStreamPipeline:
                     region: Optional[torch.Tensor], text: str, n_chars: int,
                     aux: Optional[torch.Tensor]):
         """The SORT and HOST backends (the JAX ``pipeline.py:251-278,
-        335-381``): the overlay blended into the whole frame, the dense
-        diff with negative feedback into ``prev`` in place, then the sort
-        on the device or the native packers on the host.
-        ``last_fetch_bytes`` keeps what the HOST backend brought from the
-        device for the frame: the n/8-byte bitmask on the fast path, the
-        dense delta as well under the noise filter."""
+        335-381``): the dense diff with negative feedback into ``prev`` in
+        place, then the sort on the device or the native packers on the
+        host. SORT blends the overlay into the whole frame and runs
+        ``diff_mask``; HOST runs K10 (``diff_pack``), which reads the strip
+        in place and writes the bitmask (and the delta under the noise
+        filter). ``last_fetch_bytes`` keeps what the HOST backend brought
+        from the device for the frame: the n/8-byte bitmask on the fast
+        path, the dense delta as well under the noise filter."""
         cfg = self.config
         host = cfg.compaction is CompactionBackend.HOST
         if host and self._host_fast and self._host_prev is None:
@@ -374,17 +376,22 @@ class DeltaStreamPipeline:
                 "HOST backend: call init_state(base_frame) before step() - "
                 "the host packer derives payload values from its "
                 "previous-frame shadow")
-        cur = logcompact.region_frame(cur, region)
         thr = (cfg.threshold if self.threshold_map is None
                else self.threshold_map)
-        mask, delta, new_prev = diff_ops.diff_mask(cur, prev, thr,
-                                                   cfg.negative_feedback)
-        prev.copy_(new_prev)  # the state is updated in place, as by K1
         if not host:
+            mask, delta, new_prev = diff_ops.diff_mask(
+                diff_ops.region_frame(cur, region), prev, thr,
+                cfg.negative_feedback)
+            prev.copy_(new_prev)  # the state is updated in place, as by K1
             pos, xs, vals = compact_ops.compact(mask, delta, cfg.capacity,
                                                 "sort")
             return prev, pos, xs, vals, aux
-        bits = diff_ops.pack_bitmask(mask).cpu().numpy()
+        # K10: prev updated in place, the bits (and the delta under the
+        # noise filter) in one launch
+        bits, delta = diff_ops.diff_pack(cur, prev, thr,
+                                         cfg.negative_feedback, region,
+                                         want_delta=not self._host_fast)
+        bits = bits.cpu().numpy()
         if self._host_fast:
             # the host's own frame bytes: a device frame comes down once,
             # as the JAX step's np.asarray brings it

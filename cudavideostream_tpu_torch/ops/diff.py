@@ -6,6 +6,14 @@ They are the elementwise half of the plain versions of the fused kernel
 (:func:`cudavideostream_tpu_torch.ops.logcompact.fused_diff_compact_reference`
 and its tiled and bitmask-only siblings).
 
+:func:`diff_pack` is the wrapper of K10, the hand-written Hopper kernel of
+``csrc/diff_pack.cu``: the HOST backend's device step (the diff, the
+bitmask, the new previous frame in place and, on request, the dense
+delta) in one launch on a CUDA tensor, counted in ``diff_pack.launches``.
+On a CPU tensor it runs :func:`diff_pack_reference`, the plain version:
+:func:`diff_mask` and :func:`pack_bitmask` with the same in-place
+contract. A CUDA tensor either reaches the kernel or the call raises.
+
 Byte-exact contract (vs :func:`reference_cpu.diff_encode`):
 
 * ``df = int(cur) - int(prev)`` (true signed difference, no uint8 wrap);
@@ -18,9 +26,21 @@ Byte-exact contract (vs :func:`reference_cpu.diff_encode`):
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import ctypes
+from typing import Optional, Tuple, Union
 
 import torch
+
+from cudavideostream_tpu_torch.kernels import build
+
+# K10's launch geometry (csrc/diff_pack.cu): a thread takes DP_CHUNK frame
+# bytes (DP_CHUNK // 8 bit bytes) at a time; blocks of DP_THREADS threads,
+# at most DP_BLOCKS_PER_SM an SM
+DP_THREADS = 256
+DP_CHUNK = 128
+DP_BLOCKS_PER_SM = 8
+
+_dp_lib = None
 
 
 def diff_mask(
@@ -64,3 +84,148 @@ def pack_bitmask(mask: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(8, dtype=torch.int32, device=m.device)
     return (m.view(-1, 8).to(torch.int32) << shifts).sum(dim=1).to(
         torch.uint8)
+
+
+def region_frame(current: torch.Tensor, region: Optional[torch.Tensor],
+                 streams: int = 1) -> torch.Tensor:
+    """``current`` with the overlay region substituted for its prefix (a
+    new tensor where there is a region): the overlaid frame of the plain
+    versions and of the SORT step. With ``streams=B``, each of the B
+    equal streams of ``current`` takes its slice of ``region``, stream
+    ``b`` the ``b``-th ``len(region) // B`` bytes."""
+    if region is None or region.numel() == 0:
+        return current
+    out = current.clone()
+    out.view(streams, -1)[:, :region.numel() // streams] = region.view(
+        streams, -1)
+    return out
+
+
+def diff_pack_reference(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: Union[int, torch.Tensor],
+    negative_feedback: bool = True,
+    region: Optional[torch.Tensor] = None,
+    want_delta: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of :func:`diff_pack`: :func:`diff_mask` on the
+    overlaid frame, :func:`pack_bitmask`, and ``previous`` overwritten
+    with the new previous frame."""
+    mask, delta, new_prev = diff_mask(region_frame(current, region),
+                                      previous, threshold, negative_feedback)
+    previous.copy_(new_prev)
+    return pack_bitmask(mask), (delta if want_delta else None)
+
+
+def _diff_pack_lib() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/diff_pack.cu`` (K10)."""
+    global _dp_lib
+    if _dp_lib is None:
+        lib = build.load("diff_pack")
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.cvs_diff_pack.argtypes = [i, p, p, ll, p, p, i, i, ll, i, p, p, p]
+        lib.cvs_diff_pack.restype = i
+        lib.cvs_error_string.argtypes = [i]
+        lib.cvs_error_string.restype = ctypes.c_char_p
+        for name in ("cvs_dp_threads", "cvs_dp_chunk", "cvs_dp_blocks_per_sm"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        if ((lib.cvs_dp_threads(), lib.cvs_dp_chunk(),
+             lib.cvs_dp_blocks_per_sm())
+                != (DP_THREADS, DP_CHUNK, DP_BLOCKS_PER_SM)):
+            raise RuntimeError("csrc/diff_pack.cu geometry disagrees with "
+                               "ops/diff.py")
+        _dp_lib = lib
+    return _dp_lib
+
+
+def diff_pack_plan(n: int, sms: int) -> int:
+    """Blocks of one :func:`diff_pack` launch over ``n`` frame bytes on a
+    card of ``sms`` SMs: one per :data:`DP_THREADS` chunks of
+    :data:`DP_CHUNK` bytes (the last one ragged), at most
+    :data:`DP_BLOCKS_PER_SM` an SM. Block ``b``'s thread ``t`` takes chunk
+    ``b * DP_THREADS + t``, then every ``grid * DP_THREADS`` further."""
+    if n <= 0 or sms <= 0:
+        raise ValueError("diff_pack_plan takes a nonzero length and SM count")
+    chunks = -(-n // DP_CHUNK)
+    return max(1, min(DP_BLOCKS_PER_SM * sms, -(-chunks // DP_THREADS)))
+
+
+def _check_pack_args(current, previous, threshold, region):
+    for name, t in (("current", current), ("previous", previous)):
+        if t.dtype != torch.uint8 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D uint8 tensor")
+    n = current.numel()
+    if previous.numel() != n or n == 0:
+        raise ValueError("current and previous must have one nonzero length")
+    if previous.device != current.device:
+        raise ValueError("current and previous must be on one device")
+    if isinstance(threshold, torch.Tensor):
+        if (threshold.dtype != torch.uint8 or threshold.dim() != 1
+                or not threshold.is_contiguous() or threshold.numel() != n
+                or threshold.device != current.device):
+            raise ValueError("the threshold map must be a contiguous uint8 "
+                             "tensor of the frame's length on its device")
+    elif not 0 <= int(threshold) <= 255:
+        raise ValueError("threshold must be in [0, 255]")
+    if region is not None and (
+            region.dtype != torch.uint8 or region.dim() != 1
+            or not region.is_contiguous() or region.numel() > n
+            or region.device != current.device):
+        raise ValueError("region must be a contiguous 1-D uint8 tensor on "
+                         "the frame's device, at most the frame's length")
+
+
+def diff_pack(
+    current: torch.Tensor,
+    previous: torch.Tensor,
+    threshold: Union[int, torch.Tensor],
+    negative_feedback: bool = True,
+    region: Optional[torch.Tensor] = None,
+    want_delta: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The HOST backend's device step over flat ``uint8`` frames: returns
+    ``(bits, delta)``, the ``((n + 7) // 8,)`` LSB-first change bitmask
+    (:func:`pack_bitmask` of :func:`diff_mask`'s mask, zero padding bits)
+    and, with ``want_delta``, the ``(n,)`` wrapped delta (else None).
+    ``previous`` is updated IN PLACE to the new previous frame. ``region``
+    (the overlay strip) is read in place of ``current``'s prefix;
+    ``threshold`` is an int or a per-byte ``uint8`` map of the frame's
+    length.
+
+    CUDA tensors launch K10 (and count one in ``diff_pack.launches``);
+    CPU tensors run :func:`diff_pack_reference`."""
+    _check_pack_args(current, previous, threshold, region)
+    dev = current.device
+    if dev.type == "cpu":
+        return diff_pack_reference(current, previous, threshold,
+                                   negative_feedback, region, want_delta)
+    if dev.type != "cuda":
+        raise ValueError(f"K10 runs on cuda or cpu, not {dev}")
+    if current.data_ptr() == previous.data_ptr():
+        raise ValueError("current and previous must not share storage")
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _diff_pack_lib()
+    n = current.numel()
+    tmap = threshold if isinstance(threshold, torch.Tensor) else None
+    rlen = 0 if region is None else region.numel()
+    bits = torch.empty((n + 7) // 8, dtype=torch.uint8, device=dev)
+    delta = (torch.empty(n, dtype=torch.uint8, device=dev) if want_delta
+             else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    rc = lib.cvs_diff_pack(
+        idx, current.data_ptr(), region.data_ptr() if rlen else None, rlen,
+        previous.data_ptr(), None if tmap is None else tmap.data_ptr(),
+        0 if tmap is not None else int(threshold), int(negative_feedback), n,
+        diff_pack_plan(n, sms), bits.data_ptr(),
+        None if delta is None else delta.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"diff_pack kernel launch failed: "
+                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+    diff_pack.launches += 1
+    return bits, delta
+
+
+diff_pack.launches = 0

@@ -418,13 +418,6 @@ def _whole_tile_blocks(scheme, current, previous, threshold,
                                     negative_feedback)[:3]
 
 
-def region_frame(current, overlay_region):
-    """``current`` with the overlay region substituted for its prefix."""
-    if overlay_region is None or overlay_region.numel() == 0:
-        return current
-    return torch.cat([overlay_region, current[overlay_region.numel():]])
-
-
 def fused_diff_compact(
     current: torch.Tensor,
     previous: torch.Tensor,
@@ -529,7 +522,7 @@ def fused_diff_compact_reference(
     _check_args(current, previous, threshold, overlay_region, threshold_map)
     n = current.numel()
     off = _check_offset(index_offset, "element", tiled_geometry(n, 0)[0])
-    cur = region_frame(current, overlay_region)
+    cur = diff_ops.region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
         cur, previous, _thr(threshold, threshold_map), negative_feedback
     )
@@ -602,7 +595,7 @@ def _tiled_plain(current, previous, threshold, negative_feedback,
     dev = current.device
     n = current.numel()
     n_units = n_pad // unit_bytes
-    cur = region_frame(current, overlay_region)
+    cur = diff_ops.region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
         cur, previous, _thr(threshold, threshold_map), negative_feedback
     )
@@ -1095,7 +1088,7 @@ def segment_compact_reference(
     n = current.numel()
     n_pad, unit_bytes = tiled_geometry(n, 0)
     n_units = n_pad // unit_bytes
-    cur = region_frame(current, overlay_region)
+    cur = diff_ops.region_frame(current, overlay_region)
     mask, dvals, new_prev = diff_ops.diff_mask(
         cur, previous, _thr(threshold, threshold_map), negative_feedback)
     width = 1 << (unit_bytes - 1).bit_length()  # tiles padded to 2^k slots

@@ -41,7 +41,6 @@ from cudavideostream_tpu_torch.config import (
     Visualizer,
 )
 from cudavideostream_tpu_torch.ops import compact as compact_ops
-from cudavideostream_tpu_torch.ops import diff as diff_ops
 from cudavideostream_tpu_torch.ops import filters as filter_ops
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.ops import reference_cpu
@@ -176,27 +175,26 @@ class ShardedDeltaPipeline:
         return atlas
 
     def _overlay_local(self, cur: torch.Tensor, text: str, sidx: int,
-                       rows: Optional[int] = None) -> Optional[torch.Tensor]:
+                       rows: int) -> Optional[torch.Tensor]:
         """Shard ``sidx``'s slice of the glyph band blended over ``cur``,
-        its first ``rows`` rows (all ``local_rows`` by default), as a new
-        tensor; None when the shard holds no row of the band. Shard ``s``
-        owns global rows ``[s*Lr, (s+1)*Lr)`` and takes the glyph rows
+        its first ``rows`` rows, as a new tensor; None when the shard holds
+        no row of the band. Shard ``s`` owns global rows ``[s*Lr,
+        (s+1)*Lr)`` and takes the glyph rows
         ``[s*Lr, s*Lr + rows)`` inside the cell: the band may span several
         shards. The cells are gathered with ``index_select`` (the JAX
         package's one-hot float matmul would meet TF32 on the card)."""
         cfg = self.cfg
-        R = self.local_rows if rows is None else rows
         atlas = self._atlas_on(cur.device)
         cell_h, cell_w = atlas.shape[1], atlas.shape[2]
         g0 = sidx * self.local_rows
         n_fit = min(MAX_OVERLAY_CHARS, len(text), cfg.width // cell_w)
         if n_fit <= 0 or g0 >= cell_h:
             return None
-        h = min(R, cell_h - g0)
+        h = min(rows, cell_h - g0)
         cw3 = cell_w * 3
         cells = atlas.index_select(0, self._char_ids(text, cur.device)[:n_fit])
         strip = cells[:, g0:g0 + h].reshape(n_fit, h, cw3).permute(1, 0, 2)
-        img = cur.reshape(R, cfg.width * 3).clone()
+        img = cur.reshape(rows, cfg.width * 3).clone()
         img[:h, :n_fit * cw3] = strip.reshape(h, n_fit * cw3)
         return img.reshape(-1)
 
@@ -207,16 +205,21 @@ class ShardedDeltaPipeline:
         vis = self.cfg.visualizer
         if vis == Visualizer.NONE:
             return None
+        # one launch a shard, each reading its region in place of the
+        # shard's first bytes
         if vis == Visualizer.HEATMAP:
-            return [filter_ops.heatmap(c, p) for c, p in zip(curs, prevs)]
+            return [filter_ops.heatmap(c, p, r)
+                    for c, r, p in zip(curs, regions, prevs)]
         if vis == Visualizer.GRAYSCALE:
-            return [filter_ops.grayscale_weighted(c) for c in curs]
+            return [filter_ops.grayscale_weighted(c, r)
+                    for c, r in zip(curs, regions)]
         if vis == Visualizer.BINARIZE:
             # one histogram for the whole frame: each shard's gray values
             # and counts from K9's first launch, the counts summed on the
             # row's first device (the JAX psum), exact int32, and K9's
             # second launch on each shard with the sum
-            grays = [filter_ops.gray_hist(c) for c in curs]
+            grays = [filter_ops.gray_hist(c, r)
+                     for c, r in zip(curs, regions)]
             dev0 = self.mesh.device(d, 0)
             hist = None
             for _, h in grays:
@@ -226,15 +229,11 @@ class ShardedDeltaPipeline:
                     for g, _ in grays]
         # the red modes: |df| > threshold (or the shard's map) on the
         # overlaid frame — the JAX new_prev != prev wherever it takes it
-        masks = []
-        for s, (c, r, p) in enumerate(zip(curs, regions, prevs)):
-            thr = (self.cfg.threshold if self._maps is None
-                   else self._maps[d][s])
-            masks.append(diff_ops.diff_mask(logcompact.region_frame(c, r), p,
-                                            thr)[0])
-        if vis == Visualizer.RED_BLACK:
-            return [filter_ops.red_black(m) for m in masks]
-        return [filter_ops.red_overlap(p, m) for p, m in zip(prevs, masks)]
+        return [filter_ops.red_visualizer(
+            c, p, (self.cfg.threshold if self._maps is None
+                   else self._maps[d][s]),
+            vis == Visualizer.RED_OVERLAP, r)
+            for s, (c, r, p) in enumerate(zip(curs, regions, prevs))]
 
     def _stream(self, d: int, prevs, frames, text: str, emit_tiled: bool):
         """One stream's step over the S space shards of data row ``d``:
@@ -250,19 +249,13 @@ class ShardedDeltaPipeline:
         regions = [None] * self.n_space
         cell_h = self.atlas_np.shape[1]
         if text and cell_h <= cfg.height:
-            if cfg.visualizer in (Visualizer.HEATMAP, Visualizer.GRAYSCALE,
-                                  Visualizer.BINARIZE):
-                # these read the overlaid frame: blend every shard whole
-                curs = [o if o is not None else c for c, o in zip(
-                    curs, (self._overlay_local(c, text, s)
-                           for s, c in enumerate(curs)))]
-            else:
-                # a row prefix per shard, which K1 substitutes for the
-                # shard's first bytes (no pass over the frame)
-                rows = min(self.local_rows, cell_h)
-                nb = rows * cfg.width * 3
-                regions = [self._overlay_local(c[:nb], text, s, rows)
-                           for s, c in enumerate(curs)]
+            # a row prefix per shard, which K1 and the visualizer's kernel
+            # substitute for the shard's first bytes (no pass over the
+            # frame)
+            rows = min(self.local_rows, cell_h)
+            nb = rows * cfg.width * 3
+            regions = [self._overlay_local(c[:nb], text, s, rows)
+                       for s, c in enumerate(curs)]
         aux = self._aux(d, curs, regions, prevs)
         outs = []
         for s in range(self.n_space):

@@ -344,3 +344,120 @@ def test_binarize_on_cuda_launches_or_raises(monkeypatch):
     assert not calls
     assert (filters.gray_hist.launches,
             filters.binarize_apply.launches) == before
+
+
+# -- the overlay region, read in place of the frame's prefix ----------------
+
+def _region_cases(w, npx):
+    return {"strip": 9 * w * 3, "straddling": 9 * w * 3 + 6, "odd": 1001,
+            "one run": 48, "whole": 3 * npx}
+
+
+@pytest.mark.parametrize("case", ["strip", "straddling", "odd", "one run",
+                                  "whole"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_region_matches_jax_on_the_overlaid_frame(layout, case):
+    """``gray_hist`` and ``binarize_pipeline`` with ``region``: the gray
+    values, the histogram and the output of the overlaid frame, equal to
+    the JAX package's ``binarize_pipeline`` and the spec on it."""
+    h, w = LAYOUTS[layout]
+    npx = h * w
+    frame = _frame(7, npx)
+    region = _frame(8, npx)[:_region_cases(w, npx)[case]]
+    overlaid = frame.copy()
+    overlaid[:region.size] = region
+    tf, tr = torch.from_numpy(frame), torch.from_numpy(region)
+    gray, h_ = filters.gray_hist(tf, tr)
+    np.testing.assert_array_equal(
+        gray.numpy(), filters.gray_pixels(torch.from_numpy(overlaid)).numpy())
+    np.testing.assert_array_equal(
+        h_.numpy(), np.bincount(gray.numpy(), minlength=256))
+    want = np.asarray(jax_filters.binarize_pipeline(
+        jnp.asarray(overlaid), fused=True)).ravel()
+    np.testing.assert_array_equal(want, ref.binarize_pipeline(overlaid))
+    np.testing.assert_array_equal(
+        filters.binarize_pipeline(tf, region=tr).numpy(), want)
+    np.testing.assert_array_equal(
+        filters.binarize_pipeline_reference(tf, tr).numpy(), want)
+    out = torch.empty(3 * npx, dtype=torch.uint8)
+    filters.binarize_pipeline(tf, out=out, region=tr)
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert np.array_equal(frame, tf.numpy())  # the frame is never written
+
+
+def test_region_refusals():
+    f = torch.zeros(30, dtype=torch.uint8)
+    for bad in (torch.zeros(31, dtype=torch.uint8),
+                torch.zeros(3, dtype=torch.int32),
+                torch.zeros(6, dtype=torch.uint8)[::2]):
+        with pytest.raises(ValueError):
+            filters.gray_hist(f, bad)
+        with pytest.raises(ValueError):
+            filters.binarize_pipeline(f, region=bad)
+
+
+@pytest.mark.parametrize("npx,rlen", [(1, 3), (16, 47), (17, 48), (17, 49),
+                                      (48 * 50, 9 * 150 + 6),
+                                      (48 * 50, 3 * 48 * 50),
+                                      (1920 * 1080, 16 * 5760 + 6),
+                                      (1024 * 16 * 3 + 5, 1024 * 48 + 30)])
+def test_gray_hist_plan_with_a_region_covers_every_pixel_once(npx, rlen):
+    """Launch 1 with a region: the one run that straddles the region's end
+    (when it is a whole run) is skipped by its owner and taken a pixel a
+    thread by threads 16-31 of block 0, beside the ragged tail on threads
+    0-15; every pixel is read and its gray byte written exactly once, a
+    whole run's 48 bytes all from the region or all from the frame."""
+    grid = filters.gray_hist_plan(npx, SMS)
+    runs = npx // PIX
+    straddle = rlen // 48 if rlen % 48 and rlen // 48 < runs else -1
+    stride = grid * HIST_THREADS
+    written = np.zeros(npx, np.int64)
+    for tid in range(min(stride, max(runs, 1))):
+        i = tid
+        if i == straddle:
+            i += stride
+        while i < runs:
+            j0 = 48 * i
+            assert j0 >= rlen or j0 + 48 <= rlen  # one source a run
+            written[i * PIX:(i + 1) * PIX] += 1
+            i += stride
+            if i == straddle:
+                i += stride
+    for t in range(2 * PIX):  # block 0's per-pixel threads
+        if t < PIX:
+            tp = runs * PIX + t
+            if tp < npx:
+                written[tp] += 1
+        elif straddle >= 0:
+            written[straddle * PIX + t - PIX] += 1
+    assert (written == 1).all()
+
+
+def test_gray_hist_with_a_region_on_cuda_launches_or_raises(monkeypatch):
+    """With a region too, a CUDA tensor never takes the plain version and
+    no overlaid copy is made: without a kernel build the entries raise."""
+    calls = []
+    for name in ("binarize_pipeline_reference", "gray_pixels"):
+        monkeypatch.setattr(filters, name, lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(filters.diff_ops, "region_frame",
+                        lambda *a, **k: calls.append(a))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(filters.build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(filters, "_bin_lib", None)
+    monkeypatch.setattr(filters.build, "_loaded", {})
+    monkeypatch.setattr(filters.build, "library_path",
+                        lambda name: filters.build.BUILD_DIR / "absent.so")
+    frame = torch.zeros(48 * 64 * 3, dtype=torch.uint8)
+    region = torch.zeros(9 * 64 * 3, dtype=torch.uint8)
+    before = filters.gray_hist.launches
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    for fn in (lambda: filters.gray_hist(frame, region),
+               lambda: filters.binarize_pipeline(frame, region=region)):
+        with pytest.raises(RuntimeError):
+            fn()
+    monkeypatch.undo()
+    assert not calls and filters.gray_hist.launches == before

@@ -1,0 +1,383 @@
+"""K10, the HOST backend's hand-written device step (``csrc/diff_pack.cu``),
+on the CPU: its plain version (``ops/diff.py`` ``diff_pack_reference``,
+the entry ``diff_pack`` on a CPU tensor) against the JAX package's
+``diff_mask`` + ``pack_bitmask`` and ``reference_cpu.diff_encode`` for
+the bits, the wrapped delta and the new previous frame (written in place),
+with and without negative feedback, thresholds 0 and 20, a per-byte map,
+the overlay region and lengths that are not a multiple of 8; a host model
+of one launch (the chunks' owners, every frame byte and bits byte written
+once, no read outside the frame or the region, the fast path's word
+arithmetic and bit order); the HOST pipeline step through it; and the
+wrapper on a CUDA tensor, which launches or raises. Tolerance is zero
+throughout.
+
+The kernel itself is held against its plain version on the card by
+``chip_smoke.py``.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from cudavideostream_tpu.ops import diff as jax_diff
+from cudavideostream_tpu_torch.config import CompactionBackend, StreamConfig
+from cudavideostream_tpu_torch.models import DeltaStreamPipeline
+from cudavideostream_tpu_torch.ops import diff
+from cudavideostream_tpu_torch.ops import reference_cpu as ref
+from cudavideostream_tpu_torch.utils import fonts
+
+CSRC = Path(diff.__file__).resolve().parent.parent / "csrc"
+LAYOUTS = {"48x64": (48, 64), "48x50": (48, 50)}
+SMS = 132  # an H100 SXM's SMs
+
+
+def _constexpr(name):
+    """``constexpr int name = ...;`` in ``csrc/diff_pack.cu``."""
+    code = re.sub(r"//[^\n]*", "", (CSRC / "diff_pack.cu").read_text())
+    expr = re.search(rf"constexpr\s+int\s+{name}\s*=\s*([^;]+);",
+                     code).group(1)
+    names = set(re.findall(r"[A-Za-z_]\w*", expr))
+    return eval(expr.replace("/", "//"), {"__builtins__": {}},
+                {k: _constexpr(k) for k in names})
+
+
+THREADS = _constexpr("kThreads")
+CHUNK = _constexpr("kChunk")
+BIT_BYTES = _constexpr("kBitBytes")
+BLOCKS_PER_SM = _constexpr("kBlocksPerSm")
+
+
+def _bytes(seed, n):
+    return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
+
+
+def _pair(seed, n):
+    """A previous frame and a current one that moves a third of its bytes
+    by up to 40 (some under the threshold, some over) and leaves the rest."""
+    rng = np.random.default_rng(seed)
+    prev = rng.integers(0, 256, n, dtype=np.uint8)
+    step = rng.integers(-40, 41, n) * (rng.random(n) < 0.33)
+    return np.clip(prev + step, 0, 255).astype(np.uint8), prev
+
+
+def test_constants_read_from_the_kernel():
+    assert (THREADS, CHUNK, BLOCKS_PER_SM) == (
+        diff.DP_THREADS, diff.DP_CHUNK, diff.DP_BLOCKS_PER_SM)
+    # a chunk is whole bit bytes, stored as one 16-byte vector
+    assert CHUNK % 8 == 0 and BIT_BYTES == CHUNK // 8 == 16
+
+
+# -- the plain version against the JAX package and the spec ----------------
+
+def _overlaid(cur, region):
+    out = cur.copy()
+    if region is not None:
+        out[:region.size] = region
+    return out
+
+
+def _want(cur, prev, thr, negfeed, region):
+    """The JAX package's bits, delta and new previous frame, on the
+    overlaid frame, each also checked against ``diff_encode``."""
+    c = _overlaid(cur, region)
+    jt = jnp.asarray(thr) if isinstance(thr, np.ndarray) else thr
+    m, v, np_ = jax_diff.diff_mask(jnp.asarray(c), jnp.asarray(prev), jt,
+                                   negfeed)
+    bits = np.asarray(jax_diff.pack_bitmask(m))
+    pos, xs, vals, new_prev = ref.diff_encode(c, prev, thr, negfeed)
+    np.testing.assert_array_equal(np.asarray(np_), new_prev)
+    np.testing.assert_array_equal(np.nonzero(np.asarray(m))[0], xs)
+    np.testing.assert_array_equal(np.asarray(v)[xs], vals)
+    return bits, np.asarray(v), new_prev
+
+
+@pytest.mark.parametrize("region", ["none", "strip", "odd"])
+@pytest.mark.parametrize("thr", ["0", "20", "map"])
+@pytest.mark.parametrize("negfeed", [True, False], ids=["negfeed", "nofeed"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_plain_matches_jax_and_spec(layout, negfeed, thr, region):
+    h, w = LAYOUTS[layout]
+    n = h * w * 3
+    cur, prev = _pair(sum(map(ord, layout + thr + region)), n)
+    t = {"0": 0, "20": 20, "map": _bytes(3, n)}[thr]
+    reg = {"none": None, "strip": _bytes(4, 9 * w * 3),
+           "odd": _bytes(5, 1001)}[region]
+    bits_w, delta_w, prev_w = _want(cur, prev, t, negfeed, reg)
+    tp = torch.from_numpy(prev.copy())
+    tt = torch.from_numpy(t) if isinstance(t, np.ndarray) else t
+    bits, delta = diff.diff_pack(
+        torch.from_numpy(cur), tp, tt, negfeed,
+        None if reg is None else torch.from_numpy(reg), want_delta=True)
+    np.testing.assert_array_equal(bits.numpy(), bits_w)
+    np.testing.assert_array_equal(delta.numpy(), delta_w)
+    np.testing.assert_array_equal(tp.numpy(), prev_w)  # in place
+    # without the delta: the same bits and state, no delta
+    tp2 = torch.from_numpy(prev.copy())
+    bits2, none = diff.diff_pack(
+        torch.from_numpy(cur), tp2, tt, negfeed,
+        None if reg is None else torch.from_numpy(reg))
+    assert none is None
+    np.testing.assert_array_equal(bits2.numpy(), bits_w)
+    np.testing.assert_array_equal(tp2.numpy(), prev_w)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 15, 16, 17, 127, 128, 129, 1001])
+def test_ragged_lengths_pad_with_zero_bits(n):
+    """Lengths that are not a multiple of 8 (or of a chunk): the last bits
+    byte's missing bits are zero, as the JAX ``pack_bitmask`` pads."""
+    cur = np.full(n, 200, np.uint8)
+    prev = np.zeros(n, np.uint8)  # every byte changes
+    tp = torch.from_numpy(prev.copy())
+    bits, delta = diff.diff_pack(torch.from_numpy(cur), tp, 20,
+                                 want_delta=True)
+    want = np.asarray(jax_diff.pack_bitmask(jnp.ones(n, bool)))
+    np.testing.assert_array_equal(bits.numpy(), want)
+    assert bits.numel() == (n + 7) // 8
+    if n % 8:
+        assert bits[-1] == (1 << (n % 8)) - 1
+    np.testing.assert_array_equal(delta.numpy(), cur)
+    np.testing.assert_array_equal(tp.numpy(), cur)
+
+
+@settings(deadline=None, max_examples=20)
+@given(st.integers(1, 700), st.integers(0, 255), st.booleans(),
+       st.integers(0, 700), st.integers(0, 2 ** 31))
+def test_plain_matches_jax_random(n, thr, negfeed, rlen, seed):
+    cur, prev = _pair(seed, n)
+    reg = _bytes(seed + 1, min(rlen, n))
+    bits_w, delta_w, prev_w = _want(cur, prev, thr, negfeed, reg)
+    tp = torch.from_numpy(prev.copy())
+    bits, delta = diff.diff_pack(torch.from_numpy(cur), tp, thr, negfeed,
+                                 torch.from_numpy(reg), want_delta=True)
+    np.testing.assert_array_equal(bits.numpy(), bits_w)
+    np.testing.assert_array_equal(delta.numpy(), delta_w)
+    np.testing.assert_array_equal(tp.numpy(), prev_w)
+
+
+def test_refusals():
+    f = torch.zeros(30, dtype=torch.uint8)
+    p = torch.zeros(30, dtype=torch.uint8)
+    for args in ((f[:-1], p, 20), (f.to(torch.int32), p, 20),
+                 (f[:0], p[:0], 20), (f, p, 256), (f, p, -1),
+                 (f, p, torch.zeros(29, dtype=torch.uint8)),
+                 (f, p, torch.zeros(30, dtype=torch.int16))):
+        with pytest.raises(ValueError):
+            diff.diff_pack(*args)
+    with pytest.raises(ValueError):
+        diff.diff_pack(f, p, 20, region=torch.zeros(31, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        diff.diff_pack_plan(0, SMS)
+
+
+# -- a host model of one launch ---------------------------------------------
+
+def _pack4(m):
+    """``pack4`` of csrc/diff_pack.cu on uint32 words of 0x00/0xff bytes."""
+    return (((m & 0x01010101) * 0x10204080) & 0xFFFFFFFF) >> 28
+
+
+def _vcmpgtu4(a, b):
+    """``__vcmpgtu4`` on uint32 words: 0xff per byte where a > b."""
+    out = np.zeros_like(a)
+    for e in range(4):
+        sh = 8 * e
+        gt = ((a >> sh) & 255) > ((b >> sh) & 255)
+        out |= np.where(gt, 0xFF << sh, 0).astype(a.dtype)
+    return out
+
+
+def _vabsdiffu4(a, b):
+    out = np.zeros_like(a)
+    for e in range(4):
+        sh = 8 * e
+        d = np.abs(((a >> sh) & 255).astype(np.int64)
+                   - ((b >> sh) & 255).astype(np.int64))
+        out |= (d.astype(a.dtype) << sh)
+    return out
+
+
+def _launch_model(cur, prev, thr, negfeed, region, tmap, grid):
+    """One launch of ``diff_pack_kernel`` on the host: chunk ``c`` of 128
+    bytes belongs to thread ``c mod (grid * THREADS)``; a whole chunk on
+    one side of the region's end goes the word path (the kernel's SIMD
+    arithmetic, bits word ``q // 2`` at bit ``16 (q % 2) + 4 k``), any
+    other the byte path. Returns ``(bits, new_prev, writes of each frame
+    byte, writes of each bits byte, reads by source)``."""
+    n = cur.size
+    rlen = 0 if region is None else region.size
+    nbits = (n + 7) // 8
+    chunks = -(-n // CHUNK)
+    stride = grid * THREADS
+    prev = prev.copy()
+    bits = np.zeros(nbits, np.uint8)
+    wrote = np.zeros(n, np.int64)
+    wrote_bits = np.zeros(nbits, np.int64)
+    reads = {"cur": np.zeros(n, np.int64), "region": np.zeros(max(rlen, 1),
+                                                              np.int64)}
+    owners = np.zeros(chunks, np.int64)
+    for c in range(chunks):
+        owners[c] = c % stride
+        i0 = c * CHUNK
+        in_region = i0 + CHUNK <= rlen
+        if i0 + CHUNK <= n and (in_region or i0 >= rlen):
+            src = region if in_region else cur
+            reads["region" if in_region else "cur"][i0:i0 + CHUNK] += 1
+            cw = src[i0:i0 + CHUNK].view(np.uint32)
+            pw = prev[i0:i0 + CHUNK].view(np.uint32).copy()
+            tw = (np.full(CHUNK // 4, thr * 0x01010101, np.uint32)
+                  if tmap is None else tmap[i0:i0 + CHUNK].view(np.uint32))
+            m = _vcmpgtu4(_vabsdiffu4(cw, pw), tw)
+            nw = (cw & m) | (pw & ~m) if negfeed else cw
+            prev[i0:i0 + CHUNK] = nw.view(np.uint8)
+            bw = np.zeros(4, np.uint64)
+            for word in range(CHUNK // 4):
+                q, k = divmod(word, 4)
+                bw[q >> 1] |= np.uint64(int(_pack4(int(m[word])))
+                                        << (16 * (q & 1) + 4 * k))
+            bits[16 * c:16 * c + 16] = bw.astype(np.uint32).view(np.uint8)
+            wrote[i0:i0 + CHUNK] += 1
+            wrote_bits[16 * c:16 * c + 16] += 1
+        else:
+            acc = [0, 0, 0, 0]
+            for m_ in range(min(CHUNK, n - i0)):
+                i = i0 + m_
+                if i < rlen:
+                    cb = int(region[i])
+                    reads["region"][i] += 1
+                else:
+                    cb = int(cur[i])
+                    reads["cur"][i] += 1
+                pb = int(prev[i])
+                t = thr if tmap is None else int(tmap[i])
+                ch = abs(cb - pb) > t
+                prev[i] = cb if (ch or not negfeed) else pb
+                wrote[i] += 1
+                acc[m_ >> 5] |= int(ch) << (m_ & 31)
+            for j in range(16):
+                if 16 * c + j < nbits:
+                    bits[16 * c + j] = (acc[j >> 2] >> (8 * (j & 3))) & 255
+                    wrote_bits[16 * c + j] += 1
+    return bits, prev, wrote, wrote_bits, reads, owners
+
+
+@pytest.mark.parametrize("n,rlen", [(1, 0), (8, 0), (129, 0), (128, 128),
+                                    (48 * 50 * 3, 1001),
+                                    (48 * 64 * 3, 9 * 64 * 3),
+                                    (48 * 64 * 3 + 5, 0)])
+@pytest.mark.parametrize("thr", ["20", "map"])
+def test_launch_model_writes_each_byte_once_and_matches(n, rlen, thr):
+    """Every frame byte and bits byte is written by exactly one chunk, no
+    read leaves the frame or the region (the region's bytes are read
+    instead of the frame's, never both), and the model's bits and state,
+    through the word path's arithmetic, equal the plain version's."""
+    cur, prev = _pair(n + rlen, n)
+    region = _bytes(7, rlen) if rlen else None
+    tmap = _bytes(8, n) if thr == "map" else None
+    grid = diff.diff_pack_plan(n, SMS)
+    assert 1 <= grid <= BLOCKS_PER_SM * SMS
+    bits, new_prev, wrote, wrote_bits, reads, owners = _launch_model(
+        cur, prev, 20, True, region, tmap, grid)
+    assert (wrote == 1).all() and (wrote_bits == 1).all()
+    # each frame byte read once, from the region below its end, else cur
+    assert (reads["cur"][:rlen] == 0).all()
+    assert (reads["cur"][rlen:] == 1).all()
+    if rlen:
+        assert (reads["region"] == 1).all()
+    assert owners.max() < grid * THREADS
+    tp = torch.from_numpy(prev.copy())
+    want_bits, _ = diff.diff_pack(
+        torch.from_numpy(cur), tp, 20 if tmap is None else
+        torch.from_numpy(tmap), True,
+        None if region is None else torch.from_numpy(region))
+    np.testing.assert_array_equal(bits, want_bits.numpy())
+    np.testing.assert_array_equal(new_prev, tp.numpy())
+
+
+@pytest.mark.parametrize("n", [6_220_800, 6_220_801, 1, 32_768 * 132 * 9])
+def test_plan_covers_every_chunk(n):
+    """The 1080p frame and the edges: each chunk has one owner thread, a
+    thread takes at most one chunk more than another, and the grid never
+    exceeds its cap."""
+    grid = diff.diff_pack_plan(n, SMS)
+    chunks = -(-n // CHUNK)
+    per_thread = np.bincount(np.arange(chunks) % (grid * THREADS),
+                             minlength=grid * THREADS)
+    assert per_thread.sum() == chunks
+    assert per_thread.max() - per_thread.min() <= 1
+    assert grid == max(1, min(BLOCKS_PER_SM * SMS, -(-chunks // THREADS)))
+
+
+def test_pack4_bit_order():
+    """``pack4`` takes bit 7 of each byte, byte 0 lowest, for all 16
+    patterns of 0x00/0xff bytes."""
+    for k in range(16):
+        m = sum(0xFF << (8 * e) for e in range(4) if k >> e & 1)
+        assert _pack4(m) == k
+
+
+# -- the HOST step, and a CUDA tensor never reaching the plain version ------
+
+@pytest.mark.parametrize("nf", [False, True], ids=["fast", "noise_filter"])
+def test_host_step_runs_diff_pack_once(nf, monkeypatch):
+    """``--compaction host``: one ``diff_pack`` a step, which reads the
+    overlay strip in place (never an overlaid copy of the frame) and
+    updates the state in place; the step equals ``step_oracle``."""
+    cfg = StreamConfig(height=48, width=50, overlay_scale=4,
+                       compaction=CompactionBackend.HOST, noise_filter=nf)
+    pipe = DeltaStreamPipeline(cfg, device="cpu")
+    calls = []
+    real = diff.diff_pack
+
+    def spy(cur, prev, thr, negfeed, region=None, want_delta=False):
+        calls.append((region is not None, want_delta))
+        return real(cur, prev, thr, negfeed, region, want_delta)
+
+    monkeypatch.setattr(diff, "diff_pack", spy)
+    cur, base = _pair(11, cfg.frame_bytes)
+    prev = pipe.init_state(base)
+    out = pipe.step(prev, cur, text="FPS 30")
+    assert out[0] is prev
+    assert calls == [(True, nf)]
+    e_prev, e_pos, e_xs, e_vals, _ = ref.step_oracle(
+        base, cur, cfg, pipe.atlas_np, fonts.encode_text("FPS 30"))
+    np.testing.assert_array_equal(prev.numpy(), e_prev)
+    assert out[1] == e_pos
+    np.testing.assert_array_equal(out[2], e_xs)
+    np.testing.assert_array_equal(out[3], e_vals)
+
+
+def test_diff_pack_on_cuda_launches_or_raises(monkeypatch):
+    """A CUDA tensor never takes the plain version: without a kernel
+    build (no nvcc here) the entry raises, the plain version is not
+    called, ``prev`` is not touched and no launch is counted."""
+    calls = []
+    for name in ("diff_pack_reference", "diff_mask", "pack_bitmask"):
+        monkeypatch.setattr(diff, name, lambda *a, **k: calls.append(a))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(diff.build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(diff, "_dp_lib", None)
+    monkeypatch.setattr(diff.build, "_loaded", {})
+    monkeypatch.setattr(diff.build, "library_path",
+                        lambda name: diff.build.BUILD_DIR / "absent.so")
+    cur = torch.full((48 * 64 * 3,), 200, dtype=torch.uint8)
+    prev = torch.zeros(48 * 64 * 3, dtype=torch.uint8)
+    ptrs = iter(range(4096, 1 << 40, 4096))
+    before = diff.diff_pack.launches
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: next(ptrs))
+    for kw in ({}, {"want_delta": True}):
+        with pytest.raises(RuntimeError):
+            diff.diff_pack(cur, prev, 20, **kw)
+    monkeypatch.undo()
+    assert not calls and diff.diff_pack.launches == before
+    assert not prev.any()

@@ -1,0 +1,490 @@
+"""K11-K13, the hand-written visualizer kernels (``csrc/visualize.cu``:
+the motion heatmap, the red modes and grayscale), on the CPU: each plain
+version (``ops/filters.py`` ``heatmap_reference``,
+``red_visualizer_reference``, ``grayscale_*_reference``, the entries on a
+CPU tensor) against the JAX package's ``heatmap(use_sine=False)``,
+``red_black``/``red_overlap`` on its ``diff_mask``'s mask and
+``grayscale_*``, and against ``reference_cpu``, at 48x64 (the JAX ``(M,
+384)`` layout) and 48x50 (its fallback), with the overlay region read in
+place of the frame's prefix, thresholds 0 and 20 and a per-byte map; the
+super-frame form (``streams=B``) against B solo calls and row shards
+against the solo frame; a host model of one launch (every output byte
+written once, every read inside its frame, stream, region or map); the
+pipelines' aux frames, made from the frame and the strip with no
+overlaid copy; and the wrappers on a CUDA tensor, which launch or raise.
+Tolerance is zero throughout.
+
+The kernels themselves are held against their plain versions on the card
+by ``chip_smoke.py``.
+"""
+
+import inspect
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from cudavideostream_tpu.ops import diff as jax_diff
+from cudavideostream_tpu.ops import filters as jax_filters
+from cudavideostream_tpu_torch.config import StreamConfig, Visualizer
+from cudavideostream_tpu_torch.models import (
+    BatchedDeltaPipeline,
+    DeltaStreamPipeline,
+)
+from cudavideostream_tpu_torch.ops import diff, filters
+from cudavideostream_tpu_torch.ops import reference_cpu as ref
+from cudavideostream_tpu_torch.parallel import ShardedDeltaPipeline, make_mesh
+from cudavideostream_tpu_torch.parallel.sharded import gather
+from cudavideostream_tpu_torch.utils import fonts
+
+CSRC = Path(filters.__file__).resolve().parent.parent / "csrc"
+LAYOUTS = {"48x64": (48, 64), "48x50": (48, 50)}
+SMS = 132  # an H100 SXM's SMs
+OPS = ("heatmap", "red_black", "red_overlap", "grayscale_average",
+       "grayscale_weighted")
+
+
+def _constexpr(name):
+    """``constexpr int name = ...;`` in ``csrc/visualize.cu``."""
+    code = re.sub(r"//[^\n]*", "", (CSRC / "visualize.cu").read_text())
+    expr = re.search(rf"constexpr\s+int\s+{name}\s*=\s*([^;]+);",
+                     code).group(1)
+    names = set(re.findall(r"[A-Za-z_]\w*", expr))
+    return eval(expr.replace("/", "//"), {"__builtins__": {}},
+                {k: _constexpr(k) for k in names})
+
+
+THREADS = _constexpr("kThreads")
+PIX = _constexpr("kPix")
+RUN = _constexpr("kRun")
+LUT_SIZE = _constexpr("kLutSize")
+BLOCKS_PER_SM = _constexpr("kBlocksPerSm")
+
+
+def _bytes(seed, n):
+    return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
+
+
+def _pair(seed, n):
+    rng = np.random.default_rng(seed)
+    prev = rng.integers(0, 256, n, dtype=np.uint8)
+    step = rng.integers(-40, 41, n) * (rng.random(n) < 0.4)
+    return np.clip(prev + step, 0, 255).astype(np.uint8), prev
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_constants_read_from_the_kernel():
+    assert (THREADS, PIX, LUT_SIZE, BLOCKS_PER_SM) == (
+        filters.VIS_THREADS, filters.VIS_PIXELS, filters.LUT_SIZE,
+        filters.VIS_BLOCKS_PER_SM)
+    assert RUN == 3 * PIX and RUN % 16 == 0  # three 16-byte vectors a run
+    # the op codes of the C entry
+    code = (CSRC / "visualize.cu").read_text()
+    enum = re.search(r"enum Op \{([^}]*)\}", code).group(1)
+    codes = [int(v) for v in re.findall(r"=\s*(\d+)", enum)]
+    assert codes == sorted(filters.VIS_OPS.values()) == list(range(5))
+
+
+def test_lut_words_pack_the_spec_table():
+    """K11's by-value LUT: 766 words, ``b | g << 8 | r << 16``, 3,064
+    bytes (under the 4 KB of a launch's parameters), equal to
+    ``reference_cpu.heatmap_lut``."""
+    words = np.frombuffer(bytes(filters.heatmap_lut_words()), np.uint32)
+    lut = ref.heatmap_lut().astype(np.uint32)
+    assert words.size == LUT_SIZE == lut.shape[0]
+    assert words.nbytes == 3064 < 4096
+    np.testing.assert_array_equal(words & 255, lut[:, 0])
+    np.testing.assert_array_equal(words >> 8 & 255, lut[:, 1])
+    np.testing.assert_array_equal(words >> 16, lut[:, 2])
+
+
+# -- the plain versions against the JAX package and the spec ----------------
+
+def _overlaid(cur, region):
+    out = cur.copy()
+    if region is not None:
+        out[:region.size] = region
+    return out
+
+
+def _jax_want(op, cur, prev, thr, region):
+    """The JAX package's bytes of ``op`` on the overlaid frame, also held
+    against ``reference_cpu``."""
+    c = _overlaid(cur, region)
+    jc, jp = jnp.asarray(c), jnp.asarray(prev)
+    if op == "heatmap":
+        got = jax_filters.heatmap(jc, jp, use_sine=False)
+        spec = ref.heatmap(c, prev)
+    elif op.startswith("grayscale"):
+        got = getattr(jax_filters, op)(jc)
+        spec = getattr(ref, op)(c)
+    else:
+        jt = jnp.asarray(thr) if isinstance(thr, np.ndarray) else thr
+        mask = jax_diff.diff_mask(jc, jp, jt)[0]
+        xs = ref.diff_encode(c, prev, thr)[1]
+        if op == "red_black":
+            got, spec = jax_filters.red_black(mask), ref.red_black(xs, c.size)
+        else:
+            got = jax_filters.red_overlap(jp, mask)
+            spec = ref.red_overlap(prev, xs)
+    got = np.asarray(got).ravel()
+    np.testing.assert_array_equal(got, spec)
+    return got
+
+
+def _port(op, cur, prev, thr, region, streams=1):
+    """The entry of ``op`` (the plain version, on the CPU)."""
+    c, p, r = _t(cur), _t(prev), _t(region)
+    if op == "heatmap":
+        return filters.heatmap(c, p, r, streams)
+    if op.startswith("grayscale"):
+        return getattr(filters, op)(c, r, streams)
+    tt = _t(thr) if isinstance(thr, np.ndarray) else thr
+    return filters.red_visualizer(c, p, tt, op == "red_overlap", r, streams)
+
+
+@pytest.mark.parametrize("region", ["none", "strip", "odd"])
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_plain_matches_jax_and_spec(layout, op, region):
+    h, w = LAYOUTS[layout]
+    n = h * w * 3
+    cur, prev = _pair(sum(map(ord, layout + op + region)), n)
+    reg = {"none": None, "strip": _bytes(4, 9 * w * 3),
+           "odd": _bytes(5, 3 * 341)}[region]
+    thrs = (0, 20, _bytes(6, n)) if op.startswith("red") else (20,)
+    for thr in thrs:
+        got = _port(op, cur, prev, thr, reg)
+        assert got.dtype == torch.uint8 and got.numel() == n
+        np.testing.assert_array_equal(got.numpy(),
+                                      _jax_want(op, cur, prev, thr, reg))
+
+
+def test_red_map_of_0s_and_255s():
+    """A map of 0s and 255s: 255 never ships, 0 ships any change."""
+    h, w = LAYOUTS["48x50"]
+    n = h * w * 3
+    cur, prev = _pair(9, n)
+    tm = np.where(_bytes(10, n) < 128, 0, 255).astype(np.uint8)
+    for op in ("red_black", "red_overlap"):
+        np.testing.assert_array_equal(
+            _port(op, cur, prev, tm, None).numpy(),
+            _jax_want(op, cur, prev, tm, None))
+
+
+def test_heatmap_reaches_the_wrap():
+    """Frame pairs whose per-pixel sums run over 510..765, where the
+    reference's colormap wraps: every d of 0..765 occurs."""
+    d = np.arange(766)
+    px = np.stack([np.minimum(d, 255), np.clip(d - 255, 0, 255),
+                   np.clip(d - 510, 0, 255)], axis=1)
+    cur = px.astype(np.uint8).ravel()
+    prev = np.zeros_like(cur)
+    got = _port("heatmap", cur, prev, 0, None).numpy()
+    np.testing.assert_array_equal(got, ref.heatmap_lut().ravel())
+    np.testing.assert_array_equal(got, _jax_want("heatmap", cur, prev, 0,
+                                                 None))
+
+
+@settings(deadline=None, max_examples=15)
+@given(st.integers(1, 400), st.sampled_from(OPS), st.integers(0, 255),
+       st.integers(0, 1300), st.integers(0, 2 ** 31))
+def test_plain_matches_jax_random(npx, op, thr, rlen, seed):
+    cur, prev = _pair(seed, 3 * npx)
+    reg = _bytes(seed + 1, min(rlen, 3 * npx))
+    np.testing.assert_array_equal(
+        _port(op, cur, prev, thr, reg).numpy(),
+        _jax_want(op, cur, prev, thr, reg))
+
+
+# -- the super-frame and the shards ------------------------------------------
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("b", [2, 3])
+def test_streams_equal_solo_calls(b, op):
+    """``streams=B``: B frames at a stride, each with its strip at
+    ``region[s * strip:]`` and the one map of a stream's length, equal to
+    B solo calls."""
+    h, w = LAYOUTS["48x50"]
+    sn = h * w * 3
+    cur, prev = _pair(b, b * sn)
+    strip = 7 * w * 3 + 6  # ends inside a run of 16 pixels
+    strips = _bytes(b + 1, b * strip)
+    tm = _bytes(b + 2, sn) if op.startswith("red") else 0
+    got = _port(op, cur, prev, tm, strips, streams=b).numpy()
+    for s in range(b):
+        sl = slice(s * sn, (s + 1) * sn)
+        np.testing.assert_array_equal(
+            got[sl], _port(op, cur[sl], prev[sl], tm,
+                           strips[s * strip:(s + 1) * strip]).numpy())
+        np.testing.assert_array_equal(
+            got[sl], _jax_want(op, cur[sl], prev[sl], tm,
+                               strips[s * strip:(s + 1) * strip]))
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("s_count", [2, 4])
+def test_shards_equal_the_solo_frame(s_count, op):
+    """Row shards, each with its part of the region as its own prefix and
+    its slice of the map: the shards' outputs, concatenated, equal the
+    solo frame's."""
+    h, w = LAYOUTS["48x50"]
+    n = h * w * 3
+    ln = n // s_count
+    cur, prev = _pair(s_count, n)
+    region = _bytes(11, 13 * w * 3)  # spans shard boundaries at S = 4
+    tm = _bytes(12, n) if op.startswith("red") else 0
+    parts = []
+    for s in range(s_count):
+        sl = slice(s * ln, (s + 1) * ln)
+        reg = region[s * ln:(s + 1) * ln] if s * ln < region.size else None
+        parts.append(_port(op, cur[sl], prev[sl],
+                           tm[sl] if isinstance(tm, np.ndarray) else tm,
+                           reg).numpy())
+    np.testing.assert_array_equal(np.concatenate(parts),
+                                  _port(op, cur, prev, tm, region).numpy())
+
+
+def test_refusals():
+    f = torch.zeros(30, dtype=torch.uint8)
+    p = torch.zeros(30, dtype=torch.uint8)
+    for fn in (lambda: filters.heatmap(f[:-1], p[:-1]),
+               lambda: filters.heatmap(f, p[:-3]),
+               lambda: filters.heatmap(f.to(torch.int32), p),
+               lambda: filters.grayscale_average(f[:0]),
+               lambda: filters.grayscale_weighted(f, streams=4),
+               lambda: filters.grayscale_weighted(
+                   f, torch.zeros(31, dtype=torch.uint8)),
+               lambda: filters.heatmap(f, p, torch.zeros(
+                   3, dtype=torch.uint8), streams=2),
+               lambda: filters.red_visualizer(f, p, 256, True),
+               lambda: filters.red_visualizer(f, p, torch.zeros(
+                   29, dtype=torch.uint8), False),
+               lambda: filters.red_visualizer(f, p, torch.zeros(
+                   30, dtype=torch.uint8), False, streams=2),
+               lambda: filters.vis_plan(0, SMS)):
+        with pytest.raises(ValueError):
+            fn()
+
+
+# -- a host model of one launch ---------------------------------------------
+
+def _launch_model(n, sn, rlen, grid):
+    """Where one launch of csrc/visualize.cu reads and writes, over ``n``
+    bytes of ``n // sn`` streams: run ``r`` (thread ``r mod (grid *
+    THREADS)``) reads its 48 bytes from cur, from stream b's strip at
+    ``b * rlen + j`` or byte by byte (``load_src``), the map at ``i mod
+    sn`` and writes its 48 output bytes; block 0's threads 0-15 take the
+    ragged tail, a pixel each. Returns the source index of every overlaid
+    byte (as ``("cur", i)`` or ``("region", k)``), the map index of every
+    byte, the writes of every output byte and the runs' owners."""
+    npx = n // 3
+    runs = npx // PIX
+    stride = grid * THREADS
+    src = [None] * n
+    map_idx = np.full(n, -1, np.int64)
+    wrote = np.zeros(n, np.int64)
+
+    def byte(i):
+        j = i % sn
+        return ("region", i // sn * rlen + j) if j < rlen else ("cur", i)
+
+    owners = np.arange(runs) % stride
+    for r in range(runs):
+        i0 = RUN * r
+        j0 = i0 % sn
+        if j0 + RUN <= sn and j0 >= rlen:
+            srcs = [("cur", i0 + m) for m in range(RUN)]
+        elif j0 + RUN <= sn and j0 + RUN <= rlen:
+            srcs = [("region", i0 // sn * rlen + j0 + m) for m in range(RUN)]
+        else:
+            srcs = [byte(i0 + m) for m in range(RUN)]
+        for m in range(RUN):
+            assert src[i0 + m] is None
+            src[i0 + m] = srcs[m]
+            map_idx[i0 + m] = ((j0 + m) if j0 + RUN <= sn
+                               else (i0 + m) % sn)
+            wrote[i0 + m] += 1
+    tail = npx - runs * PIX
+    assert tail < PIX <= THREADS  # block 0 has a thread a tail pixel
+    for t in range(tail):
+        for e in range(3):
+            i = 3 * (runs * PIX + t) + e
+            assert src[i] is None
+            src[i] = byte(i)
+            map_idx[i] = i % sn
+            wrote[i] += 1
+    return src, map_idx, wrote, owners
+
+
+@pytest.mark.parametrize("npx,b,rlen", [
+    (1, 1, 0), (16, 1, 0), (17, 1, 3), (48 * 50, 1, 9 * 150 + 6),
+    (48 * 64, 1, 48 * 64 * 3), (2 * 48 * 50, 2, 7 * 150 + 6),
+    (3 * 271 * 19, 3, 5751), (4 * 5, 4, 6), (4 * 5, 4, 15)])
+def test_launch_model_reads_inside_and_writes_once(npx, b, rlen):
+    """Every output byte is written by exactly one thread; every overlaid
+    byte is read once, from its own stream's strip below the strip's end
+    (never past it) and from cur above it; every map read lies inside the
+    stream's map; and the bytes the model reads give the plain version's
+    overlaid frame."""
+    n = 3 * npx
+    sn = n // b
+    grid = filters.vis_plan(npx, SMS)
+    assert 1 <= grid <= BLOCKS_PER_SM * SMS
+    src, map_idx, wrote, owners = _launch_model(n, sn, rlen, grid)
+    assert (wrote == 1).all()
+    assert owners.size == 0 or owners.max() < grid * THREADS
+    assert ((map_idx >= 0) & (map_idx < sn)).all()
+    cur = _bytes(npx, n)
+    region = _bytes(npx + 1, b * rlen)
+    got = np.empty(n, np.uint8)
+    for i, (kind, k) in enumerate(src):
+        s, j = divmod(i, sn)
+        if kind == "region":
+            assert s * rlen <= k < (s + 1) * rlen and j < rlen
+            got[i] = region[k]
+        else:
+            assert k == i and j >= rlen
+            got[i] = cur[k]
+    np.testing.assert_array_equal(
+        got, diff.region_frame(_t(cur), _t(region) if rlen else None,
+                               b).numpy())
+
+
+@pytest.mark.parametrize("npx", [1920 * 1080, 4 * 1920 * 1080, 17])
+def test_plan_spreads_runs_evenly(npx):
+    grid = filters.vis_plan(npx, SMS)
+    runs = npx // PIX
+    per_thread = np.bincount(np.arange(runs) % (grid * THREADS),
+                             minlength=grid * THREADS)
+    assert per_thread.max() - per_thread.min() <= 1
+
+
+# -- the pipelines: aux frames from the frame and the strip ------------------
+
+VIS = [Visualizer.HEATMAP, Visualizer.RED_BLACK, Visualizer.RED_OVERLAP,
+       Visualizer.GRAYSCALE]
+
+
+def _spy_filters(monkeypatch, frames_seen):
+    """Record each visualizer entry's call: its name, its frame argument
+    and its region."""
+    for name in ("heatmap", "red_visualizer", "grayscale_weighted"):
+        real = getattr(filters, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            args = inspect.signature(_real).bind(*a, **k).arguments
+            frames_seen.append((_name, a[0], args.get("region")))
+            return _real(*a, **k)
+
+        monkeypatch.setattr(filters, name, spy)
+
+
+@pytest.mark.parametrize("vis", VIS, ids=lambda v: v.name)
+def test_solo_and_batched_aux_read_the_strip_in_place(vis, monkeypatch):
+    """``DeltaStreamPipeline`` and ``BatchedDeltaPipeline`` (B = 3) with
+    overlay text: each visualizer entry is called once a step with the
+    frame as it came (no overlaid copy) and the strip(s) as its region;
+    each stream's aux frame equals ``step_oracle``'s."""
+    cfg = StreamConfig(height=48, width=50, overlay_scale=4, visualizer=vis,
+                       tiled_payload=True)
+    n = cfg.frame_bytes
+    seen = []
+    _spy_filters(monkeypatch, seen)
+    cur, prev = _pair(vis.value, 3 * n)
+    texts = ["FPS 30", "", "B 7"]
+    pipe = DeltaStreamPipeline(cfg, device="cpu")
+    aux = pipe.step(pipe.init_state(prev[:n]), torch.from_numpy(cur[:n]),
+                    text=texts[0])[-1]
+    e = ref.step_oracle(prev[:n], cur[:n], cfg, pipe.atlas_np,
+                        fonts.encode_text(texts[0]))
+    np.testing.assert_array_equal(aux.numpy(), e[4])
+    bpipe = BatchedDeltaPipeline(cfg, 3, device="cpu")
+    baux = bpipe.step(bpipe.init_state(prev.reshape(3, n)),
+                      torch.from_numpy(cur), texts)[-1].numpy()
+    for s in range(3):
+        e = ref.step_oracle(prev[s * n:(s + 1) * n], cur[s * n:(s + 1) * n],
+                            cfg, pipe.atlas_np, fonts.encode_text(texts[s]))
+        np.testing.assert_array_equal(baux[s * n:(s + 1) * n], e[4])
+    assert len(seen) == 2
+    for (_, frame, region), want in zip(seen, (cur[:n], cur)):
+        np.testing.assert_array_equal(frame.numpy(), want)  # not overlaid
+        assert region is not None
+
+
+@pytest.mark.parametrize("vis", VIS, ids=lambda v: v.name)
+def test_sharded_aux_reads_each_shards_region(vis, monkeypatch):
+    """``ShardedDeltaPipeline.step_flat`` at S = 4 with overlay text: one
+    call a shard, each with the shard's rows as they came and its slice
+    of the glyph band as its region where it holds one; the gathered aux
+    frame equals ``step_oracle``'s."""
+    cfg = StreamConfig(height=48, width=50, overlay_scale=4, visualizer=vis)
+    seen = []
+    _spy_filters(monkeypatch, seen)
+    pipe = ShardedDeltaPipeline(cfg, make_mesh(4, device="cpu"))
+    cur, prev = _pair(10 + vis.value, cfg.frame_bytes)
+    state = pipe.init_state_flat(prev)
+    out = pipe.step_flat(state, cur, text="FPS 30")
+    e = ref.step_oracle(prev, cur, cfg, pipe.atlas_np,
+                        fonts.encode_text("FPS 30"))
+    np.testing.assert_array_equal(gather(out[-1]), e[4])
+    ln = cfg.frame_bytes // 4
+    assert len(seen) == 4
+    cell_h = pipe.atlas_np.shape[1]
+    for s, (_, frame, region) in enumerate(seen):
+        np.testing.assert_array_equal(frame.numpy(),
+                                      cur[s * ln:(s + 1) * ln])
+        assert (region is not None) == (s * pipe.local_rows < cell_h)
+
+
+# -- a CUDA tensor never reaching a plain version ----------------------------
+
+def test_visualizers_on_cuda_launch_or_raise(monkeypatch):
+    """Without a kernel build (no nvcc here) each entry raises on a CUDA
+    tensor, no plain version is called and no launch is counted; the
+    heatmap's LUT is never uploaded."""
+    calls = []
+    for name in ("heatmap_reference", "red_visualizer_reference",
+                 "grayscale_average_reference",
+                 "grayscale_weighted_reference", "_heatmap_lut",
+                 "red_black", "red_overlap"):
+        monkeypatch.setattr(filters, name, lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(diff, "region_frame",
+                        lambda *a, **k: calls.append(a))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(filters.build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(filters, "_vis_lib", None)
+    monkeypatch.setattr(filters.build, "_loaded", {})
+    monkeypatch.setattr(filters.build, "library_path",
+                        lambda name: filters.build.BUILD_DIR / "absent.so")
+    n = 48 * 64 * 3
+    cur = torch.zeros(n, dtype=torch.uint8)
+    prev = torch.zeros(n, dtype=torch.uint8)
+    region = torch.zeros(9 * 64 * 3, dtype=torch.uint8)
+    tmap = torch.zeros(n, dtype=torch.uint8)
+    counters = (filters.heatmap, filters.red_visualizer,
+                filters.grayscale_average, filters.grayscale_weighted)
+    before = [f.launches for f in counters]
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    for fn in (lambda: filters.heatmap(cur, prev, region),
+               lambda: filters.red_visualizer(cur, prev, 20, False),
+               lambda: filters.red_visualizer(cur, prev, tmap, True, region),
+               lambda: filters.grayscale_average(cur),
+               lambda: filters.grayscale_weighted(cur, region)):
+        with pytest.raises(RuntimeError):
+            fn()
+    monkeypatch.undo()
+    assert not calls
+    assert [f.launches for f in counters] == before
