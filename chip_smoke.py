@@ -11,7 +11,13 @@ Phases (any failure raises and the script exits non-zero):
    nvcc, triton;
 2. build: every hand-written kernel, from ``csrc/`` (ten sources), one
    ``nvcc`` per source, all started together; no kernel of K9-K13 may
-   keep a stack frame (``cuobjdump -res-usage``); K7's SASS must keep its
+   keep a stack frame (``cuobjdump -res-usage``; K8's registers and stack
+   a K are printed); no instance of K8's
+   ``conv_kernel<K>`` may load a byte from shared memory (``cuobjdump
+   -sass``: its window comes as ``LDS.64`` words); the card must hold at
+   least one block of K9's cooperative kernel at once
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), whose plan at
+   1080p for B = 1, 2, 4, 8 is printed; K7's SASS must keep its
    256 compares per value (``cuobjdump -sass``, ISETP counted), each
    instance of K1's tiled kernel and K4's kernel must load from global
    memory before its first shared-memory store, and K5's and K6's cluster
@@ -61,12 +67,16 @@ Phases (any failure raises and the script exits non-zero):
    ``subtile_rows=0``, and ``BatchedDeltaPipeline.step`` at B = 4 against
    each stream's NumPy spec; K8 (the noise filter, ``convolve_q16``) at
    1080p for K = 1, 2, 3, 5, 7, 9 and 15 with Gaussian, mean and signed
-   unnormalized taps, on a ragged width at B = 1, 2 and 4 streams and on
-   S = 4 halo shards against the solo frame; K9 (``binarize_pipeline``,
-   two launches) at 1080p, on the scene, a one-value frame, a tie in the
-   histogram, ragged lengths and an unaligned view, sharded at S = 4, and
-   in 100 launches back to back on two streams (every scratch zero
-   after), and with the overlay region read in place of the frame's
+   unnormalized taps, at those K on ragged widths (5,751 B, 1,026 B and 3
+   B a row, the last 8-byte strip of a row straddling its end) at B = 1,
+   2 and 4 streams and on S = 4 halo shards against the solo frame, one
+   launch a call; K9 (``binarize_pipeline``, one cooperative launch) at
+   1080p, on the scene, a one-value frame, a tie in the histogram, ragged
+   lengths and an unaligned view, a frame past its register budget, B =
+   2, 4 and 8 streams with and without their strips, one launch a call or
+   a batched frame, sharded at S = 4 (its two launches), and in 100
+   launches back to back on one stream and on two at once (every scratch
+   zero after), and with the overlay region read in place of the frame's
    prefix; K10 (the HOST step, ``diff_pack``) and K11-K13 (``heatmap``,
    ``red_visualizer`` modes 2 and 3, ``grayscale_average`` and
    ``_weighted``) at 1080p and on a ragged width, without a region, with
@@ -156,7 +166,7 @@ Phases (any failure raises and the script exits non-zero):
    variant), each gated byte-exact against ``step_oracle`` and printing
    its one JSON line; and in this process the tiled, flat, binarize and
    tiled ``--noise-bank 0`` runs, whose captured graph must hold T nodes
-   of K1 (and of each of K9's two kernels under binarize), whose every
+   of K1 (and of K9's cooperative kernel under binarize), whose every
    replay must equal the
    same steps launched eagerly (timed beside it), and whose fps times
    the bytes a step must move (the generator's plane read and frame
@@ -174,7 +184,8 @@ Phases (any failure raises and the script exits non-zero):
    process as the table captures it, the launch counts set to 0 first:
    it must hold one node a step of each kernel its row launches (K1 flat
    or tiled, two for K1's whole-tile chunk path; K5 and K2 on the
-   segment row; K4 on ``histogram``, K9's two on ``binarize_pipeline``,
+   segment row; K4 on ``histogram``, K9's fused kernel on
+   ``binarize_pipeline``,
    K8 on ``gaussian_conv_k3/5/7/9``, K10 on ``host_offload_step``, K11 on
    ``heatmap_lut``, K12 on ``red_overlap``, K13 on ``grayscale_avg`` and
    ``grayscale_weighted``) and no
@@ -211,9 +222,11 @@ Phases (any failure raises and the script exits non-zero):
    plain version, ``torch.bincount`` and its bound, the ``--visualizer
    5`` step and the aux landing; K8 at
    K = 3, 5, 7, 9 and K9 on cold frames against their plain versions and
-   bounds (K8's the larger of its bytes and its K^2 int32 multiply-adds a
-   byte, and ``F.conv2d`` fp32 as its library yardstick; K9's each launch
-   alone), their kernels per call, and ``pipeline.step`` with
+   bounds, each by CUDA events and kernel-only from a profiler trace
+   (K8's bound the larger of its bytes and its K^2 int32 multiply-adds a
+   byte, and ``F.conv2d`` fp32 as its library yardstick; K9 solo and on B
+   = 4 streams, and the sharded path's two launches each alone), their
+   kernels per call, and ``pipeline.step`` with
    ``--noise-filter`` and with ``--visualizer 5``, device and host wall
    time, kernels against the plain versions (and K9 against the chain
    of torch ops around K4 that it replaced) in turns; K10-K13 on cold
@@ -279,7 +292,7 @@ REDESIGNED = {"fused_diff_compact": 8, "pair_compact": 8,
               "fused_diff_compact_batched": 9, "vals_compact": 9,
               "fused_diff_compact index_offset": 9, "histogram": 10,
               "register_compact": 10, "segment_compact": 11,
-              "vpu_probe": 11}
+              "vpu_probe": 11, "convolve_q16": 19, "binarize_pipeline": 19}
 # the instructions counted in K7's SASS, and the (value, bin) pairs of its
 # unrolled body: a thread's 4 values x 256 bins of compare-and-add
 K7_SASS_OPS = ("ISETP", "IADD3", "VIADD", "IMAD", "SEL", "P2R")
@@ -343,8 +356,11 @@ def phase_build():
     compare) count must keep its 256 compares per value (fails below 256:
     the compiler folded them). Prints, and fails on a card that cannot
     hold them, the launch plans of K5 and K6 (clusters) and of K7 (equal
-    slices, all resident at once); and fails if a kernel of K9-K13 keeps
-    a stack frame (registers spilled to local memory)."""
+    slices, all resident at once) and of K9's cooperative kernel (the
+    blocks the card holds at once); prints K8's registers and stack a K;
+    and fails if a kernel of K9-K13 keeps a stack frame (registers
+    spilled to local memory) or an instance of K8 loads a byte from
+    shared memory."""
     from cudavideostream_tpu_torch import native
     from cudavideostream_tpu_torch.kernels import build
     from cudavideostream_tpu_torch.ops import convolve
@@ -379,6 +395,21 @@ def phase_build():
     log(f"[build] csrc/{'.cu, csrc/'.join(names)}.cu built and bound in "
         f"{time.perf_counter() - t0:.2f} s")
     cuobjdump = build.find_nvcc()[: -len("nvcc")] + "cuobjdump"
+    usage = subprocess.run(
+        [cuobjdump, "-res-usage", str(build.build("convolve"))], check=True,
+        capture_output=True, text=True).stdout
+    found = sorted((int(k), int(reg), int(stack)) for k, reg, stack in
+                   re.findall(r"conv_kernelILi(\d+)E\S*:\s*REG:(\d+) "
+                              r"STACK:(\d+)", usage))
+    if len(found) != convolve.CONV_MAX_K:
+        raise AssertionError(f"csrc/convolve.cu: {len(found)} instances in "
+                             f"its usage, not {convolve.CONV_MAX_K}:\n{usage}")
+    # K8's instances are reported, not held to no stack frame: the halo
+    # rows' test leaves a few with 8-16 B of spills, and still beats the
+    # instances without it (PERF.md, section 6)
+    log("[build] csrc/convolve.cu (cuobjdump -res-usage): conv_kernel<K> "
+        "registers / stack bytes: " + ", ".join(
+            f"K={k} {reg}/{stack}" for k, reg, stack in found))
     for name in ("binarize", "diff_pack", "visualize"):
         usage = subprocess.run(
             [cuobjdump, "-res-usage", str(build.build(name))], check=True,
@@ -406,6 +437,24 @@ def phase_build():
         raise AssertionError("K7's SASS lost its 256 compares per value")
     loads_first(cuobjdump, "logcompact", "tiled_unit_kernel", 4)
     loads_first(cuobjdump, "histogram", "hist_kernel", 1)
+    conv_shared_loads(cuobjdump)
+    coresident = filters.fused_coresident(torch.device("cuda"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {b: filters.binarize_plan(1920 * 1080, b, coresident)
+             for b in (1, 2, 4, 8)}
+    log(f"[build] K9 binarize_fused_kernel: a cooperative launch of blocks "
+        f"of {filters.BIN_HIST_THREADS} threads; "
+        f"cudaOccupancyMaxActiveBlocksPerMultiprocessor "
+        f"{coresident // sms} x {sms} SMs = {coresident} co-resident; at "
+        f"1080p " + ", ".join(
+            f"B={b}: grid {g} x {r} run(s) a thread"
+            + (f" ({r - filters.BIN_REG_RUNS} past the register budget of "
+               f"{filters.BIN_REG_RUNS}, through device memory)"
+               if r > filters.BIN_REG_RUNS else "")
+            for b, (g, _, r) in plans.items()))
+    if coresident < 1:
+        raise AssertionError("K9: the card holds no block of its fused "
+                             "kernel")
     plan = register_compact.register_plan(torch.device("cuda"))
     log(f"[build] K6 register_compact: clusters of {plan['cluster']} CTAs "
         f"(one a tile) x {plan['threads']} threads, {plan['smem']} B of "
@@ -482,6 +531,46 @@ def loads_first(cuobjdump, source, kernel, instances):
     if found != instances:
         raise AssertionError(f"{kernel}: {found} instances in the SASS, not "
                              f"{instances}")
+
+
+def conv_shared_loads(cuobjdump):
+    """Fail unless every instance of K8's ``conv_kernel<K>`` (K = 1..15)
+    reads shared memory with no byte load (``LDS.U8``, ``LDS.S8``): its
+    window comes as 8-byte words (``LDS.64``) and its bytes out of them by
+    permutes. Prints the loads and the IMAD and PRMT of each K."""
+    from cudavideostream_tpu_torch.kernels import build
+    from cudavideostream_tpu_torch.ops import convolve
+
+    sass = subprocess.run([cuobjdump, "-sass", str(build.build("convolve"))],
+                          check=True, capture_output=True, text=True).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        m = re.search(r"conv_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        ops = []
+        for line in body.splitlines():
+            toks = line.split("*/", 1)[1].split() if "*/" in line else []
+            if toks and not toks[0].startswith("0x"):
+                ops.append(toks[1] if toks[0].startswith("@") else toks[0])
+        found[int(m.group(1))] = {
+            "LDS.U8": sum(o.startswith(("LDS.U8", "LDS.S8")) for o in ops),
+            "LDS": sum(o.startswith("LDS") for o in ops),
+            "LDS.64": sum(o.startswith("LDS.64") for o in ops),
+            "IMAD": sum(o.startswith("IMAD") for o in ops),
+            "PRMT": sum(o.startswith("PRMT") for o in ops)}
+    if sorted(found) != list(range(1, convolve.CONV_MAX_K + 1)):
+        raise AssertionError(f"K8: instances {sorted(found)} in the SASS, "
+                             f"not K = 1..{convolve.CONV_MAX_K}")
+    log("[build] csrc/convolve.cu SASS (cuobjdump -sass), conv_kernel<K> "
+        "shared loads / LDS.64 / byte loads / IMAD / PRMT: " + "; ".join(
+            f"K={k} {c['LDS']}/{c['LDS.64']}/{c['LDS.U8']}/{c['IMAD']}/"
+            f"{c['PRMT']}" for k, c in sorted(found.items())))
+    bad = [k for k, c in found.items() if c["LDS.U8"]]
+    if bad:
+        raise AssertionError(f"K8: conv_kernel<{bad}> loads bytes from "
+                             f"shared memory")
 
 
 def _equal_or_raise(name, got, want,
@@ -1278,15 +1367,22 @@ def phase_filters_vs_plain(cfg):
 
 
 def phase_noise_binarize_vs_plain(cfg):
-    """K8 (``convolve_q16``) and K9 (``binarize_pipeline``: ``gray_hist``
-    then ``binarize_apply``) against their plain versions on the card,
-    byte for byte: K8 at 1080p for K = 1, 2, 3, 5, 7, 9 and 15 with
-    Gaussian, mean and signed unnormalized taps (sums that wrap in
-    int32), on a ragged width at B = 1, 2 and 4 streams, and on S = 4 halo
-    shards against the solo frame; K9 at 1080p, on the synthetic scene, a
+    """K8 (``convolve_q16``) and K9 (``binarize_pipeline``, one
+    cooperative launch; the sharded path's ``gray_hist`` then
+    ``binarize_apply``) against their plain versions on the card, byte for
+    byte: K8 at 1080p for K = 1, 2, 3, 5, 7, 9 and 15 with Gaussian, mean
+    and signed unnormalized taps (sums that wrap in int32), at those K on
+    ragged widths (5,751 B a row, % 16 = 7; 1,026 B, a 2-byte second column
+    tile; 3 B), where a thread's 8-byte strip straddles the row's end, at
+    B = 1, 2 and 4 streams, and on S = 4 halo shards against the solo
+    frame, one launch a call; K9 at 1080p, on the synthetic scene, a
     one-value frame, a frame whose histogram ties, ragged lengths and an
-    unaligned view, the sharded form at S = 4, and 100 launches back to
-    back on two streams, after which every per-stream scratch is zero."""
+    unaligned view, one launch a call, a frame past the register budget
+    (runs through device memory), B = 2, 4 and 8 streams at 1080p with and
+    without their overlay strips (one ending inside a run) against each
+    stream's plain version, one launch a batched frame, the sharded form
+    at S = 4, and 100 launches back to back on one stream and on two at
+    once, after which every per-stream scratch is zero."""
     from cudavideostream_tpu_torch.ops import convolve
     from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import hist
@@ -1298,6 +1394,7 @@ def phase_noise_binarize_vs_plain(cfg):
     h, w, n = cfg.height, cfg.width, cfg.frame_bytes
     rng = np.random.default_rng(SEED + 30)
     cases = {"k8": 0, "k9": 0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def rand(m):
         return torch.from_numpy(rng.integers(0, 256, m,
@@ -1313,71 +1410,93 @@ def phase_noise_binarize_vs_plain(cfg):
         # signed and unnormalized: sums far outside int32, which wrap
         return rng.integers(-3_000_000, 3_000_000, (k, k))
 
-    def check8(label, got, want):
+    def check8(label, call, want, launches=1):
+        before = convolve.convolve_q16.launches
+        got = call()
         torch.cuda.synchronize()
+        if convolve.convolve_q16.launches - before != launches:
+            raise AssertionError(f"K8 {label}: not {launches} launch(es)")
         _equal_or_raise(f"K8 {label}", (got,), (want,), ("out",))
         cases["k8"] += 1
 
+    all_k = (1, 2, 3, 5, 7, 9, 15)
     frame = rand(n)
-    for k in (1, 2, 3, 5, 7, 9, 15):
+    for k in all_k:
         for kind in ("gaussian", "mean", "signed"):
             wq = taps(kind, k)
-            check8(f"K={k} {kind}", convolve.convolve_q16(frame, wq, h, w),
+            check8(f"K={k} {kind}",
+                   lambda: convolve.convolve_q16(frame, wq, h, w),
                    convolve.convolve_q16_reference(frame, wq, h, w))
-        log(f"[check] K8 convolve_q16 K={k} at 1080p (grid "
-            f"{convolve.conv_grid(h, w * 3)}): gaussian, mean and signed "
-            f"unnormalized taps, each == convolve_q16_reference, exact")
-    # a ragged width: 5,751 bytes a row (% 16 = 7), so no row but the
-    # first starts 16-byte aligned, and streams at that stride
-    hr, wr = 271, 1917
-    nr = hr * wr * 3
-    for b in (1, 2, 4):
-        frames = rand(b * nr)
-        for k, kind in ((3, "gaussian"), (4, "signed"), (9, "mean")):
-            wq = taps(kind, k)
-            check8(f"ragged B={b} K={k}",
-                   convolve.convolve_q16(frames, wq, hr, wr, streams=b),
-                   torch.cat([convolve.convolve_q16_reference(
-                       frames[s * nr:(s + 1) * nr], wq, hr, wr)
-                       for s in range(b)]))
-        log(f"[check] K8 convolve_q16 on {hr}x{wr} ({wr * 3} B a row, % 16 "
-            f"= {wr * 3 % 16}), B={b} stream(s) at a stride of {nr} B, one "
-            f"launch (grid {convolve.conv_grid(hr, wr * 3, b)}), K = 3 "
-            f"gaussian, 4 signed, 9 mean: each == its plain version per "
-            f"stream, exact")
+        grid, tile_rows = convolve.conv_plan(h, w * 3, 1, sms)
+        log(f"[check] K8 convolve_q16 K={k} at 1080p (grid {grid}, tiles of "
+            f"{tile_rows} rows x {convolve.CONV_TILE_BYTES} B, a strip of "
+            f"{convolve.CONV_STRIP_BYTES} B a thread): gaussian, mean and "
+            f"signed unnormalized taps, each == convolve_q16_reference, "
+            f"exact, one launch a call")
+    # ragged widths: 5,751 B a row (% 16 = 7: no row but the first starts
+    # 16-byte aligned; the last strip holds 7 bytes of its 8), 1,026 B (a
+    # second column tile of 2 bytes), 3 B; streams at those strides
+    for hr, wr, bs in ((271, 1917, (1, 2, 4)), (37, 342, (1, 4)),
+                       (9, 1, (1, 2))):
+        nr = hr * wr * 3
+        for b in bs:
+            frames = rand(b * nr)
+            for k in all_k:
+                wq = taps("signed" if k % 2 else "gaussian", k)
+                check8(f"{hr}x{wr} B={b} K={k}",
+                       lambda: convolve.convolve_q16(frames, wq, hr, wr,
+                                                     streams=b),
+                       torch.cat([convolve.convolve_q16_reference(
+                           frames[s * nr:(s + 1) * nr], wq, hr, wr)
+                           for s in range(b)]))
+            grid, tile_rows = convolve.conv_plan(hr, wr * 3, b, sms)
+            log(f"[check] K8 convolve_q16 on {hr}x{wr} ({wr * 3} B a row, "
+                f"% 16 = {wr * 3 % 16}, the last strip "
+                f"{(wr * 3 - 1) % convolve.CONV_STRIP_BYTES + 1} of "
+                f"{convolve.CONV_STRIP_BYTES} B), B={b} stream(s) at a "
+                f"stride of {nr} B, one launch (grid {grid}, tiles of "
+                f"{tile_rows} rows), K = {', '.join(map(str, all_k))} "
+                f"(signed taps at odd K): each == its plain version per "
+                f"stream, exact")
     s_count = 4
     ln = n // s_count
-    for k, kind in ((3, "gaussian"), (4, "signed"), (9, "gaussian"),
-                    (15, "signed")):
-        wq = taps(kind, k)
-        before = convolve.convolve_q16.launches
-        got = torch.cat(halo_conv.sharded_convolve_q16(
-            [frame[i * ln:(i + 1) * ln] for i in range(s_count)], wq,
-            h // s_count, w))
-        if convolve.convolve_q16.launches - before != s_count:
-            raise AssertionError("K8 halo: not one launch a shard")
-        check8(f"S={s_count} halo K={k}", got,
-               convolve.convolve_q16_reference(frame, wq, h, w))
+    for k in all_k + (4,):
+        wq = taps("signed" if k % 2 else "gaussian", k)
+        check8(f"S={s_count} halo K={k}",
+               lambda: torch.cat(halo_conv.sharded_convolve_q16(
+                   [frame[i * ln:(i + 1) * ln] for i in range(s_count)], wq,
+                   h // s_count, w)),
+               convolve.convolve_q16_reference(frame, wq, h, w),
+               launches=s_count)
     log(f"[check] K8 halo form on S={s_count} row shards of 1080p (uint8 "
-        f"halo rows exchanged, one launch a shard), K = 3, 4, 9, 15: the "
-        f"shards' rows == the solo frame's plain version, exact")
+        f"halo rows exchanged, one launch a shard), K = "
+        f"{', '.join(map(str, all_k + (4,)))}: the shards' rows == the solo "
+        f"frame's plain version, exact")
 
-    def check9(label, fr):
-        got = filters.binarize_pipeline(fr)
+    def check9(label, fr, region=None, streams=1):
+        before = filters.binarize_pipeline.launches
+        got = filters.binarize_pipeline(fr, region=region, streams=streams)
         torch.cuda.synchronize()
-        _equal_or_raise(f"K9 {label}", (got,),
-                        (filters.binarize_pipeline_reference(fr),), ("out",))
+        if filters.binarize_pipeline.launches - before != 1:
+            raise AssertionError(f"K9 {label}: not one launch")
+        m = fr.numel() // streams
+        r = 0 if region is None else region.numel() // streams
+        want = torch.cat([filters.binarize_pipeline_reference(
+            fr[b * m:(b + 1) * m],
+            region[b * r:(b + 1) * r] if r else None)
+            for b in range(streams)])
+        _equal_or_raise(f"K9 {label}", (got,), (want,), ("out",))
         cases["k9"] += 1
         return got
 
     npx = n // 3
     src = SyntheticSource(cfg, seed=SEED)
     src.base_frame()
+    scene = torch.from_numpy(next(src)).to(dev)
     tie = torch.empty((npx, 3), dtype=torch.uint8, device=dev)
     tie[: npx // 2], tie[npx // 2:] = 90, 200  # gray 90 and 200, equal counts
     for label, fr in (("a random 1080p frame", frame),
-                      ("the synthetic scene", torch.from_numpy(
-                          next(src)).to(dev)),
+                      ("the synthetic scene", scene),
                       ("one value (137) everywhere",
                        torch.full((n,), 137, dtype=torch.uint8, device=dev)),
                       ("a histogram tie (gray 90 and 200, npx/2 each)",
@@ -1388,16 +1507,51 @@ def phase_noise_binarize_vs_plain(cfg):
             hist.histogram_reference(filters.gray_pixels(fr))),
             ("gray", "hist"))
         out = check9(label, fr)
-        log(f"[check] K9 binarize_pipeline on {label}: gray, histogram "
-            f"({int((counts > 0).sum())} bins used) and output == the plain "
-            f"version, exact ({int(out.eq(255).sum()) // 3} pixels 255)")
+        log(f"[check] K9 binarize_pipeline on {label}: one launch, output "
+            f"== the plain version, exact ({int(out.eq(255).sum()) // 3} "
+            f"pixels 255); gray_hist's gray bytes and histogram "
+            f"({int((counts > 0).sum())} bins used) == the plain version")
     lengths = (1, 15, 16, 17, 12_345, 1_000_003, npx - 1, npx + 1)
     for m in lengths:
         check9(f"{m} pixels", rand(3 * m))
     check9("an unaligned view", rand(3 * 10_007 + 3)[3:])
     log(f"[check] K9 binarize_pipeline on ragged lengths "
         f"{', '.join(str(m) for m in lengths)} pixels and on a view 3 B past "
-        f"an aligned start (10,007 pixels): each == the plain version, exact")
+        f"an aligned start (10,007 pixels): each == the plain version, "
+        f"exact, one launch a call")
+    # past the register budget: the least whole runs of a frame that give a
+    # thread BIN_REG_RUNS + 1 runs on this card, and a ragged tail
+    coresident = filters.fused_coresident(dev)
+    big = coresident * filters.BIN_HIST_THREADS * filters.BIN_PIXELS * (
+        filters.BIN_REG_RUNS + 1) - 5
+    _, _, runs = filters.binarize_plan(big, 1, coresident)
+    if runs <= filters.BIN_REG_RUNS:
+        raise AssertionError("K9: the frame meant to pass the register "
+                             "budget stays within it")
+    strip = rand(9 * w * 3 + 6)
+    check9(f"{big} pixels ({runs} runs a thread)", rand(3 * big))
+    check9(f"{big} pixels with a strip", rand(3 * big), region=strip)
+    log(f"[check] K9 binarize_pipeline past the register budget: {big} "
+        f"pixels, {runs} runs of {filters.BIN_PIXELS} a thread of "
+        f"{filters.BIN_REG_RUNS} kept in registers, the rest through device "
+        f"memory; without and with a strip of {strip.numel()} B (its last "
+        f"run straddling): == the plain version, exact, one launch")
+    # B streams of 1080p at once, each with its own threshold: the scene,
+    # a frame of one value and random frames; each stream's strip
+    for b in (2, 4, 8):
+        parts = [scene, torch.full((n,), 200, dtype=torch.uint8, device=dev)]
+        parts += [rand(n) for _ in range(b - 2)]
+        fr = torch.cat(parts)
+        strips = rand(b * (9 * w * 3 + 6))
+        _, _, runs = filters.binarize_plan(npx, b, coresident)
+        check9(f"B={b}", fr, streams=b)
+        check9(f"B={b} with strips", fr, region=strips, streams=b)
+        log(f"[check] K9 binarize_pipeline on B={b} streams of 1080p in one "
+            f"launch ({runs} runs a thread"
+            + (", past the register budget" if runs > filters.BIN_REG_RUNS
+               else "") + "), without and with each stream's strip of "
+            f"{9 * w * 3 + 6} B (its last run straddling): every stream == "
+            f"its plain version, exact")
     # the sharded form: each shard's gray and counts, the counts summed,
     # the sum applied on each shard
     shards = [frame[i * ln:(i + 1) * ln] for i in range(s_count)]
@@ -1413,32 +1567,42 @@ def phase_noise_binarize_vs_plain(cfg):
     log(f"[check] K9 sharded S={s_count}: gray_hist on each shard, the "
         f"histograms summed, binarize_apply of the sum on each shard == the "
         f"solo frame's plain version and histogram, exact")
-    # 100 launches back to back on two streams, no sync between them
-    main = torch.cuda.current_stream()
-    ss = [torch.cuda.Stream() for _ in range(2)]
-    for s in ss:
-        s.wait_stream(main)
-    inputs = [frame if i % 5 == 0 else rand(3 * int(rng.integers(1, 300_000)))
-              for i in range(50)]
-    outs = []
-    for i, fr in enumerate(inputs):
-        with torch.cuda.stream(ss[i % 2]):
-            outs.append(filters.binarize_pipeline(fr))
-    for s in ss:
-        main.wait_stream(s)
-    torch.cuda.synchronize()
-    for i, (fr, got) in enumerate(zip(inputs, outs)):
-        _equal_or_raise(f"K9 back to back, call {i}", (got,),
-                        (filters.binarize_pipeline_reference(fr),), ("out",))
-    dirty = [k for k, v in hist._scratch.items() if v.any()]
-    if dirty:
-        raise AssertionError(f"K9: scratch not zero after the launches: "
-                             f"{dirty}")
-    cases["k9"] += len(inputs)
-    log(f"[check] K9 binarize_pipeline: 100 launches (50 calls) back to back "
-        f"on two streams at once, no sync between them: each call == the "
-        f"plain version, exact, and every per-stream scratch "
-        f"({len(hist._scratch)}) is zero after them")
+    # 100 launches back to back on one stream, then on two at once, no sync
+    # between them, mixing solo calls and B = 4 (each B its own scratch)
+    for nstreams in (1, 2):
+        main = torch.cuda.current_stream()
+        ss = ([torch.cuda.Stream() for _ in range(nstreams)]
+              if nstreams > 1 else [main])
+        for st in ss:
+            st.wait_stream(main)
+        inputs = [(frame, 1) if i % 5 == 0 else
+                  (rand(4 * 3 * 1000 * (i + 1)), 4) if i % 5 == 1 else
+                  (rand(3 * int(rng.integers(1, 300_000))), 1)
+                  for i in range(100)]
+        outs = []
+        for i, (fr, b) in enumerate(inputs):
+            with torch.cuda.stream(ss[i % len(ss)]):
+                outs.append(filters.binarize_pipeline(fr, streams=b))
+        for st in ss:
+            main.wait_stream(st)
+        torch.cuda.synchronize()
+        for i, ((fr, b), got) in enumerate(zip(inputs, outs)):
+            m = fr.numel() // b
+            _equal_or_raise(f"K9 back to back, call {i}", (got,), (
+                torch.cat([filters.binarize_pipeline_reference(
+                    fr[s * m:(s + 1) * m]) for s in range(b)]),), ("out",))
+        dirty = [k for k, v in list(filters._fused_scratch.items())
+                 + list(hist._scratch.items()) if v.any()]
+        if dirty:
+            raise AssertionError(f"K9: scratch not zero after the launches: "
+                                 f"{dirty}")
+        cases["k9"] += len(inputs)
+        log(f"[check] K9 binarize_pipeline: 100 launches back to back on "
+            f"{nstreams} stream(s){' at once' if nstreams > 1 else ''}, no "
+            f"sync between them, solo and B=4: each call == the plain "
+            f"version, exact, and every per-stream scratch "
+            f"({len(filters._fused_scratch)} of the fused kernel, "
+            f"{len(hist._scratch)} of gray_hist) is zero after them")
     return cases
 
 
@@ -2258,11 +2422,11 @@ def phase_batched_vs_plain(cfg):
                 states[s] = e_prev
                 poss.append(e_pos)
             cases["steps"] += 1
-        # K8 and K12 once a batched frame (every stream in one launch),
-        # K9's pair once a stream
-        k9 = 3 * b if vcfg.visualizer == Visualizer.BINARIZE else 0
+        # K8, K9 and K12 once a batched frame (every stream in one launch)
         want = {"convolve_q16": 3 if vcfg.noise_filter else 0,
-                "gray_hist": k9, "binarize_apply": k9, "histogram": 0,
+                "binarize_pipeline":
+                    3 if vcfg.visualizer == Visualizer.BINARIZE else 0,
+                "gray_hist": 0, "binarize_apply": 0, "histogram": 0,
                 "red_visualizer":
                     3 if vcfg.visualizer == Visualizer.RED_OVERLAP else 0}
         got = {name: counters[name].launches for name in want}
@@ -2446,6 +2610,7 @@ def _launch_counters():
             "register_compact": register_compact.register_compact,
             "vpu_probe": hist.vpu_probe,
             "convolve_q16": convolve.convolve_q16,
+            "binarize_pipeline": filters.binarize_pipeline,
             "gray_hist": filters.gray_hist,
             "binarize_apply": filters.binarize_apply,
             "diff_pack": diff.diff_pack,
@@ -2915,11 +3080,13 @@ def _event_median_ms(fn, iters, backlog=True):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def _profile_ms(fn, names, label, per_call=False, kernels_per_call=1):
+def _profile_ms(fn, names, label, per_call=False, kernels_per_call=1,
+                kernel_ms=None):
     """Device time per launch of each named kernel (a template's
     instantiations included) over 20 calls of ``fn(i)``, from a
-    torch.profiler trace. With ``per_call``, also the kernels launched per
-    call, all names counted (copies and memsets apart), which is returned.
+    torch.profiler trace, logged and, where ``kernel_ms`` is a dict, put
+    in it by name. With ``per_call``, also the kernels launched per call,
+    all names counted (copies and memsets apart), which is returned.
 
     The profiler on the card now and then loses launch records: one of
     20, or a whole trace, and now and then several traces in a row. So the
@@ -2961,6 +3128,8 @@ def _profile_ms(fn, names, label, per_call=False, kernels_per_call=1):
               if f"::{name}(" in e.key or f"::{name}<" in e.key}
     for name, ms in passes.items():
         log(f"[trace] {label} {name}: {ms:.4f} ms per launch (profiler)")
+    if kernel_ms is not None:
+        kernel_ms.update(passes)
     if len(passes) != len(names):
         log(f"[trace] {label}: the profiler saw no device time for "
             f"{sorted(set(names) - set(passes))}: not measured")
@@ -3707,6 +3876,17 @@ K8_TIMED = (3, 5, 7, 9)
 COLD_COPIES = 16  # 16 frames of 6.2 MB: twice the 50 MB L2
 
 
+def _ms_or_not(ms):
+    """A profiler time as ``0.0123 ms``, or ``not measured`` where the
+    profiler saw none."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _share(bound, ms):
+    """``bound / ms`` as a share, or ``not measured``."""
+    return "not measured" if ms is None else f"{bound / ms:.1%}"
+
+
 def _pair4(values):
     return " / ".join(f"{v:.4f}" for v in values)
 
@@ -3784,37 +3964,53 @@ def phase_noise_binarize_times(cfg, clock_mhz, smi):
                                     convolve.convolve_q16(cold[0], wq, h, w)))
         del planar
         bound = max(io_bound, ops_bound)
+        kernel_only = {}
+        per_call = _profile_ms(
+            lambda i: convolve.convolve_q16(cold[i % COLD_COPIES], wq, h, w),
+            ("conv_kernel",), f"K8 K={k}", per_call=True,
+            kernel_ms=kernel_only)
+        _one_per_call({f"K8 K={k}": per_call})
         out["k8"][k] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                         "bound_by": "bytes" if io_bound >= ops_bound
                         else "operations", "library_ms": lib,
-                        "bytes_bound_ms": io_bound, "ops_bound_ms": ops_bound}
+                        "bytes_bound_ms": io_bound, "ops_bound_ms": ops_bound,
+                        "kernel_ms": kernel_only.get("conv_kernel"),
+                        "per_call": per_call}
         log(f"[time] K8 convolve_q16 K={k} at 1080p, cold frames: {ms:.4f} ms "
+            f"event, {_ms_or_not(kernel_only.get('conv_kernel'))} kernel-only "
+            f"(profiler) "
             f"(bound {bound:.5f} ms by {out['k8'][k]['bound_by']}: "
             f"{2 * n} B at 3.35 TB/s {io_bound:.5f} ms, {k * k} int32 "
             f"multiply-adds a byte at {INT32_LANES_PER_SM} a clock an SM x "
             f"{sms} SMs x {clock_mhz} MHz {ops_bound:.5f} ms; {bound / ms:.1%} "
-            f"of it); its plain version {plain:.4f} ms; F.conv2d fp32 "
+            f"of it by the event, {_share(bound, kernel_only.get('conv_kernel'))}"
+            f" by the kernel-only time); its plain version {plain:.4f} ms; "
+            f"F.conv2d fp32 "
             f"(TF32 off, groups=3, channel-planar) {lib:.4f} ms, its bytes "
             f"after >> 16 {'equal' if lib_same else 'differ from'} K8's "
             f"({smi})")
-    wq3 = reference_cpu.quantize_kernel_q16(reference_cpu.gaussian_kernel(3))
-    out["k8_per_call"] = _profile_ms(
-        lambda i: convolve.convolve_q16(cold[i % COLD_COPIES], wq3, h, w),
-        ("conv_kernel",), "K8", per_call=True)
-    _one_per_call({"K8": out["k8_per_call"]})
+    out["k8_per_call"] = out["k8"][3]["per_call"]
 
-    # K9: both launches, each alone, and the plain version; the torch
-    # chain it replaced (torch ops around K4) is timed in the step below
+    # K9: the fused kernel solo and on B = 4 streams of the frame, the
+    # sharded path's two launches each alone, and the plain version; the
+    # torch chain it replaced (torch ops around K4) is timed in the step
+    # below
     def torch_chain(frame):
         gv = filters.gray_pixels(frame)
         return filters.binarize_pixels(
             gv, filters.binarize_threshold(filters.value_histogram(gv)))
 
     filters.binarize_pipeline(cold[0])  # warm-up
+    quads = [torch.cat([cold[(4 * j + q) % COLD_COPIES] for q in range(4)])
+             for j in range(4)]
+    filters.binarize_pipeline(quads[0], streams=4)
     gray, counts = filters.gray_hist(cold[0])
+    solo_k, quad_k = {}, {}
     k9 = {
         "ms": _event_median_ms(lambda i: filters.binarize_pipeline(
             cold[i % COLD_COPIES]), ITERS),
+        "b4_ms": _event_median_ms(lambda i: filters.binarize_pipeline(
+            quads[i % 4], streams=4), ITERS),
         "gray_hist_ms": _event_median_ms(lambda i: filters.gray_hist(
             cold[i % COLD_COPIES]), ITERS),
         "apply_ms": _event_median_ms(
@@ -3823,19 +4019,34 @@ def phase_noise_binarize_times(cfg, clock_mhz, smi):
             lambda i: filters.binarize_pipeline_reference(
                 cold[i % COLD_COPIES]), 10, backlog=False),
         "bound_ms": io_bound,
+        "b4_bound_ms": 4 * io_bound,
         "per_call": _profile_ms(
             lambda i: filters.binarize_pipeline(cold[i % COLD_COPIES]),
-            ("binarize_gray_kernel", "binarize_apply_kernel"), "K9",
-            per_call=True, kernels_per_call=2)}
-    if k9["per_call"] != 2:
-        raise AssertionError(f"K9: {k9['per_call']} launches a call, not 2")
+            ("binarize_fused_kernel",), "K9", per_call=True,
+            kernel_ms=solo_k),
+        "b4_per_call": _profile_ms(
+            lambda i: filters.binarize_pipeline(quads[i % 4], streams=4),
+            ("binarize_fused_kernel",), "K9 B=4", per_call=True,
+            kernel_ms=quad_k)}
+    k9["kernel_ms"] = solo_k.get("binarize_fused_kernel")
+    k9["b4_kernel_ms"] = quad_k.get("binarize_fused_kernel")
+    if k9["per_call"] != 1 or k9["b4_per_call"] != 1:
+        raise AssertionError(f"K9: {k9['per_call']:g} launches a call, "
+                             f"{k9['b4_per_call']:g} at B=4, not 1")
     out["k9"] = k9
     log(f"[time] K9 binarize_pipeline at 1080p, cold frames: {k9['ms']:.4f} "
-        f"ms for its two launches (binarize_gray_kernel alone "
-        f"{k9['gray_hist_ms']:.4f} ms, binarize_apply_kernel alone on hot "
-        f"gray bytes {k9['apply_ms']:.4f} ms; bound {io_bound:.5f} ms = "
-        f"{2 * n} B at 3.35 TB/s, {io_bound / k9['ms']:.1%} of it); its "
-        f"plain version {k9['plain_ms']:.4f} ms ({smi})")
+        f"ms event, {_ms_or_not(k9['kernel_ms'])} kernel-only (profiler), "
+        f"one cooperative launch of binarize_fused_kernel (bound "
+        f"{io_bound:.5f} ms = {2 * n} B at 3.35 TB/s, {io_bound / k9['ms']:.1%}"
+        f" of it by the event, {_share(io_bound, k9['kernel_ms'])} by the "
+        f"kernel-only time); B=4 streams in one launch {k9['b4_ms']:.4f} ms "
+        f"event, {_ms_or_not(k9['b4_kernel_ms'])} kernel-only (bound "
+        f"{4 * io_bound:.5f} ms, {4 * io_bound / k9['b4_ms']:.1%}); the "
+        f"sharded path's binarize_gray_kernel alone {k9['gray_hist_ms']:.4f} "
+        f"ms, binarize_apply_kernel alone on hot gray bytes "
+        f"{k9['apply_ms']:.4f} ms; its plain version {k9['plain_ms']:.4f} ms "
+        f"({smi})")
+    del quads
 
     # pipeline.step, the kernels against the plain versions in turns
     text = "FPS: 30 BW: 1234 kbps"
@@ -4467,10 +4678,13 @@ def phase_sharded_steps(cfg):
                 k1 = (lc.fused_diff_compact_tiled if layout == "sharded"
                       else lc.fused_diff_compact)
                 got = {name: counters[name].launches for name in (
-                    "histogram", "gray_hist", "binarize_apply",
-                    "convolve_q16", "red_visualizer")}
+                    "histogram", "binarize_pipeline", "gray_hist",
+                    "binarize_apply", "convolve_q16", "red_visualizer")}
+                # K9's two launches a shard: the histogram is summed
+                # between them
                 k9 = s if c.visualizer == Visualizer.BINARIZE else 0
-                want = {"histogram": 0, "gray_hist": k9, "binarize_apply": k9,
+                want = {"histogram": 0, "binarize_pipeline": 0,
+                        "gray_hist": k9, "binarize_apply": k9,
                         "convolve_q16": s if c.noise_filter else 0,
                         "red_visualizer":
                             s if c.visualizer == Visualizer.RED_OVERLAP
@@ -5591,8 +5805,7 @@ def phase_backends_and_extras(cfg, smi, device="cuda"):
                 client=aux_client, want={
                     "fused_diff_compact": n,
                     "heatmap": n if vis == 1 else 0,
-                    **dict.fromkeys(("gray_hist", "binarize_apply"),
-                                    n if vis == 5 else 0)})
+                    "binarize_pipeline": n if vis == 5 else 0})
             first = _frames_before_serving(base)
             auxes = _chain_digests(vcfg, frames[first], frames, first + 1,
                                    run["rec"].texts, atlas, aux=True)[1]
@@ -5907,8 +6120,7 @@ def phase_bench(cfg, smi):
             ("binarize", dataclasses.replace(
                 tcfg, visualizer=Visualizer.BINARIZE),
              VARIANT_FRAMES, VARIANT_ITERS, 8,
-             {**k1_tiled, "gray_hist": "binarize_gray_kernel",
-              "binarize_apply": "binarize_apply_kernel"}),
+             {**k1_tiled, "binarize_pipeline": "binarize_fused_kernel"}),
             ("tiled bank 0", tcfg, VARIANT_FRAMES, VARIANT_ITERS, 0,
              k1_tiled)):
         nbytes = _bench_bytes(vcfg)
@@ -6062,8 +6274,7 @@ _K1_CHUNKS = ("tiled_chunk_count_kernel", "tiled_chunk_compact_kernel")
 _K1_UNIT, _K1_FLAT = ("tiled_unit_kernel",), ("flat_lookback_kernel",)
 _K4 = {"histogram": ("hist_kernel",)}
 _K8 = {"convolve_q16": ("conv_kernel",)}
-_K9 = {"gray_hist": ("binarize_gray_kernel",),
-       "binarize_apply": ("binarize_apply_kernel",)}
+_K9 = {"binarize_pipeline": ("binarize_fused_kernel",)}
 # K12 and K13 are instances of one template, vis_kernel<Op, Map>
 _VIS = ("vis_kernel",)
 TABLE_KERNELS = {
@@ -6089,7 +6300,8 @@ PORT_KERNELS = ("flat_lookback_kernel", "tiled_unit_kernel",
                 "tiled_chunk_count_kernel", "tiled_chunk_compact_kernel",
                 "pair_lookback_kernel", "vals_lookback_kernel", "hist_kernel",
                 "segment_kernel", "register_kernel", "probe_kernel",
-                "conv_kernel", "binarize_gray_kernel", "binarize_apply_kernel",
+                "conv_kernel", "binarize_fused_kernel",
+                "binarize_gray_kernel", "binarize_apply_kernel",
                 "diff_pack_kernel", "heat_kernel", "vis_kernel")
 TABLE_CLI_TIMEOUT_S = 600
 # the kernel table's rows that K10-K13 serve
@@ -6097,7 +6309,8 @@ TABLE_K10_K13 = {"host_offload_step": "K10", "heatmap_lut": "K11",
                  "red_overlap": "K12", "grayscale_avg": "K13",
                  "grayscale_weighted": "K13"}
 # the kernel line's records that sum the launches of several wrappers
-COUNTERS = {"binarize_pipeline": ("gray_hist", "binarize_apply"),
+COUNTERS = {"binarize_pipeline": ("binarize_pipeline", "gray_hist",
+                                  "binarize_apply"),
             "grayscale": ("grayscale_average", "grayscale_weighted")}
 
 
@@ -6624,14 +6837,13 @@ def main() -> int:
     for key in ("multiserve_v1", "multiserve_v3", "multiserve_binarize_aux",
                 "multiserve_grayscale_aux"):
         run = runs[key]
-        # one batched launch per batched frame (not one per stream), K13's
-        # too under --visualizer 4; one K2 merge per flat landing (auto
-        # lands an empty stream as tiles)
+        # one batched launch per batched frame (not one per stream), K9's
+        # and K13's too under --visualizer 5 and 4; one K2 merge per flat
+        # landing (auto lands an empty stream as tiles)
         _expect_launches(run, key, {
             **none, "fused_diff_compact_batched": run["frames"],
             "pair_compact": run["fetch_counts"]["flat"],
-            **dict.fromkeys(("gray_hist", "binarize_apply"),
-                            4 * run["frames"] if "binarize" in key else 0),
+            "binarize_pipeline": run["frames"] if "binarize" in key else 0,
             "grayscale_weighted":
                 run["frames"] if "grayscale" in key else 0})
     _expect_launches(runs["broadcast"], "broadcast", {
@@ -6645,10 +6857,10 @@ def main() -> int:
     _expect_launches(runs["flat"], "flat", {
         **none, "fused_diff_compact": runs["flat"]["frames"]})
     run = runs["binarize_v1"]
-    # K9's two launches a frame, and no K4: the torch chain is gone
+    # K9's one launch a frame, and no K4: the torch chain is gone
     _expect_launches(run, "binarize_v1", {
         **none, "fused_diff_compact": run["frames"],
-        "gray_hist": run["frames"], "binarize_apply": run["frames"]})
+        "binarize_pipeline": run["frames"]})
     for key in ("tiled_flat", "tiled_tiles", "tiled_pipelined_v3",
                 "bitmask_mask_v4", "bitmask_auto_v1",
                 "denoised_heatmap_tiled_flat"):
@@ -6768,15 +6980,18 @@ def main() -> int:
          f"byte-exact in {k8k9_cases['k8']} cases (K = 1-15 with gaussian, "
          f"mean and signed taps, ragged widths at B = 1, 2, 4, S = 4 halo "
          f"shards); timed at K=3, the served default; library_ms is "
-         f"F.conv2d fp32, TF32 off, groups=3"),
+         f"F.conv2d fp32, TF32 off, groups=3; conv_kernel<K>, a strip of 8 "
+         f"B a thread, K partial rows in registers, no shared byte load"),
         ("binarize_pipeline", "binarize.cu",
          "cudavideostream_tpu/ops/filters.py:293", 0,
          nbtimes["k9"]["ms"], nbtimes["k9"]["plain_ms"],
          nbtimes["k9"]["bound_ms"], None,
          f"byte-exact in {k8k9_cases['k9']} cases (1080p, the scene, one "
-         f"value, a tie, ragged lengths, an unaligned view, S = 4 shards, "
-         f"100 launches on two streams); two launches a call, "
-         f"binarize_gray_kernel and binarize_apply_kernel; with the overlay "
+         f"value, a tie, ragged lengths, an unaligned view, past the "
+         f"register budget, B = 2, 4, 8 with and without strips, S = 4 "
+         f"shards, 100 launches on one stream and on two); one cooperative "
+         f"launch a call, binarize_fused_kernel (the sharded path: "
+         f"binarize_gray_kernel and binarize_apply_kernel); with the overlay "
          f"region in {vis_cases['k9_region']} more"),
         # K10-K13 replace no TPU kernel either
         ("diff_pack", "diff_pack.cu", "cudavideostream_tpu/ops/diff.py:30",
@@ -6854,13 +7069,19 @@ def main() -> int:
             extra = {"one_value_ms": ftimes["k4_one_ms"]}
         elif name == "convolve_q16":
             extra = {"k": 3,
+                     "kernel_ms": nbtimes["k8"][3]["kernel_ms"],
                      "by_k": {k: v for k, v in nbtimes["k8"].items()
                               if k != 3},
                      "launches_per_call": nbtimes["k8_per_call"],
                      "step_ms": nbtimes["steps"]["--noise-filter"]}
         elif name == "binarize_pipeline":
             k9 = nbtimes["k9"]
-            extra = {"gray_hist_launches": launches("gray_hist")[0],
+            extra = {"kernel_ms": k9["kernel_ms"],
+                     "b4_ms": k9["b4_ms"], "b4_kernel_ms": k9["b4_kernel_ms"],
+                     "b4_bound_ms": k9["b4_bound_ms"],
+                     "b4_launches_per_call": k9["b4_per_call"],
+                     "fused_launches": launches("binarize_pipeline")[0],
+                     "gray_hist_launches": launches("gray_hist")[0],
                      "binarize_apply_launches": launches("binarize_apply")[0],
                      "gray_hist_ms": k9["gray_hist_ms"],
                      "apply_ms": k9["apply_ms"],
@@ -6939,7 +7160,9 @@ def main() -> int:
                 "segment_compact": xtimes["k5_per_call"],
                 "vpu_probe": xtimes["k7_per_call"],
                 "fused_diff_compact index_offset":
-                    stimes["k1"][4]["per_call"]}[name])
+                    stimes["k1"][4]["per_call"],
+                "convolve_q16": nbtimes["k8_per_call"],
+                "binarize_pipeline": nbtimes["k9"]["per_call"]}[name])
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -23,12 +23,10 @@ in the JAX package, ``batched.py:93-97``) follows ``_fast_impl``:
    Mosaic cannot pipeline a per-stream region input);
 3. the visualizer's aux frame, before the kernel, because the kernel
    updates ``prev`` in place and every visualizer reads the old ``prev``:
-   the heatmap (K11), the red modes (K12) and grayscale (K13) in one
-   launch over the whole super-frame (each is per pixel; the B strips go
-   to the kernel at a stride of a frame, as K1 batched takes them, so no
-   overlaid copy is made), binarize per stream (its histogram is per
-   frame: K9's pair of launches per stream, each reading its stream's
-   strip and writing its stream's slice);
+   the heatmap (K11), the red modes (K12), grayscale (K13) and binarize
+   (K9) in one launch over the whole super-frame (the B strips go to the
+   kernel at a stride of a frame, as K1 batched takes them, so no
+   overlaid copy is made; K9 keeps a histogram and a threshold a stream);
 4. one batched K1 launch (``fused_diff_compact_batched``).
 
 Any other configuration (the flat payload, with or without
@@ -160,7 +158,7 @@ class BatchedDeltaPipeline:
         vis = cfg.visualizer
         if vis == Visualizer.NONE:
             return None
-        B, n = self.n_streams, cfg.frame_bytes
+        B = self.n_streams
         # every kernel reads stream b's strip, strips[b * strip:], in place
         # of the stream's prefix
         if vis == Visualizer.HEATMAP:
@@ -168,16 +166,9 @@ class BatchedDeltaPipeline:
         if vis == Visualizer.GRAYSCALE:
             return filter_ops.grayscale_weighted(cur, strips, streams=B)
         if vis == Visualizer.BINARIZE:
-            # one pair of K9 launches a stream, each writing its stream's
-            # slice of the aux frame
-            out = torch.empty_like(cur)
-            strip = 0 if strips is None else strips.numel() // B
-            for b in range(B):
-                filter_ops.binarize_pipeline(
-                    cur[b * n:(b + 1) * n], out=out[b * n:(b + 1) * n],
-                    region=(None if strips is None
-                            else strips[b * strip:(b + 1) * strip]))
-            return out
+            # one K9 launch for every stream, each with its own threshold
+            return filter_ops.binarize_pipeline(cur, region=strips,
+                                                streams=B)
         # the shared map is one stream's: the kernel reads it per stream
         tm = self._solo.threshold_map
         return filter_ops.red_visualizer(

@@ -15,7 +15,7 @@ feedback and the compaction. Here one step is, in that order:
 3. the visualizer's aux frame from the frame, the overlay strip (read by
    the kernel in place of the frame's prefix: no overlaid copy is made)
    and the previous frame: the heatmap (K11), the red modes (K12),
-   grayscale (K13) or binarize (K9), one launch each (K9 two);
+   grayscale (K13) or binarize (K9), one launch each;
 4. the fused diff+compact kernel, which writes the new previous frame into
    the state buffer in place — the counterpart of the JAX pipeline's
    donated ``prev`` and of the reference's ``swap(d_current, d_previous)``

@@ -17,9 +17,13 @@ fixed point (the counterpart of the JAX package's ``ops/convolve.py``
   zero-padded int32 ``(H, W*3)`` byte view.
 
 On the card K8 sums in int32 with no ``conv2d`` and no matmul: it reads
-the uint8 frame, stages a tile and its halo in shared memory and writes
-the uint8 result, with no int32 image and no accumulator in device
-memory (the reference's tiled shared-memory convolution,
+the uint8 frame, stages bands of a tile's rows and their halo in shared
+memory (``cp.async``, the next band in flight while one is summed), and
+each thread makes a strip of :data:`CONV_STRIP_BYTES` output bytes down
+the tile's rows with a partial sum of each row in flight in registers,
+so it reads each staged word once (:func:`conv_plan` sizes the tiles);
+it writes the uint8 result, with no int32 image and no accumulator in
+device memory (the reference's tiled shared-memory convolution,
 ``kernels.cu:97-136``). A pixel's horizontal neighbour lies 3 bytes away
 in the byte view. The sum is int32 with two's-complement wrap (the
 kernel sums in unsigned arithmetic; the plain version's int32 tensors
@@ -46,13 +50,18 @@ import torch.nn.functional as F
 from cudavideostream_tpu_torch.kernels import build
 
 # K8's launch geometry (csrc/convolve.cu): a block of CONV_THREADS threads
-# makes an output tile of CONV_TILE_ROWS rows x CONV_THREADS bytes from a
-# staged input of CONV_TILE_ROWS + K - 1 rows x (CONV_THREADS + 2 *
-# CONV_HALO_BYTES) bytes; K runs 1..CONV_MAX_K
-CONV_THREADS = 256
-CONV_TILE_ROWS = 32
-CONV_HALO_BYTES = 32
+# makes a tile of CONV_THREADS * CONV_STRIP_BYTES output bytes of a row by
+# conv_plan's tile rows, each thread a strip of CONV_STRIP_BYTES bytes of
+# each row; it stages CONV_BAND_ROWS input rows at a time, in a ring of
+# 2 * CONV_BAND_ROWS + K - 1 rows with 3 * (K // 2) bytes, rounded up to
+# 16, on each side of the tile; K runs 1..CONV_MAX_K. conv_plan aims at
+# one wave of CONV_BLOCKS_PER_SM blocks an SM.
+CONV_THREADS = 128
+CONV_STRIP_BYTES = 8
+CONV_TILE_BYTES = CONV_THREADS * CONV_STRIP_BYTES
+CONV_BAND_ROWS = 8
 CONV_MAX_K = 15
+CONV_BLOCKS_PER_SM = 4
 
 _lib = None
 
@@ -63,18 +72,18 @@ def _conv_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("convolve")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_convolve_q16.argtypes = [i, p, ll, i, i, p, ll, i, i, p, i,
-                                         i, p]
+        lib.cvs_convolve_q16.argtypes = [i, p, ll, i, i, p, ll, i, i, i, p,
+                                         i, i, p]
         lib.cvs_convolve_q16.restype = i
         lib.cvs_error_string.argtypes = [i]
         lib.cvs_error_string.restype = ctypes.c_char_p
-        for name in ("cvs_conv_threads", "cvs_conv_tile_rows",
-                     "cvs_conv_halo_bytes", "cvs_conv_max_k"):
+        for name in ("cvs_conv_threads", "cvs_conv_strip_bytes",
+                     "cvs_conv_band_rows", "cvs_conv_max_k"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
-        if ((lib.cvs_conv_threads(), lib.cvs_conv_tile_rows(),
-             lib.cvs_conv_halo_bytes(), lib.cvs_conv_max_k())
-                != (CONV_THREADS, CONV_TILE_ROWS, CONV_HALO_BYTES,
+        if ((lib.cvs_conv_threads(), lib.cvs_conv_strip_bytes(),
+             lib.cvs_conv_band_rows(), lib.cvs_conv_max_k())
+                != (CONV_THREADS, CONV_STRIP_BYTES, CONV_BAND_ROWS,
                     CONV_MAX_K)):
             raise RuntimeError("csrc/convolve.cu tile geometry disagrees "
                                "with ops/convolve.py")
@@ -82,12 +91,22 @@ def _conv_lib() -> ctypes.CDLL:
     return _lib
 
 
-def conv_grid(rows: int, row_bytes: int, streams: int = 1):
-    """The ``(x, y, z)`` grid of one K8 launch: a block per output tile of
-    :data:`CONV_TILE_ROWS` rows x :data:`CONV_THREADS` bytes, per
-    stream."""
-    return (-(-row_bytes // CONV_THREADS), -(-rows // CONV_TILE_ROWS),
-            streams)
+def conv_plan(rows: int, row_bytes: int, streams: int = 1,
+              sms: int = 132):
+    """``((x, y, z), tile_rows)`` of one K8 launch on a card of ``sms``
+    SMs: ``x`` tiles of :data:`CONV_TILE_BYTES` bytes across a row, ``y``
+    tiles of ``tile_rows`` rows down it, ``z`` streams. ``tile_rows`` is
+    the least that keeps the grid within one wave of
+    :data:`CONV_BLOCKS_PER_SM` blocks an SM (so no SM runs a second, short
+    wave), at least :data:`CONV_BAND_ROWS` (a tile sums at least one whole
+    band) and at least ``rows / 65535`` (the grid's ``y`` limit)."""
+    if rows <= 0 or row_bytes <= 0 or streams <= 0 or sms <= 0:
+        raise ValueError("conv_plan takes nonzero rows, row bytes, streams "
+                         "and SMs")
+    x = -(-row_bytes // CONV_TILE_BYTES)
+    groups = max(1, CONV_BLOCKS_PER_SM * sms // (x * streams))
+    tile_rows = max(CONV_BAND_ROWS, -(-rows // groups), -(-rows // 65535))
+    return (x, -(-rows // tile_rows), streams), tile_rows
 
 
 def _taps(weights_q16: np.ndarray) -> np.ndarray:
@@ -116,9 +135,11 @@ def _launch(src: torch.Tensor, src_stride: int, src_rows: int, row_off: int,
                       device=dev)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    _, tile_rows = conv_plan(rows, width * 3, streams, sms)
     rc = lib.cvs_convolve_q16(
         idx, src.data_ptr(), src_stride, src_rows, row_off, out.data_ptr(),
-        rows * width * 3, rows, width * 3,
+        rows * width * 3, rows, width * 3, tile_rows,
         taps.ctypes.data_as(ctypes.c_void_p), weights_q16.shape[0], streams,
         stream)
     if rc != 0:

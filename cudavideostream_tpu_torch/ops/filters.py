@@ -21,16 +21,21 @@ takes the one path.
   :func:`grayscale_weighted_reference` are their plain versions;
 * the binarize chain (``kernels.cu:138-241``, CPU scan
   ``server.cpp:96-135``), visualizer 5: :func:`binarize_pipeline` is the
-  wrapper of K9, the hand-written Hopper kernels of ``csrc/binarize.cu``,
-  two launches a call on a CUDA tensor: :func:`gray_hist` (per-pixel gray
-  values and their exact 256-bin histogram, one read of the frame) and
-  :func:`binarize_apply` (every block runs the CPU scan's top-2 rule on
-  the histogram and writes 255/0 three times a pixel), each counting its
-  launches; the row-sharded step calls the two on each shard and sums the
-  histograms between them. On a CPU tensor each runs its plain version;
-  a CUDA tensor either reaches the kernels or the call raises.
-  :func:`binarize_pipeline_reference` is the plain version: the gray
-  values, :func:`cudavideostream_tpu_torch.ops.hist.histogram_reference`,
+  wrapper of K9, the hand-written Hopper kernels of ``csrc/binarize.cu``:
+  on a CUDA tensor one cooperative launch a call, ``streams=B`` frames at
+  a stride included (per-pixel gray values kept in registers, their
+  exact 256-bin histogram a stream, a grid barrier, every block's top-2
+  scan of its stream's histogram, and 255/0 three times a pixel;
+  :func:`binarize_plan` sizes it to the blocks the card holds at once,
+  and a launch the card refuses raises). The row-sharded step keeps two
+  launches, because its histogram is summed over the shards between
+  them: :func:`gray_hist` (per-pixel gray values and their histogram,
+  one read of the frame) on each shard, then :func:`binarize_apply`
+  (every block runs the CPU scan's top-2 rule on the summed histogram and
+  writes 255/0), each counting its launches. On a CPU tensor each runs
+  its plain version; a CUDA tensor either reaches the kernels or the
+  call raises. :func:`binarize_pipeline_reference` is the plain version:
+  the gray values, :func:`cudavideostream_tpu_torch.ops.hist.histogram_reference`,
   the top-2 rule as an exclusive running max (:func:`top2_prefix_max`)
   and the clamped threshold, in torch ops. :func:`value_histogram` keeps
   K4 (:func:`cudavideostream_tpu_torch.ops.hist.histogram`);
@@ -71,16 +76,23 @@ from cudavideostream_tpu_torch.ops import reference_cpu
 _LUTS: dict = {}
 
 # K9's launch geometry (csrc/binarize.cu): each thread takes BIN_PIXELS
-# pixels at a time; gray_hist's blocks have BIN_HIST_THREADS threads (at
-# most one an SM, K4's design), binarize_apply's BIN_APPLY_THREADS; the
-# launch plan (apply_plan) puts at most BIN_APPLY_BLOCKS_PER_SM of those
-# on an SM
+# pixels at a time; the fused kernel's and gray_hist's blocks have
+# BIN_HIST_THREADS threads (K4's design), binarize_apply's
+# BIN_APPLY_THREADS, and apply_plan puts at most BIN_APPLY_BLOCKS_PER_SM of
+# those on an SM; a thread of the fused kernel keeps BIN_REG_RUNS runs of
+# BIN_PIXELS pixels in registers across its grid barrier
 BIN_PIXELS = 16
 BIN_HIST_THREADS = 1024
 BIN_APPLY_THREADS = 256
 BIN_APPLY_BLOCKS_PER_SM = 8
+BIN_REG_RUNS = 4
 
 _bin_lib = None
+# the fused kernel's blocks the card holds at once, per device
+_coresident: dict = {}
+# the fused kernel's scratch per (device, stream, streams): each stream's
+# 256 sums and the grid barrier's arrival word
+_fused_scratch: dict = {}
 
 # K11-K13's launch geometry (csrc/visualize.cu): each thread takes
 # VIS_PIXELS pixels at a time, blocks of VIS_THREADS threads, at most
@@ -227,16 +239,24 @@ def _binarize() -> ctypes.CDLL:
         lib.cvs_gray_hist.restype = i
         lib.cvs_binarize_apply.argtypes = [i, p, ll, p, i, p, p]
         lib.cvs_binarize_apply.restype = i
+        lib.cvs_binarize_fused.argtypes = [i, p, ll, i, p, ll, p, p, p, i, i,
+                                           p]
+        lib.cvs_binarize_fused.restype = i
+        lib.cvs_bin_fused_blocks_per_sm.argtypes = [
+            i, ctypes.POINTER(ctypes.c_int)]
+        lib.cvs_bin_fused_blocks_per_sm.restype = i
         lib.cvs_error_string.argtypes = [i]
         lib.cvs_error_string.restype = ctypes.c_char_p
         for name in ("cvs_bin_hist_threads", "cvs_bin_apply_threads",
-                     "cvs_bin_scratch_words", "cvs_bin_pixels"):
+                     "cvs_bin_scratch_words", "cvs_bin_pixels",
+                     "cvs_bin_reg_runs"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         if ((lib.cvs_bin_hist_threads(), lib.cvs_bin_apply_threads(),
-             lib.cvs_bin_scratch_words(), lib.cvs_bin_pixels())
+             lib.cvs_bin_scratch_words(), lib.cvs_bin_pixels(),
+             lib.cvs_bin_reg_runs())
                 != (BIN_HIST_THREADS, BIN_APPLY_THREADS,
-                    hist.HIST_SCRATCH_WORDS, BIN_PIXELS)):
+                    hist.HIST_SCRATCH_WORDS, BIN_PIXELS, BIN_REG_RUNS)):
             raise RuntimeError("csrc/binarize.cu geometry disagrees with "
                                "ops/filters.py")
         _bin_lib = lib
@@ -267,6 +287,64 @@ def apply_plan(npx: int, sms: int) -> int:
     runs = npx // BIN_PIXELS
     return max(1, min(BIN_APPLY_BLOCKS_PER_SM * sms,
                       -(-runs // BIN_APPLY_THREADS)))
+
+
+def binarize_plan(npx: int, streams: int, coresident: int
+                  ) -> Tuple[int, int, int]:
+    """``(grid, per_stream, block_runs)`` of one fused K9 launch over
+    ``streams`` frames of ``npx`` pixels on a card that holds
+    ``coresident`` of its blocks at once: ``per_stream`` blocks a stream
+    (``grid = streams * per_stream``, never above ``coresident``, so the
+    cooperative launch fits), each thread ``block_runs`` runs of
+    :data:`BIN_PIXELS` pixels. Block ``j`` of stream ``b`` is block ``b *
+    per_stream + j``; its thread ``t`` takes runs ``(j * block_runs + k) *
+    BIN_HIST_THREADS + t``, ``k < block_runs``, of the stream; runs past
+    :data:`BIN_REG_RUNS` go through device memory. The stream's first
+    block also takes the ragged tail of fewer than 16 pixels. Raises when
+    there are more streams than co-resident blocks."""
+    if npx <= 0 or streams <= 0 or coresident <= 0:
+        raise ValueError("binarize_plan takes a nonzero length, stream "
+                         "count and co-resident block count")
+    if streams > coresident:
+        raise ValueError(f"K9 takes at most {coresident} streams a launch "
+                         f"on this card (one block a stream at least)")
+    runs = npx // BIN_PIXELS
+    per_stream = coresident // streams
+    block_runs = max(1, -(-runs // (per_stream * BIN_HIST_THREADS)))
+    # the fewest blocks that still cover the stream at that depth
+    per_stream = max(1, -(-runs // (block_runs * BIN_HIST_THREADS)))
+    return streams * per_stream, per_stream, block_runs
+
+
+def fused_coresident(device: torch.device) -> int:
+    """The fused K9 kernel's blocks that ``device`` holds at once:
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times its SMs (read
+    once per device)."""
+    idx = _cuda_index(device)
+    if idx not in _coresident:
+        lib = _binarize()
+        n = ctypes.c_int(0)
+        rc = lib.cvs_bin_fused_blocks_per_sm(idx, ctypes.byref(n))
+        if rc != 0:
+            raise RuntimeError(f"K9 occupancy query failed: "
+                               f"{lib.cvs_error_string(rc).decode()} ({rc})")
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _coresident[idx] = n.value * sms
+    return _coresident[idx]
+
+
+def fused_scratch(device: torch.device, stream: int,
+                  streams: int) -> torch.Tensor:
+    """The fused K9 kernel's scratch for launches of ``streams`` streams
+    on ``stream`` of ``device``: ``streams * 256 + 1`` int32 (each stream's
+    sums, then the grid barrier's arrival word), zero at creation and left
+    zero by every launch. Keyed by (device, stream, streams), so launches
+    that can overlap never share one."""
+    key = (torch.device(device), int(stream), int(streams))
+    if key not in _fused_scratch:
+        _fused_scratch[key] = torch.zeros(streams * hist.NBINS + 1,
+                                          dtype=torch.int32, device=device)
+    return _fused_scratch[key]
 
 
 def _cuda_index(dev: torch.device) -> int:
@@ -390,20 +468,74 @@ binarize_apply.launches = 0
 
 def binarize_pipeline(frame: torch.Tensor,
                       out: Optional[torch.Tensor] = None,
-                      region: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      region: Optional[torch.Tensor] = None,
+                      streams: int = 1) -> torch.Tensor:
     """Visualizer 5: gray -> histogram -> top-2 threshold -> 255/0, the
     per-pixel gray computed once and read by both the histogram and the
     output (the JAX ``binarize_pipeline(fused=True)``), ``region`` read in
-    place of the frame's prefix; into ``out`` when given, as
-    :func:`binarize_apply` takes it.
+    place of the frame's prefix; into ``out`` when given (a contiguous
+    uint8 tensor of the frame's size, which may be a view). With
+    ``streams=B`` the frame is B frames back to back, each with its own
+    histogram and threshold and its strip at ``region[b * len(region) //
+    B:]``.
 
-    CUDA tensors make K9's two launches, :func:`gray_hist` and
-    :func:`binarize_apply`; CPU tensors run
-    :func:`binarize_pipeline_reference`."""
-    if frame.device.type == "cpu" and out is None:
-        _check_region(region, frame, 1)
-        return binarize_pipeline_reference(frame, region)
-    return binarize_apply(*gray_hist(frame, region), out=out)
+    CUDA tensors make one cooperative launch of K9's fused kernel (and
+    count one in ``binarize_pipeline.launches``); a launch the card
+    refuses raises. CPU tensors run :func:`binarize_pipeline_reference` on
+    each stream."""
+    if (frame.dtype != torch.uint8 or not frame.is_contiguous()
+            or frame.numel() == 0 or streams < 1
+            or frame.numel() % (3 * streams)):
+        raise ValueError("binarize_pipeline takes a contiguous uint8 BGR "
+                         "frame of `streams` equal frames")
+    npx = frame.numel() // (3 * streams)
+    if npx >= 1 << 31:
+        raise ValueError("binarize_pipeline counts exceed int32")
+    rlen = _check_region(region, frame, streams)
+    if out is not None and (out.dtype != torch.uint8
+                            or not out.is_contiguous()
+                            or out.numel() != frame.numel()
+                            or out.device != frame.device):
+        raise ValueError("binarize_pipeline writes a contiguous uint8 tensor "
+                         "of the frame's size on the frame's device")
+    dev = frame.device
+    if dev.type == "cpu":
+        n = 3 * npx
+        res = torch.cat([binarize_pipeline_reference(
+            frame[b * n:(b + 1) * n],
+            region[b * rlen:(b + 1) * rlen] if rlen else None)
+            for b in range(streams)]) if streams > 1 else (
+                binarize_pipeline_reference(frame, region))
+        if out is None:
+            return res
+        out.copy_(res.reshape(out.shape))
+        return out
+    idx = _cuda_index(dev)
+    lib = _binarize()
+    if out is None:
+        out = torch.empty(3 * npx * streams, dtype=torch.uint8, device=dev)
+    grid, per_stream, block_runs = binarize_plan(npx, streams,
+                                                 fused_coresident(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # past the register budget, 16 gray bytes a run wait in device memory
+    spill = (torch.empty(streams * (npx // BIN_PIXELS) * BIN_PIXELS,
+                         dtype=torch.uint8, device=dev)
+             if block_runs > BIN_REG_RUNS else None)
+    scratch = fused_scratch(torch.device("cuda", idx), stream, streams)
+    rc = lib.cvs_binarize_fused(
+        idx, frame.data_ptr(), npx, streams,
+        region.data_ptr() if rlen else None, rlen, out.data_ptr(),
+        None if spill is None else spill.data_ptr(), scratch.data_ptr(),
+        per_stream, block_runs, stream)
+    if rc != 0:
+        raise RuntimeError(f"binarize_pipeline kernel launch failed: "
+                           f"{lib.cvs_error_string(rc).decode()} ({rc}); "
+                           f"grid {grid} of {BIN_HIST_THREADS} threads")
+    binarize_pipeline.launches += 1
+    return out
+
+
+binarize_pipeline.launches = 0
 
 
 def binarize_pipeline_reference(frame: torch.Tensor,

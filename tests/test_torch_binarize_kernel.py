@@ -53,6 +53,7 @@ APPLY_THREADS = _constexpr("kApplyThreads")
 PIX = _constexpr("kPix")
 BINS = _constexpr("kBins")
 SCRATCH = _constexpr("kScratchWords")
+REG_RUNS = _constexpr("kRegRuns")
 
 
 def _frame(seed, npx):
@@ -61,9 +62,9 @@ def _frame(seed, npx):
 
 
 def test_constants_read_from_the_kernel():
-    assert (HIST_THREADS, APPLY_THREADS, PIX) == (
+    assert (HIST_THREADS, APPLY_THREADS, PIX, REG_RUNS) == (
         filters.BIN_HIST_THREADS, filters.BIN_APPLY_THREADS,
-        filters.BIN_PIXELS)
+        filters.BIN_PIXELS, filters.BIN_REG_RUNS)
     assert BINS == hist.NBINS and SCRATCH == hist.HIST_SCRATCH_WORDS
     # 16 pixels: 48 frame bytes (three 16-byte loads), 16 gray bytes (one)
     assert PIX * 3 % 16 == 0 and PIX % 16 == 0
@@ -461,3 +462,268 @@ def test_gray_hist_with_a_region_on_cuda_launches_or_raises(monkeypatch):
             fn()
     monkeypatch.undo()
     assert not calls and filters.gray_hist.launches == before
+
+
+# -- the fused kernel: one cooperative launch for B streams -----------------
+
+def _fused_model(frames, streams, region, coresident):
+    """One launch of ``binarize_fused_kernel`` on the host, as
+    ``binarize_plan`` lays it out: block ``g`` of stream ``g //
+    per_stream`` takes, thread by thread, runs ``(j * block_runs + k) *
+    HIST_THREADS + t``; the first ``REG_RUNS`` of a thread stay in its
+    registers, the rest go through the spill buffer at ``b * chunks + i``;
+    the stream's first block takes the ragged tail and the straddling run
+    a pixel a thread. Each block adds its bincount to its stream's sums;
+    the grid barrier waits for every block's arrival; each block's scan
+    reads its stream's sums (the first warp's lane scan), arrives again,
+    and the block that brings the word to twice the grid empties the
+    scratch. Returns the output and the spill slots written; fails if a
+    pixel is not taken exactly once, a spill slot twice, or a read leaves
+    the stream."""
+    n = frames.size // streams
+    npx = n // 3
+    grid, per_stream, block_runs = filters.binarize_plan(npx, streams,
+                                                         coresident)
+    assert 1 <= grid <= coresident and grid == streams * per_stream
+    rlen = 0 if region is None else region.size // streams
+    chunks = npx // PIX
+    straddle = rlen // 48 if rlen % 48 and rlen // 48 < chunks else -1
+    grays = []
+    for b in range(streams):
+        ov = frames[b * n:(b + 1) * n].copy()
+        if rlen:
+            ov[:rlen] = region[b * rlen:(b + 1) * rlen]
+        grays.append(filters.gray_pixels(torch.from_numpy(ov)).numpy())
+    taken = np.zeros((streams, npx), np.int64)
+    spilled = np.zeros(streams * chunks, np.int64)
+    scratch = np.zeros(streams * BINS + 1, np.int64)
+    t = np.arange(HIST_THREADS)
+    mine = []  # per block: (stream, pixels it writes)
+    for g in range(grid):
+        b, j = divmod(g, per_stream)
+        px = []
+        for k in range(block_runs):
+            i = (j * block_runs + k) * HIST_THREADS + t
+            i = i[(i < chunks) & (i != straddle)]
+            j0 = 48 * i
+            assert ((j0 >= rlen) | (j0 + 48 <= rlen)).all()  # one source
+            assert (j0 + 48 <= n).all()
+            if k >= REG_RUNS:
+                spilled[b * chunks + i] += 1
+            px.append((i[:, None] * PIX + np.arange(PIX)).reshape(-1))
+        if j == 0:
+            tail = chunks * PIX + np.arange(PIX)
+            px.append(tail[tail < npx])
+            if straddle >= 0:
+                px.append(straddle * PIX + np.arange(PIX))
+        px = np.concatenate(px) if px else np.zeros(0, np.int64)
+        np.add.at(taken[b], px, 1)
+        scratch[b * BINS:(b + 1) * BINS] += np.bincount(grays[b][px],
+                                                        minlength=BINS)
+        mine.append((b, px))
+    assert (taken == 1).all() and (spilled <= 1).all()
+    # the barrier: every block has arrived before any scan reads
+    scratch[-1] += grid
+    out = np.zeros(frames.size, np.uint8)
+    order = np.random.default_rng(grid).permutation(grid)
+    for done, g in enumerate(order):
+        b, px = mine[g]
+        _, thr = _lane_threshold(scratch[b * BINS:(b + 1) * BINS])
+        v = np.where(grays[b][px] > thr, 255, 0).astype(np.uint8)
+        for c in range(3):
+            out[b * n + 3 * px + c] = v
+        scratch[-1] += 1
+        if scratch[-1] == 2 * grid:  # the last block empties the scratch
+            assert done == grid - 1
+            scratch[:] = 0
+    assert not scratch.any()
+    return out, int(spilled.sum())
+
+
+@pytest.mark.parametrize("npx,streams,rlen,coresident", [
+    (1, 1, 0, SMS), (15, 1, 3, SMS), (16, 1, 47, SMS), (17, 2, 49, SMS),
+    (48 * 50, 3, 9 * 150 + 6, SMS), (12_345, 4, 1001, SMS),
+    (1024 * 16 * 3 + 5, 1, 1024 * 48 + 30, 2),   # 4 runs a thread
+    (1024 * 16 * 9 + 7, 2, 48 * 7, 4),           # past the register budget
+    (1024 * 16 * 5, 1, 0, 1),                    # one block, 5 runs
+    (777, 8, 0, 8)])
+def test_fused_plan_covers_every_pixel_once(npx, streams, rlen, coresident):
+    """The fused kernel's plan and model: every pixel of every stream
+    taken by one thread, the overflow runs once each through the spill
+    buffer, the scratch left zero, and the bytes of the plain version on
+    each stream."""
+    frames = _frame(npx + streams, npx * streams)
+    region = (_frame(rlen, npx * streams)[:rlen * streams] if rlen
+              else None)
+    got, spilled = _fused_model(frames, streams, region, coresident)
+    _, _, block_runs = filters.binarize_plan(npx, streams, coresident)
+    assert (spilled > 0) == (block_runs > REG_RUNS and npx >= PIX
+                             * HIST_THREADS * REG_RUNS)
+    want = filters.binarize_pipeline(
+        torch.from_numpy(frames), region=(None if region is None
+                                          else torch.from_numpy(region)),
+        streams=streams).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("streams", [1, 2, 3, 4, 8, 16, 132])
+@pytest.mark.parametrize("coresident", [SMS, 2 * SMS, 7])
+def test_binarize_plan_fits_the_card(streams, coresident):
+    """The cooperative grid never exceeds the co-resident blocks it is
+    given, covers every run of every stream, and keeps a 1080p frame and
+    a batched 1080p frame of B = 4 in registers on an H100 (one block an
+    SM); more streams than co-resident blocks raise."""
+    npx = 1920 * 1080
+    if streams > coresident:
+        with pytest.raises(ValueError):
+            filters.binarize_plan(npx, streams, coresident)
+        return
+    grid, per_stream, block_runs = filters.binarize_plan(npx, streams,
+                                                         coresident)
+    assert grid == streams * per_stream <= coresident
+    assert per_stream * block_runs * HIST_THREADS >= npx // PIX
+    # no block idle: the last block of a stream has a run
+    assert (per_stream - 1) * block_runs * HIST_THREADS < npx // PIX
+    if coresident == SMS and streams <= 4:
+        assert block_runs <= REG_RUNS
+    if (coresident, streams) == (SMS, 1):
+        assert (grid, block_runs) == (127, 1)
+    if (coresident, streams) == (SMS, 4):
+        assert (grid, block_runs) == (128, 4)
+
+
+def test_binarize_plan_refusals():
+    for args in ((0, 1, SMS), (16, 0, SMS), (16, 1, 0)):
+        with pytest.raises(ValueError):
+            filters.binarize_plan(*args)
+
+
+@pytest.mark.parametrize("b", [2, 3, 4])
+@pytest.mark.parametrize("rlen", [0, 9 * 150 + 6])
+def test_batched_fused_call_equals_solo_calls_and_jax(b, rlen):
+    """``binarize_pipeline(streams=B)`` with each stream's strip equals B
+    solo plain calls and the JAX ``binarize_pipeline`` on each stream's
+    overlaid frame, a stream of one gray value included; into ``out`` as
+    well."""
+    h, w = 48, 50
+    n = h * w * 3
+    frames = _frame(b + rlen, h * w * b)
+    frames[n:2 * n] = 200  # one stream of one gray value
+    strips = _frame(b * 7, h * w * b)[:b * rlen] if rlen else None
+    got = filters.binarize_pipeline(
+        torch.from_numpy(frames),
+        region=None if strips is None else torch.from_numpy(strips),
+        streams=b).numpy()
+    for s in range(b):
+        fr = frames[s * n:(s + 1) * n]
+        reg = None if strips is None else strips[s * rlen:(s + 1) * rlen]
+        solo = filters.binarize_pipeline_reference(
+            torch.from_numpy(fr.copy()),
+            None if reg is None else torch.from_numpy(reg.copy())).numpy()
+        np.testing.assert_array_equal(got[s * n:(s + 1) * n], solo)
+        ov = fr.copy()
+        if reg is not None:
+            ov[:rlen] = reg
+        np.testing.assert_array_equal(
+            got[s * n:(s + 1) * n], np.asarray(jax_filters.binarize_pipeline(
+                jnp.asarray(ov), fused=True)).ravel())
+    out = torch.empty(b * n, dtype=torch.uint8)
+    assert filters.binarize_pipeline(
+        torch.from_numpy(frames), out=out,
+        region=None if strips is None else torch.from_numpy(strips),
+        streams=b) is out
+    np.testing.assert_array_equal(out.numpy(), got)
+
+
+def test_fused_refusals():
+    f = torch.zeros(2 * 30, dtype=torch.uint8)
+    for kw in ({"streams": 0}, {"streams": 7},
+               {"streams": 2, "region": torch.zeros(3, dtype=torch.uint8)},
+               {"out": torch.empty(59, dtype=torch.uint8)}):
+        with pytest.raises(ValueError):
+            filters.binarize_pipeline(f, **kw)
+
+
+def test_fused_on_cuda_launches_or_raises(monkeypatch):
+    """The batched call on a CUDA tensor never takes the plain version:
+    without a kernel build it raises and counts no launch."""
+    calls = []
+    monkeypatch.setattr(filters, "binarize_pipeline_reference",
+                        lambda *a, **k: calls.append(a))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(filters.build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(filters, "_bin_lib", None)
+    monkeypatch.setattr(filters.build, "_loaded", {})
+    monkeypatch.setattr(filters.build, "library_path",
+                        lambda name: filters.build.BUILD_DIR / "absent.so")
+    frame = torch.zeros(4 * 48 * 64 * 3, dtype=torch.uint8)
+    before = filters.binarize_pipeline.launches
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    with pytest.raises(RuntimeError):
+        filters.binarize_pipeline(frame, streams=4)
+    monkeypatch.undo()
+    assert not calls and filters.binarize_pipeline.launches == before
+
+
+def _run_bits(gray16, t):
+    """``run_bits``: per 4 gray bytes a byte compare (``__vcmpgtu4``), its
+    0x80 bits times 0x00204081 shifted down 28, 4 bits a word."""
+    words = np.asarray(gray16, np.uint8).view(np.uint32)
+    m = 0
+    for q, g in enumerate(words):
+        b = np.frombuffer(np.uint32(g).tobytes(), np.uint8)
+        c = int(np.frombuffer(np.where(b > t, 0xFF, 0).astype(np.uint8)
+                              .tobytes(), np.uint32)[0]) & 0x80808080
+        m |= (((c * 0x00204081) & 0xFFFFFFFF) >> 28) << (4 * q)
+    return m
+
+
+def _store_table():
+    """``make_store_table``: entry ``64 r + m``, 16 bytes from ``r`` bytes
+    into a pixel over the 6 pixels whose bits are ``m``."""
+    lut = np.zeros((3 * 64, 16), np.uint8)
+    for e in range(3 * 64):
+        r, m = divmod(e, 64)
+        for j in range(16):
+            if (m >> ((r + j) // 3)) & 1:
+                lut[e, j] = 255
+    return lut
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_warp_store_model_writes_each_pixels_bytes(seed):
+    """A warp's coalesced store (``store_warp``): lane ``l``'s 16-byte
+    chunk ``32 i + l`` of the warp's 1,536 bytes, from the bits of two
+    lanes' runs (two shuffles) through the table, gives every pixel's
+    three bytes 255 or 0 by its gray value against the threshold; and
+    ``run_bits`` gives a run's bits."""
+    rng = np.random.default_rng(seed)
+    t = int(rng.integers(50, 201))
+    gray = rng.integers(0, 256, (32, PIX), dtype=np.uint8)
+    if seed == 1:
+        gray[:] = t       # equal to the threshold: all 0
+    if seed == 2:
+        gray[:] = t + 1   # just above: all 255
+    bits = [_run_bits(g, t) for g in gray]
+    for g, m in zip(gray, bits):
+        assert m == sum(1 << k for k in range(PIX) if g[k] > t)
+    lut = _store_table()
+    out = np.zeros(32 * 3 * PIX, np.uint8)  # 1,536 bytes
+    written = np.zeros(out.size, np.int64)
+    for i in range(3):
+        for lane in range(32):
+            b0 = 16 * (32 * i + lane)
+            p0, r = divmod(b0, 3)
+            a = p0 >> 4
+            ma, mb = bits[a], bits[min(a + 1, 31)]
+            m6 = ((ma | (mb << 16)) >> (p0 & 15)) & 63
+            out[b0:b0 + 16] = lut[64 * r + m6]
+            written[b0:b0 + 16] += 1
+    assert (written == 1).all()
+    want = np.repeat(np.where(gray.reshape(-1) > t, 255, 0).astype(np.uint8),
+                     3)
+    np.testing.assert_array_equal(out, want)

@@ -48,11 +48,25 @@ def _constexpr(name):
 
 
 THREADS = _constexpr("kThreads")
-TILE_ROWS = _constexpr("kTileRows")
+STRIP = _constexpr("kStrip")
 TILE_BYTES = _constexpr("kTileBytes")
-HALO = _constexpr("kHalo")
-STAGE_BYTES = _constexpr("kStageBytes")
+BAND = _constexpr("kBand")
 MAX_K = _constexpr("kMaxK")
+SMS = 132  # an H100 SXM's SMs
+
+
+def _geo(k):
+    """``Geo<K>`` of ``csrc/convolve.cu``, read from the source: (p, the
+    thread window's halo H, the stage's halo Hs, staged bytes a row SW,
+    ring rows NS, window words W)."""
+    code = re.sub(r"//[^\n]*", "", (CSRC / "convolve.cu").read_text())
+    geo = code[code.index("struct Geo {"):]
+    geo = geo[:geo.index("};")]
+    env = {"K": k, "kBand": BAND, "kStrip": STRIP, "kTileBytes": TILE_BYTES}
+    for name, expr in re.findall(
+            r"static\s+constexpr\s+int\s+(\w+)\s*=\s*([^;]+);", geo):
+        env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+    return tuple(env[n] for n in ("p", "H", "Hs", "SW", "NS", "W"))
 
 
 def _frame(seed, h, w):
@@ -73,15 +87,23 @@ def _taps(kind, k, seed=0):
 
 
 def test_constants_read_from_the_kernel():
-    assert (THREADS, TILE_ROWS, HALO, MAX_K) == (
-        convolve.CONV_THREADS, convolve.CONV_TILE_ROWS,
-        convolve.CONV_HALO_BYTES, convolve.CONV_MAX_K)
-    assert TILE_BYTES == THREADS and STAGE_BYTES == TILE_BYTES + 2 * HALO
-    assert STAGE_BYTES % 16 == 0 and HALO % 16 == 0
-    # the staged halo holds the widest window: 3 * (K // 2) bytes on the
-    # left and 3 * (K - 1 - K // 2) on the right, for every K
-    assert all(3 * (k // 2) <= HALO and 3 * (k - 1 - k // 2) <= HALO
-               for k in range(1, MAX_K + 1))
+    assert (THREADS, STRIP, BAND, MAX_K) == (
+        convolve.CONV_THREADS, convolve.CONV_STRIP_BYTES,
+        convolve.CONV_BAND_ROWS, convolve.CONV_MAX_K)
+    assert TILE_BYTES == convolve.CONV_TILE_BYTES == THREADS * STRIP
+    assert TILE_BYTES % 16 == 0 and THREADS % 32 == 0
+    for k in range(1, MAX_K + 1):
+        p, h, hs, sw, ns, words = _geo(k)
+        # the window holds the widest reach: 3p bytes on the left and
+        # 3(K - 1 - p) on the right, in whole 8-byte words (LDS.64), and
+        # the stage's halo holds the window, in whole 16-byte chunks
+        assert 3 * p <= h <= hs and 3 * (k - 1 - p) <= h
+        assert h % 8 == 0 and hs % 16 == 0 and sw % 16 == 0
+        assert words % 2 == 0 and (hs - h) % 8 == 0
+        # the ring holds one band being summed, the next band in flight
+        # and the first band's K - 1 rows above it; its shared memory stays
+        # under the 48 KB of a static allocation
+        assert ns == 2 * BAND + k - 1 and ns * sw <= 48 * 1024
 
 
 # -- the plain version against the JAX package and the spec ----------------
@@ -199,62 +221,96 @@ def test_refusals():
 # -- a host model of one K8 launch ----------------------------------------
 
 def _model_launch(src, src_stride, src_rows, row_off, rows, row_bytes, wq,
-                  streams):
-    """One K8 launch on the host, block by block as ``conv_kernel`` runs:
-    each block stages ``TILE_ROWS + K - 1`` rows of ``STAGE_BYTES`` bytes
-    (chunk ``q`` of staged row ``t`` from input row ``r0 + row_off + t``,
-    bytes ``c0 - HALO + 16q`` on, zero outside the rows and the row), then
-    thread ``x`` sums output column ``c0 + x`` of each of the tile's rows
-    from staged bytes ``HALO + x - 3p + 3j`` of staged row ``t + i``, in
-    unsigned 32-bit arithmetic, shifted as int32. Returns the output and
-    how often each output byte was written; fails if a read leaves the
-    stream's ``src_rows * row_bytes`` bytes."""
+                  streams, sms=SMS):
+    """One K8 launch on the host, block by block as ``conv_kernel`` runs
+    it, on ``conv_plan``'s grid: each block stages its input rows a band
+    of ``BAND`` at a time into a ring of ``2 * BAND + K - 1`` slots (row
+    ``q`` of the block, input row ``r0 + row_off + q``, into slot ``q %
+    NS``; bytes ``c0 - Hs`` on, zero outside the rows and the row), the
+    next band issued before the current one is summed; thread ``x`` takes
+    each staged row once, as the window of bytes ``[c - H, c + STRIP +
+    H)`` around its strip ``c = c0 + STRIP * x``, and adds byte ``H - 3p
+    + v + 3j`` of it, times tap ``(K - 1 - t, j)``, to partial sum ``t``
+    of strip byte ``v`` (output row ``q - K + 1 + t``), in unsigned 32-bit
+    arithmetic; partial sum 0 leaves as output row ``q - K + 1``, shifted
+    as int32 and clamped, bytes past the row's end not written. Fails if a
+    slot is refilled before its row was summed, if a summed slot holds
+    another row, or if a read leaves the stream's bytes. Returns the
+    output and how often each output byte was written."""
     k = wq.shape[0]
-    p = k // 2
+    p, hh, hs, sw, ns, words = _geo(k)
     taps = wq.astype(np.int64).astype(np.uint32)
-    gx, gy, gz = convolve.conv_grid(rows, row_bytes, streams)
+    (gx, gy, gz), tile_rows = convolve.conv_plan(rows, row_bytes, streams,
+                                                 sms)
     out = np.zeros(streams * rows * row_bytes, np.uint8)
     writes = np.zeros(out.size, np.int64)
-    stage_rows = TILE_ROWS + k - 1
+    x = np.arange(THREADS)
+    v = np.arange(STRIP)
     for bz in range(gz):
         base = bz * src_stride
         for by in range(gy):
-            r0 = by * TILE_ROWS
+            r0 = by * tile_rows
+            nrows = min(tile_rows, rows - r0)
             for bx in range(gx):
                 c0 = bx * TILE_BYTES
-                stage = np.zeros((stage_rows, STAGE_BYTES), np.uint32)
-                for t in range(stage_rows):
-                    gr = r0 + row_off + t
-                    if not 0 <= gr < src_rows:
-                        continue
-                    gc = c0 - HALO + np.arange(STAGE_BYTES)
-                    ok = (gc >= 0) & (gc < row_bytes)
-                    addr = base + gr * row_bytes + gc[ok]
-                    assert ((addr >= base)
-                            & (addr < base + src_rows * row_bytes)).all()
-                    stage[t, ok] = src[addr]
-                x = np.arange(THREADS)
-                live = c0 + x < row_bytes
-                last = min(TILE_ROWS, rows - r0)
-                for t in range(last):
-                    acc = np.zeros(THREADS, np.uint32)
-                    for i in range(k):
-                        for j in range(k):
-                            col = HALO + x - 3 * p + 3 * j
-                            assert col.min() >= 0 and col.max() < STAGE_BYTES
-                            acc += taps[i, j] * stage[t + i, col]
-                    v = np.clip(acc.view(np.int32) >> 16, 0, 255)
-                    o = bz * rows * row_bytes + (r0 + t) * row_bytes + c0 + x
-                    out[o[live]] = v[live]
-                    writes[o[live]] += 1
+                ring = np.zeros((ns, sw), np.uint32)
+                held = [None] * ns  # the block row each slot holds
+                taken = 0           # rows summed so far
+
+                def stage(q0, q1):
+                    for q in range(q0, q1):
+                        old = held[q % ns]
+                        assert old is None or old < taken  # summed already
+                        held[q % ns] = q
+                        ring[q % ns] = 0
+                        gr = r0 + row_off + q
+                        if not 0 <= gr < src_rows:
+                            continue
+                        gc = c0 - hs + np.arange(sw)
+                        ok = (gc >= 0) & (gc < row_bytes)
+                        addr = base + gr * row_bytes + gc[ok]
+                        assert ((addr >= base)
+                                & (addr < base + src_rows * row_bytes)).all()
+                        ring[q % ns, ok] = src[addr]
+
+                c = c0 + STRIP * x
+                live = c < row_bytes
+                acc = np.zeros((k, THREADS, STRIP), np.uint32)
+                nbands = -(-nrows // BAND)
+                stage(0, min(BAND, nrows) + k - 1)
+                for band in range(nbands):
+                    qend = min((band + 1) * BAND, nrows) + k - 1
+                    if band + 1 < nbands:
+                        stage(qend, min((band + 2) * BAND, nrows) + k - 1)
+                    for q in range(taken, qend):
+                        assert held[q % ns] == q
+                        col = hs - hh + STRIP * x[:, None] + np.arange(
+                            4 * words)
+                        assert col.min() >= 0 and col.max() < sw
+                        win = ring[q % ns][col]
+                        for t in range(k):
+                            for j in range(k):
+                                acc[t] += taps[k - 1 - t, j] * win[
+                                    :, hh - 3 * p + v + 3 * j]
+                        if q >= k - 1:
+                            o = (bz * rows * row_bytes
+                                 + (r0 + q - k + 1) * row_bytes
+                                 + c[:, None] + v)
+                            ok = live[:, None] & (c[:, None] + v < row_bytes)
+                            val = np.clip(acc[0].view(np.int32) >> 16, 0, 255)
+                            out[o[ok]] = val[ok]
+                            writes[o[ok]] += 1
+                        acc[:-1] = acc[1:].copy()
+                        acc[-1] = 0
+                    taken = qend
     return out, writes
 
 
 @pytest.mark.parametrize("h,w,k,streams,kind", [
-    (48, 64, 3, 1, "gauss"),    # one column tile, two row tiles
+    (48, 64, 3, 1, "gauss"),    # one column tile, six row tiles
     (48, 50, 2, 1, "signed"),   # ragged width (150 B), even K
-    (40, 100, 7, 2, "mean"),    # two column tiles, ragged rows, B = 2
-    (33, 90, 15, 3, "signed"),  # 270 B a row: a 14-byte second tile, B = 3
+    (40, 100, 7, 2, "mean"),    # ragged rows (5 tiles of 8), B = 2
+    (33, 90, 15, 3, "signed"),  # 270 B a row: a strip straddles its end
     (5, 3, 9, 2, "gauss"),      # smaller than the window
 ])
 def test_launch_model_writes_each_byte_once(h, w, k, streams, kind):
@@ -267,6 +323,46 @@ def test_launch_model_writes_each_byte_once(h, w, k, streams, kind):
     want = convolve.convolve_q16(torch.from_numpy(frames), wq, h, w,
                                  streams=streams).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("h,w,k,streams,sms", [
+    (40, 350, 3, 1, 1),   # 1,050 B a row: two column tiles, the second
+                          # 26 B (a strip straddles the row's end); tiles
+                          # of 20 rows, bands of 8, 8 and 4
+    (37, 342, 5, 2, 1),   # 1,026 B: a 2-byte second tile, B = 2, 37 rows
+    (61, 20, 15, 1, 1),   # 60 B, K = 15: tiles of 16 rows, 4 bands each
+    (19, 700, 8, 1, 2),   # 2,100 B (% 16 = 4), even K, three column tiles
+])
+def test_launch_model_bands_and_column_tiles(h, w, k, streams, sms):
+    """Tiles of several bands (the ring refilled while it is read) and
+    rows of several column tiles, the last one partial: every output byte
+    written once and equal to the plain version."""
+    n = h * w * 3
+    frames = np.concatenate([_frame(s + 5, h, w) for s in range(streams)])
+    wq = _taps("signed", k)
+    got, writes = _model_launch(frames, n, h, -(k // 2), h, w * 3, wq,
+                                streams, sms)
+    assert (writes == 1).all()
+    want = convolve.convolve_q16(torch.from_numpy(frames), wq, h, w,
+                                 streams=streams).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("rows,row_bytes,streams", [
+    (1080, 5760, 1), (1080, 5760, 2), (1080, 5760, 4), (271, 5751, 4),
+    (270, 5760, 1), (1, 3, 1), (7, 5760, 200), (200_000, 6, 1)])
+def test_conv_plan_one_wave(rows, row_bytes, streams):
+    """The plan covers every row and byte, keeps the grid within one wave
+    of CONV_BLOCKS_PER_SM blocks an SM wherever bands allow, and within the
+    grid's limits."""
+    (x, y, z), tile_rows = convolve.conv_plan(rows, row_bytes, streams, SMS)
+    assert x * TILE_BYTES >= row_bytes > (x - 1) * TILE_BYTES
+    assert y * tile_rows >= rows > (y - 1) * tile_rows and z == streams
+    assert tile_rows >= BAND and y <= 65535
+    if tile_rows > BAND:  # not held up by the band: one wave
+        assert x * y * z <= convolve.CONV_BLOCKS_PER_SM * SMS
+    if (rows, row_bytes, streams) == (1080, 5760, 1):
+        assert (x, y, z, tile_rows) == (6, 84, 1, 13)
 
 
 @pytest.mark.parametrize("s,k", [(2, 3), (4, 5), (4, 2)])
@@ -282,11 +378,28 @@ def test_launch_model_halo_form(s, k):
             rows, w * 3) for i in range(s)], k // 2)
     for sh in shards:
         src = sh.reshape(-1).numpy()
-        got, writes = _model_launch(src, 0, rows + 2 * (k // 2), 0, rows,
-                                    w * 3, wq, 1)
-        assert (writes == 1).all()
-        np.testing.assert_array_equal(
-            got, convolve.convolve_q16_halo(sh, wq, rows, w).numpy())
+        for sms in (SMS, 1):
+            got, writes = _model_launch(src, 0, rows + 2 * (k // 2), 0, rows,
+                                        w * 3, wq, 1, sms)
+            assert (writes == 1).all()
+            np.testing.assert_array_equal(
+                got, convolve.convolve_q16_halo(sh, wq, rows, w).numpy())
+
+
+def test_no_shared_byte_load_in_the_tap_loop():
+    """The kernel takes its window from shared memory as 8-byte words
+    (uint2) and its bytes out of them with byte permutes: no shared-memory
+    byte is indexed in the tap loop (the first version's ``col[...]``
+    loads)."""
+    code = re.sub(r"//[^\n]*", "", (CSRC / "convolve.cu").read_text())
+    take = code[code.index("take_row(unsigned"):code.index("conv_kernel(")]
+    body = code[code.index("conv_kernel("):code.index("cudaError_t launch")]
+    loop = body[body.index("if (live) {"):]
+    assert "reinterpret_cast<const uint2*>(win" in loop
+    assert "take_row<K, true>(acc, u," in loop
+    assert "byte_at(u," in take and "__byte_perm" in code
+    for part in (take, loop):
+        assert "stage[" not in part and "win[" not in part
 
 
 # -- the served paths, and a CUDA tensor never reaching the plain version --

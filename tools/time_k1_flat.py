@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K1 emissions, K2, K3, K4, K5, K6, K7 and the tiled and
-sharded steps of one checkout, at 1080p.
+"""Time the K1 emissions, K2, K3, K4, K5, K6, K7, K8, K9 and the tiled
+and sharded steps of one checkout, at 1080p.
 
     python3 tools/time_k1_flat.py CHECKOUT_ROOT [MODE ...]
 
@@ -39,7 +39,16 @@ events time the device alone. Modes:
 * ``segment_batched``: K5 batched over B = 4 streams of that frame
   (``fused_diff_compact_batched(scheme="segment")``);
 * ``probe``: K7 (``vpu_probe``) on the synthetic scene's gray values as
-  an ``(M, 128)`` int32 grid (45 tiles of 360 rows).
+  an ``(M, 128)`` int32 grid (45 tiles of 360 rows);
+* ``conv``: K8 (``convolve_q16``) with the Gaussian taps at K = 3, 5, 7
+  and 9 (one line each), on 16 copies of the frame in turn (100 MB, cold
+  in L2);
+* ``binarize``: K9 (``binarize_pipeline``, every launch of a call) on 16
+  copies of the frame in turn, then on the synthetic scene (mostly flat:
+  16 equal gray values take one histogram add): two lines;
+* ``binarize_batched``: K9 on B = 4 streams of the frame (4 sets in turn),
+  as ``BatchedDeltaPipeline`` calls it: one ``streams=4`` call where the
+  checkout takes one, else a call a stream into its slice of the output.
 
 To compare two commits, unpack the other one into a git-ignored directory
 (``git archive COMMIT | tar -x -C build/parent``) and time both in one
@@ -61,7 +70,8 @@ import torch
 
 MODES = ("flat", "map", "tiled", "mask", "batched", "offset", "step",
          "sharded", "pair", "vals", "hist", "register", "segment",
-         "segment_map", "segment_batched", "probe")
+         "segment_map", "segment_batched", "probe", "conv", "binarize",
+         "binarize_batched")
 
 
 def _medians(fn, refill=None, iters=100):
@@ -83,6 +93,53 @@ def _medians(fn, refill=None, iters=100):
         medians.append(statistics.median(
             a.elapsed_time(b) for a, b in zip(starts, ends)))
     return medians
+
+
+def _filters(root, mode, card, c0, rng):
+    """The ``conv``, ``binarize`` and ``binarize_batched`` modes."""
+    import inspect
+
+    from cudavideostream_tpu_torch.config import StreamConfig
+    from cudavideostream_tpu_torch.ops import convolve, filters
+    from cudavideostream_tpu_torch.ops import reference_cpu as ref
+    from cudavideostream_tpu_torch.runtime.sources import SyntheticSource
+
+    h, w = 1080, 1920
+    n = h * w * 3
+    copies = [c0.roll(int(rng.integers(1, n))) for _ in range(16)]
+    if mode == "conv":
+        for k in (3, 5, 7, 9):
+            wq = ref.quantize_kernel_q16(ref.gaussian_kernel(k))
+            medians = _medians(lambda i, wq=wq: convolve.convolve_q16(
+                copies[i % 16], wq, h, w))
+            print(root, f"conv K={k}", card,
+                  " ".join(f"{m:.4f}" for m in medians), "ms", flush=True)
+        return
+    if mode == "binarize":
+        src = SyntheticSource(StreamConfig(), seed=2734)
+        src.base_frame()
+        scene = torch.from_numpy(next(src)).to(c0.device)
+        scenes = [scene.roll(3 * 1009 * j) for j in range(16)]
+        for label, frames in (("binarize", copies),
+                              ("binarize scene", scenes)):
+            medians = _medians(lambda i, frames=frames:
+                               filters.binarize_pipeline(frames[i % 16]))
+            print(root, label, card, " ".join(f"{m:.4f}" for m in medians),
+                  "ms", flush=True)
+        return
+    quads = [torch.cat(copies[4 * j:4 * j + 4]) for j in range(4)]
+    outs = [torch.empty_like(q) for q in quads]
+    if "streams" in inspect.signature(filters.binarize_pipeline).parameters:
+        def fn(i):
+            filters.binarize_pipeline(quads[i % 4], streams=4)
+    else:
+        def fn(i):
+            for b in range(4):
+                filters.binarize_pipeline(quads[i % 4][b * n:(b + 1) * n],
+                                          out=outs[i % 4][b * n:(b + 1) * n])
+    medians = _medians(fn)
+    print(root, mode, card, " ".join(f"{m:.4f}" for m in medians), "ms",
+          flush=True)
 
 
 def main() -> int:
@@ -114,6 +171,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
     for mode in modes:
+        if mode in ("conv", "binarize", "binarize_batched"):
+            _filters(root, mode, card, c0, rng)
+            continue
         if mode in ("hist", "probe"):
             from cudavideostream_tpu_torch.config import StreamConfig
             from cudavideostream_tpu_torch.ops import filters, hist
