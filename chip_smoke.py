@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
 2. build: every hand-written kernel, from ``csrc/`` (ten sources), one
    ``nvcc`` per source, all started together; no kernel of K9-K13 may
    keep a stack frame (``cuobjdump -res-usage``; K8's registers and stack
-   a K are printed); no instance of K8's
+   a K are printed); K10's and K12's grids and tiles an SM at 1080p and
+   at S = 4 are printed; no instance of K8's
    ``conv_kernel<K>`` may load a byte from shared memory (``cuobjdump
    -sass``: its window comes as ``LDS.64`` words); the card must hold at
    least one block of K9's cooperative kernel at once
@@ -83,7 +84,11 @@ Phases (any failure raises and the script exits non-zero):
    the strip and with a strip ending inside a run of 16 pixels, K10 and
    K12 with thresholds 20 and 0, a map and a map of 0s and 255s, K10 with
    and without negative feedback and the delta, on ragged lengths (the
-   bits' zero padding) and unaligned views, K11 on sums 0..765 (the
+   bits' zero padding) and unaligned views, K10 and K12 at the edges of
+   their warp tiles (a strip ending inside a tile and inside a vector,
+   lengths of whole tiles +- 1-127 bytes, unaligned frames, prev and
+   maps), K12 on B = 2 and 4 streams at strides that split a tile, K11 on
+   sums 0..765 (the
    wrap), K11-K13 on B = 2 and 4 streams at a ragged stride against solo
    calls, all four on S = 4 shards against the solo frame and in 20
    launches back to back on one and on two streams, and a step of
@@ -423,6 +428,7 @@ def phase_build():
         log(f"[build] csrc/{name}.cu (cuobjdump -res-usage): "
             + ", ".join(f"{_demangled_kernel(fn)} {reg} registers"
                         for fn, reg, _ in found) + ", no stack frame")
+    warp_tile_plans()
     sass = subprocess.run([cuobjdump, "-sass", str(build.build("probe"))],
                           check=True, capture_output=True,
                           text=True).stdout.splitlines()
@@ -479,6 +485,31 @@ def phase_build():
         raise AssertionError("K7: an SM cannot hold the CTAs its plan "
                              "gives it")
     return mix
+
+
+def warp_tile_plans():
+    """Print K10's and K12's launch plans at 1080p and at an S = 4 shard
+    (grid, tiles, tiles an SM with block ``b`` on SM ``b mod SMs``)."""
+    from cudavideostream_tpu_torch.ops import diff
+    from cudavideostream_tpu_torch.ops import filters
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kernels = {
+        "K10 diff_pack_kernel": (diff.diff_pack_plan, diff.DP_TILE,
+                                 diff.DP_WARPS, diff.DP_BLOCKS_PER_SM),
+        "K12 red_kernel": (filters.red_plan, filters.RED_TILE,
+                           filters.RED_WARPS, filters.RED_BLOCKS_PER_SM)}
+    n = 1920 * 1080 * 3
+    for name, (plan, tile, warps, per_sm) in kernels.items():
+        shares = []
+        for label, m in (("1080p", n), ("S=4 shard", n // 4)):
+            grid, tiles = plan(m, sms), -(-m // tile)
+            per = np.bincount(np.arange(tiles) % (grid * warps) % grid % sms,
+                              minlength=sms)
+            shares.append(f"{label}: grid {grid}, {tiles} tiles, "
+                          f"{per.min()}-{per.max()} an SM")
+        log(f"[build] {name}: warp tiles of {tile} B, {per_sm} blocks of "
+            f"256 threads an SM; " + "; ".join(shares))
 
 
 def _demangled_kernel(mangled):
@@ -1738,6 +1769,41 @@ def phase_visualize_vs_plain(cfg):
     log("[check] K11-K13 on 1, 15, 16, 17, 12,345 and 1080p +- 1 pixels, "
         "the frame 3 B past an aligned start, a 51-byte region, K12 with a "
         "map: each == its plain version, exact")
+    # the warp tiles' edges: K10's tiles of DP_TILE bytes, K12's of
+    # RED_TILE (512 pixels); strips that end inside a tile and inside a
+    # 16-byte vector; frames, prev and maps that are not 16-byte aligned
+    for k in (1, 3, 10):
+        for d in (-127, -64, -17, -16, -15, -8, -1, 1, 8, 15, 16, 17, 127):
+            m = k * diff.DP_TILE + d
+            cur, prev, tmap = rand(m + 1)[1:], rand(m + 5)[5:], rand(m + 3)[3:]
+            k10(f"{m} B, views", cur, prev, tmap, True,
+                rand(min(m, diff.DP_TILE + 8)), True)
+            k10(f"{m} B", rand(m), rand(m), 20, True,
+                rand(min(m, (k - 1) * diff.DP_TILE + 24)), False)
+    for k in (1, 2, 7):
+        for d in (-47, -31, -16, -5, -1, 1, 5, 16, 31, 47):
+            px = k * filters.RED_TILE // 3 + d
+            m = 3 * px
+            for op in ("red black", "red overlap"):
+                vis(op, f"{px} pixels, views", rand(m + 3)[3:],
+                    rand(m + 1)[1:], rand(m + 7)[7:],
+                    rand(min(m, filters.RED_TILE + 6)))
+                vis(op, f"{px} pixels", rand(m), rand(m), 20,
+                    rand(min(m, (k - 1) * filters.RED_TILE + 21)))
+    for b, px in ((2, 3 * 1109), (4, 2 * 1109), (2, 512 * 4 + 1),
+                  (4, 512 + 7)):
+        sn = 3 * px
+        for op in ("red black", "red overlap"):
+            for tlabel, thr in (("20", 20), ("a map", rand(sn + 9)[9:])):
+                vis(op, f"B={b} streams of {sn} B, {tlabel}",
+                    rand(b * sn + 3)[3:], rand(b * sn), thr,
+                    rand(b * (sn // 2 + 7)), b)
+    log(f"[check] K10 at whole warp tiles ({diff.DP_TILE} B) +- 1-127 B "
+        f"and K12 at whole tiles ({filters.RED_TILE} B) +- 1-47 pixels, "
+        f"with strips ending inside a tile and inside a vector, frames, "
+        f"prev and maps 1-7 B past an aligned start; K12 on B = 2 and 4 "
+        f"streams whose stride splits a tile, with the int threshold and "
+        f"a map (unaligned): each == its plain version, exact")
     # K11 reaches the colormap's wrap: sums 0..765 over the frame
     d = torch.arange(npx, device=dev) % 766
     px = torch.stack([d.clamp(max=255), (d - 255).clamp(0, 255),
@@ -4157,18 +4223,18 @@ def phase_visualize_times(cfg, smi):
             lambda i: filters.red_visualizer(c(i), p(i), cfg.threshold, True),
             lambda i: filters.red_visualizer_reference(c(i), p(i),
                                                        cfg.threshold, True),
-            3 * n, ("vis_kernel",)),
+            3 * n, ("red_kernel",)),
         "K12 red_visualizer mode 3 with a map": (
             lambda i: filters.red_visualizer(c(i), p(i), m(i), True),
             lambda i: filters.red_visualizer_reference(c(i), p(i), m(i),
                                                        True),
-            4 * n, ("vis_kernel",)),
+            4 * n, ("red_kernel",)),
         "K12 red_visualizer mode 2": (
             lambda i: filters.red_visualizer(c(i), p(i), cfg.threshold,
                                              False),
             lambda i: filters.red_visualizer_reference(c(i), p(i),
                                                        cfg.threshold, False),
-            3 * n, ("vis_kernel",)),
+            3 * n, ("red_kernel",)),
         "K13 grayscale_weighted": (
             lambda i: filters.grayscale_weighted(c(i)),
             lambda i: filters.grayscale_weighted_reference(c(i)),
@@ -4178,20 +4244,33 @@ def phase_visualize_times(cfg, smi):
             lambda i: filters.grayscale_average_reference(c(i)),
             2 * n, ("vis_kernel",)),
     }
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {"K10": f"grid {diff.diff_pack_plan(n, sms)} (tiles of "
+                    f"{diff.DP_TILE} B)",
+             "K12": f"grid {filters.red_plan(n, sms)} (tiles of "
+                    f"{filters.RED_TILE} B)",
+             "K11": f"grid {filters.vis_plan(n // 3, sms)}",
+             "K13": f"grid {filters.vis_plan(n // 3, sms)}"}
     out = {}
     for label, (fn, plain, nbytes, names) in timed.items():
         fn(0)  # warm-up
         ms = _event_median_ms(fn, ITERS)
         plain_ms = _event_median_ms(plain, 10, backlog=False)
-        per_call = _profile_ms(fn, names, label, per_call=True)
+        kernel_only = {}
+        per_call = _profile_ms(fn, names, label, per_call=True,
+                               kernel_ms=kernel_only)
         _one_per_call({label: per_call})
         b = bound(nbytes)
+        kms = kernel_only.get(names[0])
         out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
-                      "bytes": nbytes, "per_call": per_call}
-        log(f"[time] {label} at 1080p, cold frames: {ms:.4f} ms (bound "
-            f"{b:.5f} ms = {nbytes} B at 3.35 TB/s, {b / ms:.1%} of it); its "
-            f"plain version {plain_ms:.4f} ms; no single PyTorch call "
-            f"computes it; {per_call:g} kernel a call ({smi})")
+                      "bytes": nbytes, "per_call": per_call,
+                      "kernel_ms": kms}
+        log(f"[time] {label} at 1080p, cold frames: {ms:.4f} ms event, "
+            f"{_ms_or_not(kms)} kernel-only (profiler) (bound {b:.5f} ms = "
+            f"{nbytes} B at 3.35 TB/s, {_share(b, ms)} of it by the event, "
+            f"{_share(b, kms)} kernel-only); {plans[label[:3]]}; its plain "
+            f"version {plain_ms:.4f} ms; no single PyTorch call computes it; "
+            f"{per_call:g} kernel a call ({smi})")
 
     # pipeline.step, the kernel against its plain version in turns
     text = "FPS: 30 BW: 1234 kbps"
@@ -6275,7 +6354,7 @@ _K1_UNIT, _K1_FLAT = ("tiled_unit_kernel",), ("flat_lookback_kernel",)
 _K4 = {"histogram": ("hist_kernel",)}
 _K8 = {"convolve_q16": ("conv_kernel",)}
 _K9 = {"binarize_pipeline": ("binarize_fused_kernel",)}
-# K12 and K13 are instances of one template, vis_kernel<Op, Map>
+# K13's two weightings are instances of one template, vis_kernel<Op>
 _VIS = ("vis_kernel",)
 TABLE_KERNELS = {
     "diff+compact_tiled": {"fused_diff_compact_tiled": _K1_CHUNKS},
@@ -6292,7 +6371,7 @@ TABLE_KERNELS = {
     **{f"gaussian_conv_k{k}": _K8 for k in (3, 5, 7, 9)},
     "host_offload_step": {"diff_pack": ("diff_pack_kernel",)},
     "heatmap_lut": {"heatmap": ("heat_kernel",)},
-    "red_overlap": {"red_visualizer": _VIS},
+    "red_overlap": {"red_visualizer": ("red_kernel",)},
     "grayscale_avg": {"grayscale_average": _VIS},
     "grayscale_weighted": {"grayscale_weighted": _VIS},
 }
@@ -6302,7 +6381,8 @@ PORT_KERNELS = ("flat_lookback_kernel", "tiled_unit_kernel",
                 "segment_kernel", "register_kernel", "probe_kernel",
                 "conv_kernel", "binarize_fused_kernel",
                 "binarize_gray_kernel", "binarize_apply_kernel",
-                "diff_pack_kernel", "heat_kernel", "vis_kernel")
+                "diff_pack_kernel", "heat_kernel", "vis_kernel",
+                "red_kernel")
 TABLE_CLI_TIMEOUT_S = 600
 # the kernel table's rows that K10-K13 serve
 TABLE_K10_K13 = {"host_offload_step": "K10", "heatmap_lut": "K11",
@@ -6682,6 +6762,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from cudavideostream_tpu_torch.config import StreamConfig, Visualizer
+    from cudavideostream_tpu_torch.ops import diff, filters
 
     cfg = StreamConfig()  # the default: 1080p BGR24, threshold 20, negfeed
     tcfg = dataclasses.replace(cfg, tiled_payload=True)
@@ -7000,8 +7081,9 @@ def main() -> int:
          f"byte-exact in {vis_cases['k10']} cases (1080p and 271x1917, "
          f"regions, thresholds 20 and 0, maps, feedback on and off, with "
          f"and without the delta, ragged lengths, unaligned views, S = 4 "
-         f"shards, 40 launches back to back); diff_mask and pack_bitmask "
-         f"(cudavideostream_tpu/ops/diff.py:30, :74) in one launch"),
+         f"shards, warp tile edges, 40 launches back to back); diff_mask "
+         f"and pack_bitmask (cudavideostream_tpu/ops/diff.py:30, :74) in "
+         f"one launch, warp tiles of {diff.DP_TILE} B"),
         ("heatmap", "visualize.cu",
          "cudavideostream_tpu/ops/filters.py:379", 0,
          vk["K11 heatmap"]["ms"], vk["K11 heatmap"]["plain_ms"],
@@ -7015,9 +7097,10 @@ def main() -> int:
          vk["K12 red_visualizer mode 3"]["plain_ms"],
          vk["K12 red_visualizer mode 3"]["bound_ms"], None,
          f"byte-exact in {vis_cases['k12']} cases (modes 2 and 3, "
-         f"thresholds 20 and 0, maps, regions, streams, shards); timed as "
-         f"mode 3 (red_overlap, :435; mode 2 is red_black, :424); "
-         f"vis_kernel<1|2, false|true>"),
+         f"thresholds 20 and 0, maps, regions, streams, shards, warp tile "
+         f"edges, unaligned views); timed as mode 3 (red_overlap, :435; "
+         f"mode 2 is red_black, :424); red_kernel<Overlap, Map>, warp "
+         f"tiles of {filters.RED_TILE} B"),
         ("grayscale", "visualize.cu",
          "cudavideostream_tpu/ops/filters.py:121", 0,
          vk["K13 grayscale_weighted"]["ms"],
@@ -7026,7 +7109,7 @@ def main() -> int:
          f"byte-exact in {vis_cases['k13']} cases (average and weighted, "
          f"regions, streams, shards); timed as grayscale_weighted (:121, "
          f"--visualizer 4; grayscale_average is :110); "
-         f"vis_kernel<3|4, false>"),
+         f"vis_kernel<3|4>"),
     ]
     kernels = []
     mesh_paths = ("mesh11_v1", "mesh11_pipelined_v3", "mesh14_cuda0",
@@ -7095,21 +7178,32 @@ def main() -> int:
                      "map_bound_ms":
                          vk["K10 diff_pack with a map"]["bound_ms"],
                      "launches_per_call": vk["K10 diff_pack"]["per_call"],
+                     "kernel_ms": vk["K10 diff_pack"]["kernel_ms"],
+                     "delta_kernel_ms":
+                         vk["K10 diff_pack with the delta"]["kernel_ms"],
+                     "map_kernel_ms":
+                         vk["K10 diff_pack with a map"]["kernel_ms"],
                      "step_ms": vtimes["steps"]["--compaction host"]}
         elif name == "heatmap":
             extra = {"launches_per_call": vk["K11 heatmap"]["per_call"],
+                     "kernel_ms": vk["K11 heatmap"]["kernel_ms"],
                      "step_ms": vtimes["steps"]["--visualizer 1"]}
         elif name == "red_visualizer":
             m2 = vk["K12 red_visualizer mode 2"]
             mp = vk["K12 red_visualizer mode 3 with a map"]
             extra = {"mode2_ms": m2["ms"], "mode2_plain_ms": m2["plain_ms"],
                      "map_ms": mp["ms"], "map_bound_ms": mp["bound_ms"],
+                     "kernel_ms":
+                         vk["K12 red_visualizer mode 3"]["kernel_ms"],
+                     "mode2_kernel_ms": m2["kernel_ms"],
+                     "map_kernel_ms": mp["kernel_ms"],
                      "launches_per_call":
                          vk["K12 red_visualizer mode 3"]["per_call"],
                      "step_ms": vtimes["steps"]["--visualizer 3"]}
         elif name == "grayscale":
             avg = vk["K13 grayscale_average"]
             extra = {"average_ms": avg["ms"],
+                     "kernel_ms": vk["K13 grayscale_weighted"]["kernel_ms"],
                      "average_plain_ms": avg["plain_ms"],
                      "grayscale_average_launches":
                          launches("grayscale_average")[0],

@@ -22,16 +22,32 @@
 //        null (the noise-filter HOST path fetches the dense delta; the
 //        fast path writes none, as the JAX jit drops it).
 //
-// Design. A thread owns whole bit bytes: a chunk of 128 frame bytes gives
-// 16 bit bytes, one 16-byte store, so there are no atomics and no scratch.
-// Where the chunk is whole, lies on one side of the region's end and every
-// address is 16-byte aligned, it reads eight 16-byte vectors of cur (or the
-// region), prev and the map, and works four bytes a word with the SIMD
-// video instructions (__vabsdiffu4, __vcmpgtu4, __vsub4); elsewhere (the
-// ragged last chunk, the chunk that straddles the region's end, an
-// unaligned view) it goes byte by byte. Chunks are taken in a grid-stride
-// loop. prev is read with plain loads, never through the read-only cache:
-// the kernel writes it.
+// Design: warp tiles. A warp takes a tile of kTile = 512 kVecs frame bytes;
+// lane l takes the 16 bytes at 512 q + 16 l for q < kVecs, so every 16-byte
+// load of cur (or the region), prev and the map, and every store of prev
+// and the delta, is 512 contiguous bytes for the warp. A lane's 16 bytes
+// give the 16 bits of bits bytes 64 q + 2 l and + 1 of the tile: one
+// 2-byte store, 64 contiguous bytes for the warp. The arithmetic goes four
+// bytes a word (__vabsdiffu4, __vcmpgtu4, __vsub4). A vector that is not
+// whole (the frame's ragged end), straddles the region's end, or whose
+// address is not 16-byte aligned (a view) goes byte by byte in its lane,
+// zero past the frame's end, so the padding bits come out zero; each
+// frame byte and bits byte is still written once, by one lane.
+//
+// The grid (ops/diff.py diff_pack_plan): kBlocksPerSm blocks an SM, one
+// wave. Warp w of block b takes tiles w * grid + b, then every grid *
+// kWarps further, so tile t falls to block t mod grid: with block b on SM
+// b mod SMs, every SM takes the same number of tiles, +-1. A warp issues
+// all of a tile's loads before its stores, and loads the next tile only
+// when it has stored this one: issuing the next tile's loads first
+// measured no faster and held a second tile in registers. Two vectors a
+// lane and two blocks an SM were the fastest of the designs tried (2-4
+// vectors, 1-4 blocks, with and without the next tile's loads first, one
+// tile a warp; PERF.md).
+// prev is read with plain loads, never through the read-only cache: the
+// kernel writes it. The first design gave a thread 128 contiguous
+// bytes: 190 blocks on 132 SMs at 1080p, and every warp access touched 32
+// lines at a 128-byte stride.
 //
 // Bound at 1080p (n = 6,220,800 B): read cur and prev, write prev and the
 // n/8 bits, 19,440,000 B, 0.00580 ms at 3.35 TB/s (the map's n more with a
@@ -43,9 +59,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 128;          // frame bytes a thread takes at a time
-constexpr int kBitBytes = kChunk / 8;  // 16: one 16-byte store
-constexpr int kBlocksPerSm = 8;      // the launch plan's cap (ops/diff.py)
+constexpr int kWarps = kThreads / 32;
+constexpr int kVecs = 2;             // a lane's 16-byte vectors of a tile
+constexpr int kTile = 512 * kVecs;   // frame bytes of a warp's tile
+constexpr int kBlocksPerSm = 2;      // the launch plan's (ops/diff.py)
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
@@ -56,79 +73,132 @@ __device__ __forceinline__ unsigned pack4(unsigned m) {
   return ((m & 0x01010101u) * 0x10204080u) >> 28;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The 16 bytes at p: one vector load where all 16 lie inside (valid >= 16)
+// and p is 16-byte aligned, else the first `valid` bytes one by one, zero
+// past them. Ro: through the read-only cache (never for prev).
+template <bool Ro>
+__device__ __forceinline__ uint4 load16(const uint8_t* p, long long valid) {
+  if (valid >= 16 && aligned16(p))
+    return Ro ? __ldg(reinterpret_cast<const uint4*>(p))
+              : *reinterpret_cast<const uint4*>(p);
+  unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if (e < valid)
+      w[e >> 2] |= (unsigned)(Ro ? __ldg(p + e) : p[e]) << (8 * (e & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the first `valid` of the 16 bytes of v to p (one vector store where it
+// can)
+__device__ __forceinline__ void store16(uint8_t* p, uint4 v,
+                                        long long valid) {
+  if (valid >= 16 && aligned16(p)) {
+    *reinterpret_cast<uint4*>(p) = v;
+    return;
+  }
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if (e < valid) p[e] = (uint8_t)(w[e >> 2] >> (8 * (e & 3)));
+}
+
+// the overlaid frame's bytes [i0, i0 + 16): the region below rlen, cur
+// above it, byte by byte where the vector straddles rlen
+__device__ __forceinline__ uint4 load_src(const uint8_t* cur,
+                                          const uint8_t* region,
+                                          long long rlen, long long i0,
+                                          long long valid) {
+  if (i0 >= rlen) return load16<true>(cur + i0, valid);
+  if (i0 + 16 <= rlen) return load16<true>(region + i0, valid);
+  unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if (e < valid)
+      w[e >> 2] |= (unsigned)(i0 + e < rlen ? __ldg(region + i0 + e)
+                                            : __ldg(cur + i0 + e))
+                   << (8 * (e & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+struct Tile {
+  uint4 c[kVecs], p[kVecs], t[kVecs];
+};
+
+template <bool Map>
+__device__ __forceinline__ void load_tile(const uint8_t* cur,
+                                          const uint8_t* region,
+                                          long long rlen, const uint8_t* prev,
+                                          const uint8_t* map, long long n,
+                                          long long i, Tile& T) {
+#pragma unroll
+  for (int q = 0; q < kVecs; ++q) {
+    const long long i0 = i + 512 * q;
+    T.c[q] = load_src(cur, region, rlen, i0, n - i0);
+    T.p[q] = load16<false>(prev + i0, n - i0);
+    if (Map) T.t[q] = load16<true>(map + i0, n - i0);
+  }
+}
+
+// the tile's new prev, delta and bits from its loaded bytes; i is the
+// lane's first byte
+template <bool Map>
+__device__ __forceinline__ void store_tile(const Tile& T, unsigned thr4,
+                                           bool negfeed, long long n,
+                                           long long i, uint8_t* prev,
+                                           uint8_t* bits, uint8_t* delta) {
+  const bool bits2 = ((uintptr_t)bits & 1) == 0;
+#pragma unroll
+  for (int q = 0; q < kVecs; ++q) {
+    const long long i0 = i + 512 * q;
+    const long long valid = n - i0;
+    if (valid <= 0) continue;
+    const unsigned cw[4] = {T.c[q].x, T.c[q].y, T.c[q].z, T.c[q].w};
+    const unsigned pw[4] = {T.p[q].x, T.p[q].y, T.p[q].z, T.p[q].w};
+    const unsigned tw[4] = {Map ? T.t[q].x : thr4, Map ? T.t[q].y : thr4,
+                            Map ? T.t[q].z : thr4, Map ? T.t[q].w : thr4};
+    unsigned nw[4], dw[4], m16 = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned m = __vcmpgtu4(__vabsdiffu4(cw[k], pw[k]), tw[k]);
+      nw[k] = negfeed ? (cw[k] & m) | (pw[k] & ~m) : cw[k];
+      dw[k] = __vsub4(cw[k], pw[k]);
+      m16 |= pack4(m) << (4 * k);  // byte 4 k + e is bit 4 k + e
+    }
+    store16(prev + i0, make_uint4(nw[0], nw[1], nw[2], nw[3]), valid);
+    if (delta)
+      store16(delta + i0, make_uint4(dw[0], dw[1], dw[2], dw[3]), valid);
+    // i0 % 16 == 0: bits bytes i0 / 8 and i0 / 8 + 1, the second only
+    // where the frame reaches past i0 + 8; zero bytes past n gave zero bits
+    uint8_t* b = bits + (i0 >> 3);
+    if (valid >= 16 && bits2) {
+      *reinterpret_cast<uint16_t*>(b) = (uint16_t)m16;
+    } else {
+      b[0] = (uint8_t)m16;
+      if (valid > 8) b[1] = (uint8_t)(m16 >> 8);
+    }
+  }
+}
+
+template <bool Map>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     diff_pack_kernel(const uint8_t* __restrict__ cur,
                      const uint8_t* __restrict__ region, long long rlen,
                      uint8_t* prev, const uint8_t* __restrict__ map,
                      unsigned thr, int negfeed, long long n,
                      uint8_t* __restrict__ bits,
                      uint8_t* __restrict__ delta) {
-  const long long chunks = (n + kChunk - 1) / kChunk;
-  const long long nbits = (n + 7) / 8;
-  const long long stride = (long long)gridDim.x * kThreads;
+  const long long tiles = (n + kTile - 1) / kTile;
+  const long long warps = (long long)gridDim.x * kWarps;
+  long long t = (long long)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  if (t >= tiles) return;  // the whole warp
+  const long long lane16 = 16 * (threadIdx.x & 31);
   const unsigned thr4 = thr * 0x01010101u;
-  for (long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-       c < chunks; c += stride) {
-    const long long i0 = c * kChunk;
-    const bool in_region = i0 + kChunk <= rlen;
-    const uint8_t* src = in_region ? region + i0 : cur + i0;
-    const bool fast = i0 + kChunk <= n && (in_region || i0 >= rlen)
-                      && aligned16(src) && aligned16(prev + i0)
-                      && (!map || aligned16(map + i0))
-                      && (!delta || aligned16(delta + i0))
-                      && aligned16(bits + c * kBitBytes);
-    unsigned bw[4] = {0, 0, 0, 0};
-    if (fast) {
-#pragma unroll
-      for (int q = 0; q < kChunk / 16; ++q) {
-        const uint4 cv = __ldg(reinterpret_cast<const uint4*>(src) + q);
-        uint4* pp = reinterpret_cast<uint4*>(prev + i0) + q;
-        const uint4 pv = *pp;
-        const uint4 tv =
-            map ? __ldg(reinterpret_cast<const uint4*>(map + i0) + q)
-                : make_uint4(thr4, thr4, thr4, thr4);
-        const unsigned cw[4] = {cv.x, cv.y, cv.z, cv.w};
-        const unsigned pw[4] = {pv.x, pv.y, pv.z, pv.w};
-        const unsigned tw[4] = {tv.x, tv.y, tv.z, tv.w};
-        unsigned nw[4], dw[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const unsigned m = __vcmpgtu4(__vabsdiffu4(cw[k], pw[k]), tw[k]);
-          nw[k] = negfeed ? (cw[k] & m) | (pw[k] & ~m) : cw[k];
-          dw[k] = __vsub4(cw[k], pw[k]);
-          // chunk byte 16 q + 4 k + e is bit (16 q + 4 k + e) % 32 of
-          // bits word q / 2
-          bw[q >> 1] |= pack4(m) << (16 * (q & 1) + 4 * k);
-        }
-        *pp = make_uint4(nw[0], nw[1], nw[2], nw[3]);
-        if (delta)
-          reinterpret_cast<uint4*>(delta + i0)[q] =
-              make_uint4(dw[0], dw[1], dw[2], dw[3]);
-      }
-      reinterpret_cast<uint4*>(bits)[c] = make_uint4(bw[0], bw[1], bw[2],
-                                                     bw[3]);
-    } else {
-      // byte by byte; bits word v holds chunk bytes 32 v .. 32 v + 31
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        unsigned acc = 0;
-        for (int m = 0; m < 32 && i0 + 32 * v + m < n; ++m) {
-          const long long i = i0 + 32 * v + m;
-          const int cb = i < rlen ? __ldg(region + i) : __ldg(cur + i);
-          const int pb = prev[i];
-          const int t = map ? (int)__ldg(map + i) : (int)thr;
-          const bool ch = abs(cb - pb) > t;
-          prev[i] = (uint8_t)(ch || !negfeed ? cb : pb);
-          if (delta) delta[i] = (uint8_t)(cb - pb);
-          acc |= (unsigned)ch << m;
-        }
-        bw[v] = acc;
-      }
-#pragma unroll
-      for (int j = 0; j < kBitBytes; ++j)
-        if (c * kBitBytes + j < nbits)
-          bits[c * kBitBytes + j] = (uint8_t)(bw[j >> 2] >> (8 * (j & 3)));
-    }
+  for (; t < tiles; t += warps) {
+    Tile a;
+    load_tile<Map>(cur, region, rlen, prev, map, n, t * kTile + lane16, a);
+    store_tile<Map>(a, thr4, negfeed != 0, n, t * kTile + lane16, prev,
+                    bits, delta);
   }
 }
 
@@ -153,9 +223,14 @@ int cvs_diff_pack(int device, const uint8_t* cur, const uint8_t* region,
   // not the caller's: select the tensors' device explicitly
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  diff_pack_kernel<<<grid, kThreads, 0, stream>>>(
-      cur, region, rlen, prev, map, (unsigned)thr, negative_feedback != 0, n,
-      bits, delta);
+  if (map)
+    diff_pack_kernel<true><<<grid, kThreads, 0, stream>>>(
+        cur, region, rlen, prev, map, (unsigned)thr, negative_feedback != 0,
+        n, bits, delta);
+  else
+    diff_pack_kernel<false><<<grid, kThreads, 0, stream>>>(
+        cur, region, rlen, prev, nullptr, (unsigned)thr,
+        negative_feedback != 0, n, bits, delta);
   return (int)cudaGetLastError();
 }
 
@@ -165,7 +240,7 @@ const char* cvs_error_string(int e) {
 
 int cvs_dp_threads(void) { return kThreads; }
 
-int cvs_dp_chunk(void) { return kChunk; }
+int cvs_dp_vecs(void) { return kVecs; }
 
 int cvs_dp_blocks_per_sm(void) { return kBlocksPerSm; }
 

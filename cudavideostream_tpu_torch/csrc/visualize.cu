@@ -25,18 +25,45 @@
 //   K13 gray:        g = (B + G + R) / 3, or (114 B + 587 G + 299 R) / 1000
 //                    in int32; out = (g, g, g).
 //
-// Design. A thread takes runs of 16 pixels (48 bytes: three 16-byte loads
-// where the address is 16-byte aligned, byte loads where it is not, or
-// where the run straddles the end of a stream's overlay strip or a stream
-// boundary) in a grid-stride loop; block 0 takes the ragged tail of fewer
-// than 16 pixels, a pixel a thread. B streams of sn bytes at a stride are
-// one launch: stream b reads its strip at region + b * rlen and the map at
-// its own byte index j = i mod sn (the map is one stream's). Pixels never
-// straddle streams (sn % 3 == 0). The heatmap's LUT comes by value in the
-// launch's parameters (766 words, b | g << 8 | r << 16: 3,064 B), so no
-// table is ever uploaded (nothing to upload inside a CUDA graph capture);
-// each block copies it into shared memory before it gathers, because an
-// indexed read of the parameter bank with divergent indices serializes.
+// B streams of sn bytes at a stride are one launch: stream b reads its
+// strip at region + b * rlen and K12 the map at its own byte index j = i
+// mod sn (the map is one stream's). Pixels never straddle streams (sn % 3
+// == 0).
+//
+// Design of K11 and K13. A thread takes runs of 16 pixels (48 bytes: three
+// 16-byte loads where the address is 16-byte aligned, byte loads where it
+// is not, or where the run straddles the end of a stream's overlay strip
+// or a stream boundary) in a grid-stride loop; block 0 takes the ragged
+// tail of fewer than 16 pixels, a pixel a thread. The heatmap's
+// LUT comes by value in the launch's parameters (766 words, b | g << 8 |
+// r << 16: 3,064 B), so no table is ever uploaded (nothing to upload
+// inside a CUDA graph capture); each block copies it into shared memory
+// before it gathers, because an indexed read of the parameter bank with
+// divergent indices serializes.
+//
+// Design of K12 (red_kernel): warp tiles. A warp takes a tile of
+// kRedTile = 1,536 bytes (512 pixels, so a tile starts on a pixel); lane l
+// takes the 16 bytes at 512 k + 16 l (k < 3) of the overlaid frame, of
+// prev and of the map (at the stream's byte j = i mod sn), so every load
+// and every 16-byte store is 512 contiguous bytes for the warp. A lane
+// compares its bytes four a word (__vabsdiffu4, __vcmpgtu4) into 16 mask
+// bits. A pixel's R byte is its third: the pixel changed where any of the
+// R byte's bit and the two before it is set, and the two before byte 0 or
+// 1 are the last two of the vector before (lane l - 1, or lane 31 of
+// vector k - 1 for lane 0), taken by a shuffle. The R bytes of a vector
+// depend on its phase (16 l + 512 k) mod 3 = (l + 2 k) mod 3: one of three
+// 16-bit masks. The output is built in the lane's registers (zero, or the
+// lane's own prev bytes, with 255 at the changed R bytes) and stored as
+// one vector. A vector that is not whole, straddles a strip's end or a
+// stream boundary, or is not 16-byte aligned loads (and stores) byte by
+// byte in its lane, zero past the frame. The grid (ops/filters.py
+// red_plan) is kRedBlocksPerSm blocks an SM, one wave; warp w of block b
+// takes tiles w * grid + b, then every grid * 8 further, so every SM takes
+// the same number of tiles, +-1; a warp issues its next tile's loads
+// before it computes and stores the current one. That was the fastest of
+// the designs tried without a stack frame (tiles of 3 or 6 vectors a
+// lane, 1-4 blocks an SM, with and without the next tile's loads first,
+// one tile a warp; PERF.md).
 //
 // Bounds at 1080p (n = 6,220,800 B), bytes at 3.35 TB/s: K11 and K12 read
 // c and p and write the output, 3n = 18,662,400 B, 0.00557 ms (the map's n
@@ -54,6 +81,10 @@ constexpr int kPix = 16;            // pixels a thread takes at a time
 constexpr int kRun = 3 * kPix;      // their 48 bytes
 constexpr int kLutSize = 766;       // d = 0..765
 constexpr int kBlocksPerSm = 8;     // the launch plan's cap (ops/filters.py)
+constexpr int kWarps = kThreads / 32;
+constexpr int kRedVecs = 3;                 // a lane's vectors of a K12 tile
+constexpr int kRedTile = 512 * kRedVecs;    // 1,536 bytes: 512 pixels
+constexpr int kRedBlocksPerSm = 2;          // K12's plan (ops/filters.py)
 
 enum Op { kHeat = 0, kRedBlack = 1, kRedOverlap = 2, kGrayAvg = 3,
           kGrayWeighted = 4 };
@@ -141,28 +172,11 @@ __device__ __forceinline__ void load_src(const Src s, long long i0,
     w[m >> 2] |= src_byte(s, i0 + m) << (8 * (m & 3));
 }
 
-// the map's bytes for frame bytes [i0, i0 + 48): byte j of its stream
-__device__ __forceinline__ void load_map(const uint8_t* map, long long sn,
-                                         long long i0, unsigned (&w)[12]) {
-  const long long j0 = in_stream(i0, sn);
-  if (j0 + kRun <= sn) {
-    load48(map + j0, w);
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < 12; ++k) w[k] = 0;
-#pragma unroll
-  for (int m = 0; m < kRun; ++m)
-    w[m >> 2] |= (unsigned)__ldg(map + in_stream(i0 + m, sn))
-                 << (8 * (m & 3));
-}
-
-// one pixel: c, p, t its three bytes of the overlaid frame, the previous
-// frame and the threshold; o the output's
+// one pixel: c, p its three bytes of the overlaid frame and the previous
+// frame; o the output's
 template <int Op>
 __device__ __forceinline__ void pixel(const unsigned (&c)[3],
                                       const unsigned (&p)[3],
-                                      const unsigned (&t)[3],
                                       const unsigned* lut,
                                       unsigned (&o)[3]) {
   if (Op == kHeat) {
@@ -170,16 +184,6 @@ __device__ __forceinline__ void pixel(const unsigned (&c)[3],
                   + abs((int)c[2] - (int)p[2]);
     const unsigned v = lut[d];
     o[0] = v & 255u, o[1] = (v >> 8) & 255u, o[2] = (v >> 16) & 255u;
-  } else if (Op == kRedBlack || Op == kRedOverlap) {
-    bool ch = false;
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      ch = ch || abs((int)c[k] - (int)p[k]) > (int)t[k];
-    if (Op == kRedBlack) {
-      o[0] = 0, o[1] = 0, o[2] = ch ? 255u : 0u;
-    } else {
-      o[0] = p[0], o[1] = p[1], o[2] = ch ? 255u : p[2];
-    }
   } else {
     const unsigned g = Op == kGrayAvg
                            ? (c[0] + c[1] + c[2]) / 3u
@@ -188,16 +192,11 @@ __device__ __forceinline__ void pixel(const unsigned (&c)[3],
   }
 }
 
+// K11 and K13: runs of 16 pixels a thread
 template <int Op>
-__host__ __device__ constexpr bool reads_prev() {
-  return Op == kHeat || Op == kRedBlack || Op == kRedOverlap;
-}
-
-template <int Op, bool Map>
 __device__ __forceinline__ void body(const Src s,
                                      const uint8_t* __restrict__ prev,
-                                     const uint8_t* __restrict__ map,
-                                     unsigned thr, long long npx,
+                                     long long npx,
                                      uint8_t* __restrict__ out,
                                      const unsigned* lut) {
   const long long runs = npx / kPix;
@@ -205,22 +204,20 @@ __device__ __forceinline__ void body(const Src s,
   for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
        r < runs; r += stride) {
     const long long i0 = kRun * r;
-    unsigned cw[12], pw[12], tw[12], ow[12];
+    unsigned cw[12], pw[12], ow[12];
     load_src(s, i0, cw);
-    if (reads_prev<Op>()) load48(prev + i0, pw);
-    if (Map) load_map(map, s.sn, i0, tw);
+    if (Op == kHeat) load48(prev + i0, pw);
 #pragma unroll
     for (int k = 0; k < 12; ++k) ow[k] = 0;
 #pragma unroll
     for (int q = 0; q < kPix; ++q) {
-      unsigned c[3], p[3] = {0, 0, 0}, t[3] = {thr, thr, thr}, o[3];
+      unsigned c[3], p[3] = {0, 0, 0}, o[3];
 #pragma unroll
       for (int e = 0; e < 3; ++e) {
         c[e] = byte_of(cw, 3 * q + e);
-        if (reads_prev<Op>()) p[e] = byte_of(pw, 3 * q + e);
-        if (Map) t[e] = byte_of(tw, 3 * q + e);
+        if (Op == kHeat) p[e] = byte_of(pw, 3 * q + e);
       }
-      pixel<Op>(c, p, t, lut, o);
+      pixel<Op>(c, p, lut, o);
 #pragma unroll
       for (int e = 0; e < 3; ++e) {
         const int m = 3 * q + e;
@@ -232,15 +229,14 @@ __device__ __forceinline__ void body(const Src s,
   // the ragged tail of fewer than 16 pixels: block 0, a pixel a thread
   const long long tp = runs * kPix + threadIdx.x;
   if (blockIdx.x == 0 && threadIdx.x < kPix && tp < npx) {
-    unsigned c[3], p[3] = {0, 0, 0}, t[3] = {thr, thr, thr}, o[3];
+    unsigned c[3], p[3] = {0, 0, 0}, o[3];
 #pragma unroll
     for (int e = 0; e < 3; ++e) {
       const long long i = 3 * tp + e;
       c[e] = src_byte(s, i);
-      if (reads_prev<Op>()) p[e] = __ldg(prev + i);
-      if (Map) t[e] = __ldg(map + in_stream(i, s.sn));
+      if (Op == kHeat) p[e] = __ldg(prev + i);
     }
-    pixel<Op>(c, p, t, lut, o);
+    pixel<Op>(c, p, lut, o);
 #pragma unroll
     for (int e = 0; e < 3; ++e) out[3 * tp + e] = (uint8_t)o[e];
   }
@@ -252,15 +248,180 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ unsigned s_lut[kLutSize];
   for (int k = threadIdx.x; k < kLutSize; k += kThreads) s_lut[k] = lut.v[k];
   __syncthreads();
-  body<kHeat, false>(s, prev, nullptr, 0u, npx, out, s_lut);
+  body<kHeat>(s, prev, npx, out, s_lut);
 }
 
-template <int Op, bool Map>
+template <int Op>
 __global__ void __launch_bounds__(kThreads)
-    vis_kernel(const Src s, const uint8_t* __restrict__ prev,
-               const uint8_t* __restrict__ map, unsigned thr, long long npx,
+    vis_kernel(const Src s, long long npx, uint8_t* __restrict__ out) {
+  body<Op>(s, nullptr, npx, out, nullptr);
+}
+
+// ---- K12 ----------------------------------------------------------------
+
+// bit 7 of each byte of m (0x00 or 0xff), as 4 bits, byte 0 lowest
+__device__ __forceinline__ unsigned pack4(unsigned m) {
+  return ((m & 0x01010101u) * 0x10204080u) >> 28;
+}
+
+// 4 bits to 4 bytes, 0xff where the bit is set, bit 0 to byte 0
+__device__ __forceinline__ unsigned spread4(unsigned b) {
+  return ((b * 0x00204081u) & 0x01010101u) * 0xffu;
+}
+
+// The R bytes of a 16-byte vector whose first byte lies at phase r (its
+// frame index mod 3; pixels start at multiples of 3): bit j is set where
+// (r + j) % 3 == 2
+__device__ __forceinline__ unsigned r_bytes(int r) {
+  return r == 0 ? 0x4924u : r == 1 ? 0x2492u : 0x9249u;
+}
+
+// The 16 bytes at p: one vector load where all 16 lie inside (valid >= 16)
+// and p is 16-byte aligned, else the first `valid` bytes one by one, zero
+// past them
+__device__ __forceinline__ uint4 load16(const uint8_t* p, long long valid) {
+  if (valid >= 16 && aligned16(p))
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if (e < valid) w[e >> 2] |= (unsigned)__ldg(p + e) << (8 * (e & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+struct RedTile {
+  uint4 c[kRedVecs], p[kRedVecs], t[kRedVecs];
+};
+
+// The lane's vectors of the tile whose lane byte is i (the tile starts in
+// stream s0): the overlaid frame, prev and, with a map, the map's bytes at
+// the stream's byte j. A vector inside one stream takes one load of each;
+// one that straddles a stream boundary, the strip's end or the frame's end
+// takes its bytes one by one.
+template <bool Map>
+__device__ __forceinline__ void red_load(const Src s,
+                                         const uint8_t* __restrict__ prev,
+                                         const uint8_t* __restrict__ map,
+                                         long long n, long long i,
+                                         long long s0, RedTile& T) {
+#pragma unroll
+  for (int k = 0; k < kRedVecs; ++k) {
+    const long long i0 = i + 512 * k;
+    const long long valid = n - i0;
+    long long b = s0, j0 = i0 - s0 * s.sn;  // stream and byte in it
+    if (j0 >= s.sn) {
+      const long long q = j0 / s.sn;
+      b += q;
+      j0 -= q * s.sn;
+    }
+    T.p[k] = load16(prev + i0, valid);
+    if (valid >= 16 && j0 + 16 <= s.sn
+        && (j0 >= s.rlen || j0 + 16 <= s.rlen)) {
+      T.c[k] = load16(j0 >= s.rlen ? s.cur + i0 : s.region + b * s.rlen + j0,
+                      16);
+      if (Map) T.t[k] = load16(map + j0, 16);
+      continue;
+    }
+    unsigned c[4] = {0, 0, 0, 0}, t[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      if (e < valid) {
+        long long bb = b, j = j0 + e;
+        while (j >= s.sn) j -= s.sn, ++bb;  // streams of 3 B at the least
+        c[e >> 2] |= (unsigned)(j < s.rlen
+                                    ? __ldg(s.region + bb * s.rlen + j)
+                                    : __ldg(s.cur + i0 + e))
+                     << (8 * (e & 3));
+        if (Map) t[e >> 2] |= (unsigned)__ldg(map + j) << (8 * (e & 3));
+      }
+    }
+    T.c[k] = make_uint4(c[0], c[1], c[2], c[3]);
+    if (Map) T.t[k] = make_uint4(t[0], t[1], t[2], t[3]);
+  }
+}
+
+// The tile's output from its loaded bytes, lane byte i, lane `lane`; every
+// lane of the warp takes part (shuffles)
+template <bool Overlap, bool Map>
+__device__ __forceinline__ void red_store(const RedTile& T, unsigned thr4,
+                                          long long n, long long i, int lane,
+                                          uint8_t* __restrict__ out) {
+  unsigned m[kRedVecs];  // bit j: byte j changed
+#pragma unroll
+  for (int k = 0; k < kRedVecs; ++k) {
+    const unsigned cw[4] = {T.c[k].x, T.c[k].y, T.c[k].z, T.c[k].w};
+    const unsigned pw[4] = {T.p[k].x, T.p[k].y, T.p[k].z, T.p[k].w};
+    const unsigned tw[4] = {Map ? T.t[k].x : thr4, Map ? T.t[k].y : thr4,
+                            Map ? T.t[k].z : thr4, Map ? T.t[k].w : thr4};
+    m[k] = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      m[k] |= pack4(__vcmpgtu4(__vabsdiffu4(cw[q], pw[q]), tw[q])) << (4 * q);
+  }
+  unsigned up[kRedVecs], last[kRedVecs];
+#pragma unroll
+  for (int k = 0; k < kRedVecs; ++k) {
+    up[k] = __shfl_up_sync(0xffffffffu, m[k], 1);
+    last[k] = __shfl_sync(0xffffffffu, m[k], 31);
+  }
+#pragma unroll
+  for (int k = 0; k < kRedVecs; ++k) {
+    const long long i0 = i + 512 * k;
+    const long long valid = n - i0;
+    // the vector before: lane - 1's, or lane 31's of vector k - 1; none
+    // before the tile's first byte, which starts a pixel
+    const unsigned before = lane ? up[k] : k ? last[k - 1] : 0u;
+    // bit j + 2: byte j; bits 0-1: the vector before's bytes 14-15
+    const unsigned e = (m[k] << 2) | (before >> 14);
+    // bit j: any of bytes j - 2, j - 1, j, the pixel of an R byte j
+    const unsigned red = (e | e >> 1 | e >> 2) & r_bytes((lane + 2 * k) % 3);
+    const unsigned pw[4] = {T.p[k].x, T.p[k].y, T.p[k].z, T.p[k].w};
+    unsigned o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned r = spread4((red >> (4 * q)) & 15u);
+      o[q] = Overlap ? pw[q] | r : r;
+    }
+    if (valid <= 0) continue;
+    uint8_t* p = out + i0;
+    if (valid >= 16 && aligned16(p)) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (b < valid) p[b] = (uint8_t)(o[b >> 2] >> (8 * (b & 3)));
+    }
+  }
+}
+
+template <bool Overlap, bool Map>
+__global__ void __launch_bounds__(kThreads, kRedBlocksPerSm)
+    red_kernel(const Src s, const uint8_t* __restrict__ prev,
+               const uint8_t* __restrict__ map, unsigned thr, long long n,
                uint8_t* __restrict__ out) {
-  body<Op, Map>(s, prev, map, thr, npx, out, nullptr);
+  const long long tiles = (n + kRedTile - 1) / kRedTile;
+  const long long warps = (long long)gridDim.x * kWarps;
+  long long t = (long long)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  if (t >= tiles) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const unsigned thr4 = thr * 0x01010101u;
+  long long tb = t * kRedTile;
+  RedTile a;
+  red_load<Map>(s, prev, map, n, tb + 16 * lane, tb < s.sn ? 0 : tb / s.sn,
+                a);
+  for (;;) {
+    // the next tile's loads go out before this one's stores
+    const long long next = t + warps, nb = next * kRedTile;
+    RedTile b;
+    if (next < tiles)
+      red_load<Map>(s, prev, map, n, nb + 16 * lane,
+                    nb < s.sn ? 0 : nb / s.sn, b);
+    red_store<Overlap, Map>(a, thr4, n, tb + 16 * lane, lane, out);
+    if (next >= tiles) break;
+    a = b;
+    t = next;
+    tb = nb;
+  }
 }
 
 }  // namespace
@@ -274,7 +435,8 @@ extern "C" {
 // 3 grayscale average, 4 grayscale weighted; into out[0..3 npx). The
 // overlaid frame reads region[b * rlen + j] for stream b's byte j < rlen
 // (rlen 0: no region). prev is read by ops 0-2. One kernel launch of `grid`
-// blocks (ops/filters.py vis_plan). Returns the cudaError_t of the launch.
+// blocks (ops/filters.py: red_plan for ops 1-2, vis_plan for the others).
+// Returns the cudaError_t of the launch.
 int cvs_visualize(int device, int op, const uint8_t* cur,
                   const uint8_t* region, long long rlen, long long sn,
                   const uint8_t* prev, const uint8_t* map, int thr,
@@ -300,27 +462,25 @@ int cvs_visualize(int device, int op, const uint8_t* cur,
     }
     case kRedBlack:
       if (map)
-        vis_kernel<kRedBlack, true><<<grid, kThreads, 0, stream>>>(
-            s, prev, map, t, npx, out);
+        red_kernel<false, true><<<grid, kThreads, 0, stream>>>(
+            s, prev, map, t, 3 * npx, out);
       else
-        vis_kernel<kRedBlack, false><<<grid, kThreads, 0, stream>>>(
-            s, prev, nullptr, t, npx, out);
+        red_kernel<false, false><<<grid, kThreads, 0, stream>>>(
+            s, prev, nullptr, t, 3 * npx, out);
       break;
     case kRedOverlap:
       if (map)
-        vis_kernel<kRedOverlap, true><<<grid, kThreads, 0, stream>>>(
-            s, prev, map, t, npx, out);
+        red_kernel<true, true><<<grid, kThreads, 0, stream>>>(
+            s, prev, map, t, 3 * npx, out);
       else
-        vis_kernel<kRedOverlap, false><<<grid, kThreads, 0, stream>>>(
-            s, prev, nullptr, t, npx, out);
+        red_kernel<true, false><<<grid, kThreads, 0, stream>>>(
+            s, prev, nullptr, t, 3 * npx, out);
       break;
     case kGrayAvg:
-      vis_kernel<kGrayAvg, false><<<grid, kThreads, 0, stream>>>(
-          s, nullptr, nullptr, 0u, npx, out);
+      vis_kernel<kGrayAvg><<<grid, kThreads, 0, stream>>>(s, npx, out);
       break;
     default:
-      vis_kernel<kGrayWeighted, false><<<grid, kThreads, 0, stream>>>(
-          s, nullptr, nullptr, 0u, npx, out);
+      vis_kernel<kGrayWeighted><<<grid, kThreads, 0, stream>>>(s, npx, out);
       break;
   }
   return (int)cudaGetLastError();
@@ -337,5 +497,9 @@ int cvs_vis_pixels(void) { return kPix; }
 int cvs_vis_lut_size(void) { return kLutSize; }
 
 int cvs_vis_blocks_per_sm(void) { return kBlocksPerSm; }
+
+int cvs_red_vecs(void) { return kRedVecs; }
+
+int cvs_red_blocks_per_sm(void) { return kRedBlocksPerSm; }
 
 }  // extern "C"

@@ -33,12 +33,14 @@ import torch
 
 from cudavideostream_tpu_torch.kernels import build
 
-# K10's launch geometry (csrc/diff_pack.cu): a thread takes DP_CHUNK frame
-# bytes (DP_CHUNK // 8 bit bytes) at a time; blocks of DP_THREADS threads,
-# at most DP_BLOCKS_PER_SM an SM
+# K10's launch geometry (csrc/diff_pack.cu): a warp takes tiles of DP_TILE
+# frame bytes, DP_VECS 16-byte vectors a lane; blocks of DP_THREADS
+# threads, DP_BLOCKS_PER_SM an SM
 DP_THREADS = 256
-DP_CHUNK = 128
-DP_BLOCKS_PER_SM = 8
+DP_WARPS = DP_THREADS // 32
+DP_VECS = 2
+DP_TILE = 512 * DP_VECS
+DP_BLOCKS_PER_SM = 2
 
 _dp_lib = None
 
@@ -128,12 +130,12 @@ def _diff_pack_lib() -> ctypes.CDLL:
         lib.cvs_diff_pack.restype = i
         lib.cvs_error_string.argtypes = [i]
         lib.cvs_error_string.restype = ctypes.c_char_p
-        for name in ("cvs_dp_threads", "cvs_dp_chunk", "cvs_dp_blocks_per_sm"):
+        for name in ("cvs_dp_threads", "cvs_dp_vecs", "cvs_dp_blocks_per_sm"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
-        if ((lib.cvs_dp_threads(), lib.cvs_dp_chunk(),
+        if ((lib.cvs_dp_threads(), lib.cvs_dp_vecs(),
              lib.cvs_dp_blocks_per_sm())
-                != (DP_THREADS, DP_CHUNK, DP_BLOCKS_PER_SM)):
+                != (DP_THREADS, DP_VECS, DP_BLOCKS_PER_SM)):
             raise RuntimeError("csrc/diff_pack.cu geometry disagrees with "
                                "ops/diff.py")
         _dp_lib = lib
@@ -142,14 +144,15 @@ def _diff_pack_lib() -> ctypes.CDLL:
 
 def diff_pack_plan(n: int, sms: int) -> int:
     """Blocks of one :func:`diff_pack` launch over ``n`` frame bytes on a
-    card of ``sms`` SMs: one per :data:`DP_THREADS` chunks of
-    :data:`DP_CHUNK` bytes (the last one ragged), at most
-    :data:`DP_BLOCKS_PER_SM` an SM. Block ``b``'s thread ``t`` takes chunk
-    ``b * DP_THREADS + t``, then every ``grid * DP_THREADS`` further."""
+    card of ``sms`` SMs: :data:`DP_BLOCKS_PER_SM` an SM, one wave, fewer
+    where the frame has fewer tiles of :data:`DP_TILE` bytes (the last one
+    ragged). Warp ``w`` of block ``b`` takes tiles ``w * grid + b``, then
+    every ``grid * DP_WARPS`` further, so tile ``t`` falls to block ``t
+    mod grid``, and with block ``b`` on SM ``b mod sms`` every SM takes
+    the same number of tiles, give or take one."""
     if n <= 0 or sms <= 0:
         raise ValueError("diff_pack_plan takes a nonzero length and SM count")
-    chunks = -(-n // DP_CHUNK)
-    return max(1, min(DP_BLOCKS_PER_SM * sms, -(-chunks // DP_THREADS)))
+    return max(1, min(DP_BLOCKS_PER_SM * sms, -(-n // DP_TILE)))
 
 
 def _check_pack_args(current, previous, threshold, region):

@@ -5,10 +5,12 @@ the entry ``diff_pack`` on a CPU tensor) against the JAX package's
 the bits, the wrapped delta and the new previous frame (written in place),
 with and without negative feedback, thresholds 0 and 20, a per-byte map,
 the overlay region and lengths that are not a multiple of 8; a host model
-of one launch (the chunks' owners, every frame byte and bits byte written
-once, no read outside the frame or the region, the fast path's word
-arithmetic and bit order); the HOST pipeline step through it; and the
-wrapper on a CUDA tensor, which launches or raises. Tolerance is zero
+of one launch (the warp tiles' owners and their spread over the SMs,
+every frame byte and bits byte written once by one lane, no read outside
+the frame, the region or the map, the lanes' word arithmetic and bit
+order, the byte path of a vector that is not whole, straddles the
+region's end or is not aligned); the HOST pipeline step through it; and
+the wrapper on a CUDA tensor, which launches or raises. Tolerance is zero
 throughout.
 
 The kernel itself is held against its plain version on the card by
@@ -48,8 +50,9 @@ def _constexpr(name):
 
 
 THREADS = _constexpr("kThreads")
-CHUNK = _constexpr("kChunk")
-BIT_BYTES = _constexpr("kBitBytes")
+WARPS = _constexpr("kWarps")
+VECS = _constexpr("kVecs")
+TILE = _constexpr("kTile")
 BLOCKS_PER_SM = _constexpr("kBlocksPerSm")
 
 
@@ -67,10 +70,10 @@ def _pair(seed, n):
 
 
 def test_constants_read_from_the_kernel():
-    assert (THREADS, CHUNK, BLOCKS_PER_SM) == (
-        diff.DP_THREADS, diff.DP_CHUNK, diff.DP_BLOCKS_PER_SM)
-    # a chunk is whole bit bytes, stored as one 16-byte vector
-    assert CHUNK % 8 == 0 and BIT_BYTES == CHUNK // 8 == 16
+    assert (THREADS, VECS, TILE, BLOCKS_PER_SM) == (
+        diff.DP_THREADS, diff.DP_VECS, diff.DP_TILE, diff.DP_BLOCKS_PER_SM)
+    # a tile is kVecs rows of a warp's 32 16-byte vectors, whole bit bytes
+    assert TILE == VECS * 32 * 16 and WARPS == THREADS // 32 == diff.DP_WARPS
 
 
 # -- the plain version against the JAX package and the spec ----------------
@@ -202,115 +205,158 @@ def _vabsdiffu4(a, b):
     return out
 
 
-def _launch_model(cur, prev, thr, negfeed, region, tmap, grid):
-    """One launch of ``diff_pack_kernel`` on the host: chunk ``c`` of 128
-    bytes belongs to thread ``c mod (grid * THREADS)``; a whole chunk on
-    one side of the region's end goes the word path (the kernel's SIMD
-    arithmetic, bits word ``q // 2`` at bit ``16 (q % 2) + 4 k``), any
-    other the byte path. Returns ``(bits, new_prev, writes of each frame
-    byte, writes of each bits byte, reads by source)``."""
+def _words(b):
+    """16 bytes as 4 little-endian uint32 words."""
+    return np.frombuffer(np.asarray(b, np.uint8).tobytes(), np.uint32)
+
+
+def _launch_model(cur, prev, thr, negfeed, region, tmap, grid, delta=False,
+                  offs=None):
+    """One launch of ``diff_pack_kernel`` on the host, lane by lane: tile
+    ``t`` of :data:`TILE` bytes belongs to global warp ``t mod (grid *
+    WARPS)`` (warp ``w`` of block ``b`` is ``w * grid + b``); lane ``l``
+    takes the 16 bytes at ``512 q + 16 l`` for ``q < VECS``. A vector goes
+    one load (and one store) per array where it is whole, on one side of
+    the region's end and 16-byte aligned (``offs``: each array's address
+    mod 16), else byte by byte, zero past the frame; the word arithmetic
+    is the kernel's (``__vabsdiffu4``, ``__vcmpgtu4``, ``pack4``). Returns
+    ``(bits, new_prev, delta, writer of each frame byte, writes of each
+    frame byte, writes of each bits byte, reads by array, the tiles' warps,
+    vectors by path)``."""
+    offs = offs or {}
     n = cur.size
     rlen = 0 if region is None else region.size
     nbits = (n + 7) // 8
-    chunks = -(-n // CHUNK)
-    stride = grid * THREADS
+    tiles = -(-n // TILE)
     prev = prev.copy()
     bits = np.zeros(nbits, np.uint8)
+    dl = np.zeros(n, np.uint8)
+    writer = np.full(n, -1, np.int64)
     wrote = np.zeros(n, np.int64)
     wrote_bits = np.zeros(nbits, np.int64)
-    reads = {"cur": np.zeros(n, np.int64), "region": np.zeros(max(rlen, 1),
-                                                              np.int64)}
-    owners = np.zeros(chunks, np.int64)
-    for c in range(chunks):
-        owners[c] = c % stride
-        i0 = c * CHUNK
-        in_region = i0 + CHUNK <= rlen
-        if i0 + CHUNK <= n and (in_region or i0 >= rlen):
-            src = region if in_region else cur
-            reads["region" if in_region else "cur"][i0:i0 + CHUNK] += 1
-            cw = src[i0:i0 + CHUNK].view(np.uint32)
-            pw = prev[i0:i0 + CHUNK].view(np.uint32).copy()
-            tw = (np.full(CHUNK // 4, thr * 0x01010101, np.uint32)
-                  if tmap is None else tmap[i0:i0 + CHUNK].view(np.uint32))
-            m = _vcmpgtu4(_vabsdiffu4(cw, pw), tw)
-            nw = (cw & m) | (pw & ~m) if negfeed else cw
-            prev[i0:i0 + CHUNK] = nw.view(np.uint8)
-            bw = np.zeros(4, np.uint64)
-            for word in range(CHUNK // 4):
-                q, k = divmod(word, 4)
-                bw[q >> 1] |= np.uint64(int(_pack4(int(m[word])))
-                                        << (16 * (q & 1) + 4 * k))
-            bits[16 * c:16 * c + 16] = bw.astype(np.uint32).view(np.uint8)
-            wrote[i0:i0 + CHUNK] += 1
-            wrote_bits[16 * c:16 * c + 16] += 1
-        else:
-            acc = [0, 0, 0, 0]
-            for m_ in range(min(CHUNK, n - i0)):
-                i = i0 + m_
-                if i < rlen:
-                    cb = int(region[i])
-                    reads["region"][i] += 1
-                else:
-                    cb = int(cur[i])
-                    reads["cur"][i] += 1
-                pb = int(prev[i])
-                t = thr if tmap is None else int(tmap[i])
-                ch = abs(cb - pb) > t
-                prev[i] = cb if (ch or not negfeed) else pb
-                wrote[i] += 1
-                acc[m_ >> 5] |= int(ch) << (m_ & 31)
-            for j in range(16):
-                if 16 * c + j < nbits:
-                    bits[16 * c + j] = (acc[j >> 2] >> (8 * (j & 3))) & 255
-                    wrote_bits[16 * c + j] += 1
-    return bits, prev, wrote, wrote_bits, reads, owners
+    reads = {"cur": np.zeros(n, np.int64), "prev": np.zeros(n, np.int64),
+             "map": np.zeros(n, np.int64),
+             "region": np.zeros(max(rlen, 1), np.int64)}
+    paths = {"vector": 0, "bytes": 0}
+
+    def aligned(name, i):
+        return (offs.get(name, 0) + i) % 16 == 0
+
+    owners = np.arange(tiles) % (grid * WARPS)
+    for t in range(tiles):
+        for q in range(VECS):
+            for lane in range(32):
+                i0 = t * TILE + 512 * q + 16 * lane
+                valid = n - i0
+                if valid <= 0:
+                    continue
+                idx = np.arange(i0, i0 + min(valid, 16))
+                in_reg = idx < rlen
+                whole = valid >= 16 and (in_reg.all() or not in_reg.any())
+                src = "region" if in_reg.all() else "cur"
+                vec = whole and aligned(src, i0) and aligned("prev", i0)
+                paths["vector" if vec else "bytes"] += 1
+                cb = np.zeros(16, np.uint8)
+                pb = np.zeros(16, np.uint8)
+                tb = np.zeros(16, np.uint8)
+                cb[:idx.size] = np.where(in_reg, region[np.minimum(
+                    idx, max(rlen - 1, 0))] if rlen else 0, cur[idx])
+                np.add.at(reads["region"], idx[in_reg], 1)
+                np.add.at(reads["cur"], idx[~in_reg], 1)
+                pb[:idx.size] = prev[idx]
+                reads["prev"][idx] += 1
+                if tmap is not None:
+                    tb[:idx.size] = tmap[idx]
+                    reads["map"][idx] += 1
+                cw, pw = _words(cb), _words(pb)
+                tw = (_words(tb) if tmap is not None
+                      else np.full(4, thr * 0x01010101, np.uint32))
+                m = _vcmpgtu4(_vabsdiffu4(cw, pw), tw)
+                nw = (cw & m) | (pw & ~m) if negfeed else cw
+                m16 = sum(int(_pack4(int(m[k]))) << (4 * k) for k in range(4))
+                prev[idx] = nw.view(np.uint8)[:idx.size]
+                dl[idx] = (cb.astype(np.int64) - pb)[:idx.size] & 255
+                writer[idx] = owners[t] * 32 + lane
+                wrote[idx] += 1
+                bits[i0 // 8] = m16 & 255
+                wrote_bits[i0 // 8] += 1
+                if valid > 8:
+                    bits[i0 // 8 + 1] = m16 >> 8
+                    wrote_bits[i0 // 8 + 1] += 1
+    return (bits, prev, dl if delta else None, writer, wrote, wrote_bits,
+            reads, owners, paths)
 
 
+@pytest.mark.parametrize("offs", [{}, {"cur": 3, "prev": 3, "map": 3},
+                                  {"region": 5}],
+                         ids=["aligned", "views", "region_view"])
 @pytest.mark.parametrize("n,rlen", [(1, 0), (8, 0), (129, 0), (128, 128),
                                     (48 * 50 * 3, 1001),
                                     (48 * 64 * 3, 9 * 64 * 3),
-                                    (48 * 64 * 3 + 5, 0)])
+                                    (48 * 64 * 3 + 5, 0),
+                                    (3 * TILE, TILE + 8),
+                                    (4 * TILE - 7, 2 * TILE - 1)])
 @pytest.mark.parametrize("thr", ["20", "map"])
-def test_launch_model_writes_each_byte_once_and_matches(n, rlen, thr):
-    """Every frame byte and bits byte is written by exactly one chunk, no
-    read leaves the frame or the region (the region's bytes are read
-    instead of the frame's, never both), and the model's bits and state,
-    through the word path's arithmetic, equal the plain version's."""
+def test_launch_model_writes_each_byte_once_and_matches(n, rlen, thr, offs):
+    """Every frame byte and bits byte is written once, by one lane (the
+    lane of the bits' 16 frame bytes), no read leaves the frame, the
+    region or the map (the region's bytes are read instead of the
+    frame's, never both), and the model's bits, state and delta, through
+    the lanes' word arithmetic, equal the plain version's: at tile
+    boundaries, a region's end inside a tile and inside a vector, ragged
+    tails and views that are not 16-byte aligned."""
     cur, prev = _pair(n + rlen, n)
     region = _bytes(7, rlen) if rlen else None
     tmap = _bytes(8, n) if thr == "map" else None
     grid = diff.diff_pack_plan(n, SMS)
     assert 1 <= grid <= BLOCKS_PER_SM * SMS
-    bits, new_prev, wrote, wrote_bits, reads, owners = _launch_model(
-        cur, prev, 20, True, region, tmap, grid)
+    (bits, new_prev, dl, writer, wrote, wrote_bits, reads, owners,
+     paths) = _launch_model(cur, prev, 20, True, region, tmap, grid, True,
+                            offs)
     assert (wrote == 1).all() and (wrote_bits == 1).all()
+    # bits byte k's 8 frame bytes are one lane's
+    assert all(len(set(writer[8 * k:8 * k + 8])) == 1
+               for k in range(wrote_bits.size))
     # each frame byte read once, from the region below its end, else cur
     assert (reads["cur"][:rlen] == 0).all()
-    assert (reads["cur"][rlen:] == 1).all()
+    assert (reads["cur"][rlen:] == 1).all() and (reads["prev"] == 1).all()
     if rlen:
         assert (reads["region"] == 1).all()
-    assert owners.max() < grid * THREADS
+    assert (reads["map"] == (tmap is not None)).all()
+    assert owners.max() < grid * WARPS
+    if n >= 16 and not offs:
+        assert paths["vector"] > 0
+    if offs.get("cur"):
+        assert paths["vector"] == 0
     tp = torch.from_numpy(prev.copy())
-    want_bits, _ = diff.diff_pack(
+    want_bits, want_delta = diff.diff_pack(
         torch.from_numpy(cur), tp, 20 if tmap is None else
         torch.from_numpy(tmap), True,
-        None if region is None else torch.from_numpy(region))
+        None if region is None else torch.from_numpy(region), True)
     np.testing.assert_array_equal(bits, want_bits.numpy())
     np.testing.assert_array_equal(new_prev, tp.numpy())
+    np.testing.assert_array_equal(dl, want_delta.numpy())
 
 
-@pytest.mark.parametrize("n", [6_220_800, 6_220_801, 1, 32_768 * 132 * 9])
+@pytest.mark.parametrize("n", [6_220_800, 6_220_800 // 4, 6_220_801, 1,
+                               6_220_800 // 4 + 777, 32_768 * 132 * 9])
 def test_plan_covers_every_chunk(n):
-    """The 1080p frame and the edges: each chunk has one owner thread, a
-    thread takes at most one chunk more than another, and the grid never
-    exceeds its cap."""
+    """The 1080p frame, its S = 4 shard and the edges: each tile has one
+    owner warp, the grid is one wave of at most :data:`BLOCKS_PER_SM`
+    blocks an SM, and with block ``b`` on SM ``b mod SMS`` the SMs' tiles
+    differ by at most one."""
     grid = diff.diff_pack_plan(n, SMS)
-    chunks = -(-n // CHUNK)
-    per_thread = np.bincount(np.arange(chunks) % (grid * THREADS),
-                             minlength=grid * THREADS)
-    assert per_thread.sum() == chunks
-    assert per_thread.max() - per_thread.min() <= 1
-    assert grid == max(1, min(BLOCKS_PER_SM * SMS, -(-chunks // THREADS)))
+    tiles = -(-n // TILE)
+    assert grid == max(1, min(BLOCKS_PER_SM * SMS, tiles))
+    warp = np.arange(tiles) % (grid * WARPS)  # global warp w * grid + b
+    block = warp % grid
+    per_sm = np.bincount(block % SMS, minlength=SMS)
+    assert per_sm.sum() == tiles
+    assert per_sm.max() - per_sm.min() <= 1
+    per_warp = np.bincount(warp, minlength=grid * WARPS)
+    assert per_warp.max() - per_warp.min() <= 1
+    if n == 6_220_800:  # 6,075 tiles: 46 or 47 an SM, 264 blocks
+        assert (tiles, grid, per_sm.max()) == (6075, 264, 47)
 
 
 def test_pack4_bit_order():

@@ -8,8 +8,12 @@ CPU tensor) against the JAX package's ``heatmap(use_sine=False)``,
 384)`` layout) and 48x50 (its fallback), with the overlay region read in
 place of the frame's prefix, thresholds 0 and 20 and a per-byte map; the
 super-frame form (``streams=B``) against B solo calls and row shards
-against the solo frame; a host model of one launch (every output byte
-written once, every read inside its frame, stream, region or map); the
+against the solo frame; host models of one launch: K11 and K13's runs
+of 16 pixels a thread and K12's warp tiles (every output byte written
+once, by one lane, every read inside its frame, stream, region or map;
+for K12 the lanes' word arithmetic and shuffles give the plain version's
+bytes at tile edges, strip ends, stream boundaries inside a tile, ragged
+tails and unaligned views), and the SMs' shares of each plan; the
 pipelines' aux frames, made from the frame and the strip with no
 overlaid copy; and the wrappers on a CUDA tensor, which launch or raise.
 Tolerance is zero throughout.
@@ -64,6 +68,14 @@ PIX = _constexpr("kPix")
 RUN = _constexpr("kRun")
 LUT_SIZE = _constexpr("kLutSize")
 BLOCKS_PER_SM = _constexpr("kBlocksPerSm")
+WARPS = _constexpr("kWarps")
+RED_VECS = _constexpr("kRedVecs")
+RED_TILE = _constexpr("kRedTile")
+RED_BLOCKS_PER_SM = _constexpr("kRedBlocksPerSm")
+# r_bytes: the R bytes of a vector at phase 0, 1, 2
+R_BYTES = [int(v, 16) for v in re.search(
+    r"r == 0 \? (0x[0-9a-f]+)u : r == 1 \? (0x[0-9a-f]+)u : (0x[0-9a-f]+)u",
+    (CSRC / "visualize.cu").read_text()).groups()]
 
 
 def _bytes(seed, n):
@@ -86,6 +98,14 @@ def test_constants_read_from_the_kernel():
         filters.VIS_THREADS, filters.VIS_PIXELS, filters.LUT_SIZE,
         filters.VIS_BLOCKS_PER_SM)
     assert RUN == 3 * PIX and RUN % 16 == 0  # three 16-byte vectors a run
+    assert (RED_VECS, RED_TILE, RED_BLOCKS_PER_SM, WARPS) == (
+        filters.RED_VECS, filters.RED_TILE, filters.RED_BLOCKS_PER_SM,
+        filters.RED_WARPS)
+    # K12's tile: rows of a warp's 32 16-byte vectors, whole pixels
+    assert RED_TILE == 512 * RED_VECS and RED_TILE % 3 == 0
+    # bit j of R_BYTES[r] is set where byte j of a vector at phase r is R
+    for r in range(3):
+        assert R_BYTES[r] == sum(1 << j for j in range(16) if (r + j) % 3 == 2)
     # the op codes of the C entry
     code = (CSRC / "visualize.cu").read_text()
     enum = re.search(r"enum Op \{([^}]*)\}", code).group(1)
@@ -270,7 +290,8 @@ def test_refusals():
                    29, dtype=torch.uint8), False),
                lambda: filters.red_visualizer(f, p, torch.zeros(
                    30, dtype=torch.uint8), False, streams=2),
-               lambda: filters.vis_plan(0, SMS)):
+               lambda: filters.vis_plan(0, SMS),
+               lambda: filters.red_plan(0, SMS)):
         with pytest.raises(ValueError):
             fn()
 
@@ -325,26 +346,176 @@ def _launch_model(n, sn, rlen, grid):
     return src, map_idx, wrote, owners
 
 
+def _words(b):
+    return np.frombuffer(np.asarray(b, np.uint8).tobytes(), np.uint32)
+
+
+def _pack4(m):
+    """``pack4`` of csrc/visualize.cu on uint32 words of 0x00/0xff bytes."""
+    return (((m & 0x01010101) * 0x10204080) & 0xFFFFFFFF) >> 28
+
+
+def _spread4(b):
+    """``spread4``: 4 bits to 4 bytes, 0xff where the bit is set."""
+    return (((b * 0x00204081) & 0x01010101) * 0xFF) & 0xFFFFFFFF
+
+
+def _simd_mask(cb, pb, tb):
+    """``pack4(__vcmpgtu4(__vabsdiffu4(c, p), t))`` of 4 words: bit j set
+    where byte j changed."""
+    d = np.abs(cb.astype(np.int64) - pb)
+    m = np.where(d > tb, 0xFF, 0).astype(np.uint8)
+    return sum(int(_pack4(int(w))) << (4 * q)
+               for q, w in enumerate(_words(m)))
+
+
+def _red_model(cur, prev, thr, region, b, overlap, offs=None):
+    """One launch of ``red_kernel`` on the host, lane by lane: tile ``t``
+    of :data:`RED_TILE` bytes belongs to global warp ``t mod (grid *
+    WARPS)``; lane ``l`` takes the 16 bytes at ``512 k + 16 l`` of the
+    overlaid frame, of prev and of the map at the stream's byte ``j = i
+    mod sn``, in one load of each where the vector lies whole in one
+    stream, on one side of its strip's end and 16-byte aligned (``offs``:
+    each array's address mod 16), else byte by byte, zero past the frame.
+    Its 16 change bits take the vector before's last two (lane ``l - 1``,
+    or lane 31 of vector ``k - 1`` for lane 0: the shuffles), and its R
+    bytes by phase ``(l + 2 k) % 3`` (:data:`R_BYTES`). Returns ``(out,
+    writer of each byte, writes of each byte, reads by array, the tiles'
+    warps, vectors by path)``."""
+    offs = offs or {}
+    n = cur.size
+    sn = n // b
+    rlen = 0 if region is None else region.size // b
+    tmap = thr if isinstance(thr, np.ndarray) else None
+    tiles = -(-n // RED_TILE)
+    grid = filters.red_plan(n, SMS)
+    owners = np.arange(tiles) % (grid * WARPS)
+    out = np.zeros(n, np.uint8)
+    writer = np.full(n, -1, np.int64)
+    wrote = np.zeros(n, np.int64)
+    reads = {"cur": np.zeros(n, np.int64), "prev": np.zeros(n, np.int64),
+             "region": np.zeros(max(b * rlen, 1), np.int64),
+             "map": np.zeros(sn, np.int64)}
+    paths = {"vector": 0, "bytes": 0}
+
+    def aligned(name, i):
+        return (offs.get(name, 0) + int(i)) % 16 == 0
+
+    for t in range(tiles):
+        m = np.zeros((RED_VECS, 32), np.int64)
+        pws = {}
+        for k in range(RED_VECS):
+            for lane in range(32):
+                i0 = t * RED_TILE + 512 * k + 16 * lane
+                if i0 >= n:
+                    continue
+                idx = np.arange(i0, min(i0 + 16, n))
+                s_idx, j = np.divmod(idx, sn)
+                in_reg = j < rlen
+                src_idx = np.where(in_reg, s_idx * rlen + j, idx)
+                whole = (idx.size == 16 and (s_idx == s_idx[0]).all()
+                         and (in_reg.all() or not in_reg.any()))
+                src = "region" if in_reg[0] else "cur"
+                if whole and aligned(src, src_idx[0]):
+                    paths["vector"] += 1
+                else:
+                    paths["bytes"] += 1
+                cb, pb, tb = (np.zeros(16, np.uint8) for _ in range(3))
+                if rlen:
+                    cb[:idx.size] = np.where(
+                        in_reg, region[np.where(in_reg, src_idx, 0)],
+                        cur[idx])
+                else:
+                    cb[:idx.size] = cur[idx]
+                np.add.at(reads["region"], src_idx[in_reg], 1)
+                np.add.at(reads["cur"], idx[~in_reg], 1)
+                pb[:idx.size] = prev[idx]
+                reads["prev"][idx] += 1
+                if tmap is not None:
+                    tb[:idx.size] = tmap[j]
+                    np.add.at(reads["map"], j, 1)
+                else:
+                    tb[:] = thr
+                m[k, lane] = _simd_mask(cb, pb, tb)
+                pws[k, lane] = _words(pb)
+        for k in range(RED_VECS):
+            for lane in range(32):
+                i0 = t * RED_TILE + 512 * k + 16 * lane
+                if i0 >= n:
+                    continue
+                before = (m[k, lane - 1] if lane else m[k - 1, 31] if k
+                          else 0)
+                e = (int(m[k, lane]) << 2) | (int(before) >> 14)
+                red = (e | e >> 1 | e >> 2) & R_BYTES[(lane + 2 * k) % 3]
+                o = np.array([_spread4((red >> (4 * q)) & 15)
+                              | (int(pws[k, lane][q]) if overlap else 0)
+                              for q in range(4)], np.uint32)
+                idx = np.arange(i0, min(i0 + 16, n))
+                out[idx] = o.view(np.uint8)[:idx.size]
+                writer[idx] = owners[t] * 32 + lane
+                wrote[idx] += 1
+    return out, writer, wrote, reads, owners, paths
+
+
+@pytest.mark.parametrize("kernel", ["runs", "tiles", "tiles_views"])
 @pytest.mark.parametrize("npx,b,rlen", [
     (1, 1, 0), (16, 1, 0), (17, 1, 3), (48 * 50, 1, 9 * 150 + 6),
     (48 * 64, 1, 48 * 64 * 3), (2 * 48 * 50, 2, 7 * 150 + 6),
-    (3 * 271 * 19, 3, 5751), (4 * 5, 4, 6), (4 * 5, 4, 15)])
-def test_launch_model_reads_inside_and_writes_once(npx, b, rlen):
+    (3 * 271 * 19, 3, 5751), (4 * 5, 4, 6), (4 * 5, 4, 15),
+    (3 * 512 + 1, 1, 1536 + 6), (2 * 512 * 3 - 2 * 47, 2, 1536 - 16)])
+def test_launch_model_reads_inside_and_writes_once(npx, b, rlen, kernel):
     """Every output byte is written by exactly one thread; every overlaid
     byte is read once, from its own stream's strip below the strip's end
     (never past it) and from cur above it; every map read lies inside the
     stream's map; and the bytes the model reads give the plain version's
-    overlaid frame."""
+    overlaid frame. ``runs``: K11 and K13 (runs of 16 pixels a thread);
+    ``tiles``: K12's warp tiles, whose output, through the lanes' word
+    arithmetic and shuffles, equals the plain version's in modes 2 and 3
+    with the int threshold and a map (at tile edges, a strip's end inside
+    a tile, stream boundaries inside a tile, ragged tails); ``tiles_views``
+    the same with cur, prev, the map and the strips not 16-byte
+    aligned."""
     n = 3 * npx
     sn = n // b
+    cur = _bytes(npx, n)
+    region = _bytes(npx + 1, b * rlen)
+    if kernel != "runs":
+        offs = {"cur": 3, "prev": 5, "map": 1, "region": 7} \
+            if kernel == "tiles_views" else {}
+        prev = np.where(_bytes(npx + 2, n) < 200, cur,
+                        _bytes(npx + 3, n)).astype(np.uint8)
+        for thr, overlap in ((20, True), (20, False),
+                             (_bytes(npx + 4, sn), True)):
+            got, writer, wrote, reads, owners, paths = _red_model(
+                cur, prev, thr, region if rlen else None, b, overlap, offs)
+            assert (wrote == 1).all() and (writer >= 0).all()
+            assert owners.max() < filters.red_plan(n, SMS) * WARPS
+            over = diff.region_frame(_t(cur), _t(region) if rlen else None,
+                                     b).numpy()
+            assert (reads["prev"] == 1).all()
+            j = np.arange(n) % sn
+            assert (reads["cur"] == (j >= rlen)).all()
+            if rlen:
+                assert (reads["region"] == 1).all()
+            if isinstance(thr, np.ndarray):
+                assert (reads["map"] == b).all()
+            if kernel == "tiles_views":
+                assert paths["vector"] == 0
+            np.testing.assert_array_equal(
+                got, filters.red_visualizer_reference(
+                    _t(over), _t(prev), _t(thr) if isinstance(
+                        thr, np.ndarray) else thr, overlap, None,
+                    b).numpy())
+            np.testing.assert_array_equal(
+                got, _port("red_overlap" if overlap else "red_black", cur,
+                           prev, thr, region if rlen else None, b).numpy())
+        return
     grid = filters.vis_plan(npx, SMS)
     assert 1 <= grid <= BLOCKS_PER_SM * SMS
     src, map_idx, wrote, owners = _launch_model(n, sn, rlen, grid)
     assert (wrote == 1).all()
     assert owners.size == 0 or owners.max() < grid * THREADS
     assert ((map_idx >= 0) & (map_idx < sn)).all()
-    cur = _bytes(npx, n)
-    region = _bytes(npx + 1, b * rlen)
     got = np.empty(n, np.uint8)
     for i, (kind, k) in enumerate(src):
         s, j = divmod(i, sn)
@@ -359,13 +530,33 @@ def test_launch_model_reads_inside_and_writes_once(npx, b, rlen):
                                b).numpy())
 
 
-@pytest.mark.parametrize("npx", [1920 * 1080, 4 * 1920 * 1080, 17])
-def test_plan_spreads_runs_evenly(npx):
-    grid = filters.vis_plan(npx, SMS)
-    runs = npx // PIX
-    per_thread = np.bincount(np.arange(runs) % (grid * THREADS),
-                             minlength=grid * THREADS)
-    assert per_thread.max() - per_thread.min() <= 1
+@pytest.mark.parametrize("plan", ["vis_plan", "red_plan"])
+@pytest.mark.parametrize("npx", [1920 * 1080, 4 * 1920 * 1080, 17,
+                                 1920 * 1080 // 4, 1920 * 1080 // 4 + 333])
+def test_plan_spreads_runs_evenly(npx, plan):
+    """``vis_plan`` (K11, K13): the threads' runs differ by at most one.
+    ``red_plan`` (K12): one wave of at most :data:`RED_BLOCKS_PER_SM`
+    blocks an SM, each tile one warp's, and with block ``b`` on SM ``b mod
+    SMS`` the SMs' tiles differ by at most one (at 1080p 4,050 tiles, 30
+    or 31 an SM)."""
+    if plan == "vis_plan":
+        grid = filters.vis_plan(npx, SMS)
+        runs = npx // PIX
+        per_thread = np.bincount(np.arange(runs) % (grid * THREADS),
+                                 minlength=grid * THREADS)
+        assert per_thread.max() - per_thread.min() <= 1
+        return
+    n = 3 * npx
+    grid = filters.red_plan(n, SMS)
+    tiles = -(-n // RED_TILE)
+    assert grid == max(1, min(RED_BLOCKS_PER_SM * SMS, tiles))
+    warp = np.arange(tiles) % (grid * WARPS)
+    per_sm = np.bincount(warp % grid % SMS, minlength=SMS)
+    assert per_sm.sum() == tiles and per_sm.max() - per_sm.min() <= 1
+    per_warp = np.bincount(warp, minlength=grid * WARPS)
+    assert per_warp.max() - per_warp.min() <= 1
+    if npx == 1920 * 1080:
+        assert (tiles, grid, per_sm.max()) == (4050, 264, 31)
 
 
 # -- the pipelines: aux frames from the frame and the strip ------------------

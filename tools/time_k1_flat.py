@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K1 emissions, K2, K3, K4, K5, K6, K7, K8, K9 and the tiled
-and sharded steps of one checkout, at 1080p.
+"""Time the K1 emissions, K2-K10, K12 and the tiled and sharded steps of
+one checkout, at 1080p.
 
     python3 tools/time_k1_flat.py CHECKOUT_ROOT [MODE ...]
 
@@ -48,7 +48,12 @@ events time the device alone. Modes:
   16 equal gray values take one histogram add): two lines;
 * ``binarize_batched``: K9 on B = 4 streams of the frame (4 sets in turn),
   as ``BatchedDeltaPipeline`` calls it: one ``streams=4`` call where the
-  checkout takes one, else a call a stream into its slice of the output.
+  checkout takes one, else a call a stream into its slice of the output;
+* ``diff_pack``: K10 (``diff_pack``, the HOST step) on 16 copies of the
+  frame and of ``prev`` in turn (200 MB, cold in L2), threshold 20
+  without the delta, with the delta, and with a map of 20s: three lines;
+* ``red``: K12 (``red_visualizer``) on the same copies, mode 3, mode 2
+  and mode 3 with a map of 20s: three lines.
 
 To compare two commits, unpack the other one into a git-ignored directory
 (``git archive COMMIT | tar -x -C build/parent``) and time both in one
@@ -71,7 +76,7 @@ import torch
 MODES = ("flat", "map", "tiled", "mask", "batched", "offset", "step",
          "sharded", "pair", "vals", "hist", "register", "segment",
          "segment_map", "segment_batched", "probe", "conv", "binarize",
-         "binarize_batched")
+         "binarize_batched", "diff_pack", "red")
 
 
 def _medians(fn, refill=None, iters=100):
@@ -142,6 +147,34 @@ def _filters(root, mode, card, c0, rng):
           flush=True)
 
 
+def _k10_k12(root, mode, card, c0, p0, rng):
+    """The ``diff_pack`` and ``red`` modes."""
+    from cudavideostream_tpu_torch.ops import diff, filters
+
+    n = c0.numel()
+    curs = [c0.roll(int(rng.integers(1, n))) for _ in range(16)]
+    prevs = [p0.roll(int(rng.integers(1, n))) for _ in range(16)]
+    tmaps = [torch.full_like(c0, 20) for _ in range(16)]
+    forms = {
+        "diff_pack": {
+            "": lambda i: diff.diff_pack(curs[i % 16], prevs[i % 16], 20),
+            " delta": lambda i: diff.diff_pack(curs[i % 16], prevs[i % 16],
+                                               20, want_delta=True),
+            " map": lambda i: diff.diff_pack(curs[i % 16], prevs[i % 16],
+                                             tmaps[i % 16])},
+        "red": {
+            " mode 3": lambda i: filters.red_visualizer(
+                curs[i % 16], prevs[i % 16], 20, True),
+            " mode 2": lambda i: filters.red_visualizer(
+                curs[i % 16], prevs[i % 16], 20, False),
+            " mode 3 map": lambda i: filters.red_visualizer(
+                curs[i % 16], prevs[i % 16], tmaps[i % 16], True)}}
+    for label, fn in forms[mode].items():
+        medians = _medians(fn)
+        print(root, mode + label, card,
+              " ".join(f"{m:.4f}" for m in medians), "ms", flush=True)
+
+
 def main() -> int:
     root = sys.argv[1]
     modes = sys.argv[2:] or ["flat"]
@@ -173,6 +206,9 @@ def main() -> int:
     for mode in modes:
         if mode in ("conv", "binarize", "binarize_batched"):
             _filters(root, mode, card, c0, rng)
+            continue
+        if mode in ("diff_pack", "red"):
+            _k10_k12(root, mode, card, c0, p0, rng)
             continue
         if mode in ("hist", "probe"):
             from cudavideostream_tpu_torch.config import StreamConfig
