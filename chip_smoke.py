@@ -12,7 +12,7 @@ Phases (any failure raises and the script exits non-zero):
 2. build: every hand-written kernel, from ``csrc/`` (ten sources), one
    ``nvcc`` per source, all started together; no kernel of K9-K13 may
    keep a stack frame (``cuobjdump -res-usage``; K8's registers and stack
-   a K are printed); K10's and K12's grids and tiles an SM at 1080p and
+   a K are printed); K10's, K11's and K12's grids and tiles an SM at 1080p and
    at S = 4 are printed; no instance of K8's
    ``conv_kernel<K>`` may load a byte from shared memory (``cuobjdump
    -sass``: its window comes as ``LDS.64`` words); the card must hold at
@@ -81,13 +81,14 @@ Phases (any failure raises and the script exits non-zero):
    prefix; K10 (the HOST step, ``diff_pack``) and K11-K13 (``heatmap``,
    ``red_visualizer`` modes 2 and 3, ``grayscale_average`` and
    ``_weighted``) at 1080p and on a ragged width, without a region, with
-   the strip and with a strip ending inside a run of 16 pixels, K10 and
+   the strip and with a strip ending inside a 16-byte vector, K10 and
    K12 with thresholds 20 and 0, a map and a map of 0s and 255s, K10 with
    and without negative feedback and the delta, on ragged lengths (the
-   bits' zero padding) and unaligned views, K10 and K12 at the edges of
+   bits' zero padding) and unaligned views, K10-K13 at the edges of
    their warp tiles (a strip ending inside a tile and inside a vector,
-   lengths of whole tiles +- 1-127 bytes, unaligned frames, prev and
-   maps), K12 on B = 2 and 4 streams at strides that split a tile, K11 on
+   lengths of whole tiles +- 1-127 bytes or 1-47 pixels, unaligned
+   frames, prev and maps), K11-K13 on B = 2 and 4 streams at strides that
+   split a tile, K11 on
    sums 0..765 (the
    wrap), K11-K13 on B = 2 and 4 streams at a ragged stride against solo
    calls, all four on S = 4 shards against the solo frame and in 20
@@ -266,6 +267,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -488,7 +490,7 @@ def phase_build():
 
 
 def warp_tile_plans():
-    """Print K10's and K12's launch plans at 1080p and at an S = 4 shard
+    """Print K10's, K11's and K12's launch plans at 1080p and at an S = 4 shard
     (grid, tiles, tiles an SM with block ``b`` on SM ``b mod SMs``)."""
     from cudavideostream_tpu_torch.ops import diff
     from cudavideostream_tpu_torch.ops import filters
@@ -497,8 +499,14 @@ def warp_tile_plans():
     kernels = {
         "K10 diff_pack_kernel": (diff.diff_pack_plan, diff.DP_TILE,
                                  diff.DP_WARPS, diff.DP_BLOCKS_PER_SM),
-        "K12 red_kernel": (filters.red_plan, filters.RED_TILE,
-                           filters.RED_WARPS, filters.RED_BLOCKS_PER_SM)}
+        "K12 red_kernel": (
+            functools.partial(filters.tile_plan,
+                              per_sm=filters.RED_BLOCKS_PER_SM),
+            filters.VIS_TILE, filters.VIS_WARPS, filters.RED_BLOCKS_PER_SM),
+        "K11 heat_kernel": (
+            functools.partial(filters.tile_plan,
+                              per_sm=filters.HEAT_BLOCKS_PER_SM),
+            filters.VIS_TILE, filters.VIS_WARPS, filters.HEAT_BLOCKS_PER_SM)}
     n = 1920 * 1080 * 3
     for name, (plan, tile, warps, per_sm) in kernels.items():
         shares = []
@@ -1642,11 +1650,14 @@ def phase_visualize_vs_plain(cfg):
     ``red_visualizer``, ``grayscale_average`` / ``_weighted``) against
     their plain versions on the card, byte for byte: at 1080p and on a
     ragged width (5,751 B a row), without a region, with the overlay strip
-    and with a strip whose end falls inside a run of 16 pixels; K10 and
+    and with a strip whose end falls inside a 16-byte vector; K10 and
     K12 with thresholds 20 and 0, a per-byte map and a map of 0s and
     255s; K10 with and without negative feedback and the delta, on
     lengths 1-17, 127-129 and lengths not a multiple of 8, and on views
-    that start unaligned; K11 on a pair that reaches d = 510..765; K11-K13
+    that start unaligned; K10-K13 at their warp tiles' edges (whole
+    tiles +- 1-127 B or 1-47 pixels, strips ending inside a tile and a
+    vector, unaligned views, B = 2 and 4 streams whose stride splits a
+    tile); K11 on a pair that reaches d = 510..765; K11-K13
     on B = 2 and 4 streams at a ragged stride against B solo calls; all
     four on S = 4 row shards against the solo frame; 20 launches of each
     back to back on one stream and on two at once; K9 with the overlay
@@ -1724,7 +1735,7 @@ def phase_visualize_vs_plain(cfg):
         n = h * w * 3
         strip = cell_h * w * 3
         regions = {"no region": None, f"the strip ({strip} B)": rand(strip),
-                   f"a strip ending inside a run ({strip + 6} B)":
+                   f"a strip ending inside a vector ({strip + 6} B)":
                        rand(strip + 6)}
         cur, prev = (torch.from_numpy(f).to(dev)
                      for f in frame_pair(rng, n, 0.06)[::-1])
@@ -1769,8 +1780,8 @@ def phase_visualize_vs_plain(cfg):
     log("[check] K11-K13 on 1, 15, 16, 17, 12,345 and 1080p +- 1 pixels, "
         "the frame 3 B past an aligned start, a 51-byte region, K12 with a "
         "map: each == its plain version, exact")
-    # the warp tiles' edges: K10's tiles of DP_TILE bytes, K12's of
-    # RED_TILE (512 pixels); strips that end inside a tile and inside a
+    # the warp tiles' edges: K10's tiles of DP_TILE bytes, K11-K13's of
+    # VIS_TILE (512 pixels); strips that end inside a tile and inside a
     # 16-byte vector; frames, prev and maps that are not 16-byte aligned
     for k in (1, 3, 10):
         for d in (-127, -64, -17, -16, -15, -8, -1, 1, 8, 15, 16, 17, 127):
@@ -1782,28 +1793,32 @@ def phase_visualize_vs_plain(cfg):
                 rand(min(m, (k - 1) * diff.DP_TILE + 24)), False)
     for k in (1, 2, 7):
         for d in (-47, -31, -16, -5, -1, 1, 5, 16, 31, 47):
-            px = k * filters.RED_TILE // 3 + d
+            px = k * filters.VIS_TILE // 3 + d
             m = 3 * px
-            for op in ("red black", "red overlap"):
+            for op in vis_ops:
+                red = op.startswith("red")
                 vis(op, f"{px} pixels, views", rand(m + 3)[3:],
-                    rand(m + 1)[1:], rand(m + 7)[7:],
-                    rand(min(m, filters.RED_TILE + 6)))
+                    rand(m + 1)[1:], rand(m + 7)[7:] if red else 20,
+                    rand(min(m, filters.VIS_TILE + 6)))
                 vis(op, f"{px} pixels", rand(m), rand(m), 20,
-                    rand(min(m, (k - 1) * filters.RED_TILE + 21)))
+                    rand(min(m, (k - 1) * filters.VIS_TILE + 21)))
     for b, px in ((2, 3 * 1109), (4, 2 * 1109), (2, 512 * 4 + 1),
                   (4, 512 + 7)):
         sn = 3 * px
-        for op in ("red black", "red overlap"):
-            for tlabel, thr in (("20", 20), ("a map", rand(sn + 9)[9:])):
-                vis(op, f"B={b} streams of {sn} B, {tlabel}",
-                    rand(b * sn + 3)[3:], rand(b * sn), thr,
-                    rand(b * (sn // 2 + 7)), b)
+        for op in vis_ops:
+            thrs = ((("20", 20), ("a map", rand(sn + 9)[9:]))
+                    if op.startswith("red") else (("", 20),))
+            for tlabel, thr in thrs:
+                vis(op, f"B={b} streams of {sn} B{', ' if tlabel else ''}"
+                    f"{tlabel}", rand(b * sn + 3)[3:], rand(b * sn + 5)[5:],
+                    thr, rand(b * (sn // 2 + 7)), b)
     log(f"[check] K10 at whole warp tiles ({diff.DP_TILE} B) +- 1-127 B "
-        f"and K12 at whole tiles ({filters.RED_TILE} B) +- 1-47 pixels, "
-        f"with strips ending inside a tile and inside a vector, frames, "
-        f"prev and maps 1-7 B past an aligned start; K12 on B = 2 and 4 "
-        f"streams whose stride splits a tile, with the int threshold and "
-        f"a map (unaligned): each == its plain version, exact")
+        f"and K11-K13 at whole tiles ({filters.VIS_TILE} B) +- 1-47 "
+        f"pixels (k = 1, 2, 7 tiles), with strips ending inside a tile and "
+        f"inside a vector, frames, prev and maps 1-7 B past an aligned "
+        f"start; K11-K13 on B = 2 and 4 streams whose stride splits a "
+        f"tile, K12 with the int threshold and a map (unaligned): each == "
+        f"its plain version, exact")
     # K11 reaches the colormap's wrap: sums 0..765 over the frame
     d = torch.arange(npx, device=dev) % 766
     px = torch.stack([d.clamp(max=255), (d - 255).clamp(0, 255),
@@ -4247,10 +4262,13 @@ def phase_visualize_times(cfg, smi):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {"K10": f"grid {diff.diff_pack_plan(n, sms)} (tiles of "
                     f"{diff.DP_TILE} B)",
-             "K12": f"grid {filters.red_plan(n, sms)} (tiles of "
-                    f"{filters.RED_TILE} B)",
-             "K11": f"grid {filters.vis_plan(n // 3, sms)}",
-             "K13": f"grid {filters.vis_plan(n // 3, sms)}"}
+             **{k: f"grid {filters.tile_plan(n, sms, per_sm)} (warp tiles "
+                   f"of {filters.VIS_TILE} B, {-(-n // filters.VIS_TILE)} "
+                   f"of them)"
+                for k, per_sm in (("K11", filters.HEAT_BLOCKS_PER_SM),
+                                  ("K12", filters.RED_BLOCKS_PER_SM))},
+             "K13": f"grid {filters.vis_plan(n // 3, sms)} (runs of "
+                    f"{filters.VIS_PIXELS} pixels a thread)"}
     out = {}
     for label, (fn, plain, nbytes, names) in timed.items():
         fn(0)  # warm-up
@@ -7089,8 +7107,10 @@ def main() -> int:
          vk["K11 heatmap"]["ms"], vk["K11 heatmap"]["plain_ms"],
          vk["K11 heatmap"]["bound_ms"], None,
          f"byte-exact in {vis_cases['k11']} cases (d = 0..765, regions, "
-         f"ragged widths and lengths, B = 2, 4 streams, S = 4 shards, 40 "
-         f"launches back to back); heat_kernel, the LUT by value"),
+         f"ragged widths and lengths, warp tile edges, unaligned views, "
+         f"B = 2, 4 streams, S = 4 shards, 40 launches back to back); "
+         f"heat_kernel, warp tiles of {filters.VIS_TILE} B staged through "
+         f"shared memory, the LUT by value"),
         ("red_visualizer", "visualize.cu",
          "cudavideostream_tpu/ops/filters.py:435", 0,
          vk["K12 red_visualizer mode 3"]["ms"],
@@ -7100,16 +7120,18 @@ def main() -> int:
          f"thresholds 20 and 0, maps, regions, streams, shards, warp tile "
          f"edges, unaligned views); timed as mode 3 (red_overlap, :435; "
          f"mode 2 is red_black, :424); red_kernel<Overlap, Map>, warp "
-         f"tiles of {filters.RED_TILE} B"),
+         f"tiles of {filters.VIS_TILE} B"),
         ("grayscale", "visualize.cu",
          "cudavideostream_tpu/ops/filters.py:121", 0,
          vk["K13 grayscale_weighted"]["ms"],
          vk["K13 grayscale_weighted"]["plain_ms"],
          vk["K13 grayscale_weighted"]["bound_ms"], None,
          f"byte-exact in {vis_cases['k13']} cases (average and weighted, "
-         f"regions, streams, shards); timed as grayscale_weighted (:121, "
-         f"--visualizer 4; grayscale_average is :110); "
-         f"vis_kernel<3|4>"),
+         f"regions, warp tile edges, unaligned views, streams, shards); "
+         f"timed as grayscale_weighted (:121, --visualizer 4; "
+         f"grayscale_average is :110); vis_kernel<3|4>, runs of "
+         f"{filters.VIS_PIXELS} pixels a thread (on K11's warp tiles it "
+         f"tied or lost by up to 2%)"),
     ]
     kernels = []
     mesh_paths = ("mesh11_v1", "mesh11_pipelined_v3", "mesh14_cuda0",

@@ -94,20 +94,21 @@ _coresident: dict = {}
 # 256 sums and the grid barrier's arrival word
 _fused_scratch: dict = {}
 
-# K11 and K13's launch geometry (csrc/visualize.cu): each thread takes
-# VIS_PIXELS pixels at a time, blocks of VIS_THREADS threads, at most
-# VIS_BLOCKS_PER_SM an SM; the heatmap's LUT has LUT_SIZE entries
+# K11-K13's launch geometry (csrc/visualize.cu): blocks of VIS_THREADS
+# threads. K11 and K12 walk warp tiles of VIS_TILE bytes (512 pixels),
+# VIS_VECS 16-byte vectors a lane, HEAT_BLOCKS_PER_SM (K11) or
+# RED_BLOCKS_PER_SM (K12, whose map instance takes 116 registers) blocks
+# an SM; K13 takes VIS_PIXELS pixels a thread at a time, at most
+# VIS_BLOCKS_PER_SM blocks an SM. The heatmap's LUT has LUT_SIZE entries
 VIS_THREADS = 256
+VIS_WARPS = VIS_THREADS // 32
+VIS_VECS = 3
+VIS_TILE = 512 * VIS_VECS
+HEAT_BLOCKS_PER_SM = 4
+RED_BLOCKS_PER_SM = 2
 VIS_PIXELS = 16
 VIS_BLOCKS_PER_SM = 8
 LUT_SIZE = 766
-# K12's (red_kernel): a warp takes tiles of RED_TILE bytes (512 pixels),
-# RED_VECS 16-byte vectors a lane; blocks of VIS_THREADS threads,
-# RED_BLOCKS_PER_SM an SM
-RED_VECS = 3
-RED_TILE = 512 * RED_VECS
-RED_WARPS = VIS_THREADS // 32
-RED_BLOCKS_PER_SM = 2
 # the kernel's op codes
 VIS_OPS = {"heatmap": 0, "red_black": 1, "red_overlap": 2,
            "grayscale_average": 3, "grayscale_weighted": 4}
@@ -675,45 +676,47 @@ def _visualize_lib() -> ctypes.CDLL:
         lib.cvs_visualize.restype = i
         lib.cvs_error_string.argtypes = [i]
         lib.cvs_error_string.restype = ctypes.c_char_p
-        names = ("cvs_vis_threads", "cvs_vis_pixels", "cvs_vis_lut_size",
-                 "cvs_vis_blocks_per_sm", "cvs_red_vecs",
-                 "cvs_red_blocks_per_sm")
+        names = ("cvs_vis_threads", "cvs_vis_lut_size", "cvs_tile_vecs",
+                 "cvs_heat_blocks_per_sm", "cvs_red_blocks_per_sm",
+                 "cvs_vis_pixels", "cvs_vis_blocks_per_sm")
         for name in names:
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         if (tuple(getattr(lib, name)() for name in names)
-                != (VIS_THREADS, VIS_PIXELS, LUT_SIZE, VIS_BLOCKS_PER_SM,
-                    RED_VECS, RED_BLOCKS_PER_SM)):
+                != (VIS_THREADS, LUT_SIZE, VIS_VECS, HEAT_BLOCKS_PER_SM,
+                    RED_BLOCKS_PER_SM, VIS_PIXELS, VIS_BLOCKS_PER_SM)):
             raise RuntimeError("csrc/visualize.cu geometry disagrees with "
                                "ops/filters.py")
         _vis_lib = lib
     return _vis_lib
 
 
+def tile_plan(n: int, sms: int, per_sm: int) -> int:
+    """Blocks of one K11 or K12 launch over ``n`` frame bytes (all streams)
+    on a card of ``sms`` SMs: ``per_sm`` an SM (:data:`HEAT_BLOCKS_PER_SM`
+    or :data:`RED_BLOCKS_PER_SM`, as the kernel is compiled), one wave,
+    fewer where the frame has fewer tiles of :data:`VIS_TILE` bytes (the
+    last one ragged). Warp ``w`` of block ``b`` takes tiles ``w * grid +
+    b``, then every ``grid * VIS_WARPS`` further, so tile ``t`` falls to
+    block ``t mod grid``, and with block ``b`` on SM ``b mod sms`` every SM
+    takes the same number of tiles, give or take one."""
+    if n <= 0 or sms <= 0 or per_sm <= 0:
+        raise ValueError("tile_plan takes a nonzero length, SM count and "
+                         "blocks an SM")
+    return max(1, min(per_sm * sms, -(-n // VIS_TILE)))
+
+
 def vis_plan(npx: int, sms: int) -> int:
-    """Blocks of one K11 or K13 launch over ``npx`` pixels on a card of
-    ``sms`` SMs: one per :data:`VIS_THREADS` whole runs of
-    :data:`VIS_PIXELS` pixels, at most :data:`VIS_BLOCKS_PER_SM` an SM, at
-    least one (block 0 also takes the ragged tail of fewer than 16
-    pixels). Block ``b``'s thread ``t`` takes runs ``b * VIS_THREADS +
-    t``, then every ``grid * VIS_THREADS`` further."""
+    """Blocks of one K13 launch over ``npx`` pixels on a card of ``sms``
+    SMs: one per :data:`VIS_THREADS` whole runs of :data:`VIS_PIXELS`
+    pixels, at most :data:`VIS_BLOCKS_PER_SM` an SM, at least one (block
+    0 also takes the ragged tail of fewer than 16 pixels). Block ``b``'s
+    thread ``t`` takes runs ``b * VIS_THREADS + t``, then every ``grid *
+    VIS_THREADS`` further."""
     if npx <= 0 or sms <= 0:
         raise ValueError("vis_plan takes a nonzero length and SM count")
     runs = npx // VIS_PIXELS
     return max(1, min(VIS_BLOCKS_PER_SM * sms, -(-runs // VIS_THREADS)))
-
-
-def red_plan(n: int, sms: int) -> int:
-    """Blocks of one K12 launch over ``n`` frame bytes (all streams) on a
-    card of ``sms`` SMs: :data:`RED_BLOCKS_PER_SM` an SM, one wave, fewer
-    where the frame has fewer tiles of :data:`RED_TILE` bytes (the last
-    one ragged). Warp ``w`` of block ``b`` takes tiles ``w * grid + b``,
-    then every ``grid * RED_WARPS`` further, so tile ``t`` falls to block
-    ``t mod grid``, and with block ``b`` on SM ``b mod sms`` every SM
-    takes the same number of tiles, give or take one."""
-    if n <= 0 or sms <= 0:
-        raise ValueError("red_plan takes a nonzero length and SM count")
-    return max(1, min(RED_BLOCKS_PER_SM * sms, -(-n // RED_TILE)))
 
 
 def _visualize(op: str, wrapper, frame: torch.Tensor,
@@ -775,8 +778,9 @@ def _visualize(op: str, wrapper, frame: torch.Tensor,
         None if tmap is None else tmap.data_ptr(),
         0 if tmap is not None else int(threshold),
         heatmap_lut_words() if op == "heatmap" else None, npx,
-        red_plan(n, sms) if op.startswith("red") else vis_plan(npx, sms),
-        out.data_ptr(), stream)
+        vis_plan(npx, sms) if op.startswith("grayscale") else tile_plan(
+            n, sms, HEAT_BLOCKS_PER_SM if op == "heatmap"
+            else RED_BLOCKS_PER_SM), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: "
                            f"{lib.cvs_error_string(rc).decode()} ({rc})")

@@ -8,12 +8,14 @@ CPU tensor) against the JAX package's ``heatmap(use_sine=False)``,
 384)`` layout) and 48x50 (its fallback), with the overlay region read in
 place of the frame's prefix, thresholds 0 and 20 and a per-byte map; the
 super-frame form (``streams=B``) against B solo calls and row shards
-against the solo frame; host models of one launch: K11 and K13's runs
-of 16 pixels a thread and K12's warp tiles (every output byte written
-once, by one lane, every read inside its frame, stream, region or map;
-for K12 the lanes' word arithmetic and shuffles give the plain version's
-bytes at tile edges, strip ends, stream boundaries inside a tile, ragged
-tails and unaligned views), and the SMs' shares of each plan; the
+against the solo frame; host models of one launch: K11's and K12's
+warp tiles lane by lane, K11 through a warp's shared tile, K12 in
+registers (every output byte written once, by one lane, every read
+inside its frame, stream, region or map, every shared index inside the
+warp's tile; the lanes' arithmetic, and K12's shuffles, give the plain
+version's and the JAX package's bytes at tile edges, strip ends, stream
+boundaries inside a tile, ragged tails and unaligned views), K13's runs
+of 16 pixels a thread, and the SMs' shares of each plan; the
 pipelines' aux frames, made from the frame and the strip with no
 overlaid copy; and the wrappers on a CUDA tensor, which launch or raise.
 Tolerance is zero throughout.
@@ -64,14 +66,15 @@ def _constexpr(name):
 
 
 THREADS = _constexpr("kThreads")
+LUT_SIZE = _constexpr("kLutSize")
+WARPS = _constexpr("kWarps")
+TILE_VECS = _constexpr("kTileVecs")
+TILE = _constexpr("kTile")
+HEAT_BLOCKS_PER_SM = _constexpr("kHeatBlocksPerSm")
+RED_BLOCKS_PER_SM = _constexpr("kRedBlocksPerSm")
 PIX = _constexpr("kPix")
 RUN = _constexpr("kRun")
-LUT_SIZE = _constexpr("kLutSize")
-BLOCKS_PER_SM = _constexpr("kBlocksPerSm")
-WARPS = _constexpr("kWarps")
-RED_VECS = _constexpr("kRedVecs")
-RED_TILE = _constexpr("kRedTile")
-RED_BLOCKS_PER_SM = _constexpr("kRedBlocksPerSm")
+RUN_BLOCKS_PER_SM = _constexpr("kRunBlocksPerSm")
 # r_bytes: the R bytes of a vector at phase 0, 1, 2
 R_BYTES = [int(v, 16) for v in re.search(
     r"r == 0 \? (0x[0-9a-f]+)u : r == 1 \? (0x[0-9a-f]+)u : (0x[0-9a-f]+)u",
@@ -94,15 +97,17 @@ def _t(a):
 
 
 def test_constants_read_from_the_kernel():
-    assert (THREADS, PIX, LUT_SIZE, BLOCKS_PER_SM) == (
-        filters.VIS_THREADS, filters.VIS_PIXELS, filters.LUT_SIZE,
-        filters.VIS_BLOCKS_PER_SM)
-    assert RUN == 3 * PIX and RUN % 16 == 0  # three 16-byte vectors a run
-    assert (RED_VECS, RED_TILE, RED_BLOCKS_PER_SM, WARPS) == (
-        filters.RED_VECS, filters.RED_TILE, filters.RED_BLOCKS_PER_SM,
-        filters.RED_WARPS)
-    # K12's tile: rows of a warp's 32 16-byte vectors, whole pixels
-    assert RED_TILE == 512 * RED_VECS and RED_TILE % 3 == 0
+    assert (THREADS, LUT_SIZE, WARPS) == (
+        filters.VIS_THREADS, filters.LUT_SIZE, filters.VIS_WARPS)
+    assert (TILE_VECS, TILE, HEAT_BLOCKS_PER_SM, RED_BLOCKS_PER_SM) == (
+        filters.VIS_VECS, filters.VIS_TILE, filters.HEAT_BLOCKS_PER_SM,
+        filters.RED_BLOCKS_PER_SM)
+    assert (PIX, RUN_BLOCKS_PER_SM) == (filters.VIS_PIXELS,
+                                        filters.VIS_BLOCKS_PER_SM)
+    assert RUN == 3 * PIX and RUN % 16 == 0  # K13: three 16-byte vectors
+    # a tile: rows of a warp's 32 16-byte vectors, whole pixels, and 48
+    # bytes (16 pixels, three 16-byte shared words) a lane
+    assert TILE == 512 * TILE_VECS and TILE % 3 == 0 and TILE == 32 * 48
     # bit j of R_BYTES[r] is set where byte j of a vector at phase r is R
     for r in range(3):
         assert R_BYTES[r] == sum(1 << j for j in range(16) if (r + j) % 3 == 2)
@@ -290,13 +295,111 @@ def test_refusals():
                    29, dtype=torch.uint8), False),
                lambda: filters.red_visualizer(f, p, torch.zeros(
                    30, dtype=torch.uint8), False, streams=2),
-               lambda: filters.vis_plan(0, SMS),
-               lambda: filters.red_plan(0, SMS)):
+               lambda: filters.tile_plan(0, SMS, RED_BLOCKS_PER_SM),
+               lambda: filters.tile_plan(3, 0, RED_BLOCKS_PER_SM),
+               lambda: filters.tile_plan(3, SMS, 0),
+               lambda: filters.vis_plan(0, SMS)):
         with pytest.raises(ValueError):
             fn()
 
 
 # -- a host model of one launch ---------------------------------------------
+
+def _load_vec(cur, region, sn, rlen, i0, n, offs, reads, paths):
+    """Lane ``l``'s load of the overlaid bytes ``[i0, i0 + 16)``
+    (``tile_load``): one 16-byte load where the vector lies whole in one
+    stream, on one side of its strip's end and 16-byte aligned (``offs``:
+    each array's address mod 16), else byte by byte, zero past the frame.
+    Counts each byte read in ``reads`` and the path in ``paths``; returns
+    the 16 bytes and their frame indices."""
+    idx = np.arange(i0, min(i0 + 16, n))
+    s_idx, j = np.divmod(idx, sn)
+    in_reg = j < rlen
+    src_idx = np.where(in_reg, s_idx * rlen + j, idx)
+    whole = (idx.size == 16 and (s_idx == s_idx[0]).all()
+             and (in_reg.all() or not in_reg.any()))
+    src = "region" if in_reg[0] else "cur"
+    aligned = (offs.get(src, 0) + int(src_idx[0])) % 16 == 0
+    paths["vector" if whole and aligned else "bytes"] += 1
+    cb = np.zeros(16, np.uint8)
+    cb[:idx.size] = cur[idx]
+    if rlen:
+        cb[:idx.size][in_reg] = region[src_idx[in_reg]]
+    np.add.at(reads["region"], src_idx[in_reg], 1)
+    np.add.at(reads["cur"], idx[~in_reg], 1)
+    return cb, idx, j
+
+
+def _heat_model(cur, prev, region, b, offs=None):
+    """One launch of ``heat_kernel`` on the host, lane by lane: tile ``t``
+    of :data:`TILE` bytes belongs to global warp ``t mod (grid * WARPS)``;
+    lane ``l`` loads the 16 bytes at ``512 k + 16 l`` of the overlaid
+    frame and of prev as :func:`_load_vec` does and stages each byte's
+    ``|c - p|`` at the same offset of the warp's shared tile; then takes
+    the tile's pixels ``16 l .. 16 l + 15``, its shared bytes ``48 l .. 48
+    l + 47``, looks them up and writes the 48 output bytes back over them;
+    then stores the shared bytes at ``512 k + 16 l``, one 16-byte store
+    where all 16 lie inside the frame, else byte by byte, nothing past it.
+    Every shared index is checked to lie inside the warp's tile, every
+    shared byte staged, computed and stored once. Returns ``(out, writer
+    of each byte, writes of each byte, reads by array, the tiles' warps,
+    loads by path, stores by path)``."""
+    offs = offs or {}
+    n = cur.size
+    sn = n // b
+    rlen = 0 if region is None else region.size // b
+    tiles = -(-n // TILE)
+    grid = filters.tile_plan(n, SMS, HEAT_BLOCKS_PER_SM)
+    owners = np.arange(tiles) % (grid * WARPS)
+    lut = ref.heatmap_lut()
+    out = np.zeros(n, np.uint8)
+    writer = np.full(n, -1, np.int64)
+    wrote = np.zeros(n, np.int64)
+    reads = {"cur": np.zeros(n, np.int64), "prev": np.zeros(n, np.int64),
+             "region": np.zeros(max(b * rlen, 1), np.int64)}
+    paths = {"vector": 0, "bytes": 0}
+    stores = {"vector": 0, "bytes": 0}
+    for t in range(tiles):
+        sx = np.zeros(TILE, np.uint8)  # the warp's shared tile
+        staged, computed, stored = (np.zeros(TILE, np.int64)
+                                    for _ in range(3))
+        for k in range(TILE_VECS):
+            for lane in range(32):
+                sh = 512 * k + 16 * lane
+                i0 = t * TILE + sh
+                assert 0 <= sh and sh + 16 <= TILE
+                staged[sh:sh + 16] += 1
+                if i0 >= n:
+                    continue
+                cb, idx, _ = _load_vec(cur, region, sn, rlen, i0, n, offs,
+                                       reads, paths)
+                pb = np.zeros(16, np.uint8)
+                pb[:idx.size] = prev[idx]
+                reads["prev"][idx] += 1
+                sx[sh:sh + 16] = np.abs(cb.astype(np.int64) - pb)
+        for lane in range(32):
+            sh = 48 * lane
+            assert 0 <= sh and sh + 48 <= TILE
+            d = sx[sh:sh + 48].reshape(16, 3).astype(np.int64).sum(axis=1)
+            sx[sh:sh + 48] = lut[d].ravel()
+            computed[sh:sh + 48] += 1
+        for k in range(TILE_VECS):
+            for lane in range(32):
+                i0 = t * TILE + 512 * k + 16 * lane
+                sh = 512 * k + 16 * lane
+                stored[sh:sh + 16] += 1
+                valid = n - i0
+                if valid <= 0:
+                    continue
+                stores["vector" if valid >= 16 else "bytes"] += 1
+                m = min(16, valid)
+                out[i0:i0 + m] = sx[sh:sh + m]
+                writer[i0:i0 + m] = owners[t] * 32 + lane
+                wrote[i0:i0 + m] += 1
+        assert (staged == 1).all() and (computed == 1).all()
+        assert (stored == 1).all()
+    return out, writer, wrote, reads, owners, paths, stores
+
 
 def _launch_model(n, sn, rlen, grid):
     """Where one launch of csrc/visualize.cu reads and writes, over ``n``
@@ -371,24 +474,21 @@ def _simd_mask(cb, pb, tb):
 
 def _red_model(cur, prev, thr, region, b, overlap, offs=None):
     """One launch of ``red_kernel`` on the host, lane by lane: tile ``t``
-    of :data:`RED_TILE` bytes belongs to global warp ``t mod (grid *
-    WARPS)``; lane ``l`` takes the 16 bytes at ``512 k + 16 l`` of the
-    overlaid frame, of prev and of the map at the stream's byte ``j = i
-    mod sn``, in one load of each where the vector lies whole in one
-    stream, on one side of its strip's end and 16-byte aligned (``offs``:
-    each array's address mod 16), else byte by byte, zero past the frame.
-    Its 16 change bits take the vector before's last two (lane ``l - 1``,
-    or lane 31 of vector ``k - 1`` for lane 0: the shuffles), and its R
-    bytes by phase ``(l + 2 k) % 3`` (:data:`R_BYTES`). Returns ``(out,
-    writer of each byte, writes of each byte, reads by array, the tiles'
-    warps, vectors by path)``."""
+    of :data:`TILE` bytes belongs to global warp ``t mod (grid * WARPS)``;
+    lane ``l`` takes the 16 bytes at ``512 k + 16 l`` of the overlaid
+    frame (:func:`_load_vec`), of prev and of the map at the stream's byte
+    ``j = i mod sn``. Its 16 change bits take the vector before's last two
+    (lane ``l - 1``, or lane 31 of vector ``k - 1`` for lane 0: the
+    shuffles), and its R bytes by phase ``(l + 2 k) % 3``
+    (:data:`R_BYTES`). Returns ``(out, writer of each byte, writes of each
+    byte, reads by array, the tiles' warps, vectors by path)``."""
     offs = offs or {}
     n = cur.size
     sn = n // b
     rlen = 0 if region is None else region.size // b
     tmap = thr if isinstance(thr, np.ndarray) else None
-    tiles = -(-n // RED_TILE)
-    grid = filters.red_plan(n, SMS)
+    tiles = -(-n // TILE)
+    grid = filters.tile_plan(n, SMS, RED_BLOCKS_PER_SM)
     owners = np.arange(tiles) % (grid * WARPS)
     out = np.zeros(n, np.uint8)
     writer = np.full(n, -1, np.int64)
@@ -397,38 +497,17 @@ def _red_model(cur, prev, thr, region, b, overlap, offs=None):
              "region": np.zeros(max(b * rlen, 1), np.int64),
              "map": np.zeros(sn, np.int64)}
     paths = {"vector": 0, "bytes": 0}
-
-    def aligned(name, i):
-        return (offs.get(name, 0) + int(i)) % 16 == 0
-
     for t in range(tiles):
-        m = np.zeros((RED_VECS, 32), np.int64)
+        m = np.zeros((TILE_VECS, 32), np.int64)
         pws = {}
-        for k in range(RED_VECS):
+        for k in range(TILE_VECS):
             for lane in range(32):
-                i0 = t * RED_TILE + 512 * k + 16 * lane
+                i0 = t * TILE + 512 * k + 16 * lane
                 if i0 >= n:
                     continue
-                idx = np.arange(i0, min(i0 + 16, n))
-                s_idx, j = np.divmod(idx, sn)
-                in_reg = j < rlen
-                src_idx = np.where(in_reg, s_idx * rlen + j, idx)
-                whole = (idx.size == 16 and (s_idx == s_idx[0]).all()
-                         and (in_reg.all() or not in_reg.any()))
-                src = "region" if in_reg[0] else "cur"
-                if whole and aligned(src, src_idx[0]):
-                    paths["vector"] += 1
-                else:
-                    paths["bytes"] += 1
-                cb, pb, tb = (np.zeros(16, np.uint8) for _ in range(3))
-                if rlen:
-                    cb[:idx.size] = np.where(
-                        in_reg, region[np.where(in_reg, src_idx, 0)],
-                        cur[idx])
-                else:
-                    cb[:idx.size] = cur[idx]
-                np.add.at(reads["region"], src_idx[in_reg], 1)
-                np.add.at(reads["cur"], idx[~in_reg], 1)
+                cb, idx, j = _load_vec(cur, region, sn, rlen, i0, n, offs,
+                                       reads, paths)
+                pb, tb = (np.zeros(16, np.uint8) for _ in range(2))
                 pb[:idx.size] = prev[idx]
                 reads["prev"][idx] += 1
                 if tmap is not None:
@@ -438,9 +517,9 @@ def _red_model(cur, prev, thr, region, b, overlap, offs=None):
                     tb[:] = thr
                 m[k, lane] = _simd_mask(cb, pb, tb)
                 pws[k, lane] = _words(pb)
-        for k in range(RED_VECS):
+        for k in range(TILE_VECS):
             for lane in range(32):
-                i0 = t * RED_TILE + 512 * k + 16 * lane
+                i0 = t * TILE + 512 * k + 16 * lane
                 if i0 >= n:
                     continue
                 before = (m[k, lane - 1] if lane else m[k - 1, 31] if k
@@ -457,49 +536,55 @@ def _red_model(cur, prev, thr, region, b, overlap, offs=None):
     return out, writer, wrote, reads, owners, paths
 
 
-@pytest.mark.parametrize("kernel", ["runs", "tiles", "tiles_views"])
+VIEWS = {"cur": 3, "prev": 5, "map": 1, "region": 7}
+
+
+@pytest.mark.parametrize("kernel", ["runs", "tiles", "tiles_views",
+                                    "heat_tiles", "heat_tiles_views"])
 @pytest.mark.parametrize("npx,b,rlen", [
     (1, 1, 0), (16, 1, 0), (17, 1, 3), (48 * 50, 1, 9 * 150 + 6),
     (48 * 64, 1, 48 * 64 * 3), (2 * 48 * 50, 2, 7 * 150 + 6),
     (3 * 271 * 19, 3, 5751), (4 * 5, 4, 6), (4 * 5, 4, 15),
     (3 * 512 + 1, 1, 1536 + 6), (2 * 512 * 3 - 2 * 47, 2, 1536 - 16)])
 def test_launch_model_reads_inside_and_writes_once(npx, b, rlen, kernel):
-    """Every output byte is written by exactly one thread; every overlaid
+    """Every output byte is written by exactly one lane; every overlaid
     byte is read once, from its own stream's strip below the strip's end
     (never past it) and from cur above it; every map read lies inside the
-    stream's map; and the bytes the model reads give the plain version's
-    overlaid frame. ``runs``: K11 and K13 (runs of 16 pixels a thread);
-    ``tiles``: K12's warp tiles, whose output, through the lanes' word
-    arithmetic and shuffles, equals the plain version's in modes 2 and 3
-    with the int threshold and a map (at tile edges, a strip's end inside
-    a tile, stream boundaries inside a tile, ragged tails); ``tiles_views``
-    the same with cur, prev, the map and the strips not 16-byte
-    aligned."""
+    stream's map; and the bytes the model computes equal the plain
+    version's and the JAX package's, at tile edges, a strip's end inside a
+    tile, stream boundaries inside a tile and ragged tails. ``tiles``:
+    K12's warp tiles, through the lanes' word arithmetic and shuffles, in
+    modes 2 and 3 with the int threshold and a map; ``heat_tiles``: K11,
+    staged through the warp's shared tile of ``|c - p|``;
+    ``_views``: the same with cur, prev, the map and the strips not
+    16-byte aligned, every load byte by byte; ``runs``: K13's runs of 16
+    pixels a thread."""
     n = 3 * npx
     sn = n // b
     cur = _bytes(npx, n)
     region = _bytes(npx + 1, b * rlen)
-    if kernel != "runs":
-        offs = {"cur": 3, "prev": 5, "map": 1, "region": 7} \
-            if kernel == "tiles_views" else {}
-        prev = np.where(_bytes(npx + 2, n) < 200, cur,
-                        _bytes(npx + 3, n)).astype(np.uint8)
+    reg = region if rlen else None
+    views = kernel.endswith("_views")
+    offs = VIEWS if views else {}
+    prev = np.where(_bytes(npx + 2, n) < 200, cur,
+                    _bytes(npx + 3, n)).astype(np.uint8)
+    over = diff.region_frame(_t(cur), _t(reg), b).numpy()
+    j = np.arange(n) % sn
+    if kernel.startswith("tiles"):
         for thr, overlap in ((20, True), (20, False),
                              (_bytes(npx + 4, sn), True)):
             got, writer, wrote, reads, owners, paths = _red_model(
-                cur, prev, thr, region if rlen else None, b, overlap, offs)
+                cur, prev, thr, reg, b, overlap, offs)
             assert (wrote == 1).all() and (writer >= 0).all()
-            assert owners.max() < filters.red_plan(n, SMS) * WARPS
-            over = diff.region_frame(_t(cur), _t(region) if rlen else None,
-                                     b).numpy()
+            assert owners.max() < filters.tile_plan(
+                n, SMS, RED_BLOCKS_PER_SM) * WARPS
             assert (reads["prev"] == 1).all()
-            j = np.arange(n) % sn
             assert (reads["cur"] == (j >= rlen)).all()
             if rlen:
                 assert (reads["region"] == 1).all()
             if isinstance(thr, np.ndarray):
                 assert (reads["map"] == b).all()
-            if kernel == "tiles_views":
+            if views:
                 assert paths["vector"] == 0
             np.testing.assert_array_equal(
                 got, filters.red_visualizer_reference(
@@ -508,10 +593,30 @@ def test_launch_model_reads_inside_and_writes_once(npx, b, rlen, kernel):
                     b).numpy())
             np.testing.assert_array_equal(
                 got, _port("red_overlap" if overlap else "red_black", cur,
-                           prev, thr, region if rlen else None, b).numpy())
+                           prev, thr, reg, b).numpy())
+        return
+    if kernel.startswith("heat"):
+        got, writer, wrote, reads, owners, paths, stores = _heat_model(
+            cur, prev, reg, b, offs)
+        assert (wrote == 1).all() and (writer >= 0).all()
+        assert owners.max() < filters.tile_plan(
+            n, SMS, HEAT_BLOCKS_PER_SM) * WARPS
+        assert (reads["prev"] == 1).all()
+        assert (reads["cur"] == (j >= rlen)).all()
+        if rlen:
+            assert (reads["region"] == 1).all()
+        if views:
+            assert paths["vector"] == 0
+        elif n >= 16 and rlen == 0:
+            assert paths["vector"] > 0
+        assert stores["vector"] == n // 16 and stores["bytes"] == (n % 16 > 0)
+        np.testing.assert_array_equal(
+            got, _port("heatmap", cur, prev, 0, reg, b).numpy())
+        np.testing.assert_array_equal(
+            got, _jax_want("heatmap", over, prev, 0, None))
         return
     grid = filters.vis_plan(npx, SMS)
-    assert 1 <= grid <= BLOCKS_PER_SM * SMS
+    assert 1 <= grid <= RUN_BLOCKS_PER_SM * SMS
     src, map_idx, wrote, owners = _launch_model(n, sn, rlen, grid)
     assert (wrote == 1).all()
     assert owners.size == 0 or owners.max() < grid * THREADS
@@ -530,33 +635,42 @@ def test_launch_model_reads_inside_and_writes_once(npx, b, rlen, kernel):
                                b).numpy())
 
 
-@pytest.mark.parametrize("plan", ["vis_plan", "red_plan"])
+@pytest.mark.parametrize("kernel,per_sm", [
+    ("heat_kernel", "kHeatBlocksPerSm"), ("red_kernel", "kRedBlocksPerSm"),
+    ("vis_kernel", None)])
 @pytest.mark.parametrize("npx", [1920 * 1080, 4 * 1920 * 1080, 17,
                                  1920 * 1080 // 4, 1920 * 1080 // 4 + 333])
-def test_plan_spreads_runs_evenly(npx, plan):
-    """``vis_plan`` (K11, K13): the threads' runs differ by at most one.
-    ``red_plan`` (K12): one wave of at most :data:`RED_BLOCKS_PER_SM`
-    blocks an SM, each tile one warp's, and with block ``b`` on SM ``b mod
+def test_plan_spreads_runs_evenly(npx, kernel, per_sm):
+    """``tile_plan`` (K11, K12), at the blocks an SM each kernel is
+    compiled for (:data:`HEAT_BLOCKS_PER_SM`, :data:`RED_BLOCKS_PER_SM`):
+    one wave, each tile one warp's, and with block ``b`` on SM ``b mod
     SMS`` the SMs' tiles differ by at most one (at 1080p 4,050 tiles, 30
-    or 31 an SM)."""
-    if plan == "vis_plan":
+    or 31 an SM). ``vis_plan`` (K13): the threads' runs differ by at most
+    one."""
+    if per_sm is None:
         grid = filters.vis_plan(npx, SMS)
+        assert 1 <= grid <= RUN_BLOCKS_PER_SM * SMS
         runs = npx // PIX
         per_thread = np.bincount(np.arange(runs) % (grid * THREADS),
                                  minlength=grid * THREADS)
         assert per_thread.max() - per_thread.min() <= 1
         return
+    code = (CSRC / "visualize.cu").read_text()
+    assert re.search(rf"__launch_bounds__\(kThreads, {per_sm}\)\s*"
+                     rf"{kernel}\(", code)
+    blocks = _constexpr(per_sm)
     n = 3 * npx
-    grid = filters.red_plan(n, SMS)
-    tiles = -(-n // RED_TILE)
-    assert grid == max(1, min(RED_BLOCKS_PER_SM * SMS, tiles))
+    grid = filters.tile_plan(n, SMS, blocks)
+    tiles = -(-n // TILE)
+    assert grid == max(1, min(blocks * SMS, tiles))
     warp = np.arange(tiles) % (grid * WARPS)
-    per_sm = np.bincount(warp % grid % SMS, minlength=SMS)
-    assert per_sm.sum() == tiles and per_sm.max() - per_sm.min() <= 1
+    per_sm_tiles = np.bincount(warp % grid % SMS, minlength=SMS)
+    assert per_sm_tiles.sum() == tiles
+    assert per_sm_tiles.max() - per_sm_tiles.min() <= 1
     per_warp = np.bincount(warp, minlength=grid * WARPS)
     assert per_warp.max() - per_warp.min() <= 1
     if npx == 1920 * 1080:
-        assert (tiles, grid, per_sm.max()) == (4050, 264, 31)
+        assert (tiles, grid, per_sm_tiles.max()) == (4050, blocks * SMS, 31)
 
 
 # -- the pipelines: aux frames from the frame and the strip ------------------

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K1 emissions, K2-K10, K12 and the tiled and sharded steps of
-one checkout, at 1080p.
+"""Time the K1 emissions, K2-K13 and the tiled and sharded steps of one
+checkout, at 1080p.
 
     python3 tools/time_k1_flat.py CHECKOUT_ROOT [MODE ...]
 
@@ -53,7 +53,11 @@ events time the device alone. Modes:
   frame and of ``prev`` in turn (200 MB, cold in L2), threshold 20
   without the delta, with the delta, and with a map of 20s: three lines;
 * ``red``: K12 (``red_visualizer``) on the same copies, mode 3, mode 2
-  and mode 3 with a map of 20s: three lines.
+  and mode 3 with a map of 20s: three lines;
+* ``heat``: K11 (``heatmap``) on the same copies, without a strip and
+  with the 288,000-byte overlay strip: two lines;
+* ``gray``: K13 (``grayscale_weighted``, ``grayscale_average``) on the
+  same copies of the frame: two lines.
 
 To compare two commits, unpack the other one into a git-ignored directory
 (``git archive COMMIT | tar -x -C build/parent``) and time both in one
@@ -76,7 +80,7 @@ import torch
 MODES = ("flat", "map", "tiled", "mask", "batched", "offset", "step",
          "sharded", "pair", "vals", "hist", "register", "segment",
          "segment_map", "segment_batched", "probe", "conv", "binarize",
-         "binarize_batched", "diff_pack", "red")
+         "binarize_batched", "diff_pack", "red", "heat", "gray")
 
 
 def _medians(fn, refill=None, iters=100):
@@ -147,8 +151,8 @@ def _filters(root, mode, card, c0, rng):
           flush=True)
 
 
-def _k10_k12(root, mode, card, c0, p0, rng):
-    """The ``diff_pack`` and ``red`` modes."""
+def _k10_k13(root, mode, card, c0, p0, rng, region):
+    """The ``diff_pack``, ``red``, ``heat`` and ``gray`` modes."""
     from cudavideostream_tpu_torch.ops import diff, filters
 
     n = c0.numel()
@@ -168,7 +172,14 @@ def _k10_k12(root, mode, card, c0, p0, rng):
             " mode 2": lambda i: filters.red_visualizer(
                 curs[i % 16], prevs[i % 16], 20, False),
             " mode 3 map": lambda i: filters.red_visualizer(
-                curs[i % 16], prevs[i % 16], tmaps[i % 16], True)}}
+                curs[i % 16], prevs[i % 16], tmaps[i % 16], True)},
+        "heat": {
+            "": lambda i: filters.heatmap(curs[i % 16], prevs[i % 16]),
+            " strip": lambda i: filters.heatmap(curs[i % 16], prevs[i % 16],
+                                                region)},
+        "gray": {
+            " weighted": lambda i: filters.grayscale_weighted(curs[i % 16]),
+            " average": lambda i: filters.grayscale_average(curs[i % 16])}}
     for label, fn in forms[mode].items():
         medians = _medians(fn)
         print(root, mode + label, card,
@@ -207,8 +218,8 @@ def main() -> int:
         if mode in ("conv", "binarize", "binarize_batched"):
             _filters(root, mode, card, c0, rng)
             continue
-        if mode in ("diff_pack", "red"):
-            _k10_k12(root, mode, card, c0, p0, rng)
+        if mode in ("diff_pack", "red", "heat", "gray"):
+            _k10_k13(root, mode, card, c0, p0, rng, region)
             continue
         if mode in ("hist", "probe"):
             from cudavideostream_tpu_torch.config import StreamConfig
