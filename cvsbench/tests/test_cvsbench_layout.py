@@ -1,0 +1,121 @@
+"""``BENCHMARK.json`` and the files it names: every cell's configuration,
+traffic and metric found by name, and every name, unit and string within
+the benchmark's limits."""
+
+import importlib
+import json
+import re
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+PATH = re.compile(r"^[A-Za-z0-9_.\-/]{1,200}$")
+KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
+        "end_to_end", "per_layer"}
+CELLS = [w["name"] for w in BENCH["workloads"]]
+
+
+def _line(s):
+    return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s \
+        and "\t" not in s
+
+
+def test_top_level_keys_and_size():
+    assert set(BENCH) == KEYS
+    assert (ROOT / "BENCHMARK.json").stat().st_size <= 64 * 1024
+    assert 1 <= BENCH["run_seconds"] <= 51
+    assert isinstance(BENCH["run_seconds"], int)
+
+
+def test_command_and_paths():
+    cmd = BENCH["command"]
+    assert 1 <= len(cmd) <= 32 and all(_line(w) for w in cmd)
+    assert not any(w.startswith("/") or ".." in w for w in cmd)
+    assert 1 <= len(BENCH["paths"]) <= 16
+    for p in BENCH["paths"]:
+        assert PATH.match(p) and ".." not in p and (ROOT / p).is_dir()
+    for w in cmd[1:]:
+        if w.endswith(".py") or "/" in w:
+            assert any(w.startswith(p) for p in BENCH["paths"])
+
+
+@pytest.mark.parametrize("section", ["configs", "workloads", "end_to_end",
+                                     "per_layer"])
+def test_names_unique_and_allowed(section):
+    names = [e["name"] for e in BENCH[section]]
+    assert len(names) == len(set(names))
+    assert all(NAME.match(n) for n in names)
+
+
+def test_entry_keys():
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert _line(c["source"]) and _line(c["why"])
+        assert all(NAME.match(k) for k in c["reduced"])
+        assert len(c["reduced"]) <= 16
+    for w in BENCH["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["chips"] in (1, 4) and _line(w["why"])
+        assert NAME.match(w["config"]) and NAME.match(w["traffic"])
+    for m in BENCH["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better",
+                                          "bound", "source"}
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    for m in BENCH["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better",
+                                          "source", "layer", "moves"}
+        assert _line(m["layer"])
+        assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+        assert set(m.get("workloads", CELLS)) <= set(CELLS)
+
+
+def test_pairs_once_and_configs_used():
+    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+    assert len(pairs) == len(set(pairs))
+    assert {c["name"] for c in BENCH["configs"]} == {p[0] for p in pairs}
+    assert "setup_s" in {m["name"] for m in BENCH["end_to_end"]}
+
+
+def test_one_layer_name_per_layer():
+    by_layer = {}
+    for m in BENCH["per_layer"]:
+        by_layer.setdefault(m["layer"].split(" (")[0], set()).add(m["layer"])
+    assert all(len(v) == 1 for v in by_layer.values())
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_files_found_by_name(cell):
+    from cvsbench import harness
+
+    c = harness.load_cell(cell)
+    assert c.config["name"] == next(
+        w["config"] for w in BENCH["workloads"] if w["name"] == cell)
+    assert c.traffic["streams"] >= 1 and c.traffic["bank_frames"] >= 1
+    assert {m["name"] for m in c.end_to_end} >= {"fps", "setup_s"}
+    assert c.per_layer
+    for m in c.per_layer:
+        reader = importlib.import_module(f"cvsbench.metrics.{m['name']}")
+        assert callable(reader.read)
+
+
+@pytest.mark.parametrize("config", BENCH["configs"],
+                         ids=[c["name"] for c in BENCH["configs"]])
+def test_config_file(config):
+    f = ROOT / config["file"]
+    assert any(config["file"].startswith(p + "/") for p in BENCH["paths"])
+    data = json.loads(f.read_text())
+    assert data["name"] == config["name"] and data["reduced"] == \
+        config["reduced"]
+    assert data["assumed"] and data["guarantees"]
+    files = [c["file"] for c in BENCH["configs"]]
+    assert files.count(config["file"]) == 1
+    from cvsbench import harness
+
+    harness.stream_config(data["stream"])  # the port's own validation
