@@ -61,6 +61,7 @@ from cudavideostream_tpu_torch.ops import filters as filter_ops
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.ops import overlay as overlay_ops
 from cudavideostream_tpu_torch.utils import fonts
+from cudavideostream_tpu_torch.utils.profiling import STEP, annotate
 
 
 class BatchedDeltaPipeline:
@@ -97,6 +98,7 @@ class BatchedDeltaPipeline:
         cell_h = self._solo.atlas.shape[1]
         self._fast = config.tiled_payload and cell_h <= config.height
         self._ids: dict = {}  # overlay text -> device glyph indices
+        self.steps = 0  # the step sequence number its spans carry
 
     @property
     def atlas_np(self) -> np.ndarray:
@@ -143,12 +145,13 @@ class BatchedDeltaPipeline:
         n = cfg.frame_bytes
         cell_h = self._solo.atlas.shape[1]
         strip = cell_h * cfg.width * 3
-        return torch.cat([
-            overlay_ops.overlay_blit(
-                cur[b * n:b * n + strip], self._solo.atlas,
-                self._char_ids(t), min(len(t), MAX_OVERLAY_CHARS), cell_h,
-                cfg.width)
-            for b, t in enumerate(texts)])
+        with annotate("cvs.overlay"):
+            return torch.cat([
+                overlay_ops.overlay_blit(
+                    cur[b * n:b * n + strip], self._solo.atlas,
+                    self._char_ids(t), min(len(t), MAX_OVERLAY_CHARS),
+                    cell_h, cfg.width)
+                for b, t in enumerate(texts)])
 
     def _aux(self, cur: torch.Tensor, strips: Optional[torch.Tensor],
              prev: torch.Tensor) -> Optional[torch.Tensor]:
@@ -159,21 +162,24 @@ class BatchedDeltaPipeline:
         if vis == Visualizer.NONE:
             return None
         B = self.n_streams
-        # every kernel reads stream b's strip, strips[b * strip:], in place
-        # of the stream's prefix
-        if vis == Visualizer.HEATMAP:
-            return filter_ops.heatmap(cur, prev, strips, streams=B)
-        if vis == Visualizer.GRAYSCALE:
-            return filter_ops.grayscale_weighted(cur, strips, streams=B)
-        if vis == Visualizer.BINARIZE:
-            # one K9 launch for every stream, each with its own threshold
-            return filter_ops.binarize_pipeline(cur, region=strips,
-                                                streams=B)
-        # the shared map is one stream's: the kernel reads it per stream
-        tm = self._solo.threshold_map
-        return filter_ops.red_visualizer(
-            cur, prev, cfg.threshold if tm is None else tm,
-            vis == Visualizer.RED_OVERLAP, strips, streams=B)
+        with annotate("cvs.visualizer"):
+            # every kernel reads stream b's strip, strips[b * strip:], in
+            # place of the stream's prefix
+            if vis == Visualizer.HEATMAP:
+                return filter_ops.heatmap(cur, prev, strips, streams=B)
+            if vis == Visualizer.GRAYSCALE:
+                return filter_ops.grayscale_weighted(cur, strips, streams=B)
+            if vis == Visualizer.BINARIZE:
+                # one K9 launch for every stream, each with its own
+                # threshold
+                return filter_ops.binarize_pipeline(cur, region=strips,
+                                                    streams=B)
+            # the shared map is one stream's: the kernel reads it per
+            # stream
+            tm = self._solo.threshold_map
+            return filter_ops.red_visualizer(
+                cur, prev, cfg.threshold if tm is None else tm,
+                vis == Visualizer.RED_OVERLAP, strips, streams=B)
 
     def step(self, prev: torch.Tensor, frames,
              texts: Optional[Sequence[str]] = None):
@@ -186,7 +192,9 @@ class BatchedDeltaPipeline:
         unit_bytes), vals_t (B, U, unit_bytes), aux)``; else ``(new_prev,
         pos (B,), xs (B, capacity), vals (B, capacity), aux)``. ``aux`` is
         None without a visualizer, else the flat ``(B * frame_bytes,)``
-        uint8 aux frames. The step does not wait for the device.
+        uint8 aux frames. The step does not wait for the device. Each
+        layer runs in its span (``utils.profiling.STAGES``), all in one
+        ``cvs.step``; the per-stream path's solo steps nest in it.
         """
         B = self.n_streams
         texts = list(texts or [""] * B)
@@ -194,35 +202,49 @@ class BatchedDeltaPipeline:
             raise ValueError(f"need {B} texts, got {len(texts)}")
         if prev.numel() != B * self.config.frame_bytes:
             raise ValueError("state size mismatch")
-        cur = self._frames(frames)
+        self.steps += 1
+        with annotate(STEP, {"seq": self.steps, "streams": B}):
+            return self._step(prev, frames, texts)
+
+    def _step(self, prev: torch.Tensor, frames, texts):
+        B = self.n_streams
+        with annotate("cvs.upload"):
+            cur = self._frames(frames)
         if not self._fast:
             return self._per_stream(prev, cur, texts)
         cfg = self.config
-        n = cfg.frame_bytes
         if cfg.noise_filter:
             # every stream in one K8 launch, each padded on its own
-            cur = conv_ops.convolve_q16(cur, self._solo.conv_weights_q16,
-                                        cfg.height, cfg.width, streams=B)
+            with annotate("cvs.filter"):
+                cur = conv_ops.convolve_q16(cur, self._solo.conv_weights_q16,
+                                            cfg.height, cfg.width, streams=B)
         strips = self._strips(cur, texts)
         aux = self._aux(cur, strips, prev)
         # pair_lanes and skip_static are TPU layouts with identical outputs
-        pos, counts, xs_t, vals_t, new_prev = (
-            logcompact.fused_diff_compact_batched(
-                cur, prev, B, threshold=cfg.threshold,
-                negative_feedback=cfg.negative_feedback,
-                threshold_map=self._solo.threshold_map,
-                sub_rows=cfg.subtile_rows, overlay_region=strips))
+        with annotate("cvs.compact"):
+            pos, counts, xs_t, vals_t, new_prev = (
+                logcompact.fused_diff_compact_batched(
+                    cur, prev, B, threshold=cfg.threshold,
+                    negative_feedback=cfg.negative_feedback,
+                    threshold_map=self._solo.threshold_map,
+                    sub_rows=cfg.subtile_rows, overlay_region=strips))
         return new_prev, pos, counts, xs_t, vals_t, aux
 
     def _per_stream(self, prev, cur, texts):
         """The solo step on each stream's views, the outputs stacked (the
         aux frames concatenated flat)."""
         n = self.config.frame_bytes
-        outs = [self._solo.step(prev[b * n:(b + 1) * n],
-                                cur[b * n:(b + 1) * n], text=t)
-                for b, t in enumerate(texts)]
-        parts = [torch.stack(p) for p in zip(*(o[1:-1] for o in outs))]
-        aux = None if outs[0][-1] is None else torch.cat([o[-1] for o in outs])
+        with annotate("cvs.upload"):
+            views = [(prev[b * n:(b + 1) * n], cur[b * n:(b + 1) * n])
+                     for b in range(self.n_streams)]
+        outs = [self._solo.step(p, c, text=t)
+                for (p, c), t in zip(views, texts)]
+        with annotate("cvs.compact"):
+            parts = [torch.stack(p) for p in zip(*(o[1:-1] for o in outs))]
+        aux = None
+        if outs[0][-1] is not None:
+            with annotate("cvs.visualizer"):
+                aux = torch.cat([o[-1] for o in outs])
         return (prev, *parts, aux)
 
 

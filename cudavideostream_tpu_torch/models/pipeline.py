@@ -70,6 +70,7 @@ from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.ops import overlay as overlay_ops
 from cudavideostream_tpu_torch.ops import reference_cpu
 from cudavideostream_tpu_torch.utils import fonts
+from cudavideostream_tpu_torch.utils.profiling import STEP, annotate
 
 MAX_OVERLAY_CHARS = 28
 
@@ -216,6 +217,7 @@ class DeltaStreamPipeline:
                            and not config.noise_filter)
         self._host_prev: Optional[np.ndarray] = None
         self.last_fetch_bytes = 0
+        self.steps = 0  # the step sequence number its spans carry
 
     # -- state ------------------------------------------------------------
     def init_state(self, base_frame: np.ndarray) -> torch.Tensor:
@@ -265,20 +267,21 @@ class DeltaStreamPipeline:
         vis = cfg.visualizer
         if vis == Visualizer.NONE:
             return None
-        # every kernel reads the strip in place of the frame's prefix
-        if vis == Visualizer.HEATMAP:
-            return filter_ops.heatmap(cur, prev, region)
-        if vis == Visualizer.GRAYSCALE:
-            return filter_ops.grayscale_weighted(cur, region)
-        if vis == Visualizer.BINARIZE:
-            return filter_ops.binarize_pipeline(cur, region=region)
-        # the red modes: |df| > threshold (or the map) on the overlaid
-        # frame, which is the JAX pipeline's new_prev != prev wherever it
-        # takes that
-        thr = (cfg.threshold if self.threshold_map is None
-               else self.threshold_map)
-        return filter_ops.red_visualizer(
-            cur, prev, thr, vis == Visualizer.RED_OVERLAP, region)
+        with annotate("cvs.visualizer"):
+            # every kernel reads the strip in place of the frame's prefix
+            if vis == Visualizer.HEATMAP:
+                return filter_ops.heatmap(cur, prev, region)
+            if vis == Visualizer.GRAYSCALE:
+                return filter_ops.grayscale_weighted(cur, region)
+            if vis == Visualizer.BINARIZE:
+                return filter_ops.binarize_pipeline(cur, region=region)
+            # the red modes: |df| > threshold (or the map) on the overlaid
+            # frame, which is the JAX pipeline's new_prev != prev wherever
+            # it takes that
+            thr = (cfg.threshold if self.threshold_map is None
+                   else self.threshold_map)
+            return filter_ops.red_visualizer(
+                cur, prev, thr, vis == Visualizer.RED_OVERLAP, region)
 
     def step(self, prev: torch.Tensor, frame, text: str = ""):
         """Run one frame. ``frame`` may be a numpy array or a tensor; it
@@ -308,13 +311,21 @@ class DeltaStreamPipeline:
           state as ``state``.
 
         The step does not wait for the device: callers read the sizes and
-        copy what they need (see ``runtime.executor``).
+        copy what they need (see ``runtime.executor``). Each layer runs in
+        its span (``utils.profiling.STAGES``), all in one ``cvs.step``.
         """
+        self.steps += 1
+        with annotate(STEP, {"seq": self.steps, "streams": 1}):
+            return self._step(prev, frame, text)
+
+    def _step(self, prev: torch.Tensor, frame, text: str):
         cfg = self.config
-        cur = self._frame(frame)
+        with annotate("cvs.upload"):
+            cur = self._frame(frame)
         if cfg.noise_filter:
-            cur = conv_ops.convolve_q16(cur, self.conv_weights_q16,
-                                        cfg.height, cfg.width)
+            with annotate("cvs.filter"):
+                cur = conv_ops.convolve_q16(cur, self.conv_weights_q16,
+                                            cfg.height, cfg.width)
         n_chars = min(len(text), MAX_OVERLAY_CHARS)
         cell_h = self.atlas.shape[1]
         region = None
@@ -322,40 +333,44 @@ class DeltaStreamPipeline:
             # blend the strip over the first cell_h image rows only; the
             # kernel substitutes it for the frame's bytes there
             strip_bytes = cell_h * cfg.width * 3
-            region = overlay_ops.overlay_blit(
-                cur[:strip_bytes], self.atlas, self._char_ids(text), n_chars,
-                cell_h, cfg.width,
-            )
+            with annotate("cvs.overlay"):
+                region = overlay_ops.overlay_blit(
+                    cur[:strip_bytes], self.atlas, self._char_ids(text),
+                    n_chars, cell_h, cfg.width,
+                )
         aux = self._aux(cur, region, prev)
         if cfg.compaction is not CompactionBackend.PALLAS:
             return self._step_dense(prev, frame, cur, region, text, n_chars,
                                     aux)
         # pair_lanes is a TPU lane layout with identical outputs
-        if cfg.maskonly_payload:
-            pos, counts, vals_t, bits, new_prev = (
-                logcompact.fused_diff_compact_mask(
+        with annotate("cvs.compact"):
+            if cfg.maskonly_payload:
+                pos, counts, vals_t, bits, new_prev = (
+                    logcompact.fused_diff_compact_mask(
+                        cur, prev, threshold=cfg.threshold,
+                        negative_feedback=cfg.negative_feedback,
+                        overlay_region=region, sub_rows=cfg.subtile_rows,
+                        threshold_map=self.threshold_map,
+                    )
+                )
+                return new_prev, pos, counts, vals_t, bits, aux
+            if cfg.tiled_payload:
+                # (pos, counts, xs_t, vals_t[, bits], new_prev)
+                *payload, new_prev = logcompact.fused_diff_compact_tiled(
                     cur, prev, threshold=cfg.threshold,
                     negative_feedback=cfg.negative_feedback,
                     overlay_region=region, sub_rows=cfg.subtile_rows,
+                    emit_bits=cfg.emit_bitmask,
                     threshold_map=self.threshold_map,
                 )
-            )
-            return new_prev, pos, counts, vals_t, bits, aux
-        if cfg.tiled_payload:
-            # (pos, counts, xs_t, vals_t[, bits], new_prev)
-            *payload, new_prev = logcompact.fused_diff_compact_tiled(
+                return (new_prev, *payload, aux)
+            pos, xs, vals, new_prev = logcompact.fused_diff_compact(
                 cur, prev, threshold=cfg.threshold,
                 negative_feedback=cfg.negative_feedback,
-                overlay_region=region, sub_rows=cfg.subtile_rows,
-                emit_bits=cfg.emit_bitmask, threshold_map=self.threshold_map,
+                overlay_region=region, capacity=cfg.capacity,
+                threshold_map=self.threshold_map,
             )
-            return (new_prev, *payload, aux)
-        pos, xs, vals, new_prev = logcompact.fused_diff_compact(
-            cur, prev, threshold=cfg.threshold,
-            negative_feedback=cfg.negative_feedback, overlay_region=region,
-            capacity=cfg.capacity, threshold_map=self.threshold_map,
-        )
-        return new_prev, pos, xs, vals, aux
+            return new_prev, pos, xs, vals, aux
 
     def _step_dense(self, prev: torch.Tensor, frame, cur: torch.Tensor,
                     region: Optional[torch.Tensor], text: str, n_chars: int,
@@ -379,18 +394,37 @@ class DeltaStreamPipeline:
         thr = (cfg.threshold if self.threshold_map is None
                else self.threshold_map)
         if not host:
-            mask, delta, new_prev = diff_ops.diff_mask(
-                diff_ops.region_frame(cur, region), prev, thr,
-                cfg.negative_feedback)
-            prev.copy_(new_prev)  # the state is updated in place, as by K1
-            pos, xs, vals = compact_ops.compact(mask, delta, cfg.capacity,
-                                                "sort")
+            with annotate("cvs.compact"):
+                mask, delta, new_prev = diff_ops.diff_mask(
+                    diff_ops.region_frame(cur, region), prev, thr,
+                    cfg.negative_feedback)
+                # the state is updated in place, as by K1
+                prev.copy_(new_prev)
+                pos, xs, vals = compact_ops.compact(mask, delta,
+                                                    cfg.capacity, "sort")
             return prev, pos, xs, vals, aux
         # K10: prev updated in place, the bits (and the delta under the
         # noise filter) in one launch
-        bits, delta = diff_ops.diff_pack(cur, prev, thr,
-                                         cfg.negative_feedback, region,
-                                         want_delta=not self._host_fast)
+        with annotate("cvs.compact"):
+            bits, delta = diff_ops.diff_pack(cur, prev, thr,
+                                             cfg.negative_feedback, region,
+                                             want_delta=not self._host_fast)
+        with annotate("cvs.host_pack"):
+            xs, vals = self._host_pack(frame, bits, delta, text, n_chars)
+        pos = xs.size
+        if pos > cfg.capacity:
+            # state= keeps the executor in step: the host shadow has
+            # already taken this frame
+            raise PayloadOverflowError(
+                f"frame changed {pos} bytes > payload_capacity "
+                f"{cfg.capacity}", state=prev)
+        return prev, pos, xs, vals, aux
+
+    def _host_pack(self, frame, bits: torch.Tensor,
+                   delta: Optional[torch.Tensor], text: str, n_chars: int):
+        """The HOST backend's host side: the bitmask (and the delta) down,
+        then the native packers. Returns ``(xs, vals)``."""
+        cfg = self.config
         bits = bits.cpu().numpy()
         if self._host_fast:
             # the host's own frame bytes: a device frame comes down once,
@@ -415,11 +449,4 @@ class DeltaStreamPipeline:
             delta = delta.cpu().numpy()
             xs, vals = native.compact_bitmask_np(delta, bits)
             self.last_fetch_bytes = bits.nbytes + delta.nbytes
-        pos = xs.size
-        if pos > cfg.capacity:
-            # state= keeps the executor in step: the host shadow has
-            # already taken this frame
-            raise PayloadOverflowError(
-                f"frame changed {pos} bytes > payload_capacity "
-                f"{cfg.capacity}", state=prev)
-        return prev, pos, xs, vals, aux
+        return xs, vals

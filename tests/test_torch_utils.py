@@ -11,7 +11,6 @@ import torch
 
 from cudavideostream_tpu import utils as jax_utils
 from cudavideostream_tpu.utils import png as jax_png
-from cudavideostream_tpu.utils import profiling as jax_profiling
 from cudavideostream_tpu.utils import shapes as jax_shapes
 from cudavideostream_tpu.utils import timing as jax_timing
 from cudavideostream_tpu_torch import utils
@@ -183,28 +182,6 @@ def test_copy_into_refuses_another_structure():
     a, b = torch.zeros(3), torch.arange(3.0)
     timing._copy_into([a], [b])
     assert torch.equal(a, b)
-
-
-def test_frame_profiler_summary_equals_jax():
-    samples = {"source": [0.001, 0.003, 0.002], "step": [0.0004],
-               "land": [], "a_first": [0.25, 0.125]}
-    port, jax_p = profiling.FrameProfiler(), jax_profiling.FrameProfiler()
-    port.samples = {k: list(v) for k, v in samples.items()}
-    jax_p.samples = {k: list(v) for k, v in samples.items()}
-    assert port.summary() == jax_p.summary()
-    assert port.summary().startswith("a_first: 187.50ms (max 250.00)")
-
-
-def test_frame_profiler_keeps_its_window():
-    p = profiling.FrameProfiler(window=3)
-    for _ in range(5):
-        with p.stage("x"):
-            pass
-    assert len(p.samples["x"]) == 3
-    with pytest.raises(RuntimeError):
-        with p.stage("y"):
-            raise RuntimeError("boom")
-    assert len(p.samples["y"]) == 1  # the failed stage is timed too
 
 
 def test_trace_on_the_cpu_holds_an_annotated_span(tmp_path):
