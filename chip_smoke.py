@@ -9,8 +9,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. environment: the card's name, power limit and SM clock, torch, CUDA,
    nvcc, triton;
-2. build: every hand-written kernel, from ``csrc/`` (ten sources), one
-   ``nvcc`` per source, all started together; no kernel of K9-K13 may
+2. build: every hand-written kernel, from ``csrc/`` (eleven sources), one
+   ``nvcc`` per source, all started together; no kernel of K9-K14 may
    keep a stack frame (``cuobjdump -res-usage``; K8's registers and stack
    a K are printed); K10's, K11's and K12's grids and tiles an SM at 1080p and
    at S = 4 are printed; no instance of K8's
@@ -94,7 +94,12 @@ Phases (any failure raises and the script exits non-zero):
    calls, all four on S = 4 shards against the solo frame and in 20
    launches back to back on one and on two streams, and a step of
    ``--visualizer 1-4`` with and without ``--noise-filter`` against the
-   NumPy spec with one launch of its kernel; K1's ``index_offset`` mode
+   NumPy spec with one launch of its kernel; K14 (the status-text
+   overlay) on the 1080p strip, the whole frame and 271x1917 on an
+   unaligned view with 0, 18 and 28 characters in both fonts, on B = 4
+   streams with a text each, in 20 launches back to back on one and on
+   two streams, and one launch a solo and a batched step; K1's
+   ``index_offset`` mode
    (flat and tiled at ``subtile_rows`` 1, 8, 0, two densities; tiled at
    1 and 8 with a per-byte map) on every shard of the frame cut
    into S = 2, 4 and 8 row shards at its shard base, and at the largest
@@ -358,14 +363,14 @@ def phase_environment():
 
 
 def phase_build():
-    """Build and bind the ten sources; returns the counts of K7's SASS
+    """Build and bind the eleven sources; returns the counts of K7's SASS
     instructions by opcode (:data:`K7_SASS_OPS`): its ISETP (integer
     compare) count must keep its 256 compares per value (fails below 256:
     the compiler folded them). Prints, and fails on a card that cannot
     hold them, the launch plans of K5 and K6 (clusters) and of K7 (equal
     slices, all resident at once) and of K9's cooperative kernel (the
     blocks the card holds at once); prints K8's registers and stack a K;
-    and fails if a kernel of K9-K13 keeps a stack frame (registers
+    and fails if a kernel of K9-K14 keeps a stack frame (registers
     spilled to local memory) or an instance of K8 loads a byte from
     shared memory."""
     from cudavideostream_tpu_torch import native
@@ -375,12 +380,13 @@ def phase_build():
     from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import hist
     from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.ops import overlay
     from cudavideostream_tpu_torch.ops import register_compact
 
     t0 = time.perf_counter()
     names = ("logcompact", "pair_compact", "histogram", "segment_compact",
              "register_compact", "probe", "convolve", "binarize",
-             "diff_pack", "visualize")
+             "diff_pack", "visualize", "overlay")
     # one nvcc per source, and the host library's cc, all at once
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         host_lib = pool.submit(native.build)
@@ -399,6 +405,7 @@ def phase_build():
     filters._binarize()
     diff._diff_pack_lib()
     filters._visualize_lib()
+    overlay._overlay_lib()
     log(f"[build] csrc/{'.cu, csrc/'.join(names)}.cu built and bound in "
         f"{time.perf_counter() - t0:.2f} s")
     cuobjdump = build.find_nvcc()[: -len("nvcc")] + "cuobjdump"
@@ -417,7 +424,7 @@ def phase_build():
     log("[build] csrc/convolve.cu (cuobjdump -res-usage): conv_kernel<K> "
         "registers / stack bytes: " + ", ".join(
             f"K={k} {reg}/{stack}" for k, reg, stack in found))
-    for name in ("binarize", "diff_pack", "visualize"):
+    for name in ("binarize", "diff_pack", "visualize", "overlay"):
         usage = subprocess.run(
             [cuobjdump, "-res-usage", str(build.build(name))], check=True,
             capture_output=True, text=True).stdout
@@ -431,6 +438,12 @@ def phase_build():
             + ", ".join(f"{_demangled_kernel(fn)} {reg} registers"
                         for fn, reg, _ in found) + ", no stack frame")
     warp_tile_plans()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log("[build] K14 overlay_kernel: a 16-byte vector a lane, blocks of "
+        f"{overlay.OVERLAY_THREADS} threads, at most "
+        f"{overlay.OVERLAY_BLOCKS_PER_SM} an SM; " + "; ".join(
+            f"B={b}: grid {overlay.overlay_plan(b * 288_000, sms)}"
+            for b in (1, 4, 16)) + " (1080p strips of 288,000 B)")
     sass = subprocess.run([cuobjdump, "-sass", str(build.build("probe"))],
                           check=True, capture_output=True,
                           text=True).stdout.splitlines()
@@ -1959,6 +1972,159 @@ def phase_visualize_vs_plain(cfg):
     log(f"[check] --visualizer 1-4 steps, with and without --noise-filter: "
         f"one launch of K11, K12 (modes 2 and 3) or K13 a step beside K1 "
         f"(and K8 under the filter), no overlaid copy of the frame")
+    return cases
+
+
+def phase_overlay_vs_plain(cfg):
+    """K14 (``overlay_blit``, ``overlay_blit_streams``) against its plain
+    version on the card, byte for byte, after a synchronize: the 1080p
+    strip at B = 1 with 0, 18 and 28 characters, in the stroke and bitmap
+    fonts; the whole 1080p frame (rows below the cells); 271x1917 (5,751 B
+    a row) on a view 3 B past an aligned start; B = 4 streams of 1080p
+    and of 271x1917, each with its own text (18, none, 28, 1 characters),
+    against the plain version of each stream; 20 launches back to back on
+    one stream and on two at once; every call one launch. Then the
+    pipelines' steps at 1080p: ``overlay_blit.launches`` must rise by
+    exactly one a step, solo (``DeltaStreamPipeline``, tiled) and batched
+    (``BatchedDeltaPipeline``, B = 4), and each step's payload and state
+    equal ``step_oracle``'s."""
+    from cudavideostream_tpu_torch.models import (
+        BatchedDeltaPipeline,
+        DeltaStreamPipeline,
+    )
+    from cudavideostream_tpu_torch.models.pipeline import MAX_OVERLAY_CHARS
+    from cudavideostream_tpu_torch.ops import overlay
+    from cudavideostream_tpu_torch.ops import reference_cpu
+    from cudavideostream_tpu_torch.utils import fonts
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 50)
+    status, long_ = "FPS: 30 BW: 5 kbps", "FPS: 30 BW: 1234567 kbps OK!"
+    texts4 = [status, "", long_, "A"]
+    cases = 0
+
+    def rand(m):
+        return torch.from_numpy(rng.integers(0, 256, m,
+                                             dtype=np.uint8)).to(dev)
+
+    def plain_streams(frames, atlas, texts, rows, w):
+        sn = frames.numel() // len(texts)
+        return torch.cat([overlay.overlay_blit_reference(
+            frames[b * sn:b * sn + rows * w * 3], atlas,
+            torch.tensor(fonts.encode_text(t, MAX_OVERLAY_CHARS),
+                         dtype=torch.int32, device=dev),
+            len(t), rows, w) for b, t in enumerate(texts)])
+
+    def one_launch(label, fn):
+        before = overlay.overlay_blit.launches
+        got = fn()
+        k = overlay.overlay_blit.launches - before
+        if k != 1:
+            raise AssertionError(f"{label}: {k} launches, not 1")
+        return got
+
+    for style in ("stroke", "bitmap"):
+        atlas = torch.from_numpy(fonts.make_atlas(cfg.overlay_scale,
+                                                  style)).to(dev)
+        cell_h = atlas.shape[1]
+        for h, w, rows, off in ((cfg.height, cfg.width, cell_h, 0),
+                                (cfg.height, cfg.width, cfg.height, 0),
+                                (271, 1917, cell_h, 3)):
+            for n_chars in (0, 18, 28):
+                text = (long_ * 2)[:n_chars]
+                ids = torch.tensor(fonts.encode_text(text, MAX_OVERLAY_CHARS),
+                                   dtype=torch.int32, device=dev)
+                frame = rand(off + rows * w * 3)[off:]
+                got = one_launch("K14", lambda: overlay.overlay_blit(
+                    frame, atlas, ids, n_chars, rows, w))
+                torch.cuda.synchronize()
+                want = overlay.overlay_blit_reference(frame, atlas, ids,
+                                                      n_chars, rows, w)
+                _equal_or_raise(f"K14 {style} {h}x{w} rows {rows} view {off} "
+                                f"n_chars {n_chars}", (got,), (want,), ("out",))
+                cases += 1
+            # B = 4 streams, a text each, in one launch
+            sn = h * w * 3
+            frames = rand(off + 4 * sn)[off:]
+            ids4, n_fit4 = overlay.text_glyphs(
+                texts4, MAX_OVERLAY_CHARS, w // atlas.shape[2], dev)
+            got = one_launch("K14 B=4", lambda: overlay.overlay_blit_streams(
+                frames, atlas, ids4, n_fit4, rows, w, 4))
+            torch.cuda.synchronize()
+            _equal_or_raise(f"K14 {style} B=4 {h}x{w} rows {rows} view {off}",
+                            (got,), (plain_streams(frames, atlas, texts4,
+                                                   rows, w),), ("out",))
+            cases += 1
+    log(f"[check] K14 overlay_blit on the 1080p strip, the whole 1080p frame "
+        f"and 271x1917 (5,751 B a row) on a view 3 B past an aligned start, "
+        f"with 0, 18 and 28 characters, in the stroke and bitmap fonts, and "
+        f"overlay_blit_streams on B = 4 streams of each (18, 0, 28 and 1 "
+        f"characters): == overlay_blit_reference, exact; one launch a call "
+        f"({cases} cases)")
+
+    atlas = torch.from_numpy(fonts.make_atlas(cfg.overlay_scale,
+                                              cfg.overlay_font)).to(dev)
+    cell_h = atlas.shape[1]
+    strip = cell_h * cfg.width * 3
+    for streams in (1, 2):
+        calls = []
+        for i in range(20):
+            text = (texts4 * 2)[i % 8][:28]
+            ids = torch.tensor(fonts.encode_text(text, MAX_OVERLAY_CHARS),
+                               dtype=torch.int32, device=dev)
+            calls.append((rand(strip), ids, len(text)))
+        cases += _back_to_back(
+            f"K14 back to back, {streams} stream(s)",
+            lambda f, i, k: (overlay.overlay_blit(f, atlas, i, k, cell_h,
+                                                  cfg.width),),
+            lambda f, i, k: (overlay.overlay_blit_reference(
+                f, atlas, i, k, cell_h, cfg.width),),
+            calls, streams, ("out",))
+    log("[check] K14: 20 launches back to back on one stream and on two at "
+        "once (texts of 0-28 characters): each == its plain version, exact")
+
+    tcfg = dataclasses.replace(cfg, tiled_payload=True)
+    n = cfg.frame_bytes
+    prev_np, cur_np = frame_pair(rng, n, 0.06)
+    pipe = DeltaStreamPipeline(tcfg)
+    state = pipe.init_state(prev_np)
+    before = overlay.overlay_blit.launches
+    steps = 5
+    for _ in range(steps):
+        pipe.step(state, cur_np, text=status)
+    torch.cuda.synchronize()
+    solo = overlay.overlay_blit.launches - before
+    _check_step("K14 in the tiled step", tcfg, prev_np, cur_np, status)
+    b = 4
+    prev4, cur4 = _streams(rng, b, n, 0.06)
+    bpipe = BatchedDeltaPipeline(tcfg, b)
+    state4 = prev4.clone()
+    before = overlay.overlay_blit.launches
+    for _ in range(steps):
+        out = bpipe.step(state4, cur4, texts4)
+    torch.cuda.synchronize()
+    batched = overlay.overlay_blit.launches - before
+    if (solo, batched) != (steps, steps):
+        raise AssertionError(f"K14: {solo} solo and {batched} batched "
+                             f"launches in {steps} steps each")
+    # the batched step's last state against the oracle, stream by stream
+    got_state = state4.cpu().numpy()
+    p_np, c_np = prev4.cpu().numpy(), cur4.cpu().numpy()
+    for s in range(b):
+        e = p_np[s * n:(s + 1) * n]
+        for _ in range(steps):
+            e = reference_cpu.step_oracle(
+                e, c_np[s * n:(s + 1) * n], tcfg, pipe.atlas_np,
+                fonts.encode_text(texts4[s]))[0]
+        if not np.array_equal(got_state[s * n:(s + 1) * n], e):
+            raise AssertionError(f"K14 batched step: stream {s}'s state "
+                                 f"after {steps} steps != step_oracle's")
+    del out
+    cases += 1
+    log(f"[check] K14 in the pipelines at 1080p: overlay_blit.launches rose "
+        f"by {solo} in {steps} solo steps and by {batched} in {steps} "
+        f"batched steps of B = {b} (texts of 18, 0, 28 and 1 characters): "
+        f"one launch a step; every stream's state == step_oracle's")
     return cases
 
 
@@ -6792,6 +6958,7 @@ def main() -> int:
     filter_cases = phase_filters_vs_plain(cfg)
     k8k9_cases = phase_noise_binarize_vs_plain(cfg)
     vis_cases = phase_visualize_vs_plain(cfg)
+    overlay_cases = phase_overlay_vs_plain(cfg)
     map_cases = phase_map_vs_plain(cfg)
     scheme_cases = phase_schemes_vs_plain(cfg)
     batched_cases = phase_batched_vs_plain(cfg)

@@ -117,7 +117,7 @@ def rows(cfg, device) -> List[Row]:
     acc0 = torch.zeros((), dtype=torch.int32, device=dev)
     atlas = torch.from_numpy(fonts.make_atlas(cfg.overlay_scale)).to(dev)
     ids = torch.tensor(fonts.encode_text(OVERLAY_TEXT, OVERLAY_SLOTS),
-                       dtype=torch.int64, device=dev)
+                       dtype=torch.int32, device=dev)
 
     def tiled(sub_rows):
         def chain(c):

@@ -17,7 +17,8 @@ in the JAX package, ``batched.py:93-97``) follows ``_fast_impl``:
 
 1. the noise filter, every stream in one K8 launch
    (``convolve_q16(streams=B)``; its 2-D borders are per frame);
-2. each stream's overlay strip, blended over its first ``cell_h`` rows;
+2. each stream's overlay strip, blended over its first ``cell_h`` rows,
+   all B in one K14 launch (``overlay_blit_streams``) into one buffer;
    the B strips go to the kernel as its per-stream region (the JAX package
    substitutes them into the super-frame with one pass instead, because
    Mosaic cannot pipeline a per-stream region input);
@@ -60,7 +61,6 @@ from cudavideostream_tpu_torch.ops import convolve as conv_ops
 from cudavideostream_tpu_torch.ops import filters as filter_ops
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.ops import overlay as overlay_ops
-from cudavideostream_tpu_torch.utils import fonts
 from cudavideostream_tpu_torch.utils.profiling import STEP, annotate
 
 
@@ -97,7 +97,7 @@ class BatchedDeltaPipeline:
                 "pipelines instead of a batched one")
         cell_h = self._solo.atlas.shape[1]
         self._fast = config.tiled_payload and cell_h <= config.height
-        self._ids: dict = {}  # overlay text -> device glyph indices
+        self._ids: dict = {}  # overlay texts -> device glyphs (_glyphs)
         self.steps = 0  # the step sequence number its spans carry
 
     @property
@@ -126,32 +126,33 @@ class BatchedDeltaPipeline:
             raise ValueError("frames size mismatch")
         return t
 
-    def _char_ids(self, text: str) -> torch.Tensor:
-        ids = self._ids.get(text)
-        if ids is None:
-            if len(self._ids) >= 4 * self.n_streams:
+    def _glyphs(self, texts) -> tuple:
+        """The glyph ids ``(B, max_chars)`` and characters drawn ``(B,)``
+        of this tuple of texts, int32 on the device, cached by the tuple:
+        a CUDA graph keeps their pointers while the texts hold."""
+        key = tuple(texts)
+        hit = self._ids.get(key)
+        if hit is None:
+            if len(self._ids) >= 4:
                 self._ids.clear()  # the texts of a status line move on
-            ids = torch.tensor(fonts.encode_text(text, MAX_OVERLAY_CHARS),
-                               dtype=torch.int64).to(self.device)
-            self._ids[text] = ids
-        return ids
+            cfg = self.config
+            hit = self._ids[key] = overlay_ops.text_glyphs(
+                texts, MAX_OVERLAY_CHARS,
+                cfg.width // self._solo.atlas.shape[2], self.device)
+        return hit
 
     def _strips(self, cur: torch.Tensor, texts) -> Optional[torch.Tensor]:
         """The B blended overlay strips, flat ``(B * strip,)``, or None
-        when no stream has text."""
+        when no stream has text: one K14 launch for every stream on the
+        card, into the region that K1 and the visualizers read."""
         if not any(texts):
             return None
-        cfg = self.config
-        n = cfg.frame_bytes
         cell_h = self._solo.atlas.shape[1]
-        strip = cell_h * cfg.width * 3
         with annotate("cvs.overlay"):
-            return torch.cat([
-                overlay_ops.overlay_blit(
-                    cur[b * n:b * n + strip], self._solo.atlas,
-                    self._char_ids(t), min(len(t), MAX_OVERLAY_CHARS),
-                    cell_h, cfg.width)
-                for b, t in enumerate(texts)])
+            ids, n_fit = self._glyphs(texts)
+            return overlay_ops.overlay_blit_streams(
+                cur, self._solo.atlas, ids, n_fit, cell_h, self.config.width,
+                self.n_streams)
 
     def _aux(self, cur: torch.Tensor, strips: Optional[torch.Tensor],
              prev: torch.Tensor) -> Optional[torch.Tensor]:

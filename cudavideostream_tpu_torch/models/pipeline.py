@@ -9,9 +9,9 @@ feedback and the compaction. Here one step is, in that order:
 1. the noise filter (``noise_filter``): the Q16 convolution of the whole
    frame into a new tensor, which the rest of the step reads;
 2. the overlay strip, blended over the frame's first ``cell_h`` image rows
-   (a few hundred KB); the blended prefix is handed to the fused
-   diff+compact kernel as its region input, so the overlay costs no pass
-   over the whole frame;
+   (a few hundred KB) by one K14 launch (``ops/overlay.py``); the blended
+   prefix is handed to the fused diff+compact kernel as its region input,
+   so the overlay costs no pass over the whole frame;
 3. the visualizer's aux frame from the frame, the overlay strip (read by
    the kernel in place of the frame's prefix: no overlaid copy is made)
    and the previous frame: the heatmap (K11), the red modes (K12),
@@ -207,7 +207,8 @@ class DeltaStreamPipeline:
         if config.compaction is CompactionBackend.HOST:
             # the host blends the overlay into its own copy of the frame
             self._host_atlas = self.atlas.cpu().numpy()
-        # the last overlay text and its device glyph indices
+        # the last overlay text and its device glyph indices (int32, as K14
+        # reads them; a CUDA graph keeps their pointer while the text holds)
         self._ids: Tuple[str, Optional[torch.Tensor]] = (None, None)
         # the HOST backend's fast path: the host takes the payload values
         # from its own copy of the frame against this shadow of the
@@ -252,7 +253,7 @@ class DeltaStreamPipeline:
     def _char_ids(self, text: str) -> torch.Tensor:
         if self._ids[0] != text:
             ids = torch.tensor(fonts.encode_text(text, MAX_OVERLAY_CHARS),
-                               dtype=torch.int64)
+                               dtype=torch.int32)
             if self.device.type == "cuda":
                 ids = ids.pin_memory().to(self.device, non_blocking=True)
             self._ids = (text, ids)

@@ -33,8 +33,9 @@ TRACE_FILE = "trace.json"
 #                   on the batched per-stream path, each stream's views
 #                   of the frames and the state;
 #   cvs.filter      the noise filter, K8;
-#   cvs.overlay     the text strip: overlay_blit, and the batched step's
-#                   strips with their torch.cat;
+#   cvs.overlay     the text strip(s): one K14 launch (overlay_blit, or
+#                   the batched step's overlay_blit_streams for every
+#                   stream) and the upload of a new text's glyph ids;
 #   cvs.visualizer  the aux frame: K9, K11-K13; on the batched
 #                   per-stream path, the aux frames' torch.cat;
 #   cvs.compact     K1 in any emission; under SORT the strip substituted

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the K1 emissions, K2-K13 and the tiled and sharded steps of one
+"""Time the K1 emissions, K2-K14 and the tiled and sharded steps of one
 checkout, at 1080p.
 
     python3 tools/time_k1_flat.py CHECKOUT_ROOT [MODE ...]
@@ -57,7 +57,13 @@ events time the device alone. Modes:
 * ``heat``: K11 (``heatmap``) on the same copies, without a strip and
   with the 288,000-byte overlay strip: two lines;
 * ``gray``: K13 (``grayscale_weighted``, ``grayscale_average``) on the
-  same copies of the frame: two lines.
+  same copies of the frame: two lines;
+* ``overlay``: the overlay stage as each checkout's pipelines run it (K14
+  where the checkout has it, else its PyTorch ops) with the 18-character
+  status line: ``overlay_blit`` on the 1080p strip of 16 copies of the
+  frame in turn, as ``DeltaStreamPipeline`` calls it, and
+  ``BatchedDeltaPipeline._strips`` on 4 sets of B = 4 streams in turn:
+  two lines.
 
 To compare two commits, unpack the other one into a git-ignored directory
 (``git archive COMMIT | tar -x -C build/parent``) and time both in one
@@ -80,7 +86,8 @@ import torch
 MODES = ("flat", "map", "tiled", "mask", "batched", "offset", "step",
          "sharded", "pair", "vals", "hist", "register", "segment",
          "segment_map", "segment_batched", "probe", "conv", "binarize",
-         "binarize_batched", "diff_pack", "red", "heat", "gray")
+         "binarize_batched", "diff_pack", "red", "heat", "gray",
+         "overlay")
 
 
 def _medians(fn, refill=None, iters=100):
@@ -186,6 +193,37 @@ def _k10_k13(root, mode, card, c0, p0, rng, region):
               " ".join(f"{m:.4f}" for m in medians), "ms", flush=True)
 
 
+def _overlay(root, card, c0, rng):
+    """The ``overlay`` mode."""
+    import dataclasses
+
+    from cudavideostream_tpu_torch.config import StreamConfig
+    from cudavideostream_tpu_torch.models import (
+        BatchedDeltaPipeline,
+        DeltaStreamPipeline,
+    )
+    from cudavideostream_tpu_torch.ops import overlay as overlay_ops
+
+    cfg = dataclasses.replace(StreamConfig(), tiled_payload=True)
+    text = "FPS: 30 BW: 5 kbps"
+    n = c0.numel()
+    copies = [c0.roll(int(rng.integers(1, n))) for _ in range(16)]
+    pipe = DeltaStreamPipeline(cfg)
+    cell_h = pipe.atlas.shape[1]
+    strip = cell_h * cfg.width * 3
+    ids = pipe._char_ids(text)
+    medians = _medians(lambda i: overlay_ops.overlay_blit(
+        copies[i % 16][:strip], pipe.atlas, ids, len(text), cell_h,
+        cfg.width))
+    print(root, "overlay B=1", card, " ".join(f"{m:.4f}" for m in medians),
+          "ms", flush=True)
+    bpipe = BatchedDeltaPipeline(cfg, 4)
+    quads = [torch.cat(copies[4 * j:4 * j + 4]) for j in range(4)]
+    medians = _medians(lambda i: bpipe._strips(quads[i % 4], [text] * 4))
+    print(root, "overlay B=4", card, " ".join(f"{m:.4f}" for m in medians),
+          "ms", flush=True)
+
+
 def main() -> int:
     root = sys.argv[1]
     modes = sys.argv[2:] or ["flat"]
@@ -220,6 +258,9 @@ def main() -> int:
             continue
         if mode in ("diff_pack", "red", "heat", "gray"):
             _k10_k13(root, mode, card, c0, p0, rng, region)
+            continue
+        if mode == "overlay":
+            _overlay(root, card, c0, rng)
             continue
         if mode in ("hist", "probe"):
             from cudavideostream_tpu_torch.config import StreamConfig
