@@ -1,7 +1,9 @@
-"""The control of the comparison: the plain reference put in the
-program's place with the configuration's negative feedback switched off
-(every state byte takes the new frame's value), one guarantee that every
-configuration states. The comparison must come out not correct.
+"""The control of the comparison: the configuration's plain reference
+(``check.reference_step``) put in the program's place with the
+configuration's negative feedback switched off (every state byte takes
+the new frame's value), one guarantee that every configuration states,
+and the side outputs worked out from that state. The comparison must come
+out not correct.
 
     python3 -m cvsbench.control --workload CELL --seeds N [N ...]
 
@@ -36,9 +38,12 @@ def control(cell: harness.Cell, seed: int, device: str = "cuda",
     frames, base = bank.cpu().numpy(), base.cpu().numpy()
     del bank
     unit_bytes = 128 * int(stream["subtile_rows"])
+    # the configuration's own reference, with every side output its step
+    # hands back
     step = check.reference_step(cell.config, stream)
     out = check.simulate(step, frames, base, 3, unit_bytes,
-                         feedback=feedback)
+                         feedback=feedback,
+                         sides=check.side_outputs(stream))
     return check.compare(step, frames, base, out, unit_bytes)
 
 
@@ -48,12 +53,13 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     args = p.parse_args(argv)
     cell = harness.load_cell(args.workload)
+    stream = cell.config["stream"]
     readings = {}
     for seed in args.seeds:
         t = time.perf_counter()
         numbers = control(cell, seed)
-        ok = check.verdict(numbers)
-        for line in check.lines(numbers):
+        ok = check.verdict(numbers, stream)
+        for line in check.lines(numbers, stream):
             print(f"{args.workload} seed {seed}: {line}", file=sys.stderr)
         print(f"{args.workload} seed {seed}: correct {ok} "
               f"({time.perf_counter() - t:.1f} s)", file=sys.stderr)

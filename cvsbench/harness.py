@@ -16,8 +16,9 @@ T steps, one a frame of the bank that set-up made on the card, are
 captured into one CUDA graph (:class:`Chain`, a copy of the method of the
 port's ``utils/timing.ChainGraph``: two eager passes on the capture
 stream, then the capture) and replayed back to back. Each step's payload
-blocks stay alive in the graph's pool, as an executor holds a frame's
-until it lands; the state is updated in place. The window syncs only to
+blocks and side outputs (the visualizer's aux frame, the change bits)
+stay alive in the graph's pool, as an executor holds a frame's until it
+lands; the state is updated in place. The window syncs only to
 keep at most ``QUEUE_DEPTH`` replays queued.
 """
 
@@ -99,7 +100,10 @@ class Program:
     """The system under test: the port's pipeline for B streams. Its
     :meth:`step` takes the flat state and the frames ``(B, n)`` and
     returns ``(pos (B,), counts (B, U), xs_t (B, U, unit), vals_t (B, U,
-    unit))``, the tiled payload blocks; the state is updated in place."""
+    unit), side)``, the tiled payload blocks and the side outputs the
+    configuration asks for (``check.side_outputs``): ``side["aux"]`` ``(B,
+    n)`` where ``visualizer`` is not 0, ``side["bits"]`` ``(B, n_pad /
+    8)`` under ``emit_bitmask``. The state is updated in place."""
 
     def __init__(self, stream: Dict, streams: int, text: str, device):
         from cudavideostream_tpu_torch.models import (
@@ -110,6 +114,14 @@ class Program:
         cfg = stream_config(stream)
         if not cfg.tiled_payload:
             raise ValueError("the benchmark reads the tiled payload")
+        if cfg.maskonly_payload:
+            raise ValueError("the benchmark does not check the mask-only "
+                             "payload (maskonly_payload): it has no index "
+                             "blocks")
+        if cfg.emit_bitmask and streams > 1:
+            raise ValueError("the batched step hands back no change bits: "
+                             "emit_bitmask runs one stream")
+        self.sides = check.side_outputs(stream)
         self.streams = streams
         self.text = text
         if streams == 1:
@@ -119,14 +131,22 @@ class Program:
             self.texts = [text] * streams
 
     def step(self, state: torch.Tensor, frames: torch.Tensor):
+        # the port's forms: (new_prev, pos, counts, xs_t, vals_t, aux),
+        # with the bits before aux under emit_bitmask (one stream only)
         if self.streams == 1:
-            _, pos, counts, xs_t, vals_t, _ = self.pipe.step(
-                state, frames[0], text=self.text)
-            return (pos.view(1), counts.view(1, -1), xs_t.unsqueeze(0),
-                    vals_t.unsqueeze(0))
-        _, pos, counts, xs_t, vals_t, _ = self.pipe.step(state, frames,
-                                                         self.texts)
-        return pos, counts, xs_t, vals_t
+            out = self.pipe.step(state, frames[0], text=self.text)
+            pos, counts, xs_t, vals_t = (out[1].view(1), out[2].view(1, -1),
+                                         out[3].unsqueeze(0),
+                                         out[4].unsqueeze(0))
+        else:
+            out = self.pipe.step(state, frames, self.texts)
+            pos, counts, xs_t, vals_t = out[1:5]
+        side = {}
+        if "aux" in self.sides:
+            side["aux"] = out[-1].view(self.streams, -1)
+        if "bits" in self.sides:
+            side["bits"] = out[5].view(self.streams, -1)
+        return pos, counts, xs_t, vals_t, side
 
 
 class Chain:
@@ -288,10 +308,12 @@ def traced_slice(chain: Chain, replays: int) -> Tuple[List[trace.Record],
 def host_outputs(chain: Chain, start: torch.Tensor, entry: torch.Tensor,
                  streams: int) -> check.Outputs:
     """The program's outputs as host arrays: the three states and each
-    step of the last replay, its blocks read in order by their counts."""
+    step of the last replay, its blocks read in order by their counts,
+    with its side outputs."""
     n = chain.state.numel() // streams
     pos, counts, xs, vals = [], [], [], []
-    for p, c, x, v in chain.outs:
+    side = {name: [] for name in chain.outs[0][4]}
+    for p, c, x, v, s in chain.outs:
         keep = (torch.arange(x.shape[-1], device=x.device)
                 < c.to(torch.int64)[..., None])
         pos.append(p.to(torch.int64).cpu().numpy())
@@ -299,13 +321,15 @@ def host_outputs(chain: Chain, start: torch.Tensor, entry: torch.Tensor,
                        for b in range(streams)])
         xs.append([x[b][keep[b]].cpu().numpy() for b in range(streams)])
         vals.append([v[b][keep[b]].cpu().numpy() for b in range(streams)])
+        for name, a in s.items():
+            side[name].append(list(a.cpu().numpy()))
 
     def host(t):
         return t.cpu().numpy().reshape(streams, n)
 
     return check.Outputs(start=host(start), entry=host(entry),
                          final=host(chain.state), pos=np.stack(pos),
-                         counts=counts, xs=xs, vals=vals)
+                         counts=counts, xs=xs, vals=vals, side=side)
 
 
 def run(cell: Cell, seed: int, seconds: float, traced: bool,
@@ -388,10 +412,10 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
         torch.cuda.empty_cache()
     numbers = check.compare(check.reference_step(config, stream),
                             frames_host, base_host, out, unit_bytes)
-    ok = check.verdict(numbers)
+    ok = check.verdict(numbers, stream)
 
     result = {"correct": ok, "attempted": attempted,
-              "failed": numbers["frames_mismatched"]}
+              "failed": numbers["frames_failed"]}
     notes.append(f"check: {time.perf_counter() - t_check:.3f} s")
     if traced:
         sl = trace.Slice(
@@ -425,5 +449,5 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     result["device"] = device_info
     if traced and whole:
         result["breakdown"] = result_breakdown
-    result["checks"] = check.as_json(numbers)
-    return result, notes + check.lines(numbers)
+    result["checks"] = check.as_json(numbers, stream)
+    return result, notes + check.lines(numbers, stream)

@@ -121,7 +121,11 @@ def gaussian_q16(k: int) -> np.ndarray:
 
 class Step:
     """The reference step of one configuration (its ``stream`` block and
-    status text, as the configuration file gives them)."""
+    status text, as the configuration file gives them). It works out no
+    side output (:mod:`cvsbench.check` names the interface); a reference
+    of a configuration with a visualizer subclasses it."""
+
+    outputs: Tuple[str, ...] = ()
 
     def __init__(self, stream: Dict, text: str):
         self.height, self.width = int(stream["height"]), int(stream["width"])
@@ -133,6 +137,10 @@ class Step:
         strip = text_strip(text, int(stream["overlay_scale"]), self.width)
         # a cell taller than the frame is never drawn
         self.strip = strip if strip.shape[0] <= self.height else strip[:0]
+
+    def prepare(self, raw: np.ndarray):
+        """Values that cover the whole frame, for ``aux_rows``: none."""
+        return None
 
     def frame_rows(self, raw: np.ndarray, r0: int, r1: int) -> np.ndarray:
         """Rows ``[r0, r1)`` of the frame the diff reads: ``raw`` (one

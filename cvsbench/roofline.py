@@ -23,13 +23,15 @@ SM_CLOCK_HZ = 1.98e9
 INT32_MACS_PER_S = SMS * INT32_LANES_PER_SM * SM_CLOCK_HZ
 
 
-def step_least_bytes(n: int, pos: float) -> float:
+def step_least_bytes(n: int, pos: float, aux: bool = False) -> float:
     """Bytes one camera frame's step must move: the frame and the state
     read once (2n), the state written where it changes (pos), the
-    payload's values (pos) and its change bitmask (n/8). K1 alone must
-    move as much: it reads the overlaid (or filtered) frame and the state
-    and writes the rest."""
-    return 2 * n + 2 * pos + -(-n // 8)
+    payload's values (pos) and its change bitmask (n/8); with ``aux`` (a
+    visualizer) also the aux frame written (n), whose reads of the frame
+    and the state are those already counted. K1 alone must move the
+    count without ``aux``: it reads the overlaid (or filtered) frame and
+    the state and writes the rest."""
+    return 2 * n + 2 * pos + -(-n // 8) + (n if aux else 0)
 
 
 def filter_least_s(n: int, k: int) -> float:

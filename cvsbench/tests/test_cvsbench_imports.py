@@ -4,6 +4,7 @@ the reference and the comparison import nothing of the port either; and
 no file opens a path under ``benchmarks/``."""
 
 import ast
+import json
 from pathlib import Path
 
 import pytest
@@ -13,9 +14,20 @@ from cvsbench import run
 BENCH_DIR = Path(__file__).resolve().parents[1]
 SOURCES = sorted(BENCH_DIR.rglob("*.py"))
 BANNED = {"jax", "jaxlib", "flax", "cudavideostream_tpu", "benchmarks"}
+
+
+def named_references():
+    """The file of each reference module a configuration names."""
+    names = (json.loads(p.read_text()).get("reference")
+             for p in (BENCH_DIR / "configs").glob("*.json"))
+    return sorted("/".join(n.split(".")[1:]) + ".py" for n in names if n)
+
+
 # the yardstick that judges the program takes nothing from it: the
-# comparison and the reference
-INDEPENDENT = ["check.py", "reference.py"]
+# comparison, the reference, each reference a configuration names and the
+# tests' own
+INDEPENDENT = ["check.py", "reference.py",
+               "tests/red_overlap_reference.py"] + named_references()
 
 
 def top_level_imports(path: Path):

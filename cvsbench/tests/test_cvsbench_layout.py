@@ -116,6 +116,10 @@ def test_config_file(config):
     assert data["assumed"] and data["guarantees"]
     files = [c["file"] for c in BENCH["configs"]]
     assert files.count(config["file"]) == 1
-    from cvsbench import harness
+    from cvsbench import check, harness
 
     harness.stream_config(data["stream"])  # the port's own validation
+    # the reference that judges it: a module under cvsbench with a Step
+    name = data.get("reference", check.DEFAULT_REFERENCE)
+    assert name.startswith("cvsbench.")
+    assert isinstance(importlib.import_module(name).Step, type)

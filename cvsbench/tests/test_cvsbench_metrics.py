@@ -18,13 +18,14 @@ COPY = ("void at::native::unrolled_elementwise_kernel<at::native::"
         "::operator()() const::{lambda(unsigned char)#1}>(int)")
 
 
-def make_slice(records, frames=2, noise_filter=True):
+def make_slice(records, frames=2, noise_filter=True, visualizer=0):
     recs = [trace.Record(n, a, b) for n, a, b in records]
     return trace.Slice(records=recs, frames=frames,
                        busy_s=trace.busy_us(recs) * 1e-6,
                        window_s=trace.span_us(recs) * 1e-6,
                        frame_bytes=6220800, pos_mean=373000.0,
-                       stream={"noise_filter": noise_filter, "conv_k": 3})
+                       stream={"noise_filter": noise_filter, "conv_k": 3,
+                               "visualizer": visualizer})
 
 
 SLICE = [(COPY, 0.0, 4.0), (K8, 5.0, 15.0), (K1, 16.0, 36.0),
@@ -71,6 +72,16 @@ def test_readers():
     assert read["device_ops_per_frame"] == 3.5
     assert read["torch_ops_ms"] == pytest.approx(1e3 * 9e-6 / 2)
     assert read["idle_pct"] == pytest.approx(100 * (1 - 69 / 77))
+
+
+@pytest.mark.parametrize("visualizer", [1, 5])
+def test_step_roofline_counts_the_aux_frame(visualizer):
+    reader = importlib.import_module("cvsbench.metrics.step_roofline")
+    s = make_slice(SLICE, visualizer=visualizer)
+    least = roofline.step_least_bytes(6220800, 373000, aux=True) / \
+        roofline.HBM_BYTES_PER_S
+    assert reader.read(s) == pytest.approx(100 * least / (s.busy_s / 2))
+    assert reader.read(s) > reader.read(make_slice(SLICE))
 
 
 @pytest.mark.parametrize("metric", METRICS)

@@ -123,6 +123,9 @@ def test_noise_stays_under_the_threshold():
 ])
 def test_least_bytes(n, pos, want):
     assert roofline.step_least_bytes(n, pos) == want
+    # a visualizer writes its n-byte aux frame too
+    assert roofline.step_least_bytes(n, pos, aux=True) == \
+        roofline.step_least_bytes(n, pos) + n
 
 
 def test_filter_least_time():
