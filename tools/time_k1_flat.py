@@ -45,7 +45,10 @@ events time the device alone. Modes:
   in L2);
 * ``binarize``: K9 (``binarize_pipeline``, every launch of a call) on 16
   copies of the frame in turn, then on the synthetic scene (mostly flat:
-  16 equal gray values take one histogram add): two lines;
+  16 equal gray values take one histogram add), on the copies through K8
+  at K = 3 (a gray histogram peaked near 127, as the benchmark's
+  ``cvs_1080p_bin`` frames give), and on 16 frames of one value each
+  (every add of a frame on one bin): four lines;
 * ``binarize_batched``: K9 on B = 4 streams of the frame (4 sets in turn),
   as ``BatchedDeltaPipeline`` calls it: one ``streams=4`` call where the
   checkout takes one, else a call a stream into its slice of the output;
@@ -136,8 +139,14 @@ def _filters(root, mode, card, c0, rng):
         src.base_frame()
         scene = torch.from_numpy(next(src)).to(c0.device)
         scenes = [scene.roll(3 * 1009 * j) for j in range(16)]
+        wq = ref.quantize_kernel_q16(ref.gaussian_kernel(3))
+        filtered = [convolve.convolve_q16(c, wq, h, w) for c in copies]
+        flat = [torch.full((n,), 16 * j + 7, dtype=torch.uint8,
+                           device=c0.device) for j in range(16)]
         for label, frames in (("binarize", copies),
-                              ("binarize scene", scenes)):
+                              ("binarize scene", scenes),
+                              ("binarize filtered", filtered),
+                              ("binarize one value", flat)):
             medians = _medians(lambda i, frames=frames:
                                filters.binarize_pipeline(frames[i % 16]))
             print(root, label, card, " ".join(f"{m:.4f}" for m in medians),
