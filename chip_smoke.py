@@ -703,30 +703,54 @@ def _n_for_tiles(target, mask=False, over=False):
         m = m + 1024 if over else max(m - 1024, 1)
 
 
-_K1_LABELS = ("pos", "counts", "blocks", "vals_t or bits", "new_prev")
+def _stores_pair():
+    """Two zeroed ``prev_stores`` counters on the card: the kernel's and
+    its plain version's."""
+    return tuple(torch.zeros(1, dtype=torch.int64, device="cuda")
+                 for _ in range(2))
+
+
+def _stored_pct(stores, n, streams=1):
+    """The vectors K1 stored as a share of the 16-byte vectors of
+    ``streams`` frames of ``n`` bytes, counted from each one's first
+    byte."""
+    return 100.0 * int(stores) / (streams * -(-n // 16))
+
+
+def _stored(pcts):
+    """A check line's stored share of prev's vectors, or its range."""
+    lo, hi = min(pcts), max(pcts)
+    return (f"stored {lo:.2f}% of prev's vectors" if lo == hi else
+            f"stored {lo:.2f}..{hi:.2f}% of prev's vectors")
+
+
+_K1_LABELS = ("pos", "counts", "blocks", "vals_t or bits", "new_prev",
+              "prev_stores")
 
 
 def _k1_any(kind, cur, prev, plain=False):
     """One K1 call of ``kind`` (tiled subtile 1 or 8, bitmask-only,
     batched over 4 streams, or flat) on a copy of ``prev``, or its plain
-    version: the launches that share one stream's scratch words."""
+    version: the launches that share one stream's scratch words. Its
+    outputs and, last, its ``prev_stores`` counter."""
     from cudavideostream_tpu_torch.ops import logcompact as lc
 
     p = prev.clone()
+    st = torch.zeros(1, dtype=torch.int64, device=cur.device)
     if kind in ("tiled1", "tiled8"):
         fn = (lc.fused_diff_compact_tiled_reference if plain
               else lc.fused_diff_compact_tiled)
-        return fn(cur, p, 20, True, None, int(kind[-1]))
+        return fn(cur, p, 20, True, None, int(kind[-1]), prev_stores=st) + (st,)
     if kind == "mask":
         fn = (lc.fused_diff_compact_mask_reference if plain
               else lc.fused_diff_compact_mask)
-        return fn(cur, p, 20, True, None, 1)
+        return fn(cur, p, 20, True, None, 1, prev_stores=st) + (st,)
     if kind == "batched4":
         fn = (lc.fused_diff_compact_batched_reference if plain
               else lc.fused_diff_compact_batched)
-        return fn(cur, p, 4, sub_rows=1)
+        return fn(cur, p, 4, sub_rows=1, prev_stores=st) + (st,)
     fn = lc.fused_diff_compact_reference if plain else lc.fused_diff_compact
-    return fn(cur, p, 20, True)
+    return fn(cur, p, 20, True, prev_stores=st) + (st,)
 
 
 def phase_kernel_vs_plain(cfg):
@@ -742,13 +766,19 @@ def phase_kernel_vs_plain(cfg):
     def run_both(name, prev, cur, thr, negfeed, reg, capacity=None,
                  tm=None):
         p_k, p_p = prev.clone(), prev.clone()
+        s_k, s_p = _stores_pair()
         k = logcompact.fused_diff_compact(cur, p_k, thr, negfeed, reg,
-                                          capacity, threshold_map=tm)
+                                          capacity, threshold_map=tm,
+                                          prev_stores=s_k)
         torch.cuda.synchronize()
         p = logcompact.fused_diff_compact_reference(cur, p_p, thr, negfeed,
                                                     reg, capacity,
-                                                    threshold_map=tm)
-        return _equal_or_raise(name, k, p), int(k[0])
+                                                    threshold_map=tm,
+                                                    prev_stores=s_p)
+        err = _equal_or_raise(name, k + (s_k,), p + (s_p,),
+                              ("pos", "xs", "vals", "new_prev",
+                               "prev_stores"))
+        return err, int(k[0]), _stored_pct(s_k, cur.numel())
 
     def pair(m, density):
         return [torch.from_numpy(a).to(dev)
@@ -764,24 +794,26 @@ def phase_kernel_vs_plain(cfg):
                 for reg in (None, region):
                     name = (f"d={density} thr={thr} negfeed={negfeed} "
                             f"overlay={reg is not None}")
-                    err, pos = run_both(name, prev, cur, thr, negfeed, reg)
+                    err, pos, pct = run_both(name, prev, cur, thr, negfeed,
+                                             reg)
                     max_err, cases = max(max_err, err), cases + 1
-                    log(f"[check] {name}: pos={pos} exact")
+                    log(f"[check] {name}: pos={pos} exact; {_stored([pct])}")
     # ragged lengths (tails shorter than a 16-byte vector and a tile) and
     # a capacity below the count
     for m in (1000, 12_345):
         prev_np, cur_np = frame_pair(rng, m, 0.06)
         prev, cur = (torch.from_numpy(prev_np).to(dev),
                      torch.from_numpy(cur_np).to(dev))
-        err, pos = run_both(f"n={m}", prev, cur, 20, True, region[:700])
+        err, pos, pct = run_both(f"n={m}", prev, cur, 20, True, region[:700])
         max_err, cases = max(max_err, err), cases + 1
-        log(f"[check] n={m} overlay=700 B: pos={pos} exact")
+        log(f"[check] n={m} overlay=700 B: pos={pos} exact; {_stored([pct])}")
     prev_np, cur_np = frame_pair(rng, n, 0.06)
     prev, cur = (torch.from_numpy(prev_np).to(dev),
                  torch.from_numpy(cur_np).to(dev))
-    err, pos = run_both("capacity", prev, cur, 20, True, region, 100_000)
+    err, pos, pct = run_both("capacity", prev, cur, 20, True, region,
+                             100_000)
     max_err, cases = max(max_err, err), cases + 1
-    log(f"[check] capacity=100000 < pos={pos}: exact")
+    log(f"[check] capacity=100000 < pos={pos}: exact; {_stored([pct])}")
 
     # the one-pass kernel's edges: lengths around a tile and around the
     # persistent grid's size in tiles, a region across the first tile's
@@ -793,32 +825,37 @@ def phase_kernel_vs_plain(cfg):
         prev, cur = pair(m, 0.06)
         reg = region[:min(m, tile + 700)]
         tm = torch.from_numpy(byte_map(rng, m)).to(dev)
+        pcts = []
         for label, kw in (("", {}), (" with a per-byte map", {"tm": tm})):
-            err, pos = run_both(f"one-pass n={m}{label}", prev, cur, 20, True,
-                                reg, **kw)
+            err, pos, pct = run_both(f"one-pass n={m}{label}", prev, cur, 20,
+                                     True, reg, **kw)
             max_err, cases = max(max_err, err), cases + 1
+            pcts.append(pct)
         log(f"[check] K1 flat one-pass n={m} ({-(-m // tile)} tiles of "
             f"{tile} B, grid {min(blocks, -(-m // tile))} of {blocks}), "
             f"overlay {reg.numel()} B, without and with a per-byte map: "
-            f"pos={pos} exact")
+            f"pos={pos} exact; {_stored(pcts)}")
     prev, cur = pair(n, 0.06)
-    err, pos = run_both("pos=0", prev, prev.clone(), 20, True, None)
+    err, pos, pct0 = run_both("pos=0", prev, prev.clone(), 20, True, None)
     max_err, cases = max(max_err, err), cases + 1
     prev, cur = pair(n, 1.0)
-    err, pos_n = run_both("pos=n", prev, cur, 0, True, None)
+    err, pos_n, pct_n = run_both("pos=n", prev, cur, 0, True, None)
     max_err, cases = max(max_err, err), cases + 1
     if (pos, pos_n) != (0, n):
         raise AssertionError(f"pos {pos} and {pos_n}, not 0 and {n}")
+    if (pct0, pct_n) != (0.0, 100.0):
+        raise AssertionError(f"stored {pct0}% and {pct_n}% of prev's "
+                             "vectors, not 0% and 100%")
     log(f"[check] K1 flat one-pass pos=0 (cur == prev) and pos=n={n} "
-        f"(density 1.0, thr 0): exact")
+        f"(density 1.0, thr 0): exact; stored 0% and 100% of prev's vectors")
     prev, cur = pair(n, 0.06)
     pos = int(logcompact.fused_diff_compact_reference(
         cur, prev.clone(), 20, True, region)[0])
     for cap in (pos - 1, pos, pos + 1, pos + 17):
-        err, _ = run_both(f"cap={cap}", prev, cur, 20, True, region, cap)
+        err, _, pct = run_both(f"cap={cap}", prev, cur, 20, True, region, cap)
         max_err, cases = max(max_err, err), cases + 1
     log(f"[check] K1 flat one-pass cap = pos-1, pos, pos+1, pos+17 "
-        f"(pos={pos}): exact")
+        f"(pos={pos}): exact; {_stored([pct])}")
 
     # twenty launches back to back: on one stream, then over two streams
     # at once; lengths and densities vary, so a launch that left the
@@ -829,19 +866,21 @@ def phase_kernel_vs_plain(cfg):
         for i in range(20):
             prev, cur = pair(sizes[i % len(sizes)], (0.0, 0.06, 1.0)[i % 3])
             reg = region[:min(cur.numel(), 288_000)] if i % 2 else None
-            flat.append((cur, prev.clone(), prev.clone(), reg))
+            flat.append((cur, prev.clone(), prev.clone(), reg,
+                         *_stores_pair()))
         torch.cuda.synchronize()
         cases += _back_to_back(
             f"K1 flat back to back, {streams} stream(s)",
-            lambda c, pk, pp, r: logcompact.fused_diff_compact(
-                c, pk, 20, True, r),
-            lambda c, pk, pp, r: logcompact.fused_diff_compact_reference(
-                c, pp, 20, True, r),
-            flat, streams, ("pos", "xs", "vals", "new_prev"))
+            lambda c, pk, pp, r, sk, sp: logcompact.fused_diff_compact(
+                c, pk, 20, True, r, prev_stores=sk) + (sk,),
+            lambda c, pk, pp, r, sk, sp:
+                logcompact.fused_diff_compact_reference(
+                    c, pp, 20, True, r, prev_stores=sp) + (sp,),
+            flat, streams, ("pos", "xs", "vals", "new_prev", "prev_stores"))
         log(f"[check] K1 flat one-pass: 20 launches back to back on "
             f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
             f" (n {', '.join(str(x) for x in sizes)}; densities 0/0.06/1): "
-            f"each exact against its plain version")
+            f"each exact against its plain version, prev_stores too")
 
     # one full pipeline step on the card against the NumPy spec
     from cudavideostream_tpu_torch.models import DeltaStreamPipeline
@@ -894,16 +933,21 @@ def phase_tiled_vs_plain(cfg):
 
     def run_both(name, prev, cur, thr, negfeed, reg, sub):
         p_k, p_p = prev.clone(), prev.clone()
+        s_k, s_p = _stores_pair()
         k = logcompact.fused_diff_compact_tiled(cur, p_k, thr, negfeed, reg,
-                                                sub)
+                                                sub, prev_stores=s_k)
         torch.cuda.synchronize()
-        p = logcompact.fused_diff_compact_tiled_reference(cur, p_p, thr,
-                                                          negfeed, reg, sub)
-        _equal_or_raise(name, k, p,
-                        ("pos", "counts", "xs_t", "vals_t", "new_prev"))
+        p = logcompact.fused_diff_compact_tiled_reference(
+            cur, p_p, thr, negfeed, reg, sub, prev_stores=s_p)
+        _equal_or_raise(name, k + (s_k,), p + (s_p,),
+                        ("pos", "counts", "xs_t", "vals_t", "new_prev",
+                         "prev_stores"))
         cases["k1"] += 1
         check_merge(name + " merge_tiles", *k[1:4])
+        pcts.append(_stored_pct(s_k, cur.numel()))
         return int(k[0]), tuple(k[2].shape), k[1].dtype
+
+    pcts = []
 
     for density in (0.0, 0.06, 1.0):
         prev_np, cur_np = frame_pair(rng, n, density)
@@ -911,6 +955,7 @@ def phase_tiled_vs_plain(cfg):
                      torch.from_numpy(cur_np).to(dev))
         for sub in (1, 8, 0):
             poss = []
+            pcts.clear()
             for thr in (0, 20, 255):
                 for negfeed in (True, False):
                     for reg in (None, region):
@@ -922,16 +967,18 @@ def phase_tiled_vs_plain(cfg):
             log(f"[check] K1 tiled subtile={sub} d={density}: 12 cases "
                 f"(thresholds 0/20/255 x negfeed x overlay) exact, units "
                 f"{shape[0]} x {shape[1]} B, counts {cdt}, pos "
-                f"{min(poss)}..{max(poss)}; K2 merge_tiles of each exact")
+                f"{min(poss)}..{max(poss)}, prev_stores == the plain "
+                f"version's, {_stored(pcts)}; K2 merge_tiles of each exact")
     for m in (1000, 12_345):
         prev_np, cur_np = frame_pair(rng, m, 0.06)
         prev, cur = (torch.from_numpy(prev_np).to(dev),
                      torch.from_numpy(cur_np).to(dev))
+        pcts.clear()
         for sub in (1, 8, 0):
             run_both(f"tiled n={m} sub={sub}", prev, cur, 20, True,
                      region[:700], sub)
-        log(f"[check] K1 tiled n={m} overlay=700 B, subtile 1/8/0: exact; "
-            f"K2 merge_tiles exact")
+        log(f"[check] K1 tiled n={m} overlay=700 B, subtile 1/8/0: exact, "
+            f"{_stored(pcts)}; K2 merge_tiles exact")
     # K1 tiled's one launch at tile counts 1, just under and just over one
     # wave of resident blocks (1080p's are the 12-case lines above)
     _, wave = _onepass_grid("tiled")
@@ -940,12 +987,13 @@ def phase_tiled_vs_plain(cfg):
         prev_np, cur_np = frame_pair(rng, m, 0.06)
         prev, cur = (torch.from_numpy(prev_np).to(dev),
                      torch.from_numpy(cur_np).to(dev))
+        pcts.clear()
         for sub in (1, 8):
             run_both(f"tiled {tiles} tiles sub={sub}", prev, cur, 20, True,
                      region[:min(700, m)], sub)
         log(f"[check] K1 tiled one launch on {tiles} tiles of 4096 B (n={m}; "
-            f"one wave holds {wave} blocks), subtile 1/8: exact; K2 "
-            f"merge_tiles exact")
+            f"one wave holds {wave} blocks), subtile 1/8: exact, "
+            f"{_stored(pcts)}; K2 merge_tiles exact")
     # raw pairs: a third of the xs are 0 (a valid index), vals zero in
     # between; lengths around K2's tile and around its persistent grid in
     # tiles, then every pair valid and none
@@ -1025,7 +1073,7 @@ def phase_tiled_vs_plain(cfg):
         log(f"[check] K1 tiled subtile 1 and 8, bitmask-only, batched B=4 "
             f"and flat: 20 launches back to back on "
             f"{'one stream' if streams == 1 else 'two streams at once, no sync between them'}"
-            f": each exact against its plain version")
+            f": each exact against its plain version, prev_stores too")
 
     tcfg = dataclasses.replace(cfg, tiled_payload=True)
     pipe = DeltaStreamPipeline(tcfg)
@@ -1077,15 +1125,20 @@ def phase_mask_vs_plain(cfg):
         cases["k3"] += 1
         return int(got[0])
 
+    pcts = []
+
     def run_mask(name, prev, cur, thr, negfeed, reg, sub):
         p_k, p_p = prev.clone(), prev.clone()
+        s_k, s_p = _stores_pair()
         k = logcompact.fused_diff_compact_mask(cur, p_k, thr, negfeed, reg,
-                                               sub)
+                                               sub, prev_stores=s_k)
         torch.cuda.synchronize()
-        p = logcompact.fused_diff_compact_mask_reference(cur, p_p, thr,
-                                                         negfeed, reg, sub)
-        _equal_or_raise(name, k, p,
-                        ("pos", "counts", "vals_t", "bits", "new_prev"))
+        p = logcompact.fused_diff_compact_mask_reference(
+            cur, p_p, thr, negfeed, reg, sub, prev_stores=s_p)
+        _equal_or_raise(name, k + (s_k,), p + (s_p,),
+                        ("pos", "counts", "vals_t", "bits", "new_prev",
+                         "prev_stores"))
+        pcts.append(_stored_pct(s_k, cur.numel()))
         cases["k1_mask"] += 1
         merged = logcompact.merge_vals(k[1], k[2])
         torch.cuda.synchronize()
@@ -1097,13 +1150,18 @@ def phase_mask_vs_plain(cfg):
 
     def run_bits(name, prev, cur, thr, negfeed, reg, sub):
         p_k, p_p = prev.clone(), prev.clone()
+        s_k, s_p = _stores_pair()
         k = logcompact.fused_diff_compact_tiled(cur, p_k, thr, negfeed, reg,
-                                                sub, emit_bits=True)
+                                                sub, emit_bits=True,
+                                                prev_stores=s_k)
         torch.cuda.synchronize()
         p = logcompact.fused_diff_compact_tiled_reference(
-            cur, p_p, thr, negfeed, reg, sub, emit_bits=True)
-        _equal_or_raise(name, k, p, ("pos", "counts", "xs_t", "vals_t",
-                                     "bits", "new_prev"))
+            cur, p_p, thr, negfeed, reg, sub, emit_bits=True,
+            prev_stores=s_p)
+        _equal_or_raise(name, k + (s_k,), p + (s_p,),
+                        ("pos", "counts", "xs_t", "vals_t", "bits",
+                         "new_prev", "prev_stores"))
+        pcts.append(_stored_pct(s_k, cur.numel()))
         cases["k1_bits"] += 1
         return int(k[0])
 
@@ -1115,6 +1173,7 @@ def phase_mask_vs_plain(cfg):
                      torch.from_numpy(cur_np).to(dev))
         for sub in (1, 8, 0):
             poss = []
+            pcts.clear()
             for thr, negfeed, reg in grid:
                 name = (f"mask sub={sub} d={density} thr={thr} "
                         f"negfeed={negfeed} overlay={reg is not None}")
@@ -1123,26 +1182,29 @@ def phase_mask_vs_plain(cfg):
                 poss.append(pos)
             log(f"[check] K1 mask subtile={sub} d={density}: 12 cases "
                 f"(thresholds 0/20/255 x negfeed x overlay) exact (pos, "
-                f"counts, vals_t, bits, new_prev), units {shape[0]} x "
-                f"{shape[1]} B, counts {cdt}, pos {min(poss)}..{max(poss)}; "
-                f"K3 merge_vals of each exact")
+                f"counts, vals_t, bits, new_prev, prev_stores), units "
+                f"{shape[0]} x {shape[1]} B, counts {cdt}, pos "
+                f"{min(poss)}..{max(poss)}, {_stored(pcts)}; K3 merge_vals "
+                f"of each exact")
+        pcts.clear()
         poss = [run_bits(f"tiled+bits d={density} thr={thr} negfeed="
                          f"{negfeed} overlay={reg is not None}", prev, cur,
                          thr, negfeed, reg, 1) for thr, negfeed, reg in grid]
         log(f"[check] K1 tiled+bits subtile=1 d={density}: 12 cases exact "
-            f"(pos, counts, xs_t, vals_t, bits, new_prev), pos "
-            f"{min(poss)}..{max(poss)}")
+            f"(pos, counts, xs_t, vals_t, bits, new_prev, prev_stores), pos "
+            f"{min(poss)}..{max(poss)}, {_stored(pcts)}")
     for m in (1000, 12_345):
         prev_np, cur_np = frame_pair(rng, m, 0.06)
         prev, cur = (torch.from_numpy(prev_np).to(dev),
                      torch.from_numpy(cur_np).to(dev))
+        pcts.clear()
         for sub in (1, 8, 0):
             run_mask(f"mask n={m} sub={sub}", prev, cur, 20, True,
                      region[:700], sub)
             run_bits(f"tiled+bits n={m} sub={sub}", prev, cur, 20, True,
                      region[:700], sub)
         log(f"[check] K1 mask and K1 tiled+bits n={m} overlay=700 B, "
-            f"subtile 1/8/0: exact; K3 merge_vals exact")
+            f"subtile 1/8/0: exact, {_stored(pcts)}; K3 merge_vals exact")
     # raw streams: the mask geometry's length, a short one, one that
     # takes two tiles per block, and an all-zero stream
     for m, density in ((6_225_920, 0.3), (777, 0.3), (4096 * 1024 + 5, 0.3),
@@ -1209,11 +1271,12 @@ def phase_mask_vs_plain(cfg):
         prev_np, cur_np = frame_pair(rng, m, 0.06)
         prev, cur = (torch.from_numpy(prev_np).to(dev),
                      torch.from_numpy(cur_np).to(dev))
+        pcts.clear()
         run_mask(f"mask {tiles} tiles", prev, cur, 20, True,
                  region[:min(700, m)], 1)
         log(f"[check] K1 mask one launch on {tiles} tiles of 4096 B "
-            f"(n={m}; one wave holds {wave} blocks), subtile 1: exact; K3 "
-            f"merge_vals exact")
+            f"(n={m}; one wave holds {wave} blocks), subtile 1: exact, "
+            f"{_stored(pcts)}; K3 merge_vals exact")
 
     text = "FPS: 30 BW: 1234 kbps"
     prev_np, cur_np = frame_pair(rng, n, 0.06)
@@ -2183,15 +2246,21 @@ def phase_map_vs_plain(cfg):
            for s in (1, 8, 0)},
     }
     cases = 0
+    pcts = []
 
     def run(name, emission, prev, cur, tm, negfeed, reg):
         nonlocal cases
         fn, ref, kw, labels = emissions[emission]
         p_k, p_p = prev.clone(), prev.clone()
-        k = fn(cur, p_k, 20, negfeed, reg, threshold_map=tm, **kw)
+        s_k, s_p = _stores_pair()
+        k = fn(cur, p_k, 20, negfeed, reg, threshold_map=tm, prev_stores=s_k,
+               **kw)
         torch.cuda.synchronize()
-        p = ref(cur, p_p, 20, negfeed, reg, threshold_map=tm, **kw)
-        _equal_or_raise(f"{emission} {name}", k, p, labels)
+        p = ref(cur, p_p, 20, negfeed, reg, threshold_map=tm,
+                prev_stores=s_p, **kw)
+        _equal_or_raise(f"{emission} {name}", k + (s_k,), p + (s_p,),
+                        labels + ("prev_stores",))
+        pcts.append(_stored_pct(s_k, cur.numel()))
         cases += 1
         return int(k[0])
 
@@ -2201,28 +2270,31 @@ def phase_map_vs_plain(cfg):
                      torch.from_numpy(cur_np).to(dev))
         tm = torch.from_numpy(byte_map(rng, n)).to(dev)
         for emission in emissions:
+            pcts.clear()
             poss = [run(f"map d={density} negfeed={negfeed} overlay="
                         f"{reg is not None}", emission, prev, cur, tm,
                         negfeed, reg)
                     for negfeed in (True, False) for reg in (None, region)]
             log(f"[check] K1 {emission} with a per-byte map, d={density}: "
                 f"4 cases (negfeed x overlay) exact, pos "
-                f"{min(poss)}..{max(poss)}")
+                f"{min(poss)}..{max(poss)}, {_stored(pcts)}")
     tm = torch.from_numpy(np.where(rng.random(n) < 0.5, 0, 255).astype(
         np.uint8)).to(dev)
+    pcts.clear()
     for emission in emissions:
         run("map of 0s and 255s", emission, prev, cur, tm, True, region)
     log(f"[check] K1 with a map of 0s and 255s only, d=1.0, overlay: exact "
-        f"on all {len(emissions)} emissions")
+        f"on all {len(emissions)} emissions, {_stored(pcts)}")
     for m in (1000, 12_345):
         prev_np, cur_np = frame_pair(rng, m, 0.06)
         prev, cur = (torch.from_numpy(prev_np).to(dev),
                      torch.from_numpy(cur_np).to(dev))
         tm = torch.from_numpy(byte_map(rng, m)).to(dev)
+        pcts.clear()
         for emission in emissions:
             run(f"map n={m}", emission, prev, cur, tm, True, region[:700])
         log(f"[check] K1 with a map, n={m}, overlay=700 B: exact on all "
-            f"{len(emissions)} emissions")
+            f"{len(emissions)} emissions, {_stored(pcts)}")
 
     text = "FPS: 30 BW: 1234 kbps"
     prev_np, cur_np = frame_pair(rng, n, 0.06)
@@ -2525,22 +2597,32 @@ def _streams(rng, b, n, density):
 
 
 def _check_batched(name, prev, cur, b, sub, tm=None, reg=None,
-                   scheme="element"):
+                   scheme="element", pcts=None):
     """One batched call on the card against its plain version and against
     ``b`` solo tiled calls of the same scheme on the streams' own
     (16-byte aligned) copies, byte for byte: pos, counts, the blocks with
-    their zero fill, and new_prev. Returns the per-stream pos."""
+    their zero fill, and new_prev; K1's ``prev_stores`` against its plain
+    version's, its share appended to ``pcts``. Returns the per-stream
+    pos."""
     from cudavideostream_tpu_torch.ops import logcompact as lc
 
     n = cur.numel() // b
     strip = 0 if reg is None else reg.numel() // b
+    s_k, s_p = (_stores_pair() if scheme == "element" else (None, None))
     got = lc.fused_diff_compact_batched(cur, prev.clone(), b, 20, True,
                                         scheme, tm, sub_rows=sub,
-                                        overlay_region=reg)
+                                        overlay_region=reg, prev_stores=s_k)
     torch.cuda.synchronize()
-    _equal_or_raise(name, got, lc.fused_diff_compact_batched_reference(
+    want = lc.fused_diff_compact_batched_reference(
         cur, prev.clone(), b, 20, True, scheme, tm, sub_rows=sub,
-        overlay_region=reg), BATCHED)
+        overlay_region=reg, prev_stores=s_p)
+    if s_k is None:
+        _equal_or_raise(name, got, want, BATCHED)
+    else:
+        _equal_or_raise(name, got + (s_k,), want + (s_p,),
+                        BATCHED + ("prev_stores",))
+        if pcts is not None:
+            pcts.append(_stored_pct(s_k, n, b))
     for s in range(b):
         solo = lc.fused_diff_compact_tiled(
             cur[s * n:(s + 1) * n].clone(), prev[s * n:(s + 1) * n].clone(),
@@ -2576,7 +2658,7 @@ def phase_batched_vs_plain(cfg):
         0, 255, 8 * 288_000, endpoint=True, dtype=np.uint8)).to(dev)
     for b in (1, 3, 4, 8):
         for sub in (1, 8, 0):
-            poss = []
+            poss, pcts = [], []
             for d, (prev, cur) in frames.items():
                 for tm in (None, door):
                     for reg in ((None, strips[:b * 288_000]) if d == 0.06
@@ -2584,27 +2666,31 @@ def phase_batched_vs_plain(cfg):
                         poss += _check_batched(
                             f"K1 batched B={b} sub={sub} d={d} "
                             f"map={tm is not None} overlay={reg is not None}",
-                            prev[:b * n], cur[:b * n], b, sub, tm, reg)
+                            prev[:b * n], cur[:b * n], b, sub, tm, reg,
+                            pcts=pcts)
                         cases["k1"] += 1
             log(f"[check] K1 batched B={b} subtile={sub}: 8 cases (density "
                 f"0/0.06/1 x map none/door, and per-stream overlay strips at "
                 f"0.06) exact against its plain version and against {b} solo "
-                f"K1 tiled launches; pos per stream {min(poss)}..{max(poss)}")
+                f"K1 tiled launches; pos per stream {min(poss)}..{max(poss)}; "
+                f"prev_stores == the plain version's, {_stored(pcts)}")
     for b, m in ((2, 9233), (4, 9233), (2, 128 * 401), (4, 128 * 401),
                  (2, 1000), (4, 1000)):
         prev, cur = _streams(rng, b, m, 0.06)
         tm = torch.from_numpy(byte_map(rng, m)).to(dev)
         reg = torch.from_numpy(rng.integers(0, 255, b * 700, endpoint=True,
                                             dtype=np.uint8)).to(dev)
+        pcts = []
         for sub in (1, 8, 0):
             for t, r in ((None, None), (tm, reg)):
                 _check_batched(f"K1 batched B={b} n={m} sub={sub}", prev, cur,
-                               b, sub, t, r)
+                               b, sub, t, r, pcts=pcts)
                 cases["k1"] += 1
         log(f"[check] K1 batched B={b} n={m} (a padded geometry"
             f"{'; streams not 16-byte aligned' if m % 16 else ''}), subtile "
             f"1/8/0, with and without a byte map and 700 B overlay strips: "
-            f"exact against its plain version and solo launches")
+            f"exact against its plain version and solo launches; "
+            f"prev_stores == the plain version's, {_stored(pcts)}")
 
     for b in (1, 3, 4, 8):
         for d in (0.06, 1.0):
@@ -4792,13 +4878,15 @@ def _sharded_mesh(s):
     return make_mesh(s, devices=["cuda:0"] * s)
 
 
-def _offset_k1(emit, sub, cur, prev, off, region, plain=False, tm=None):
+def _offset_k1(emit, sub, cur, prev, off, region, plain=False, tm=None,
+               stores=None):
     """One K1 call in ``emit`` (flat, or tiled at ``sub``) with
-    ``index_offset=off`` (and the per-byte map ``tm``) on a copy of
-    ``prev``; its outputs."""
+    ``index_offset=off`` (and the per-byte map ``tm``, the counter
+    ``stores``) on a copy of ``prev``; its outputs."""
     from cudavideostream_tpu_torch.ops import logcompact as lc
 
-    kw = dict(overlay_region=region, index_offset=off, threshold_map=tm)
+    kw = dict(overlay_region=region, index_offset=off, threshold_map=tm,
+              prev_stores=stores)
     if emit == "flat":
         fn = lc.fused_diff_compact_reference if plain else lc.fused_diff_compact
         return fn(cur, prev.clone(), 20, True, **kw)
@@ -4823,13 +4911,19 @@ def phase_offset_vs_plain(cfg):
               for d in (0.06, 0.5)}
     region_np = rng.integers(0, 256, 288_000, dtype=np.uint8)
 
+    pcts = []
+
     def check(label, emit, sub, cur, prev, off, region, tm=None):
-        got = _offset_k1(emit, sub, cur, prev, off, region, tm=tm)
+        s_k, s_p = _stores_pair()
+        got = _offset_k1(emit, sub, cur, prev, off, region, tm=tm,
+                         stores=s_k)
         labels = (("pos", "xs", "vals", "new_prev") if emit == "flat" else
                   ("pos", "counts", "xs_t", "vals_t", "new_prev"))
-        _equal_or_raise(label, got, _offset_k1(emit, sub, cur, prev, off,
-                                               region, plain=True, tm=tm),
-                        labels)
+        _equal_or_raise(label, got + (s_k,),
+                        _offset_k1(emit, sub, cur, prev, off, region,
+                                   plain=True, tm=tm, stores=s_p) + (s_p,),
+                        labels + ("prev_stores",))
+        pcts.append(_stored_pct(s_k, cur.numel()))
         base = _offset_k1(emit, sub, cur, prev, 0, region, tm=tm)
         i = 1 if emit == "flat" else 2
         valid = got[i + 1] != 0
@@ -4842,6 +4936,7 @@ def phase_offset_vs_plain(cfg):
         ln = n // s_count
         for emit, sub in emissions:
             for d, (prev_full, cur_full) in frames.items():
+                pcts.clear()
                 for s in range(s_count):
                     cur = cur_full[s * ln:(s + 1) * ln].clone()
                     prev = prev_full[s * ln:(s + 1) * ln].clone()
@@ -4855,7 +4950,7 @@ def phase_offset_vs_plain(cfg):
                     f"S={s_count} d={d}: every shard base 0..{(s_count - 1) * ln}"
                     f" (Ln={ln}), shard 0 with the overlay region: exact "
                     f"against its plain version and equal to the offset-free "
-                    f"launch shifted on valid entries only")
+                    f"launch shifted on valid entries only; {_stored(pcts)}")
     # the tiled emission's one launch with a per-byte map, every shard
     # base of S = 2, 4, 8, subtile 1 and 8
     prev_full, cur_full = frames[0.06]
@@ -4863,6 +4958,7 @@ def phase_offset_vs_plain(cfg):
     for s_count in (2, 4, 8):
         ln = n // s_count
         for sub in (1, 8):
+            pcts.clear()
             for s in range(s_count):
                 sl = slice(s * ln, (s + 1) * ln)
                 check(f"K1 index_offset map S={s_count} shard {s}", "tiled",
@@ -4872,18 +4968,85 @@ def phase_offset_vs_plain(cfg):
             log(f"[check] K1 index_offset tiled subtile={sub} S={s_count} "
                 f"with a per-byte map: every shard base 0..{(s_count - 1) * ln}"
                 f" (Ln={ln}): exact against its plain version and equal to "
-                f"the offset-free launch shifted on valid entries only")
+                f"the offset-free launch shifted on valid entries only; "
+                f"{_stored(pcts)}")
     from cudavideostream_tpu_torch.ops import logcompact as lc
 
     for emit, sub in emissions:
         big = (1 << 31) - lc.tiled_geometry(n, sub)[0] - 1
+        pcts.clear()
         check("K1 index_offset large", emit, sub, cur_full, prev_full, big,
               None)
         cases += 1
         log(f"[check] K1 index_offset {emit}"
             f"{'' if emit == 'flat' else f' subtile={sub}'} at 1080p, offset "
             f"{big} (the largest int32 admits): exact, shifted on valid "
-            f"entries only")
+            f"entries only; {_stored(pcts)}")
+    return cases
+
+
+def phase_stores_on_scene():
+    """K1's ``prev_stores`` on the benchmark's scene (``cvsbench/scene.py``
+    with the ``cam1`` and ``cam4`` traffic, 4 frames a stream, chained):
+    flat, tiled and bitmask-only at ``subtile_rows=1`` and batched over
+    B = 4, each step exact against its plain version, the counter equal to
+    the plain version's and the stored share of prev's vectors within
+    5.5-6.5% (a band of 5.937% of the bytes changes a frame). Returns the
+    cases."""
+    from cudavideostream_tpu_torch.ops import logcompact as lc
+    from cvsbench import scene
+
+    cases = 0
+    for traffic_name, emissions in (("cam1", ("flat", "tiled", "mask")),
+                                    ("cam4", ("batched",))):
+        with open(os.path.join("cvsbench", "traffic",
+                               f"{traffic_name}.json")) as f:
+            traffic = dict(json.load(f), bank_frames=4)
+        b = int(traffic["streams"])
+        bank, base = scene.make_bank(traffic, 1080, 1920, 2900029001, "cuda")
+        n = base.shape[1]
+        for emission in emissions:
+            k1, plain = {
+                "flat": (lc.fused_diff_compact,
+                         lc.fused_diff_compact_reference),
+                "tiled": (lc.fused_diff_compact_tiled,
+                          lc.fused_diff_compact_tiled_reference),
+                "mask": (lc.fused_diff_compact_mask,
+                         lc.fused_diff_compact_mask_reference),
+                "batched": (lc.fused_diff_compact_batched,
+                            lc.fused_diff_compact_batched_reference),
+            }[emission]
+            args = (b, 20, True) if emission == "batched" else (20, True)
+            kw = {} if emission == "flat" else dict(sub_rows=1)
+            labels = ((("pos", "xs", "vals") if emission == "flat" else
+                       ("pos", "counts", "blocks", "blocks"))
+                      + ("new_prev", "prev_stores"))
+            p_k, p_p = base.reshape(-1).clone(), base.reshape(-1).clone()
+            stored = []
+            for t in range(bank.shape[0]):
+                cur = bank[t].reshape(-1)
+                s_k, s_p = _stores_pair()
+                got = k1(cur, p_k, *args, prev_stores=s_k, **kw)
+                torch.cuda.synchronize()
+                want = plain(cur, p_p, *args, prev_stores=s_p, **kw)
+                _equal_or_raise(f"K1 {emission} on the {traffic_name} scene, "
+                                f"frame {t}", got + (s_k,), want + (s_p,),
+                                labels)
+                stored.append(int(s_k))
+                cases += 1
+            pcts = [_stored_pct(v, n, b) for v in stored]
+            if not 5.5 <= min(pcts) <= max(pcts) <= 6.5:
+                raise AssertionError(f"K1 {emission} on the {traffic_name} "
+                                     f"scene stored {pcts}% of prev's "
+                                     "vectors, not 5.5-6.5%")
+            log(f"[check] K1 {emission}"
+                f"{'' if emission == 'flat' else ' subtile=1'}"
+                f"{f' B={b}' if b > 1 else ''} on the benchmark scene "
+                f"(cvsbench/scene.py, {traffic_name} traffic, seed "
+                f"2900029001, {bank.shape[0]} frames chained): exact against "
+                f"its plain version, prev_stores equal to the plain "
+                f"version's; {_stored(pcts)} ({min(stored):,}..{max(stored):,}"
+                f" of {b * -(-n // 16):,} a frame)")
     return cases
 
 
@@ -6963,6 +7126,7 @@ def main() -> int:
     scheme_cases = phase_schemes_vs_plain(cfg)
     batched_cases = phase_batched_vs_plain(cfg)
     offset_cases = phase_offset_vs_plain(cfg)
+    phase_stores_on_scene()
     sharded_steps = phase_sharded_steps(cfg)
     mcfg = dataclasses.replace(tcfg, emit_bitmask=True, fetch_mode="mask",
                                mask_payload=True, wire_format="v4")

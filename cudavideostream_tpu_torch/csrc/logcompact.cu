@@ -19,7 +19,8 @@
 //   * new_prev = shipped ? c : p under negative feedback, else c. It is
 //     written into prev IN PLACE (the counterpart of the JAX buffer
 //     donation); each byte of prev is read and written by the same thread
-//     of the last kernel only, after every earlier read of it.
+//     of the last kernel only, after every earlier read of it, and only
+//     where it changes (PREV STORES).
 //
 // FLAT emission (cvs_fused_diff_compact, flat_lookback_kernel):
 //   * xs[k] / vals[k] hold the k-th shipped index / value, ascending;
@@ -29,9 +30,11 @@
 //     entries, and the caller sees pos > cap.
 // Bound. On an H100 the function is bound by device-memory bytes: it
 // reads prev and cur (2n; the region stands in for the first region_len
-// bytes of cur, which are never loaded) and writes new_prev (n), xs
-// (4 * cap) and vals (cap), all full length because of the zero fill:
-// about 8n at cap = n, 49.8 MB at 1080p (n = 6,220,800), or about 15 us
+// bytes of cur, which are never loaded) and writes the vectors of
+// new_prev that change (16 B each, at most n), xs (4 * cap) and vals
+// (cap), both full length because of the zero fill: at cap = n about
+// 7n + 16 x the changed vectors, 43.9 MB at 1080p (n = 6,220,800) with
+// 6% of the vectors changed (49.8 MB with all of them), or about 13 us
 // at 3.35 TB/s. The zero tail [pos, cap) is most of it (about 28 MB at
 // 10% shipped).
 // Design. The TPU kernel's tile geometry, MXU prefix sums and shift passes
@@ -94,11 +97,14 @@
 // and writes its entries at offset + rank, zero-fills its own chunk's
 // slots past the unit's count, and folds its chunk's total into pos the
 // same way. No served path takes this one.
-// Bound. Reads cur and prev (2n) and writes new_prev (n), xs_t (4 n_pad),
-// vals_t (n_pad), counts (one to four bytes per unit) and pos: at 1080p
-// and sub_rows = 1, 49,820,132 B, or 14.87 us at 3.35 TB/s. The
-// one-pass design reads each byte once; the chunked design for whole-tile
-// units rereads cur and prev, as the flat kernel does.
+// Bound. Reads cur and prev (2n) and writes the changed vectors of
+// new_prev (16 B each), xs_t (4 n_pad), vals_t (n_pad), counts (one to
+// four bytes per unit) and pos: at 1080p and sub_rows = 1, 43,599,332 B
+// + 16 B a changed vector, so 43,972,132 B (13.13 us at 3.35 TB/s) with
+// the benchmark scene's 23,300 of 388,800 vectors (6.0%) changed, and
+// 49,820,132 B (14.87 us) with every vector changed. The one-pass design
+// reads each byte once; the chunked design for whole-tile units rereads
+// cur and prev, as the flat kernel does.
 //
 // PACKED BITS (both tiled entry points, `bits` not null): bit k of
 // bits[j] is the ship mask of byte 8j + k, LSB-first over the n_pad bytes
@@ -110,9 +116,11 @@
 // BITMASK-ONLY (emit_xs = 0): the index blocks and their 16 KB of shared
 // staging go away (a template parameter removes them). At 1080p
 // (n_pad = 6,225,920 at the mask geometry, sub_rows = 1) it reads 2n and
-// writes new_prev (n), vals_t (n_pad), bits (n_pad / 8), counts (n_pad /
-// 128) and pos: 25,715,204 B, or 7.68 us at 3.35 TB/s, half the tiled
-// emission's bytes.
+// writes the changed vectors of new_prev, vals_t (n_pad), bits
+// (n_pad / 8), counts (n_pad / 128) and pos: 19,494,404 B + 16 B a
+// changed vector, 19.87 MB (5.93 us at 3.35 TB/s) at 6.0% of the vectors
+// and 25,715,204 B (7.68 us) at all of them, half the tiled emission's
+// bytes.
 //
 // BATCHED (both tiled entry points, n_streams > 1; the TPU kernel's
 // stream_tiles super-frame mode, logcompact.py:359-365 and :509, reached
@@ -129,12 +137,13 @@
 // region_len bytes, strip b at region + b * region_len); pos_out holds one
 // int per stream, from one scratch word per stream (add_stream_total).
 // Offsets are long long: B * n_pad passes 2^31 at B ~ 346 at 1080p. At
-// n % 16 != 0 a stream's bytes are not 16-byte aligned; load16 and store_new_prev then take their byte
-// loops. The stream arithmetic and those address checks are compiled into
-// the batched instances only (template kBatched): the solo emissions keep
-// their own code, whose buffers are always aligned. The bound is B times
-// the solo tiled bound: 199,280,528 B at 1080p, B = 4, sub_rows = 1, or
-// 59.49 us at 3.35 TB/s.
+// n % 16 != 0 a stream's bytes are not 16-byte aligned; load16 and
+// store_new_prev then take their byte loops. The stream arithmetic and
+// those address checks are compiled into the batched instances only
+// (template kBatched): the solo emissions keep their own code, whose
+// buffers are always aligned. The bound is B times the solo tiled bound:
+// at 1080p, B = 4, sub_rows = 1, 175,888,528 B (52.50 us at 3.35 TB/s)
+// at 6.0% of the vectors changed, 199,280,528 B (59.49 us) at all.
 //
 // THRESHOLD MAP (every entry point, thr_map not null; the TPU kernel's
 // thr_is_map, logcompact.py:368 and :927-935): byte i ships iff
@@ -159,6 +168,24 @@
 // INT_MAX (indices stay int32); the batched launches take none, as the
 // TPU's fused_diff_compact_batched takes none. The bytes are those of the
 // launch without it.
+//
+// PREV STORES (every kernel above): new_prev is stored in 16-byte vectors,
+// and a vector is stored only where its new bytes differ from the old
+// ones (store_new_prev, flat_group); the byte loop of a misaligned batched
+// stream or a frame's ragged end stores only the bytes that change. The
+// rule depends on the data alone. Under negative feedback it is "some byte
+// of the vector ships" (a shipped byte has |c - p| > thr >= 0); without
+// it, "some byte of c differs from p", so a noisy frame stores nearly
+// every vector, as a full store would. A byte not stored already holds its
+// new value (prev is read and written by the same thread), so prev and
+// every output are the bytes a full store gives. At the benchmark scene's
+// 6% of the vectors changed, the state write falls from n to about
+// 0.06 n, 5.85 MB less a 1080p frame: 11.7% of the tiled emission's bytes.
+// prev_stores (every entry point; null: nothing counted, no atomics):
+// when not null, each kernel adds the vectors it stored, vectors counted
+// from each stream's first byte (a ragged end's partial vector is one),
+// to *prev_stores: per warp a ballot and popc (the flat kernel: a shuffle
+// sum of its tiles) and one atomic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -179,6 +206,12 @@ using Vec16 = lb::Vec16;
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
+}
+
+// Whether two 16-byte vectors differ in any byte.
+__device__ __forceinline__ bool differs(const Vec16& a, const Vec16& b) {
+  return ((a.v.x ^ b.v.x) | (a.v.y ^ b.v.y) | (a.v.z ^ b.v.z) |
+          (a.v.w ^ b.v.w)) != 0;
 }
 
 // Bytes [i0, i0 + 16) of src; bytes at or past lim read as 0. kCheck: src
@@ -281,24 +314,38 @@ __device__ __forceinline__ int block_excl_scan(int v, int* s_warp,
 
 // new_prev for the 16 bytes at i0, in place: the calling thread read
 // these bytes of prev, and no other thread of its kernel reads them.
+// Stored only where it differs from p (see PREV STORES): a vector whose
+// new bytes equal its old ones is not written, and the byte loop writes
+// only the bytes that change. Returns whether anything was stored.
 // kCheck as for load16.
 template <bool kCheck>
-__device__ __forceinline__ void store_new_prev(uint8_t* prev, long long i0,
+__device__ __forceinline__ bool store_new_prev(uint8_t* prev, long long i0,
                                                long long n, unsigned m,
                                                const Vec16& c,
                                                const Vec16& p, int negfeed) {
-  if (i0 >= n) return;
+  if (i0 >= n) return false;
   Vec16 np;
 #pragma unroll
   for (int k = 0; k < 16; ++k)
     np.b[k] = (!negfeed || ((m >> k) & 1u)) ? c.b[k] : p.b[k];
+  if (!differs(np, p)) return false;
   if (i0 + 16 <= n && (!kCheck || aligned16(prev + i0))) {
     *reinterpret_cast<uint4*>(prev + i0) = np.v;
   } else {
 #pragma unroll
     for (int k = 0; k < 16; ++k)
-      if (i0 + k < n) prev[i0 + k] = np.b[k];
+      if (i0 + k < n && np.b[k] != p.b[k]) prev[i0 + k] = np.b[k];
   }
+  return true;
+}
+
+// Adds a warp's count of stored prev vectors to *prev_stores: lane 0, one
+// atomic a warp, none for a count of 0. The caller passes a count that
+// lane 0 holds and calls it only with prev_stores not null.
+__device__ __forceinline__ void add_prev_stores(
+    unsigned long long* prev_stores, int warp_count) {
+  if ((threadIdx.x & 31) == 0 && warp_count)
+    atomicAdd(prev_stores, (unsigned long long)warp_count);
 }
 
 // The count c of unit u, into counts narrowed to counts_bytes bytes.
@@ -354,13 +401,15 @@ __device__ __forceinline__ void flat_load(
 
 // One group, four bytes at a time with byte-SIMD: returns the ship mask
 // (bit k = byte k: |c - p| > the threshold, unsigned bytes, so never a
-// uint8 wrap), writes new_prev into prev at i0 in place, and leaves the
-// shipped values (c - p) & 255 in c.
+// uint8 wrap), writes new_prev into prev at i0 in place where it differs
+// from p (as store_new_prev; one more in stores when it does), and leaves
+// the shipped values (c - p) & 255 in c.
 template <bool kMap>
 __device__ __forceinline__ unsigned flat_group(uint8_t* prev, long long i0,
                                                long long n, unsigned thr4,
                                                const Vec16& tm, int negfeed,
-                                               Vec16& c, const Vec16& p) {
+                                               Vec16& c, const Vec16& p,
+                                               int& stores) {
   const unsigned cw[4] = {c.v.x, c.v.y, c.v.z, c.v.w};
   const unsigned pw[4] = {p.v.x, p.v.y, p.v.z, p.v.w};
   const unsigned tw[4] = {tm.v.x, tm.v.y, tm.v.z, tm.v.w};
@@ -373,15 +422,16 @@ __device__ __forceinline__ unsigned flat_group(uint8_t* prev, long long i0,
     np[j] = negfeed ? (cw[j] & ship) | (pw[j] & ~ship) : cw[j];
     d[j] = __vsub4(cw[j], pw[j]);
   }
-  if (i0 < n) {
-    Vec16 w;
-    w.v = make_uint4(np[0], np[1], np[2], np[3]);
+  Vec16 w;
+  w.v = make_uint4(np[0], np[1], np[2], np[3]);
+  if (i0 < n && differs(w, p)) {
+    ++stores;
     if (i0 + 16 <= n) {
       *reinterpret_cast<uint4*>(prev + i0) = w.v;
     } else {
 #pragma unroll
       for (int k = 0; k < 16; ++k)
-        if (i0 + k < n) prev[i0 + k] = w.b[k];
+        if (i0 + k < n && w.b[k] != p.b[k]) prev[i0 + k] = w.b[k];
     }
   }
   c.v = make_uint4(d[0], d[1], d[2], d[3]);
@@ -389,20 +439,20 @@ __device__ __forceinline__ unsigned flat_group(uint8_t* prev, long long i0,
 }
 
 // The thread's groups of the tile at base, once loaded: ship masks, their
-// counts, new_prev stored, and the shipped values in d (c and p stay
-// free for the next tile's loads).
+// counts, new_prev stored where it changes (counted in stores), and the
+// shipped values in d (c and p stay free for the next tile's loads).
 template <bool kMap>
 __device__ __forceinline__ void flat_compute(
     uint8_t* prev, long long base, long long n, unsigned thr4, int negfeed,
     const Vec16 (&c)[kFlatVecs], const Vec16 (&p)[kFlatVecs],
     const Vec16 (&tm)[kFlatVecs], Vec16 (&d)[kFlatVecs],
-    unsigned (&m)[kFlatVecs], int (&cnt)[kFlatVecs]) {
+    unsigned (&m)[kFlatVecs], int (&cnt)[kFlatVecs], int& stores) {
 #pragma unroll
   for (int q = 0; q < kFlatVecs; ++q) {
     d[q] = c[q];
     m[q] = flat_group<kMap>(
         prev, base + q * kTileBytes + threadIdx.x * kBytesPerThread, n, thr4,
-        tm[q], negfeed, d[q], p[q]);
+        tm[q], negfeed, d[q], p[q], stores);
     cnt[q] = __popc(m[q]);
   }
 }
@@ -415,7 +465,8 @@ flat_lookback_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                      int negfeed, int index_offset,
                      unsigned long long* scratch, int* __restrict__ xs,
                      uint8_t* __restrict__ vals, long long cap,
-                     int* __restrict__ pos_out) {
+                     int* __restrict__ pos_out,
+                     unsigned long long* prev_stores) {
   constexpr int V = kFlatVecs;
   extern __shared__ __align__(16) uint8_t smem[];
   uint16_t* s_idx = reinterpret_cast<uint16_t*>(smem);
@@ -433,7 +484,7 @@ flat_lookback_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   long long tile = s_next[0];
   Vec16 c[V], p[V], tm[V], d[V];
   unsigned m[V];
-  int cnt[V];
+  int cnt[V], stores = 0;
   if (tile < tiles)
     flat_load<kMap>(cur, prev, region, region_len, n, thr_map,
                     tile * kFlatTile, c, p, tm);
@@ -441,7 +492,8 @@ flat_lookback_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
   // iteration was last read two barriers ago
   for (int it = 1; tile < tiles; it ^= 1) {
     const long long base = tile * kFlatTile;
-    flat_compute<kMap>(prev, base, n, thr4, negfeed, c, p, tm, d, m, cnt);
+    flat_compute<kMap>(prev, base, n, thr4, negfeed, c, p, tm, d, m, cnt,
+                       stores);
     if (t == 0) s_next[it] = atomicAdd(sc.ticket, 1u);
     int rank[V], total;
     lb::tile_ranks<V>(cnt, s_warp, rank, total);
@@ -494,6 +546,8 @@ flat_lookback_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
     // write-out, and s_off is read above, before it.
     tile = next;
   }
+  // every thread leaves the loop after the same tile
+  if (prev_stores != nullptr) add_prev_stores(prev_stores, warp_sum(stores));
   lb::release_scratch(sc, tiles, &s_last);
 }
 
@@ -561,7 +615,8 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                   int index_offset, int unit_bytes, int counts_bytes,
                   unsigned long long* sums, void* __restrict__ counts,
                   int* __restrict__ xs_t, uint8_t* __restrict__ vals_t,
-                  uint8_t* __restrict__ bits, int* __restrict__ pos_out) {
+                  uint8_t* __restrict__ bits, int* __restrict__ pos_out,
+                  unsigned long long* prev_stores) {
   __shared__ __align__(16) int s_xs[kXs ? kTileBytes : 4];
   __shared__ __align__(16) uint8_t s_vals[kTileBytes];
   __shared__ int s_excl[kThreads + 1];
@@ -617,7 +672,10 @@ tiled_unit_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
       ++r;
     }
   }
-  store_new_prev<kBatched>(prev, i0, n, m, c, p, negfeed);
+  const bool stored =
+      store_new_prev<kBatched>(prev, i0, n, m, c, p, negfeed);
+  if (prev_stores != nullptr)
+    add_prev_stores(prev_stores, __popc(__ballot_sync(kFull, stored)));
   if (bits != nullptr && i0 < n_pad) store_bits(bits, i0, m);
   if (t == first && base + slot0 < n_pad)
     store_count(counts, counts_bytes, (out0 + base + slot0) / unit_bytes,
@@ -699,7 +757,8 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
                            int* __restrict__ xs_t,
                            uint8_t* __restrict__ vals_t,
                            uint8_t* __restrict__ bits,
-                           int* __restrict__ pos_out) {
+                           int* __restrict__ pos_out,
+                           unsigned long long* prev_stores) {
   __shared__ int s_xs[kXs ? kTileBytes : 1];
   __shared__ uint8_t s_vals[kTileBytes];
   __shared__ int s_warp[kWarps];
@@ -762,10 +821,13 @@ tiled_chunk_compact_kernel(const uint8_t* __restrict__ cur, uint8_t* prev,
       ++r;
     }
   }
+  bool stored = false;
   if (off < unit_bytes) {
-    store_new_prev<kBatched>(prev, i0, n, m, c, p, negfeed);
+    stored = store_new_prev<kBatched>(prev, i0, n, m, c, p, negfeed);
     if (bits != nullptr) store_bits(bits, ubase + off, m);
   }
+  if (prev_stores != nullptr)
+    add_prev_stores(prev_stores, __popc(__ballot_sync(kFull, stored)));
   __syncthreads();
   for (int q = t; q < chunk_total; q += kThreads) {
     if (kXs) xs_t[ubase + before + q] = s_xs[q];
@@ -798,6 +860,7 @@ struct TiledArgs {
   uint8_t* vals_t;
   uint8_t* bits;
   int* pos_out;
+  unsigned long long* prev_stores;
 };
 
 // Units that divide the tile: ONE kernel, tiled_unit_kernel, pos folded
@@ -810,13 +873,13 @@ cudaError_t launch_tiled_unit(int grid, int per_stream, const TiledArgs& a,
         a.cur, a.prev, a.region, a.region_len, a.n, a.n_pad, per_stream,
         a.thr, a.thr_map, a.negfeed, a.index_offset, a.unit_bytes,
         a.counts_bytes, a.sums, a.counts, a.xs_t, a.vals_t, a.bits,
-        a.pos_out);
+        a.pos_out, a.prev_stores);
   else
     tiled_unit_kernel<false, kBatched><<<grid, kThreads, 0, stream>>>(
         a.cur, a.prev, a.region, a.region_len, a.n, a.n_pad, per_stream,
         a.thr, a.thr_map, a.negfeed, a.index_offset, a.unit_bytes,
         a.counts_bytes, a.sums, a.counts, nullptr, a.vals_t, a.bits,
-        a.pos_out);
+        a.pos_out, a.prev_stores);
   return cudaGetLastError();
 }
 
@@ -837,14 +900,14 @@ cudaError_t launch_tiled_chunks(int grid, const TiledArgs& a,
         a.cur, a.prev, a.region, a.region_len, a.n, a.thr, a.thr_map,
         a.negfeed, a.index_offset, a.unit_bytes, chunks_per_unit,
         units_per_stream, a.counts_bytes, a.chunk_counts, a.sums, a.counts,
-        a.xs_t, a.vals_t, a.bits, a.pos_out);
+        a.xs_t, a.vals_t, a.bits, a.pos_out, a.prev_stores);
   else
     tiled_chunk_compact_kernel<false, kBatched><<<grid, kThreads, 0,
                                                   stream>>>(
         a.cur, a.prev, a.region, a.region_len, a.n, a.thr, a.thr_map,
         a.negfeed, a.index_offset, a.unit_bytes, chunks_per_unit,
         units_per_stream, a.counts_bytes, a.chunk_counts, a.sums, a.counts,
-        nullptr, a.vals_t, a.bits, a.pos_out);
+        nullptr, a.vals_t, a.bits, a.pos_out, a.prev_stores);
   return cudaGetLastError();
 }
 
@@ -872,13 +935,16 @@ int cvs_flat_tile_bytes(void) { return kFlatTile; }
 // zero. thr_map, when not null, is the per-byte threshold map (n bytes,
 // 16-byte aligned) and replaces thr. index_offset is added to every valid
 // index (see INDEX OFFSET). xs and vals hold cap <= n entries and are
-// 16-byte aligned. Returns the cudaError_t of the launch (0 on success).
+// 16-byte aligned. prev_stores, when not null, is one 8-byte word to
+// which the launch adds the 16-byte vectors of prev it stored (see PREV
+// STORES). Returns the cudaError_t of the launch (0 on success).
 int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
                            const uint8_t* region, long long region_len,
                            long long n, int thr, const uint8_t* thr_map,
                            int negfeed, int index_offset, int grid,
                            unsigned long long* scratch, int* xs,
                            uint8_t* vals, long long cap, int* pos_out,
+                           unsigned long long* prev_stores,
                            cudaStream_t stream) {
   if (index_offset < 0 || index_offset + n > 0x7fffffffLL || n < 1
       || grid < 1 || cap < 0 || cap > n || region_len > n
@@ -891,11 +957,11 @@ int cvs_fused_diff_compact(int device, const uint8_t* cur, uint8_t* prev,
   if (thr_map != nullptr)
     flat_lookback_kernel<true><<<grid, kThreads, kFlatSmem, stream>>>(
         cur, prev, region, region_len, n, thr, thr_map, negfeed,
-        index_offset, scratch, xs, vals, cap, pos_out);
+        index_offset, scratch, xs, vals, cap, pos_out, prev_stores);
   else
     flat_lookback_kernel<false><<<grid, kThreads, kFlatSmem, stream>>>(
         cur, prev, region, region_len, n, thr, thr_map, negfeed,
-        index_offset, scratch, xs, vals, cap, pos_out);
+        index_offset, scratch, xs, vals, cap, pos_out, prev_stores);
   return (int)cudaGetLastError();
 }
 
@@ -929,8 +995,9 @@ int cvs_tiled_chunks(long long n_pad, int unit_bytes) {
 // otherwise); bits, when not null, has n_streams * n_pad / 8 bytes and is
 // 2-byte aligned; region holds n_streams strips of region_len bytes;
 // thr_map as for cvs_fused_diff_compact; pos_out has n_streams ints;
-// index_offset as for cvs_fused_diff_compact, 0 when n_streams > 1.
-// Returns the cudaError_t of the launches (0 on success).
+// index_offset as for cvs_fused_diff_compact, 0 when n_streams > 1;
+// prev_stores as for cvs_fused_diff_compact, over every stream. Returns
+// the cudaError_t of the launches (0 on success).
 int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
                                  uint8_t* prev, const uint8_t* region,
                                  long long region_len, long long n,
@@ -941,6 +1008,7 @@ int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
                                  int* chunk_counts, void* counts,
                                  int emit_xs, int* xs_t, uint8_t* vals_t,
                                  uint8_t* bits, int* pos_out,
+                                 unsigned long long* prev_stores,
                                  cudaStream_t stream) {
   if (unit_bytes <= 0 || unit_bytes % kBytesPerThread || n_pad % unit_bytes
       || n_pad < n || n_streams < 1 || region_len > n
@@ -961,7 +1029,7 @@ int cvs_fused_diff_compact_tiled(int device, const uint8_t* cur,
   const TiledArgs a{cur, prev, region, region_len, n, n_pad, thr, thr_map,
                     negfeed, n_streams > 1 ? 0 : index_offset, unit_bytes,
                     counts_bytes, sums, chunk_counts, counts, emit_xs, xs_t,
-                    vals_t, bits, pos_out};
+                    vals_t, bits, pos_out, prev_stores};
   if (unit)
     e = n_streams > 1
             ? launch_tiled_unit<true>((int)grid, (int)per_stream, a, stream)

@@ -54,7 +54,12 @@ prev`` under negative feedback, else ``c``.
 Unlike the JAX function, which returns a new array, ``new_prev`` is
 written into ``previous`` IN PLACE (the counterpart of the JAX pipeline's
 buffer donation) and returned: callers that still need the old bytes pass
-a copy.
+a copy. The kernels store a 16-byte vector of it only where its bytes
+change (``csrc/logcompact.cu``, PREV STORES); every K1 entry point and
+its plain version take ``prev_stores``, a one-element int64 tensor on the
+frame's device to which the call adds the vectors stored
+(:func:`add_prev_stores`). No caller on a served or timed path passes
+it: without it the kernels count nothing.
 """
 
 from __future__ import annotations
@@ -99,7 +104,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = build.load("logcompact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.cvs_fused_diff_compact.argtypes = [
-            i, p, p, p, ll, ll, i, p, i, i, i, p, p, p, ll, p, p,
+            i, p, p, p, ll, ll, i, p, i, i, i, p, p, p, ll, p, p, p,
         ]
         lib.cvs_fused_diff_compact.restype = i
         lib.cvs_flat_blocks.argtypes = [i, i, ctypes.POINTER(i)]
@@ -112,7 +117,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.cvs_tiled_chunks.restype = i
         lib.cvs_fused_diff_compact_tiled.argtypes = [
             i, p, p, p, ll, ll, ll, i, i, p, i, i, i, i, p, p, p, i, p, p, p,
-            p, p,
+            p, p, p,
         ]
         lib.cvs_fused_diff_compact_tiled.restype = i
         _bind_common(lib, "logcompact")
@@ -403,6 +408,36 @@ def _check_offset(index_offset, scheme, n_pad) -> int:
     return off
 
 
+def _check_stores(prev_stores, current, scheme="element"):
+    """Refuses a ``prev_stores`` that is not None or a one-element int64
+    tensor on the frame's device, and one given to another scheme than
+    ``"element"`` (K5 and K6 store every vector and count nothing)."""
+    if prev_stores is None:
+        return
+    if (not isinstance(prev_stores, torch.Tensor)
+            or prev_stores.dtype != torch.int64 or prev_stores.numel() != 1):
+        raise ValueError("prev_stores must be a one-element int64 tensor")
+    if prev_stores.device != current.device:
+        raise ValueError("prev_stores must be on the frame's device")
+    if scheme != "element":
+        raise ValueError("prev_stores: element scheme only")
+
+
+def add_prev_stores(prev_stores, previous, new_prev) -> None:
+    """Adds to ``prev_stores`` (when not None) the 16-byte vectors of one
+    stream's ``previous``, counted from its first byte (a ragged end's
+    partial vector is one), in which ``new_prev`` differs: the vectors the
+    kernel stores. The plain versions call it before they write
+    ``new_prev``."""
+    if prev_stores is None:
+        return
+    changed = new_prev != previous
+    pad = -changed.numel() % 16
+    if pad:
+        changed = torch.cat([changed, changed.new_zeros(pad)])
+    prev_stores += changed.view(-1, 16).any(dim=1).sum()
+
+
 def _whole_tile_blocks(scheme, current, previous, threshold,
                        negative_feedback, overlay_region, threshold_map):
     """``(counts int32, xs_t, vals_t)`` of the segment (K5) or register
@@ -428,6 +463,7 @@ def fused_diff_compact(
     threshold_map: Optional[torch.Tensor] = None,
     scheme: str = "element",
     index_offset: int = 0,
+    prev_stores: Optional[torch.Tensor] = None,
 ):
     """Flat-emit diff+compact; returns ``(pos, xs, vals, new_prev)``.
 
@@ -456,12 +492,18 @@ def fused_diff_compact(
     only; ``index_offset + n_pad`` must stay below 2**31, ``n_pad`` the
     frame padded to whole tiles (:func:`tiled_geometry`).
 
+    ``prev_stores``: None, or a one-element int64 tensor on the frame's
+    device to which the call adds the 16-byte vectors of ``previous`` it
+    stored, those whose bytes change (:func:`add_prev_stores`). Element
+    scheme only.
+
     CUDA tensors launch the kernel (and count one in
     ``fused_diff_compact.launches``); CPU tensors run
     :func:`fused_diff_compact_reference`.
     """
     _check_args(current, previous, threshold, overlay_region, threshold_map)
     _check_scheme(scheme, overlay_region, threshold_map)
+    _check_stores(prev_stores, current, scheme)
     n = current.numel()
     off = _check_offset(index_offset, scheme, tiled_geometry(n, 0)[0])
     cap = n if capacity is None else min(int(capacity), n)
@@ -475,7 +517,7 @@ def fused_diff_compact(
     if dev.type == "cpu":
         return fused_diff_compact_reference(
             current, previous, threshold, negative_feedback, overlay_region,
-            capacity, threshold_map, off,
+            capacity, threshold_map, off, prev_stores,
         )
     region_len = _check_kernel_args("fused_diff_compact", current, previous,
                                     overlay_region, threshold_map)
@@ -495,7 +537,7 @@ def fused_diff_compact(
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len, n,
         int(threshold), _ptr(threshold_map), int(bool(negative_feedback)),
         off, plan.grid, scratch.data_ptr(), xs.data_ptr(), vals.data_ptr(),
-        cap, pos.data_ptr(), stream,
+        cap, pos.data_ptr(), _ptr(prev_stores), stream,
     )
     _raise_on(rc, lib, "fused_diff_compact")
     fused_diff_compact.launches += 1
@@ -514,12 +556,14 @@ def fused_diff_compact_reference(
     capacity: Optional[int] = None,
     threshold_map: Optional[torch.Tensor] = None,
     index_offset: int = 0,
+    prev_stores: Optional[torch.Tensor] = None,
 ):
     """The plain PyTorch version of :func:`fused_diff_compact`: the same
     outputs from ``diff_mask``, ``nonzero`` and ``masked_select``, with
     ``new_prev`` written into ``previous`` in place. ``nonzero`` makes it
     synchronize with the device on CUDA tensors."""
     _check_args(current, previous, threshold, overlay_region, threshold_map)
+    _check_stores(prev_stores, current)
     n = current.numel()
     off = _check_offset(index_offset, "element", tiled_geometry(n, 0)[0])
     cur = diff_ops.region_frame(current, overlay_region)
@@ -534,6 +578,7 @@ def fused_diff_compact_reference(
     vals = torch.zeros(cap, dtype=torch.uint8, device=current.device)
     xs[:k] = (idx[:k] + off).to(torch.int32)
     vals[:k] = shipped[:k]
+    add_prev_stores(prev_stores, previous, new_prev)
     previous.copy_(new_prev)  # in place, as the kernel does
     pos = torch.tensor(idx.numel(), dtype=torch.int32, device=current.device)
     return pos, xs, vals, previous
@@ -541,14 +586,16 @@ def fused_diff_compact_reference(
 
 def _launch_tiled(name, current, previous, threshold, negative_feedback,
                   overlay_region, threshold_map, n_pad, unit_bytes, emit_xs,
-                  emit_bits, n_streams=None, index_offset=0):
+                  emit_bits, n_streams=None, index_offset=0,
+                  prev_stores=None):
     """One launch of the tiled K1 entry point; returns ``(pos, counts,
     xs_t or None, vals_t, bits or None)``. ``index_offset``: a checked int
-    (:func:`_check_offset`), 0 in the batched mode. ``n_streams``: None for one
-    frame (``pos`` 0-d), else the batched mode over that many frames of
-    ``current.numel() / n_streams`` bytes (``pos`` one int32 per stream,
-    the blocks of stream ``b`` from unit ``b * n_pad / unit_bytes``,
-    ``overlay_region`` one strip per stream)."""
+    (:func:`_check_offset`), 0 in the batched mode. ``prev_stores``: a
+    checked counter (:func:`_check_stores`) or None. ``n_streams``: None
+    for one frame (``pos`` 0-d), else the batched mode over that many
+    frames of ``current.numel() / n_streams`` bytes (``pos`` one int32 per
+    stream, the blocks of stream ``b`` from unit ``b * n_pad /
+    unit_bytes``, ``overlay_region`` one strip per stream)."""
     region_len = _check_kernel_args(name, current, previous, overlay_region,
                                     threshold_map)
     b = n_streams or 1
@@ -579,7 +626,8 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
         unit_bytes, counts.element_size(), sums.data_ptr(),
         _ptr(chunk_counts), counts.data_ptr(), int(emit_xs),
         None if xs_t is None else xs_t.data_ptr(), vals_t.data_ptr(),
-        None if bits is None else bits.data_ptr(), pos.data_ptr(), stream,
+        None if bits is None else bits.data_ptr(), pos.data_ptr(),
+        _ptr(prev_stores), stream,
     )
     _raise_on(rc, lib, name)
     return pos, counts, xs_t, vals_t, bits
@@ -587,11 +635,12 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
 
 def _tiled_plain(current, previous, threshold, negative_feedback,
                  overlay_region, threshold_map, n_pad, unit_bytes, emit_xs,
-                 emit_bits, index_offset=0):
-    """The plain PyTorch version of :func:`_launch_tiled`: the mask from
-    ``diff_mask``, each entry's rank in its unit from a per-unit
-    ``cumsum``, one scatter into zeroed blocks, and ``pack_bitmask``;
-    ``new_prev`` is written into ``previous`` in place."""
+                 emit_bits, index_offset=0, prev_stores=None):
+    """The plain PyTorch version of :func:`_launch_tiled` on one stream:
+    the mask from ``diff_mask``, each entry's rank in its unit from a
+    per-unit ``cumsum``, one scatter into zeroed blocks, and
+    ``pack_bitmask``; ``new_prev`` is written into ``previous`` in place,
+    its changed vectors counted into ``prev_stores``."""
     dev = current.device
     n = current.numel()
     n_units = n_pad // unit_bytes
@@ -615,6 +664,7 @@ def _tiled_plain(current, previous, threshold, negative_feedback,
     vals_t = torch.zeros(n_pad, dtype=torch.uint8, device=dev)
     vals_t[slot] = dvals[mask]
     bits = diff_ops.pack_bitmask(m) if emit_bits else None
+    add_prev_stores(prev_stores, previous, new_prev)
     previous.copy_(new_prev)  # in place, as the kernel does
     pos = counts.sum(dtype=torch.int32)
     return (pos, counts.to(counts_dtype(unit_bytes)), xs_t,
@@ -632,6 +682,7 @@ def fused_diff_compact_tiled(
     threshold_map: Optional[torch.Tensor] = None,
     scheme: str = "element",
     index_offset: int = 0,
+    prev_stores: Optional[torch.Tensor] = None,
 ):
     """Tiled-emit diff+compact; returns ``(pos, counts, xs_t, vals_t,
     new_prev)`` as JAX ``fused_diff_compact(emit="tiled")`` does, and
@@ -659,7 +710,8 @@ def fused_diff_compact_tiled(
     ``logcompact.py:894-903``): its outputs are those of ``sub_rows=0``.
 
     ``index_offset`` as for :func:`fused_diff_compact`: added to every
-    valid index of ``xs_t``, the zero fill left 0.
+    valid index of ``xs_t``, the zero fill left 0. ``prev_stores`` as for
+    :func:`fused_diff_compact`.
 
     CUDA tensors launch the kernel (and count one in
     ``fused_diff_compact_tiled.launches``); CPU tensors run
@@ -667,6 +719,7 @@ def fused_diff_compact_tiled(
     """
     _check_args(current, previous, threshold, overlay_region, threshold_map)
     _check_scheme(scheme, overlay_region, threshold_map, emit_bits)
+    _check_stores(prev_stores, current, scheme)
     n_pad, unit_bytes = tiled_geometry(current.numel(), sub_rows)
     off = _check_offset(index_offset, scheme, n_pad)
     if scheme != "element":
@@ -679,12 +732,12 @@ def fused_diff_compact_tiled(
     if current.device.type == "cpu":
         return fused_diff_compact_tiled_reference(
             current, previous, threshold, negative_feedback, overlay_region,
-            sub_rows, emit_bits, threshold_map, off,
+            sub_rows, emit_bits, threshold_map, off, prev_stores,
         )
     out = _launch_tiled("fused_diff_compact_tiled", current, previous,
                         threshold, negative_feedback, overlay_region,
                         threshold_map, n_pad, unit_bytes, True, emit_bits,
-                        index_offset=off)
+                        index_offset=off, prev_stores=prev_stores)
     fused_diff_compact_tiled.launches += 1
     return _tiled_result(out, previous, emit_bits)
 
@@ -709,16 +762,18 @@ def fused_diff_compact_tiled_reference(
     emit_bits: bool = False,
     threshold_map: Optional[torch.Tensor] = None,
     index_offset: int = 0,
+    prev_stores: Optional[torch.Tensor] = None,
 ):
     """The plain PyTorch version of :func:`fused_diff_compact_tiled`: the
     mask from ``diff_mask``, each entry's rank in its unit from a
     per-unit ``cumsum``, one scatter into zeroed blocks."""
     _check_args(current, previous, threshold, overlay_region, threshold_map)
+    _check_stores(prev_stores, current)
     n_pad, unit_bytes = tiled_geometry(current.numel(), sub_rows)
     off = _check_offset(index_offset, "element", n_pad)
     out = _tiled_plain(current, previous, threshold, negative_feedback,
                        overlay_region, threshold_map, n_pad, unit_bytes,
-                       True, emit_bits, off)
+                       True, emit_bits, off, prev_stores)
     return _tiled_result(out, previous, emit_bits)
 
 
@@ -731,6 +786,7 @@ def fused_diff_compact_mask(
     sub_rows: int = 0,
     threshold_map: Optional[torch.Tensor] = None,
     scheme: str = "element",
+    prev_stores: Optional[torch.Tensor] = None,
 ):
     """Bitmask-only diff+compact; returns ``(pos, counts, vals_t, bits,
     new_prev)`` as JAX ``fused_diff_compact(emit="mask")`` does.
@@ -745,6 +801,7 @@ def fused_diff_compact_mask(
     ``previous``, updated in place. ``threshold_map`` as for
     :func:`fused_diff_compact`; the emission exists for the element
     scheme only, and another ``scheme`` raises as in the JAX package.
+    ``prev_stores`` as for :func:`fused_diff_compact`.
 
     CUDA tensors launch the kernel (and count one in
     ``fused_diff_compact_mask.launches``); CPU tensors run
@@ -752,16 +809,17 @@ def fused_diff_compact_mask(
     """
     _check_args(current, previous, threshold, overlay_region, threshold_map)
     _check_scheme(scheme, overlay_region, threshold_map, emit_bits=True)
+    _check_stores(prev_stores, current)
     if current.device.type == "cpu":
         return fused_diff_compact_mask_reference(
             current, previous, threshold, negative_feedback, overlay_region,
-            sub_rows, threshold_map,
+            sub_rows, threshold_map, prev_stores,
         )
     n_pad, unit_bytes = tiled_geometry_mask(current.numel(), sub_rows)
     pos, counts, _, vals_t, bits = _launch_tiled(
         "fused_diff_compact_mask", current, previous, threshold,
         negative_feedback, overlay_region, threshold_map, n_pad, unit_bytes,
-        False, True)
+        False, True, prev_stores=prev_stores)
     fused_diff_compact_mask.launches += 1
     return pos, counts, vals_t, bits, previous
 
@@ -777,13 +835,16 @@ def fused_diff_compact_mask_reference(
     overlay_region: Optional[torch.Tensor] = None,
     sub_rows: int = 0,
     threshold_map: Optional[torch.Tensor] = None,
+    prev_stores: Optional[torch.Tensor] = None,
 ):
     """The plain PyTorch version of :func:`fused_diff_compact_mask`."""
     _check_args(current, previous, threshold, overlay_region, threshold_map)
+    _check_stores(prev_stores, current)
     n_pad, unit_bytes = tiled_geometry_mask(current.numel(), sub_rows)
     pos, counts, _, vals_t, bits = _tiled_plain(
         current, previous, threshold, negative_feedback, overlay_region,
-        threshold_map, n_pad, unit_bytes, False, True)
+        threshold_map, n_pad, unit_bytes, False, True,
+        prev_stores=prev_stores)
     return pos, counts, vals_t, bits, previous
 
 
@@ -857,6 +918,7 @@ def fused_diff_compact_batched(
     sub_rows: int = 0,
     pair: bool = False,
     overlay_region: Optional[torch.Tensor] = None,
+    prev_stores: Optional[torch.Tensor] = None,
 ):
     """Tiled diff+compact of ``n_streams`` independent streams in one
     launch; returns ``(pos (B,), counts (B, U), xs_t (B, U, unit_bytes),
@@ -883,6 +945,10 @@ def fused_diff_compact_batched(
     super-frame); here the kernel reads strip ``b`` for stream ``b``, which
     saves that pass.
 
+    ``prev_stores`` as for :func:`fused_diff_compact`, summed over the
+    streams, each stream's vectors counted from its own first byte.
+    Element scheme only.
+
     CUDA tensors launch the kernel once for every stream (and count one in
     ``fused_diff_compact_batched.launches``, or in
     ``segment_compact.launches`` for the segment scheme); CPU tensors run
@@ -890,11 +956,12 @@ def fused_diff_compact_batched(
     """
     n = _check_batched_args(current, previous, n_streams, threshold, scheme,
                             overlay_region, threshold_map)
+    _check_stores(prev_stores, current, scheme)
     if current.device.type == "cpu":
         return fused_diff_compact_batched_reference(
             current, previous, n_streams, threshold, negative_feedback,
             scheme, threshold_map, skip_static, sub_rows, pair,
-            overlay_region)
+            overlay_region, prev_stores)
     n_pad, unit_bytes = batched_geometry(n, scheme, sub_rows)
     b = int(n_streams)
     ups = n_pad // unit_bytes
@@ -909,7 +976,7 @@ def fused_diff_compact_batched(
         pos, counts, xs_t, vals_t, _ = _launch_tiled(
             "fused_diff_compact_batched", current, previous, threshold,
             negative_feedback, overlay_region, threshold_map, n_pad,
-            unit_bytes, True, False, n_streams=b)
+            unit_bytes, True, False, n_streams=b, prev_stores=prev_stores)
         fused_diff_compact_batched.launches += 1
     return (pos, counts.view(b, ups), xs_t.view(b, ups, unit_bytes),
             vals_t.view(b, ups, unit_bytes), previous)
@@ -930,13 +997,15 @@ def fused_diff_compact_batched_reference(
     sub_rows: int = 0,
     pair: bool = False,
     overlay_region: Optional[torch.Tensor] = None,
+    prev_stores: Optional[torch.Tensor] = None,
 ):
     """The plain PyTorch version of :func:`fused_diff_compact_batched`:
     each stream through the plain version of its solo scheme, on views of
-    the flat buffers (``new_prev`` lands in ``previous`` in place), the
-    outputs stacked."""
+    the flat buffers (``new_prev`` lands in ``previous`` in place, its
+    changed vectors counted stream by stream), the outputs stacked."""
     n = _check_batched_args(current, previous, n_streams, threshold, scheme,
                             overlay_region, threshold_map)
+    _check_stores(prev_stores, current, scheme)
     n_pad, unit_bytes = batched_geometry(n, scheme, sub_rows)
     b_count = int(n_streams)
     strip = 0 if overlay_region is None else overlay_region.numel() // b_count
@@ -955,7 +1024,8 @@ def fused_diff_compact_batched_reference(
         else:
             outs.append(_tiled_plain(
                 cur_b, prev_b, threshold, negative_feedback, reg_b,
-                threshold_map, n_pad, unit_bytes, True, False)[:4])
+                threshold_map, n_pad, unit_bytes, True, False,
+                prev_stores=prev_stores)[:4])
     return tuple(torch.stack(parts) for parts in zip(*outs)) + (previous,)
 
 

@@ -127,7 +127,8 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "2d", "length", "threshold",
-                                 "region_len", "device"])
+                                 "region_len", "device", "prev_stores_dtype",
+                                 "prev_stores_scheme"])
 def test_wrapper_rejects_bad_inputs(bad):
     cur = torch.zeros(64, dtype=torch.uint8)
     prev = torch.zeros(64, dtype=torch.uint8)
@@ -144,6 +145,11 @@ def test_wrapper_rejects_bad_inputs(bad):
         kw["overlay_region"] = torch.zeros(65, dtype=torch.uint8)
     elif bad == "device":
         cur, prev = cur.to("meta"), prev.to("meta")
+    elif bad == "prev_stores_dtype":
+        kw["prev_stores"] = torch.zeros(1, dtype=torch.int32)
+    elif bad == "prev_stores_scheme":  # K5 stores every vector, counts none
+        kw.update(prev_stores=torch.zeros(1, dtype=torch.int64),
+                  scheme="segment")
     with pytest.raises(ValueError):
         logcompact.fused_diff_compact(cur, prev, **kw)
 
@@ -164,3 +170,107 @@ def test_diff_mask_matches_jax(thr, rng):
         np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(npv.numpy(), np.asarray(jnp_))
 
+
+
+# -- prev_stores: the 16-byte vectors of prev that K1 stores ---------------
+
+EMISSIONS = ("flat", "tiled", "mask", "batched")
+
+
+def _k1(emission, cur, prev, thr, negfeed, streams, stores=None):
+    """One K1 call of ``emission`` (on CPU tensors: its plain version),
+    ``prev`` updated in place, the vectors stored added to ``stores``."""
+    if emission == "flat":
+        return logcompact.fused_diff_compact(cur, prev, thr, negfeed,
+                                             prev_stores=stores)
+    if emission == "tiled":
+        return logcompact.fused_diff_compact_tiled(
+            cur, prev, thr, negfeed, None, 1, prev_stores=stores)
+    if emission == "mask":
+        return logcompact.fused_diff_compact_mask(
+            cur, prev, thr, negfeed, None, 1, prev_stores=stores)
+    return logcompact.fused_diff_compact_batched(
+        cur, prev, streams, thr, negfeed, sub_rows=1, prev_stores=stores)
+
+
+def _changed_vectors(prev, cur, thr, negfeed, streams):
+    """The NumPy count: 16-byte vectors, counted from each stream's first
+    byte (a partial last vector is one), in which new_prev differs from
+    prev."""
+    c, p = cur.astype(np.int32), prev.astype(np.int32)
+    new = np.where(np.abs(c - p) > thr, c, p) if negfeed else c
+    changed = (new != p).reshape(streams, -1)
+    changed = np.pad(changed, ((0, 0), (0, -changed.shape[1] % 16)))
+    return int(changed.reshape(streams, -1, 16).any(axis=2).sum())
+
+
+def _stores_frames(kind, seed):
+    """``(prev, cur, streams, want)`` of a ``prev_stores`` case; ``want``
+    None: the NumPy count."""
+    rng = np.random.default_rng([seed, len(kind)])
+    if kind in ("density6", "streams3"):
+        streams = 3 if kind == "streams3" else 1
+        n = 1000 if streams == 3 else SIZES["48x64"]
+        prev, cur = make_frame_pair(rng, streams * n, change_frac=0.06)
+        return prev, cur, streams, None
+    n = 1000 if kind in ("ragged", "streams3_edges") else SIZES["48x64"]
+    streams = 3 if kind == "streams3_edges" else 1
+    prev = rng.integers(30, 120, streams * n, dtype=np.uint8)  # +100 fits
+    cur = prev.copy()
+    if kind == "one_shipped":  # one byte past the threshold: one vector
+        cur[5000] += 100
+        return prev, cur, 1, (1, 1)
+    if kind == "below_threshold":  # a whole vector moved by 5 < 20
+        cur[5008:5024] += 5
+        return prev, cur, 1, (0, 1)
+    if kind == "ragged":  # n % 16 == 8: the first and the partial last
+        cur[0] += 100
+        cur[996] += 100
+        return prev, cur, 1, (2, 2)
+    # stream 0's last byte and stream 1's first share a vector counted
+    # from the frame's first byte (992-1007), but not from each stream's
+    cur[999] += 100
+    cur[1000] += 100
+    return prev, cur, 3, (2, 2)
+
+
+STORE_CASES = (
+    [pytest.param("density6", e, nf, thr,
+                  id=f"density6-{e}-{'negfeed' if nf else 'nofeed'}-{thr}")
+     for e in EMISSIONS for nf in (True, False) for thr in (0, 20, 255)]
+    + [pytest.param(kind, e, nf, 20,
+                    id=f"{kind}-{e}-{'negfeed' if nf else 'nofeed'}")
+       for kind in ("one_shipped", "below_threshold", "ragged")
+       for e in EMISSIONS for nf in (True, False)]
+    + [pytest.param("streams3", "batched", nf, thr,
+                    id=f"streams3-{'negfeed' if nf else 'nofeed'}-{thr}")
+       for nf in (True, False) for thr in (0, 20, 255)]
+    + [pytest.param("streams3_edges", "batched", nf, 20,
+                    id=f"streams3_edges-{'negfeed' if nf else 'nofeed'}")
+       for nf in (True, False)])
+
+
+@pytest.mark.parametrize("kind,emission,negfeed,thr", STORE_CASES)
+def test_prev_stores_counts_the_changed_vectors(kind, emission, negfeed,
+                                                thr):
+    """``prev_stores`` gains the 16-byte vectors of ``prev`` whose new
+    bytes differ from the old ones, counted from each stream's first byte:
+    under negative feedback the vectors with a shipped byte, without it
+    those where ``cur`` differs from ``prev``. Passing it changes no
+    output and no byte of the state."""
+    prev, cur, streams, want = _stores_frames(kind, thr)
+    expect = _changed_vectors(prev, cur, thr, negfeed, streams)
+    if want is not None:
+        assert expect == want[0 if negfeed else 1]
+    stores = torch.tensor([7], dtype=torch.int64)  # the call adds to it
+    prev_a = torch.from_numpy(prev.copy())
+    out = _k1(emission, torch.from_numpy(cur), prev_a, thr, negfeed,
+              streams, stores)
+    assert int(stores) == 7 + expect
+    prev_b = torch.from_numpy(prev.copy())
+    plain = _k1(emission, torch.from_numpy(cur), prev_b, thr, negfeed,
+                streams)
+    assert len(out) == len(plain)
+    for a, b in zip(out, plain):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    np.testing.assert_array_equal(prev_a.numpy(), prev_b.numpy())

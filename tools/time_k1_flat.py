@@ -16,6 +16,12 @@ events time the device alone. Modes:
 * ``tiled``: K1 tiled at ``subtile_rows=1`` (``fused_diff_compact_tiled``);
 * ``mask``: K1's bitmask-only emission at ``subtile_rows=1``;
 * ``batched``: K1 batched over B = 4 streams of that frame, ``subtile_rows=1``;
+* ``band``: K1 flat, tiled and bitmask-only (``subtile_rows=1``) and
+  batched (B = 4) on a frame whose changes are one band of 5.937% of the
+  bytes under +-10 noise, as the benchmark's scene (``cvsbench/scene.py``)
+  makes them, no overlay region: four lines, each with the vectors of
+  ``prev`` the launch stores where the checkout's K1 counts them
+  (``prev_stores``);
 * ``offset``: K1 tiled at ``subtile_rows=1`` with ``index_offset`` on the
   last row shard of the frame cut into S = 4 and into S = 8 shards (the
   sharded path's per-shard launch; one line for each S);
@@ -86,8 +92,8 @@ import sys
 import numpy as np
 import torch
 
-MODES = ("flat", "map", "tiled", "mask", "batched", "offset", "step",
-         "sharded", "pair", "vals", "hist", "register", "segment",
+MODES = ("flat", "map", "tiled", "mask", "batched", "band", "offset",
+         "step", "sharded", "pair", "vals", "hist", "register", "segment",
          "segment_map", "segment_batched", "probe", "conv", "binarize",
          "binarize_batched", "diff_pack", "red", "heat", "gray",
          "overlay")
@@ -233,6 +239,54 @@ def _overlay(root, card, c0, rng):
           "ms", flush=True)
 
 
+def _band(root, card, lc, p0):
+    """The ``band`` mode: K1's emissions on the scene's layout of change,
+    timed as the other K1 modes, with the vectors each stores."""
+    import inspect
+
+    n = p0.numel()
+    gen = torch.Generator(device=p0.device)
+    gen.manual_seed(2736)
+    start, band = n // 3, round(0.05937339 * n)
+    c0 = p0.to(torch.int16)
+    c0[start:start + band] = (c0[start:start + band] + 77) % 256
+    noise = torch.randint(-10, 11, (n,), generator=gen, device=p0.device)
+    c0 = (c0 + noise).clamp_(0, 255).to(torch.uint8)
+    counted = "prev_stores" in inspect.signature(
+        lc.fused_diff_compact_tiled).parameters
+    for label, b, k1 in (
+            ("flat", 1, lambda c, p, **kw: lc.fused_diff_compact(
+                c, p, 20, True, **kw)),
+            ("tiled", 1, lambda c, p, **kw: lc.fused_diff_compact_tiled(
+                c, p, 20, True, None, 1, **kw)),
+            ("mask", 1, lambda c, p, **kw: lc.fused_diff_compact_mask(
+                c, p, 20, True, None, 1, **kw)),
+            ("batched", 4, lambda c, p, **kw: lc.fused_diff_compact_batched(
+                c, p, 4, 20, True, sub_rows=1, **kw))):
+        pb, cb = p0.repeat(b), c0.repeat(b)
+        prevs = [pb.clone() for _ in range(100)]
+        curs = [cb.clone() for _ in range(8)]
+
+        def refill(prevs=prevs, pb=pb):
+            for p in prevs:
+                p.copy_(pb)
+
+        def fn(i, k1=k1, curs=curs, prevs=prevs):
+            k1(curs[i % 8], prevs[i])
+
+        stored = "prev_stores not in this checkout"
+        if counted:
+            st = torch.zeros(1, dtype=torch.int64, device=p0.device)
+            k1(cb, pb.clone(), prev_stores=st)
+            vectors = b * -(-n // 16)
+            stored = (f"stored {int(st)} of {vectors} vectors "
+                      f"({100 * int(st) / vectors:.3f}%)")
+        medians = _medians(fn, refill)
+        print(root, f"band {label}", card,
+              " ".join(f"{m:.4f}" for m in medians), "ms;", stored,
+              flush=True)
+
+
 def main() -> int:
     root = sys.argv[1]
     modes = sys.argv[2:] or ["flat"]
@@ -270,6 +324,9 @@ def main() -> int:
             continue
         if mode == "overlay":
             _overlay(root, card, c0, rng)
+            continue
+        if mode == "band":
+            _band(root, card, lc, p0)
             continue
         if mode in ("hist", "probe"):
             from cudavideostream_tpu_torch.config import StreamConfig
