@@ -105,10 +105,11 @@ Phases (any failure raises and the script exits non-zero):
    into S = 2, 4 and 8 row shards at its shard base, and at the largest
    offset int32 admits, against its plain version and against the
    offset-free launch shifted on its valid entries only;
-   ``ShardedDeltaPipeline.step_flat`` on S = 1, 2, 4, 8 shards laid on
-   ``cuda:0``, both payload layouts, visualizers 0, 3 and 5, the noise
-   filter and the door map, against the NumPy spec, K1 launched S times a
-   step; plus one pipeline step of each
+   ``ShardedDeltaPipeline.step_flat`` on S = 1, 2, 4, 8 and 24 shards
+   laid on ``cuda:0``, both payload layouts, visualizers 0, 3 and 5, the
+   noise filter and the door map, against the NumPy spec, K1 launched S
+   times a step and K14 once on each shard the glyph band reaches (two
+   at S = 24); plus one pipeline step of each
    configuration (flat, tiled, tiled with bits, bitmask-only, each also
    with a per-pixel "door" map), of each of the 8 named variants, and of
    binarize and red-overlap on each tiled emission, against the NumPy
@@ -146,7 +147,8 @@ Phases (any failure raises and the script exits non-zero):
    ``ShardedStreamExecutor`` with its shards on ``cuda:0`` (and again
    under ``--visualizer 2``, K12 once a shard), and
    ``multiserve --streams 4 --mesh 1,1``, with S K1 launches a frame (K2
-   only for a (1, 1) mesh's ``flat`` landings); then the camera path: a
+   only for a (1, 1) mesh's ``flat`` landings) and, on the server's
+   sharded paths, one K14 launch a frame with text; then the camera path: a
    16-frame ``.npy`` clip served by ``server --source file`` (flat wire
    v1, the same with ``--prefetch``, ``--tiled --fetch tiles`` through
    the segments sender and under ``--wire v3`` through the C encoder off
@@ -374,7 +376,8 @@ def phase_build():
     spilled to local memory) or an instance of K8 loads a byte from
     shared memory."""
     from cudavideostream_tpu_torch import native
-    from cudavideostream_tpu_torch.kernels import build
+    from cudavideostream_tpu_torch import ops
+    from cudavideostream_tpu_torch.kernels import build, launch
     from cudavideostream_tpu_torch.ops import convolve
     from cudavideostream_tpu_torch.ops import diff
     from cudavideostream_tpu_torch.ops import filters
@@ -384,9 +387,8 @@ def phase_build():
     from cudavideostream_tpu_torch.ops import register_compact
 
     t0 = time.perf_counter()
-    names = ("logcompact", "pair_compact", "histogram", "segment_compact",
-             "register_compact", "probe", "convolve", "binarize",
-             "diff_pack", "visualize", "overlay")
+    sources = ops.kernel_sources()
+    names = tuple(src.name for src in sources)
     # one nvcc per source, and the host library's cc, all at once
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         host_lib = pool.submit(native.build)
@@ -395,19 +397,11 @@ def phase_build():
     log(f"[build] native/csrc/cvstpu.c ({native.compiler()} "
         f"{' '.join(native.CFLAGS)}) bound from "
         f"{os.path.relpath(native.load()._name)}")
-    logcompact._kernel_lib()
-    logcompact._pair_lib()
-    logcompact._segment_lib()
-    register_compact._register_lib()
-    hist._hist_lib()
-    hist._probe()
-    convolve._conv_lib()
-    filters._binarize()
-    diff._diff_pack_lib()
-    filters._visualize_lib()
-    overlay._overlay_lib()
-    log(f"[build] csrc/{'.cu, csrc/'.join(names)}.cu built and bound in "
-        f"{time.perf_counter() - t0:.2f} s")
+    for src in sources:
+        launch.library(src)
+    log(f"[build] csrc/{'.cu, csrc/'.join(names)}.cu built and bound from "
+        f"their tables ({sum(len(src.constants) for src in sources)} "
+        f"geometry exports checked) in {time.perf_counter() - t0:.2f} s")
     cuobjdump = build.find_nvcc()[: -len("nvcc")] + "cuobjdump"
     usage = subprocess.run(
         [cuobjdump, "-res-usage", str(build.build("convolve"))], check=True,
@@ -669,22 +663,22 @@ def _back_to_back(label, launch, plain, cases, streams, labels):
 def _onepass_grid(lib_name):
     """(tile, persistent grid) of the one-pass K1 flat (no map), K2 or
     K3; for K1 tiled, (its 4096-byte tile, the blocks one wave holds)."""
+    from cudavideostream_tpu_torch.kernels import launch
     from cudavideostream_tpu_torch.ops import logcompact as lc
 
     idx = torch.cuda.current_device()
     if lib_name in ("flat", "tiled"):
-        lib = lc._kernel_lib()
+        lib = launch.library(lc.SOURCE)
         if lib_name == "tiled":
             return (lc.TILE_BYTES,
-                    lc._persistent_blocks(lib, "cvs_tiled_wave", idx))
+                    *launch.query(lib, "cvs_tiled_wave", idx, 1))
         return (lib.cvs_flat_tile_bytes(),
-                lc._persistent_blocks(lib, "cvs_flat_blocks", idx, 0))
-    lib = lc._pair_lib()
+                *launch.query(lib, "cvs_flat_blocks", idx, 1, 0))
+    lib = launch.library(lc.PAIR_SOURCE)
     if lib_name == "vals":
         return (lib.cvs_vals_tile(),
-                lc._persistent_blocks(lib, "cvs_vals_blocks", idx))
-    return (lib.cvs_pair_tile(),
-            lc._persistent_blocks(lib, "cvs_pair_blocks", idx))
+                *launch.query(lib, "cvs_vals_blocks", idx, 1))
+    return (lib.cvs_pair_tile(), *launch.query(lib, "cvs_pair_blocks", idx, 1))
 
 
 def _n_for_tiles(target, mask=False, over=False):
@@ -1498,6 +1492,7 @@ def phase_noise_binarize_vs_plain(cfg):
     stream's plain version, one launch a batched frame, the sharded form
     at S = 4, and 100 launches back to back on one stream and on two at
     once, after which every per-stream scratch is zero."""
+    from cudavideostream_tpu_torch.kernels import launch
     from cudavideostream_tpu_torch.ops import convolve
     from cudavideostream_tpu_torch.ops import filters
     from cudavideostream_tpu_torch.ops import hist
@@ -1706,8 +1701,15 @@ def phase_noise_binarize_vs_plain(cfg):
             _equal_or_raise(f"K9 back to back, call {i}", (got,), (
                 torch.cat([filters.binarize_pipeline_reference(
                     fr[s * m:(s + 1) * m]) for s in range(b)]),), ("out",))
-        dirty = [k for k, v in list(filters._fused_scratch.items())
-                 + list(hist._scratch.items()) if v.any()]
+        # each stream's scratches, as the launches took them
+        scratch = {"fused": [filters.fused_scratch(frame.device,
+                                                   st.cuda_stream, b)
+                             for st in ss for b in (1, 4)],
+                   "gray_hist": [hist.hist_scratch(frame.device,
+                                                   st.cuda_stream)
+                                 for st in ss]}
+        dirty = [(what, i) for what, bufs in scratch.items()
+                 for i, v in enumerate(bufs) if v.any()]
         if dirty:
             raise AssertionError(f"K9: scratch not zero after the launches: "
                                  f"{dirty}")
@@ -1716,8 +1718,8 @@ def phase_noise_binarize_vs_plain(cfg):
             f"{nstreams} stream(s){' at once' if nstreams > 1 else ''}, no "
             f"sync between them, solo and B=4: each call == the plain "
             f"version, exact, and every per-stream scratch "
-            f"({len(filters._fused_scratch)} of the fused kernel, "
-            f"{len(hist._scratch)} of gray_hist) is zero after them")
+            f"({len(scratch['fused'])} of the fused kernel, "
+            f"{len(scratch['gray_hist'])} of gray_hist) is zero after them")
     return cases
 
 
@@ -2969,6 +2971,7 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0, inner=None):
     the pipeline's threshold map, if any). ``inner``: the executor, as the
     server's command line built it; by default one is built here."""
     from cudavideostream_tpu_torch.config import Visualizer
+    from cudavideostream_tpu_torch.ops import overlay
     from cudavideostream_tpu_torch.ops import reference_cpu
     from cudavideostream_tpu_torch.runtime.client import DeltaStreamClient
     from cudavideostream_tpu_torch.runtime.executor import (
@@ -2998,6 +3001,7 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0, inner=None):
             errors.append(e)
 
     counters = _zero_launches()  # counts of this path's run only
+    blits0 = overlay.overlay_blit.launches
     t0 = time.perf_counter()
     th = threading.Thread(target=serve, name="smoke-server", daemon=True)
     th.start()
@@ -3017,6 +3021,7 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0, inner=None):
     wall = time.perf_counter() - t0
     server.close()
     launches = {name: fn.launches for name, fn in counters.items()}
+    blits = overlay.overlay_blit.launches - blits0
     if th.is_alive():
         raise RuntimeError(f"{label}: server thread did not finish")
     if errors:
@@ -3098,7 +3103,8 @@ def phase_serving(cfg, label, pipelined=False, land_batch=0, inner=None):
         + (f"; landings {inner.fetch_counts}" if inner.fetch_counts else ""))
     return {"frames": frames, "launches": launches,
             "nonempty": sum(p > 0 for p in positions),
-            "fetch_counts": dict(inner.fetch_counts), "fps": frames / wall}
+            "fetch_counts": dict(inner.fetch_counts), "fps": frames / wall,
+            "overlay_blit": blits, "texted": sum(map(bool, rec.texts))}
 
 
 class _RecordingBatchedPipe:
@@ -3637,7 +3643,8 @@ def phase_times(cfg):
     pipe.step(prev0.clone(), cur, text=text)  # warm-up
     cell_h = pipe.atlas.shape[1]
     region = overlay_ops.overlay_blit(
-        cur[: cell_h * cfg.width * 3], pipe.atlas, pipe._char_ids(text),
+        cur[: cell_h * cfg.width * 3], pipe.atlas,
+        pipe._glyph_ids((text,))[0][0],
         len(text), cell_h, cfg.width)
     r = region.numel()
     pos = int(logcompact.fused_diff_compact(cur, prev0.clone(), 20, True,
@@ -3776,7 +3783,8 @@ def phase_tiled_times(cfg):
     pipe.step(prev0.clone(), cur, text=text)  # warm-up
     cell_h = pipe.atlas.shape[1]
     region = overlay_ops.overlay_blit(
-        cur[: cell_h * cfg.width * 3], pipe.atlas, pipe._char_ids(text),
+        cur[: cell_h * cfg.width * 3], pipe.atlas,
+        pipe._glyph_ids((text,))[0][0],
         len(text), cell_h, cfg.width)
     out = logcompact.fused_diff_compact_tiled(cur, prev0.clone(), 20, True,
                                               region, 1)
@@ -3973,7 +3981,8 @@ def phase_mask_times(cfg):
     pipe.step(prev0.clone(), cur, text=text)  # warm-up
     cell_h = pipe.atlas.shape[1]
     region = overlay_ops.overlay_blit(
-        cur[: cell_h * cfg.width * 3], pipe.atlas, pipe._char_ids(text),
+        cur[: cell_h * cfg.width * 3], pipe.atlas,
+        pipe._glyph_ids((text,))[0][0],
         len(text), cell_h, cfg.width)
     out = logcompact.fused_diff_compact_mask(cur, prev0.clone(), 20, True,
                                              region, 1)
@@ -4634,7 +4643,8 @@ def phase_map_scheme_times(cfg, clock_mhz):
     text = "FPS: 30 BW: 1234 kbps"
     cell_h = pipe.atlas.shape[1]
     region = overlay_ops.overlay_blit(
-        cur[: cell_h * cfg.width * 3], pipe.atlas, pipe._char_ids(text),
+        cur[: cell_h * cfg.width * 3], pipe.atlas,
+        pipe._glyph_ids((text,))[0][0],
         len(text), cell_h, cfg.width)
     lc = logcompact
     k1 = {"flat": lambda i, m: lc.fused_diff_compact(
@@ -5068,11 +5078,14 @@ def _sharded_payload(pipe, out):
 
 
 def phase_sharded_steps(cfg):
-    """``ShardedDeltaPipeline.step_flat`` at 1080p on S = 1, 2, 4, 8 shards
-    laid on ``cuda:0``, both payload layouts, with visualizers 0, 3 and 5,
-    the noise filter and the door map, each against ``step_oracle``: the
-    state, the payload and the aux frame; K1 launched S times a step."""
+    """``ShardedDeltaPipeline.step_flat`` at 1080p on S = 1, 2, 4, 8 and 24
+    shards laid on ``cuda:0`` (at 24 the 50-row glyph band spans shards 0
+    and 1), both payload layouts, with visualizers 0, 3 and 5, the noise
+    filter and the door map, each against ``step_oracle``: the state, the
+    payload and the aux frame; K1 launched S times a step, K14 once on
+    each shard the band reaches."""
     from cudavideostream_tpu_torch.ops import logcompact as lc
+    from cudavideostream_tpu_torch.ops import overlay
     from cudavideostream_tpu_torch.ops import reference_cpu
     from cudavideostream_tpu_torch.config import Visualizer
     from cudavideostream_tpu_torch.parallel import ShardedDeltaPipeline
@@ -5090,7 +5103,9 @@ def phase_sharded_steps(cfg):
                 ("noise filter", {"noise_filter": True}, None),
                 ("door map", {}, door))
     steps = 0
-    for s in (1, 2, 4, 8):
+    cell_h = fonts.make_atlas(cfg.overlay_scale, cfg.overlay_font).shape[1]
+    for s in (1, 2, 4, 8, 24):
+        band = -(-cell_h // (cfg.height // s))  # the shards K14 blends
         for layout in ("sharded", "replicated"):
             for label, kw, tm in variants:
                 c = dataclasses.replace(cfg, **kw)
@@ -5099,8 +5114,10 @@ def phase_sharded_steps(cfg):
                                             threshold_map=tm)
                 st = pipe.init_state_flat(prev_np)
                 counters = _zero_launches()
+                blits0 = overlay.overlay_blit.launches
                 out = pipe.step_flat(st, cur_np, text=text)
                 torch.cuda.synchronize()
+                blits = overlay.overlay_blit.launches - blits0
                 k1 = (lc.fused_diff_compact_tiled if layout == "sharded"
                       else lc.fused_diff_compact)
                 got = {name: counters[name].launches for name in (
@@ -5115,9 +5132,10 @@ def phase_sharded_steps(cfg):
                         "red_visualizer":
                             s if c.visualizer == Visualizer.RED_OVERLAP
                             else 0}
-                if k1.launches != s or got != want:
+                if k1.launches != s or got != want or blits != band:
                     raise AssertionError(f"sharded step S={s}: K1 launched "
-                                         f"{k1.launches} times, {got}")
+                                         f"{k1.launches} times, K14 {blits} "
+                                         f"times, {got}")
                 pos, xs, vals = _sharded_payload(pipe, out)
                 e_prev, e_pos, e_xs, e_vals, e_aux = reference_cpu.step_oracle(
                     prev_np, cur_np, c, atlas=pipe.atlas_np,
@@ -5134,7 +5152,7 @@ def phase_sharded_steps(cfg):
                 log(f"[check] sharded step S={s} on cuda:0, {layout} layout, "
                     f"{label}: step_flat at 1080p == step_oracle (pos={pos}, "
                     f"aux {'none' if aux is None else 'equal'}; K1 "
-                    f"{k1.__name__} launched {s}x"
+                    f"{k1.__name__} launched {s}x, K14 {band}x"
                     + "".join(f", {name} {v}x" for name, v in got.items() if v)
                     + ")")
     return steps
@@ -7110,6 +7128,7 @@ def main() -> int:
         return 2
     from cudavideostream_tpu_torch.config import StreamConfig, Visualizer
     from cudavideostream_tpu_torch.ops import diff, filters
+    from cudavideostream_tpu_torch.utils import fonts
 
     cfg = StreamConfig()  # the default: 1080p BGR24, threshold 20, negfeed
     tcfg = dataclasses.replace(cfg, tiled_payload=True)
@@ -7248,9 +7267,16 @@ def main() -> int:
     runs["loopback_sweep"] = served["sweep"]
     runs["loopback"] = served["loopback"]
     none = dict.fromkeys(_launch_counters(), 0)
+    cell_h = fonts.make_atlas(cfg.overlay_scale, cfg.overlay_font).shape[1]
     for key, s_count in (("mesh11_v1", 1), ("mesh11_pipelined_v3", 1),
                          ("mesh14_cuda0", 4), ("mesh14_cuda0_red_black", 4)):
         run = runs[key]
+        # K14 once a frame with text on each shard the glyph band reaches
+        band = -(-cell_h // (cfg.height // s_count))
+        if run["overlay_blit"] != band * run["texted"]:
+            raise AssertionError(
+                f"{key}: overlay_blit launched {run['overlay_blit']} times, "
+                f"expected {band} a frame with text ({run['texted']})")
         # S K1 tiled launches a frame; K2 only for the flat landings of
         # a (1, 1) mesh under auto, none at S > 1 (tiles pinned); K12 once
         # a shard under --visualizer 2

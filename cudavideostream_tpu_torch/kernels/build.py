@@ -6,7 +6,8 @@ under ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``). The library's file name carries a hash of the source and
 the flags, so an edited source is rebuilt and an unchanged one is loaded
 as it is. Nothing here runs at import time: the first caller of
-:func:`load` pays the build.
+:func:`load` pays the build. The ops modules reach it through
+:mod:`.launch`, which binds each library from its source's table.
 
 There is no fallback: without ``nvcc`` or on a failed build :func:`load`
 raises.
@@ -87,11 +88,19 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load the library of ``csrc/<name>.cu``."""
+def load(src) -> ctypes.CDLL:
+    """Build (if needed), load and bind the library of the binding table
+    ``src`` (a :class:`.launch.Source`): ``src.bind`` declares its
+    functions (and may refuse it by raising) before it is cached, so every
+    caller gets it bound. A library already loaded is returned without
+    taking the lock, which a build holds."""
+    lib = _loaded.get(src.name)
+    if lib is not None:
+        return lib
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(src.name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _loaded[name] = lib
+            lib = ctypes.CDLL(str(build(src.name)))
+            src.bind(lib)
+            _loaded[src.name] = lib
         return lib

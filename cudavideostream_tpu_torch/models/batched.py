@@ -53,7 +53,6 @@ from cudavideostream_tpu_torch.config import (
     Visualizer,
 )
 from cudavideostream_tpu_torch.models.pipeline import (
-    MAX_OVERLAY_CHARS,
     DeltaStreamPipeline,
     from_jax_state,
 )
@@ -97,7 +96,8 @@ class BatchedDeltaPipeline:
                 "pipelines instead of a batched one")
         cell_h = self._solo.atlas.shape[1]
         self._fast = config.tiled_payload and cell_h <= config.height
-        self._ids: dict = {}  # overlay texts -> device glyphs (_glyphs)
+        self._glyph_ids = overlay_ops.Glyphs(
+            self.device, config.width // self._solo.atlas.shape[2])
         self.steps = 0  # the step sequence number its spans carry
 
     @property
@@ -126,21 +126,6 @@ class BatchedDeltaPipeline:
             raise ValueError("frames size mismatch")
         return t
 
-    def _glyphs(self, texts) -> tuple:
-        """The glyph ids ``(B, max_chars)`` and characters drawn ``(B,)``
-        of this tuple of texts, int32 on the device, cached by the tuple:
-        a CUDA graph keeps their pointers while the texts hold."""
-        key = tuple(texts)
-        hit = self._ids.get(key)
-        if hit is None:
-            if len(self._ids) >= 4:
-                self._ids.clear()  # the texts of a status line move on
-            cfg = self.config
-            hit = self._ids[key] = overlay_ops.text_glyphs(
-                texts, MAX_OVERLAY_CHARS,
-                cfg.width // self._solo.atlas.shape[2], self.device)
-        return hit
-
     def _strips(self, cur: torch.Tensor, texts) -> Optional[torch.Tensor]:
         """The B blended overlay strips, flat ``(B * strip,)``, or None
         when no stream has text: one K14 launch for every stream on the
@@ -149,7 +134,7 @@ class BatchedDeltaPipeline:
             return None
         cell_h = self._solo.atlas.shape[1]
         with annotate("cvs.overlay"):
-            ids, n_fit = self._glyphs(texts)
+            ids, n_fit = self._glyph_ids(texts)
             return overlay_ops.overlay_blit_streams(
                 cur, self._solo.atlas, ids, n_fit, cell_h, self.config.width,
                 self.n_streams)

@@ -69,10 +69,9 @@ from cudavideostream_tpu_torch.ops import filters as filter_ops
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.ops import overlay as overlay_ops
 from cudavideostream_tpu_torch.ops import reference_cpu
+from cudavideostream_tpu_torch.ops.overlay import MAX_OVERLAY_CHARS
 from cudavideostream_tpu_torch.utils import fonts
 from cudavideostream_tpu_torch.utils.profiling import STEP, annotate
-
-MAX_OVERLAY_CHARS = 28
 
 
 def resolve_device(device=None) -> torch.device:
@@ -207,9 +206,8 @@ class DeltaStreamPipeline:
         if config.compaction is CompactionBackend.HOST:
             # the host blends the overlay into its own copy of the frame
             self._host_atlas = self.atlas.cpu().numpy()
-        # the last overlay text and its device glyph indices (int32, as K14
-        # reads them; a CUDA graph keeps their pointer while the text holds)
-        self._ids: Tuple[str, Optional[torch.Tensor]] = (None, None)
+        self._glyph_ids = overlay_ops.Glyphs(
+            self.device, config.width // self.atlas.shape[2])
         # the HOST backend's fast path: the host takes the payload values
         # from its own copy of the frame against this shadow of the
         # device's prev (negative feedback included); the noise filter
@@ -249,15 +247,6 @@ class DeltaStreamPipeline:
         if t.numel() != self.config.frame_bytes:
             raise ValueError("frame size mismatch")
         return t
-
-    def _char_ids(self, text: str) -> torch.Tensor:
-        if self._ids[0] != text:
-            ids = torch.tensor(fonts.encode_text(text, MAX_OVERLAY_CHARS),
-                               dtype=torch.int32)
-            if self.device.type == "cuda":
-                ids = ids.pin_memory().to(self.device, non_blocking=True)
-            self._ids = (text, ids)
-        return self._ids[1]
 
     def _aux(self, cur: torch.Tensor, region: Optional[torch.Tensor],
              prev: torch.Tensor) -> Optional[torch.Tensor]:
@@ -335,9 +324,11 @@ class DeltaStreamPipeline:
             # kernel substitutes it for the frame's bytes there
             strip_bytes = cell_h * cfg.width * 3
             with annotate("cvs.overlay"):
+                # K14 takes the solo count by value: n_fit stays unread
+                ids, _ = self._glyph_ids((text,))
                 region = overlay_ops.overlay_blit(
-                    cur[:strip_bytes], self.atlas, self._char_ids(text),
-                    n_chars, cell_h, cfg.width,
+                    cur[:strip_bytes], self.atlas, ids[0], n_chars, cell_h,
+                    cfg.width,
                 )
         aux = self._aux(cur, region, prev)
         if cfg.compaction is not CompactionBackend.PALLAS:

@@ -47,7 +47,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cudavideostream_tpu_torch.kernels import build
+from cudavideostream_tpu_torch.kernels import launch
+from cudavideostream_tpu_torch.kernels.launch import I, LL, P
 
 # K8's launch geometry (csrc/convolve.cu): a block of CONV_THREADS threads
 # makes a tile of CONV_THREADS * CONV_STRIP_BYTES output bytes of a row by
@@ -63,32 +64,12 @@ CONV_BAND_ROWS = 8
 CONV_MAX_K = 15
 CONV_BLOCKS_PER_SM = 4
 
-_lib = None
-
-
-def _conv_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/convolve.cu`` (K8)."""
-    global _lib
-    if _lib is None:
-        lib = build.load("convolve")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_convolve_q16.argtypes = [i, p, ll, i, i, p, ll, i, i, i, p,
-                                         i, i, p]
-        lib.cvs_convolve_q16.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        for name in ("cvs_conv_threads", "cvs_conv_strip_bytes",
-                     "cvs_conv_band_rows", "cvs_conv_max_k"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        if ((lib.cvs_conv_threads(), lib.cvs_conv_strip_bytes(),
-             lib.cvs_conv_band_rows(), lib.cvs_conv_max_k())
-                != (CONV_THREADS, CONV_STRIP_BYTES, CONV_BAND_ROWS,
-                    CONV_MAX_K)):
-            raise RuntimeError("csrc/convolve.cu tile geometry disagrees "
-                               "with ops/convolve.py")
-        _lib = lib
-    return _lib
+SOURCE = launch.Source(
+    "convolve",
+    {"cvs_convolve_q16": [I, P, LL, I, I, P, LL, I, I, I, P, I, I, P]},
+    {"cvs_conv_threads": CONV_THREADS,
+     "cvs_conv_strip_bytes": CONV_STRIP_BYTES,
+     "cvs_conv_band_rows": CONV_BAND_ROWS, "cvs_conv_max_k": CONV_MAX_K})
 
 
 def conv_plan(rows: int, row_bytes: int, streams: int = 1,
@@ -130,21 +111,17 @@ def _launch(src: torch.Tensor, src_stride: int, src_rows: int, row_off: int,
     returns the flat ``(streams * rows * width * 3,)`` uint8 output."""
     taps = _taps(weights_q16)
     dev = src.device
-    lib = _conv_lib()
+    lib = launch.library(SOURCE)
     out = torch.empty(streams * rows * width * 3, dtype=torch.uint8,
                       device=dev)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = torch.cuda.get_device_properties(idx).multi_processor_count
-    _, tile_rows = conv_plan(rows, width * 3, streams, sms)
+    idx = launch.device_index(dev)
+    _, tile_rows = conv_plan(rows, width * 3, streams, launch.sm_count(idx))
     rc = lib.cvs_convolve_q16(
         idx, src.data_ptr(), src_stride, src_rows, row_off, out.data_ptr(),
         rows * width * 3, rows, width * 3, tile_rows,
         taps.ctypes.data_as(ctypes.c_void_p), weights_q16.shape[0], streams,
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"convolve_q16 kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+        launch.stream_handle(dev))
+    launch.raise_on(rc, lib, "convolve_q16")
     convolve_q16.launches += 1
     return out
 

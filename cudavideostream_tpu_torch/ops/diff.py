@@ -26,12 +26,12 @@ Byte-exact contract (vs :func:`reference_cpu.diff_encode`):
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple, Union
 
 import torch
 
-from cudavideostream_tpu_torch.kernels import build
+from cudavideostream_tpu_torch.kernels import launch
+from cudavideostream_tpu_torch.kernels.launch import I, LL, P
 
 # K10's launch geometry (csrc/diff_pack.cu): a warp takes tiles of DP_TILE
 # frame bytes, DP_VECS 16-byte vectors a lane; blocks of DP_THREADS
@@ -42,7 +42,10 @@ DP_VECS = 2
 DP_TILE = 512 * DP_VECS
 DP_BLOCKS_PER_SM = 2
 
-_dp_lib = None
+SOURCE = launch.Source(
+    "diff_pack", {"cvs_diff_pack": [I, P, P, LL, P, P, I, I, LL, I, P, P, P]},
+    {"cvs_dp_threads": DP_THREADS, "cvs_dp_vecs": DP_VECS,
+     "cvs_dp_blocks_per_sm": DP_BLOCKS_PER_SM})
 
 
 def diff_mask(
@@ -120,28 +123,6 @@ def diff_pack_reference(
     return pack_bitmask(mask), (delta if want_delta else None)
 
 
-def _diff_pack_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/diff_pack.cu`` (K10)."""
-    global _dp_lib
-    if _dp_lib is None:
-        lib = build.load("diff_pack")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_diff_pack.argtypes = [i, p, p, ll, p, p, i, i, ll, i, p, p, p]
-        lib.cvs_diff_pack.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        for name in ("cvs_dp_threads", "cvs_dp_vecs", "cvs_dp_blocks_per_sm"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        if ((lib.cvs_dp_threads(), lib.cvs_dp_vecs(),
-             lib.cvs_dp_blocks_per_sm())
-                != (DP_THREADS, DP_VECS, DP_BLOCKS_PER_SM)):
-            raise RuntimeError("csrc/diff_pack.cu geometry disagrees with "
-                               "ops/diff.py")
-        _dp_lib = lib
-    return _dp_lib
-
-
 def diff_pack_plan(n: int, sms: int) -> int:
     """Blocks of one :func:`diff_pack` launch over ``n`` frame bytes on a
     card of ``sms`` SMs: :data:`DP_BLOCKS_PER_SM` an SM, one wave, fewer
@@ -208,25 +189,21 @@ def diff_pack(
         raise ValueError(f"K10 runs on cuda or cpu, not {dev}")
     if current.data_ptr() == previous.data_ptr():
         raise ValueError("current and previous must not share storage")
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    lib = _diff_pack_lib()
+    idx = launch.device_index(dev)
+    lib = launch.library(SOURCE)
     n = current.numel()
     tmap = threshold if isinstance(threshold, torch.Tensor) else None
     rlen = 0 if region is None else region.numel()
     bits = torch.empty((n + 7) // 8, dtype=torch.uint8, device=dev)
     delta = (torch.empty(n, dtype=torch.uint8, device=dev) if want_delta
              else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = torch.cuda.get_device_properties(idx).multi_processor_count
     rc = lib.cvs_diff_pack(
         idx, current.data_ptr(), region.data_ptr() if rlen else None, rlen,
         previous.data_ptr(), None if tmap is None else tmap.data_ptr(),
         0 if tmap is not None else int(threshold), int(negative_feedback), n,
-        diff_pack_plan(n, sms), bits.data_ptr(),
-        None if delta is None else delta.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"diff_pack kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+        diff_pack_plan(n, launch.sm_count(idx)), bits.data_ptr(),
+        None if delta is None else delta.data_ptr(), launch.stream_handle(dev))
+    launch.raise_on(rc, lib, "diff_pack")
     diff_pack.launches += 1
     return bits, delta
 

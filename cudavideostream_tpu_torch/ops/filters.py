@@ -68,7 +68,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from cudavideostream_tpu_torch.kernels import build
+from cudavideostream_tpu_torch.kernels import launch
+from cudavideostream_tpu_torch.kernels.launch import I, LL, OUT, P
 from cudavideostream_tpu_torch.ops import diff as diff_ops
 from cudavideostream_tpu_torch.ops import hist
 from cudavideostream_tpu_torch.ops import reference_cpu
@@ -87,12 +88,15 @@ BIN_APPLY_THREADS = 256
 BIN_APPLY_BLOCKS_PER_SM = 8
 BIN_REG_RUNS = 4
 
-_bin_lib = None
-# the fused kernel's blocks the card holds at once, per device
-_coresident: dict = {}
-# the fused kernel's scratch per (device, stream, streams): each stream's
-# 256 sums and the grid barrier's arrival word
-_fused_scratch: dict = {}
+BINARIZE_SOURCE = launch.Source("binarize", {
+    "cvs_gray_hist": [I, P, P, LL, LL, I, P, P, P, P],
+    "cvs_binarize_apply": [I, P, LL, P, I, P, P],
+    "cvs_binarize_fused": [I, P, LL, I, P, LL, P, P, P, I, I, P],
+    "cvs_bin_fused_blocks_per_sm": [I, OUT],
+}, {"cvs_bin_hist_threads": BIN_HIST_THREADS,
+    "cvs_bin_apply_threads": BIN_APPLY_THREADS,
+    "cvs_bin_scratch_words": hist.HIST_SCRATCH_WORDS,
+    "cvs_bin_pixels": BIN_PIXELS, "cvs_bin_reg_runs": BIN_REG_RUNS})
 
 # K11-K13's launch geometry (csrc/visualize.cu): blocks of VIS_THREADS
 # threads. K11 and K12 walk warp tiles of VIS_TILE bytes (512 pixels),
@@ -113,7 +117,12 @@ LUT_SIZE = 766
 VIS_OPS = {"heatmap": 0, "red_black": 1, "red_overlap": 2,
            "grayscale_average": 3, "grayscale_weighted": 4}
 
-_vis_lib = None
+VISUALIZE_SOURCE = launch.Source("visualize", {
+    "cvs_visualize": [I, I, P, P, LL, LL, P, P, I, P, LL, I, P, P],
+}, {"cvs_vis_threads": VIS_THREADS, "cvs_vis_lut_size": LUT_SIZE,
+    "cvs_tile_vecs": VIS_VECS, "cvs_heat_blocks_per_sm": HEAT_BLOCKS_PER_SM,
+    "cvs_red_blocks_per_sm": RED_BLOCKS_PER_SM, "cvs_vis_pixels": VIS_PIXELS,
+    "cvs_vis_blocks_per_sm": VIS_BLOCKS_PER_SM})
 _lut_words = None
 
 
@@ -237,40 +246,6 @@ def binarize_pixels(gray_px: torch.Tensor,
     return _replicate(binarize(gray_px, threshold))
 
 
-def _binarize() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/binarize.cu`` (K9)."""
-    global _bin_lib
-    if _bin_lib is None:
-        lib = build.load("binarize")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_gray_hist.argtypes = [i, p, p, ll, ll, i, p, p, p, p]
-        lib.cvs_gray_hist.restype = i
-        lib.cvs_binarize_apply.argtypes = [i, p, ll, p, i, p, p]
-        lib.cvs_binarize_apply.restype = i
-        lib.cvs_binarize_fused.argtypes = [i, p, ll, i, p, ll, p, p, p, i, i,
-                                           p]
-        lib.cvs_binarize_fused.restype = i
-        lib.cvs_bin_fused_blocks_per_sm.argtypes = [
-            i, ctypes.POINTER(ctypes.c_int)]
-        lib.cvs_bin_fused_blocks_per_sm.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        for name in ("cvs_bin_hist_threads", "cvs_bin_apply_threads",
-                     "cvs_bin_scratch_words", "cvs_bin_pixels",
-                     "cvs_bin_reg_runs"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        if ((lib.cvs_bin_hist_threads(), lib.cvs_bin_apply_threads(),
-             lib.cvs_bin_scratch_words(), lib.cvs_bin_pixels(),
-             lib.cvs_bin_reg_runs())
-                != (BIN_HIST_THREADS, BIN_APPLY_THREADS,
-                    hist.HIST_SCRATCH_WORDS, BIN_PIXELS, BIN_REG_RUNS)):
-            raise RuntimeError("csrc/binarize.cu geometry disagrees with "
-                               "ops/filters.py")
-        _bin_lib = lib
-    return _bin_lib
-
-
 def gray_hist_plan(npx: int, sms: int) -> int:
     """Blocks of one :func:`gray_hist` launch over ``npx`` pixels on a
     card of ``sms`` SMs: one per :data:`BIN_HIST_THREADS` whole runs of
@@ -327,38 +302,27 @@ def binarize_plan(npx: int, streams: int, coresident: int
 def fused_coresident(device: torch.device) -> int:
     """The fused K9 kernel's blocks that ``device`` holds at once:
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times its SMs (read
-    once per device)."""
+    once per device, ``launch.query``)."""
     idx = _cuda_index(device)
-    if idx not in _coresident:
-        lib = _binarize()
-        n = ctypes.c_int(0)
-        rc = lib.cvs_bin_fused_blocks_per_sm(idx, ctypes.byref(n))
-        if rc != 0:
-            raise RuntimeError(f"K9 occupancy query failed: "
-                               f"{lib.cvs_error_string(rc).decode()} ({rc})")
-        sms = torch.cuda.get_device_properties(idx).multi_processor_count
-        _coresident[idx] = n.value * sms
-    return _coresident[idx]
+    (per_sm,) = launch.query(launch.library(BINARIZE_SOURCE),
+                             "cvs_bin_fused_blocks_per_sm", idx, 1)
+    return per_sm * launch.sm_count(idx)
 
 
 def fused_scratch(device: torch.device, stream: int,
                   streams: int) -> torch.Tensor:
-    """The fused K9 kernel's scratch for launches of ``streams`` streams
-    on ``stream`` of ``device``: ``streams * 256 + 1`` int32 (each stream's
-    sums, then the grid barrier's arrival word), zero at creation and left
-    zero by every launch. Keyed by (device, stream, streams), so launches
-    that can overlap never share one."""
-    key = (torch.device(device), int(stream), int(streams))
-    if key not in _fused_scratch:
-        _fused_scratch[key] = torch.zeros(streams * hist.NBINS + 1,
-                                          dtype=torch.int32, device=device)
-    return _fused_scratch[key]
+    """The fused K9 kernel's scratch (``launch.scratch``) for launches of
+    ``streams`` streams on ``stream`` of ``device``: ``streams * 256 + 1``
+    int32, each stream's sums, then the grid barrier's arrival word; one
+    for each stream count."""
+    return launch.scratch(("binarize_fused", int(streams)), device, stream,
+                          streams * hist.NBINS + 1, torch.int32)
 
 
 def _cuda_index(dev: torch.device) -> int:
     if dev.type != "cuda":
         raise ValueError(f"K9 runs on cuda or cpu, not {dev}")
-    return dev.index if dev.index is not None else torch.cuda.current_device()
+    return launch.device_index(dev)
 
 
 def _check_region(region: Optional[torch.Tensor], frame: torch.Tensor,
@@ -399,21 +363,19 @@ def gray_hist(frame: torch.Tensor, region: Optional[torch.Tensor] = None
         gv = gray_pixels(diff_ops.region_frame(frame, region))
         return gv, hist.histogram_reference(gv)
     idx = _cuda_index(dev)
-    lib = _binarize()
+    lib = launch.library(BINARIZE_SOURCE)
     gray = torch.empty(npx, dtype=torch.uint8, device=dev)
     out = torch.empty(hist.NBINS, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = launch.stream_handle(dev)
     # K4's per-stream scratch: the launches on a stream run in its order,
     # and each leaves the scratch zero
     scratch = hist.hist_scratch(torch.device("cuda", idx), stream)
-    sms = torch.cuda.get_device_properties(idx).multi_processor_count
     rc = lib.cvs_gray_hist(idx, frame.data_ptr(),
                            region.data_ptr() if rlen else None, rlen, npx,
-                           gray_hist_plan(npx, sms), gray.data_ptr(),
-                           scratch.data_ptr(), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"gray_hist kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+                           gray_hist_plan(npx, launch.sm_count(idx)),
+                           gray.data_ptr(), scratch.data_ptr(),
+                           out.data_ptr(), stream)
+    launch.raise_on(rc, lib, "gray_hist")
     gray_hist.launches += 1
     return gray, out
 
@@ -456,17 +418,14 @@ def binarize_apply(gray: torch.Tensor, histogram: torch.Tensor,
         out.copy_(res.reshape(out.shape))
         return out
     idx = _cuda_index(dev)
-    lib = _binarize()
+    lib = launch.library(BINARIZE_SOURCE)
     if out is None:
         out = torch.empty(3 * npx, dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = torch.cuda.get_device_properties(idx).multi_processor_count
     rc = lib.cvs_binarize_apply(idx, gray.data_ptr(), npx,
-                                histogram.data_ptr(), apply_plan(npx, sms),
-                                out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"binarize_apply kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+                                histogram.data_ptr(),
+                                apply_plan(npx, launch.sm_count(idx)),
+                                out.data_ptr(), launch.stream_handle(dev))
+    launch.raise_on(rc, lib, "binarize_apply")
     binarize_apply.launches += 1
     return out
 
@@ -519,12 +478,12 @@ def binarize_pipeline(frame: torch.Tensor,
         out.copy_(res.reshape(out.shape))
         return out
     idx = _cuda_index(dev)
-    lib = _binarize()
+    lib = launch.library(BINARIZE_SOURCE)
     if out is None:
         out = torch.empty(3 * npx * streams, dtype=torch.uint8, device=dev)
     grid, per_stream, block_runs = binarize_plan(npx, streams,
                                                  fused_coresident(dev))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = launch.stream_handle(dev)
     # past the register budget, 16 gray bytes a run wait in device memory
     spill = (torch.empty(streams * (npx // BIN_PIXELS) * BIN_PIXELS,
                          dtype=torch.uint8, device=dev)
@@ -535,10 +494,8 @@ def binarize_pipeline(frame: torch.Tensor,
         region.data_ptr() if rlen else None, rlen, out.data_ptr(),
         None if spill is None else spill.data_ptr(), scratch.data_ptr(),
         per_stream, block_runs, stream)
-    if rc != 0:
-        raise RuntimeError(f"binarize_pipeline kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc}); "
-                           f"grid {grid} of {BIN_HIST_THREADS} threads")
+    launch.raise_on(rc, lib, f"binarize_pipeline (grid {grid} of "
+                             f"{BIN_HIST_THREADS} threads)")
     binarize_pipeline.launches += 1
     return out
 
@@ -665,32 +622,6 @@ def red_visualizer(current: torch.Tensor, previous: torch.Tensor,
 red_visualizer.launches = 0
 
 
-def _visualize_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/visualize.cu`` (K11-K13)."""
-    global _vis_lib
-    if _vis_lib is None:
-        lib = build.load("visualize")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_visualize.argtypes = [i, i, p, p, ll, ll, p, p, i, p, ll, i,
-                                      p, p]
-        lib.cvs_visualize.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        names = ("cvs_vis_threads", "cvs_vis_lut_size", "cvs_tile_vecs",
-                 "cvs_heat_blocks_per_sm", "cvs_red_blocks_per_sm",
-                 "cvs_vis_pixels", "cvs_vis_blocks_per_sm")
-        for name in names:
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        if (tuple(getattr(lib, name)() for name in names)
-                != (VIS_THREADS, LUT_SIZE, VIS_VECS, HEAT_BLOCKS_PER_SM,
-                    RED_BLOCKS_PER_SM, VIS_PIXELS, VIS_BLOCKS_PER_SM)):
-            raise RuntimeError("csrc/visualize.cu geometry disagrees with "
-                               "ops/filters.py")
-        _vis_lib = lib
-    return _vis_lib
-
-
 def tile_plan(n: int, sms: int, per_sm: int) -> int:
     """Blocks of one K11 or K12 launch over ``n`` frame bytes (all streams)
     on a card of ``sms`` SMs: ``per_sm`` an SM (:data:`HEAT_BLOCKS_PER_SM`
@@ -765,12 +696,11 @@ def _visualize(op: str, wrapper, frame: torch.Tensor,
                                         op == "red_overlap", region, streams)
     if dev.type != "cuda":
         raise ValueError(f"K11-K13 run on cuda or cpu, not {dev}")
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    lib = _visualize_lib()
+    idx = launch.device_index(dev)
+    lib = launch.library(VISUALIZE_SOURCE)
     npx = n // 3
     out = torch.empty(n, dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    sms = launch.sm_count(idx)
     rc = lib.cvs_visualize(
         idx, VIS_OPS[op], frame.data_ptr(),
         region.data_ptr() if rlen else None, rlen, sn,
@@ -780,9 +710,8 @@ def _visualize(op: str, wrapper, frame: torch.Tensor,
         heatmap_lut_words() if op == "heatmap" else None, npx,
         vis_plan(npx, sms) if op.startswith("grayscale") else tile_plan(
             n, sms, HEAT_BLOCKS_PER_SM if op == "heatmap"
-            else RED_BLOCKS_PER_SM), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{op} kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+            else RED_BLOCKS_PER_SM), out.data_ptr(),
+        launch.stream_handle(dev))
+    launch.raise_on(rc, lib, op)
     wrapper.launches += 1
     return out

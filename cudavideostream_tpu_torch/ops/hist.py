@@ -33,11 +33,10 @@ its values may lie outside [0, 255], and those add nothing.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from cudavideostream_tpu_torch.kernels import build
+from cudavideostream_tpu_torch.kernels import launch
+from cudavideostream_tpu_torch.kernels.launch import I, LL, OUT, P
 
 NBINS = 256
 # threads of a K4 block (csrc/histogram.cu kThreads), each reading 16-byte
@@ -48,32 +47,10 @@ HIST_SCRATCH_WORDS = NBINS + 1
 # (2,073,600, 32) bool block, 66 MB, at a time
 _REF_CHUNK = 32
 
-_lib = None
-# K4's scratch per (device, stream): the blocks' sums and the done count
-_scratch: dict = {}
-
-
-def _hist_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/histogram.cu`` (K4)."""
-    global _lib
-    if _lib is None:
-        lib = build.load("histogram")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_histogram.argtypes = [i, p, ll, i, p, p, p]
-        lib.cvs_histogram.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        for name in ("cvs_hist_bins", "cvs_hist_threads",
-                     "cvs_hist_scratch_words"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        if ((lib.cvs_hist_bins(), lib.cvs_hist_threads(),
-             lib.cvs_hist_scratch_words())
-                != (NBINS, HIST_THREADS, HIST_SCRATCH_WORDS)):
-            raise RuntimeError("csrc/histogram.cu bins, threads or scratch "
-                               "words disagree with ops/hist.py")
-        _lib = lib
-    return _lib
+SOURCE = launch.Source(
+    "histogram", {"cvs_histogram": [I, P, LL, I, P, P, P]},
+    {"cvs_hist_bins": NBINS, "cvs_hist_threads": HIST_THREADS,
+     "cvs_hist_scratch_words": HIST_SCRATCH_WORDS})
 
 
 def hist_plan(n: int, sms: int) -> int:
@@ -88,16 +65,11 @@ def hist_plan(n: int, sms: int) -> int:
 
 
 def hist_scratch(device: torch.device, stream: int) -> torch.Tensor:
-    """K4's scratch for launches on ``stream`` of ``device``:
-    :data:`HIST_SCRATCH_WORDS` int32 (the 256 sums and the done count),
-    zero at creation and left zero by every launch (its last block
-    empties it). Keyed by (device, stream), so launches that can overlap
-    never share one, as ``logcompact.flat_scratch`` is."""
-    key = (torch.device(device), int(stream))
-    if key not in _scratch:
-        _scratch[key] = torch.zeros(HIST_SCRATCH_WORDS, dtype=torch.int32,
-                                    device=device)
-    return _scratch[key]
+    """K4's scratch (``launch.scratch``) for launches on ``stream`` of
+    ``device``: :data:`HIST_SCRATCH_WORDS` int32, the 256 sums and the
+    done count, which its last block empties."""
+    return launch.scratch("histogram", device, stream, HIST_SCRATCH_WORDS,
+                          torch.int32)
 
 
 def histogram(g: torch.Tensor) -> torch.Tensor:
@@ -123,17 +95,15 @@ def histogram(g: torch.Tensor) -> torch.Tensor:
     if g.data_ptr() % 16:
         raise ValueError("the kernel reads 16-byte vectors: g must be "
                          "16-byte aligned")
-    lib = _hist_lib()
+    lib = launch.library(SOURCE)
     out = torch.empty(NBINS, dtype=torch.int32, device=dev)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    idx = launch.device_index(dev)
+    stream = launch.stream_handle(dev)
     scratch = hist_scratch(torch.device("cuda", idx), stream)
-    sms = torch.cuda.get_device_properties(idx).multi_processor_count
-    rc = lib.cvs_histogram(idx, g.data_ptr(), n, hist_plan(n, sms),
+    rc = lib.cvs_histogram(idx, g.data_ptr(), n,
+                           hist_plan(n, launch.sm_count(idx)),
                            scratch.data_ptr(), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"histogram kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+    launch.raise_on(rc, lib, "histogram")
     histogram.launches += 1
     return out
 
@@ -161,30 +131,10 @@ def histogram_reference(g: torch.Tensor) -> torch.Tensor:
 # come in whole waves of PROBE_CTAS_PER_SM x the SMs
 PROBE_CTAS_PER_SM = 2
 
-_probe_lib = None
-# K7's scratch per (device, stream): its count of finished slices
-_probe_scratch: dict = {}
-
-
-def _probe() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/probe.cu`` (K7)."""
-    global _probe_lib
-    if _probe_lib is None:
-        lib = build.load("probe")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cvs_vpu_probe.argtypes = [i, p, i, i, i, p, p, p, p]
-        lib.cvs_vpu_probe.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        lib.cvs_probe_bins.argtypes = []
-        lib.cvs_probe_bins.restype = i
-        lib.cvs_probe_plan.argtypes = [i, p, p, p]
-        lib.cvs_probe_plan.restype = i
-        if lib.cvs_probe_bins() != NBINS:
-            raise RuntimeError("csrc/probe.cu bin count disagrees with "
-                               "ops/hist.py NBINS")
-        _probe_lib = lib
-    return _probe_lib
+PROBE_SOURCE = launch.Source(
+    "probe", {"cvs_vpu_probe": [I, P, I, I, I, P, P, P, P],
+              "cvs_probe_plan": [I, OUT, OUT, OUT]},
+    {"cvs_probe_bins": NBINS})
 
 
 def probe_slices(tiles: int, sms: int) -> int:
@@ -205,17 +155,11 @@ def probe_plan(device: torch.device) -> dict:
     per CTA, the CTAs an SM is planned to hold (``per_sm``), and
     ``resident``, the CTAs it can hold
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; below ``per_sm``
-    the slices would not all run at once)."""
-    lib = _probe()
-    dev = torch.device(device)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    rc = lib.cvs_probe_plan(idx, *(ctypes.byref(v) for v in vals))
-    if rc != 0:
-        raise RuntimeError(f"vpu_probe plan failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
-    plan = dict(zip(("threads", "per_sm", "resident"),
-                    (v.value for v in vals)))
+    the slices would not all run at once). Asked once per device
+    (``launch.query``)."""
+    plan = dict(zip(("threads", "per_sm", "resident"), launch.query(
+        launch.library(PROBE_SOURCE), "cvs_probe_plan",
+        launch.device_index(device), 3)))
     if plan["per_sm"] != PROBE_CTAS_PER_SM:
         raise RuntimeError("csrc/probe.cu CTAs an SM disagree with "
                            "ops/hist.py PROBE_CTAS_PER_SM")
@@ -223,15 +167,10 @@ def probe_plan(device: torch.device) -> dict:
 
 
 def probe_scratch(device: torch.device, stream: int) -> torch.Tensor:
-    """K7's scratch for launches on ``stream`` of ``device``: one int32,
-    the count of finished slices, zero at creation and left zero by every
-    launch (its last CTA resets it). Keyed by (device, stream), as
-    :func:`hist_scratch` is."""
-    key = (torch.device(device), int(stream))
-    if key not in _probe_scratch:
-        _probe_scratch[key] = torch.zeros(1, dtype=torch.int32,
-                                          device=device)
-    return _probe_scratch[key]
+    """K7's scratch (``launch.scratch``) for launches on ``stream`` of
+    ``device``: one int32, the count of finished slices, which its last
+    CTA resets."""
+    return launch.scratch("probe", device, stream, 1, torch.int32)
 
 
 def probe_tile(rows: int) -> int:
@@ -282,21 +221,18 @@ def vpu_probe(g2: torch.Tensor, unroll: bool = False) -> torch.Tensor:
     if g2.data_ptr() % 16:
         raise ValueError("the kernel reads 16-byte vectors: g2 must be "
                          "16-byte aligned")
-    lib = _probe()
+    lib = launch.library(PROBE_SOURCE)
     out = torch.empty(grid, dtype=torch.int32, device=dev)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    slices = probe_slices(
-        grid, torch.cuda.get_device_properties(idx).multi_processor_count)
+    idx = launch.device_index(dev)
+    stream = launch.stream_handle(dev)
+    slices = probe_slices(grid, launch.sm_count(idx))
     part = torch.empty(2 * slices, dtype=torch.int32, device=dev)
     rc = lib.cvs_vpu_probe(idx, g2.data_ptr(), tile * 128, grid, slices,
                            part.data_ptr(),
                            probe_scratch(torch.device("cuda", idx),
                                          stream).data_ptr(),
                            out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"vpu_probe kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+    launch.raise_on(rc, lib, "vpu_probe")
     vpu_probe.launches += 1
     return out
 

@@ -64,12 +64,12 @@ it: without it the kernels count nothing.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from cudavideostream_tpu_torch.kernels import build
+from cudavideostream_tpu_torch.kernels import launch
+from cudavideostream_tpu_torch.kernels.launch import I, LL, OUT, P
 from cudavideostream_tpu_torch.ops import diff as diff_ops
 
 # One tile of the tiled, mask and batched K1 kernels: 256 threads x 16
@@ -84,78 +84,28 @@ TILE_BYTES = 4096
 LANES = 128
 GEOMETRY_MAX_GRID = 2000
 
-_libs: dict = {}
-
-
-def _bind_common(lib: ctypes.CDLL, name: str) -> None:
-    lib.cvs_error_string.argtypes = [ctypes.c_int]
-    lib.cvs_error_string.restype = ctypes.c_char_p
-    lib.cvs_tile_bytes.argtypes = []
-    lib.cvs_tile_bytes.restype = ctypes.c_int
-    if lib.cvs_tile_bytes() != TILE_BYTES:
-        raise RuntimeError(f"csrc/{name}.cu tile size disagrees with "
-                           "ops/logcompact.py TILE_BYTES")
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/logcompact.cu`` (K1)."""
-    lib = _libs.get("logcompact")
-    if lib is None:
-        lib = build.load("logcompact")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_fused_diff_compact.argtypes = [
-            i, p, p, p, ll, ll, i, p, i, i, i, p, p, p, ll, p, p, p,
-        ]
-        lib.cvs_fused_diff_compact.restype = i
-        lib.cvs_flat_blocks.argtypes = [i, i, ctypes.POINTER(i)]
-        lib.cvs_flat_blocks.restype = i
-        lib.cvs_flat_tile_bytes.argtypes = []
-        lib.cvs_flat_tile_bytes.restype = i
-        lib.cvs_tiled_wave.argtypes = [i, ctypes.POINTER(i)]
-        lib.cvs_tiled_wave.restype = i
-        lib.cvs_tiled_chunks.argtypes = [ll, i]
-        lib.cvs_tiled_chunks.restype = i
-        lib.cvs_fused_diff_compact_tiled.argtypes = [
-            i, p, p, p, ll, ll, ll, i, i, p, i, i, i, i, p, p, p, i, p, p, p,
-            p, p, p,
-        ]
-        lib.cvs_fused_diff_compact_tiled.restype = i
-        _bind_common(lib, "logcompact")
-        _libs["logcompact"] = lib
-    return lib
-
-
-def _pair_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/pair_compact.cu`` (K2, K3)."""
-    lib = _libs.get("pair_compact")
-    if lib is None:
-        lib = build.load("pair_compact")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_pair_compact.argtypes = [i, p, p, ll, i, p, p, p, p, p]
-        lib.cvs_pair_compact.restype = i
-        lib.cvs_pair_blocks.argtypes = [i, ctypes.POINTER(i)]
-        lib.cvs_pair_blocks.restype = i
-        lib.cvs_pair_tile.argtypes = []
-        lib.cvs_pair_tile.restype = i
-        lib.cvs_vals_compact.argtypes = [i, p, ll, i, p, p, p, p]
-        lib.cvs_vals_compact.restype = i
-        lib.cvs_vals_blocks.argtypes = [i, ctypes.POINTER(i)]
-        lib.cvs_vals_blocks.restype = i
-        lib.cvs_vals_tile.argtypes = []
-        lib.cvs_vals_tile.restype = i
-        _bind_common(lib, "pair_compact")
-        _libs["pair_compact"] = lib
-    return lib
-
-
-def _raise_on(rc: int, lib: ctypes.CDLL, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
-
-
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
+SOURCE = launch.Source("logcompact", {
+    "cvs_fused_diff_compact": [I, P, P, P, LL, LL, I, P, I, I, I, P, P, P, LL,
+                               P, P, P],
+    "cvs_flat_blocks": [I, I, OUT],
+    "cvs_flat_tile_bytes": [],
+    "cvs_tiled_wave": [I, OUT],
+    "cvs_tiled_chunks": [LL, I],
+    "cvs_fused_diff_compact_tiled": [I, P, P, P, LL, LL, LL, I, I, P, I, I,
+                                     I, I, P, P, P, I, P, P, P, P, P, P],
+}, {"cvs_tile_bytes": TILE_BYTES})
+PAIR_SOURCE = launch.Source("pair_compact", {
+    "cvs_pair_compact": [I, P, P, LL, I, P, P, P, P, P],
+    "cvs_pair_blocks": [I, OUT],
+    "cvs_pair_tile": [],
+    "cvs_vals_compact": [I, P, LL, I, P, P, P, P],
+    "cvs_vals_blocks": [I, OUT],
+    "cvs_vals_tile": [],
+}, {"cvs_tile_bytes": TILE_BYTES})
+SEGMENT_SOURCE = launch.Source("segment_compact", {
+    "cvs_segment_compact": [I, P, P, P, LL, LL, I, P, I, I, I, I, P, P, P, P],
+    "cvs_segment_plan": [I, OUT, OUT, OUT, OUT],
+})
 
 
 # -- the one-pass compactions (K1 flat, K2, K3): launch plan and scratch ---
@@ -182,39 +132,17 @@ def flat_plan(n: int, cap: int, blocks: int, tile: int) -> FlatPlan:
     return FlatPlan(tiles, min(blocks, tiles), 2 + tiles)
 
 
-_blocks: dict = {}   # (kernel, device index, variant) -> persistent grid
-_scratch: dict = {}  # (device, stream handle) -> zeroed int64 words
-
-
-def _persistent_blocks(lib: ctypes.CDLL, fn: str, idx: int, *args) -> int:
-    """The persistent grid of a one-pass kernel on device ``idx``, asked
-    of its library once per device (which also admits the kernel's
-    dynamic shared memory there)."""
-    key = (fn, idx, args)
-    blocks = _blocks.get(key)
-    if blocks is None:
-        out = ctypes.c_int()
-        _raise_on(getattr(lib, fn)(idx, *args, ctypes.byref(out)), lib, fn)
-        blocks = _blocks[key] = out.value
-    return blocks
-
-
 def flat_scratch(device: torch.device, stream: int,
                  words: int) -> torch.Tensor:
-    """The scratch of the one-pass compactions launched on ``stream`` of
-    ``device``, and of K1's tiled emission (its streams' ``pos`` words,
-    ``csrc/logcompact.cu:add_stream_total``): at least ``words`` int64
-    words, zero at creation, and left zero by every launch (its last block
-    resets what it used). It is keyed by (device, stream), so launches
-    that can overlap (K1 on the compute stream, K2 or K3 on a landing
-    stream) never share it; launches on one stream run in order and
-    may."""
-    key = (torch.device(device), int(stream))
-    buf = _scratch.get(key)
-    if buf is None or buf.numel() < words:
-        buf = torch.zeros(max(words, 1024), dtype=torch.int64, device=device)
-        _scratch[key] = buf
-    return buf
+    """The scratch (``launch.scratch``) of the one-pass compactions
+    launched on ``stream`` of ``device``, and of K1's tiled emission (its
+    streams' ``pos`` words, ``csrc/logcompact.cu:add_stream_total``): at
+    least ``words`` int64 words, and at least 1024, so K1's launches and
+    K2's or K3's on one stream share it without growing it. Launches that
+    can overlap (K1 on the compute stream, K2 or K3 on a landing stream)
+    run on different streams and never share it."""
+    return launch.scratch("lookback", device, stream, max(words, 1024),
+                          torch.int64)
 
 
 # -- the JAX package's tile geometry -------------------------------------
@@ -522,15 +450,15 @@ def fused_diff_compact(
     region_len = _check_kernel_args("fused_diff_compact", current, previous,
                                     overlay_region, threshold_map)
     region_ptr = overlay_region.data_ptr() if region_len else None
-    lib = _kernel_lib()
-    idx = _device_index(dev)
-    plan = flat_plan(n, cap, _persistent_blocks(
-        lib, "cvs_flat_blocks", idx, int(threshold_map is not None)),
-        lib.cvs_flat_tile_bytes())
+    lib = launch.library(SOURCE)
+    idx = launch.device_index(dev)
+    (blocks,) = launch.query(lib, "cvs_flat_blocks", idx, 1,
+                             int(threshold_map is not None))
+    plan = flat_plan(n, cap, blocks, lib.cvs_flat_tile_bytes())
     xs = torch.empty(cap, dtype=torch.int32, device=dev)
     vals = torch.empty(cap, dtype=torch.uint8, device=dev)
     pos = torch.empty((), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = launch.stream_handle(dev)
     scratch = flat_scratch(dev, stream, plan.scratch_words)
     rc = lib.cvs_fused_diff_compact(
         idx,
@@ -539,7 +467,7 @@ def fused_diff_compact(
         off, plan.grid, scratch.data_ptr(), xs.data_ptr(), vals.data_ptr(),
         cap, pos.data_ptr(), _ptr(prev_stores), stream,
     )
-    _raise_on(rc, lib, "fused_diff_compact")
+    launch.raise_on(rc, lib, "fused_diff_compact")
     fused_diff_compact.launches += 1
     return pos, xs, vals, previous
 
@@ -601,7 +529,7 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
     b = n_streams or 1
     region_len //= b
     region_ptr = overlay_region.data_ptr() if region_len else None
-    lib = _kernel_lib()
+    lib = launch.library(SOURCE)
     dev = current.device
     n_units = b * n_pad // unit_bytes
     xs_t = (torch.empty((n_units, unit_bytes), dtype=torch.int32, device=dev)
@@ -616,10 +544,10 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
                     if chunks else None)
     pos = torch.empty(() if n_streams is None else (b,), dtype=torch.int32,
                       device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = launch.stream_handle(dev)
     sums = flat_scratch(dev, stream, b)  # one pos word per stream
     rc = lib.cvs_fused_diff_compact_tiled(
-        _device_index(dev),
+        launch.device_index(dev),
         current.data_ptr(), previous.data_ptr(), region_ptr, region_len,
         current.numel() // b, n_pad, b, int(threshold), _ptr(threshold_map),
         int(bool(negative_feedback)), index_offset,
@@ -629,7 +557,7 @@ def _launch_tiled(name, current, previous, threshold, negative_feedback,
         None if bits is None else bits.data_ptr(), pos.data_ptr(),
         _ptr(prev_stores), stream,
     )
-    _raise_on(rc, lib, name)
+    launch.raise_on(rc, lib, name)
     return pos, counts, xs_t, vals_t, bits
 
 
@@ -1031,42 +959,22 @@ def fused_diff_compact_batched_reference(
 
 # -- K5 -------------------------------------------------------------------
 
-def _segment_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/segment_compact.cu`` (K5)."""
-    lib = _libs.get("segment_compact")
-    if lib is None:
-        lib = build.load("segment_compact")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_segment_compact.argtypes = [
-            i, p, p, p, ll, ll, i, p, i, i, i, i, p, p, p, p,
-        ]
-        lib.cvs_segment_compact.restype = i
-        lib.cvs_segment_plan.argtypes = [i, p, p, p, p]
-        lib.cvs_segment_plan.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        _libs["segment_compact"] = lib
-    return lib
-
-
-def cluster_plan(lib: ctypes.CDLL, fn: str, device: torch.device) -> dict:
+def cluster_plan(lib, fn: str, device: torch.device) -> dict:
     """The shape of a cluster launch (K5's, K6's) on ``device`` (a CUDA
     device), from ``lib``'s ``fn``: CTAs per cluster (one cluster a tile),
     threads per CTA, dynamic shared memory per CTA in bytes, and
     ``active_clusters``, the clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``; 0 would mean no launch could
-    run). Raises where the card refuses the question."""
-    vals = [ctypes.c_int(0) for _ in range(4)]
-    rc = getattr(lib, fn)(_device_index(torch.device(device)),
-                          *(ctypes.byref(v) for v in vals))
-    _raise_on(rc, lib, fn)
+    run). Asked once per device (``launch.query``); raises where the card
+    refuses the question."""
     return dict(zip(("cluster", "threads", "smem", "active_clusters"),
-                    (v.value for v in vals)))
+                    launch.query(lib, fn, launch.device_index(device), 4)))
 
 
 def segment_plan(device: torch.device) -> dict:
     """K5's launch shape on ``device`` (:func:`cluster_plan`)."""
-    return cluster_plan(_segment_lib(), "cvs_segment_plan", device)
+    return cluster_plan(launch.library(SEGMENT_SOURCE), "cvs_segment_plan",
+                        device)
 
 
 def segment_compact(
@@ -1113,7 +1021,7 @@ def _launch_segment(current, previous, threshold, negative_feedback,
     region_len = _check_kernel_args("segment_compact", current, previous,
                                     overlay_region, threshold_map)
     region_len //= n_streams
-    lib = _segment_lib()
+    lib = launch.library(SEGMENT_SOURCE)
     n = current.numel() // n_streams
     n_pad, unit_bytes = tiled_geometry(n, 0)
     ups = n_pad // unit_bytes
@@ -1123,14 +1031,14 @@ def _launch_segment(current, previous, threshold, negative_feedback,
     vals_t = torch.empty((n_units, unit_bytes), dtype=torch.uint8,
                          device=dev)
     rc = lib.cvs_segment_compact(
-        _device_index(dev), current.data_ptr(), previous.data_ptr(),
+        launch.device_index(dev), current.data_ptr(), previous.data_ptr(),
         overlay_region.data_ptr() if region_len else None, region_len,
         n, int(threshold), _ptr(threshold_map),
         int(bool(negative_feedback)), unit_bytes, ups, n_streams,
         counts.data_ptr(), xs_t.data_ptr(), vals_t.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        launch.stream_handle(dev),
     )
-    _raise_on(rc, lib, "segment_compact")
+    launch.raise_on(rc, lib, "segment_compact")
     segment_compact.launches += 1
     return counts, xs_t, vals_t, previous
 
@@ -1224,21 +1132,21 @@ def pair_compact(xs_flat: torch.Tensor, vals_flat: torch.Tensor):
     if xs_flat.data_ptr() % 16 or vals_flat.data_ptr() % 16:
         raise ValueError("the kernel reads 16-byte vectors: xs and vals "
                          "must be 16-byte aligned")
-    lib = _pair_lib()
-    idx = _device_index(dev)
-    plan = flat_plan(n, n, _persistent_blocks(lib, "cvs_pair_blocks", idx),
-                     lib.cvs_pair_tile())
+    lib = launch.library(PAIR_SOURCE)
+    idx = launch.device_index(dev)
+    (blocks,) = launch.query(lib, "cvs_pair_blocks", idx, 1)
+    plan = flat_plan(n, n, blocks, lib.cvs_pair_tile())
     xs = torch.empty(n, dtype=torch.int32, device=dev)
     vals = torch.empty(n, dtype=torch.uint8, device=dev)
     pos = torch.empty((), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = launch.stream_handle(dev)
     scratch = flat_scratch(dev, stream, plan.scratch_words)
     rc = lib.cvs_pair_compact(
         idx, xs_flat.data_ptr(), vals_flat.data_ptr(), n, plan.grid,
         scratch.data_ptr(), xs.data_ptr(), vals.data_ptr(), pos.data_ptr(),
         stream,
     )
-    _raise_on(rc, lib, "pair_compact")
+    launch.raise_on(rc, lib, "pair_compact")
     pair_compact.launches += 1
     return pos, xs, vals
 
@@ -1310,19 +1218,19 @@ def vals_compact(vals_flat: torch.Tensor):
     if vals_flat.data_ptr() % 16:
         raise ValueError("the kernel reads 16-byte vectors: vals must be "
                          "16-byte aligned")
-    lib = _pair_lib()
-    idx = _device_index(dev)
-    plan = flat_plan(n, n, _persistent_blocks(lib, "cvs_vals_blocks", idx),
-                     lib.cvs_vals_tile())
+    lib = launch.library(PAIR_SOURCE)
+    idx = launch.device_index(dev)
+    (blocks,) = launch.query(lib, "cvs_vals_blocks", idx, 1)
+    plan = flat_plan(n, n, blocks, lib.cvs_vals_tile())
     vals = torch.empty(n, dtype=torch.uint8, device=dev)
     pos = torch.empty((), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = launch.stream_handle(dev)
     scratch = flat_scratch(dev, stream, plan.scratch_words)
     rc = lib.cvs_vals_compact(
         idx, vals_flat.data_ptr(), n, plan.grid, scratch.data_ptr(),
         vals.data_ptr(), pos.data_ptr(), stream,
     )
-    _raise_on(rc, lib, "vals_compact")
+    launch.raise_on(rc, lib, "vals_compact")
     vals_compact.launches += 1
     return pos, vals
 

@@ -14,17 +14,18 @@ CPU tensor :func:`overlay_blit_reference` gathers the selected cells with
 ``index_select`` into one text strip and writes it with one slice copy.
 The JAX package selects cells with a one-hot float matmul because TPU
 gathers are slow; on the card an index gather is exact, where a float
-matmul would be one more exactness hazard.
+matmul would be one more exactness hazard. The solo, batched and
+sharded steps take their glyph ids from one :class:`Glyphs` a device.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-from cudavideostream_tpu_torch.kernels import build
+from cudavideostream_tpu_torch.kernels import launch
+from cudavideostream_tpu_torch.kernels.launch import I, LL, P
 from cudavideostream_tpu_torch.utils import fonts
 
 # K14's launch geometry (csrc/overlay.cu): blocks of OVERLAY_THREADS lanes,
@@ -33,32 +34,15 @@ from cudavideostream_tpu_torch.utils import fonts
 OVERLAY_THREADS = 128
 OVERLAY_BLOCKS_PER_SM = 8
 OVERLAY_VEC = 16
+# the status line's longest text: characters past it are not drawn
+MAX_OVERLAY_CHARS = 28
 
-_lib = None
-
-
-def _overlay_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/overlay.cu`` (K14)."""
-    global _lib
-    if _lib is None:
-        lib = build.load("overlay")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_overlay.argtypes = [i, p, ll, p, i, i, i, p, i, p, i, ll, ll,
-                                    i, i, p, p]
-        lib.cvs_overlay.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        names = ("cvs_overlay_threads", "cvs_overlay_blocks_per_sm",
-                 "cvs_overlay_vec")
-        for name in names:
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        if (tuple(getattr(lib, name)() for name in names)
-                != (OVERLAY_THREADS, OVERLAY_BLOCKS_PER_SM, OVERLAY_VEC)):
-            raise RuntimeError("csrc/overlay.cu geometry disagrees with "
-                               "ops/overlay.py")
-        _lib = lib
-    return _lib
+SOURCE = launch.Source(
+    "overlay",
+    {"cvs_overlay": [I, P, LL, P, I, I, I, P, I, P, I, LL, LL, I, I, P, P]},
+    {"cvs_overlay_threads": OVERLAY_THREADS,
+     "cvs_overlay_blocks_per_sm": OVERLAY_BLOCKS_PER_SM,
+     "cvs_overlay_vec": OVERLAY_VEC})
 
 
 def overlay_plan(n: int, sms: int) -> int:
@@ -88,6 +72,37 @@ def text_glyphs(texts: Sequence[str], max_chars: int, cells_a_row: int,
         host = host.pin_memory()
     buf = host.to(device, non_blocking=True)
     return buf[b:].view(b, max_chars), buf[:b]
+
+
+class Glyphs:
+    """The glyph ids of the last tuple of status texts on one device:
+    :func:`text_glyphs` of the texts at :data:`MAX_OVERLAY_CHARS` and
+    ``cells_a_row`` cells a row, uploaded when the texts change. While the
+    number of texts holds, the same two tensors are handed back, and new
+    texts are written into their memory in the current stream's order, so
+    a CUDA graph that launched K14 on them reads the new ids (a count
+    passed by value stays the captured one). Calling it with a tuple of B
+    texts returns ``(ids (B, MAX_OVERLAY_CHARS), n_fit (B,))``, int32."""
+
+    def __init__(self, device, cells_a_row: int):
+        self.device = torch.device(device)
+        self.cells_a_row = cells_a_row
+        self._texts: Optional[Tuple[str, ...]] = None
+        self._last: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def __call__(self, texts: Sequence[str]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        texts = tuple(texts)
+        if texts != self._texts:
+            new = text_glyphs(texts, MAX_OVERLAY_CHARS, self.cells_a_row,
+                              self.device)
+            if self._last is not None and len(texts) == len(self._texts):
+                for old, upload in zip(self._last, new):
+                    old.copy_(upload)
+            else:
+                self._last = new
+            self._texts = texts
+        return self._last
 
 
 def overlay_blit_reference(
@@ -146,22 +161,19 @@ def _launch(frames: torch.Tensor, stride: int, atlas: torch.Tensor,
                               or t.device != dev):
             raise ValueError(f"overlay_blit: the {what} must be a contiguous "
                              f"int32 tensor on the frame's device")
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    lib = _overlay_lib()
+    idx = launch.device_index(dev)
+    lib = launch.library(SOURCE)
     row = width * 3
     n = streams * height * row
     out = torch.empty(n, dtype=torch.uint8, device=dev)
-    sms = torch.cuda.get_device_properties(idx).multi_processor_count
     rc = lib.cvs_overlay(
         idx, frames.data_ptr(), stride, atlas.data_ptr(), atlas.shape[0],
         atlas.shape[1], atlas.shape[2] * 3,
         ids.data_ptr() if ids.shape[-1] else None, ids.shape[-1],
         None if n_fit is None else n_fit.data_ptr(), nfit, row, height,
-        streams, overlay_plan(n, sms), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"overlay kernel launch failed: "
-                           f"{lib.cvs_error_string(rc).decode()} ({rc})")
+        streams, overlay_plan(n, launch.sm_count(idx)), out.data_ptr(),
+        launch.stream_handle(dev))
+    launch.raise_on(rc, lib, "overlay")
     overlay_blit.launches += 1
     return out
 

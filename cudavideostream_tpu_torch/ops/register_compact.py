@@ -28,33 +28,17 @@ for this scheme (``logcompact.py:671-675``), and so does
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from cudavideostream_tpu_torch.kernels import build
+from cudavideostream_tpu_torch.kernels import launch
+from cudavideostream_tpu_torch.kernels.launch import I, LL, OUT, P
 from cudavideostream_tpu_torch.ops import diff as diff_ops
 from cudavideostream_tpu_torch.ops import logcompact
 
-_lib = None
-
-
-def _register_lib() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/register_compact.cu`` (K6)."""
-    global _lib
-    if _lib is None:
-        lib = build.load("register_compact")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cvs_register_compact.argtypes = [
-            i, p, p, ll, i, i, i, i, p, p, p, p,
-        ]
-        lib.cvs_register_compact.restype = i
-        lib.cvs_error_string.argtypes = [i]
-        lib.cvs_error_string.restype = ctypes.c_char_p
-        lib.cvs_register_plan.argtypes = [i, p, p, p, p]
-        lib.cvs_register_plan.restype = i
-        _lib = lib
-    return _lib
+SOURCE = launch.Source("register_compact", {
+    "cvs_register_compact": [I, P, P, LL, I, I, I, I, P, P, P, P],
+    "cvs_register_plan": [I, OUT, OUT, OUT, OUT],
+})
 
 
 def register_plan(device: torch.device) -> dict:
@@ -62,8 +46,8 @@ def register_plan(device: torch.device) -> dict:
     cluster (one cluster a tile), threads per CTA, dynamic shared memory
     per CTA in bytes, and ``active_clusters``, the clusters the card holds
     at once (``logcompact.cluster_plan``)."""
-    return logcompact.cluster_plan(_register_lib(), "cvs_register_plan",
-                                   device)
+    return logcompact.cluster_plan(launch.library(SOURCE),
+                                   "cvs_register_plan", device)
 
 
 def register_compact(current: torch.Tensor, previous: torch.Tensor,
@@ -87,7 +71,7 @@ def register_compact(current: torch.Tensor, previous: torch.Tensor,
         raise ValueError(f"register_compact runs on cuda or cpu, not {dev}")
     if current.data_ptr() == previous.data_ptr():
         raise ValueError("current and previous must not share storage")
-    lib = _register_lib()
+    lib = launch.library(SOURCE)
     n_pad, unit_bytes = logcompact.tiled_geometry(current.numel(), 0)
     n_units = n_pad // unit_bytes
     counts = torch.empty(n_units, dtype=torch.int32, device=dev)
@@ -95,13 +79,13 @@ def register_compact(current: torch.Tensor, previous: torch.Tensor,
     vals_t = torch.empty((n_units, unit_bytes), dtype=torch.uint8,
                          device=dev)
     rc = lib.cvs_register_compact(
-        logcompact._device_index(dev), current.data_ptr(),
+        launch.device_index(dev), current.data_ptr(),
         previous.data_ptr(), current.numel(), int(threshold),
         int(bool(negative_feedback)), unit_bytes, n_units,
         counts.data_ptr(), xs_t.data_ptr(), vals_t.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        launch.stream_handle(dev),
     )
-    logcompact._raise_on(rc, lib, "register_compact")
+    launch.raise_on(rc, lib, "register_compact")
     register_compact.launches += 1
     return counts, xs_t, vals_t, previous
 

@@ -43,12 +43,11 @@ from cudavideostream_tpu_torch.config import (
 from cudavideostream_tpu_torch.ops import compact as compact_ops
 from cudavideostream_tpu_torch.ops import filters as filter_ops
 from cudavideostream_tpu_torch.ops import logcompact
+from cudavideostream_tpu_torch.ops import overlay as overlay_ops
 from cudavideostream_tpu_torch.ops import reference_cpu
 from cudavideostream_tpu_torch.parallel.halo_conv import sharded_convolve_q16
 from cudavideostream_tpu_torch.parallel.mesh import Mesh
 from cudavideostream_tpu_torch.utils import fonts
-
-MAX_OVERLAY_CHARS = 28
 
 
 def gather(parts) -> np.ndarray:
@@ -143,8 +142,8 @@ class ShardedDeltaPipeline:
         self.atlas_np = fonts.make_atlas(config.overlay_scale,
                                          config.overlay_font)
         self.capacity = config.frame_bytes
-        self._atlas: dict = {}   # the atlas on each device
-        self._ids: dict = {}     # the last text's glyph ids on each device
+        self._bands: dict = {}   # (device, shard) -> its rows of the atlas
+        self._glyph_ids: dict = {}  # device -> its overlay_ops.Glyphs
         self.threshold_map_np = None
         self._maps = None        # [d][s]: shard s's map slice on its device
         if threshold_map is not None:
@@ -160,43 +159,34 @@ class ShardedDeltaPipeline:
 
     # -- one stream over the space shards of one data row -------------------
 
-    def _char_ids(self, text: str, dev: torch.device) -> torch.Tensor:
-        hit = self._ids.get(dev)
-        if hit is None or hit[0] != text:
-            ids = torch.tensor(fonts.encode_text(text, MAX_OVERLAY_CHARS),
-                               dtype=torch.int64).to(dev)
-            hit = self._ids[dev] = (text, ids)
-        return hit[1]
-
-    def _atlas_on(self, dev: torch.device) -> torch.Tensor:
-        atlas = self._atlas.get(dev)
-        if atlas is None:
-            atlas = self._atlas[dev] = torch.from_numpy(self.atlas_np).to(dev)
-        return atlas
-
-    def _overlay_local(self, cur: torch.Tensor, text: str, sidx: int,
-                       rows: int) -> Optional[torch.Tensor]:
-        """Shard ``sidx``'s slice of the glyph band blended over ``cur``,
-        its first ``rows`` rows, as a new tensor; None when the shard holds
-        no row of the band. Shard ``s`` owns global rows ``[s*Lr,
-        (s+1)*Lr)`` and takes the glyph rows
-        ``[s*Lr, s*Lr + rows)`` inside the cell: the band may span several
-        shards. The cells are gathered with ``index_select`` (the JAX
-        package's one-hot float matmul would meet TF32 on the card)."""
+    def _overlay_band(self, cur: torch.Tensor, text: str,
+                      sidx: int) -> Optional[torch.Tensor]:
+        """Shard ``sidx``'s rows of the glyph band blended over its frame
+        ``cur``: a new tensor of its first ``h = min(Lr, cell_h - g0)``
+        rows, or None when the shard holds no row of the band. Shard ``s``
+        owns global rows ``[s*Lr, (s+1)*Lr)`` and takes the glyph rows
+        ``[g0, g0 + h)`` of each cell, ``g0 = s*Lr``: the band may span
+        several shards. K14 blends them (``overlay_blit``, one launch on
+        the card) from the atlas's rows of the shard and the glyph ids of
+        the text on the shard's device."""
         cfg = self.cfg
-        atlas = self._atlas_on(cur.device)
-        cell_h, cell_w = atlas.shape[1], atlas.shape[2]
+        dev = cur.device
+        cell_h, cell_w = self.atlas_np.shape[1:3]
         g0 = sidx * self.local_rows
-        n_fit = min(MAX_OVERLAY_CHARS, len(text), cfg.width // cell_w)
-        if n_fit <= 0 or g0 >= cell_h:
+        if g0 >= cell_h:
             return None
-        h = min(rows, cell_h - g0)
-        cw3 = cell_w * 3
-        cells = atlas.index_select(0, self._char_ids(text, cur.device)[:n_fit])
-        strip = cells[:, g0:g0 + h].reshape(n_fit, h, cw3).permute(1, 0, 2)
-        img = cur.reshape(rows, cfg.width * 3).clone()
-        img[:h, :n_fit * cw3] = strip.reshape(h, n_fit * cw3)
-        return img.reshape(-1)
+        h = min(self.local_rows, cell_h - g0)
+        band = self._bands.get((dev, sidx))
+        if band is None:
+            band = self._bands[(dev, sidx)] = torch.from_numpy(
+                np.ascontiguousarray(self.atlas_np[:, g0:g0 + h])).to(dev)
+        glyphs = self._glyph_ids.get(dev)
+        if glyphs is None:
+            glyphs = self._glyph_ids[dev] = overlay_ops.Glyphs(
+                dev, cfg.width // cell_w)
+        ids, _ = glyphs((text,))
+        return overlay_ops.overlay_blit(cur[:h * cfg.width * 3], band, ids[0],
+                                        len(text), h, cfg.width)
 
     def _aux(self, d: int, curs, regions, prevs):
         """Each shard's aux frame (None without a visualizer), from the
@@ -252,9 +242,7 @@ class ShardedDeltaPipeline:
             # a row prefix per shard, which K1 and the visualizer's kernel
             # substitute for the shard's first bytes (no pass over the
             # frame)
-            rows = min(self.local_rows, cell_h)
-            nb = rows * cfg.width * 3
-            regions = [self._overlay_local(c[:nb], text, s, rows)
+            regions = [self._overlay_band(c, text, s)
                        for s, c in enumerate(curs)]
         aux = self._aux(d, curs, regions, prevs)
         outs = []

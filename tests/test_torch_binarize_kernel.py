@@ -32,6 +32,7 @@ from cudavideostream_tpu_torch.models import BatchedDeltaPipeline
 from cudavideostream_tpu_torch.ops import filters
 from cudavideostream_tpu_torch.ops import hist
 from cudavideostream_tpu_torch.ops import reference_cpu as ref
+from torch_kernel_fixtures import no_kernel_build  # noqa: F401
 
 CSRC = Path(filters.__file__).resolve().parent.parent / "csrc"
 LAYOUTS = {"48x64": (48, 64), "48x50": (48, 50)}
@@ -311,7 +312,7 @@ def test_served_binarize_batched():
                                           cur[s * n:(s + 1) * n]))
 
 
-def test_binarize_on_cuda_launches_or_raises(monkeypatch):
+def test_binarize_on_cuda_launches_or_raises(monkeypatch, no_kernel_build):
     """A CUDA tensor never takes the plain version: without a kernel
     build (no nvcc here) each entry raises, no plain version is called
     and no launch is counted."""
@@ -321,15 +322,6 @@ def test_binarize_on_cuda_launches_or_raises(monkeypatch):
         monkeypatch.setattr(filters, name, lambda *a, **k: calls.append(a))
     monkeypatch.setattr(hist, "histogram_reference",
                         lambda *a: calls.append(a))
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(filters.build, "find_nvcc", no_nvcc)
-    monkeypatch.setattr(filters, "_bin_lib", None)
-    monkeypatch.setattr(filters.build, "_loaded", {})
-    monkeypatch.setattr(filters.build, "library_path",
-                        lambda name: filters.build.BUILD_DIR / "absent.so")
     frame = torch.zeros(48 * 64 * 3, dtype=torch.uint8)
     gray = torch.zeros(48 * 64, dtype=torch.uint8)
     h = torch.zeros(256, dtype=torch.int32)
@@ -434,7 +426,8 @@ def test_gray_hist_plan_with_a_region_covers_every_pixel_once(npx, rlen):
     assert (written == 1).all()
 
 
-def test_gray_hist_with_a_region_on_cuda_launches_or_raises(monkeypatch):
+def test_gray_hist_with_a_region_on_cuda_launches_or_raises(
+        monkeypatch, no_kernel_build):
     """With a region too, a CUDA tensor never takes the plain version and
     no overlaid copy is made: without a kernel build the entries raise."""
     calls = []
@@ -442,15 +435,6 @@ def test_gray_hist_with_a_region_on_cuda_launches_or_raises(monkeypatch):
         monkeypatch.setattr(filters, name, lambda *a, **k: calls.append(a))
     monkeypatch.setattr(filters.diff_ops, "region_frame",
                         lambda *a, **k: calls.append(a))
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(filters.build, "find_nvcc", no_nvcc)
-    monkeypatch.setattr(filters, "_bin_lib", None)
-    monkeypatch.setattr(filters.build, "_loaded", {})
-    monkeypatch.setattr(filters.build, "library_path",
-                        lambda name: filters.build.BUILD_DIR / "absent.so")
     frame = torch.zeros(48 * 64 * 3, dtype=torch.uint8)
     region = torch.zeros(9 * 64 * 3, dtype=torch.uint8)
     before = filters.gray_hist.launches
@@ -644,21 +628,12 @@ def test_fused_refusals():
             filters.binarize_pipeline(f, **kw)
 
 
-def test_fused_on_cuda_launches_or_raises(monkeypatch):
+def test_fused_on_cuda_launches_or_raises(monkeypatch, no_kernel_build):
     """The batched call on a CUDA tensor never takes the plain version:
     without a kernel build it raises and counts no launch."""
     calls = []
     monkeypatch.setattr(filters, "binarize_pipeline_reference",
                         lambda *a, **k: calls.append(a))
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(filters.build, "find_nvcc", no_nvcc)
-    monkeypatch.setattr(filters, "_bin_lib", None)
-    monkeypatch.setattr(filters.build, "_loaded", {})
-    monkeypatch.setattr(filters.build, "library_path",
-                        lambda name: filters.build.BUILD_DIR / "absent.so")
     frame = torch.zeros(4 * 48 * 64 * 3, dtype=torch.uint8)
     before = filters.binarize_pipeline.launches
     monkeypatch.setattr(torch.Tensor, "device",

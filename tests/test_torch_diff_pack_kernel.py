@@ -33,6 +33,7 @@ from cudavideostream_tpu_torch.models import DeltaStreamPipeline
 from cudavideostream_tpu_torch.ops import diff
 from cudavideostream_tpu_torch.ops import reference_cpu as ref
 from cudavideostream_tpu_torch.utils import fonts
+from torch_kernel_fixtures import no_kernel_build  # noqa: F401
 
 CSRC = Path(diff.__file__).resolve().parent.parent / "csrc"
 LAYOUTS = {"48x64": (48, 64), "48x50": (48, 50)}
@@ -398,22 +399,13 @@ def test_host_step_runs_diff_pack_once(nf, monkeypatch):
     np.testing.assert_array_equal(out[3], e_vals)
 
 
-def test_diff_pack_on_cuda_launches_or_raises(monkeypatch):
+def test_diff_pack_on_cuda_launches_or_raises(monkeypatch, no_kernel_build):
     """A CUDA tensor never takes the plain version: without a kernel
     build (no nvcc here) the entry raises, the plain version is not
     called, ``prev`` is not touched and no launch is counted."""
     calls = []
     for name in ("diff_pack_reference", "diff_mask", "pack_bitmask"):
         monkeypatch.setattr(diff, name, lambda *a, **k: calls.append(a))
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(diff.build, "find_nvcc", no_nvcc)
-    monkeypatch.setattr(diff, "_dp_lib", None)
-    monkeypatch.setattr(diff.build, "_loaded", {})
-    monkeypatch.setattr(diff.build, "library_path",
-                        lambda name: diff.build.BUILD_DIR / "absent.so")
     cur = torch.full((48 * 64 * 3,), 200, dtype=torch.uint8)
     prev = torch.zeros(48 * 64 * 3, dtype=torch.uint8)
     ptrs = iter(range(4096, 1 << 40, 4096))

@@ -32,6 +32,7 @@ from cudavideostream_tpu_torch.ops import filters
 from cudavideostream_tpu_torch.ops import hist
 from cudavideostream_tpu_torch.ops import reference_cpu
 from cudavideostream_tpu_torch.utils import fonts
+from torch_kernel_fixtures import no_kernel_build  # noqa: F401
 
 LAYOUTS = {"48x64": (48, 64), "48x50": (48, 50)}
 TEXTS = ["12", "13", "", "P5"]
@@ -144,22 +145,13 @@ def test_histogram_rejects(bad):
         hist.histogram(g)
 
 
-def test_histogram_on_cuda_launches_or_raises(monkeypatch):
+def test_histogram_on_cuda_launches_or_raises(monkeypatch, no_kernel_build):
     """A CUDA tensor never takes the plain version: without a kernel
     build (no nvcc here) the wrapper raises, the plain version is not
     called and no launch is counted; so do the filters that reach it."""
     calls = []
     monkeypatch.setattr(hist, "histogram_reference",
                         lambda g: calls.append(g))
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(hist.build, "find_nvcc", no_nvcc)
-    monkeypatch.setattr(hist, "_lib", None)
-    monkeypatch.setattr(hist.build, "_loaded", {})
-    monkeypatch.setattr(hist.build, "library_path",
-                        lambda name: hist.build.BUILD_DIR / "absent.so")
     g = torch.zeros(4096, dtype=torch.uint8)
     frame = torch.zeros(48 * 64 * 3, dtype=torch.uint8)
     before = hist.histogram.launches

@@ -24,6 +24,7 @@ import torch
 
 from conftest import make_frame_pair
 from cudavideostream_tpu.ops import logcompact as jax_logcompact
+from cudavideostream_tpu_torch.kernels import launch
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.runtime import wire
 
@@ -187,7 +188,7 @@ def test_vals_tail_bands(n, density):
 
 
 def test_flat_scratch_is_keyed_by_device_and_stream(monkeypatch):
-    monkeypatch.setattr(logcompact, "_scratch", {})
+    monkeypatch.setattr(launch, "_scratch", {})
     cpu = torch.device("cpu")
     a = logcompact.flat_scratch(cpu, 11, 100)
     b = logcompact.flat_scratch(cpu, 12, 100)
@@ -202,7 +203,8 @@ def test_flat_scratch_is_keyed_by_device_and_stream(monkeypatch):
     big = logcompact.flat_scratch(cpu, 11, 50_000)
     assert big.numel() >= 50_000 and not big.any() and big is not a
     assert logcompact.flat_scratch(cpu, 12, 100) is b
-    assert set(logcompact._scratch) == {(cpu, 11), (cpu, 12)}
+    assert set(launch._scratch) == {(cpu, 11, "lookback"),
+                                    (cpu, 12, "lookback")}
 
 
 def _one_launch(keep, payload, n, cap, blocks, tile, rng):

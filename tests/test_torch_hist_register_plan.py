@@ -26,6 +26,7 @@ import torch
 from conftest import make_frame_pair
 from cudavideostream_tpu.ops import logcompact as jax_logcompact
 from cudavideostream_tpu.ops.hist_pallas import pallas_histogram
+from cudavideostream_tpu_torch.kernels import launch
 from cudavideostream_tpu_torch.ops import hist
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.ops import register_compact
@@ -200,7 +201,7 @@ def test_hist_merge_model_matches_pallas(rows):
 
 
 def test_hist_scratch_is_keyed_by_device_and_stream(monkeypatch):
-    monkeypatch.setattr(hist, "_scratch", {})
+    monkeypatch.setattr(launch, "_scratch", {})
     cpu = torch.device("cpu")
     a = hist.hist_scratch(cpu, 11)
     b = hist.hist_scratch(cpu, 12)
@@ -211,7 +212,8 @@ def test_hist_scratch_is_keyed_by_device_and_stream(monkeypatch):
     b0, b1 = b.data_ptr(), b.data_ptr() + b.numel() * 4
     assert a1 <= b0 or b1 <= a0
     assert hist.hist_scratch(cpu, 11) is a
-    assert set(hist._scratch) == {(cpu, 11), (cpu, 12)}
+    assert set(launch._scratch) == {(cpu, 11, "histogram"),
+                                    (cpu, 12, "histogram")}
 
 
 def test_hist_is_one_launch():

@@ -32,6 +32,7 @@ from cudavideostream_tpu_torch.models import (
 from cudavideostream_tpu_torch.ops import convolve
 from cudavideostream_tpu_torch.ops import reference_cpu as ref
 from cudavideostream_tpu_torch.parallel import halo_conv
+from torch_kernel_fixtures import no_kernel_build  # noqa: F401
 
 CSRC = Path(convolve.__file__).resolve().parent.parent / "csrc"
 LAYOUTS = {"48x64": (48, 64), "48x50": (48, 50)}
@@ -429,31 +430,21 @@ def test_served_noise_filter_solo_and_batched(k):
         np.testing.assert_array_equal(got[0].numpy(), want[0])
 
 
-def _no_nvcc(monkeypatch):
-    """No kernel build (no nvcc), and every tensor reads as a CUDA
-    tensor, from the next call on; returns the plain versions' calls."""
+def _no_plain(monkeypatch):
+    """Records every call of K8's plain versions; returns the calls."""
     calls = []
     monkeypatch.setattr(convolve, "convolve_q16_reference",
                         lambda *a: calls.append(a))
     monkeypatch.setattr(convolve, "accumulate_q16_reference",
                         lambda *a: calls.append(a))
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(convolve.build, "find_nvcc", no_nvcc)
-    monkeypatch.setattr(convolve, "_lib", None)
-    monkeypatch.setattr(convolve.build, "_loaded", {})
-    monkeypatch.setattr(convolve.build, "library_path",
-                        lambda name: convolve.build.BUILD_DIR / "absent.so")
     return calls
 
 
-def test_convolve_on_cuda_launches_or_raises(monkeypatch):
+def test_convolve_on_cuda_launches_or_raises(monkeypatch, no_kernel_build):
     """A CUDA tensor never takes the plain version: without a kernel
     build the wrapper raises, the plain version is not called and no
     launch is counted, on the solo, the streams and the halo form."""
-    calls = _no_nvcc(monkeypatch)
+    calls = _no_plain(monkeypatch)
     wq = _taps("gauss", 3)
     frame = torch.zeros(2 * 48 * 64 * 3, dtype=torch.uint8)
     shard = torch.zeros((26, 64 * 3), dtype=torch.uint8)

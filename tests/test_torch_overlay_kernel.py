@@ -29,6 +29,7 @@ import torch
 
 from cudavideostream_tpu.ops import overlay as jax_overlay
 from cudavideostream_tpu_torch.config import StreamConfig
+from cudavideostream_tpu_torch.kernels import build, launch
 from cudavideostream_tpu_torch.models import (
     BatchedDeltaPipeline,
     DeltaStreamPipeline,
@@ -37,6 +38,7 @@ from cudavideostream_tpu_torch.models.pipeline import MAX_OVERLAY_CHARS
 from cudavideostream_tpu_torch.ops import overlay
 from cudavideostream_tpu_torch.ops import reference_cpu as ref
 from cudavideostream_tpu_torch.utils import fonts
+from torch_kernel_fixtures import no_kernel_build  # noqa: F401
 
 CSRC = Path(overlay.__file__).resolve().parent.parent / "csrc"
 SMS = 132  # an H100 SXM's SMs
@@ -411,10 +413,10 @@ def _spy(monkeypatch, name, calls):
 def test_pipelines_blit_once_a_step(streams, monkeypatch):
     """The solo step calls ``overlay_blit`` once a step on its strip, the
     batched step ``overlay_blit_streams`` once for every stream (no
-    ``torch.cat`` of solo strips), each with the int32 ids it cached for
-    the text (the tuple of texts): the same tensors every step, so a CUDA
-    graph's pointers stay valid. Each stream's payload equals
-    ``step_oracle``'s."""
+    ``torch.cat`` of solo strips), each with the int32 ids its
+    ``overlay.Glyphs`` keeps for the text (the tuple of texts): the same
+    buffers every step, so a CUDA graph's pointers stay valid. Each
+    stream's payload equals ``step_oracle``'s."""
     cfg = StreamConfig(height=48, width=64, overlay_scale=4,
                        tiled_payload=True)
     n = cfg.frame_bytes
@@ -440,7 +442,7 @@ def test_pipelines_blit_once_a_step(streams, monkeypatch):
                                 else streams * n)
         ids = a[2]
         assert ids.dtype == torch.int32
-        assert ids is calls[0][1][2]
+        assert ids.data_ptr() == calls[0][1][2].data_ptr()
         if streams > 1:
             assert a[3] is calls[0][1][3]
             assert a[3].tolist() == [min(len(t), 64 // 24) for t in texts]
@@ -478,8 +480,10 @@ class _FakeLib:
 @pytest.fixture
 def on_cuda(monkeypatch):
     """Every tensor reports ``cuda:0`` and the card's queries answer as an
-    H100's; buffers stay on the CPU. No plain version may be called."""
+    H100's, asked anew (``launch``'s device facts start empty); buffers
+    stay on the CPU. No plain version may be called."""
     calls = []
+    monkeypatch.setattr(launch, "_facts", {})
     monkeypatch.setattr(overlay, "overlay_blit_reference",
                         lambda *a, **k: calls.append(a))
     real_empty = torch.empty
@@ -520,7 +524,7 @@ def test_on_cuda_one_launch(entry, on_cuda, monkeypatch):
     by value (solo) or through the device ``n_fit`` (streams), the
     plan's grid; it returns the launch's output, one strip a stream."""
     lib = _FakeLib()
-    monkeypatch.setattr(overlay, "_lib", lib)
+    monkeypatch.setattr(build, "_loaded", {"overlay": lib})
     before = overlay.overlay_blit.launches
     if entry.startswith("solo"):
         frame, atlas, ids = _solo_args()
@@ -551,7 +555,7 @@ def test_on_cuda_one_launch(entry, on_cuda, monkeypatch):
 
 
 def test_on_cuda_a_failed_launch_raises(on_cuda, monkeypatch):
-    monkeypatch.setattr(overlay, "_lib", _FakeLib(rc=1))
+    monkeypatch.setattr(build, "_loaded", {"overlay": _FakeLib(rc=1)})
     before = overlay.overlay_blit.launches
     frame, atlas, ids = _solo_args()
     with pytest.raises(RuntimeError, match="invalid argument"):
@@ -559,18 +563,9 @@ def test_on_cuda_a_failed_launch_raises(on_cuda, monkeypatch):
     assert overlay.overlay_blit.launches == before
 
 
-def test_on_cuda_without_a_build_raises(on_cuda, monkeypatch):
+def test_on_cuda_without_a_build_raises(on_cuda, no_kernel_build):
     """Without a kernel build (no nvcc here) each entry raises on a CUDA
     tensor, no plain version is called and no launch is counted."""
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(overlay.build, "find_nvcc", no_nvcc)
-    monkeypatch.setattr(overlay, "_lib", None)
-    monkeypatch.setattr(overlay.build, "_loaded", {})
-    monkeypatch.setattr(overlay.build, "library_path",
-                        lambda name: overlay.build.BUILD_DIR / "absent.so")
     before = overlay.overlay_blit.launches
     frame, atlas, ids = _solo_args()
     bframes, batlas, bids, n_fit = _batched_args()
@@ -586,7 +581,7 @@ def test_on_cuda_without_a_build_raises(on_cuda, monkeypatch):
 def test_on_cuda_a_cell_taller_than_the_frame_clones(on_cuda, monkeypatch):
     """The one path that launches nothing: no cell fits the frame."""
     lib = _FakeLib()
-    monkeypatch.setattr(overlay, "_lib", lib)
+    monkeypatch.setattr(build, "_loaded", {"overlay": lib})
     before = overlay.overlay_blit.launches
     atlas = torch.from_numpy(_atlas("stroke5"))
     frame = torch.from_numpy(_bytes(6, 48 * 64 * 3))
@@ -594,3 +589,105 @@ def test_on_cuda_a_cell_taller_than_the_frame_clones(on_cuda, monkeypatch):
     out = overlay.overlay_blit(frame, atlas, ids, 5, 48, 64)
     assert torch.equal(out, frame) and out.data_ptr() != frame.data_ptr()
     assert not lib.launches and overlay.overlay_blit.launches == before
+
+
+def test_sharded_band_launches_k14_on_its_shards(on_cuda, monkeypatch):
+    """The sharded step at S = 8 on 48x64 frames (6 rows a shard) with the
+    10-row glyph band of scale 1: only shards 0 and 1 launch K14, each on
+    its first ``h`` rows (6, then 4) with its rows of the atlas and the
+    text's ids, and K1 takes each launch's output as the shard's region;
+    the other shards launch nothing and K1 takes no region there."""
+    from cudavideostream_tpu_torch.ops import logcompact
+    from cudavideostream_tpu_torch.parallel import (
+        ShardedDeltaPipeline,
+        make_mesh,
+    )
+
+    cfg = StreamConfig(height=48, width=64, overlay_scale=1)
+    pipe = ShardedDeltaPipeline(cfg, make_mesh(8, device="cpu"),
+                                payload_layout="sharded")
+    cell_h, cell_w = pipe.atlas_np.shape[1:3]
+    assert (pipe.local_rows, cell_h) == (6, 10)
+    lib = _FakeLib()
+    monkeypatch.setattr(build, "_loaded", {"overlay": lib})
+    # buffers stay on the CPU while they report cuda:0
+    monkeypatch.setattr(torch.Tensor, "to", lambda self, *a, **k: self)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: self)
+    blits, k1 = [], []
+    real_blit = overlay.overlay_blit
+
+    def blit(*a):
+        blits.append(a)
+        return real_blit(*a)
+
+    blit.launches = 0  # the launch counter K14 adds to, on the module's name
+
+    def k1_tiled(cur, prev, **kw):
+        k1.append(kw)
+        return None, None, None, None, prev
+
+    monkeypatch.setattr(overlay, "overlay_blit", blit)
+    monkeypatch.setattr(logcompact, "fused_diff_compact_tiled", k1_tiled)
+    state = pipe.init_state_flat(_bytes(7, cfg.frame_bytes))
+    text = "FPS: 30 BW: 5"
+    pipe.step_flat(state, _bytes(8, cfg.frame_bytes), text=text)
+    assert len(lib.launches) == len(blits) == blit.launches == 2
+    want_ids = fonts.encode_text(text, MAX_OVERLAY_CHARS)
+    for s, (args, (frame, atlas, ids, n_chars, h, w)) in enumerate(
+            zip(lib.launches, blits)):
+        g0 = 6 * s
+        assert h == min(6, cell_h - g0) and w == 64
+        assert frame.numel() == h * 64 * 3
+        assert atlas.is_contiguous()
+        np.testing.assert_array_equal(atlas.numpy(),
+                                      pipe.atlas_np[:, g0:g0 + h])
+        assert ids.tolist() == want_ids and n_chars == len(text)
+        (_, fptr, stride, aptr, n_glyphs, got_h, cw3, iptr, max_chars, nptr,
+         nfit, row, rows, streams, _, optr, _) = args
+        assert (fptr, stride, aptr, iptr) == (frame.data_ptr(), h * 64 * 3,
+                                              atlas.data_ptr(),
+                                              ids.data_ptr())
+        assert (n_glyphs, got_h, cw3, max_chars) == (22, h, cell_w * 3,
+                                                     MAX_OVERLAY_CHARS)
+        assert (nptr, nfit) == (None, min(len(text), 64 // cell_w))
+        assert (row, rows, streams) == (64 * 3, h, 1)
+        region = k1[s]["overlay_region"]
+        assert region.numel() == h * 64 * 3 and region.data_ptr() == optr
+    assert [kw["overlay_region"] for kw in k1[2:]] == [None] * 6
+    assert [kw["index_offset"] for kw in k1] == [
+        s * pipe.local_bytes for s in range(8)]
+
+
+def test_glyphs_upload_once_a_tuple_of_texts(monkeypatch):
+    """``Glyphs`` uploads the ids and counts of a tuple of texts once and
+    hands back the same tensors while the texts hold, and uploads again
+    when they change: into the same memory while the number of texts
+    holds (a captured graph keeps its pointers), into new tensors when it
+    does not."""
+    uploads = []
+    real = overlay.text_glyphs
+
+    def text_glyphs(*a):
+        uploads.append(a)
+        return real(*a)
+
+    monkeypatch.setattr(overlay, "text_glyphs", text_glyphs)
+    glyphs = overlay.Glyphs("cpu", 3)
+    first = glyphs(["AB", "C"])
+    assert glyphs(("AB", "C")) is first and len(uploads) == 1
+    ids, n_fit = first
+    assert ids.shape == (2, MAX_OVERLAY_CHARS) and ids.dtype == torch.int32
+    assert n_fit.tolist() == [2, 1]
+    assert ids[0].tolist() == fonts.encode_text("AB", MAX_OVERLAY_CHARS)
+    ptrs = [t.data_ptr() for t in first]
+    second = glyphs(["AB", "LONG TEXT"])
+    assert len(uploads) == 2 and second[1].tolist() == [2, 3]
+    assert [t.data_ptr() for t in second] == ptrs
+    assert ids[1].tolist() == fonts.encode_text("LONG TEXT",
+                                                MAX_OVERLAY_CHARS)
+    assert glyphs(["AB", "LONG TEXT"]) is second and len(uploads) == 2
+    assert uploads[1] == (("AB", "LONG TEXT"), MAX_OVERLAY_CHARS, 3,
+                          torch.device("cpu"))
+    third = glyphs(["XY"])
+    assert len(uploads) == 3 and third[0].shape == (1, MAX_OVERLAY_CHARS)
+    assert third[1].tolist() == [2] and second[1].tolist() == [2, 3]

@@ -21,6 +21,7 @@ from cudavideostream_tpu_torch.ops import hist
 from cudavideostream_tpu_torch.ops import logcompact
 from cudavideostream_tpu_torch.ops import reference_cpu
 from cudavideostream_tpu_torch.ops import register_compact
+from torch_kernel_fixtures import no_kernel_build  # noqa: F401
 
 SIZES = {
     "48x64": 48 * 64 * 3,     # one tile of 72 rows
@@ -209,12 +210,11 @@ def test_cpu_tensors_count_no_launch():
 
 
 @pytest.mark.parametrize("which", ["segment", "register", "probe"])
-def test_new_kernels_on_cuda_launch_or_raise(which, monkeypatch):
+def test_new_kernels_on_cuda_launch_or_raise(which, monkeypatch,
+                                            no_kernel_build):
     """A CUDA tensor never takes a plain version: without a kernel build
     (no nvcc here) each wrapper raises, its plain version is not called
     and no launch is counted."""
-    from cudavideostream_tpu_torch.kernels import build
-
     calls = []
     fn, ref_mod, ref_name = {
         "segment": (logcompact.segment_compact, logcompact,
@@ -224,17 +224,6 @@ def test_new_kernels_on_cuda_launch_or_raise(which, monkeypatch):
         "probe": (hist.vpu_probe, hist, "vpu_probe_reference"),
     }[which]
     monkeypatch.setattr(ref_mod, ref_name, lambda *a, **k: calls.append(a))
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
-    monkeypatch.setattr(build, "_loaded", {})
-    monkeypatch.setattr(build, "library_path",
-                        lambda name: build.BUILD_DIR / "absent.so")
-    monkeypatch.setattr(logcompact, "_libs", {})
-    monkeypatch.setattr(register_compact, "_lib", None)
-    monkeypatch.setattr(hist, "_probe_lib", None)
     frame = torch.zeros(4096, dtype=torch.uint8)
     prev = torch.ones(4096, dtype=torch.uint8)
     grid = torch.zeros((8, 128), dtype=torch.int32)

@@ -35,6 +35,7 @@ import torch
 from conftest import make_frame_pair
 from cudavideostream_tpu.ops import hist_pallas as jax_hist
 from cudavideostream_tpu.ops import logcompact as jax_logcompact
+from cudavideostream_tpu_torch.kernels import launch
 from cudavideostream_tpu_torch.ops import hist
 from cudavideostream_tpu_torch.ops import logcompact
 
@@ -596,13 +597,14 @@ def test_probe_slices_rejects_nothing_to_do():
 
 
 def test_probe_scratch_is_keyed_by_device_and_stream(monkeypatch):
-    monkeypatch.setattr(hist, "_probe_scratch", {})
+    monkeypatch.setattr(launch, "_scratch", {})
     cpu = torch.device("cpu")
     a = hist.probe_scratch(cpu, 5)
     b = hist.probe_scratch(cpu, 6)
     assert a.dtype == b.dtype == torch.int32 and a.numel() == b.numel() == 1
     assert int(a) == int(b) == 0 and a.data_ptr() != b.data_ptr()
     assert hist.probe_scratch(cpu, 5) is a
+    assert set(launch._scratch) == {(cpu, 5, "probe"), (cpu, 6, "probe")}
 
 
 # -- both: one launch, no memset, independent sources ------------------------

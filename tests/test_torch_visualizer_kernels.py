@@ -47,6 +47,7 @@ from cudavideostream_tpu_torch.ops import reference_cpu as ref
 from cudavideostream_tpu_torch.parallel import ShardedDeltaPipeline, make_mesh
 from cudavideostream_tpu_torch.parallel.sharded import gather
 from cudavideostream_tpu_torch.utils import fonts
+from torch_kernel_fixtures import no_kernel_build  # noqa: F401
 
 CSRC = Path(filters.__file__).resolve().parent.parent / "csrc"
 LAYOUTS = {"48x64": (48, 64), "48x50": (48, 50)}
@@ -752,7 +753,7 @@ def test_sharded_aux_reads_each_shards_region(vis, monkeypatch):
 
 # -- a CUDA tensor never reaching a plain version ----------------------------
 
-def test_visualizers_on_cuda_launch_or_raise(monkeypatch):
+def test_visualizers_on_cuda_launch_or_raise(monkeypatch, no_kernel_build):
     """Without a kernel build (no nvcc here) each entry raises on a CUDA
     tensor, no plain version is called and no launch is counted; the
     heatmap's LUT is never uploaded."""
@@ -764,15 +765,6 @@ def test_visualizers_on_cuda_launch_or_raise(monkeypatch):
         monkeypatch.setattr(filters, name, lambda *a, **k: calls.append(a))
     monkeypatch.setattr(diff, "region_frame",
                         lambda *a, **k: calls.append(a))
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(filters.build, "find_nvcc", no_nvcc)
-    monkeypatch.setattr(filters, "_vis_lib", None)
-    monkeypatch.setattr(filters.build, "_loaded", {})
-    monkeypatch.setattr(filters.build, "library_path",
-                        lambda name: filters.build.BUILD_DIR / "absent.so")
     n = 48 * 64 * 3
     cur = torch.zeros(n, dtype=torch.uint8)
     prev = torch.zeros(n, dtype=torch.uint8)

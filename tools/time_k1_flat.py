@@ -217,6 +217,7 @@ def _overlay(root, card, c0, rng):
         BatchedDeltaPipeline,
         DeltaStreamPipeline,
     )
+    from cudavideostream_tpu_torch.models.pipeline import MAX_OVERLAY_CHARS
     from cudavideostream_tpu_torch.ops import overlay as overlay_ops
 
     cfg = dataclasses.replace(StreamConfig(), tiled_payload=True)
@@ -226,7 +227,10 @@ def _overlay(root, card, c0, rng):
     pipe = DeltaStreamPipeline(cfg)
     cell_h = pipe.atlas.shape[1]
     strip = cell_h * cfg.width * 3
-    ids = pipe._char_ids(text)
+    # the step's ids (text_glyphs: in the parent and in the change)
+    ids = overlay_ops.text_glyphs([text], MAX_OVERLAY_CHARS,
+                                  cfg.width // pipe.atlas.shape[2],
+                                  c0.device)[0][0]
     medians = _medians(lambda i: overlay_ops.overlay_blit(
         copies[i % 16][:strip], pipe.atlas, ids, len(text), cell_h,
         cfg.width))
